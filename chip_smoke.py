@@ -4,21 +4,31 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `rlt_tpu_torch/csrc`, holds each one
-against its plain PyTorch version on the card at the serving shapes and
-times both, then serves MMOECut at robust04 width (L = 300, F = 3, float32,
-seeded random weights) over HTTP through `TruncationService`, checks the
-cuts against the same model run through the plain versions on the card,
-and checks that the served requests went through the kernels. It prints a
-`kernels` JSON line, the card's name and power limit, and last
-`{"ok": true, "device": {...}}`. Any failed check raises, and the script
-then exits with a non-zero code; without a CUDA card it exits before any
-result.
+against its plain PyTorch version on the card at the main paths' shapes and
+times both, then drives the two main paths at robust04 width (L = 300,
+F = 3, float32, seeded random weights):
+
+- serving: MMOECut over HTTP through `TruncationService`, the cuts checked
+  against the same model run through the plain versions on the card;
+- training: one epoch of `Trainer` with the drmm_tks preset (B = 63 lists,
+  lr 3e-5, dropout 0.1) on the synthetic robust04 corpus, checked against
+  the same epoch through the plain versions on the card (same weights,
+  batch plans and dropout masks).
+
+Each path runs with the kernels' launch counts set to 0 just before it and
+read just after, and must have launched each of its kernels exactly as
+often as its shape says. It prints a `kernels` JSON line, the card's name
+and power limit, and last `{"ok": true, "device": {...}}`. Any failed check
+raises, and the script then exits with a non-zero code; without a CUDA card
+it exits before any result.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -40,6 +50,30 @@ BATCHES = (63, 256)
 LSTM_ATOL = 1e-4
 ATTN_ATOL = 1e-5
 DIST_ATOL = 1e-5
+# Backward kernels against their plain versions, relative to the gradient's
+# max abs: K2' carries dh and dc through 300 steps and sums dW_hh^T over up
+# to 76,500 (t, b) terms in another order; K6' sums 300 products of 64-term
+# dot products in another order.
+LSTM_BWD_REL = 1e-4
+ATTN_BWD_REL = 1e-5
+# The training step through the kernels against the plain versions on the
+# card, same weights and masks: every step's loss within 1e-5 relative, each
+# parameter's step-1 gradient within 1e-3 of its max abs plus 1e-7 (a
+# softmax tower's bias has zero gradient by algebra; both sides give
+# rounding noise there). After the epoch, each parameter's update (params
+# minus init) against the plain run's, in L2 relative to the plain update's
+# norm: Adam's first steps move each element by about lr * sign(g), so an
+# element whose gradient is near zero on both sides can part the runs by up
+# to 2 lr per step, which a max-abs comparison cannot tell from a fault; the
+# norm weighs those few elements against the whole leaf. A run that does not
+# update, or updates wrongly after step 1, reads about 1. Left out: the
+# softmax towers' biases, whose update is Adam-normalised rounding noise.
+STEP_LOSS_REL = 1e-5
+STEP_GRAD_REL = 1e-3
+STEP_GRAD_FLOOR = 1e-7
+UPDATE_REL = 1e-2
+ZERO_GRAD_LEAVES = ("tower_rerank.linear.bias", "tower_cut.linear.bias")
+RATE = 0.1  # the drmm_tks preset's dropout for MMOECut
 # H100 SXM peak rates: HBM3 bandwidth, and dense f32 without tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -73,6 +107,17 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_errs(got, want) -> tuple[float, float]:
+    """(max abs error, max abs error over the reference's max abs)."""
+    err = (got - want).abs().max().item()
+    return err, err / max(want.abs().max().item(), 1e-30)
+
+
+def random_streams(rng, n: int, dev) -> torch.Tensor:
+    return torch.from_numpy(rng.integers(-2**31, 2**31, size=n, dtype=np.int64)
+                            .astype(np.int32)).to(dev)
 
 
 def nvidia_smi() -> str:
@@ -151,25 +196,163 @@ def check_attention(dev, rng) -> dict:
     return {"rows": rows, "max_abs_err": max(r["max_abs_err"] for r in rows)}
 
 
+def check_lstm_bwd(dev, rng) -> dict:
+    """K2' against `lstm_bwd_plain` on K1''s hs and cs; library_ms is the
+    backward alone of cuDNN's one-layer one-direction LSTM (which also
+    computes dx and dW_ih of its input projection)."""
+    from rlt_tpu_torch.ops import lstm
+
+    rows = []
+    for batch in BATCHES:
+        xw = torch.from_numpy(rng.normal(size=(SEQ_LEN, batch, 4 * HIDDEN))
+                              .astype(np.float32)).to(dev)
+        w = torch.from_numpy((rng.uniform(-1, 1, size=(HIDDEN, 4 * HIDDEN))
+                              / np.sqrt(HIDDEN)).astype(np.float32)).to(dev)
+        hs, cs = lstm.lstm_recurrence_plain(xw, w)
+        dho = torch.from_numpy(rng.normal(size=(SEQ_LEN, batch, HIDDEN))
+                               .astype(np.float32)).to(dev)
+        dxw, dw = lstm.lstm_bwd(xw, w, hs, cs, dho)
+        torch.cuda.synchronize()
+        want_dxw, want_dw = lstm.lstm_bwd_plain(xw, w, hs, cs, dho)
+        require(bool(torch.isfinite(dxw).all() and torch.isfinite(dw).all()),
+                "lstm_bwd: non-finite gradient")
+        errs = [max_errs(dxw, want_dxw), max_errs(dw, want_dw)]
+        rel = max(e[1] for e in errs)
+        require(rel <= LSTM_BWD_REL, f"lstm_bwd B={batch}: max rel err {rel} > {LSTM_BWD_REL}")
+        ms = cuda_ms(lambda: lstm.lstm_bwd(xw, w, hs, cs, dho), iters=20)
+        plain_ms = cuda_ms(lambda: lstm.lstm_bwd_plain(xw, w, hs, cs, dho), iters=3,
+                           warmup=1)
+        cudnn = torch.nn.LSTM(HIDDEN, HIDDEN, batch_first=True).to(dev)
+        x_in = torch.from_numpy(rng.normal(size=(batch, SEQ_LEN, HIDDEN))
+                                .astype(np.float32)).to(dev).requires_grad_()
+        out, _ = cudnn(x_in)
+        g_out = torch.randn_like(out)
+        wrt = [x_in, *cudnn.parameters()]
+        library_ms = cuda_ms(lambda: torch.autograd.grad(out, wrt, g_out, retain_graph=True),
+                             iters=20)
+        state = SEQ_LEN * batch * HIDDEN
+        nbytes = 4 * (2 * 4 * state + 2 * HIDDEN * 4 * HIDDEN + 3 * state)
+        flops = 3 * 2 * 4 * state * HIDDEN  # gates, carried dh, dW_hh^T
+        bound_ms, bound_by = bound(nbytes, flops)
+        row = dict(batch=batch, max_abs_err=max(e[0] for e in errs), max_rel_err=rel,
+                   ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                   bound_by=bound_by)
+        log("lstm_bwd " + json.dumps(row))
+        rows.append(row)
+    return {"rows": rows, "max_abs_err": max(r["max_abs_err"] for r in rows)}
+
+
+def check_attention_dropout(dev, rng) -> dict:
+    """K5' with dropout 0.1 against its plain version on the same streams
+    (so the same keep mask), and at rate 0 with streams bit-equal to the
+    call without. library_ms: f32 scaled_dot_product_attention with
+    dropout_p 0.1 (its own mask)."""
+    from rlt_tpu_torch.ops import attention
+
+    pack = attention.packed_group_size(D_MODEL, HEADS)
+    dh = D_MODEL // HEADS
+    rows = []
+    for batch in BATCHES:
+        n = EXPERTS * batch
+        q, k, v = (torch.from_numpy(rng.normal(size=(n, SEQ_LEN, D_MODEL))
+                                    .astype(np.float32)).to(dev) for _ in range(3))
+        streams = random_streams(rng, n, dev)
+        o, lse = attention.fused_attention_packed(q, k, v, HEADS, pack, RATE, streams)
+        o_rate0, _ = attention.fused_attention_packed(q, k, v, HEADS, pack, 0.0, streams)
+        o_none, _ = attention.fused_attention_packed(q, k, v, HEADS, pack)
+        torch.cuda.synchronize()
+        require(torch.equal(o_rate0, o_none), "attention_packed_fwd: rate 0 with "
+                "streams differs from the call without dropout")
+        want_o, want_lse = attention.attention_packed_plain(q, k, v, HEADS, pack, RATE,
+                                                            streams)
+        err = max((o - want_o).abs().max().item(), (lse - want_lse).abs().max().item())
+        require(bool(torch.isfinite(o).all()), "attention_packed_fwd: non-finite o")
+        require(err <= ATTN_ATOL, f"attention_packed_fwd dropout N={n}: max abs err "
+                f"{err} > {ATTN_ATOL}")
+        dropped = (o - o_none).abs().max().item()
+        require(dropped > 1e-3, "attention_packed_fwd: dropout changed nothing")
+        ms = cuda_ms(lambda: attention.fused_attention_packed(q, k, v, HEADS, pack, RATE,
+                                                              streams), iters=10)
+        plain_ms = cuda_ms(lambda: attention.attention_packed_plain(
+            q, k, v, HEADS, pack, RATE, streams), iters=3, warmup=1)
+        heads4 = [t.view(n, SEQ_LEN, HEADS, dh).transpose(1, 2) for t in (q, k, v)]
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(*heads4, dropout_p=RATE),
+                             iters=10)
+        nbytes = 4 * (4 * n * SEQ_LEN * D_MODEL + n * HEADS * SEQ_LEN + n)
+        flops = 4 * n * HEADS * SEQ_LEN * SEQ_LEN * dh
+        bound_ms, bound_by = bound(nbytes, flops)
+        row = dict(n=n, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by)
+        log("attention_packed_fwd dropout " + json.dumps(row))
+        rows.append(row)
+    return {"rows": rows, "max_abs_err": max(r["max_abs_err"] for r in rows)}
+
+
+def check_attention_bwd(dev, rng) -> dict:
+    """K6' against its plain version at rates 0 and 0.1, on K5''s o and lse.
+    Times are at rate 0.1, the training path's; library_ms is the backward
+    alone of f32 scaled_dot_product_attention without dropout."""
+    from rlt_tpu_torch.ops import attention
+
+    pack = attention.packed_group_size(D_MODEL, HEADS)
+    dh = D_MODEL // HEADS
+    rows = []
+    for batch in BATCHES:
+        n = EXPERTS * batch
+        q, k, v, do = (torch.from_numpy(rng.normal(size=(n, SEQ_LEN, D_MODEL))
+                                        .astype(np.float32)).to(dev) for _ in range(4))
+        streams = random_streams(rng, n, dev)
+        errs = []
+        for rate in (0.0, RATE):
+            o, lse = attention.attention_packed_fwd(q, k, v, HEADS, pack, rate, streams)
+            got = attention.attention_packed_bwd(q, k, v, o, lse, do, HEADS, pack, rate,
+                                                 streams)
+            torch.cuda.synchronize()
+            want = attention.attention_packed_bwd_plain(q, k, v, o, lse, do, HEADS, pack,
+                                                        rate, streams)
+            for g, w in zip(got, want):
+                require(bool(torch.isfinite(g).all()), "attention_packed_bwd: non-finite")
+                errs.append(max_errs(g, w))
+        rel = max(e[1] for e in errs)
+        require(rel <= ATTN_BWD_REL,
+                f"attention_packed_bwd N={n}: max rel err {rel} > {ATTN_BWD_REL}")
+        ms = cuda_ms(lambda: attention.attention_packed_bwd(q, k, v, o, lse, do, HEADS, pack,
+                                                            RATE, streams), iters=10)
+        plain_ms = cuda_ms(lambda: attention.attention_packed_bwd_plain(
+            q, k, v, o, lse, do, HEADS, pack, RATE, streams), iters=3, warmup=1)
+        heads4 = [t.view(n, SEQ_LEN, HEADS, dh).transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*heads4)
+        g_out = do.view(n, SEQ_LEN, HEADS, dh).transpose(1, 2)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(out, heads4, g_out,
+                                                         retain_graph=True), iters=10)
+        nbytes = 4 * (8 * n * SEQ_LEN * D_MODEL + n * HEADS * SEQ_LEN + n)
+        flops = 10 * n * SEQ_LEN * D_MODEL * SEQ_LEN
+        bound_ms, bound_by = bound(nbytes, flops)
+        row = dict(n=n, max_abs_err=max(e[0] for e in errs), max_rel_err=rel, ms=ms,
+                   plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                   bound_by=bound_by)
+        log("attention_packed_bwd " + json.dumps(row))
+        rows.append(row)
+    return {"rows": rows, "max_abs_err": max(r["max_abs_err"] for r in rows)}
+
+
+def reset_counts() -> None:
+    from rlt_tpu_torch.ops import KERNELS
+
+    for kernel in KERNELS.values():
+        kernel.launches = 0
+
+
+def read_counts() -> dict:
+    from rlt_tpu_torch.ops import KERNELS
+
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: serving end to end
 # ---------------------------------------------------------------------------
-
-@contextlib.contextmanager
-def plain_ops():
-    """Route the model's two kernel calls to their plain versions (for the
-    reference run on the card); restored on exit."""
-    from rlt_tpu_torch.models import layers
-    from rlt_tpu_torch.ops import attention, lstm
-
-    saved = layers.fused_lstm, layers.fused_attention_packed
-    layers.fused_lstm = lambda xw, w: lstm.lstm_recurrence_plain(xw, w)[0]
-    layers.fused_attention_packed = (
-        lambda q, k, v, heads, pack: attention.attention_packed_plain(q, k, v, heads, pack))
-    try:
-        yield
-    finally:
-        layers.fused_lstm, layers.fused_attention_packed = saved
 
 
 def post(base: str, body: dict) -> dict:
@@ -186,7 +369,7 @@ def get(base: str, path: str) -> dict:
 
 def serve_end_to_end(rng) -> dict:
     from rlt_tpu_torch.config import TrainConfig
-    from rlt_tpu_torch.ops import KERNELS
+    from rlt_tpu_torch.ops import plain_ops
     from rlt_tpu_torch.serve import TruncationService, make_server
 
     cfg = TrainConfig(model_name="mmoecut", retrieve_data="robust04")
@@ -206,14 +389,13 @@ def serve_end_to_end(rng) -> dict:
     try:
         health = get(base, "/healthz")
         require(health["ok"] and health["seq_len"] == SEQ_LEN, f"healthz: {health}")
-        for kernel in KERNELS.values():  # the main path's counts start here
-            kernel.launches = 0
+        reset_counts()  # the serving path's counts start here
         t0 = time.perf_counter()
         outs = [post(base, {"features": [f.tolist() for f in feats],
                             "return_distribution": want_dist})
                 for _, feats, want_dist in requests]
         serve_s = time.perf_counter() - t0
-        launches = {name: k.launches for name, k in KERNELS.items()}
+        launches = read_counts()
         stats = get(base, "/stats")
     finally:
         server.shutdown()
@@ -225,8 +407,9 @@ def serve_end_to_end(rng) -> dict:
         f"included); stats {json.dumps(stats)}")
     require(stats["requests"] == 3 and stats["dispatches"] == 3, f"stats: {stats}")
     require([o["bucket"] for o in outs] == [1, 8, 64], "buckets")
-    require(launches == {"lstm_fwd": 4 * 3, "attention_packed_fwd": 3},
-            f"kernel launches on the main path: {launches}")
+    require(launches == {"lstm_fwd": 4 * 3, "lstm_bwd": 0, "attention_packed_fwd": 3,
+                         "attention_packed_bwd": 0},
+            f"kernel launches on the serving path: {launches}")
 
     # the same model through the plain versions on the card
     worst_dist, near_ties = 0.0, 0
@@ -266,6 +449,144 @@ def serve_end_to_end(rng) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: training end to end
+# ---------------------------------------------------------------------------
+
+def train_end_to_end() -> dict:
+    """One epoch of `Trainer.run` (drmm_tks preset: B = 63, lr 3e-5, weight
+    decay 0, dropout 0.1; 200 train and 50 test lists of the synthetic
+    robust04 corpus) through the kernels, then the same epoch through the
+    plain versions on the card from the same weights and generator seed:
+    the same batch plans and dropout masks. Before it, one train step of
+    each compares step 1's loss and gradients; after it, the step is timed
+    in its parts."""
+    from rlt_tpu_torch.config import TrainConfig, apply_preset
+    from rlt_tpu_torch.ops import plain_ops
+    from rlt_tpu_torch.train import Trainer, train_step
+
+    cfg = apply_preset(TrainConfig(model_name="mmoecut", retrieve_data="robust04"))
+    require((cfg.batch_size, cfg.lr, cfg.weight_decay, cfg.dropout, cfg.seq_len,
+             cfg.input_size) == (63, 3e-5, 0.0, RATE, SEQ_LEN, FEATURES),
+            f"drmm_tks preset: {cfg}")
+    cfg = dataclasses.replace(cfg, epochs=1)
+
+    # step 1 of the epoch's plan, through the kernels and through the plain
+    # versions, from fresh trainers (same weights, same generator seed)
+    def first_step(route_plain: bool):
+        trainer = Trainer(cfg, device="cuda")
+        idx, valid = trainer.data.plan(trainer.generator, "train")
+        x, y, v = trainer.data.x_train[idx[0]], trainer.data.y_train[idx[0]], valid[0]
+        with plain_ops() if route_plain else contextlib.nullcontext():
+            loss, _, _ = train_step(trainer.model, trainer.optimizer, trainer.criterion,
+                                    cfg.model_name, x, y, v, trainer.generator)
+        grads = {n: p.grad.clone() for n, p in trainer.model.named_parameters()}
+        return trainer, (x, y, v), float(loss), grads
+
+    before = read_counts()
+    timed, batch, loss_k, grads_k = first_step(False)
+    torch.cuda.synchronize()
+    step_launches = {k: read_counts()[k] - before[k] for k in before}
+    require(step_launches == {"lstm_fwd": 4, "lstm_bwd": 4, "attention_packed_fwd": 1,
+                              "attention_packed_bwd": 1},
+            f"kernel launches of one train step: {step_launches}")
+    _, _, loss_p, grads_p = first_step(True)
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    require(np.isfinite(loss_k) and loss_err <= STEP_LOSS_REL,
+            f"step-1 loss {loss_k} vs plain {loss_p}: rel err {loss_err}")
+    grad_used = {}  # each gradient's max abs error over its limit
+    for name, g in grads_k.items():
+        require(bool(torch.isfinite(g).all()), f"non-finite gradient of {name}")
+        w = grads_p[name]
+        err = (g - w).abs().max().item()
+        limit = STEP_GRAD_REL * w.abs().max().item() + STEP_GRAD_FLOOR
+        require(err <= limit, f"step-1 gradient of {name}: max abs err {err} > {limit}")
+        grad_used[name] = err / limit
+    worst = max(grad_used, key=grad_used.get)
+    log(f"train step 1: loss {loss_k} (plain {loss_p}, rel err {loss_err:.3e}); "
+        f"the worst gradient, {worst}, used {grad_used[worst]:.3e} of its tolerance")
+
+    # the training path: one epoch through the entry point a user calls
+    trainer = Trainer(cfg, device="cuda")
+    init = {n: t.clone() for n, t in trainer.model.state_dict().items()}
+    torch.cuda.synchronize()
+    reset_counts()  # the training path's counts start here
+    t0 = time.perf_counter()
+    summary = trainer.run()
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    launches = read_counts()
+    steps, tests = trainer.data.train_batches, trainer.data.test_batches
+    want = {"lstm_fwd": 4 * (steps + tests), "lstm_bwd": 4 * steps,
+            "attention_packed_fwd": steps + tests, "attention_packed_bwd": steps}
+    require(launches == want, f"kernel launches on the training path: {launches}, "
+            f"want {want} ({steps} train steps, {tests} test batches)")
+    metrics = trainer.history[0]
+    require(all(np.isfinite(v) for k, v in metrics.items() if k != "train_loss_steps")
+            and all(np.isfinite(metrics["train_loss_steps"])), f"metrics {metrics}")
+
+    plain = Trainer(cfg, device="cuda")
+    with plain_ops():
+        plain.run()
+    plain_metrics = plain.history[0]
+    k_steps = np.asarray(metrics["train_loss_steps"])
+    p_steps = np.asarray(plain_metrics["train_loss_steps"])
+    step_rel = np.abs(k_steps - p_steps) / np.abs(p_steps)
+    require(len(k_steps) == steps and np.all(step_rel <= STEP_LOSS_REL),
+            f"epoch step losses {k_steps.tolist()} vs plain {p_steps.tolist()}: "
+            f"rel err {step_rel.tolist()} > {STEP_LOSS_REL}")
+    kstate, pstate = trainer.model.state_dict(), plain.model.state_dict()
+    update_rel = {}  # each leaf's update error, L2 over the plain update's L2
+    for name in kstate:
+        require(bool(torch.isfinite(kstate[name]).all()), f"non-finite {name}")
+        if name in ZERO_GRAD_LEAVES:
+            continue
+        k_move, p_move = kstate[name] - init[name], pstate[name] - init[name]
+        update_rel[name] = ((k_move - p_move).norm() / p_move.norm()).item()
+        require(update_rel[name] <= UPDATE_REL, f"update of {name} after the epoch: "
+                f"L2 rel err {update_rel[name]} > {UPDATE_REL}")
+    worst_update = max(update_rel, key=update_rel.get)
+    param_err = max((kstate[n] - pstate[n]).abs().max().item() for n in kstate)
+    moved = max((kstate[n] - init[n]).abs().max().item() for n in kstate)
+    log(f"train epoch: {json.dumps(metrics)}; plain {json.dumps(plain_metrics)}; "
+        f"step losses max rel err {step_rel.max():.3e}; worst update, {worst_update}, "
+        f"L2 rel err {update_rel[worst_update]:.3e} (limit {UPDATE_REL:.0e}); parameters "
+        f"max abs diff {param_err:.3e} (largest move from init {moved:.3e}); "
+        f"summary {json.dumps(summary)}")
+
+    # one step in its parts, on the batch of the step-1 comparison
+    part_ms = train_step_parts(timed, *batch)
+    epoch_ms = cuda_ms(lambda: trainer.run_epoch(), iters=3, warmup=1)
+    timing = dict(first_epoch_s=epoch_s, epoch_ms=epoch_ms, step_ms=part_ms,
+                  train_steps=steps, test_batches=tests)
+    log("train timing " + json.dumps(timing))
+    return {"launches": launches, "timing": timing}
+
+
+def train_step_parts(trainer, x, y, valid, iters: int = 5) -> dict:
+    """Device ms of one train step's forward (with the loss and the dropout
+    masks), backward and optimizer update, each the mean over `iters` steps
+    between CUDA events."""
+    model, opt = trainer.model, trainer.optimizer
+    model.train()
+    events = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
+              for _ in range(iters + 1)]
+    for ev in events:  # the first step warms up
+        opt.zero_grad()
+        ev[0].record()
+        loss = trainer.criterion(model(x, trainer.generator), y, valid=valid)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        opt.step()
+        ev[3].record()
+    torch.cuda.synchronize()
+    parts = {name: float(np.mean([ev[i].elapsed_time(ev[i + 1]) for ev in events[1:]]))
+             for i, name in enumerate(("forward", "backward", "optimizer"))}
+    parts["step"] = float(np.mean([ev[0].elapsed_time(ev[3]) for ev in events[1:]]))
+    return parts
+
+
 @torch.inference_mode()
 def stage_ms(model, batch: int, iters: int = 10) -> dict:
     """Device ms of each stage of one MMOECut forward at `batch`: the BiLSTM
@@ -282,27 +603,19 @@ def stage_ms(model, batch: int, iters: int = 10) -> dict:
 
 def bounds_to_port() -> dict:
     """bound_ms of the TPU kernels not ported yet, at the shapes of the
-    MMOECut / PLECut training step (B = 63 lists, L = 300), from the bytes
-    each must move once and its float32 operations."""
-    b, length, h, d = 63, SEQ_LEN, HIDDEN, D_MODEL
+    PLECut training step (B = 63 lists, L = 300), from the bytes each must
+    move once and its float32 operations."""
+    b, length = 63, SEQ_LEN
     n = EXPERTS * b  # attention rows: experts x lists
-    state = length * b * h
-    # K2: reads xw, W_hh^T, hs, cs, dho; writes dxw, dW_hh^T. Recomputed
-    # gates, the carried dh and dW_hh^T are each a (B, H) x (H, 4H) per step.
-    lstm_bwd = bound(4 * (2 * (4 * state + h * 4 * h) + 3 * state), 3 * 2 * 4 * state * h)
     # K3 / K4: PLECut's per-slice attention, 2 heads of dh = 128.
     slices = n * 2 * length * 128
     attn_fwd = bound(4 * (4 * slices + n * 2 * length), 4 * slices * length)
     # backward: reads q, k, v, o, do, lse; writes dq, dk, dv; five L x L x dh
     # products (scores, dp, dv, dq, dk)
     attn_bwd = bound(4 * (8 * slices + n * 2 * length), 10 * slices * length)
-    packed_bwd = bound(4 * (8 * n * length * d + n * HEADS * length),
-                       10 * n * length * d * length)
     return {name: {"bound_ms": t, "bound_by": by} for name, (t, by) in (
-        ("K2 lstm backward, one direction", lstm_bwd),
         ("K3 per-slice attention forward (PLECut)", attn_fwd),
-        ("K4 per-slice attention backward (PLECut)", attn_bwd),
-        ("K6 packed attention backward", packed_bwd))}
+        ("K4 per-slice attention backward (PLECut)", attn_bwd))}
 
 
 def main() -> int:
@@ -325,30 +638,58 @@ def main() -> int:
         f"({'loaded from an earlier build' if built is None else f'nvcc build {built:.2f} s'})"
         f" at {build.LIBRARY.path}")
     for line in build.LIBRARY.ptxas_log().splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if "Function properties for" in line:  # heads each kernel's figures
+            name = re.search(r"[A-Za-z][A-Za-z_]*_kernel", line)
+            log("ptxas kernel " + (name.group(0) if name else line.split()[-1][:120]))
+        elif "registers" in line or "spill" in line or line.startswith("=="):
             log("ptxas " + line.strip())
 
     rng = np.random.default_rng(0)
     lstm_res = check_lstm(dev, rng)
     attn_res = check_attention(dev, rng)
-    launches = serve_end_to_end(rng)
+    lstm_bwd_res = check_lstm_bwd(dev, rng)
+    attn_drop_res = check_attention_dropout(dev, rng)
+    attn_bwd_res = check_attention_bwd(dev, rng)
+    serve_launches = serve_end_to_end(rng)
+    train_res = train_end_to_end()
+    train_launches = train_res["launches"]
 
     kernels = []
     for name, res, source, replaces, library in (
             ("lstm_fwd", lstm_res, "rlt_tpu_torch/csrc/lstm_fwd.cu",
              "rlt_tpu/ops/lstm.py:82",
              "torch.nn.LSTM (cuDNN), 1 layer 1 direction, input projection included"),
+            ("lstm_bwd", lstm_bwd_res, "rlt_tpu_torch/csrc/lstm_bwd.cu",
+             "rlt_tpu/ops/lstm.py:101",
+             "backward of torch.nn.LSTM (cuDNN), 1 layer 1 direction, dx and dW_ih "
+             "included"),
             ("attention_packed_fwd", attn_res,
              "rlt_tpu_torch/csrc/attention_packed_fwd.cu",
              "rlt_tpu/ops/attention.py:369",
-             "torch.nn.functional.scaled_dot_product_attention")):
+             "torch.nn.functional.scaled_dot_product_attention"),
+            ("attention_packed_bwd", attn_bwd_res,
+             "rlt_tpu_torch/csrc/attention_packed_bwd.cu",
+             "rlt_tpu/ops/attention.py:412",
+             "backward of torch.nn.functional.scaled_dot_product_attention, f32, "
+             "no dropout")):
         row = res["rows"][0]  # the flagship batch of 63 lists
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": res["max_abs_err"],
+            "launches": serve_launches[name] + train_launches[name],
+            "launches_by_path": {"serve": serve_launches[name],
+                                 "train": train_launches[name]},
+            "max_abs_err": res["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "library_call": library, "batch": BATCHES[0]})
+            "library_call": library, "batch": BATCHES[0]}
+        if name == "attention_packed_fwd":
+            drop = attn_drop_res["rows"][0]
+            entry["dropout_0.1"] = {k: drop[k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
+            entry["max_abs_err"] = max(res["max_abs_err"], attn_drop_res["max_abs_err"])
+        kernels.append(entry)
+    log(json.dumps({"train_step_ms": train_res["timing"]["step_ms"],
+                    "epoch_ms": train_res["timing"]["epoch_ms"]}))
     log(json.dumps({"bounds_of_kernels_to_port": bounds_to_port()}))
     log(json.dumps({"kernels": kernels}))
     log(card)

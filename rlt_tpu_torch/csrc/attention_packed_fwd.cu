@@ -5,7 +5,10 @@
 // in_proj layout, the heads contiguous in D: head h is columns
 // [h*64, (h+1)*64). Per head: o_h = softmax(q_h k_h^T / sqrt(64)) v_h, and
 // lse_h = log sum_j exp(s_j) per query row, stored in the JAX layout
-// (N, groups, L, pack) with head h at [h / pack, :, h % pack].
+// (N, groups, L, pack) with head h at [h / pack, :, h % pack]. With a
+// dropout rate above 0, the softmax weights are dropped by the keep mask of
+// keep_mask.cuh (per-row stream, head group and column as in the TPU kernel)
+// and the kept ones scaled by 1 / (1 - rate); lse stays the pre-dropout one.
 //
 // It computes the same function, not the TPU's block-masked kbig/vbig trick
 // (that trick buys a 128-deep MXU contraction with pack x the MACs; here the
@@ -27,11 +30,15 @@
 // into shared memory, which holds L <= 333. Each warp takes kRowsPerWarp
 // query rows at a time: scores for its rows with lanes over keys (float4
 // dot products), the exact max and exp-sum by warp shuffles, then o with
-// lanes over the 64 output columns. Dropout is not implemented; the
-// wrapper refuses a rate above 0.
+// lanes over the 64 output columns. Dropout multiplies each exp by its keep
+// bit and 1 / (1 - rate) after the sum is taken; at rate 0 that branch is
+// not taken and the kernel computes what it computed before dropout existed.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "keep_mask.cuh"
 
 namespace {
 
@@ -65,8 +72,10 @@ size_t smem_bytes(int length) {
 __global__ void __launch_bounds__(32 * kWarps)
 attn_packed_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
-                       float* __restrict__ lse, int length, int d_model,
-                       int pack, float scale) {
+                       float* __restrict__ lse,
+                       const int32_t* __restrict__ streams, int length,
+                       int d_model, int pack, float scale, bool dropout,
+                       uint32_t threshold, float inv_keep) {
   extern __shared__ float smem[];
   float* k_s = smem;
   float* v_s = k_s + static_cast<size_t>(length) * kPitch;
@@ -96,6 +105,11 @@ attn_packed_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* qw = q_s + warp * kRowsPerWarp * kDh;
   float* pw = p_s + static_cast<size_t>(warp) * kRowsPerWarp * length;
   const int groups = gridDim.y / pack;
+  // the head's keep mask: columns (head % pack) * L + j of its group's tile
+  const uint32_t ncols = static_cast<uint32_t>(pack) * length;
+  const uint32_t col0 = static_cast<uint32_t>(head % pack) * length;
+  const uint32_t key =
+      dropout ? rlt::stream_key(rlt::group_stream(streams[n], head / pack)) : 0u;
 
   for (int r0 = q0 + warp * kRowsPerWarp; r0 < q_end;
        r0 += kWarps * kRowsPerWarp) {
@@ -143,8 +157,14 @@ attn_packed_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int r = 0; r < kRowsPerWarp; ++r) {
         const float e = expf(pw[r * length + j] - m[r]);
-        pw[r * length + j] = e;
         sum[r] += e;
+        if (dropout) {
+          const uint32_t index = static_cast<uint32_t>(r0 + r) * ncols + col0 + j;
+          pw[r * length + j] =
+              rlt::keep_element(index, key, threshold) ? e * inv_keep : 0.0f;
+        } else {
+          pw[r * length + j] = e;
+        }
       }
     }
 #pragma unroll
@@ -186,14 +206,18 @@ attn_packed_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }  // namespace
 
 // q, k, v, o (N, L, D) with D = heads * 64, lse (N, heads / pack, L, pack):
-// contiguous float32 device arrays, q/k/v 16-byte aligned. Launches on
-// `stream` and returns cudaGetLastError().
+// contiguous float32 device arrays, q/k/v 16-byte aligned. With rate > 0,
+// `streams` holds N int32 dropout streams (one per row n) and `threshold`
+// the keep threshold of keep_mask.cuh; with rate == 0 neither is read.
+// Launches on `stream` and returns cudaGetLastError().
 extern "C" int rlt_attention_packed_fwd(const void* q, const void* k,
                                         const void* v, void* o, void* lse,
-                                        int n, int length, int heads, int pack,
-                                        void* stream) {
+                                        const void* streams, int n, int length,
+                                        int heads, int pack, float rate,
+                                        unsigned int threshold, void* stream) {
   if (n < 1 || length < 1 || heads < 1 || pack < 1 || heads % pack != 0 ||
-      n > 65535 || heads > 65535)
+      n > 65535 || heads > 65535 || !(rate >= 0.0f && rate < 1.0f) ||
+      (rate > 0.0f && streams == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   int device = 0;
   int max_smem = 0;
@@ -214,7 +238,8 @@ extern "C" int rlt_attention_packed_fwd(const void* q, const void* k,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
-      static_cast<float*>(lse), length, heads * kDh, pack,
-      1.0f / sqrtf(static_cast<float>(kDh)));
+      static_cast<float*>(lse), static_cast<const int32_t*>(streams), length,
+      heads * kDh, pack, 1.0f / sqrtf(static_cast<float>(kDh)), rate > 0.0f,
+      threshold, 1.0f / (1.0f - rate));
   return static_cast<int>(cudaGetLastError());
 }

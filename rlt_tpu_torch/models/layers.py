@@ -1,10 +1,11 @@
 """Shared layers of the port, with torch-matching semantics and layouts.
 
 The counterpart of the JAX package's `models/layers.py` for what MMOECut
-serving runs: `TorchLinear`, the stacked bidirectional `LSTM` over the
-ranked list, multi-head `SelfAttention`, the post-LayerNorm
+serving and training run: `TorchLinear`, the stacked bidirectional `LSTM`
+over the ranked list, multi-head `SelfAttention`, the post-LayerNorm
 `TransformerEncoderLayer` (eps 1e-5, ReLU FFN of width 2048),
-`TransformerEncoder`, and the towers with the logit-space expert mix.
+`TransformerEncoder`, the towers with the logit-space expert mix, and the
+dropout of the training forward.
 
 Parameter names and layouts match the JAX package's (and so torch's):
 LSTM `weight_ih_l{n}[_reverse]` (4H, F) in gate order i, f, g, o; Linear
@@ -14,10 +15,17 @@ every expert parameter a leading axis E. Here the encoder layers keep that
 axis (`experts=E`) and run the E experts as one batched computation on
 (E, B, L, D) activations; a (B, L, D) input is shared by every expert.
 
-Only the deterministic (serving) forward is ported: dropout is off at eval,
-and the training forward with its dropout is the next slice's work
-(ROADMAP.md). Initial values follow the torch distributions the JAX
-package reproduces, drawn from an explicit `torch.Generator`.
+In training mode (`module.train()`) with a dropout rate above 0, every
+random bit comes from the explicit `torch.Generator` the caller passes to
+`forward`, on the activations' device: the attention's per-expert dropout
+seeds first, then the three masks of each encoder layer, in the order of
+the JAX package's `TransformerEncoderLayer`. `Dropout` and `ReluDropout`
+use the JAX package's 16-bit scheme (16 random bits per unit against
+min(round(keep * 65536), 65535)); the bits are torch's, not JAX's, so a
+whole-model comparison with the JAX package is made at rate 0. In eval mode
+the forward draws nothing and runs exactly the serving computation.
+Initial values follow the torch distributions the JAX package reproduces,
+drawn from an explicit `torch.Generator`.
 """
 
 from __future__ import annotations
@@ -28,7 +36,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rlt_tpu_torch.ops.attention import fused_attention_packed, packed_group_size
+from rlt_tpu_torch.ops.attention import (
+    expert_streams,
+    fused_attention_packed,
+    packed_group_size,
+)
 from rlt_tpu_torch.ops.lstm import fused_lstm
 
 
@@ -40,6 +52,57 @@ def _uniform(shape, bound: float, generator: torch.Generator | None) -> nn.Param
 
 def _lead(experts: int | None) -> tuple:
     return () if experts is None else (experts,)
+
+
+# ---------------------------------------------------------------------------
+# Dropout (the JAX package's 16-bit scheme)
+# ---------------------------------------------------------------------------
+
+def _generator(generator: torch.Generator | None) -> torch.Generator:
+    if generator is None:
+        raise ValueError("the training forward with dropout draws its masks "
+                         "from an explicit torch.Generator: pass generator=")
+    return generator
+
+
+def dropout_keep_mask(shape, keep: float, generator: torch.Generator,
+                      device: torch.device) -> torch.Tensor:
+    """16 random bits per unit against min(round(keep * 65536), 65535)."""
+    bits = torch.randint(0, 65536, tuple(shape), generator=_generator(generator),
+                         device=device, dtype=torch.int32)
+    return bits < min(round(keep * 65536.0), 65535)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Drop units with probability `rate`, scale the kept ones by 1 / keep."""
+    keep = 1.0 - rate
+    mask = dropout_keep_mask(x.shape, keep, generator, x.device)
+    return torch.where(mask, x / keep, 0.0)
+
+
+class ReluDropout(torch.autograd.Function):
+    """relu(x) * mask / keep whose only saved tensor is the output h:
+    dx = g (h > 0) / keep, which equals autograd's g mask (x > 0) / keep
+    because kept positives give h > 0 and dropped or negative units h = 0
+    (the JAX package's `_relu_dropout` custom_vjp)."""
+
+    @staticmethod
+    def forward(ctx, x, mask, keep):
+        h = torch.where(mask, torch.relu(x) / keep, 0.0)
+        ctx.save_for_backward(h)
+        ctx.keep = keep
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        (h,) = ctx.saved_tensors
+        return torch.where(h > 0, g / ctx.keep, 0.0), None, None
+
+
+def relu_dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    keep = 1.0 - rate
+    mask = dropout_keep_mask(x.shape, keep, generator, x.device)
+    return ReluDropout.apply(x, mask, keep)
 
 
 class TorchLinear(nn.Module):
@@ -161,14 +224,17 @@ class SelfAttention(nn.Module):
     (E, B, L, D).
 
     torch's in_proj rows are head-major, so the raw q, k, v projections
-    (E*B, L, D) are already the head-packed layout the attention kernel
-    reads, and its output feeds out_proj with no head split or concat."""
+    (E*B, L, D) are already the head-packed layout the attention kernels
+    read, and their output feeds out_proj with no head split or concat. In
+    training, dropout on the softmax weights runs inside the kernels from
+    one seed per expert, drawn in [0, 2^31 - 1) as the JAX package draws it."""
 
     def __init__(self, d_model: int, n_head: int, experts: int = 1,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, dropout: float = 0.0):
         super().__init__()
         self.d_model = d_model
         self.n_head = n_head
+        self.dropout = dropout
         self.pack = packed_group_size(d_model, n_head)
         if self.pack is None:
             raise NotImplementedError(
@@ -181,54 +247,78 @@ class SelfAttention(nn.Module):
                                         1.0 / math.sqrt(d_model), generator)
         self.out_proj_bias = nn.Parameter(torch.zeros(experts, d_model))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         d = self.d_model
         experts = self.in_proj_weight.shape[0]
         batch, length = x.shape[-3:-1]
         w, b = self.in_proj_weight, self.in_proj_bias
+        rate = self.dropout if self.training else 0.0
+        streams = None
+        if rate > 0.0:
+            seeds = torch.randint(0, 2**31 - 1, (experts,),
+                                  generator=_generator(generator), device=x.device)
+            streams = expert_streams(seeds, batch)
 
         def proj(i):  # (E, B, L, D) -> (E*B, L, D), contiguous
             y = _stacked_linear(x, w[:, i * d:(i + 1) * d], b[:, i * d:(i + 1) * d])
             return y.reshape(experts * batch, length, d)
 
         o, _ = fused_attention_packed(proj(0), proj(1), proj(2),
-                                      heads=self.n_head, pack=self.pack)
+                                      heads=self.n_head, pack=self.pack,
+                                      dropout_rate=rate, streams=streams)
         return _stacked_linear(o.reshape(experts, batch, length, d),
                                self.out_proj_weight, self.out_proj_bias)
 
 
 class TransformerEncoderLayer(nn.Module):
     """E stacked torch nn.TransformerEncoderLayer: post-LayerNorm, ReLU FFN
-    of width `dim_feedforward`, at eval (no dropout)."""
+    of width `dim_feedforward`. In training, dropout at the JAX package's
+    sites: the attention weights (in the kernels), the attention output,
+    the FFN's hidden units (fused with the ReLU) and the FFN output. Each
+    mask is drawn over the whole stacked (E, B, L, .) tensor, so the experts'
+    masks are independent."""
 
     def __init__(self, d_model: int, n_head: int, dim_feedforward: int = 2048,
-                 experts: int = 1, generator: torch.Generator | None = None):
+                 experts: int = 1, generator: torch.Generator | None = None,
+                 dropout: float = 0.1):
         super().__init__()
-        self.self_attn = SelfAttention(d_model, n_head, experts, generator)
+        self.dropout = dropout
+        self.self_attn = SelfAttention(d_model, n_head, experts, generator, dropout)
         self.norm1 = LayerNorm(d_model, experts)
         self.linear1 = TorchLinear(d_model, dim_feedforward, experts, generator)
         self.linear2 = TorchLinear(dim_feedforward, d_model, experts, generator)
         self.norm2 = LayerNorm(d_model, experts)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.norm1(x + self.self_attn(x))
-        h = torch.relu(self.linear1(x))
-        return self.norm2(x + self.linear2(h))
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        rate = self.dropout if self.training else 0.0
+        attn = self.self_attn(x, generator)
+        if rate > 0.0:
+            attn = dropout(attn, rate, generator)
+        x = self.norm1(x + attn)
+        h = self.linear1(x)
+        h = relu_dropout(h, rate, generator) if rate > 0.0 else torch.relu(h)
+        h = self.linear2(h)
+        if rate > 0.0:
+            h = dropout(h, rate, generator)
+        return self.norm2(x + h)
 
 
 class TransformerEncoder(nn.Module):
     def __init__(self, d_model: int, n_head: int, num_layers: int,
                  dim_feedforward: int = 2048, experts: int = 1,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, dropout: float = 0.1):
         super().__init__()
         self.num_layers = num_layers
         for i in range(num_layers):
             self.add_module(f"layers_{i}", TransformerEncoderLayer(
-                d_model, n_head, dim_feedforward, experts, generator))
+                d_model, n_head, dim_feedforward, experts, generator, dropout))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         for i in range(self.num_layers):
-            x = getattr(self, f"layers_{i}")(x)
+            x = getattr(self, f"layers_{i}")(x, generator)
         return x
 
 

@@ -6,8 +6,10 @@ one stacked (E, B, L, D) computation (the JAX package's `nn.vmap` over
 experts; here a leading expert axis on every expert weight), per-task
 softmax gates from one (B, F) x (T, F, E) contraction over the flattened
 BiLSTM output (F = 2 * 128 * L, so the model is specialised to L), and
-towers that mix the experts in logit space. MOECut and PLECut are not
-ported yet (ROADMAP.md).
+towers that mix the experts in logit space. The training forward
+(`model.train()`) applies dropout in the experts and draws every mask from
+the `torch.Generator` passed to `forward`. MOECut and PLECut are not ported
+yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -30,13 +32,16 @@ class ExpertStack(nn.Module):
     of the JAX package's `Expert` under `expert_stack`'s `nn.vmap`."""
 
     def __init__(self, num_experts: int, d_model: int = 256, n_head: int = 4,
-                 num_layers: int = 1, generator: torch.Generator | None = None):
+                 num_layers: int = 1, generator: torch.Generator | None = None,
+                 dropout: float = 0.2):
         super().__init__()
         self.attention_layer = TransformerEncoder(
-            d_model, n_head, num_layers, experts=num_experts, generator=generator)
+            d_model, n_head, num_layers, experts=num_experts, generator=generator,
+            dropout=dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.attention_layer(x)
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        return self.attention_layer(x, generator)
 
 
 def make_towers(num_tasks: float, d_model: int,
@@ -55,7 +60,8 @@ def make_towers(num_tasks: float, d_model: int,
 class MMOECut(nn.Module):
     """Multi-gate mixture-of-experts (reference MMOECut.py:56-110). Returns
     the task heads as a list of (B, L, 1) tensors; the last is the cut
-    distribution. Eval forward only: call `.eval()` first."""
+    distribution. In training mode with dropout above 0, `forward` needs a
+    `torch.Generator` on the input's device for the dropout masks."""
 
     def __init__(self, seq_len: int = 300, num_experts: int = 3,
                  num_tasks: float = 3, input_size: int = 3,
@@ -66,9 +72,9 @@ class MMOECut(nn.Module):
             raise ValueError(f"d_model={d_model} must be twice the BiLSTM "
                              f"encoding_size={encoding_size}")
         g = torch.Generator().manual_seed(seed)
-        self.dropout = dropout
         self.pre_encoding = LSTM(input_size, encoding_size, 2, generator=g)
-        self.experts = ExpertStack(num_experts, d_model, n_head, num_layers, g)
+        self.experts = ExpertStack(num_experts, d_model, n_head, num_layers, g,
+                                   dropout)
         n_gates = int(num_tasks)
         w_gates = torch.empty(n_gates, encoding_size * seq_len * 2, num_experts)
         self.w_gates = nn.Parameter(w_gates.normal_(generator=g))
@@ -77,13 +83,10 @@ class MMOECut(nn.Module):
             self.add_module(name, tower)
             self.tower_names.append(name)
 
-    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
-        if self.training and self.dropout > 0.0:
-            raise NotImplementedError(
-                "MMOECut: the training forward (dropout) is not ported yet "
-                "(ROADMAP.md); call .eval() to serve")
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> list[torch.Tensor]:
         experts_in = self.pre_encoding(x)  # (B, L, 2H)
-        return self.heads(experts_in, self.experts(experts_in))
+        return self.heads(experts_in, self.experts(experts_in, generator))
 
     def heads(self, experts_in: torch.Tensor,
               experts_o: torch.Tensor) -> list[torch.Tensor]:

@@ -1,17 +1,54 @@
 """Operators of the port that run hand-written CUDA kernels on the card."""
 
+import contextlib
+
+from rlt_tpu_torch.ops import attention, lstm
 from rlt_tpu_torch.ops.attention import (  # noqa: F401
+    ATTENTION_PACKED_BWD,
     ATTENTION_PACKED_FWD,
+    attention_packed_bwd,
+    attention_packed_bwd_plain,
+    attention_packed_fwd,
     attention_packed_plain,
     fused_attention_packed,
     packed_group_size,
 )
 from rlt_tpu_torch.ops.lstm import (  # noqa: F401
+    LSTM_BWD,
     LSTM_FWD,
     fused_lstm,
+    lstm_bwd,
+    lstm_bwd_plain,
     lstm_fwd,
     lstm_recurrence_plain,
 )
 
 # every kernel of the port, by the name chip_smoke.py and PERF.md use
-KERNELS = {"lstm_fwd": LSTM_FWD, "attention_packed_fwd": ATTENTION_PACKED_FWD}
+KERNELS = {"lstm_fwd": LSTM_FWD, "lstm_bwd": LSTM_BWD,
+           "attention_packed_fwd": ATTENTION_PACKED_FWD,
+           "attention_packed_bwd": ATTENTION_PACKED_BWD}
+
+# each kernel's wrapper, by the same name, as (its module, its plain version)
+PLAIN_VERSIONS = {"lstm_fwd": (lstm, lstm_recurrence_plain),
+                  "lstm_bwd": (lstm, lstm_bwd_plain),
+                  "attention_packed_fwd": (attention, attention_packed_plain),
+                  "attention_packed_bwd": (attention, attention_packed_bwd_plain)}
+
+
+@contextlib.contextmanager
+def plain_ops():
+    """Route every kernel wrapper to its plain version, for reference runs
+    of the same path on the card; restored on exit. The autograd Functions
+    and the ops' other callers look the wrappers up on their module at call
+    time, so they follow."""
+    missing = set(KERNELS) - set(PLAIN_VERSIONS)
+    if missing:
+        raise RuntimeError(f"no plain version for the kernels {sorted(missing)}")
+    saved = {name: getattr(module, name) for name, (module, _) in PLAIN_VERSIONS.items()}
+    try:
+        for name, (module, plain) in PLAIN_VERSIONS.items():
+            setattr(module, name, plain)
+        yield
+    finally:
+        for name, (module, _) in PLAIN_VERSIONS.items():
+            setattr(module, name, saved[name])

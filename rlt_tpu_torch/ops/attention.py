@@ -1,22 +1,33 @@
-"""Head-packed attention forward: CUDA kernel K5' and its plain version.
+"""Head-packed attention: CUDA kernels K5' (forward) and K6' (backward),
+their plain PyTorch versions, and the dropout mask they share.
 
 The counterpart of the JAX package's `ops/attention.py::fused_attention_packed`
-forward. q, k, v are (N, L, D) with the H heads contiguous in the feature
-dim (D = H * dh): the raw output of torch's head-major in_proj, so no head
-split happens around the kernel. Each head computes
+and its custom_vjp. q, k, v are (N, L, D) with the H heads contiguous in the
+feature dim (D = H * dh): the raw output of torch's head-major in_proj, so no
+head split happens around the kernels. Each head computes
 softmax(q_h k_h^T / sqrt(dh)) v_h; the log-sum-exp of every score row is
-returned beside o in the JAX layout (N, H / pack, L, pack), so that the
-training slice's backward can consume it.
+returned beside o in the JAX layout (N, H / pack, L, pack), and the backward
+recomputes the probabilities from it.
+
+Dropout on the softmax weights uses the JAX package's counter-based mask
+(`keep_mask`, bit for bit): row n of the batch has the int32 stream
+`streams[n]`, head h belongs to group h // pack whose stream is
+`_group_stream(streams[n], h // pack)`, and its score (i, j) is element
+(i, (h % pack) * L + j) of the group's (L, pack * L) tile. The JAX package
+draws one seed per call and takes seed + n as row n's stream (`_streams`);
+under its `nn.vmap` over experts each expert draws its own seed, so a stacked
+(E * B) batch has the streams seed_e + b.
 
 Each head's softmax subtracts its own row max. The JAX kernel subtracts
 the max over its head group, which gives the same o and lse up to rounding
 while both are finite, and underflows a head whose scores sit far below
 another head of its group (tests/test_torch_ops.py pins this).
 
-On a CUDA tensor the wrapper launches the kernel of
-`rlt_tpu_torch/csrc/attention_packed_fwd.cu` (dh = 64, float32, L <= 333
-on an H100, no dropout) and raises on anything else. On a CPU tensor it
-runs `attention_packed_plain`.
+On a CUDA tensor the forward launches the kernel of
+`rlt_tpu_torch/csrc/attention_packed_fwd.cu` (dh = 64, float32, L <= 333 on
+an H100) and the backward that of `csrc/attention_packed_bwd.cu` (L <= 321);
+each raises on anything else. On a CPU tensor they run
+`attention_packed_plain` and `attention_packed_bwd_plain`.
 """
 
 from __future__ import annotations
@@ -30,15 +41,22 @@ from rlt_tpu_torch.ops.build import Kernel, ptr, stream_handle
 
 ATTENTION_PACKED_FWD = Kernel(
     "rlt_attention_packed_fwd",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+    + [ctypes.c_float, ctypes.c_uint, ctypes.c_void_p])
+ATTENTION_PACKED_BWD = Kernel(
+    "rlt_attention_packed_bwd",
+    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+    + [ctypes.c_float, ctypes.c_uint, ctypes.c_void_p])
 
 KERNEL_HEAD_DIM = 64
+_U32 = 0xFFFFFFFF
 
 
 def packed_group_size(d: int, heads: int) -> int | None:
     """Heads per group `pack` with pack * dh == 128, or None when the shape
     admits none (as the JAX package's `packed_group_size`). On the card the
-    group only fixes the lse layout; the kernel runs each head on its own."""
+    group fixes the lse layout and the dropout mask's geometry; the kernels
+    run each head on its own."""
     if d % heads:
         return None
     dh = d // heads
@@ -50,29 +68,149 @@ def packed_group_size(d: int, heads: int) -> int | None:
     return pack
 
 
+# ---------------------------------------------------------------------------
+# Dropout mask (the JAX package's keep_mask, _streams, _group_stream)
+# ---------------------------------------------------------------------------
+
+def _wrap_int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values -> their int32 two's-complement wrap, kept in int64."""
+    return ((x + 2**31) & _U32) - 2**31
+
+
+def _mul_u32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for uint32 values held in int64, without overflowing
+    int64: c is split into 16-bit halves."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _U32
+
+
+def keep_threshold(rate: float) -> int:
+    """The uint32 keep threshold, in Python double as the JAX package."""
+    return min(int((1.0 - rate) * 2**32), 2**32 - 1)
+
+
+def keep_mask(stream, shape: tuple[int, int], rate: float) -> torch.Tensor:
+    """Boolean keep mask of one (rows, cols) tile, bit for bit the JAX
+    package's `keep_mask`. `stream` is an int or an integer tensor of any
+    shape S; the result has shape S + `shape`."""
+    stream = torch.as_tensor(stream, dtype=torch.int64)
+    rows, cols = shape
+    index = (torch.arange(rows, dtype=torch.int64, device=stream.device)[:, None] * cols
+             + torch.arange(cols, dtype=torch.int64, device=stream.device))
+    key = _mul_u32(stream & _U32, 0x9E3779B9)
+    x = index ^ key[..., None, None]
+    x = x ^ (x >> 16)
+    x = _mul_u32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul_u32(x, 0x846CA68B)
+    x = x ^ (x >> 16)
+    return x < keep_threshold(rate)
+
+
+def _streams(seed, n: int) -> torch.Tensor:
+    """Per-row streams seed + row index, wrapped to int32 (int64 tensor)."""
+    seed = torch.as_tensor(seed, dtype=torch.int64)
+    return _wrap_int32(seed.reshape(()) + torch.arange(n, dtype=torch.int64,
+                                                        device=seed.device))
+
+
+def expert_streams(seeds: torch.Tensor, batch: int) -> torch.Tensor:
+    """Streams of a stacked (E * B) batch from one seed per expert: row
+    e * B + b has seed_e + b, wrapped to int32, as the JAX package's
+    per-expert `_streams` give under its `nn.vmap` over experts."""
+    seeds = seeds.to(torch.int64)
+    b = torch.arange(batch, dtype=torch.int64, device=seeds.device)
+    return _wrap_int32(seeds[:, None] + b).reshape(-1).to(torch.int32)
+
+
+def _group_stream(stream, gi: int):
+    """Stream of head group `gi`: group 0 keeps the row's stream; later
+    groups add (gi * 0x7F4A7C15) & 0x7FFFFFFF with int32 wrap-around."""
+    if gi == 0:
+        return stream
+    stream = torch.as_tensor(stream, dtype=torch.int64)
+    return _wrap_int32(stream + ((gi * 0x7F4A7C15) & 0x7FFFFFFF))
+
+
+def head_keep_mask(streams: torch.Tensor, heads: int, pack: int, length: int,
+                   rate: float) -> torch.Tensor:
+    """(N, H, L, L) keep mask of every head's scores, as the kernels
+    evaluate it: head h reads columns (h % pack) * L + j of group h // pack."""
+    streams = streams.to(torch.int64)
+    n = streams.shape[0]
+    masks = []
+    for gi in range(heads // pack):
+        tile = keep_mask(_group_stream(streams, gi), (length, pack * length), rate)
+        masks.append(tile.reshape(n, length, pack, length).transpose(1, 2))
+    return torch.cat(masks, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+def _split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
+    n, length, d = t.shape
+    return t.reshape(n, length, heads, d // heads).transpose(1, 2)  # (N, H, L, dh)
+
+
+def _merge_heads(t: torch.Tensor) -> torch.Tensor:
+    n, heads, length, dh = t.shape
+    return t.transpose(1, 2).reshape(n, length, heads * dh)
+
+
 def attention_packed_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           heads: int, pack: int):
+                           heads: int, pack: int, dropout_rate: float = 0.0,
+                           streams: torch.Tensor | None = None):
     """Explicit per-head softmax attention: (o (N, L, D), lse (N, H / pack,
-    L, pack))."""
+    L, pack)). With a rate above 0 the softmax weights are dropped by
+    `head_keep_mask(streams, ...)` and the kept ones divided by 1 - rate."""
     n, length, d = q.shape
     dh = d // heads
     groups = heads // pack
-
-    def split(t):
-        return t.reshape(n, length, heads, dh).transpose(1, 2)  # (N, H, L, dh)
-
-    s = split(q) @ split(k).transpose(-1, -2) * (1.0 / math.sqrt(dh))
+    s = _split_heads(q, heads) @ _split_heads(k, heads).transpose(-1, -2) * (1.0 / math.sqrt(dh))
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp(s - m)
     denom = e.sum(dim=-1, keepdim=True)
-    o = (e / denom) @ split(v)
+    p = e / denom
+    if dropout_rate > 0.0:
+        keep = head_keep_mask(streams, heads, pack, length, dropout_rate)
+        p = torch.where(keep, p / (1.0 - dropout_rate), 0.0)
+    o = _merge_heads(p @ _split_heads(v, heads))
     lse = (m + torch.log(denom))[..., 0]  # (N, H, L)
-    o = o.transpose(1, 2).reshape(n, length, d)
     lse = lse.reshape(n, groups, pack, length).transpose(2, 3).contiguous()
     return o, lse
 
 
-def _check(q, k, v, heads: int, pack: int) -> None:
+def attention_packed_bwd_plain(q, k, v, o, lse, do, heads: int, pack: int,
+                               dropout_rate: float = 0.0,
+                               streams: torch.Tensor | None = None):
+    """The JAX package's packed backward, per head: p from lse, delta =
+    rowsum(do * o), ds = p (dp - delta) scale -> (dq, dk, dv), each (N, L, D)."""
+    n, length, d = q.shape
+    scale = 1.0 / math.sqrt(d // heads)
+    qh, kh, vh, oh, doh = (_split_heads(t, heads) for t in (q, k, v, o, do))
+    lse_h = lse.transpose(2, 3).reshape(n, heads, length)  # (N, H, L)
+    p = torch.exp(qh @ kh.transpose(-1, -2) * scale - lse_h[..., None])
+    dp = doh @ vh.transpose(-1, -2)
+    pd = p
+    if dropout_rate > 0.0:
+        keep = head_keep_mask(streams, heads, pack, length, dropout_rate)
+        inv = 1.0 / (1.0 - dropout_rate)
+        pd = torch.where(keep, p * inv, 0.0)
+        dp = torch.where(keep, dp * inv, 0.0)
+    delta = (doh * oh).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta) * scale
+    return (_merge_heads(ds @ kh), _merge_heads(ds.transpose(-1, -2) @ qh),
+            _merge_heads(pd.transpose(-1, -2) @ doh))
+
+
+# ---------------------------------------------------------------------------
+# Wrappers: the kernel on a CUDA tensor, the plain version on a CPU tensor
+# ---------------------------------------------------------------------------
+
+def _check(q, k, v, heads: int, pack: int, dropout_rate: float, streams) -> None:
     if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"q, k, v must be equal (N, L, D), got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -83,41 +221,120 @@ def _check(q, k, v, heads: int, pack: int) -> None:
         raise ValueError(f"feature dim {d} not divisible by heads={heads}")
     if pack < 1 or heads % pack:
         raise ValueError(f"heads={heads} not divisible by pack={pack}")
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"dropout_rate must lie in [0, 1), got {dropout_rate}")
+    if dropout_rate > 0.0:
+        if streams is None:
+            raise ValueError("a dropout rate above 0 needs the per-row int32 "
+                             "streams")
+        if tuple(streams.shape) != (q.shape[0],) or streams.device != q.device:
+            raise ValueError(f"streams must be ({q.shape[0]},) on {q.device}, got "
+                             f"{tuple(streams.shape)} on {streams.device}")
+
+
+def _check_kernel_inputs(name: str, heads: int, tensors: dict) -> None:
+    if next(iter(tensors.values())).device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device "
+                         f"{next(iter(tensors.values())).device}")
+    d = next(iter(tensors.values())).shape[-1]
+    if d // heads != KERNEL_HEAD_DIM:
+        raise ValueError(f"{name} kernel takes dh = {KERNEL_HEAD_DIM}, got "
+                         f"dh = {d // heads}")
+    for tname, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} kernel takes float32 {tname}, got {t.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} kernel takes a contiguous, 16-byte "
+                             f"aligned {tname}")
+
+
+def _kernel_streams(streams, dropout_rate: float):
+    """(pointer, keep-alive tensor) of the int32 streams the kernels read."""
+    if dropout_rate == 0.0:
+        return ctypes.c_void_p(None), None
+    s = streams.to(torch.int32).contiguous()
+    return ptr(s), s
+
+
+def attention_packed_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         heads: int, pack: int, dropout_rate: float = 0.0,
+                         streams: torch.Tensor | None = None):
+    """K5' on a CUDA tensor, `attention_packed_plain` on a CPU tensor:
+    (o (N, L, D), lse (N, H / pack, L, pack) float32)."""
+    _check(q, k, v, heads, pack, dropout_rate, streams)
+    if q.device.type == "cpu":
+        return attention_packed_plain(q, k, v, heads, pack, dropout_rate, streams)
+    _check_kernel_inputs("attention_packed_fwd", heads, {"q": q, "k": k, "v": v})
+    n, length, d = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty(n, heads // pack, length, pack, device=q.device,
+                      dtype=torch.float32)
+    s_ptr, _keep = _kernel_streams(streams, dropout_rate)
+    with torch.cuda.device(q.device):
+        ATTENTION_PACKED_FWD(ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), s_ptr, n,
+                             length, heads, pack, dropout_rate,
+                             keep_threshold(dropout_rate), stream_handle(q.device))
+    return o, lse
+
+
+def attention_packed_bwd(q, k, v, o, lse, do, heads: int, pack: int,
+                         dropout_rate: float = 0.0,
+                         streams: torch.Tensor | None = None):
+    """K6' on a CUDA tensor, `attention_packed_bwd_plain` on a CPU tensor:
+    (dq, dk, dv), each (N, L, D)."""
+    _check(q, k, v, heads, pack, dropout_rate, streams)
+    if q.device.type == "cpu":
+        return attention_packed_bwd_plain(q, k, v, o, lse, do, heads, pack,
+                                          dropout_rate, streams)
+    _check_kernel_inputs("attention_packed_bwd", heads,
+                         {"q": q, "k": k, "v": v, "o": o, "do": do, "lse": lse})
+    n, length, d = q.shape
+    if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape):
+        raise ValueError("o and do must have q's shape")
+    if tuple(lse.shape) != (n, heads // pack, length, pack):
+        raise ValueError(f"lse must be {(n, heads // pack, length, pack)}, got "
+                         f"{tuple(lse.shape)}")
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    delta = torch.empty(n, heads, length, device=q.device, dtype=torch.float32)
+    s_ptr, _keep = _kernel_streams(streams, dropout_rate)
+    with torch.cuda.device(q.device):
+        ATTENTION_PACKED_BWD(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse),
+                             s_ptr, ptr(dq), ptr(dk), ptr(dv), ptr(delta), n,
+                             length, heads, pack, dropout_rate,
+                             keep_threshold(dropout_rate), stream_handle(q.device))
+    return dq, dk, dv
+
+
+class AttentionPacked(torch.autograd.Function):
+    """Forward K5' (`attention_packed_fwd`), backward K6'
+    (`attention_packed_bwd`); lse is returned but takes no gradient. The
+    two are looked up as module attributes at each call."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, heads, pack, dropout_rate, streams):
+        o, lse = attention_packed_fwd(q, k, v, heads, pack, dropout_rate, streams)
+        ctx.save_for_backward(q, k, v, o, lse, streams)
+        ctx.args = (heads, pack, dropout_rate)
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse, streams = ctx.saved_tensors
+        heads, pack, rate = ctx.args
+        dq, dk, dv = attention_packed_bwd(q, k, v, o, lse, do.contiguous(), heads,
+                                          pack, rate, streams)
+        return dq, dk, dv, None, None, None, None
 
 
 def fused_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            heads: int, pack: int | None = None,
-                           dropout_rate: float = 0.0):
-    """Head-packed attention forward: q, k, v (N, L, D) -> (o (N, L, D),
-    lse (N, H / pack, L, pack) float32). `pack` defaults to all heads in one
-    group, as in the JAX package. Dropout is not ported yet: a rate above 0
-    raises."""
+                           dropout_rate: float = 0.0,
+                           streams: torch.Tensor | None = None):
+    """Head-packed attention, differentiable: q, k, v (N, L, D) -> (o (N, L,
+    D), lse (N, H / pack, L, pack) float32). `pack` defaults to all heads in
+    one group, as in the JAX package. A dropout rate above 0 needs `streams`,
+    one int32 dropout stream per row n."""
     if pack is None:
         pack = heads
-    _check(q, k, v, heads, pack)
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "fused_attention_packed: in-kernel dropout is not ported yet "
-            "(ROADMAP.md, training slice)")
-    if q.device.type == "cpu":
-        return attention_packed_plain(q, k, v, heads, pack)
-    if q.device.type != "cuda":
-        raise ValueError(f"fused_attention_packed: unsupported device {q.device}")
-    n, length, d = q.shape
-    if d // heads != KERNEL_HEAD_DIM:
-        raise ValueError(f"attention_packed_fwd kernel takes dh = "
-                         f"{KERNEL_HEAD_DIM}, got dh = {d // heads}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"attention_packed_fwd kernel takes float32 {name}, "
-                            f"got {t.dtype}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"attention_packed_fwd kernel takes a contiguous, "
-                             f"16-byte aligned {name}")
-    o = torch.empty_like(q)
-    lse = torch.empty(n, heads // pack, length, pack, device=q.device,
-                      dtype=torch.float32)
-    with torch.cuda.device(q.device):
-        ATTENTION_PACKED_FWD(ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), n,
-                             length, heads, pack, stream_handle(q.device))
-    return o, lse
+    return AttentionPacked.apply(q, k, v, heads, pack, float(dropout_rate), streams)

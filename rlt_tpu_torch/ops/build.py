@@ -3,9 +3,11 @@
 Every `rlt_tpu_torch/csrc/*.cu` source is compiled by `nvcc` for Hopper
 (`sm_90a`) at the first kernel launch, one `nvcc` per source, all started
 together, and linked into one shared library with a plain C interface that
-is loaded through `ctypes`. The library lands in
-`build/rlt_tpu_torch/<hash of the sources and flags>/` at the repository
-root, so an edited source builds anew and an unchanged one loads at once.
+is loaded through `ctypes`. The `*.cuh` headers there are included by the
+sources, not compiled on their own. The library lands in
+`build/rlt_tpu_torch/<hash of the sources, the headers and the flags>/` at
+the repository root, so an edited source or header builds anew and an
+unchanged tree loads at once.
 Nothing here runs when the module is imported: the CPU tests import every
 module of the port on machines with no `nvcc`.
 """
@@ -41,13 +43,15 @@ def _nvcc() -> str:
                        "CUDA kernels are built at first launch and need it")
 
 
-def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
+def _sources(csrc: Path = CSRC) -> list[Path]:
+    """The translation units: one object file each."""
+    return sorted(csrc.glob("*.cu"))
 
 
-def source_hash() -> str:
+def source_hash(csrc: Path = CSRC) -> str:
+    """Hash of every source and header under `csrc` and of the flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

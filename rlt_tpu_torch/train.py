@@ -1,0 +1,294 @@
+"""Training harness and CLI of the port (the JAX package's `train.py`).
+
+    python -m rlt_tpu_torch.train --model-name mmoecut            # on the card
+    python -m rlt_tpu_torch.train --device cpu --retrieve-data mq2007
+
+One epoch is every train batch of a shuffled, padded batch plan, each an
+update of Adam with coupled L2 (torch's `Adam(weight_decay=...)`, which is
+optax's `add_decayed_weights -> scale_by_adam`), then the whole test split
+without dropout. Each train step decodes its cuts and scores F1/DCG on the
+pre-update forward, as the reference does, and an epoch reports every
+metric as the mean of its batch means. On the card the model runs through
+the kernels K1' and K2' (BiLSTM) and K5' and K6' (expert attention, with
+dropout inside); on the CPU (`--device cpu`) through their plain versions.
+The batch plans and every dropout mask come from one `torch.Generator` on
+the device, seeded from `--seed`; the initial weights from the model's own
+seeded initialisation or `--model-path`.
+
+Only MMOECut trains so far (its criterion, `mtcut_loss` with the fixed
+0.5/0.5 task weights). Not ported yet (ROADMAP.md): resume, the
+hyper-parameter search and population training, profiling, `--draw`, the
+metrics log directory, data and model parallelism, and the bf16 lane.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import functools
+import json
+import logging
+import os
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from rlt_tpu_torch import config as config_lib
+from rlt_tpu_torch.data import (
+    DeviceDataset,
+    load_pkl_dataset,
+    synthetic_config,
+    synthetic_dataset,
+)
+from rlt_tpu_torch.infer import decode_ks, load_state_dict
+from rlt_tpu_torch.models import build_model
+from rlt_tpu_torch.utils import losses as losses_lib
+from rlt_tpu_torch.utils import metrics as metrics_lib
+from rlt_tpu_torch.utils.platform import resolve_device
+
+logger = logging.getLogger("rlt_tpu_torch")
+
+
+def make_optimizer(params, lr: float, weight_decay: float) -> torch.optim.Adam:
+    """torch optim.Adam as the reference builds it (run.py:104): the L2 term
+    is added to the gradient before the moments, not decoupled."""
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=weight_decay)
+
+
+def make_criterion(cfg: config_lib.TrainConfig) -> Callable:
+    """criterion(output, labels, valid=...) -> scalar. MMOECut's is
+    `mtcut_loss` with the torch defaults 0.5/0.5 for the task weights, not
+    the preset's (the reference's run.py:90 passes none)."""
+    if cfg.model_name == "mmoecut":
+        return functools.partial(losses_lib.mtcut_loss, metric=cfg.criterion,
+                                 rerank_weight=0.5, classi_weight=0.5,
+                                 num_tasks=cfg.num_tasks)
+    raise NotImplementedError(
+        f"training {cfg.model_name!r} is not ported yet: the port trains "
+        "mmoecut (ROADMAP.md)")
+
+
+def batch_metrics(model_name: str, output, y: torch.Tensor, valid: torch.Tensor):
+    """F1 and DCG at the decoded cuts, means over the valid rows."""
+    ks = decode_ks(model_name, output)
+    return (metrics_lib.f1_at_k(y, ks, valid=valid),
+            metrics_lib.dcg_at_k(y, ks, valid=valid))
+
+
+def train_step(model, optimizer, criterion, model_name: str, x: torch.Tensor,
+               y: torch.Tensor, valid: torch.Tensor, generator: torch.Generator):
+    """One update on a batch; returns (loss, f1, dcg), 0-dim tensors of the
+    pre-update forward. The gradients stay in the parameters' `.grad`."""
+    model.train()
+    optimizer.zero_grad()
+    output = model(x, generator)
+    loss = criterion(output, y, valid=valid)
+    loss.backward()
+    optimizer.step()
+    with torch.no_grad():
+        f1, dcg = batch_metrics(model_name, [o.detach() for o in output], y, valid)
+    return loss.detach(), f1, dcg
+
+
+@torch.no_grad()
+def eval_step(model, criterion, model_name: str, x: torch.Tensor, y: torch.Tensor,
+              valid: torch.Tensor):
+    """The loss and F1/DCG of a batch without dropout."""
+    model.eval()
+    output = model(x)
+    loss = criterion(output, y, valid=valid)
+    f1, dcg = batch_metrics(model_name, output, y, valid)
+    return loss, f1, dcg
+
+
+def run_epoch(model, optimizer, criterion, model_name: str, data: DeviceDataset,
+              generator: torch.Generator, train_plan=None, test_plan=None) -> dict:
+    """Every train batch, then the test split. The plans are drawn from
+    `generator` (train first) unless given as (idx, valid) pairs. Returns
+    the means of the batch means and the per-step train losses."""
+    tr_idx, tr_valid = data.plan(generator, "train", *(train_plan or (None, None)))
+    te_idx, te_valid = data.plan(generator, "test", *(test_plan or (None, None)))
+    train = [train_step(model, optimizer, criterion, model_name,
+                        data.x_train[idx], data.y_train[idx], valid, generator)
+             for idx, valid in zip(tr_idx, tr_valid)]
+    test = [eval_step(model, criterion, model_name, data.x_test[idx],
+                      data.y_test[idx], valid)
+            for idx, valid in zip(te_idx, te_valid)]
+    tr = torch.stack([torch.stack(s) for s in train]).cpu().numpy().astype(np.float64)
+    te = torch.stack([torch.stack(s) for s in test]).cpu().numpy().astype(np.float64)
+    metrics = {f"{split}_{name}": float(np.mean(values[:, i]))
+               for split, values in (("train", tr), ("test", te))
+               for i, name in enumerate(("loss", "f1", "dcg"))}
+    metrics["train_loss_steps"] = tr[:, 0].tolist()
+    return metrics
+
+
+class Trainer:
+    """The reference's Trainer (run.py:26-240): epochs with best and best-5
+    test F1/DCG, and the best weights written as a torch state_dict."""
+
+    def __init__(self, cfg: config_lib.TrainConfig, data=None,
+                 device: str | torch.device | None = None, state_dict=None):
+        if cfg.compute_dtype != "float32":
+            raise NotImplementedError(
+                f"compute_dtype={cfg.compute_dtype!r} is not ported yet; the "
+                "port trains in float32 (the bf16 lane is on ROADMAP.md)")
+        self.cfg = cfg
+        self.model_name = cfg.model_name
+        self.criterion = make_criterion(cfg)
+        self.device = resolve_device(device)
+        if data is None:
+            if cfg.dataset_base:
+                family = config_lib.loader_family(cfg.model_name, cfg.retrieve_data)
+                data = load_pkl_dataset(cfg.dataset_base, cfg.retrieve_data,
+                                        cfg.dataset_name, family)
+            else:
+                data = synthetic_dataset(
+                    num_queries=cfg.synthetic_queries, seq_len=cfg.seq_len,
+                    num_features=cfg.input_size, seed=cfg.seed,
+                    **synthetic_config(cfg.retrieve_data, cfg.dataset_name))
+        self.data = DeviceDataset.from_host(data, cfg.batch_size, self.device)
+        self.model = build_model(cfg.model_name, seq_len=cfg.seq_len,
+                                 input_size=cfg.input_size, dropout=cfg.dropout,
+                                 num_tasks=cfg.num_tasks, seed=cfg.seed)
+        if state_dict is None and cfg.model_path:
+            state_dict = load_state_dict(cfg.model_path)
+        if state_dict is not None:
+            self.model.load_state_dict(state_dict)
+        self.model.to(self.device)
+        self.optimizer = make_optimizer(self.model.parameters(), cfg.lr,
+                                        cfg.weight_decay)
+        self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self.best_state = self._snapshot()
+        self.best_test_f1 = -float("inf")
+        self.best_test_dcg = -float("inf")
+        self.f1_record: list[float] = []
+        self.dcg_record: list[float] = []
+        self.history: list[dict] = []  # each epoch's metrics, as run_epoch gives them
+
+    def _snapshot(self) -> dict[str, torch.Tensor]:
+        return {k: v.detach().clone() for k, v in self.model.state_dict().items()}
+
+    @property
+    def best_path(self) -> str:
+        return os.path.join(self.cfg.save_path, f"{self.model_name}.pt")
+
+    def run_epoch(self, train_plan=None, test_plan=None) -> dict:
+        return run_epoch(self.model, self.optimizer, self.criterion,
+                         self.model_name, self.data, self.generator,
+                         train_plan, test_plan)
+
+    def run(self) -> dict:
+        """`cfg.epochs` epochs with best / best-5 tracking (run.py:222-232);
+        with `model_persist`, each new best test F1 writes its weights."""
+        cfg = self.cfg
+        logger.info("Train the %s model on %s", self.model_name, self.device)
+        for epoch in range(cfg.epochs):
+            start = time.perf_counter()
+            metrics = self.run_epoch()
+            self.history.append(metrics)
+            self.f1_record.append(metrics["test_f1"])
+            self.dcg_record.append(metrics["test_dcg"])
+            if metrics["test_f1"] > self.best_test_f1:
+                self.best_test_f1 = metrics["test_f1"]
+                self.best_state = self._snapshot()
+                if cfg.model_persist:
+                    os.makedirs(cfg.save_path, exist_ok=True)
+                    torch.save({k: v.cpu() for k, v in self.best_state.items()},
+                               self.best_path)
+            self.best_test_dcg = max(self.best_test_dcg, metrics["test_dcg"])
+            logger.info(
+                "Epoch %d (%.2fs): train loss=%.5f f1=%.5f dcg=%.5f | "
+                "test loss=%.5f f1=%.5f dcg=%.5f", epoch, time.perf_counter() - start,
+                metrics["train_loss"], metrics["train_f1"], metrics["train_dcg"],
+                metrics["test_loss"], metrics["test_f1"], metrics["test_dcg"])
+        return self.summary()
+
+    def summary(self) -> dict:
+        """best / best-5 test F1 and DCG (run.py:229-232)."""
+        best5_f1 = float(np.mean(sorted(self.f1_record, reverse=True)[:5]))
+        best5_dcg = float(np.mean(sorted(self.dcg_record, reverse=True)[:5]))
+        logger.info("best: f1=%.7f dcg=%.6f | best-5: f1=%.7f dcg=%.6f",
+                    self.best_test_f1, self.best_test_dcg, best5_f1, best5_dcg)
+        return {"best_f1": self.best_test_f1, "best_dcg": self.best_test_dcg,
+                "best5_f1": best5_f1, "best5_dcg": best5_dcg}
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="rlt_tpu_torch truncation model trainer (MMOECut)",
+        epilog="Not ported yet, so absent: --resume, --parameter-search and "
+               "the other search flags, --population, --profile-dir, --draw, "
+               "--log-dir, --loss-override, --data-parallel, --model-parallel "
+               "and --compute-dtype bfloat16 (ROADMAP.md).")
+    d = config_lib.TrainConfig()
+    p.add_argument("--retrieve-data", type=str, default=d.retrieve_data)
+    p.add_argument("--dataset-name", type=str, default=d.dataset_name)
+    p.add_argument("--dataset-base", type=str, default=None,
+                   help="reference-format pkl root; without it, the "
+                        "calibrated synthetic corpus")
+    p.add_argument("--synthetic-queries", type=int, default=d.synthetic_queries)
+    p.add_argument("--batch-size", type=int, default=d.batch_size)
+    p.add_argument("--model-name", type=str, default=d.model_name)
+    p.add_argument("--criterion", type=str, default=d.criterion,
+                   help="reward metric of the cut loss: f1 | dcg")
+    p.add_argument("--model-path", type=str, default=None,
+                   help="initial weights: a torch state_dict file")
+    p.add_argument("--model-persist", type=int, default=0,
+                   help="write the best weights to <save-path>/<model>.pt, "
+                        "which `rlt_tpu_torch.serve --model-path` reads")
+    p.add_argument("--save-path", type=str, default=d.save_path)
+    p.add_argument("--epochs", type=int, default=d.epochs)
+    p.add_argument("--lr", type=float, default=d.lr)
+    p.add_argument("--weight-decay", type=float, default=d.weight_decay)
+    p.add_argument("--dropout", type=float, default=d.dropout)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--num-tasks", type=float, default=3)
+    p.add_argument("--no-preset", action="store_true",
+                   help="skip the built-in hyper-parameter presets")
+    p.add_argument("--conf-file", type=str, default=None,
+                   help="reference-format hyper_parameter_*.conf to apply")
+    p.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"),
+                   help="cuda (the kernels) unless cpu (their plain versions)")
+    p.add_argument("--out", type=str, default=None,
+                   help="write the summary as JSON here")
+    return p
+
+
+def config_from_args(args) -> config_lib.TrainConfig:
+    cfg = config_lib.TrainConfig(
+        retrieve_data=args.retrieve_data, dataset_name=args.dataset_name,
+        dataset_base=args.dataset_base, synthetic_queries=args.synthetic_queries,
+        batch_size=args.batch_size, model_name=args.model_name,
+        num_tasks=args.num_tasks, dropout=args.dropout, criterion=args.criterion,
+        epochs=args.epochs, lr=args.lr, weight_decay=args.weight_decay,
+        seed=args.seed, model_path=args.model_path,
+        model_persist=bool(args.model_persist), save_path=args.save_path)
+    # config-file override chain (run.py:339-347)
+    if args.conf_file:
+        cfg = config_lib.load_conf_file(cfg, args.conf_file)
+    elif not args.no_preset:
+        cfg = config_lib.apply_preset(cfg)
+    return cfg
+
+
+def main(argv=None) -> dict:
+    logging.basicConfig(level=logging.INFO)
+    args = build_argparser().parse_args(argv)
+    cfg = config_from_args(args)
+    logger.info("%s", cfg)
+    trainer = Trainer(cfg, device=args.device)
+    summary = dict(trainer.run(), device=str(trainer.device),
+                   config=dataclasses.asdict(cfg))
+    print(json.dumps({k: v for k, v in summary.items() if k != "config"}))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(summary, f, indent=2)
+    return summary
+
+
+if __name__ == "__main__":
+    main()

@@ -1,8 +1,9 @@
 """Truncation metrics and cut decoding in PyTorch.
 
 The counterpart of the JAX package's `utils/metrics.py` for what serving
-needs: metric curves at every cut position from one cumulative sum, the
-metric at a chosen cut, and the decoding rules. Conventions are the same:
+and training need: metric curves at every cut position from one cumulative
+sum, the reward matrices of the losses, the metric at a chosen cut, and the
+decoding rules. Conventions are the same:
 `labels` is a (B, L) binary relevance matrix and `k` counts documents
 (1-based), so column j of a curve is k = j + 1.
 """
@@ -45,6 +46,15 @@ def dcg_curve(labels: torch.Tensor, penalty: float = -1.0) -> torch.Tensor:
     coef = dcg_discount(labels.shape[-1], device=labels.device)
     gains = torch.where(labels == 1.0, 1.0, penalty) / coef
     return torch.cumsum(gains, dim=-1)
+
+
+def reward_matrix(labels: torch.Tensor, metric: str = "f1") -> torch.Tensor:
+    """(B, L) rewards r[i, j] = metric(labels[i], k = j + 1)."""
+    if metric == "f1":
+        return f1_curve(labels)
+    if metric == "dcg":
+        return dcg_curve(labels)
+    raise ValueError(f"unknown reward metric: {metric!r}")
 
 
 def _gather_at_k(curve: torch.Tensor, ks: torch.Tensor) -> torch.Tensor:

@@ -14,9 +14,11 @@ import numpy as np
 import pytest
 import torch
 
-from rlt_tpu_torch.config import TrainConfig
+from rlt_tpu_torch.config import TrainConfig, apply_preset
+from rlt_tpu_torch.data import synthetic_dataset
 from rlt_tpu_torch.infer import Predictor
-from rlt_tpu_torch.ops import attention, lstm
+from rlt_tpu_torch.ops import attention, lstm, plain_ops
+from rlt_tpu_torch.train import Trainer, train_step
 
 # f32 on both sides. The kernel sums each step's 128-term dot products in
 # another order than the plain version's matrix product, and the LSTM
@@ -26,6 +28,21 @@ LSTM_ATOL = 1e-4
 ATTN_ATOL = 1e-5
 # Cut distributions of the whole model: softmaxes over 300 positions.
 DIST_ATOL = 1e-5
+# K2' against the plain loop, relative to the gradient's max abs: the
+# backward carries dh and dc through up to 300 steps, and dW_hh^T sums up to
+# 76,500 (t, b) terms in another order (split chunks against a per-step sum).
+LSTM_BWD_REL = 1e-4
+# K6' against the plain version, relative to the gradient's max abs: sums of
+# 300 products of 64-term dot products, taken in another order.
+ATTN_BWD_REL = 1e-5
+# One MMOECut training step through the kernels against the plain versions
+# on the card, same weights and masks: the loss within 1e-5 relative; each
+# parameter's gradient within 1e-3 of its max abs (the LSTM's 300-step
+# chains, forward and backward, feed every gradient) plus 1e-7: a softmax
+# tower's bias has zero gradient by algebra, where both give rounding noise.
+STEP_LOSS_REL = 1e-5
+STEP_GRAD_REL = 1e-3
+STEP_GRAD_FLOOR = 1e-7
 
 
 @pytest.fixture
@@ -48,6 +65,16 @@ def _lstm_inputs(seed, length, batch, hidden):
 def _qkv(seed, shape):
     rng = np.random.default_rng(seed)
     return [rng.normal(size=shape).astype(np.float32) for _ in range(3)]
+
+
+def _max_rel_err(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+
+def _streams(seed, n, device):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(-2**31, 2**31, size=n, dtype=np.int64)
+                            .astype(np.int32)).to(device)
 
 
 # batches that give the kernel 1, 2 and 4 rows per block, with ragged tails
@@ -74,6 +101,103 @@ def test_attention_kernel_matches_plain_on_card(cuda_device, n, length):
     want_o, want_lse = attention.attention_packed_plain(q, k, v, 4, 2)
     torch.testing.assert_close(o, want_o, rtol=0, atol=ATTN_ATOL)
     torch.testing.assert_close(lse, want_lse, rtol=0, atol=ATTN_ATOL)
+
+
+@pytest.mark.parametrize("length,batch", [(16, 3), (300, 63), (300, 256), (40, 301),
+                                          (1, 5)])
+def test_lstm_bwd_kernel_matches_plain_on_card(cuda_device, length, batch):
+    xw, w_hh_t = (torch.from_numpy(a).to(cuda_device)
+                  for a in _lstm_inputs(10, length, batch, 128))
+    hs, cs = lstm.lstm_recurrence_plain(xw, w_hh_t)
+    dho = torch.from_numpy(np.random.default_rng(11).normal(
+        size=tuple(hs.shape)).astype(np.float32)).to(cuda_device)
+    before = lstm.LSTM_BWD.launches
+    dxw, dw = lstm.lstm_bwd(xw, w_hh_t, hs, cs, dho)
+    torch.cuda.synchronize()
+    assert lstm.LSTM_BWD.launches == before + 1
+    want_dxw, want_dw = lstm.lstm_bwd_plain(xw, w_hh_t, hs, cs, dho)
+    assert _max_rel_err(dxw, want_dxw) <= LSTM_BWD_REL
+    if length > 1:
+        assert _max_rel_err(dw, want_dw) <= LSTM_BWD_REL
+    else:
+        assert torch.equal(dw, torch.zeros_like(dw))
+
+
+@pytest.mark.parametrize("n,length,heads", [(2, 128, 4), (3, 37, 6), (9, 300, 4)])
+def test_attention_dropout_kernel_matches_plain_on_card(cuda_device, n, length, heads):
+    """Same streams on both sides: the kernel's keep mask is the plain
+    version's, and at rate 0 the streams change nothing."""
+    q, k, v = (torch.from_numpy(a).to(cuda_device)
+               for a in _qkv(12, (n, length, heads * 64)))
+    streams = _streams(13, n, cuda_device)
+    o, lse = attention.fused_attention_packed(q, k, v, heads=heads, pack=2,
+                                              dropout_rate=0.1, streams=streams)
+    want_o, want_lse = attention.attention_packed_plain(q, k, v, heads, 2, 0.1, streams)
+    torch.testing.assert_close(o, want_o, rtol=0, atol=ATTN_ATOL)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=ATTN_ATOL)
+    o0, _ = attention.fused_attention_packed(q, k, v, heads=heads, pack=2,
+                                             dropout_rate=0.0, streams=streams)
+    o_none, _ = attention.fused_attention_packed(q, k, v, heads=heads, pack=2)
+    assert torch.equal(o0, o_none)
+    assert not torch.allclose(o, o_none, atol=1e-3)
+
+
+@pytest.mark.parametrize("n,length,heads,rate", [(2, 128, 4, 0.0), (3, 37, 6, 0.1),
+                                                 (9, 300, 4, 0.1), (4, 64, 4, 0.4)])
+def test_attention_bwd_kernel_matches_plain_on_card(cuda_device, n, length, heads, rate):
+    q, k, v = (torch.from_numpy(a).to(cuda_device)
+               for a in _qkv(14, (n, length, heads * 64)))
+    streams = _streams(15, n, cuda_device)
+    o, lse = attention.attention_packed_plain(q, k, v, heads, 2, rate, streams)
+    do = torch.from_numpy(np.random.default_rng(16).normal(
+        size=tuple(q.shape)).astype(np.float32)).to(cuda_device)
+    before = attention.ATTENTION_PACKED_BWD.launches
+    got = attention.attention_packed_bwd(q, k, v, o, lse, do, heads, 2, rate, streams)
+    torch.cuda.synchronize()
+    assert attention.ATTENTION_PACKED_BWD.launches == before + 1
+    want = attention.attention_packed_bwd_plain(q, k, v, o, lse, do, heads, 2, rate,
+                                                streams)
+    for g, w in zip(got, want):
+        assert _max_rel_err(g, w) <= ATTN_BWD_REL
+
+
+def _step_grads(cfg, x, y, valid, device, seed):
+    """Loss and gradients of one train step from the seeded initial weights."""
+    trainer = Trainer(cfg, data=synthetic_dataset(num_queries=10, seq_len=cfg.seq_len,
+                                                  num_features=cfg.input_size),
+                      device=device)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    loss, _, _ = train_step(trainer.model, trainer.optimizer, trainer.criterion,
+                            cfg.model_name, x, y, valid, generator)
+    return loss, {n: p.grad.clone() for n, p in trainer.model.named_parameters()}
+
+
+def test_training_step_on_card_matches_plain(cuda_device):
+    """One MMOECut training step at robust04 width (dropout 0.1) through the
+    four kernels against the same step through the plain versions on the
+    card: same weights, batch and generator seed, so the same masks."""
+    cfg = apply_preset(TrainConfig(model_name="mmoecut", retrieve_data="robust04"))
+    rng = np.random.default_rng(17)
+    x = torch.from_numpy(rng.normal(size=(8, cfg.seq_len, cfg.input_size))
+                         .astype(np.float32)).to(cuda_device)
+    y = torch.from_numpy((rng.random((8, cfg.seq_len)) < 0.2).astype(np.float32)).to(cuda_device)
+    valid = torch.ones(8, device=cuda_device)
+    counts = [k.launches for k in (lstm.LSTM_FWD, lstm.LSTM_BWD,
+                                   attention.ATTENTION_PACKED_FWD,
+                                   attention.ATTENTION_PACKED_BWD)]
+    loss, grads = _step_grads(cfg, x, y, valid, cuda_device, 18)
+    torch.cuda.synchronize()
+    assert [k.launches - c for k, c in zip((lstm.LSTM_FWD, lstm.LSTM_BWD,
+                                            attention.ATTENTION_PACKED_FWD,
+                                            attention.ATTENTION_PACKED_BWD),
+                                           counts)] == [4, 4, 1, 1]
+    with plain_ops():
+        want_loss, want_grads = _step_grads(cfg, x, y, valid, cuda_device, 18)
+    assert torch.isfinite(loss) and abs(float(loss - want_loss)) <= STEP_LOSS_REL * abs(float(want_loss))
+    for name, g in grads.items():
+        assert torch.isfinite(g).all(), name
+        w = want_grads[name]
+        assert (g - w).abs().max() <= STEP_GRAD_REL * w.abs().max() + STEP_GRAD_FLOOR, name
 
 
 def test_kernel_wrappers_reject_on_card(cuda_device):

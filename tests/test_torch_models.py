@@ -129,7 +129,7 @@ def test_transformer_encoder_layer_matches_jax():
     jax_mod = jax_layers.TransformerEncoderLayer(d_model=256, n_head=4, dropout=0.1)
     params = jax_mod.init(jax.random.PRNGKey(3), jnp.asarray(x))["params"]
     want = jax_mod.apply({"params": params}, jnp.asarray(x), deterministic=True)
-    port = layers.TransformerEncoderLayer(256, 4, 2048, experts=1)
+    port = layers.TransformerEncoderLayer(256, 4, 2048, experts=1).eval()
     stacked = jax.tree.map(lambda a: np.asarray(a)[None], params)
     port.load_state_dict(params_from_jax(stacked))
     with torch.no_grad():
@@ -139,13 +139,19 @@ def test_transformer_encoder_layer_matches_jax():
 
 
 def test_unported_models_and_training_forward_raise():
+    """Unported models still raise; MMOECut's training forward now runs (a
+    fresh module is in training mode), given a generator for its masks."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build_model("attncut", seq_len=16, input_size=3, dropout=0.1)
     with pytest.raises(ValueError, match="unknown model"):
         build_model("nope", seq_len=16, input_size=3, dropout=0.1)
     model = build_model("mmoecut", seq_len=16, input_size=3, dropout=0.1)
-    with pytest.raises(NotImplementedError, match="eval"):
-        model(torch.zeros(1, 16, 3))  # a fresh module is in training mode
+    assert model.training
+    heads = model(torch.zeros(1, 16, 3), torch.Generator().manual_seed(0))
+    assert [tuple(h.shape) for h in heads] == [(1, 16, 1)] * 3
+    assert all(torch.isfinite(h).all() for h in heads)
+    heads[-1].sum().backward()
+    assert model.w_gates.grad is not None
 
 
 def test_seeded_init_is_deterministic():

@@ -128,14 +128,16 @@ def test_predictor_loads_a_state_dict_file(tmp_path):
 
 
 def test_port_imports_no_jax_and_needs_a_card():
-    """In a fresh interpreter: the port pulls in no jax, flax, optax or
-    rlt_tpu module, and a Predictor with no device refuses to run without
-    CUDA instead of moving to the CPU."""
+    """In a fresh interpreter: the port and chip_smoke.py pull in no jax,
+    flax, optax or rlt_tpu module, and a Predictor with no device refuses
+    to run without CUDA instead of moving to the CPU."""
     code = """
 import sys
 import torch
 import rlt_tpu_torch, rlt_tpu_torch.serve, rlt_tpu_torch.infer
 import rlt_tpu_torch.ops, rlt_tpu_torch.utils.convert, rlt_tpu_torch.data
+import rlt_tpu_torch.train, rlt_tpu_torch.utils.losses, rlt_tpu_torch.data.batching
+import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'rlt_tpu'))
 assert not bad, bad
