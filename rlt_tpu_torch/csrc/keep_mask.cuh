@@ -1,5 +1,6 @@
-// keep_mask: the counter-based dropout bits shared by the packed attention
-// kernels (attention_packed_fwd.cu, attention_packed_bwd.cu).
+// keep_mask: the counter-based dropout bits shared by the attention kernels
+// (attention_packed_fwd.cu, attention_packed_bwd.cu, attention_fwd.cu,
+// attention_bwd.cu).
 //
 // Replaces rlt_tpu/ops/attention.py::keep_mask (with _streams and
 // _group_stream), which the TPU kernels evaluate inside their bodies so that
@@ -12,10 +13,11 @@
 // all in uint32 arithmetic. The threshold is computed on the host in double,
 // as the JAX package computes it, and handed to the kernel.
 //
-// The TPU kernel lays the `pack` heads of a group side by side in one
+// The packed TPU kernel lays the `pack` heads of a group side by side in one
 // (L, pack * L) score tile: head h's score (i, j) is element
 // (i, (h % pack) * L + j) of group h / pack, whose stream is
-// group_stream(stream_of_row, h / pack).
+// group_stream(stream_of_row, h / pack). The per-slice kernel's tile is the
+// slice's own (L, L) scores: element i * L + j of the slice's stream.
 
 #pragma once
 

@@ -1,8 +1,9 @@
 """Shared layers of the port, with torch-matching semantics and layouts.
 
 The counterpart of the JAX package's `models/layers.py` for what MMOECut
-serving and training run: `TorchLinear`, the stacked bidirectional `LSTM`
-over the ranked list, multi-head `SelfAttention`, the post-LayerNorm
+and PLECut serving and training run: `TorchLinear`, the stacked
+bidirectional `LSTM` over the ranked list, multi-head `SelfAttention`
+(head-packed or per-slice attention by head width), the post-LayerNorm
 `TransformerEncoderLayer` (eps 1e-5, ReLU FFN of width 2048),
 `TransformerEncoder`, the towers with the logit-space expert mix, and the
 dropout of the training forward.
@@ -38,6 +39,7 @@ from torch import nn
 
 from rlt_tpu_torch.ops.attention import (
     expert_streams,
+    fused_attention,
     fused_attention_packed,
     packed_group_size,
 )
@@ -223,23 +225,25 @@ class SelfAttention(nn.Module):
     """E stacked multi-head self-attentions: (B, L, D) or (E, B, L, D) ->
     (E, B, L, D).
 
-    torch's in_proj rows are head-major, so the raw q, k, v projections
-    (E*B, L, D) are already the head-packed layout the attention kernels
-    read, and their output feeds out_proj with no head split or concat. In
-    training, dropout on the softmax weights runs inside the kernels from
+    Thin heads (`packed_group_size` gives a pack, MMOECut's dh = 64): torch's
+    in_proj rows are head-major, so the raw q, k, v projections (E*B, L, D)
+    are already the head-packed layout the packed kernels read, and their
+    output feeds out_proj with no head split or concat. Other heads
+    (PLECut's dh = 128): in_proj is read as (E, 3, H, dh, D) and the
+    projections land in the per-slice kernels' (E*B, H, L, dh) layout, as
+    the JAX package projects them; out_proj contracts (H, dh) as (D, H, dh).
+    In training, dropout on the softmax weights runs inside the kernels from
     one seed per expert, drawn in [0, 2^31 - 1) as the JAX package draws it."""
 
     def __init__(self, d_model: int, n_head: int, experts: int = 1,
                  generator: torch.Generator | None = None, dropout: float = 0.0):
         super().__init__()
+        if d_model % n_head:
+            raise ValueError(f"d_model={d_model} not divisible by n_head={n_head}")
         self.d_model = d_model
         self.n_head = n_head
         self.dropout = dropout
         self.pack = packed_group_size(d_model, n_head)
-        if self.pack is None:
-            raise NotImplementedError(
-                f"d_model={d_model} with {n_head} heads needs the per-slice "
-                "attention kernel, which is not ported yet (ROADMAP.md)")
         xavier = math.sqrt(6.0 / (3 * d_model + d_model))
         self.in_proj_weight = _uniform((experts, 3 * d_model, d_model), xavier, generator)
         self.in_proj_bias = nn.Parameter(torch.zeros(experts, 3 * d_model))
@@ -253,19 +257,37 @@ class SelfAttention(nn.Module):
         experts = self.in_proj_weight.shape[0]
         batch, length = x.shape[-3:-1]
         w, b = self.in_proj_weight, self.in_proj_bias
+        heads = self.n_head
         rate = self.dropout if self.training else 0.0
         streams = None
         if rate > 0.0:
             seeds = torch.randint(0, 2**31 - 1, (experts,),
                                   generator=_generator(generator), device=x.device)
-            streams = expert_streams(seeds, batch)
+            streams = expert_streams(seeds, batch if self.pack else batch * heads)
+
+        if self.pack is None:
+            dh = d // heads
+            w3 = w.reshape(experts, 3, heads, dh, d)
+            b3 = b.reshape(experts, 3, 1, heads, 1, dh)
+            eq = "bld,ehkd->ebhlk" if x.dim() == 3 else "ebld,ehkd->ebhlk"
+
+            def proj(i):  # -> (E*B, H, L, dh), contiguous
+                y = torch.einsum(eq, x, w3[:, i]) + b3[:, i]
+                return y.reshape(experts * batch, heads, length, dh).contiguous()
+
+            o, _ = fused_attention(proj(0), proj(1), proj(2), dropout_rate=rate,
+                                   streams=streams)
+            out_w = self.out_proj_weight.reshape(experts, d, heads, dh)
+            return (torch.einsum("ebhlk,edhk->ebld",
+                                 o.reshape(experts, batch, heads, length, dh), out_w)
+                    + self.out_proj_bias[:, None, None])
 
         def proj(i):  # (E, B, L, D) -> (E*B, L, D), contiguous
             y = _stacked_linear(x, w[:, i * d:(i + 1) * d], b[:, i * d:(i + 1) * d])
             return y.reshape(experts * batch, length, d)
 
         o, _ = fused_attention_packed(proj(0), proj(1), proj(2),
-                                      heads=self.n_head, pack=self.pack,
+                                      heads=heads, pack=self.pack,
                                       dropout_rate=rate, streams=streams)
         return _stacked_linear(o.reshape(experts, batch, length, d),
                                self.out_proj_weight, self.out_proj_bias)

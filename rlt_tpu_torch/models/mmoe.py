@@ -1,15 +1,17 @@
-"""MMOECut, the multi-gate mixture-of-experts truncation model, in PyTorch.
+"""Mixture-of-experts truncation models in PyTorch: MMOECut and PLECut.
 
-The counterpart of the JAX package's `models/mmoe.py::MMOECut`: a 2-layer
-BiLSTM pre-encoding of the ranked list, E transformer-encoder experts run as
-one stacked (E, B, L, D) computation (the JAX package's `nn.vmap` over
-experts; here a leading expert axis on every expert weight), per-task
-softmax gates from one (B, F) x (T, F, E) contraction over the flattened
-BiLSTM output (F = 2 * 128 * L, so the model is specialised to L), and
-towers that mix the experts in logit space. The training forward
+The counterparts of the JAX package's `models/mmoe.py::MMOECut` and
+`::PLECut`: a 2-layer BiLSTM pre-encoding of the ranked list, E
+transformer-encoder experts run as one stacked (E, B, L, D) computation (the
+JAX package's `nn.vmap` over experts; here a leading expert axis on every
+expert weight), softmax gates over the flattened BiLSTM output
+(F = 2 * 128 * L, so the models are specialised to L), and towers that mix
+the experts in logit space. MMOECut gates every task over all experts with
+one (B, F) x (T, F, E) contraction; PLECut gates each of its three fixed
+towers over its own subset of the three experts. The training forward
 (`model.train()`) applies dropout in the experts and draws every mask from
-the `torch.Generator` passed to `forward`. MOECut and PLECut are not ported
-yet (ROADMAP.md).
+the `torch.Generator` passed to `forward`. MOECut is not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -96,3 +98,51 @@ class MMOECut(nn.Module):
         gates = torch.softmax(torch.einsum("bf,tfe->tbe", flat, self.w_gates), dim=-1)
         return [getattr(self, name)(experts_o, gates=gates[t])
                 for t, name in enumerate(self.tower_names)]
+
+
+class PLECut(nn.Module):
+    """PLE-style expert-subset gating (reference PLECut.py:56-104): three
+    experts with two heads each (dh = 128 at d_model 256, so the per-slice
+    attention kernels), and three fixed towers, class / rerank / cut, whose
+    gates `w_gate_t` mix the experts {0, 1}, {1, 2} and {0, 1, 2}. Returns
+    the three heads as (B, L, 1) tensors; the last is the cut distribution.
+    In training mode with dropout above 0, `forward` needs a
+    `torch.Generator` on the input's device for the dropout masks."""
+
+    # each tower's experts, as a slice of the expert axis
+    SUBSETS = (slice(0, 2), slice(1, 3), slice(0, 3))
+    TOWERS = (("tower_class", TowerClass), ("tower_rerank", TowerRerank),
+              ("tower_cut", TowerCut))
+
+    def __init__(self, seq_len: int = 300, input_size: int = 3,
+                 encoding_size: int = 128, d_model: int = 256, n_head: int = 2,
+                 num_layers: int = 1, dropout: float = 0.1, seed: int = 0):
+        super().__init__()
+        if d_model != 2 * encoding_size:
+            raise ValueError(f"d_model={d_model} must be twice the BiLSTM "
+                             f"encoding_size={encoding_size}")
+        g = torch.Generator().manual_seed(seed)
+        self.pre_encoding = LSTM(input_size, encoding_size, 2, generator=g)
+        self.experts = ExpertStack(3, d_model, n_head, num_layers, g, dropout)
+        feat = encoding_size * seq_len * 2
+        for t, subset in enumerate(self.SUBSETS):
+            w = torch.empty(feat, subset.stop - subset.start).normal_(generator=g)
+            self.register_parameter(f"w_gate_{t}", nn.Parameter(w))
+        for name, cls in self.TOWERS:
+            self.add_module(name, cls(d_model, g))
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> list[torch.Tensor]:
+        experts_in = self.pre_encoding(x)  # (B, L, 2H)
+        return self.heads(experts_in, self.experts(experts_in, generator))
+
+    def heads(self, experts_in: torch.Tensor,
+              experts_o: torch.Tensor) -> list[torch.Tensor]:
+        """Gates and towers: BiLSTM output (B, L, 2H) and expert outputs
+        (3, B, L, D) -> the three heads."""
+        flat = experts_in.reshape(experts_in.shape[0], -1)  # (B, 2*H*L)
+        outputs = []
+        for t, (subset, (name, _)) in enumerate(zip(self.SUBSETS, self.TOWERS)):
+            gate = torch.softmax(flat @ getattr(self, f"w_gate_{t}"), dim=-1)
+            outputs.append(getattr(self, name)(experts_o[subset], gates=gate))
+        return outputs

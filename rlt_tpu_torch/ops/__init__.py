@@ -4,12 +4,19 @@ import contextlib
 
 from rlt_tpu_torch.ops import attention, lstm
 from rlt_tpu_torch.ops.attention import (  # noqa: F401
+    ATTENTION_BWD,
+    ATTENTION_FWD,
     ATTENTION_PACKED_BWD,
     ATTENTION_PACKED_FWD,
+    attention_bwd,
+    attention_bwd_plain,
+    attention_fwd,
     attention_packed_bwd,
     attention_packed_bwd_plain,
     attention_packed_fwd,
     attention_packed_plain,
+    attention_plain,
+    fused_attention,
     fused_attention_packed,
     packed_group_size,
 )
@@ -25,12 +32,15 @@ from rlt_tpu_torch.ops.lstm import (  # noqa: F401
 
 # every kernel of the port, by the name chip_smoke.py and PERF.md use
 KERNELS = {"lstm_fwd": LSTM_FWD, "lstm_bwd": LSTM_BWD,
+           "attention_fwd": ATTENTION_FWD, "attention_bwd": ATTENTION_BWD,
            "attention_packed_fwd": ATTENTION_PACKED_FWD,
            "attention_packed_bwd": ATTENTION_PACKED_BWD}
 
 # each kernel's wrapper, by the same name, as (its module, its plain version)
 PLAIN_VERSIONS = {"lstm_fwd": (lstm, lstm_recurrence_plain),
                   "lstm_bwd": (lstm, lstm_bwd_plain),
+                  "attention_fwd": (attention, attention_plain),
+                  "attention_bwd": (attention, attention_bwd_plain),
                   "attention_packed_fwd": (attention, attention_packed_plain),
                   "attention_packed_bwd": (attention, attention_packed_bwd_plain)}
 

@@ -1,17 +1,31 @@
-"""Head-packed attention: CUDA kernels K5' (forward) and K6' (backward),
-their plain PyTorch versions, and the dropout mask they share.
+"""Attention ops: per-slice CUDA kernels K3' (forward) and K4' (backward),
+head-packed CUDA kernels K5' (forward) and K6' (backward), their plain
+PyTorch versions, and the dropout mask they share.
 
-The counterpart of the JAX package's `ops/attention.py::fused_attention_packed`
-and its custom_vjp. q, k, v are (N, L, D) with the H heads contiguous in the
-feature dim (D = H * dh): the raw output of torch's head-major in_proj, so no
-head split happens around the kernels. Each head computes
+Per-slice (`fused_attention`, the counterpart of the JAX package's
+`fused_attention` and its custom_vjp; PLECut's heads of dh = 128): q, k, v
+are (B, H, L, dh), the JAX layout, and every (batch, head) slice computes
+softmax(q k^T / sqrt(dh)) v on its own. lse comes back as (B * H, 1, L).
+Slice n = b * H + h has the dropout stream `streams[n]`, and its keep mask is
+`keep_mask(streams[n], (L, L), rate)`: score (i, j) at index i * L + j, with
+no head group. On a CUDA tensor the forward launches the kernel of
+`rlt_tpu_torch/csrc/attention_fwd.cu` and the backward that of
+`csrc/attention_bwd.cu` (dh = 128, float32, L <= 65535, both streaming key
+or query tiles); on a CPU tensor they run `attention_plain` and
+`attention_bwd_plain`.
+
+Head-packed (`fused_attention_packed`, the counterpart of the JAX package's
+`fused_attention_packed` and its custom_vjp; MMOECut's heads of dh = 64):
+q, k, v are (N, L, D) with the H heads contiguous in the feature dim
+(D = H * dh): the raw output of torch's head-major in_proj, so no head split
+happens around the kernels. Each head computes
 softmax(q_h k_h^T / sqrt(dh)) v_h; the log-sum-exp of every score row is
 returned beside o in the JAX layout (N, H / pack, L, pack), and the backward
 recomputes the probabilities from it.
 
 Dropout on the softmax weights uses the JAX package's counter-based mask
-(`keep_mask`, bit for bit): row n of the batch has the int32 stream
-`streams[n]`, head h belongs to group h // pack whose stream is
+(`keep_mask`, bit for bit). In the packed op, row n of the batch has the
+int32 stream `streams[n]`, head h belongs to group h // pack whose stream is
 `_group_stream(streams[n], h // pack)`, and its score (i, j) is element
 (i, (h % pack) * L + j) of the group's (L, pack * L) tile. The JAX package
 draws one seed per call and takes seed + n as row n's stream (`_streams`);
@@ -39,6 +53,14 @@ import torch
 
 from rlt_tpu_torch.ops.build import Kernel, ptr, stream_handle
 
+ATTENTION_FWD = Kernel(
+    "rlt_attention_fwd",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+    + [ctypes.c_float, ctypes.c_uint, ctypes.c_void_p])
+ATTENTION_BWD = Kernel(
+    "rlt_attention_bwd",
+    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 2
+    + [ctypes.c_float, ctypes.c_uint, ctypes.c_void_p])
 ATTENTION_PACKED_FWD = Kernel(
     "rlt_attention_packed_fwd",
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
@@ -49,6 +71,7 @@ ATTENTION_PACKED_BWD = Kernel(
     + [ctypes.c_float, ctypes.c_uint, ctypes.c_void_p])
 
 KERNEL_HEAD_DIM = 64
+SLICE_HEAD_DIM = 128
 _U32 = 0xFFFFFFFF
 
 
@@ -118,7 +141,12 @@ def _streams(seed, n: int) -> torch.Tensor:
 def expert_streams(seeds: torch.Tensor, batch: int) -> torch.Tensor:
     """Streams of a stacked (E * B) batch from one seed per expert: row
     e * B + b has seed_e + b, wrapped to int32, as the JAX package's
-    per-expert `_streams` give under its `nn.vmap` over experts."""
+    per-expert `_streams` give under its `nn.vmap` over experts.
+
+    The per-slice op takes `expert_streams(seeds, B * H)` for its stacked
+    (E * B, H) slices: slice (e, b, h) is row e * B * H + b * H + h and gets
+    seed_e + b * H + h, which is `_streams(seed_e, B * H)[b * H + h]`, the
+    stream the JAX package's `_fwd_pallas` gives that slice in expert e."""
     seeds = seeds.to(torch.int64)
     b = torch.arange(batch, dtype=torch.int64, device=seeds.device)
     return _wrap_int32(seeds[:, None] + b).reshape(-1).to(torch.int32)
@@ -146,9 +174,55 @@ def head_keep_mask(streams: torch.Tensor, heads: int, pack: int, length: int,
     return torch.cat(masks, dim=1)
 
 
+def slice_keep_mask(streams: torch.Tensor, length: int, rate: float) -> torch.Tensor:
+    """(N, L, L) keep mask of every slice's scores, as K3' and K4' evaluate
+    it: slice n's (L, L) tile on its own stream `streams[n]`."""
+    return keep_mask(streams.to(torch.int64), (length, length), rate)
+
+
 # ---------------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------------
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    dropout_rate: float = 0.0, streams: torch.Tensor | None = None):
+    """Explicit per-slice softmax attention: q, k, v (B, H, L, dh) -> (o
+    (B, H, L, dh), lse (B * H, 1, L)). With a rate above 0 the softmax
+    weights are dropped by `slice_keep_mask(streams, ...)` and the kept ones
+    divided by 1 - rate."""
+    batch, heads, length, dh = q.shape
+    s = q @ k.transpose(-1, -2) * (1.0 / math.sqrt(dh))
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    denom = e.sum(dim=-1, keepdim=True)
+    p = e / denom
+    if dropout_rate > 0.0:
+        keep = slice_keep_mask(streams, length, dropout_rate).reshape(p.shape)
+        p = torch.where(keep, p / (1.0 - dropout_rate), 0.0)
+    lse = (m + torch.log(denom)).reshape(batch * heads, 1, length)
+    return p @ v, lse
+
+
+def attention_bwd_plain(q, k, v, o, lse, do, dropout_rate: float = 0.0,
+                        streams: torch.Tensor | None = None):
+    """The JAX package's per-slice backward: p from lse, delta =
+    rowsum(do * o), ds = p (dp - delta) scale -> (dq, dk, dv), each
+    (B, H, L, dh)."""
+    batch, heads, length, dh = q.shape
+    scale = 1.0 / math.sqrt(dh)
+    p = torch.exp(q @ k.transpose(-1, -2) * scale
+                  - lse.reshape(batch, heads, length, 1))
+    dp = do @ v.transpose(-1, -2)
+    pd = p
+    if dropout_rate > 0.0:
+        keep = slice_keep_mask(streams, length, dropout_rate).reshape(p.shape)
+        inv = 1.0 / (1.0 - dropout_rate)
+        pd = torch.where(keep, p * inv, 0.0)
+        dp = torch.where(keep, dp * inv, 0.0)
+    delta = (do * o).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta) * scale
+    return ds @ k, ds.transpose(-1, -2) @ q, pd.transpose(-1, -2) @ do
+
 
 def _split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
     n, length, d = t.shape
@@ -221,25 +295,36 @@ def _check(q, k, v, heads: int, pack: int, dropout_rate: float, streams) -> None
         raise ValueError(f"feature dim {d} not divisible by heads={heads}")
     if pack < 1 or heads % pack:
         raise ValueError(f"heads={heads} not divisible by pack={pack}")
+    _check_rate(dropout_rate, streams, q.shape[0], q.device)
+
+
+def _check_rate(dropout_rate: float, streams, rows: int, device) -> None:
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout_rate must lie in [0, 1), got {dropout_rate}")
     if dropout_rate > 0.0:
         if streams is None:
             raise ValueError("a dropout rate above 0 needs the per-row int32 "
                              "streams")
-        if tuple(streams.shape) != (q.shape[0],) or streams.device != q.device:
-            raise ValueError(f"streams must be ({q.shape[0]},) on {q.device}, got "
+        if tuple(streams.shape) != (rows,) or streams.device != device:
+            raise ValueError(f"streams must be ({rows},) on {device}, got "
                              f"{tuple(streams.shape)} on {streams.device}")
 
 
-def _check_kernel_inputs(name: str, heads: int, tensors: dict) -> None:
+def _check_slices(q, k, v, dropout_rate: float, streams) -> None:
+    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"q, k, v must be equal (B, H, L, dh), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k, v must lie on one device")
+    _check_rate(dropout_rate, streams, q.shape[0] * q.shape[1], q.device)
+
+
+def _check_kernel_inputs(name: str, dh: int, kernel_dh: int, tensors: dict) -> None:
     if next(iter(tensors.values())).device.type != "cuda":
         raise ValueError(f"{name}: unsupported device "
                          f"{next(iter(tensors.values())).device}")
-    d = next(iter(tensors.values())).shape[-1]
-    if d // heads != KERNEL_HEAD_DIM:
-        raise ValueError(f"{name} kernel takes dh = {KERNEL_HEAD_DIM}, got "
-                         f"dh = {d // heads}")
+    if dh != kernel_dh:
+        raise ValueError(f"{name} kernel takes dh = {kernel_dh}, got dh = {dh}")
     for tname, t in tensors.items():
         if t.dtype != torch.float32:
             raise TypeError(f"{name} kernel takes float32 {tname}, got {t.dtype}")
@@ -264,7 +349,8 @@ def attention_packed_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, heads, pack, dropout_rate, streams)
     if q.device.type == "cpu":
         return attention_packed_plain(q, k, v, heads, pack, dropout_rate, streams)
-    _check_kernel_inputs("attention_packed_fwd", heads, {"q": q, "k": k, "v": v})
+    _check_kernel_inputs("attention_packed_fwd", q.shape[-1] // heads, KERNEL_HEAD_DIM,
+                         {"q": q, "k": k, "v": v})
     n, length, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(n, heads // pack, length, pack, device=q.device,
@@ -286,7 +372,7 @@ def attention_packed_bwd(q, k, v, o, lse, do, heads: int, pack: int,
     if q.device.type == "cpu":
         return attention_packed_bwd_plain(q, k, v, o, lse, do, heads, pack,
                                           dropout_rate, streams)
-    _check_kernel_inputs("attention_packed_bwd", heads,
+    _check_kernel_inputs("attention_packed_bwd", q.shape[-1] // heads, KERNEL_HEAD_DIM,
                          {"q": q, "k": k, "v": v, "o": o, "do": do, "lse": lse})
     n, length, d = q.shape
     if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape):
@@ -338,3 +424,77 @@ def fused_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if pack is None:
         pack = heads
     return AttentionPacked.apply(q, k, v, heads, pack, float(dropout_rate), streams)
+
+
+def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  dropout_rate: float = 0.0, streams: torch.Tensor | None = None):
+    """K3' on a CUDA tensor, `attention_plain` on a CPU tensor: (o (B, H, L,
+    dh), lse (B * H, 1, L) float32)."""
+    _check_slices(q, k, v, dropout_rate, streams)
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, dropout_rate, streams)
+    _check_kernel_inputs("attention_fwd", q.shape[-1], SLICE_HEAD_DIM,
+                         {"q": q, "k": k, "v": v})
+    batch, heads, length, _ = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty(batch * heads, 1, length, device=q.device, dtype=torch.float32)
+    s_ptr, _keep = _kernel_streams(streams, dropout_rate)
+    with torch.cuda.device(q.device):
+        ATTENTION_FWD(ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), s_ptr, batch * heads,
+                      length, dropout_rate, keep_threshold(dropout_rate),
+                      stream_handle(q.device))
+    return o, lse
+
+
+def attention_bwd(q, k, v, o, lse, do, dropout_rate: float = 0.0,
+                  streams: torch.Tensor | None = None):
+    """K4' on a CUDA tensor, `attention_bwd_plain` on a CPU tensor: (dq, dk,
+    dv), each (B, H, L, dh)."""
+    _check_slices(q, k, v, dropout_rate, streams)
+    if q.device.type == "cpu":
+        return attention_bwd_plain(q, k, v, o, lse, do, dropout_rate, streams)
+    _check_kernel_inputs("attention_bwd", q.shape[-1], SLICE_HEAD_DIM,
+                         {"q": q, "k": k, "v": v, "o": o, "do": do, "lse": lse})
+    batch, heads, length, _ = q.shape
+    if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape):
+        raise ValueError("o and do must have q's shape")
+    if tuple(lse.shape) != (batch * heads, 1, length):
+        raise ValueError(f"lse must be {(batch * heads, 1, length)}, got "
+                         f"{tuple(lse.shape)}")
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    delta = torch.empty(batch * heads, length, device=q.device, dtype=torch.float32)
+    s_ptr, _keep = _kernel_streams(streams, dropout_rate)
+    with torch.cuda.device(q.device):
+        ATTENTION_BWD(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse), s_ptr,
+                      ptr(dq), ptr(dk), ptr(dv), ptr(delta), batch * heads, length,
+                      dropout_rate, keep_threshold(dropout_rate),
+                      stream_handle(q.device))
+    return dq, dk, dv
+
+
+class Attention(torch.autograd.Function):
+    """Forward K3' (`attention_fwd`), backward K4' (`attention_bwd`); lse is
+    returned but takes no gradient. The two are looked up as module
+    attributes at each call."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, dropout_rate, streams):
+        o, lse = attention_fwd(q, k, v, dropout_rate, streams)
+        ctx.save_for_backward(q, k, v, o, lse, streams)
+        ctx.rate = dropout_rate
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse, streams = ctx.saved_tensors
+        dq, dk, dv = attention_bwd(q, k, v, o, lse, do.contiguous(), ctx.rate, streams)
+        return dq, dk, dv, None, None
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    dropout_rate: float = 0.0, streams: torch.Tensor | None = None):
+    """Per-slice attention, differentiable: q, k, v (B, H, L, dh) -> (o (B,
+    H, L, dh), lse (B * H, 1, L) float32). A dropout rate above 0 needs
+    `streams`, one int32 dropout stream per slice b * H + h."""
+    return Attention.apply(q, k, v, float(dropout_rate), streams)

@@ -1,6 +1,7 @@
 """Training harness and CLI of the port (the JAX package's `train.py`).
 
     python -m rlt_tpu_torch.train --model-name mmoecut            # on the card
+    python -m rlt_tpu_torch.train --model-name mtple              # on the card
     python -m rlt_tpu_torch.train --device cpu --retrieve-data mq2007
 
 One epoch is every train batch of a shuffled, padded batch plan, each an
@@ -9,14 +10,15 @@ optax's `add_decayed_weights -> scale_by_adam`), then the whole test split
 without dropout. Each train step decodes its cuts and scores F1/DCG on the
 pre-update forward, as the reference does, and an epoch reports every
 metric as the mean of its batch means. On the card the model runs through
-the kernels K1' and K2' (BiLSTM) and K5' and K6' (expert attention, with
-dropout inside); on the CPU (`--device cpu`) through their plain versions.
-The batch plans and every dropout mask come from one `torch.Generator` on
-the device, seeded from `--seed`; the initial weights from the model's own
-seeded initialisation or `--model-path`.
+the kernels K1' and K2' (BiLSTM) and the expert attention's pair, with
+dropout inside: K5' and K6' for MMOECut, K3' and K4' for PLECut; on the CPU
+(`--device cpu`) through their plain versions. The batch plans and every
+dropout mask come from one `torch.Generator` on the device, seeded from
+`--seed`; the initial weights from the model's own seeded initialisation or
+`--model-path`.
 
-Only MMOECut trains so far (its criterion, `mtcut_loss` with the fixed
-0.5/0.5 task weights). Not ported yet (ROADMAP.md): resume, the
+MMOECut and PLECut train so far (their criterion, `mtcut_loss` with the
+fixed 0.5/0.5 task weights). Not ported yet (ROADMAP.md): resume, the
 hyper-parameter search and population training, profiling, `--draw`, the
 metrics log directory, data and model parallelism, and the bf16 lane.
 """
@@ -59,16 +61,18 @@ def make_optimizer(params, lr: float, weight_decay: float) -> torch.optim.Adam:
 
 
 def make_criterion(cfg: config_lib.TrainConfig) -> Callable:
-    """criterion(output, labels, valid=...) -> scalar. MMOECut's is
-    `mtcut_loss` with the torch defaults 0.5/0.5 for the task weights, not
-    the preset's (the reference's run.py:90 passes none)."""
-    if cfg.model_name == "mmoecut":
-        return functools.partial(losses_lib.mtcut_loss, metric=cfg.criterion,
-                                 rerank_weight=0.5, classi_weight=0.5,
-                                 num_tasks=cfg.num_tasks)
+    """criterion(output, labels, valid=...) -> scalar. MMOECut's and
+    PLECut's is `mtcut_loss` with the torch defaults 0.5/0.5 for the task
+    weights, not the preset's (the reference's run.py:90 passes none);
+    PLECut's always with its three tasks, whatever `cfg.num_tasks` says."""
+    if cfg.model_name in ("mmoecut", "mtple"):
+        return functools.partial(
+            losses_lib.mtcut_loss, metric=cfg.criterion, rerank_weight=0.5,
+            classi_weight=0.5,
+            num_tasks=cfg.num_tasks if cfg.model_name == "mmoecut" else 3)
     raise NotImplementedError(
         f"training {cfg.model_name!r} is not ported yet: the port trains "
-        "mmoecut (ROADMAP.md)")
+        "mmoecut and mtple (ROADMAP.md)")
 
 
 def batch_metrics(model_name: str, output, y: torch.Tensor, valid: torch.Tensor):
@@ -219,7 +223,7 @@ class Trainer:
 
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="rlt_tpu_torch truncation model trainer (MMOECut)",
+        description="rlt_tpu_torch truncation model trainer (MMOECut, PLECut)",
         epilog="Not ported yet, so absent: --resume, --parameter-search and "
                "the other search flags, --population, --profile-dir, --draw, "
                "--log-dir, --loss-override, --data-parallel, --model-parallel "

@@ -24,7 +24,8 @@ from rlt_tpu_torch.train import Trainer, train_step
 # another order than the plain version's matrix product, and the LSTM
 # carries that difference through up to 300 steps of h and c.
 LSTM_ATOL = 1e-4
-# 64-term dot products and 300-term softmax sums in another order; o is O(1).
+# 64- or 128-term dot products and 300-term softmax sums in another order;
+# o is O(1).
 ATTN_ATOL = 1e-5
 # Cut distributions of the whole model: softmaxes over 300 positions.
 DIST_ATOL = 1e-5
@@ -32,11 +33,11 @@ DIST_ATOL = 1e-5
 # backward carries dh and dc through up to 300 steps, and dW_hh^T sums up to
 # 76,500 (t, b) terms in another order (split chunks against a per-step sum).
 LSTM_BWD_REL = 1e-4
-# K6' against the plain version, relative to the gradient's max abs: sums of
-# 300 products of 64-term dot products, taken in another order.
+# K6' and K4' against the plain version, relative to the gradient's max abs:
+# sums of 300 products of 64- or 128-term dot products, in another order.
 ATTN_BWD_REL = 1e-5
-# One MMOECut training step through the kernels against the plain versions
-# on the card, same weights and masks: the loss within 1e-5 relative; each
+# One MMOECut or PLECut training step through the kernels against the plain
+# versions on the card, same weights and masks: the loss within 1e-5 relative; each
 # parameter's gradient within 1e-3 of its max abs (the LSTM's 300-step
 # chains, forward and backward, feed every gradient) plus 1e-7: a softmax
 # tower's bias has zero gradient by algebra, where both give rounding noise.
@@ -161,6 +162,60 @@ def test_attention_bwd_kernel_matches_plain_on_card(cuda_device, n, length, head
         assert _max_rel_err(g, w) <= ATTN_BWD_REL
 
 
+# K3' and K4' at PLECut's shapes (N = 2 * 3 * 63 and 2 * 3 * 256 slices of
+# L = 300, whose last tile of 32 rows is part-filled), at a ragged L, at
+# whole tiles, and at an L beyond any one block's shared memory. (Not L = 1:
+# there o = v, so dq and dk are zero by algebra and a relative check
+# compares noise.)
+SLICE_SHAPES = [(63 * 3, 300), (256 * 3, 300), (5, 37), (3, 64), (2, 700)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("batch,length", SLICE_SHAPES)
+def test_slice_attention_kernel_matches_plain_on_card(cuda_device, batch, length, rate):
+    q, k, v = (torch.from_numpy(a).to(cuda_device)
+               for a in _qkv(19, (batch, 2, length, 128)))
+    streams = _streams(20, 2 * batch, cuda_device)
+    before = attention.ATTENTION_FWD.launches
+    o, lse = attention.fused_attention(q, k, v, rate, streams)
+    torch.cuda.synchronize()
+    assert attention.ATTENTION_FWD.launches == before + 1
+    want_o, want_lse = attention.attention_plain(q, k, v, rate, streams)
+    torch.testing.assert_close(o, want_o, rtol=0, atol=ATTN_ATOL)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=ATTN_ATOL)
+    if rate == 0.0:
+        o_none, _ = attention.fused_attention(q, k, v)
+        assert torch.equal(o, o_none)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("batch,length", SLICE_SHAPES)
+def test_slice_attention_bwd_kernel_matches_plain_on_card(cuda_device, batch, length,
+                                                          rate):
+    q, k, v = (torch.from_numpy(a).to(cuda_device)
+               for a in _qkv(21, (batch, 2, length, 128)))
+    streams = _streams(22, 2 * batch, cuda_device)
+    o, lse = attention.attention_plain(q, k, v, rate, streams)
+    do = torch.from_numpy(np.random.default_rng(23).normal(
+        size=tuple(q.shape)).astype(np.float32)).to(cuda_device)
+    before = attention.ATTENTION_BWD.launches
+    got = attention.attention_bwd(q, k, v, o, lse, do, rate, streams)
+    torch.cuda.synchronize()
+    assert attention.ATTENTION_BWD.launches == before + 1
+    want = attention.attention_bwd_plain(q, k, v, o, lse, do, rate, streams)
+    for g, w in zip(got, want):
+        assert _max_rel_err(g, w) <= ATTN_BWD_REL
+
+
+def test_slice_attention_rejects_on_card(cuda_device):
+    q = torch.zeros(1, 2, 8, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="dh = 128"):
+        attention.fused_attention(q, q, q)
+    q = torch.zeros(1, 2, 8, 128, device=cuda_device)[:, :, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        attention.fused_attention(q, q, q)
+
+
 def _step_grads(cfg, x, y, valid, device, seed):
     """Loss and gradients of one train step from the seeded initial weights."""
     trainer = Trainer(cfg, data=synthetic_dataset(num_queries=10, seq_len=cfg.seq_len,
@@ -172,25 +227,26 @@ def _step_grads(cfg, x, y, valid, device, seed):
     return loss, {n: p.grad.clone() for n, p in trainer.model.named_parameters()}
 
 
-def test_training_step_on_card_matches_plain(cuda_device):
-    """One MMOECut training step at robust04 width (dropout 0.1) through the
-    four kernels against the same step through the plain versions on the
-    card: same weights, batch and generator seed, so the same masks."""
-    cfg = apply_preset(TrainConfig(model_name="mmoecut", retrieve_data="robust04"))
+@pytest.mark.parametrize("model_name,attention_launches", [
+    ("mmoecut", [0, 0, 1, 1]), ("mtple", [1, 1, 0, 0])])
+def test_training_step_on_card_matches_plain(cuda_device, model_name, attention_launches):
+    """One training step at robust04 width (dropout 0.1) through the kernels
+    against the same step through the plain versions on the card: same
+    weights, batch and generator seed, so the same masks. MMOECut runs the
+    packed attention pair K5'/K6', PLECut the per-slice pair K3'/K4'."""
+    cfg = apply_preset(TrainConfig(model_name=model_name, retrieve_data="robust04"))
     rng = np.random.default_rng(17)
     x = torch.from_numpy(rng.normal(size=(8, cfg.seq_len, cfg.input_size))
                          .astype(np.float32)).to(cuda_device)
     y = torch.from_numpy((rng.random((8, cfg.seq_len)) < 0.2).astype(np.float32)).to(cuda_device)
     valid = torch.ones(8, device=cuda_device)
-    counts = [k.launches for k in (lstm.LSTM_FWD, lstm.LSTM_BWD,
-                                   attention.ATTENTION_PACKED_FWD,
-                                   attention.ATTENTION_PACKED_BWD)]
+    kernels = (lstm.LSTM_FWD, lstm.LSTM_BWD, attention.ATTENTION_FWD,
+               attention.ATTENTION_BWD, attention.ATTENTION_PACKED_FWD,
+               attention.ATTENTION_PACKED_BWD)
+    counts = [k.launches for k in kernels]
     loss, grads = _step_grads(cfg, x, y, valid, cuda_device, 18)
     torch.cuda.synchronize()
-    assert [k.launches - c for k, c in zip((lstm.LSTM_FWD, lstm.LSTM_BWD,
-                                            attention.ATTENTION_PACKED_FWD,
-                                            attention.ATTENTION_PACKED_BWD),
-                                           counts)] == [4, 4, 1, 1]
+    assert [k.launches - c for k, c in zip(kernels, counts)] == [4, 4] + attention_launches
     with plain_ops():
         want_loss, want_grads = _step_grads(cfg, x, y, valid, cuda_device, 18)
     assert torch.isfinite(loss) and abs(float(loss - want_loss)) <= STEP_LOSS_REL * abs(float(want_loss))

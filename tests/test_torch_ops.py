@@ -129,8 +129,7 @@ def test_packed_group_size_matches_jax(d, heads, want):
 def test_cpu_tensors_take_the_plain_version_without_counting():
     """A CPU tensor never reaches a kernel launcher, forward or backward:
     the counts stay put and no library is built."""
-    kernels = (lstm.LSTM_FWD, lstm.LSTM_BWD, attention.ATTENTION_PACKED_FWD,
-               attention.ATTENTION_PACKED_BWD)
+    kernels = list(ops.KERNELS.values())
     before = [k.launches for k in kernels]
     xw, w_hh_t = (torch.from_numpy(a).requires_grad_()
                   for a in _lstm_inputs(4, length=3, batch=2, hidden=32))
@@ -139,7 +138,11 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     o, _ = attention.fused_attention_packed(q, k, v, heads=2, pack=2, dropout_rate=0.1,
                                             streams=torch.tensor([1, 2], dtype=torch.int32))
     o.sum().backward()
-    assert xw.grad is not None and q.grad is not None
+    qs, ks, vs = (torch.from_numpy(a).requires_grad_() for a in _qkv(6, (1, 2, 8, 128)))
+    o, _ = attention.fused_attention(qs, ks, vs, dropout_rate=0.1,
+                                     streams=torch.tensor([3, 4], dtype=torch.int32))
+    o.sum().backward()
+    assert xw.grad is not None and q.grad is not None and qs.grad is not None
     assert [k.launches for k in kernels] == before
 
 

@@ -198,11 +198,14 @@ def test_fed_batch_plans_are_checked():
         data.plan(None, "test", np.zeros((3, 8)), np.ones((3, 8)))
 
 
-def test_make_criterion_covers_mmoecut_only():
-    crit = train.make_criterion(TrainConfig(model_name="mmoecut", num_tasks=2.1))
+@pytest.mark.parametrize("model_name,num_tasks", [("mmoecut", 2.1), ("mtple", 3)])
+def test_make_criterion_covers_the_ported_models(model_name, num_tasks):
+    """MMOECut's criterion follows the config's num_tasks, PLECut's keeps
+    its three; models not ported yet raise."""
+    crit = train.make_criterion(TrainConfig(model_name=model_name, num_tasks=2.1))
     assert crit.keywords == dict(metric="dcg", rerank_weight=0.5, classi_weight=0.5,
-                                 num_tasks=2.1)
-    with pytest.raises(NotImplementedError, match="mmoecut"):
+                                 num_tasks=num_tasks)
+    with pytest.raises(NotImplementedError, match=model_name):
         train.make_criterion(TrainConfig(model_name="attncut"))
 
 
