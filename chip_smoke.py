@@ -83,9 +83,12 @@ STEP_GRAD_FLOOR = 1e-7
 UPDATE_REL = 1e-2
 ZERO_GRAD_LEAVES = ("tower_rerank.linear.bias", "tower_cut.linear.bias")
 RATE = 0.1  # the drmm_tks preset's dropout for MMOECut and PLECut
-# H100 SXM peak rates: HBM3 bandwidth, and dense f32 without tensor cores
+# H100 SXM peak rates: HBM3 bandwidth, dense f32 without tensor cores, and
+# f32 products on the tensor cores in the 3xTF32 split (three dense TF32
+# products of 494.7 TFLOP/s per f32 product)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_3XTF32_FLOPS = 494.7e12 / 3
 
 
 def log(msg: str) -> None:
@@ -112,10 +115,20 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float,
+          peak_flops: float = PEAK_F32_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bounds(nbytes: float, flops: float) -> dict:
+    """bound_ms and bound_by at f32 FMA rates, and bound_tc_ms: the same
+    bytes and f32 operations with the products on the tensor cores in the
+    3xTF32 split (the attention kernels' products are all of their flops)."""
+    bound_ms, bound_by = bound(nbytes, flops)
+    return dict(bound_ms=bound_ms, bound_by=bound_by,
+                bound_tc_ms=bound(nbytes, flops, PEAK_3XTF32_FLOPS)[0])
 
 
 def max_errs(got, want) -> tuple[float, float]:
@@ -197,9 +210,8 @@ def check_attention(dev, rng) -> dict:
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(*heads4), iters=10)
         nbytes = 4 * (4 * n * SEQ_LEN * D_MODEL + n * HEADS * SEQ_LEN)
         flops = 4 * n * HEADS * SEQ_LEN * SEQ_LEN * dh
-        bound_ms, bound_by = bound(nbytes, flops)
         row = dict(n=n, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                   library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+                   library_ms=library_ms, **bounds(nbytes, flops))
         log("attention_packed_fwd " + json.dumps(row))
         rows.append(row)
     return {"rows": rows, "max_abs_err": max(r["max_abs_err"] for r in rows)}
@@ -289,18 +301,18 @@ def check_attention_dropout(dev, rng) -> dict:
                              iters=10)
         nbytes = 4 * (4 * n * SEQ_LEN * D_MODEL + n * HEADS * SEQ_LEN + n)
         flops = 4 * n * HEADS * SEQ_LEN * SEQ_LEN * dh
-        bound_ms, bound_by = bound(nbytes, flops)
         row = dict(n=n, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound_ms, bound_by=bound_by)
+                   **bounds(nbytes, flops))
         log("attention_packed_fwd dropout " + json.dumps(row))
         rows.append(row)
     return {"rows": rows, "max_abs_err": max(r["max_abs_err"] for r in rows)}
 
 
 def check_attention_bwd(dev, rng) -> dict:
-    """K6' against its plain version at rates 0 and 0.1, on K5''s o and lse.
-    Times are at rate 0.1, the training path's; library_ms is the backward
-    alone of f32 scaled_dot_product_attention without dropout."""
+    """K6' against its plain version at rates 0 and 0.1, on K5''s o and lse,
+    and a second launch at rate 0.1 bit-equal to the first. Times are at
+    rate 0.1, the training path's; library_ms is the backward alone of f32
+    scaled_dot_product_attention without dropout."""
     from rlt_tpu_torch.ops import attention
 
     pack = attention.packed_group_size(D_MODEL, HEADS)
@@ -325,6 +337,10 @@ def check_attention_bwd(dev, rng) -> dict:
         rel = max(e[1] for e in errs)
         require(rel <= ATTN_BWD_REL,
                 f"attention_packed_bwd N={n}: max rel err {rel} > {ATTN_BWD_REL}")
+        again = attention.attention_packed_bwd(q, k, v, o, lse, do, HEADS, pack, RATE,
+                                               streams)
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"attention_packed_bwd N={n}: two launches on the same inputs differ")
         ms = cuda_ms(lambda: attention.attention_packed_bwd(q, k, v, o, lse, do, HEADS, pack,
                                                             RATE, streams), iters=10)
         plain_ms = cuda_ms(lambda: attention.attention_packed_bwd_plain(
@@ -337,25 +353,23 @@ def check_attention_bwd(dev, rng) -> dict:
                                                          retain_graph=True), iters=10)
         nbytes = 4 * (8 * n * SEQ_LEN * D_MODEL + n * HEADS * SEQ_LEN + n)
         flops = 10 * n * SEQ_LEN * D_MODEL * SEQ_LEN
-        bound_ms, bound_by = bound(nbytes, flops)
         row = dict(n=n, max_abs_err=max(e[0] for e in errs), max_rel_err=rel, ms=ms,
-                   plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                   bound_by=bound_by)
+                   plain_ms=plain_ms, library_ms=library_ms, **bounds(nbytes, flops))
         log("attention_packed_bwd " + json.dumps(row))
         rows.append(row)
     return {"rows": rows, "max_abs_err": max(r["max_abs_err"] for r in rows)}
 
 
-def slice_bound(n: int, backward: bool) -> tuple[float, str]:
-    """bound_ms of K3' (forward) or K4' (backward) on n (row, head) slices
+def slice_bound(n: int, backward: bool) -> dict:
+    """`bounds` of K3' (forward) or K4' (backward) on n (row, head) slices
     of PLECut's (L = 300, dh = 128) attention, with dropout streams: the
     forward reads q, k, v and writes o and lse, with four L x L x dh
     products' flops (scores and PV); the backward reads q, k, v, o, do and
     lse and writes dq, dk and dv, with five (scores, dp, dq, dk, dv)."""
     elems = n * SEQ_LEN * SLICE_DH
     if backward:
-        return bound(4 * (8 * elems + n * SEQ_LEN + n), 10 * elems * SEQ_LEN)
-    return bound(4 * (4 * elems + n * SEQ_LEN + n), 4 * elems * SEQ_LEN)
+        return bounds(4 * (8 * elems + n * SEQ_LEN + n), 10 * elems * SEQ_LEN)
+    return bounds(4 * (4 * elems + n * SEQ_LEN + n), 4 * elems * SEQ_LEN)
 
 
 def check_slice_attention(dev, rng) -> dict:
@@ -394,9 +408,8 @@ def check_slice_attention(dev, rng) -> dict:
                                iters=3, warmup=1)
             library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, dropout_p=rate), iters=10)
-            bound_ms, bound_by = slice_bound(n * SLICE_HEADS, backward=False)
             timed = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                         bound_ms=bound_ms, bound_by=bound_by)
+                         **slice_bound(n * SLICE_HEADS, backward=False))
             row.update(timed if rate == 0.0 else {"dropout_0.1": timed})
         row["max_abs_err"] = max(row["max_abs_err"], row["dropout_0.1"]["max_abs_err"])
         log("attention_fwd " + json.dumps(row))
@@ -438,10 +451,9 @@ def check_slice_attention_bwd(dev, rng) -> dict:
             out = F.scaled_dot_product_attention(*leaves, dropout_p=rate)
             library_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, do,
                                                              retain_graph=True), iters=10)
-            bound_ms, bound_by = slice_bound(n * SLICE_HEADS, backward=True)
             timed = dict(max_abs_err=max(e[0] for e in errs), max_rel_err=rel, ms=ms,
-                         plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                         bound_by=bound_by)
+                         plain_ms=plain_ms, library_ms=library_ms,
+                         **slice_bound(n * SLICE_HEADS, backward=True))
             row.update(timed if rate == RATE else {"rate_0": timed})
         row["max_abs_err"] = max(row["max_abs_err"], row["rate_0"]["max_abs_err"])
         log("attention_bwd " + json.dumps(row))
@@ -812,14 +824,17 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "library_call": library, "batch": BATCHES[0]}
+        if "bound_tc_ms" in row:  # the attention kernels, whose products are all their flops
+            entry["bound_tc_ms"] = row["bound_tc_ms"]
         for variant in ("dropout_0.1", "rate_0"):  # the per-slice kernels' other rate
             if variant in row:
                 entry[variant] = {k: row[variant][k] for k in (
-                    "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
+                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_tc_ms",
+                    "max_abs_err")}
         if name == "attention_packed_fwd":
             drop = attn_drop_res["rows"][0]
             entry["dropout_0.1"] = {k: drop[k] for k in (
-                "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_tc_ms", "max_abs_err")}
             entry["max_abs_err"] = max(res["max_abs_err"], attn_drop_res["max_abs_err"])
         kernels.append(entry)
     for model_name, res in train_res.items():

@@ -19,187 +19,187 @@
 // wherever the TPU kernel is finite, and stay finite where it is not.
 //
 // What bounds it on an H100: at the serving shapes (N = 3 * batch, L = 300,
-// 4 heads) the arithmetic is 4 N H L^2 dh flops, with 4 N L D floats of
-// traffic; at f32 FMA rates (no tensor cores: TF32 would break the 1e-5
-// parity) the operations bound it, and in this simple design the shared
-// memory reads feeding the FMAs bound it before they do.
+// 4 heads) the arithmetic is 4 N H L^2 dh flops against 4 N L D floats of
+// traffic, so operations bound it. The products run on the tensor cores as
+// mma.sync m16n8k8 tf32 in the 3xTF32 split of attention_mma.cuh, three
+// tf32 products per f32 product, which keeps the 1e-5 agreement with the
+// plain f32 version that one tf32 product would miss.
 //
-// Design: one block per (row n, head h, tile of kQTile query rows). The
-// block copies the head's whole K and V (L x 64 each, rows padded to
-// kPitch floats so float4 reads by neighbouring lanes hit distinct banks)
-// into shared memory, which holds L <= 333. Each warp takes kRowsPerWarp
-// query rows at a time: scores for its rows with lanes over keys (float4
-// dot products), the exact max and exp-sum by warp shuffles, then o with
-// lanes over the 64 output columns. Dropout multiplies each exp by its keep
-// bit and 1 / (1 - rate) after the sum is taken; at rate 0 that branch is
-// not taken and the kernel computes what it computed before dropout existed.
+// Design: one block of 4 warps per (row n, head h, 64 query rows), each
+// warp 16 of the rows. The block's Q tile sits in shared memory, and K and V
+// stream through a two-stage ring of 64-key tiles, all with row pitch 68 and
+// filled by cp.async, so the next tile's copy runs under this tile's
+// products. Per tile a warp takes S = Q K^T (16 x 64) into registers, masks
+// keys past L with -inf, raises its running row max (kept per head, as K3'
+// does) and rescales its running sum, and turns S into the weights
+// exp(s - m) (dropped and scaled where the mask says, after the sum is
+// taken). These feed P V as A fragments straight from the accumulator
+// (attention_mma.cuh); the tile's P V, taken in a fresh accumulator, is
+// added to the rescaled running O. At the end o = O / sum and lse = m +
+// log(sum). The block's 85 KiB of shared memory do not grow with L, two
+// blocks share an SM, and any 1 <= L <= 65535 is taken. Q's fragments are
+// split at each use rather than held split in registers: held, they made
+// ptxas spill 104 bytes a thread at three blocks per SM.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_mma.cuh"
 #include "keep_mask.cuh"
 
 namespace {
 
-constexpr int kDh = 64;
-constexpr int kWarps = 8;
-constexpr int kRowsPerWarp = 4;
-constexpr int kQTile = 64;
-constexpr int kPitch = kDh + 4;
+using rlt::kPackedDh;
+using rlt::kPackedPitch;
+using rlt::kPackedThreads;
+using rlt::kPackedTile;
+using rlt::kPackedTileFloats;
+using rlt::Split;
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
+constexpr int kStages = 2;
+constexpr size_t kSmem = sizeof(float) * (1 + kStages * 2) * kPackedTileFloats;
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-size_t smem_bytes(int length) {
-  return sizeof(float) * (2 * static_cast<size_t>(length) * kPitch +
-                          kWarps * kRowsPerWarp * (kDh + length));
-}
-
-// Dynamic shared memory: k_s[L][kPitch] | v_s[L][kPitch] |
-// q_s[kWarps][kRowsPerWarp][kDh] | p_s[kWarps][kRowsPerWarp][L].
-__global__ void __launch_bounds__(32 * kWarps)
+// Dynamic shared memory: q_s[64][kPackedPitch] |
+// kStages x (k_t[64][kPackedPitch] | v_t[64][kPackedPitch])
+__global__ void __launch_bounds__(kPackedThreads, 2)
 attn_packed_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
                        float* __restrict__ lse,
                        const int32_t* __restrict__ streams, int length,
                        int d_model, int pack, float scale, bool dropout,
                        uint32_t threshold, float inv_keep) {
-  extern __shared__ float smem[];
-  float* k_s = smem;
-  float* v_s = k_s + static_cast<size_t>(length) * kPitch;
-  float* q_s = v_s + static_cast<size_t>(length) * kPitch;
-  float* p_s = q_s + kWarps * kRowsPerWarp * kDh;
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);
+  float* smem = q_s + kPackedTileFloats;
 
   const int n = blockIdx.z;
   const int head = blockIdx.y;
-  const int q0 = blockIdx.x * kQTile;
-  const int q_end = min(q0 + kQTile, length);
-  const size_t base = static_cast<size_t>(n) * length * d_model + head * kDh;
-
-  // K and V of this head: 16 float4 per row
-  for (int i = threadIdx.x; i < length * (kDh / 4); i += blockDim.x) {
-    const int row = i / (kDh / 4);
-    const int c4 = (i - row * (kDh / 4)) * 4;
-    const size_t src = base + static_cast<size_t>(row) * d_model + c4;
-    *reinterpret_cast<float4*>(k_s + row * kPitch + c4) =
-        *reinterpret_cast<const float4*>(k + src);
-    *reinterpret_cast<float4*>(v_s + row * kPitch + c4) =
-        *reinterpret_cast<const float4*>(v + src);
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  float* qw = q_s + warp * kRowsPerWarp * kDh;
-  float* pw = p_s + static_cast<size_t>(warp) * kRowsPerWarp * length;
-  const int groups = gridDim.y / pack;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int w16 = (threadIdx.x / 32) * 16;  // the warp's rows in the block's tile
+  const int r0 = blockIdx.x * kPackedTile + w16;
+  const size_t base = static_cast<size_t>(n) * length * d_model + head * kPackedDh;
+  const int tiles = (length + kPackedTile - 1) / kPackedTile;
+
+  rlt::load_tile_async(q_s, q + base, blockIdx.x * kPackedTile, length, d_model);
+  rlt::load_tile_async(smem, k + base, 0, length, d_model);
+  rlt::load_tile_async(smem + kPackedTileFloats, v + base, 0, length, d_model);
+  rlt::cp_async_commit();
+
   // the head's keep mask: columns (head % pack) * L + j of its group's tile
   const uint32_t ncols = static_cast<uint32_t>(pack) * length;
   const uint32_t col0 = static_cast<uint32_t>(head % pack) * length;
   const uint32_t key =
       dropout ? rlt::stream_key(rlt::group_stream(streams[n], head / pack)) : 0u;
 
-  for (int r0 = q0 + warp * kRowsPerWarp; r0 < q_end;
-       r0 += kWarps * kRowsPerWarp) {
-    const int nr = min(kRowsPerWarp, q_end - r0);
-    for (int i = lane; i < kRowsPerWarp * kDh; i += 32) {
-      const int r = i / kDh;
-      const int d = i - r * kDh;
-      qw[i] = r < nr ? q[base + static_cast<size_t>(r0 + r) * d_model + d] : 0.0f;
-    }
-    __syncwarp();
+  // rows g and g + 8 of the warp: running max, this thread's share of the
+  // running sum, and the output accumulator (8 tiles of 8 columns)
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.0f, 0.0f};
+  float acc[8][4] = {};
 
-    // scores, lanes over keys
-    float m[kRowsPerWarp];
+  for (int it = 0; it < tiles; ++it) {
+    if (it + 1 < tiles) {
+      float* next = smem + ((it + 1) % kStages) * 2 * kPackedTileFloats;
+      rlt::load_tile_async(next, k + base, (it + 1) * kPackedTile, length, d_model);
+      rlt::load_tile_async(next + kPackedTileFloats, v + base, (it + 1) * kPackedTile,
+                           length, d_model);
+      rlt::cp_async_commit();
+      rlt::cp_async_wait<1>();
+    } else {
+      rlt::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* k_t = smem + (it % kStages) * 2 * kPackedTileFloats;
+    const float* v_t = k_t + kPackedTileFloats;
+    const int t0 = it * kPackedTile;
+
+    // S = Q K^T: 8 key columns per accumulator tile
+    float s[8][4] = {};
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) m[r] = -INFINITY;
-    for (int j = lane; j < length; j += 32) {
-      float s[kRowsPerWarp] = {};
-      const float4* kr = reinterpret_cast<const float4*>(k_s + j * kPitch);
-#pragma unroll 4
-      for (int d4 = 0; d4 < kDh / 4; ++d4) {
-        const float4 kk = kr[d4];
+    for (int kk = 0; kk < 8; ++kk) {
+      Split qa[4];
+      rlt::split_a_tile(qa, q_s, w16, kk, g, t);
 #pragma unroll
-        for (int r = 0; r < kRowsPerWarp; ++r) {
-          const float4 qq = reinterpret_cast<const float4*>(qw + r * kDh)[d4];
-          s[r] = fmaf(qq.x, kk.x, s[r]);
-          s[r] = fmaf(qq.y, kk.y, s[r]);
-          s[r] = fmaf(qq.z, kk.z, s[r]);
-          s[r] = fmaf(qq.w, kk.w, s[r]);
-        }
-      }
+      for (int j = 0; j < 8; ++j) rlt::mma3_b_rows(s[j], qa, k_t, 8 * j, 8 * kk, g, t);
+    }
+
+    // running max (keys past L are -inf; key t0 < L, so m_new is finite)
+    float m_new[2] = {m[0], m[1]}, corr[2];
 #pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        s[r] *= scale;
-        pw[r * length + j] = s[r];
-        m[r] = fmaxf(m[r], s[r]);
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = t0 + 8 * j + 2 * t + (e & 1);
+        s[j][e] = col < length ? s[j][e] * scale : -INFINITY;
+        m_new[e >> 1] = fmaxf(m_new[e >> 1], s[j][e]);
       }
     }
-    float sum[kRowsPerWarp];
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      m[r] = warp_max(m[r]);
-      sum[r] = 0.0f;
+    for (int r = 0; r < 2; ++r) {
+      m_new[r] = rlt::quad_max(m_new[r]);
+      corr[r] = expf(m[r] - m_new[r]);  // 0 on the first tile
+      l[r] *= corr[r];
+      m[r] = m_new[r];
     }
-    for (int j = lane; j < length; j += 32) {
+    // the tile's weights, summed before dropout
 #pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float e = expf(pw[r * length + j] - m[r]);
-        sum[r] += e;
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float w = expf(s[j][e] - m[r]);  // 0 past L
+        l[r] += w;
         if (dropout) {
-          const uint32_t index = static_cast<uint32_t>(r0 + r) * ncols + col0 + j;
-          pw[r * length + j] =
-              rlt::keep_element(index, key, threshold) ? e * inv_keep : 0.0f;
+          const int col = t0 + 8 * j + 2 * t + (e & 1);
+          const uint32_t index =
+              static_cast<uint32_t>(r0 + g + 8 * r) * ncols + col0 + col;
+          s[j][e] = rlt::keep_element(index, key, threshold) ? w * inv_keep : 0.0f;
         } else {
-          pw[r * length + j] = e;
+          s[j][e] = w;
         }
       }
     }
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) sum[r] = warp_sum(sum[r]);
-    __syncwarp();
 
-    // o = (sum_j e_j v_j) / sum, lanes over output columns lane, lane + 32
-    float a0[kRowsPerWarp] = {};
-    float a1[kRowsPerWarp] = {};
-    for (int j = 0; j < length; ++j) {
-      const float v0 = v_s[j * kPitch + lane];
-      const float v1 = v_s[j * kPitch + lane + 32];
+    // O = O corr + P V: the weights of keys 8 kk.. as A, V's rows in the
+    // relabelled order, the tile's product in a fresh accumulator
+    float pv[8][4] = {};
 #pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float p = pw[r * length + j];
-        a0[r] = fmaf(p, v0, a0[r]);
-        a1[r] = fmaf(p, v1, a1[r]);
-      }
+    for (int kk = 0; kk < 8; ++kk) {
+      Split pa[4];
+      rlt::split_acc(s[kk], pa);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) rlt::mma3_b_perm(pv[j], pa, v_t, 8 * kk, 8 * j, g, t);
     }
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      if (r < nr) {
-        const float inv = 1.0f / sum[r];
-        const size_t out = base + static_cast<size_t>(r0 + r) * d_model;
-        o[out + lane] = a0[r] * inv;
-        o[out + lane + 32] = a1[r] * inv;
-        if (lane == 0) {
-          const size_t li =
-              ((static_cast<size_t>(n) * groups + head / pack) * length + r0 + r) *
-                  pack + head % pack;
-          lse[li] = m[r] + logf(sum[r]);
-        }
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = fmaf(acc[j][e], corr[e >> 1], pv[j][e]);
+    }
+    __syncthreads();  // the stage is consumed before the next copy into it
+  }
+
+  const int groups = gridDim.y / pack;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float sum = rlt::quad_sum(l[r]);
+    const int row = r0 + g + 8 * r;
+    if (row < length) {
+      const float inv = 1.0f / sum;
+      float* out = o + base + static_cast<size_t>(row) * d_model + 2 * t;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<float2*>(out + 8 * j) =
+            make_float2(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
+      if (t == 0) {
+        const size_t li =
+            ((static_cast<size_t>(n) * groups + head / pack) * length + row) * pack +
+            head % pack;
+        lse[li] = m[r] + logf(sum);
       }
     }
-    __syncwarp();
   }
 }
 
@@ -209,37 +209,28 @@ attn_packed_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // contiguous float32 device arrays, q/k/v 16-byte aligned. With rate > 0,
 // `streams` holds N int32 dropout streams (one per row n) and `threshold`
 // the keep threshold of keep_mask.cuh; with rate == 0 neither is read.
-// Launches on `stream` and returns cudaGetLastError().
+// Takes 1 <= L <= 65535. Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int rlt_attention_packed_fwd(const void* q, const void* k,
                                         const void* v, void* o, void* lse,
                                         const void* streams, int n, int length,
                                         int heads, int pack, float rate,
                                         unsigned int threshold, void* stream) {
   if (n < 1 || length < 1 || heads < 1 || pack < 1 || heads % pack != 0 ||
-      n > 65535 || heads > 65535 || !(rate >= 0.0f && rate < 1.0f) ||
-      (rate > 0.0f && streams == nullptr))
+      n > 65535 || length > 65535 || heads > 65535 ||
+      !(rate >= 0.0f && rate < 1.0f) || (rate > 0.0f && streams == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  int device = 0;
-  int max_smem = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&max_smem,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  cudaError_t err = cudaFuncSetAttribute(attn_packed_fwd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = smem_bytes(length);
-  if (smem > static_cast<size_t>(max_smem))
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  err = cudaFuncSetAttribute(attn_packed_fwd_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((length + kQTile - 1) / kQTile, heads, n);
-  attn_packed_fwd_kernel<<<grid, 32 * kWarps, smem,
+  const dim3 grid((length + kPackedTile - 1) / kPackedTile, heads, n);
+  attn_packed_fwd_kernel<<<grid, kPackedThreads, kSmem,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
       static_cast<float*>(lse), static_cast<const int32_t*>(streams), length,
-      heads * kDh, pack, 1.0f / sqrtf(static_cast<float>(kDh)), rate > 0.0f,
-      threshold, 1.0f / (1.0f - rate));
+      heads * kPackedDh, pack, 1.0f / sqrtf(static_cast<float>(kPackedDh)),
+      rate > 0.0f, threshold, 1.0f / (1.0f - rate));
   return static_cast<int>(cudaGetLastError());
 }

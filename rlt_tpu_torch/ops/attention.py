@@ -38,10 +38,11 @@ while both are finite, and underflows a head whose scores sit far below
 another head of its group (tests/test_torch_ops.py pins this).
 
 On a CUDA tensor the forward launches the kernel of
-`rlt_tpu_torch/csrc/attention_packed_fwd.cu` (dh = 64, float32, L <= 333 on
-an H100) and the backward that of `csrc/attention_packed_bwd.cu` (L <= 321);
-each raises on anything else. On a CPU tensor they run
-`attention_packed_plain` and `attention_packed_bwd_plain`.
+`rlt_tpu_torch/csrc/attention_packed_fwd.cu` and the backward that of
+`csrc/attention_packed_bwd.cu` (dh = 64, float32, L <= 65535, both
+streaming 64-row tiles, their products on the tensor cores in the 3xTF32
+split that keeps float32 accuracy); each raises on anything else. On a CPU
+tensor they run `attention_packed_plain` and `attention_packed_bwd_plain`.
 """
 
 from __future__ import annotations

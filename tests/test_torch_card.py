@@ -92,7 +92,11 @@ def test_lstm_kernel_matches_plain_on_card(cuda_device, length, batch):
     torch.testing.assert_close(cs, want_cs, rtol=0, atol=LSTM_ATOL)
 
 
-@pytest.mark.parametrize("n,length", [(2, 128), (3, 37), (9, 300)])
+# K5' and K6' at ragged and whole 64-row tiles, at the main path's L = 300,
+# and at L = 700, beyond what a head's K and V (or Q and dO) held whole in
+# shared memory would allow
+@pytest.mark.parametrize("n,length", [(2, 128), (3, 37), (9, 300), (3, 64), (2, 700),
+                                      (4, 1)])
 def test_attention_kernel_matches_plain_on_card(cuda_device, n, length):
     q, k, v = (torch.from_numpy(a).to(cuda_device) for a in _qkv(8, (n, length, 256)))
     before = attention.ATTENTION_PACKED_FWD.launches
@@ -124,7 +128,8 @@ def test_lstm_bwd_kernel_matches_plain_on_card(cuda_device, length, batch):
         assert torch.equal(dw, torch.zeros_like(dw))
 
 
-@pytest.mark.parametrize("n,length,heads", [(2, 128, 4), (3, 37, 6), (9, 300, 4)])
+@pytest.mark.parametrize("n,length,heads", [(2, 128, 4), (3, 37, 6), (9, 300, 4),
+                                            (3, 64, 4), (2, 700, 4), (4, 1, 4)])
 def test_attention_dropout_kernel_matches_plain_on_card(cuda_device, n, length, heads):
     """Same streams on both sides: the kernel's keep mask is the plain
     version's, and at rate 0 the streams change nothing."""
@@ -143,8 +148,12 @@ def test_attention_dropout_kernel_matches_plain_on_card(cuda_device, n, length, 
     assert not torch.allclose(o, o_none, atol=1e-3)
 
 
+# (Not L = 1: there o = v, so dq and dk are zero by algebra and a relative
+# check compares noise.)
 @pytest.mark.parametrize("n,length,heads,rate", [(2, 128, 4, 0.0), (3, 37, 6, 0.1),
-                                                 (9, 300, 4, 0.1), (4, 64, 4, 0.4)])
+                                                 (9, 300, 4, 0.1), (4, 64, 4, 0.4),
+                                                 (3, 64, 4, 0.0), (3, 64, 4, 0.1),
+                                                 (2, 700, 4, 0.0), (2, 700, 4, 0.1)])
 def test_attention_bwd_kernel_matches_plain_on_card(cuda_device, n, length, heads, rate):
     q, k, v = (torch.from_numpy(a).to(cuda_device)
                for a in _qkv(14, (n, length, heads * 64)))
@@ -160,6 +169,21 @@ def test_attention_bwd_kernel_matches_plain_on_card(cuda_device, n, length, head
                                                 streams)
     for g, w in zip(got, want):
         assert _max_rel_err(g, w) <= ATTN_BWD_REL
+
+
+def test_packed_attention_bwd_kernel_is_deterministic_on_card(cuda_device):
+    """Every gradient element is summed by one thread in a fixed order, with
+    no atomics: two launches on the same inputs give the same bits."""
+    q, k, v = (torch.from_numpy(a).to(cuda_device) for a in _qkv(26, (9, 300, 256)))
+    streams = _streams(27, 9, cuda_device)
+    o, lse = attention.attention_packed_plain(q, k, v, 4, 2, 0.1, streams)
+    do = torch.from_numpy(np.random.default_rng(28).normal(
+        size=tuple(q.shape)).astype(np.float32)).to(cuda_device)
+    first = attention.attention_packed_bwd(q, k, v, o, lse, do, 4, 2, 0.1, streams)
+    second = attention.attention_packed_bwd(q, k, v, o, lse, do, 4, 2, 0.1, streams)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 # K3' and K4' at PLECut's shapes (N = 2 * 3 * 63 and 2 * 3 * 256 slices of
