@@ -419,9 +419,10 @@ def check_slice_attention(dev, rng) -> dict:
 
 def check_slice_attention_bwd(dev, rng) -> dict:
     """K4' against `attention_bwd_plain` at rates 0 and 0.1, on K3''s o and
-    lse. The main times are at rate 0.1, the training path's, with
-    library_ms the backward alone of f32 scaled_dot_product_attention with
-    dropout_p 0.1; `rate_0` holds the times without dropout."""
+    lse, and a second launch at rate 0.1 bit-equal to the first. The main
+    times are at rate 0.1, the training path's, with library_ms the backward
+    alone of f32 scaled_dot_product_attention with dropout_p 0.1; `rate_0`
+    holds the times without dropout."""
     from rlt_tpu_torch.ops import attention
 
     rows = []
@@ -443,6 +444,10 @@ def check_slice_attention_bwd(dev, rng) -> dict:
             rel = max(e[1] for e in errs)
             require(rel <= ATTN_BWD_REL, f"attention_bwd N={n} rate {rate}: max rel err "
                     f"{rel} > {ATTN_BWD_REL}")
+            if rate == RATE:
+                again = attention.attention_bwd(q, k, v, o, lse, do, rate, streams)
+                require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                        f"attention_bwd N={n}: two launches on the same inputs differ")
             ms = cuda_ms(lambda: attention.attention_bwd(q, k, v, o, lse, do, rate,
                                                          streams), iters=10)
             plain_ms = cuda_ms(lambda: attention.attention_bwd_plain(

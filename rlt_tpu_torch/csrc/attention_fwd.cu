@@ -12,145 +12,216 @@
 //
 // What bounds it on an H100: at PLECut's shapes (N = 2 * 3 * batch slices,
 // L = 300) the arithmetic is 4 N L^2 dh flops against 4 N L dh floats of
-// traffic, so operations bound it. It runs f32 FMAs, not tensor cores: TF32
-// would miss the 1e-5 parity with the plain version. In this simple design
-// every FMA operand comes from shared memory, and those reads bind first.
+// traffic, so operations bound it. The products run on the tensor cores as
+// mma.sync m16n8k8 tf32 in the 3xTF32 split of attention_mma.cuh (three tf32
+// products per f32 product), which keeps the 1e-5 agreement with the plain
+// f32 version that one tf32 product would miss.
 //
-// The fit: K5' held a whole head's K and V in shared memory. At dh = 128 and
-// L = 300 that is 2 * 300 * 132 * 4 B = 317 KB, over the 227 KB a block can
-// have. So K3' streams K and V in tiles of kTile = 32 keys, flash-style, with
-// a running max and sum per query row: one block per (slice, 32 query rows),
-// each warp 4 rows. For each tile: lanes over keys take the scores of the
-// warp's rows; the tile's max (warp shuffles) raises the running max m, the
-// running sum and the output accumulator are rescaled by exp(m_old - m_new),
-// and the tile's weights exp(s - m_new) (dropped and scaled where the mask
-// says) go to shared memory; then lanes over column quads add weights x V to
-// the accumulator in registers. At the end o = acc / sum and lse =
-// m + log(sum). The block needs 53 KB of shared memory whatever L is, so
-// several blocks share an SM and one's copies overlap another's FMAs, and
-// L may be anything up to 65535 (the keep mask's index i * L + j is 32-bit).
+// Design: K5''s (attention_packed_fwd.cu) with dh doubled, which its
+// registers do not take whole: a warp holding 16 rows of all 128 output
+// columns would need the O accumulator, a 64-key score tile and the fresh
+// P V accumulator, 160 floats a thread against K5''s 96. So one block of 8
+// warps per (slice, 64 query rows): 4 pairs of warps, each pair 16 rows, and
+// warp w of a pair (w = 0, 1) owns the dh columns [64 w, 64 w + 64). The
+// block's Q tile sits in shared memory, and K and V stream through a
+// two-stage ring of 64-key tiles, all with row pitch 132 and filled by
+// cp.async, so the next tile's copy runs under this tile's products. Per
+// tile each warp takes its 64-deep part of S = Q K^T (over its half of dh)
+// in a fresh accumulator; the pair trades the two parts through shared
+// memory and adds them with an f32 add, in the same order on both sides, so
+// both warps hold the same S. Both then keep the rows' running max and sum
+// (each warp redundantly, as the pair's rows are the same), turn S into the
+// weights exp(s - m), dropped and scaled where the mask says after the sum
+// is taken, and feed them as A fragments straight from the accumulator to
+// P V over the warp's own 64 columns of V, in a fresh accumulator added to
+// the rescaled running O. Per warp and tile that is K5''s work (384
+// mma.sync) and 16 + 16 float2 exchanges. At the end o = O / sum and lse =
+// m + log(sum). The block's 201 KiB of shared memory (Q, two stages of K and
+// V, the exchange) do not grow with L, one block of 8 warps fills an SM, and
+// any 1 <= L <= 65535 is taken (the keep mask's index i * L + j is 32-bit).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "attention_tiles.cuh"
+#include "attention_mma.cuh"
 #include "keep_mask.cuh"
 
 namespace {
 
 using rlt::kSliceDh;
 using rlt::kSlicePitch;
+using rlt::kSliceThreads;
+using rlt::kSliceTileFloats;
 using rlt::kSliceWarps;
-constexpr int kRows = 4;                          // query rows per warp
-constexpr int kBlockRows = kSliceWarps * kRows;   // query rows per block
-constexpr int kTile = 32;                         // keys per streamed tile
+using rlt::Split;
 
-constexpr size_t kSmem = sizeof(float) * (kBlockRows * kSliceDh + 2 * kTile * kSlicePitch +
-                                          kBlockRows * kTile);
+constexpr int kTile = rlt::kPackedTile;  // query rows of a block, keys of a streamed tile
+constexpr int kHalf = kSliceDh / 2;      // the dh columns of one warp of a pair
+constexpr int kStages = 2;
+constexpr int kXPitch = kTile + 8;       // a row of a warp's exchange buffer
+constexpr int kXFloats = 16 * kXPitch;
+constexpr size_t kSmem =
+    sizeof(float) * ((1 + 2 * kStages) * kSliceTileFloats + kSliceWarps * kXFloats);
 
-// Dynamic shared memory: q_b[kBlockRows][kSliceDh] | k_t[kTile][kSlicePitch] |
-// v_t[kTile][kSlicePitch] | p_w[kSliceWarps][kRows][kTile]
-__global__ void __launch_bounds__(32 * kSliceWarps)
+// Start copying rows [row0, row0 + 64) of a slice's (L, 128) array into a
+// tile of pitch 132, by the whole block.
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int row0,
+                                          int length) {
+  rlt::load_tile_async<kSliceDh, kSliceThreads>(dst, src, row0, length, kSliceDh);
+}
+
+// Dynamic shared memory: q_s[64][132] | kStages x (k_t[64][132] | v_t[64][132]) |
+// x_s[8 warps][16][72]
+__global__ void __launch_bounds__(kSliceThreads, 1)
 attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, float* __restrict__ o,
                 float* __restrict__ lse, const int32_t* __restrict__ streams,
                 int length, float scale, bool dropout, uint32_t threshold,
                 float inv_keep) {
   extern __shared__ float4 smem4[];
-  float* q_b = reinterpret_cast<float*>(smem4);
-  float* k_t = q_b + kBlockRows * kSliceDh;
-  float* v_t = k_t + kTile * kSlicePitch;
-  float* p_w = v_t + kTile * kSlicePitch;
+  float* q_s = reinterpret_cast<float*>(smem4);
+  float* ring = q_s + kSliceTileFloats;
+  float* x_s = ring + kStages * 2 * kSliceTileFloats;
 
   const int slice = blockIdx.y;
-  const int q0 = blockIdx.x * kBlockRows;
-  const size_t base = static_cast<size_t>(slice) * length * kSliceDh;
-  rlt::load_tile<kBlockRows, kSliceDh>(q_b, q + base, q0, length);
-
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int r0 = q0 + warp * kRows;
-  const float* qw = q_b + warp * kRows * kSliceDh;
-  float* pw = p_w + warp * kRows * kTile;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int pair = warp % 4;
+  const int w16 = pair * 16;          // the pair's rows in the block's tile
+  const int c0 = (warp / 4) * kHalf;  // the warp's half of dh
+  const int r0 = blockIdx.x * kTile + w16;
+  const size_t base = static_cast<size_t>(slice) * length * kSliceDh;
+  const int tiles = (length + kTile - 1) / kTile;
+  float* x_own = x_s + warp * kXFloats;
+  const float* x_mate = x_s + (warp ^ 4) * kXFloats;
+
+  load_rows(q_s, q + base, blockIdx.x * kTile, length);
+  load_rows(ring, k + base, 0, length);
+  load_rows(ring + kSliceTileFloats, v + base, 0, length);
+  rlt::cp_async_commit();
+
   const uint32_t key =
       dropout ? rlt::stream_key(static_cast<uint32_t>(streams[slice])) : 0u;
-  float m[kRows], sum[kRows];
-  float4 acc[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = -INFINITY;
-    sum[r] = 0.0f;
-    acc[r] = rlt::zero4();
-  }
 
-  for (int t0 = 0; t0 < length; t0 += kTile) {
-    __syncthreads();  // the previous tile is consumed (and Q is in)
-    rlt::load_tile<kTile, kSlicePitch>(k_t, k + base, t0, length);
-    rlt::load_tile<kTile, kSlicePitch>(v_t, v + base, t0, length);
+  // rows g and g + 8 of the pair: running max, this thread's share of the
+  // running sum, and the warp's output accumulator (8 tiles of 8 columns)
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.0f, 0.0f};
+  float acc[8][4] = {};
+
+  for (int it = 0; it < tiles; ++it) {
+    if (it + 1 < tiles) {
+      float* next = ring + ((it + 1) % kStages) * 2 * kSliceTileFloats;
+      load_rows(next, k + base, (it + 1) * kTile, length);
+      load_rows(next + kSliceTileFloats, v + base, (it + 1) * kTile, length);
+      rlt::cp_async_commit();
+      rlt::cp_async_wait<1>();
+    } else {
+      rlt::cp_async_wait<0>();
+    }
     __syncthreads();
+    const float* k_t = ring + (it % kStages) * 2 * kSliceTileFloats;
+    const float* v_t = k_t + kSliceTileFloats;
+    const int t0 = it * kTile;
 
-    // scores of the warp's rows, lanes over the tile's keys
-    const int j = t0 + lane;
-    float s[kRows] = {};
-    const float4* kr = reinterpret_cast<const float4*>(k_t + lane * kSlicePitch);
-#pragma unroll 4
-    for (int d4 = 0; d4 < kSliceDh / 4; ++d4) {
-      const float4 kk = kr[d4];
+    // the warp's 64-deep part of S = Q K^T, over its half of dh
+    float s[8][4] = {};
 #pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        s[r] = rlt::dot4(reinterpret_cast<const float4*>(qw + r * kSliceDh)[d4], kk, s[r]);
+    for (int kk = 0; kk < 8; ++kk) {
+      Split qa[4];
+      rlt::split_a_tile<kSlicePitch>(qa, q_s, w16, c0 / 8 + kk, g, t);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        rlt::mma3_b_rows<kSlicePitch>(s[j], qa, k_t, 8 * j, c0 + 8 * kk, g, t);
     }
-    // running max and sum; the tile's weights (key t0 < L, so every tile
-    // has a finite score and m_new is finite)
+    // plus the mate's part: the same sum, bit for bit, in both warps
+    rlt::store_acc<8, kXPitch>(x_own, s, g, t);
+    rlt::pair_sync(pair);
+    {
+      float mate[8][4];
+      rlt::load_acc<8, kXPitch>(mate, x_mate, g, t);
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float sr = j < length ? s[r] * scale : -INFINITY;
-      const float m_new = fmaxf(m[r], rlt::warp_max(sr));
-      const float corr = expf(m[r] - m_new);  // 0 on the first tile
-      const float e = expf(sr - m_new);       // 0 past L
-      sum[r] = sum[r] * corr + rlt::warp_sum(e);
-      acc[r].x *= corr;
-      acc[r].y *= corr;
-      acc[r].z *= corr;
-      acc[r].w *= corr;
-      m[r] = m_new;
-      float w = e;
-      if (dropout && j < length) {
-        const uint32_t index =
-            static_cast<uint32_t>(r0 + r) * static_cast<uint32_t>(length) + j;
-        w = rlt::keep_element(index, key, threshold) ? e * inv_keep : 0.0f;
-      }
-      pw[r * kTile + lane] = w;
-    }
-    __syncwarp();
-
-    // acc += weights x V, lanes over the column quads 4 * lane
-    for (int u0 = 0; u0 < kTile; u0 += 4) {
-      float4 p4[kRows];
+      for (int j = 0; j < 8; ++j) {
 #pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        p4[r] = *reinterpret_cast<const float4*>(pw + r * kTile + u0);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float4 vv =
-            *reinterpret_cast<const float4*>(v_t + (u0 + u) * kSlicePitch + 4 * lane);
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) rlt::fma4(rlt::component(p4[r], u), vv, acc[r]);
+        for (int e = 0; e < 4; ++e) s[j][e] += mate[j][e];
       }
     }
-    __syncwarp();
+
+    // running max (keys past L are -inf; key t0 < L, so m_new is finite)
+    float m_new[2] = {m[0], m[1]}, corr[2];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = t0 + 8 * j + 2 * t + (e & 1);
+        s[j][e] = col < length ? s[j][e] * scale : -INFINITY;
+        m_new[e >> 1] = fmaxf(m_new[e >> 1], s[j][e]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m_new[r] = rlt::quad_max(m_new[r]);
+      corr[r] = expf(m[r] - m_new[r]);  // 0 on the first tile
+      l[r] *= corr[r];
+      m[r] = m_new[r];
+    }
+    // the tile's weights, summed before dropout
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float w = expf(s[j][e] - m[r]);  // 0 past L
+        l[r] += w;
+        if (dropout) {
+          const int col = t0 + 8 * j + 2 * t + (e & 1);
+          const uint32_t index =
+              static_cast<uint32_t>(r0 + g + 8 * r) * static_cast<uint32_t>(length) + col;
+          s[j][e] = rlt::keep_element(index, key, threshold) ? w * inv_keep : 0.0f;
+        } else {
+          s[j][e] = w;
+        }
+      }
+    }
+
+    // O = O corr + P V over the warp's columns: the weights of keys 8 kk..
+    // as A, V's rows in the relabelled order, the tile's product in a fresh
+    // accumulator
+    float pv[8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      Split pa[4];
+      rlt::split_acc(s[kk], pa);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        rlt::mma3_b_perm<kSlicePitch>(pv[j], pa, v_t, 8 * kk, c0 + 8 * j, g, t);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = fmaf(acc[j][e], corr[e >> 1], pv[j][e]);
+    }
+    // the stage and the exchange buffers are consumed before they are
+    // written again
+    __syncthreads();
   }
 
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    if (r0 + r < length) {
-      const float inv = 1.0f / sum[r];
-      const size_t out = base + static_cast<size_t>(r0 + r) * kSliceDh + 4 * lane;
-      *reinterpret_cast<float4*>(o + out) =
-          make_float4(acc[r].x * inv, acc[r].y * inv, acc[r].z * inv, acc[r].w * inv);
-      if (lane == 0)
-        lse[static_cast<size_t>(slice) * length + r0 + r] = m[r] + logf(sum[r]);
+  for (int r = 0; r < 2; ++r) {
+    const float sum = rlt::quad_sum(l[r]);
+    const int row = r0 + g + 8 * r;
+    if (row < length) {
+      const float inv = 1.0f / sum;
+      float* out = o + base + static_cast<size_t>(row) * kSliceDh + c0 + 2 * t;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<float2*>(out + 8 * j) =
+            make_float2(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
+      if (c0 == 0 && t == 0)
+        lse[static_cast<size_t>(slice) * length + row] = m[r] + logf(sum);
     }
   }
 }
@@ -160,8 +231,8 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // q, k, v, o (N, L, 128) and lse (N, 1, L): contiguous float32 device arrays,
 // q/k/v/o 16-byte aligned. With rate > 0, `streams` holds N int32 dropout
 // streams (one per slice) and `threshold` the keep threshold of
-// keep_mask.cuh; with rate == 0 neither is read. Launches on `stream` and
-// returns cudaGetLastError().
+// keep_mask.cuh; with rate == 0 neither is read. Takes 1 <= L <= 65535.
+// Launches on `stream` and returns cudaGetLastError().
 extern "C" int rlt_attention_fwd(const void* q, const void* k, const void* v,
                                  void* o, void* lse, const void* streams, int n,
                                  int length, float rate, unsigned int threshold,
@@ -172,8 +243,8 @@ extern "C" int rlt_attention_fwd(const void* q, const void* k, const void* v,
   cudaError_t err = cudaFuncSetAttribute(
       attn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((length + kBlockRows - 1) / kBlockRows, n);
-  attn_fwd_kernel<<<grid, 32 * kSliceWarps, kSmem, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((length + kTile - 1) / kTile, n);
+  attn_fwd_kernel<<<grid, kSliceThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
       static_cast<float*>(lse), static_cast<const int32_t*>(streams), length,

@@ -1,7 +1,10 @@
 // attention_mma: tensor-core products at float32 accuracy and cp.async tile
-// copies, shared by the head-packed attention kernels K5'
+// copies, shared by the attention kernels: the head-packed K5'
 // (attention_packed_fwd.cu) and K6' (attention_packed_bwd.cu), which work on
-// dh = 64 heads of (N, L, D) float32 arrays in blocks of 4 warps.
+// dh = 64 heads of (N, L, D) float32 arrays in blocks of 4 warps, and the
+// per-slice K3' (attention_fwd.cu) and K4' (attention_bwd.cu), which work on
+// dh = 128 slices of (N, L, 128) arrays in blocks of 8 warps: 4 pairs, each
+// pair 16 rows, each warp of a pair one half of the work (pair_sync below).
 //
 // Products: mma.sync m16n8k8 with tf32 operands and f32 accumulators, in
 // the three-term split of CUTLASS's OpMultiplyAddFastF32 ("3xTF32"). Each
@@ -41,6 +44,14 @@ constexpr int kPackedThreads = 32 * kPackedWarps;
 constexpr int kPackedPitch = kPackedDh + 4;
 constexpr int kPackedTileFloats = kPackedTile * kPackedPitch;
 
+// The per-slice kernels: dh = 128, pitch 132 for the same reason (g * 132 + t:
+// banks 4g + t; 2t * 132 + g: banks 8t + g), 64-row tiles, 8 warps.
+constexpr int kSliceDh = 128;
+constexpr int kSlicePitch = kSliceDh + 4;
+constexpr int kSliceWarps = 8;
+constexpr int kSliceThreads = 32 * kSliceWarps;
+constexpr int kSliceTileFloats = kPackedTile * kSlicePitch;
+
 struct Split {
   uint32_t hi, lo;
 };
@@ -73,15 +84,16 @@ __device__ __forceinline__ void mma3(float (&d)[4], const Split (&a)[4], Split b
   mma_tf32(d, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b0.hi, b1.hi);
 }
 
-// The A fragment of 16 rows [row0, row0 + 16) of a tile at columns
-// [8 kk, 8 kk + 8), split
+// The A fragment of 16 rows [row0, row0 + 16) of a tile of row pitch
+// kPitch at columns [8 kk, 8 kk + 8), split
+template <int kPitch = kPackedPitch>
 __device__ __forceinline__ void split_a_tile(Split (&a)[4], const float* tile, int row0,
                                              int kk, int g, int t) {
-  const float* p = tile + (row0 + g) * kPackedPitch + 8 * kk + t;
+  const float* p = tile + (row0 + g) * kPitch + 8 * kk + t;
   a[0] = split(p[0]);
-  a[1] = split(p[8 * kPackedPitch]);
+  a[1] = split(p[8 * kPitch]);
   a[2] = split(p[4]);
-  a[3] = split(p[8 * kPackedPitch + 4]);
+  a[3] = split(p[8 * kPitch + 4]);
 }
 
 // An accumulator tile c as the A operand of the next product, in the
@@ -95,20 +107,73 @@ __device__ __forceinline__ void split_acc(const float (&c)[4], Split (&a)[4]) {
 
 // d += (16 x 8 A) x B where B's k runs along dh: b0 = tile[n][k0 + t],
 // b1 = tile[n][k0 + t + 4], n = n0 + g (a K^T or Q^T operand)
+template <int kPitch = kPackedPitch>
 __device__ __forceinline__ void mma3_b_rows(float (&d)[4], const Split (&a)[4],
                                             const float* tile, int n0, int k0, int g,
                                             int t) {
-  const float* p = tile + (n0 + g) * kPackedPitch + k0 + t;
+  const float* p = tile + (n0 + g) * kPitch + k0 + t;
   mma3(d, a, split(p[0]), split(p[4]));
 }
 
 // d += (16 x 8 A) x B in the relabelled k order, B's k running along the
 // tile's rows: b0 = tile[k0 + 2t][n0 + g], b1 = tile[k0 + 2t + 1][n0 + g]
+template <int kPitch = kPackedPitch>
 __device__ __forceinline__ void mma3_b_perm(float (&d)[4], const Split (&a)[4],
                                             const float* tile, int k0, int n0, int g,
                                             int t) {
-  const float* p = tile + (k0 + 2 * t) * kPackedPitch + n0 + g;
-  mma3(d, a, split(p[0]), split(p[kPackedPitch]));
+  const float* p = tile + (k0 + 2 * t) * kPitch + n0 + g;
+  mma3(d, a, split(p[0]), split(p[kPitch]));
+}
+
+// d += the tile's product held in `part`, then part = 0
+template <int kN>
+__device__ __forceinline__ void add_part(float (&d)[kN][4], float (&part)[kN][4]) {
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      d[j][e] += part[j][e];
+      part[j][e] = 0.0f;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The two warps of a pair (warps w and w ^ 4 of an 8-warp block) trade
+// accumulator tiles through shared memory
+// ---------------------------------------------------------------------------
+
+// Named barrier 1 + pair, for the 64 threads of the pair's two warps
+// (barrier 0 is __syncthreads'); orders their shared-memory accesses.
+__device__ __forceinline__ void pair_sync(int pair) {
+  asm volatile("bar.sync %0, 64;" ::"r"(pair + 1) : "memory");
+}
+
+// Accumulator tiles c[j] (16 rows x 8 kN columns) into a warp's exchange
+// buffer of row pitch kXPitch. A pitch of 8 kN + 8 puts each half-warp's
+// float2 accesses (g * kXPitch + 2t: banks 8g + 2t, g < 4) on 32 banks.
+template <int kN, int kXPitch>
+__device__ __forceinline__ void store_acc(float* x, const float (&c)[kN][4], int g, int t) {
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+    *reinterpret_cast<float2*>(x + g * kXPitch + 8 * j + 2 * t) = make_float2(c[j][0], c[j][1]);
+    *reinterpret_cast<float2*>(x + (g + 8) * kXPitch + 8 * j + 2 * t) =
+        make_float2(c[j][2], c[j][3]);
+  }
+}
+
+// c[j] = the tiles in an exchange buffer
+template <int kN, int kXPitch>
+__device__ __forceinline__ void load_acc(float (&c)[kN][4], const float* x, int g, int t) {
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+    const float2 lo = *reinterpret_cast<const float2*>(x + g * kXPitch + 8 * j + 2 * t);
+    const float2 hi = *reinterpret_cast<const float2*>(x + (g + 8) * kXPitch + 8 * j + 2 * t);
+    c[j][0] = lo.x;
+    c[j][1] = lo.y;
+    c[j][2] = hi.x;
+    c[j][3] = hi.y;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -139,21 +204,23 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(kPending));
 }
 
-// Start copying rows [row0, row0 + 64) of one head's (L, 64) columns of an
-// (N, L, D) array (`src` points at the head's row 0, rows d_model floats
-// apart) into a tile of pitch kPackedPitch, by the whole block; rows at or
-// past `length` become zeros.
+// Start copying rows [row0, row0 + 64) of one head's (L, kDh) columns of
+// an (N, L, D) array (`src` points at the head's row 0, rows d_model floats
+// apart) into a tile of pitch kDh + 4, by the whole block of kThreads
+// threads; rows at or past `length` become zeros.
+template <int kDh = kPackedDh, int kThreads = kPackedThreads>
 __device__ __forceinline__ void load_tile_async(float* dst, const float* src, int row0,
                                                 int length, int d_model) {
-  constexpr int kQuads = kPackedTile * (kPackedDh / 4);
-  static_assert(kQuads % kPackedThreads == 0, "whole float4 per thread");
+  constexpr int kPitch = kDh + 4;
+  constexpr int kQuads = kPackedTile * (kDh / 4);
+  static_assert(kQuads % kThreads == 0, "whole float4 per thread");
 #pragma unroll
-  for (int it = 0; it < kQuads / kPackedThreads; ++it) {
-    const int i = threadIdx.x + it * kPackedThreads;
-    const int r = i / (kPackedDh / 4);
-    const int c4 = (i % (kPackedDh / 4)) * 4;
+  for (int it = 0; it < kQuads / kThreads; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    const int r = i / (kDh / 4);
+    const int c4 = (i % (kDh / 4)) * 4;
     const bool valid = row0 + r < length;
-    cp_async16(dst + r * kPackedPitch + c4,
+    cp_async16(dst + r * kPitch + c4,
                src + static_cast<size_t>(valid ? row0 + r : 0) * d_model + c4, valid);
   }
 }

@@ -57,6 +57,7 @@ using rlt::kPackedThreads;
 using rlt::kPackedTile;
 using rlt::kPackedTileFloats;
 using rlt::Split;
+using rlt::add_part;
 
 constexpr int kStages = 2;
 constexpr int kHalf = kPackedTile / 2;  // rows of a tile taken at once
@@ -74,18 +75,6 @@ __device__ __forceinline__ const float* head_lse(const float* lse, int n, int he
                                                  int heads, int pack, int length) {
   return lse + (static_cast<size_t>(n) * (heads / pack) + head / pack) * length * pack +
          head % pack;
-}
-
-// d += the tile's product held in `part`, then part = 0
-__device__ __forceinline__ void add_part(float (&d)[8][4], float (&part)[8][4]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      d[j][e] += part[j][e];
-      part[j][e] = 0.0f;
-    }
-  }
 }
 
 // Dynamic shared memory: q_s[64][kPackedPitch] | do_s[64][kPackedPitch] |

@@ -9,10 +9,12 @@ softmax(q k^T / sqrt(dh)) v on its own. lse comes back as (B * H, 1, L).
 Slice n = b * H + h has the dropout stream `streams[n]`, and its keep mask is
 `keep_mask(streams[n], (L, L), rate)`: score (i, j) at index i * L + j, with
 no head group. On a CUDA tensor the forward launches the kernel of
-`rlt_tpu_torch/csrc/attention_fwd.cu` and the backward that of
-`csrc/attention_bwd.cu` (dh = 128, float32, L <= 65535, both streaming key
-or query tiles); on a CPU tensor they run `attention_plain` and
-`attention_bwd_plain`.
+`rlt_tpu_torch/csrc/attention_fwd.cu` and the backward those of
+`csrc/attention_bwd.cu` (a dq pass, then a dk/dv pass; dh = 128, float32,
+L <= 65535, both streaming 64-row tiles, their products on the tensor
+cores in the 3xTF32 split that keeps float32 accuracy, each pair of warps
+sharing a slice's 16 rows between the two halves of dh); on a CPU tensor
+they run `attention_plain` and `attention_bwd_plain`.
 
 Head-packed (`fused_attention_packed`, the counterpart of the JAX package's
 `fused_attention_packed` and its custom_vjp; MMOECut's heads of dh = 64):

@@ -187,15 +187,15 @@ def test_packed_attention_bwd_kernel_is_deterministic_on_card(cuda_device):
 
 
 # K3' and K4' at PLECut's shapes (N = 2 * 3 * 63 and 2 * 3 * 256 slices of
-# L = 300, whose last tile of 32 rows is part-filled), at a ragged L, at
-# whole tiles, and at an L beyond any one block's shared memory. (Not L = 1:
-# there o = v, so dq and dk are zero by algebra and a relative check
-# compares noise.)
+# L = 300, whose last tile of 64 rows is part-filled), at a ragged L, at
+# whole tiles, and at an L beyond any one block's shared memory. The
+# forward also at L = 1; the backward not: there o = v, so dq and dk are
+# zero by algebra and a relative check compares noise.
 SLICE_SHAPES = [(63 * 3, 300), (256 * 3, 300), (5, 37), (3, 64), (2, 700)]
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("batch,length", SLICE_SHAPES)
+@pytest.mark.parametrize("batch,length", SLICE_SHAPES + [(4, 1)])
 def test_slice_attention_kernel_matches_plain_on_card(cuda_device, batch, length, rate):
     q, k, v = (torch.from_numpy(a).to(cuda_device)
                for a in _qkv(19, (batch, 2, length, 128)))
@@ -229,6 +229,21 @@ def test_slice_attention_bwd_kernel_matches_plain_on_card(cuda_device, batch, le
     want = attention.attention_bwd_plain(q, k, v, o, lse, do, rate, streams)
     for g, w in zip(got, want):
         assert _max_rel_err(g, w) <= ATTN_BWD_REL
+
+
+def test_slice_attention_bwd_kernel_is_deterministic_on_card(cuda_device):
+    """Every gradient element is summed by one thread in a fixed order, with
+    no atomics: two launches on the same inputs give the same bits."""
+    q, k, v = (torch.from_numpy(a).to(cuda_device) for a in _qkv(29, (9, 2, 300, 128)))
+    streams = _streams(30, 18, cuda_device)
+    o, lse = attention.attention_plain(q, k, v, 0.1, streams)
+    do = torch.from_numpy(np.random.default_rng(31).normal(
+        size=tuple(q.shape)).astype(np.float32)).to(cuda_device)
+    first = attention.attention_bwd(q, k, v, o, lse, do, 0.1, streams)
+    second = attention.attention_bwd(q, k, v, o, lse, do, 0.1, streams)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_slice_attention_rejects_on_card(cuda_device):

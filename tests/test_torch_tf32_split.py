@@ -1,4 +1,5 @@
-"""The precision argument of the packed attention kernels K5' and K6'.
+"""The precision argument of the attention kernels: the packed K5' and K6',
+and the per-slice K3' and K4'.
 
 Their products run on the tensor cores as tf32 matrix products in the
 three-term split of `rlt_tpu_torch/csrc/attention_mma.cuh` (3xTF32): each
@@ -7,11 +8,15 @@ taken as a_lo b_hi + a_hi b_lo + a_hi b_hi in float32, small terms first.
 Here that arithmetic is emulated in numpy (tf32 rounding to nearest even at
 10 mantissa bits; the kernels' cvt.rna rounds ties away from zero, which
 differs only at exact ties) and run through the kernels' own order of
-operations at MMOECut's widths (N = 2, L = 300, D = 256, 4 heads of dh = 64,
-pack 2), with the dropout mask of the port's `keep_mask`. The results must
-agree with the plain float32 versions within the card's tolerances
-(ATTN_ATOL for o and lse, ATTN_BWD_REL of each gradient's max abs), and a
-single tf32 product must miss them: that is why the kernels pay for three.
+operations, with the dropout mask of the port's `keep_mask`: the packed
+kernels at MMOECut's widths (N = 2, L = 300, D = 256, 4 heads of dh = 64,
+pack 2), the per-slice ones at PLECut's (N = 2 rows of 2 heads of dh = 128,
+L = 300), whose 128-deep score products (s = q k^T, dp = do v^T) are taken
+as two 64-deep parts joined by a float32 add, as K3' and K4' take them. The
+results must agree with the plain float32 versions within the card's
+tolerances (ATTN_ATOL for o and lse, ATTN_BWD_REL of each gradient's max
+abs), and a single tf32 product must miss them: that is why the kernels pay
+for three.
 """
 
 import functools
@@ -28,6 +33,9 @@ ATTN_BWD_REL = 1e-5
 N, L, D, HEADS, PACK = 2, 300, 256, 4, 2
 DH = D // HEADS
 SCALE = np.float32(1.0 / np.sqrt(DH))
+# the per-slice kernels: N rows of SLICE_HEADS heads of SLICE_DH
+SLICE_HEADS, SLICE_DH = 2, 128
+SLICE_SCALE = np.float32(1.0 / np.sqrt(SLICE_DH))
 
 
 def tf32(x: np.ndarray) -> np.ndarray:
@@ -125,6 +133,85 @@ def _bwd_rel_err(products: str, rate: float) -> float:
     return max(errs)
 
 
+@functools.lru_cache(maxsize=None)
+def _slice_inputs(rate: float):
+    rng = np.random.default_rng(41)
+    shape = (N, SLICE_HEADS, L, SLICE_DH)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                   for _ in range(4))
+    streams = torch.from_numpy(rng.integers(-2**31, 2**31, size=N * SLICE_HEADS,
+                                            dtype=np.int64).astype(np.int32))
+    keep = attention.slice_keep_mask(streams, L, rate).numpy().reshape(N, SLICE_HEADS, L, L)
+    return q, k, v, do, streams, keep
+
+
+def _scores(matmul, a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """a b^T over dh = 128 as K3' and K4' take it: two 64-deep parts, each
+    in its own accumulator, joined by a float32 add."""
+    half = SLICE_DH // 2
+    return (matmul(a[..., :half], b[..., :half].transpose(0, 1, 3, 2))
+            + matmul(a[..., half:], b[..., half:].transpose(0, 1, 3, 2)))
+
+
+def _emulated_slice_fwd(matmul, q, k, v, keep, rate):
+    """K3''s order: s from two 64-deep parts, times scale, the row max,
+    weights exp(s - m) summed before dropout, o = (weights v) / sum, lse =
+    m + log(sum)."""
+    s = _scores(matmul, q.numpy(), k.numpy()) * SLICE_SCALE
+    m = s.max(-1, keepdims=True)
+    e = np.exp(s - m)
+    total = e.sum(-1, keepdims=True, dtype=np.float32)
+    if rate > 0.0:
+        e = np.where(keep, e * np.float32(1.0 / (1.0 - rate)), np.float32(0.0))
+    o = matmul(e, v.numpy()) / total
+    lse = (m + np.log(total)).reshape(N * SLICE_HEADS, 1, L)
+    return o, lse
+
+
+def _emulated_slice_bwd(matmul, q, k, v, o, lse, do, keep, rate):
+    """K4''s order: p = exp(s scale - lse) and dp = do v^T, each from two
+    64-deep parts; the keep mask on dp and on pd, ds = p (dp - delta) scale,
+    dq = ds k, dk = ds^T q, dv = pd^T do."""
+    qn, kn, vn, on, don = (t.numpy() for t in (q, k, v, o, do))
+    p = np.exp(_scores(matmul, qn, kn) * SLICE_SCALE
+               - lse.numpy().reshape(N, SLICE_HEADS, L, 1))
+    dp = _scores(matmul, don, vn)
+    pd = p
+    if rate > 0.0:
+        inv = np.float32(1.0 / (1.0 - rate))
+        pd = np.where(keep, p * inv, np.float32(0.0))
+        dp = np.where(keep, dp * inv, np.float32(0.0))
+    delta = (don * on).sum(-1, keepdims=True, dtype=np.float32)
+    ds = p * (dp - delta) * SLICE_SCALE
+    return (matmul(ds, kn), matmul(ds.transpose(0, 1, 3, 2), qn),
+            matmul(pd.transpose(0, 1, 3, 2), don))
+
+
+def _slice_fwd_err(products: str, rate: float) -> float:
+    q, k, v, _, streams, keep = _slice_inputs(rate)
+    want_o, want_lse = attention.attention_plain(q, k, v, rate, streams)
+    o, lse = _emulated_slice_fwd(PRODUCTS[products], q, k, v, keep, rate)
+    assert o.dtype == np.float32 and np.isfinite(o).all()
+    return max(np.abs(o - want_o.numpy()).max(), np.abs(lse - want_lse.numpy()).max())
+
+
+def _slice_bwd_rel_err(products: str, rate: float) -> float:
+    q, k, v, do, streams, keep = _slice_inputs(rate)
+    o, lse = attention.attention_plain(q, k, v, rate, streams)
+    want = attention.attention_bwd_plain(q, k, v, o, lse, do, rate, streams)
+    got = _emulated_slice_bwd(PRODUCTS[products], q, k, v, o, lse, do, keep, rate)
+    errs = []
+    for g, w in zip(got, want):
+        w = w.numpy()
+        assert g.dtype == np.float32 and np.isfinite(g).all()
+        errs.append(np.abs(g - w).max() / np.abs(w).max())
+    return max(errs)
+
+
+# each kernel pair's (forward error, backward relative error)
+ERRORS = {"packed": (_fwd_err, _bwd_rel_err), "slice": (_slice_fwd_err, _slice_bwd_rel_err)}
+
+
 def test_tf32_rounding_keeps_ten_mantissa_bits():
     x = np.array([1.0, 1.0 + 2.0**-10, 1.0 + 2.0**-11, 1.0 + 3 * 2.0**-11,
                   1.0 + 2.0**-11 + 2.0**-20, -3.0 - 2.0**-12], np.float32)
@@ -135,19 +222,23 @@ def test_tf32_rounding_keeps_ten_mantissa_bits():
     np.testing.assert_array_equal(hi + tf32(x - hi), x)  # the split is exact here
 
 
+@pytest.mark.parametrize("kernels", ["packed", "slice"])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("direction", ["forward", "backward"])
-def test_3xtf32_split_meets_the_card_tolerance(direction, rate):
+def test_3xtf32_split_meets_the_card_tolerance(direction, rate, kernels):
+    fwd_err, bwd_rel_err = ERRORS[kernels]
     if direction == "forward":
-        assert _fwd_err("3xtf32", rate) <= ATTN_ATOL
+        assert fwd_err("3xtf32", rate) <= ATTN_ATOL
     else:
-        assert _bwd_rel_err("3xtf32", rate) <= ATTN_BWD_REL
+        assert bwd_rel_err("3xtf32", rate) <= ATTN_BWD_REL
 
 
+@pytest.mark.parametrize("kernels", ["packed", "slice"])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("direction", ["forward", "backward"])
-def test_one_tf32_product_misses_the_card_tolerance(direction, rate):
+def test_one_tf32_product_misses_the_card_tolerance(direction, rate, kernels):
+    fwd_err, bwd_rel_err = ERRORS[kernels]
     if direction == "forward":
-        assert _fwd_err("1xtf32", rate) > 10 * ATTN_ATOL
+        assert fwd_err("1xtf32", rate) > 10 * ATTN_ATOL
     else:
-        assert _bwd_rel_err("1xtf32", rate) > 10 * ATTN_BWD_REL
+        assert bwd_rel_err("1xtf32", rate) > 10 * ATTN_BWD_REL
