@@ -152,37 +152,62 @@ def nvidia_smi() -> str:
 # Phases 2 and 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
+def lstm_weights(rng, ndir: int, dev) -> torch.Tensor:
+    """W_hh^T of `ndir` directions, (ndir * H, 4H), U(-1, 1) / sqrt(H)."""
+    return torch.from_numpy((rng.uniform(-1, 1, size=(ndir * HIDDEN, 4 * HIDDEN))
+                             / np.sqrt(HIDDEN)).astype(np.float32)).to(dev)
+
+
+def lstm_rows(rows: list) -> dict:
+    """A LSTM check's result: every row, and as `main` the row of the main
+    paths' shape (both directions of a layer in one launch, B = 63)."""
+    main = next(r for r in rows if r["ndir"] == 2 and r["batch"] == BATCHES[0])
+    return {"rows": rows, "main": main,
+            "ndir_1": next(r for r in rows if r["ndir"] == 1 and r["batch"] == BATCHES[0]),
+            "max_abs_err": max(r["max_abs_err"] for r in rows)}
+
+
 def check_lstm(dev, rng) -> dict:
+    """K1' against `lstm_recurrence_plain` at one direction (ndir = 1) and
+    both directions of a layer in one launch (ndir = 2, the main paths'
+    form), B lists per direction; library_ms is cuDNN's one-layer LSTM of
+    the same directions (its input projection included)."""
     from rlt_tpu_torch.ops import lstm
 
     rows = []
-    for batch in BATCHES:
-        xw = torch.from_numpy(rng.normal(size=(SEQ_LEN, batch, 4 * HIDDEN))
-                              .astype(np.float32)).to(dev)
-        w = torch.from_numpy((rng.uniform(-1, 1, size=(HIDDEN, 4 * HIDDEN))
-                              / np.sqrt(HIDDEN)).astype(np.float32)).to(dev)
-        hs, cs = lstm.lstm_fwd(xw, w)
-        torch.cuda.synchronize()
-        want_hs, want_cs = lstm.lstm_recurrence_plain(xw, w)
-        err = max((hs - want_hs).abs().max().item(), (cs - want_cs).abs().max().item())
-        require(bool(torch.isfinite(hs).all()), "lstm_fwd: non-finite hs")
-        require(err <= LSTM_ATOL, f"lstm_fwd B={batch}: max abs err {err} > {LSTM_ATOL}")
-        ms = cuda_ms(lambda: lstm.lstm_fwd(xw, w), iters=20)
-        plain_ms = cuda_ms(lambda: lstm.lstm_recurrence_plain(xw, w), iters=3, warmup=1)
-        cudnn = torch.nn.LSTM(HIDDEN, HIDDEN, batch_first=True).to(dev)
-        x_in = torch.from_numpy(rng.normal(size=(batch, SEQ_LEN, HIDDEN))
-                                .astype(np.float32)).to(dev)
-        with torch.no_grad():
-            library_ms = cuda_ms(lambda: cudnn(x_in), iters=20)
-        nbytes = 4 * (SEQ_LEN * batch * 4 * HIDDEN + HIDDEN * 4 * HIDDEN
-                      + 2 * SEQ_LEN * batch * HIDDEN)
-        flops = 2 * SEQ_LEN * batch * HIDDEN * 4 * HIDDEN + 10 * SEQ_LEN * batch * HIDDEN
-        bound_ms, bound_by = bound(nbytes, flops)
-        row = dict(batch=batch, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                   library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
-        log("lstm_fwd " + json.dumps(row))
-        rows.append(row)
-    return {"rows": rows, "max_abs_err": max(r["max_abs_err"] for r in rows)}
+    for ndir in (1, 2):
+        for batch in BATCHES:
+            xw = torch.from_numpy(rng.normal(size=(SEQ_LEN, ndir * batch, 4 * HIDDEN))
+                                  .astype(np.float32)).to(dev)
+            w = lstm_weights(rng, ndir, dev)
+            hs, cs = lstm.lstm_fwd(xw, w, ndir)
+            torch.cuda.synchronize()
+            want_hs, want_cs = lstm.lstm_recurrence_plain(xw, w, ndir)
+            err = max((hs - want_hs).abs().max().item(),
+                      (cs - want_cs).abs().max().item())
+            require(bool(torch.isfinite(hs).all()), "lstm_fwd: non-finite hs")
+            require(err <= LSTM_ATOL, f"lstm_fwd ndir={ndir} B={batch}: max abs err "
+                    f"{err} > {LSTM_ATOL}")
+            ms = cuda_ms(lambda: lstm.lstm_fwd(xw, w, ndir), iters=20)
+            plain_ms = cuda_ms(lambda: lstm.lstm_recurrence_plain(xw, w, ndir), iters=3,
+                               warmup=1)
+            cudnn = torch.nn.LSTM(HIDDEN, HIDDEN, batch_first=True,
+                                  bidirectional=ndir == 2).to(dev)
+            x_in = torch.from_numpy(rng.normal(size=(batch, SEQ_LEN, HIDDEN))
+                                    .astype(np.float32)).to(dev)
+            with torch.no_grad():
+                library_ms = cuda_ms(lambda: cudnn(x_in), iters=20)
+            nbytes = 4 * ndir * (SEQ_LEN * batch * 4 * HIDDEN + HIDDEN * 4 * HIDDEN
+                                 + 2 * SEQ_LEN * batch * HIDDEN)
+            flops = ndir * (2 * SEQ_LEN * batch * HIDDEN * 4 * HIDDEN
+                            + 10 * SEQ_LEN * batch * HIDDEN)
+            bound_ms, bound_by = bound(nbytes, flops)
+            row = dict(ndir=ndir, batch=batch, max_abs_err=err, ms=ms,
+                       ms_per_step=ms / SEQ_LEN, plain_ms=plain_ms,
+                       library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+            log("lstm_fwd " + json.dumps(row))
+            rows.append(row)
+    return lstm_rows(rows)
 
 
 def check_attention(dev, rng) -> dict:
@@ -218,49 +243,59 @@ def check_attention(dev, rng) -> dict:
 
 
 def check_lstm_bwd(dev, rng) -> dict:
-    """K2' against `lstm_bwd_plain` on K1''s hs and cs; library_ms is the
-    backward alone of cuDNN's one-layer one-direction LSTM (which also
-    computes dx and dW_ih of its input projection)."""
+    """K2' against `lstm_bwd_plain` on K1''s hs and cs, at ndir 1 and 2, B
+    lists per direction; at ndir = 2 a second launch must be bit-equal to
+    the first. library_ms is the backward alone of cuDNN's one-layer LSTM
+    of the same directions (which also computes dx and dW_ih of its input
+    projection)."""
     from rlt_tpu_torch.ops import lstm
 
     rows = []
-    for batch in BATCHES:
-        xw = torch.from_numpy(rng.normal(size=(SEQ_LEN, batch, 4 * HIDDEN))
-                              .astype(np.float32)).to(dev)
-        w = torch.from_numpy((rng.uniform(-1, 1, size=(HIDDEN, 4 * HIDDEN))
-                              / np.sqrt(HIDDEN)).astype(np.float32)).to(dev)
-        hs, cs = lstm.lstm_recurrence_plain(xw, w)
-        dho = torch.from_numpy(rng.normal(size=(SEQ_LEN, batch, HIDDEN))
-                               .astype(np.float32)).to(dev)
-        dxw, dw = lstm.lstm_bwd(xw, w, hs, cs, dho)
-        torch.cuda.synchronize()
-        want_dxw, want_dw = lstm.lstm_bwd_plain(xw, w, hs, cs, dho)
-        require(bool(torch.isfinite(dxw).all() and torch.isfinite(dw).all()),
-                "lstm_bwd: non-finite gradient")
-        errs = [max_errs(dxw, want_dxw), max_errs(dw, want_dw)]
-        rel = max(e[1] for e in errs)
-        require(rel <= LSTM_BWD_REL, f"lstm_bwd B={batch}: max rel err {rel} > {LSTM_BWD_REL}")
-        ms = cuda_ms(lambda: lstm.lstm_bwd(xw, w, hs, cs, dho), iters=20)
-        plain_ms = cuda_ms(lambda: lstm.lstm_bwd_plain(xw, w, hs, cs, dho), iters=3,
-                           warmup=1)
-        cudnn = torch.nn.LSTM(HIDDEN, HIDDEN, batch_first=True).to(dev)
-        x_in = torch.from_numpy(rng.normal(size=(batch, SEQ_LEN, HIDDEN))
-                                .astype(np.float32)).to(dev).requires_grad_()
-        out, _ = cudnn(x_in)
-        g_out = torch.randn_like(out)
-        wrt = [x_in, *cudnn.parameters()]
-        library_ms = cuda_ms(lambda: torch.autograd.grad(out, wrt, g_out, retain_graph=True),
-                             iters=20)
-        state = SEQ_LEN * batch * HIDDEN
-        nbytes = 4 * (2 * 4 * state + 2 * HIDDEN * 4 * HIDDEN + 3 * state)
-        flops = 3 * 2 * 4 * state * HIDDEN  # gates, carried dh, dW_hh^T
-        bound_ms, bound_by = bound(nbytes, flops)
-        row = dict(batch=batch, max_abs_err=max(e[0] for e in errs), max_rel_err=rel,
-                   ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                   bound_by=bound_by)
-        log("lstm_bwd " + json.dumps(row))
-        rows.append(row)
-    return {"rows": rows, "max_abs_err": max(r["max_abs_err"] for r in rows)}
+    for ndir in (1, 2):
+        for batch in BATCHES:
+            xw = torch.from_numpy(rng.normal(size=(SEQ_LEN, ndir * batch, 4 * HIDDEN))
+                                  .astype(np.float32)).to(dev)
+            w = lstm_weights(rng, ndir, dev)
+            hs, cs = lstm.lstm_recurrence_plain(xw, w, ndir)
+            dho = torch.from_numpy(rng.normal(size=(SEQ_LEN, ndir * batch, HIDDEN))
+                                   .astype(np.float32)).to(dev)
+            dxw, dw = lstm.lstm_bwd(xw, w, hs, cs, dho, ndir)
+            torch.cuda.synchronize()
+            want_dxw, want_dw = lstm.lstm_bwd_plain(xw, w, hs, cs, dho, ndir)
+            require(bool(torch.isfinite(dxw).all() and torch.isfinite(dw).all()),
+                    "lstm_bwd: non-finite gradient")
+            errs = [max_errs(dxw, want_dxw), max_errs(dw, want_dw)]
+            rel = max(e[1] for e in errs)
+            require(rel <= LSTM_BWD_REL, f"lstm_bwd ndir={ndir} B={batch}: max rel err "
+                    f"{rel} > {LSTM_BWD_REL}")
+            if ndir == 2:
+                again = lstm.lstm_bwd(xw, w, hs, cs, dho, ndir)
+                require(torch.equal(dxw, again[0]) and torch.equal(dw, again[1]),
+                        f"lstm_bwd ndir=2 B={batch}: two launches on the same inputs "
+                        "differ")
+            ms = cuda_ms(lambda: lstm.lstm_bwd(xw, w, hs, cs, dho, ndir), iters=20)
+            plain_ms = cuda_ms(lambda: lstm.lstm_bwd_plain(xw, w, hs, cs, dho, ndir),
+                               iters=3, warmup=1)
+            cudnn = torch.nn.LSTM(HIDDEN, HIDDEN, batch_first=True,
+                                  bidirectional=ndir == 2).to(dev)
+            x_in = torch.from_numpy(rng.normal(size=(batch, SEQ_LEN, HIDDEN))
+                                    .astype(np.float32)).to(dev).requires_grad_()
+            out, _ = cudnn(x_in)
+            g_out = torch.randn_like(out)
+            wrt = [x_in, *cudnn.parameters()]
+            library_ms = cuda_ms(lambda: torch.autograd.grad(out, wrt, g_out,
+                                                             retain_graph=True), iters=20)
+            state = SEQ_LEN * ndir * batch * HIDDEN
+            nbytes = 4 * (2 * 4 * state + 2 * ndir * HIDDEN * 4 * HIDDEN + 3 * state)
+            flops = 3 * 2 * 4 * state * HIDDEN  # gates, carried dh, dW_hh^T
+            bound_ms, bound_by = bound(nbytes, flops)
+            row = dict(ndir=ndir, batch=batch, max_abs_err=max(e[0] for e in errs),
+                       max_rel_err=rel, ms=ms, ms_per_step=ms / SEQ_LEN,
+                       plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                       bound_by=bound_by)
+            log("lstm_bwd " + json.dumps(row))
+            rows.append(row)
+    return lstm_rows(rows)
 
 
 def check_attention_dropout(dev, rng) -> dict:
@@ -481,15 +516,16 @@ def read_counts() -> dict:
 
 def want_counts(model_name: str, forwards: int, steps: int = 0) -> dict:
     """The launches of `forwards` eval forwards and `steps` train steps of
-    `model_name`: per forward, 4 lstm_fwd (two BiLSTM layers, two
-    directions) and one launch of the model's attention forward over all
-    experts; per step, a forward and the backward's 4 lstm_bwd and one
-    attention backward. Every other kernel: none."""
+    `model_name`: per forward, 2 lstm_fwd (two BiLSTM layers, both
+    directions of a layer in one launch) and one launch of the model's
+    attention forward over all experts; per step, a forward and the
+    backward's 2 lstm_bwd and one attention backward. Every other kernel:
+    none."""
     from rlt_tpu_torch.ops import KERNELS
 
     attn_fwd, attn_bwd = ATTENTION_KERNELS[model_name]
     want = dict.fromkeys(KERNELS, 0)
-    want.update({"lstm_fwd": 4 * (forwards + steps), "lstm_bwd": 4 * steps,
+    want.update({"lstm_fwd": 2 * (forwards + steps), "lstm_bwd": 2 * steps,
                  attn_fwd: forwards + steps, attn_bwd: steps})
     return want
 
@@ -743,7 +779,7 @@ def train_step_parts(trainer, x, y, valid, iters: int = 5) -> dict:
 @torch.inference_mode()
 def stage_ms(model, batch: int, iters: int = 10) -> dict:
     """Device ms of each stage of one MMOECut or PLECut forward at `batch`:
-    the BiLSTM (4 lstm_fwd launches and the input projections), the expert
+    the BiLSTM (2 lstm_fwd launches and the input projections), the expert
     stack (one attention forward launch and the projections and FFN), and
     the gates with the towers."""
     x = torch.zeros(batch, SEQ_LEN, FEATURES, device="cuda")
@@ -799,10 +835,10 @@ def main() -> int:
     for name, res, source, replaces, library in (
             ("lstm_fwd", lstm_res, "rlt_tpu_torch/csrc/lstm_fwd.cu",
              "rlt_tpu/ops/lstm.py:82",
-             "torch.nn.LSTM (cuDNN), 1 layer 1 direction, input projection included"),
+             "torch.nn.LSTM (cuDNN), 1 layer 2 directions, input projection included"),
             ("lstm_bwd", lstm_bwd_res, "rlt_tpu_torch/csrc/lstm_bwd.cu",
              "rlt_tpu/ops/lstm.py:101",
-             "backward of torch.nn.LSTM (cuDNN), 1 layer 1 direction, dx and dW_ih "
+             "backward of torch.nn.LSTM (cuDNN), 1 layer 2 directions, dx and dW_ih "
              "included"),
             ("attention_fwd", slice_res, "rlt_tpu_torch/csrc/attention_fwd.cu",
              "rlt_tpu/ops/attention.py:89",
@@ -820,7 +856,8 @@ def main() -> int:
              "rlt_tpu/ops/attention.py:412",
              "backward of torch.nn.functional.scaled_dot_product_attention, f32, "
              "no dropout")):
-        row = res["rows"][0]  # the flagship batch of 63 lists
+        # the flagship batch of 63 lists; the LSTM kernels at ndir = 2
+        row = res.get("main", res["rows"][0])
         by_path = {path: launches[path][name] for path in PATHS}
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -829,6 +866,11 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "library_call": library, "batch": BATCHES[0]}
+        if "ndir_1" in res:  # the LSTM kernels: one direction, cuDNN's one direction
+            entry["ndir"] = 2
+            entry["ms_per_step"] = row["ms_per_step"]
+            entry["ndir_1"] = {k: res["ndir_1"][k] for k in (
+                "ms", "ms_per_step", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
         if "bound_tc_ms" in row:  # the attention kernels, whose products are all their flops
             entry["bound_tc_ms"] = row["bound_tc_ms"]
         for variant in ("dropout_0.1", "rate_0"):  # the per-slice kernels' other rate

@@ -1,282 +1,394 @@
-// K2' lstm_bwd: one direction of the LSTM recurrence, backward, float32.
+// K2' lstm_bwd: the LSTM recurrence backward, one or two directions, float32.
 //
 // Replaces rlt_tpu/ops/lstm.py::_lstm_bwd_kernel (run through _bwd_pallas and
-// the custom_vjp of fused_lstm). Given K1''s inputs xw (L, B, 4H) and
-// W_hh^T (H, 4H), its outputs hs and cs (L, B, H) and the gradient dho of
-// hs, it walks time in reverse with the carries dh and dc (zero at t = L-1):
+// the custom_vjp of fused_lstm and fused_lstm_bidir), in K1''s layout: xw
+// (L, ndir * B, 4H) and W_hh^T (ndir * H, 4H) partitioned by direction, K1''s
+// outputs hs and cs and the gradient dho of hs (L, ndir * B, H). Per
+// direction it walks time in reverse with the carries dh and dc (zero at
+// t = L-1):
 //   gates_t = xw_t + h_{t-1} W_hh^T              (recomputed; h_{-1} = 0)
 //   dh = dho_t + dh_carry,  do = dh tanh(c_t)
 //   dc = dc_carry + dh o (1 - tanh(c_t)^2),  dc_carry <- dc f
 //   di = dc g, df = dc c_{t-1}, dg = dc i        (c_{-1} = 0)
 //   dgates = [di i(1-i), df f(1-f), dg (1-g^2), do o(1-o)] -> dxw_t
 //   dh_carry <- dgates W_hh
-// and dW_hh^T = sum_t h_{t-1}^T dgates_t, an (H x (L-1)B) x ((L-1)B x 4H)
-// product of hs (shifted by one step) and dxw.
+// and dW_hh^T = sum_t h_{t-1}^T dgates_t per direction, an
+// (H x (L-1)B) x ((L-1)B x 4H) product of hs (shifted by one step) and dxw.
 //
-// What bounds it on an H100: the L-step serial chain, as for K1'. Each step
-// takes two products with all of W_hh (the gates from h_{t-1}, and the
-// carried dh_{t-1}), and W_hh^T (128 x 512 f32, 256 KB) is more than a
-// block's 227 KB of shared memory. The dW_hh^T product is small
-// (2.5 GFLOP at B = 63) and parallel, so it is not on the chain.
+// What bounds it on an H100: the L-step serial chain, as for K1'. W_hh^T
+// (128 x 512 f32, 256 KB) is more than a block's 227 KB of shared memory, so
+// each step of a chain streams it from on-chip storage. Only the carried
+// dh_{t-1} = dgates W_hh depends on the carries: the gates and their
+// activations depend on the inputs alone. The old design (PR 2) recomputed
+// them inside the reverse loop, a second 128-deep product per thread per
+// step, and took four barriers a step (h_{t-1} in, gates out, dgates out,
+// the register rows' partial sums out), with every global load in the step.
 //
-// Design: one C launcher, three kernels.
-//  1. lstm_bwd_chain_kernel: as in K1', a block owns R batch rows (1, 2 or
-//     4) and walks the L steps itself, one thread per gate column j. The
-//     first H - 32 rows of W_hh^T sit in shared memory and thread j holds
-//     the last 32 rows of column j in registers for the whole launch. The
-//     gates are K1''s product. The carried dh_{t-1}[k] = sum_j dgates[j]
-//     W_hh^T[k][j] is a sum over the threads: for a shared-memory row k one
-//     warp reads it with lanes over j and sums by shuffles; for the 32
-//     register rows each warp folds its 32 lanes' 32 products in 31
-//     shuffles (lane l ends with row H - 32 + l) and the 16 warps' partials
-//     are summed through shared memory.
-//  2. dw_partial_kernel: dW_hh^T tiled 64 x 64, the contraction over the
-//     (L-1)B (t, b) rows split into `splits` chunks, each block writing its
-//     chunk's partial product: no atomics.
-//  3. dw_reduce_kernel: sums the partials in chunk order, so the result is
+// Design: one C launcher, four kernels.
+//  1. lstm_bwd_gates_kernel (parallel, off the chain): the gates of every
+//     (t, row) as an (L B, H) x (H, 4H) product per direction, tiled 64 rows
+//     by 16 units x 4 gates so that a thread holds a unit's four gates, then
+//     their activations with c_t and c_{t-1}, folded into what the chain
+//     needs: dgates is linear in (dh, dc),
+//       dgates = [dc g i(1-i), dc c_{t-1} f(1-f), dc i(1-g^2), dh tanh(c_t) o(1-o)]
+//     so the four coefficients are written IN PLACE into the dxw buffer
+//     (which the chain then overwrites with dgates: no (L, ndir B, 4H)
+//     buffer of activations), and o(1 - tanh(c_t)^2) and f, the dc update's
+//     factors, into a (L, ndir B, H, 2) scratch array. Each thread loads its
+//     share of the next 16-deep stage into registers while the block
+//     multiplies the current one (so does dw_partial_kernel).
+//  2. lstm_bwd_chain_kernel: as in K1', a block owns R rows (1, 2 or 4) of
+//     one direction, chosen from ndir * B against the SM count, and walks
+//     the L steps with 2H threads (8 warps at H = 128). Thread 4v + q holds
+//     the carries of units v and v + H/2 and does quarter q of each one's
+//     4H-term contraction dh_carry[k] = sum_j dgates[j] W_hh^T[k][j]: the H
+//     columns of gate q, read from a float4 broadcast of dgates that feeds
+//     both units. Of each unit's H values of W_hh^T, the last 64 stay in
+//     registers for the whole launch (128 registers; at 2H threads a thread
+//     may hold 255) and the first H - 64 sit in shared memory, permuted once
+//     so that a warp reads 512 contiguous bytes a load. Two xor shuffles sum
+//     the four quarters, (q0 + q1) + (q2 + q3) in every lane, so all four
+//     lanes of a unit hold the same dh and dc, and lane q then computes gate
+//     q's dgate itself. dgates go to a double-buffered shared array,
+//     gate-major with a row pitch of H + 8 floats (writes and float4 reads
+//     on distinct banks): ONE barrier per step (four before). The next
+//     step's coefficients, dc factors and dho are loaded into registers
+//     before the barrier, to land during the contraction.
+//  3. dw_partial_kernel: dW_hh^T tiled 64 x 64 per direction, the
+//     contraction over the (L-1)B (t, b) rows split into `splits` chunks,
+//     each block writing its chunk's partial product: no atomics.
+//  4. dw_reduce_kernel: sums the partials in chunk order, so the result is
 //     the same on every run.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kRegRows = 32;      // rows of W_hh^T held in registers
-constexpr int kMaxThreads = 512;  // 4H at H = 128
-constexpr int kTile = 64;         // dW_hh^T output tile (rows and columns)
+constexpr int kRegRows = 64;      // W_hh^T values of each unit held in registers
+constexpr int kMaxThreads = 256;  // 2H at H = 128
+constexpr int kTile = 64;         // GEMM output tile (rows and columns)
 constexpr int kTileK = 16;        // contraction rows per shared-memory stage
+constexpr int kPitchA = kTile + 4;
 constexpr int kGemmThreads = 256;
+constexpr int kLoads = kTileK * kTile / kGemmThreads;  // a thread's loads per operand and stage
+constexpr int kGateUnits = 16;    // hidden units per gate-kernel tile
 
 __device__ __forceinline__ float sigmoid_f32(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
+// acc[x][y] += sum over the stage's kTileK rows of a_s[kk][4tm + x] *
+// b_s[kk][4tn + y]
+__device__ __forceinline__ void tile_fma(float (&acc)[4][4],
+                                         const float (*a_s)[kPitchA],
+                                         const float (*b_s)[kTile], int tm, int tn) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// acc[r] += sum over the 4 units k..k+3 of h[r][k+i] * w_i, h from shared.
-template <int R>
-__device__ __forceinline__ void fma4(float (&acc)[R], const float* h_s,
-                                     int hidden, int k, float w0, float w1,
-                                     float w2, float w3) {
+  for (int kk = 0; kk < kTileK; ++kk) {
+    const float4 av = *reinterpret_cast<const float4*>(&a_s[kk][tm * 4]);
+    const float4 bv = *reinterpret_cast<const float4*>(&b_s[kk][tn * 4]);
+    const float ar[4] = {av.x, av.y, av.z, av.w};
+    const float br[4] = {bv.x, bv.y, bv.z, bv.w};
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const float4 h = *reinterpret_cast<const float4*>(h_s + r * hidden + k);
-    acc[r] = fmaf(h.x, w0, acc[r]);
-    acc[r] = fmaf(h.y, w1, acc[r]);
-    acc[r] = fmaf(h.z, w2, acc[r]);
-    acc[r] = fmaf(h.w, w3, acc[r]);
+    for (int x = 0; x < 4; ++x)
+#pragma unroll
+      for (int y = 0; y < 4; ++y) acc[x][y] = fmaf(ar[x], br[y], acc[x][y]);
   }
 }
 
-// One halving step of the warp's transposed sum: lanes whose bit N is set
-// keep the upper N entries, the others the lower N, each adding its
-// partner's copy of the entries it keeps.
-template <int N>
-__device__ __forceinline__ void fold_step(float (&v)[kRegRows], int lane) {
-  const bool upper = (lane & N) != 0;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const float send = upper ? v[i] : v[i + N];
-    const float keep = upper ? v[i + N] : v[i];
-    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, N);
-  }
+// Row of step t, batch row b of direction `dir` in the (L, ndir B, .) layout.
+__device__ __forceinline__ size_t layout_row(int t, int b, int batch, int ndir,
+                                             int dir) {
+  return (static_cast<size_t>(t) * ndir + dir) * batch + b;
 }
 
-// Each lane holds 32 values; returns, in lane l, the sum over the warp's
-// lanes of value l.
-__device__ __forceinline__ float transpose_sum(float (&v)[kRegRows], int lane) {
-  fold_step<16>(v, lane);
-  fold_step<8>(v, lane);
-  fold_step<4>(v, lane);
-  fold_step<2>(v, lane);
-  fold_step<1>(v, lane);
-  return v[0];
+// Grid (ceil(L B / 64), H / 16, ndir), 256 threads. Tile rows m = t B + b,
+// tile columns 4j + q = gate q of unit u0 + j: thread (tm, tn) ends with the
+// four gates of unit u0 + tn for rows 4tm .. 4tm + 3.
+__global__ void __launch_bounds__(kGemmThreads)
+lstm_bwd_gates_kernel(const float* __restrict__ xw, const float* __restrict__ w,
+                      const float* __restrict__ hs, const float* __restrict__ cs,
+                      float* __restrict__ coef, float2* __restrict__ gf,
+                      int length, int batch, int hidden, int ndir) {
+  __shared__ __align__(16) float a_s[kTileK][kPitchA];
+  __shared__ __align__(16) float b_s[kTileK][kTile];
+  const int m_dim = length * batch;
+  const int m0 = blockIdx.x * kTile;
+  const int u0 = blockIdx.y * kGateUnits;
+  const int dir = blockIdx.z;
+  const int gates = 4 * hidden;
+  const float* wd = w + static_cast<size_t>(dir) * hidden * gates;
+  const int tid = threadIdx.x;
+  const int tm = tid / 16;
+  const int tn = tid % 16;
+  // this thread's 4 + 4 loads of every stage: a_s[kk][mm] = h_{t-1}[k0 + kk]
+  // of row m0 + mm (zero at t = 0 and past the rows), b_s[kb][4j + q] =
+  // W_hh^T[k0 + kb][qH + u0 + j]; offsets without k0, -1 for a zero
+  long long a_off[kLoads];
+  int b_off[kLoads];
+#pragma unroll
+  for (int l = 0; l < kLoads; ++l) {
+    const int i = tid + l * kGemmThreads;
+    const int m = m0 + i / kTileK;
+    const int t = m / batch;
+    a_off[l] = (m < m_dim && t > 0)
+                   ? static_cast<long long>(layout_row(t - 1, m - t * batch, batch, ndir, dir)) *
+                             hidden + i % kTileK
+                   : -1;
+    const int c = i % kTile;
+    b_off[l] = (i / kTile) * gates + (c / kGateUnits) * hidden + u0 + c % kGateUnits;
+  }
+  float ra[kLoads], rb[kLoads];
+  const auto load = [&](int k0) {
+#pragma unroll
+    for (int l = 0; l < kLoads; ++l) {
+      ra[l] = a_off[l] >= 0 ? hs[a_off[l] + k0] : 0.0f;
+      rb[l] = wd[static_cast<size_t>(k0) * gates + b_off[l]];
+    }
+  };
+  float acc[4][4] = {};
+  load(0);
+  for (int k0 = 0; k0 < hidden; k0 += kTileK) {
+#pragma unroll
+    for (int l = 0; l < kLoads; ++l) {
+      const int i = tid + l * kGemmThreads;
+      a_s[i % kTileK][i / kTileK] = ra[l];
+      const int c = i % kTile;
+      b_s[i / kTile][4 * (c % kGateUnits) + c / kGateUnits] = rb[l];
+    }
+    __syncthreads();
+    if (k0 + kTileK < hidden) load(k0 + kTileK);  // in flight during the products
+    tile_fma(acc, a_s, b_s, tm, tn);
+    __syncthreads();
+  }
+  const int u = u0 + tn;
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    const int m = m0 + tm * 4 + x;
+    if (m >= m_dim) continue;
+    const int t = m / batch;
+    const size_t row = layout_row(t, m - t * batch, batch, ndir, dir);
+    const float* xr = xw + row * gates + u;
+    const float in_g = sigmoid_f32(acc[x][0] + xr[0]);
+    const float forget_g = sigmoid_f32(acc[x][1] + xr[hidden]);
+    const float cell_g = tanhf(acc[x][2] + xr[2 * hidden]);
+    const float out_g = sigmoid_f32(acc[x][3] + xr[3 * hidden]);
+    const float c_prev =
+        t > 0 ? cs[(row - static_cast<size_t>(ndir) * batch) * hidden + u] : 0.0f;
+    const float tanh_c = tanhf(cs[row * hidden + u]);
+    float* cr = coef + row * gates + u;
+    cr[0] = cell_g * (in_g * (1.0f - in_g));
+    cr[hidden] = c_prev * (forget_g * (1.0f - forget_g));
+    cr[2 * hidden] = in_g * (1.0f - cell_g * cell_g);
+    cr[3 * hidden] = tanh_c * (out_g * (1.0f - out_g));
+    gf[row * hidden + u] = make_float2(out_g * (1.0f - tanh_c * tanh_c), forget_g);
+  }
 }
 
 size_t chain_smem_bytes(int rows, int hidden) {
-  const size_t gates = 4 * static_cast<size_t>(hidden);
-  const size_t warps = gates / 32;
-  return sizeof(float) * ((hidden - kRegRows) * gates + 3 * rows * hidden +
-                          rows * gates + rows * warps * kRegRows);
+  return sizeof(float) * (static_cast<size_t>(hidden - kRegRows) * 4 * hidden +
+                          2 * rows * 4 * (hidden + 8));
 }
 
-// Dynamic shared memory: w_s[H - 32][4H] | h_s[R][H] (h_{t-1}) |
-// dh_s[R][H] (carried dh) | dc_s[R][H] (carried dc) | g_s[R][4H] (gates,
-// then dgates) | red_s[R][warps][32] (register rows' partial dh).
+// acc[r][s] += sum over the 4 entries u..u+3 of v[r][u+i] * w_s.i, v from
+// shared memory with a row pitch of `pitch` floats: one broadcast read
+// feeds both units.
 template <int R>
-__global__ void __launch_bounds__(kMaxThreads)
-lstm_bwd_chain_kernel(const float* __restrict__ xw, const float* __restrict__ w,
-                      const float* __restrict__ hs, const float* __restrict__ cs,
+__device__ __forceinline__ void fma4x2(float (&acc)[R][2], const float* v, int pitch,
+                                       int u, float4 w0, float4 w1) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float4 x = *reinterpret_cast<const float4*>(v + r * pitch + u);
+    acc[r][0] = fmaf(x.x, w0.x, acc[r][0]);
+    acc[r][1] = fmaf(x.x, w1.x, acc[r][1]);
+    acc[r][0] = fmaf(x.y, w0.y, acc[r][0]);
+    acc[r][1] = fmaf(x.y, w1.y, acc[r][1]);
+    acc[r][0] = fmaf(x.z, w0.z, acc[r][0]);
+    acc[r][1] = fmaf(x.z, w1.z, acc[r][1]);
+    acc[r][0] = fmaf(x.w, w0.w, acc[r][0]);
+    acc[r][1] = fmaf(x.w, w1.w, acc[r][1]);
+  }
+}
+
+// A chain step's inputs of rows row .. row + R - 1 (zero past the nb rows of
+// the batch), for units k0 and k0 + H/2: this lane's coefficient (its dxw
+// slot, gate q), the unit's dc factors {o(1 - tanh(c)^2), f}, and dho.
+template <int R>
+__device__ __forceinline__ void load_step(float (&coef)[R][2], float (&gam)[R][2],
+                                          float (&fgt)[R][2], float (&dh_in)[R][2],
+                                          const float* dxw, const float2* gf,
+                                          const float* dho, size_t row, int nb,
+                                          int hidden, int q, int k0) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const size_t rr = row + r;
+    const bool in = r < nb;
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int k = k0 + s * (hidden / 2);
+      coef[r][s] = in ? dxw[rr * 4 * hidden + q * hidden + k] : 0.0f;
+      const float2 g = in ? gf[rr * hidden + k] : make_float2(0.0f, 0.0f);
+      gam[r][s] = g.x;
+      fgt[r][s] = g.y;
+      dh_in[r][s] = in ? dho[rr * hidden + k] : 0.0f;
+    }
+  }
+}
+
+// Dynamic shared memory: w_s[(H - 64) / 4][2][2H][4], where
+// w_s[m][s][4v + q][e] = W_hh^T[v + s H/2][qH + 4m + e] | dg_s[2][R][4][H + 8]
+// (dgates gate-major, alternating by step).
+template <int R>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+lstm_bwd_chain_kernel(const float* __restrict__ w, const float2* __restrict__ gf,
                       const float* __restrict__ dho, float* __restrict__ dxw,
-                      int length, int batch, int hidden) {
+                      int length, int batch, int hidden, int ndir) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int gates = 4 * hidden;
-  const int warps = gates / 32;
-  const int ks = hidden - kRegRows;  // rows of W_hh^T in shared memory
+  const int half = hidden / 2;
+  const int threads = 2 * hidden;
+  const int ks = hidden - kRegRows;  // values of a unit's slice in shared memory
+  const int pitch = hidden + 8;
   float* w_s = smem;
-  float* h_s = w_s + static_cast<size_t>(ks) * gates;
-  float* dh_s = h_s + R * hidden;
-  float* dc_s = dh_s + R * hidden;
-  float* g_s = dc_s + R * hidden;
-  float* red_s = g_s + R * gates;
+  float* dg_s = w_s + static_cast<size_t>(ks) * gates;
 
-  const int j = threadIdx.x;
-  const int warp = j / 32;
-  const int lane = j % 32;
-  const int b0 = blockIdx.x * R;
+  const int tid = threadIdx.x;
+  const int v = tid >> 2;  // hidden units v and v + H/2
+  const int q = tid & 3;   // gate, and quarter of the dh contraction
+  const int blocks_per_dir = (batch + R - 1) / R;
+  const int dir = blockIdx.x / blocks_per_dir;
+  const int b0 = (blockIdx.x - dir * blocks_per_dir) * R;
   const int nb = min(R, batch - b0);
+  const size_t step_rows = static_cast<size_t>(ndir) * batch;
+  const size_t row0 = static_cast<size_t>(dir) * batch + b0;
+  const float* wd = w + static_cast<size_t>(dir) * hidden * gates;
 
-  for (int i = j; i < ks * gates; i += blockDim.x) w_s[i] = w[i];
-  float w_r[kRegRows];
+  for (int i = tid; i < ks * gates; i += threads) {
+    const int th = (i >> 2) % threads;  // thread 4v' + q'
+    const int k = (th >> 2) + ((i >> 2) / threads & 1) * half;
+    const int u = ((i >> 2) / (2 * threads)) * 4 + (i & 3);
+    w_s[i] = wd[static_cast<size_t>(k) * gates + (th & 3) * hidden + u];
+  }
+  float w_r0[kRegRows], w_r1[kRegRows];
 #pragma unroll
-  for (int k = 0; k < kRegRows; ++k)
-    w_r[k] = w[static_cast<size_t>(ks + k) * gates + j];
-  for (int i = j; i < R * hidden; i += blockDim.x) {
-    dh_s[i] = 0.0f;
-    dc_s[i] = 0.0f;
+  for (int u = 0; u < kRegRows; ++u) {
+    w_r0[u] = wd[static_cast<size_t>(v) * gates + q * hidden + ks + u];
+    w_r1[u] = wd[static_cast<size_t>(v + half) * gates + q * hidden + ks + u];
   }
 
+  float coef[R][2], gam[R][2], fgt[R][2], dh_in[R][2];
+  load_step<R>(coef, gam, fgt, dh_in, dxw, gf, dho, (length - 1) * step_rows + row0,
+               nb, hidden, q, v);
+  float dh_carry[R][2], dc_carry[R][2];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      dh_carry[r][s] = 0.0f;
+      dc_carry[r][s] = 0.0f;
+    }
+  __syncthreads();
+
   for (int t = length - 1; t >= 0; --t) {
-    // h_{t-1}, zero at t = 0 and in rows past the batch
-    for (int i = j; i < R * hidden; i += blockDim.x) {
-      const int r = i / hidden;
-      const int u = i - r * hidden;
-      h_s[i] = (t > 0 && r < nb)
-                   ? hs[(static_cast<size_t>(t - 1) * batch + b0 + r) * hidden + u]
-                   : 0.0f;
-    }
-    __syncthreads();
-
-    // gates = xw_t + h_{t-1} W_hh^T, thread j owns gate column j
-    float acc[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-      acc[r] = r < nb ? xw[(static_cast<size_t>(t) * batch + b0 + r) * gates + j] : 0.0f;
-    for (int k = 0; k < ks; k += 4) {
-      const float* wk = w_s + k * gates + j;
-      fma4<R>(acc, h_s, hidden, k, wk[0], wk[gates], wk[2 * gates], wk[3 * gates]);
-    }
-#pragma unroll
-    for (int k = 0; k < kRegRows; k += 4)
-      fma4<R>(acc, h_s, hidden, ks + k, w_r[k], w_r[k + 1], w_r[k + 2], w_r[k + 3]);
-#pragma unroll
-    for (int r = 0; r < R; ++r) g_s[r * gates + j] = acc[r];
-    __syncthreads();
-
-    // elementwise, i indexes (row r, unit u) as r * H + u: dgates into g_s
-    // and dxw, the carries dc into dc_s
-    for (int i = j; i < nb * hidden; i += blockDim.x) {
-      const int r = i / hidden;
-      const int u = i - r * hidden;
-      float* g = g_s + r * gates;
-      const float in_g = sigmoid_f32(g[u]);
-      const float forget_g = sigmoid_f32(g[hidden + u]);
-      const float cell_g = tanhf(g[2 * hidden + u]);
-      const float out_g = sigmoid_f32(g[3 * hidden + u]);
-      const size_t o = (static_cast<size_t>(t) * batch + b0 + r) * hidden + u;
-      const float c_prev = t > 0 ? cs[o - static_cast<size_t>(batch) * hidden] : 0.0f;
-      const float tanh_c = tanhf(cs[o]);
-      const float dh = dho[o] + dh_s[i];
-      const float d_out = dh * tanh_c;
-      const float dc = dc_s[i] + dh * out_g * (1.0f - tanh_c * tanh_c);
-      dc_s[i] = dc * forget_g;
-      const float d_in = dc * cell_g * in_g * (1.0f - in_g);
-      const float d_forget = dc * c_prev * forget_g * (1.0f - forget_g);
-      const float d_cell = dc * in_g * (1.0f - cell_g * cell_g);
-      const float d_o = d_out * out_g * (1.0f - out_g);
-      g[u] = d_in;
-      g[hidden + u] = d_forget;
-      g[2 * hidden + u] = d_cell;
-      g[3 * hidden + u] = d_o;
-      float* dx = dxw + (static_cast<size_t>(t) * batch + b0 + r) * gates;
-      dx[u] = d_in;
-      dx[hidden + u] = d_forget;
-      dx[2 * hidden + u] = d_cell;
-      dx[3 * hidden + u] = d_o;
-    }
-    __syncthreads();
-
-    // dh_{t-1}[k] = sum_j dgates[j] W_hh^T[k][j]. Shared-memory rows: a warp
-    // per row, lanes over j.
-    for (int k = warp; k < ks; k += warps) {
-      float a[R] = {};
-      for (int m = lane; m < gates; m += 32) {
-        const float wv = w_s[k * gates + m];
-#pragma unroll
-        for (int r = 0; r < R; ++r) a[r] = fmaf(g_s[r * gates + m], wv, a[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        a[r] = warp_sum(a[r]);
-        if (lane == 0) dh_s[r * hidden + k] = a[r];
-      }
-    }
-    // register rows: each warp folds its lanes' products, lane l for row ks + l
+    float* dg = dg_s + (t & 1) * R * 4 * pitch;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      const float dg = g_s[r * gates + j];
-      float v[kRegRows];
 #pragma unroll
-      for (int k = 0; k < kRegRows; ++k) v[k] = dg * w_r[k];
-      red_s[(r * warps + warp) * kRegRows + lane] = transpose_sum(v, lane);
+      for (int s = 0; s < 2; ++s) {
+        const float dh = dh_in[r][s] + dh_carry[r][s];
+        const float dc = dc_carry[r][s] + dh * gam[r][s];
+        dc_carry[r][s] = dc * fgt[r][s];
+        const float d = (q == 3 ? dh : dc) * coef[r][s];
+        const int k = v + s * half;
+        dg[(r * 4 + q) * pitch + k] = d;
+        if (r < nb) dxw[(t * step_rows + row0 + r) * gates + q * hidden + k] = d;
+      }
     }
+    if (t == 0) break;  // no carry into step -1; every thread leaves here
+    load_step<R>(coef, gam, fgt, dh_in, dxw, gf, dho, (t - 1) * step_rows + row0, nb,
+                 hidden, q, v);
+    // this step's dgates are complete before any thread reads them; their
+    // buffer is not written again until every thread has passed the next
+    // step's barrier
     __syncthreads();
-    for (int i = j; i < R * kRegRows; i += blockDim.x) {
-      const int r = i / kRegRows;
-      const int l = i - r * kRegRows;
-      float a = 0.0f;
-      for (int wi = 0; wi < warps; ++wi) a += red_s[(r * warps + wi) * kRegRows + l];
-      dh_s[r * hidden + ks + l] = a;
+
+    // quarter q of dh_carry[k]: sum over u of dgates[qH + u] W_hh^T[k][qH + u]
+    float acc[R][2];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      acc[r][0] = 0.0f;
+      acc[r][1] = 0.0f;
     }
-    // the next step's first barrier orders these writes before their reads
+    const float* dq = dg + q * pitch;
+    const float4* w4 = reinterpret_cast<const float4*>(w_s) + tid;
+#pragma unroll 4
+    for (int u = 0; u < ks; u += 4) {
+      const float4* wu = w4 + (u >> 2) * 2 * threads;
+      fma4x2<R>(acc, dq, 4 * pitch, u, wu[0], wu[threads]);
+    }
+#pragma unroll
+    for (int u = 0; u < kRegRows; u += 4)
+      fma4x2<R>(acc, dq, 4 * pitch, ks + u,
+                make_float4(w_r0[u], w_r0[u + 1], w_r0[u + 2], w_r0[u + 3]),
+                make_float4(w_r1[u], w_r1[u + 1], w_r1[u + 2], w_r1[u + 3]));
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const float pair = acc[r][s] + __shfl_xor_sync(0xffffffffu, acc[r][s], 1);
+        dh_carry[r][s] = pair + __shfl_xor_sync(0xffffffffu, pair, 2);
+      }
   }
 }
 
-// partial[s] = A[k0:k1]^T B[k0:k1] over chunk s of the contraction rows:
-// A (K, m_dim) and B (K, n_dim) row-major, partial (splits, m_dim, n_dim).
+// partial[dir][s] = A_dir[k0:k1]^T B_dir[k0:k1] over chunk s of the
+// contraction rows kk = t B + b: A_dir's row kk is a[(t ndir + dir) B + b]
+// (m_dim wide), B_dir's is b[(t ndir + dir) B + b] (n_dim wide); partial
+// (ndir, splits, m_dim, n_dim). Grid (n tiles, m tiles, ndir * splits).
 __global__ void __launch_bounds__(kGemmThreads)
 dw_partial_kernel(const float* __restrict__ a, const float* __restrict__ b,
                   float* __restrict__ partial, int kdim, int m_dim, int n_dim,
-                  int chunk) {
-  __shared__ __align__(16) float a_s[kTileK][kTile];
+                  int chunk, int batch, int ndir, int splits) {
+  __shared__ __align__(16) float a_s[kTileK][kPitchA];
   __shared__ __align__(16) float b_s[kTileK][kTile];
   const int n0 = blockIdx.x * kTile;
   const int m0 = blockIdx.y * kTile;
-  const int split = blockIdx.z;
+  const int dir = blockIdx.z / splits;
+  const int split = blockIdx.z - dir * splits;
   const int k_begin = split * chunk;
   const int k_end = min(kdim, k_begin + chunk);
   const int tid = threadIdx.x;
   const int tm = tid / 16;  // output rows m0 + 4 tm .. + 3
   const int tn = tid % 16;  // output columns n0 + 4 tn .. + 3
+  // this thread's 4 + 4 loads of the stage at k0, zero past the chunk
+  float ra[kLoads], rb[kLoads];
+  const auto load = [&](int k0) {
+#pragma unroll
+    for (int l = 0; l < kLoads; ++l) {
+      const int i = tid + l * kGemmThreads;
+      const int k = k0 + i / kTile;
+      const int c = i % kTile;
+      const int t = k / batch;
+      const size_t row = layout_row(t, k - t * batch, batch, ndir, dir);
+      ra[l] = (k < k_end && m0 + c < m_dim) ? a[row * m_dim + m0 + c] : 0.0f;
+      rb[l] = (k < k_end && n0 + c < n_dim) ? b[row * n_dim + n0 + c] : 0.0f;
+    }
+  };
   float acc[4][4] = {};
+  if (k_begin < k_end) load(k_begin);
   for (int k0 = k_begin; k0 < k_end; k0 += kTileK) {
-    for (int i = tid; i < kTileK * kTile; i += kGemmThreads) {
-      const int kk = i / kTile;
-      const int c = i - kk * kTile;
-      const int k = k0 + kk;
-      a_s[kk][c] = (k < k_end && m0 + c < m_dim) ? a[static_cast<size_t>(k) * m_dim + m0 + c] : 0.0f;
-      b_s[kk][c] = (k < k_end && n0 + c < n_dim) ? b[static_cast<size_t>(k) * n_dim + n0 + c] : 0.0f;
+#pragma unroll
+    for (int l = 0; l < kLoads; ++l) {
+      const int i = tid + l * kGemmThreads;
+      a_s[i / kTile][i % kTile] = ra[l];
+      b_s[i / kTile][i % kTile] = rb[l];
     }
     __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kTileK; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&a_s[kk][tm * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&b_s[kk][tn * 4]);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int x = 0; x < 4; ++x)
-#pragma unroll
-        for (int y = 0; y < 4; ++y) acc[x][y] = fmaf(ar[x], br[y], acc[x][y]);
-    }
+    if (k0 + kTileK < k_end) load(k0 + kTileK);  // in flight during the products
+    tile_fma(acc, a_s, b_s, tm, tn);
     __syncthreads();
   }
-  float* out = partial + static_cast<size_t>(split) * m_dim * n_dim;
+  float* out = partial + static_cast<size_t>(blockIdx.z) * m_dim * n_dim;
 #pragma unroll
   for (int x = 0; x < 4; ++x) {
     const int m = m0 + tm * 4 + x;
@@ -289,45 +401,52 @@ dw_partial_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
-// out = sum over s in order of partial[s], `size` elements each
+// out[d][i] = sum over s in order of partial[d][s][i], `size` elements per
+// direction
 __global__ void dw_reduce_kernel(const float* __restrict__ partial,
-                                 float* __restrict__ out, int splits, int size) {
+                                 float* __restrict__ out, int splits, int size,
+                                 int ndir) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= size) return;
+  if (i >= ndir * size) return;
+  const int d = i / size;
+  const float* p = partial + static_cast<size_t>(d) * splits * size + (i - d * size);
   float a = 0.0f;
-  for (int s = 0; s < splits; ++s) a += partial[static_cast<size_t>(s) * size + i];
+  for (int s = 0; s < splits; ++s) a += p[static_cast<size_t>(s) * size];
   out[i] = a;
 }
 
 template <int R>
-cudaError_t launch_chain(const void* xw, const void* w_hh_t, const void* hs,
-                         const void* cs, const void* dho, void* dxw, int length,
-                         int batch, int hidden, cudaStream_t stream) {
+cudaError_t launch_chain(const void* w_hh_t, const void* gf, const void* dho,
+                         void* dxw, int length, int batch, int hidden, int ndir,
+                         cudaStream_t stream) {
   const size_t smem = chain_smem_bytes(R, hidden);
   const cudaError_t err = cudaFuncSetAttribute(
       lstm_bwd_chain_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  lstm_bwd_chain_kernel<R><<<(batch + R - 1) / R, 4 * hidden, smem, stream>>>(
-      static_cast<const float*>(xw), static_cast<const float*>(w_hh_t),
-      static_cast<const float*>(hs), static_cast<const float*>(cs),
+  lstm_bwd_chain_kernel<R><<<ndir * ((batch + R - 1) / R), 2 * hidden, smem, stream>>>(
+      static_cast<const float*>(w_hh_t), static_cast<const float2*>(gf),
       static_cast<const float*>(dho), static_cast<float*>(dxw), length, batch,
-      hidden);
+      hidden, ndir);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// xw, dxw (L, B, 4H), w_hh_t, dw_hh_t (H, 4H), hs, cs, dho (L, B, H),
-// partial a (splits, H, 4H) scratch array: contiguous float32 device arrays,
-// H a multiple of 32 in [32, 128], 1 <= splits <= 65535. Launches its three
-// kernels on `stream` and returns the first error.
+// xw, dxw (L, ndir * B, 4H), w_hh_t, dw_hh_t (ndir * H, 4H), hs, cs, dho
+// (L, ndir * B, H), scratch arrays gf (L, ndir * B, H, 2) and partial
+// (ndir, splits, H, 4H): contiguous float32 device arrays, H a multiple of
+// 32 in [64, 128], ndir 1 or 2, B the rows of one direction,
+// 1 <= splits <= 32767. Launches its four kernels on `stream` and returns
+// the first error.
 extern "C" int rlt_lstm_bwd(const void* xw, const void* w_hh_t, const void* hs,
                             const void* cs, const void* dho, void* dxw,
-                            void* dw_hh_t, void* partial, int length, int batch,
-                            int hidden, int splits, void* stream) {
+                            void* dw_hh_t, void* partial, void* gf, int length,
+                            int batch, int hidden, int ndir, int splits,
+                            void* stream) {
   if (length < 1 || batch < 1 || hidden < kRegRows || hidden % 32 != 0 ||
-      4 * hidden > kMaxThreads || splits < 1 || splits > 65535)
+      2 * hidden > kMaxThreads || ndir < 1 || ndir > 2 || splits < 1 ||
+      splits > 32767)
     return static_cast<int>(cudaErrorInvalidValue);
   int device = 0;
   int sms = 0;
@@ -342,27 +461,42 @@ extern "C" int rlt_lstm_bwd(const void* xw, const void* w_hh_t, const void* hs,
   if (chain_smem_bytes(4, hidden) > static_cast<size_t>(max_smem))
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (batch <= sms)
-    err = launch_chain<1>(xw, w_hh_t, hs, cs, dho, dxw, length, batch, hidden, s);
-  else if (batch <= 2 * sms)
-    err = launch_chain<2>(xw, w_hh_t, hs, cs, dho, dxw, length, batch, hidden, s);
-  else
-    err = launch_chain<4>(xw, w_hh_t, hs, cs, dho, dxw, length, batch, hidden, s);
+  const int gates = 4 * hidden;
+
+  // 1. coefficients into dxw, dc factors into gf
+  const dim3 gate_grid((length * batch + kTile - 1) / kTile, hidden / kGateUnits, ndir);
+  lstm_bwd_gates_kernel<<<gate_grid, kGemmThreads, 0, s>>>(
+      static_cast<const float*>(xw), static_cast<const float*>(w_hh_t),
+      static_cast<const float*>(hs), static_cast<const float*>(cs),
+      static_cast<float*>(dxw), static_cast<float2*>(gf), length, batch, hidden,
+      ndir);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  // dW_hh^T = hs[0 : L-1]^T dxw[1 : L], contracted over (L - 1) * B rows
-  const int gates = 4 * hidden;
+  // 2. the chain: dgates over the coefficients, in place
+  if (ndir * batch <= sms)
+    err = launch_chain<1>(w_hh_t, gf, dho, dxw, length, batch, hidden, ndir, s);
+  else if (ndir * ((batch + 1) / 2) <= sms)
+    err = launch_chain<2>(w_hh_t, gf, dho, dxw, length, batch, hidden, ndir, s);
+  else
+    err = launch_chain<4>(w_hh_t, gf, dho, dxw, length, batch, hidden, ndir, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  // 3-4. dW_hh^T = hs[0 : L-1]^T dxw[1 : L] per direction, contracted over
+  // (L - 1) * B rows
   const int kdim = (length - 1) * batch;
   const int chunk = (kdim + splits - 1) / splits;
-  const dim3 grid((gates + kTile - 1) / kTile, (hidden + kTile - 1) / kTile, splits);
+  const dim3 grid((gates + kTile - 1) / kTile, (hidden + kTile - 1) / kTile,
+                  ndir * splits);
   dw_partial_kernel<<<grid, kGemmThreads, 0, s>>>(
       static_cast<const float*>(hs),
-      static_cast<const float*>(dxw) + static_cast<size_t>(batch) * gates,
-      static_cast<float*>(partial), kdim, hidden, gates, chunk);
+      static_cast<const float*>(dxw) + static_cast<size_t>(ndir) * batch * gates,
+      static_cast<float*>(partial), kdim, hidden, gates, chunk, batch, ndir, splits);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int size = hidden * gates;
-  dw_reduce_kernel<<<(size + 255) / 256, 256, 0, s>>>(
-      static_cast<const float*>(partial), static_cast<float*>(dw_hh_t), splits, size);
+  dw_reduce_kernel<<<(ndir * size + 255) / 256, 256, 0, s>>>(
+      static_cast<const float*>(partial), static_cast<float*>(dw_hh_t), splits, size,
+      ndir);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,167 +1,221 @@
-// K1' lstm_fwd: one direction of the LSTM recurrence, forward, float32.
+// K1' lstm_fwd: the LSTM recurrence forward, one or two directions, float32.
 //
-// Replaces rlt_tpu/ops/lstm.py::_lstm_fwd_kernel (run through _fwd_pallas and
-// fused_lstm). Computes, for pre-projected gate inputs xw = x W_ih^T + b_ih +
-// b_hh of shape (L, B, 4H) and the recurrent weights W_hh^T (H, 4H):
+// Replaces rlt_tpu/ops/lstm.py::_lstm_fwd_kernel (run through _fwd_pallas by
+// fused_lstm at ndir = 1 and fused_lstm_bidir at ndir = 2), in its layout:
+// pre-projected gate inputs xw = x W_ih^T + b_ih + b_hh of shape
+// (L, ndir * B, 4H), rows d * B .. d * B + B - 1 of each step belonging to
+// direction d (in kernel time order; the caller flips the reverse one), and
+// the recurrent weights W_hh^T (ndir * H, 4H), rows d * H .. d * H + H - 1
+// for direction d. Per direction:
 //   gates_t = xw_t + h_{t-1} W_hh^T      (torch gate order i, f, g, o)
 //   c_t = sigmoid(f) c_{t-1} + sigmoid(i) tanh(g),  h_t = sigmoid(o) tanh(c_t)
-// from a zero state, writing every h_t to hs and every c_t to cs (L, B, H);
-// cs is what the training slice's backward kernel reads.
+// from a zero state, writing every h_t to hs and every c_t to cs
+// (L, ndir * B, H); cs is what the backward kernel K2' reads.
 //
 // What bounds it on an H100: the L-step serial chain, not the card's byte or
 // FLOP rate. Each step multiplies the (rows, H) state by the whole of
 // W_hh^T, and at H = 128 W_hh^T is 128 x 512 floats = 256 KB: more than the
 // 227 KB of shared memory a block may hold. So every step of every block
-// reads all of W_hh^T from on-chip storage, and the next step waits for it.
+// streams W_hh^T from on-chip storage, and the next step waits for it.
 //
-// Design: batch rows are independent in the recurrence, so a block owns R
-// rows and walks all L steps itself (the loop replaces the TPU's sequential
-// grid; the TPU's padding of B to 8 and its direction fold are not carried
-// over). R is 1, 2 or 4: the fewest rows per block that keep the blocks
-// within the card's SMs, since a step's cost grows with its rows and a block
-// fills an SM's shared memory. One thread per gate column j in [0, 4H) keeps
-// the R partial sums of column j in registers. W_hh^T is split between the
-// two on-chip stores: its first H - 32 rows are copied once into shared
-// memory, and thread j holds the last 32 rows of column j in 32 registers for
-// the whole launch, so no step reads W_hh^T from L2. h, c and the step's
-// gates live in shared memory; h is read four units at a time as a float4
-// broadcast. The next step's xw is loaded into registers while this step
-// computes. Splitting W_hh^T over a thread block cluster is later work.
+// Design: batch rows and directions are independent in the recurrence, so a
+// block owns R rows of one direction and walks all L steps itself (the loop
+// replaces the TPU's sequential grid; the TPU's padding of B to 8 is not
+// carried over). R is 1, 2 or 4: the fewest rows per block that keep the
+// ndir * ceil(B / R) blocks within the card's SMs, since a block fills an
+// SM's shared memory; at B = 63 the two directions' 126 chains run at once.
+// A step's cost is the shared memory its warps read: W_hh^T once, and the
+// whole of h_{t-1} once per warp. So a block has 2H threads, 8 warps at
+// H = 128, each thread owning gate q of the two units v and v + H/2
+// (columns qH + v and qH + v + H/2; thread 4v + q, so a unit's four gates
+// sit in four adjacent lanes), and at 2H threads a thread may hold 255
+// registers: the last 64 rows of both its columns stay in 128 registers for
+// the whole launch, and only the first H - 64 rows sit in shared memory,
+// permuted once at load so that each thread finds each of its columns'
+// rows 4m .. 4m + 3 as one float4 beside its lanes' (a warp reads 512
+// contiguous bytes a load). h_{t-1} is read four units at a time as a float4 broadcast that
+// feeds both columns. The four pre-activations of a unit meet by shuffles
+// inside the lane group, every lane of the group carries c_t in a register,
+// and h_t goes to a double-buffered h_s: ONE barrier per step. Before this
+// design (PR 1's), one thread per gate column (16 warps, 32 register rows)
+// took two barriers a step: the gates went through shared memory to a
+// second set of threads, and h and c back through shared memory. The next
+// step's xw is loaded into registers while this step computes.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kRegRows = 32;      // rows of W_hh^T held in registers
-constexpr int kMaxThreads = 512;  // 4H at H = 128
+constexpr int kRegRows = 64;      // rows of each of a thread's columns in registers
+constexpr int kMaxThreads = 256;  // 2H at H = 128
 
 __device__ __forceinline__ float sigmoid_f32(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-// acc[r] += sum over the 4 units k..k+3 of h[r][k+i] * w_i, h from shared.
+// acc[r][s] += sum over the 4 units k..k+3 of h[r][k+i] * w_s.i, h from
+// shared memory with a row pitch of `pitch` floats: one broadcast read of h
+// feeds the thread's two columns.
 template <int R>
-__device__ __forceinline__ void fma4(float (&acc)[R], const float* h_s,
-                                     int hidden, int k, float w0, float w1,
-                                     float w2, float w3) {
+__device__ __forceinline__ void fma4x2(float (&acc)[R][2], const float* h, int pitch,
+                                       int k, float4 w0, float4 w1) {
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    const float4 h = *reinterpret_cast<const float4*>(h_s + r * hidden + k);
-    acc[r] = fmaf(h.x, w0, acc[r]);
-    acc[r] = fmaf(h.y, w1, acc[r]);
-    acc[r] = fmaf(h.z, w2, acc[r]);
-    acc[r] = fmaf(h.w, w3, acc[r]);
+    const float4 hv = *reinterpret_cast<const float4*>(h + r * pitch + k);
+    acc[r][0] = fmaf(hv.x, w0.x, acc[r][0]);
+    acc[r][1] = fmaf(hv.x, w1.x, acc[r][1]);
+    acc[r][0] = fmaf(hv.y, w0.y, acc[r][0]);
+    acc[r][1] = fmaf(hv.y, w1.y, acc[r][1]);
+    acc[r][0] = fmaf(hv.z, w0.z, acc[r][0]);
+    acc[r][1] = fmaf(hv.z, w1.z, acc[r][1]);
+    acc[r][0] = fmaf(hv.w, w0.w, acc[r][0]);
+    acc[r][1] = fmaf(hv.w, w1.w, acc[r][1]);
   }
 }
 
 size_t smem_bytes(int rows, int hidden) {
-  const size_t gates = 4 * static_cast<size_t>(hidden);
-  return sizeof(float) * ((hidden - kRegRows) * gates + 2 * rows * hidden +
-                          rows * gates);
+  return sizeof(float) * (static_cast<size_t>(hidden - kRegRows) * 4 * hidden +
+                          2 * rows * hidden);
 }
 
-// Dynamic shared memory: w_s[H - 32][4H] | h_s[R][H] | c_s[R][H] | g_s[R][4H].
-// blockDim.x == 4H <= 512 with H a multiple of 32, so every h row starts on a
-// 16-byte boundary.
+// Dynamic shared memory: w_s[(H - 64) / 4][2][2H][4], where
+// w_s[m][s][4v + q][e] = W_hh^T[4m + e][qH + v + s H/2] | h_s[2][R][H]
+// (h_{t-1} and h_t, alternating by step). blockDim.x == 2H <= 256 with H a
+// multiple of 32, so every h row starts on a 16-byte boundary.
 template <int R>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kMaxThreads, 1)
 lstm_fwd_kernel(const float* __restrict__ xw, const float* __restrict__ w,
                 float* __restrict__ hs, float* __restrict__ cs, int length,
-                int batch, int hidden) {
+                int batch, int hidden, int ndir) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int gates = 4 * hidden;
+  const int half = hidden / 2;
+  const int threads = 2 * hidden;
   const int ks = hidden - kRegRows;  // rows of W_hh^T in shared memory
   float* w_s = smem;
   float* h_s = w_s + static_cast<size_t>(ks) * gates;
-  float* c_s = h_s + R * hidden;
-  float* g_s = c_s + R * hidden;
 
-  const int j = threadIdx.x;
-  const int b0 = blockIdx.x * R;
+  const int tid = threadIdx.x;
+  const int v = tid >> 2;  // hidden units v and v + H/2
+  const int q = tid & 3;   // gate: i, f, g, o
+  const int col = q * hidden + v;
+  const int blocks_per_dir = (batch + R - 1) / R;
+  const int dir = blockIdx.x / blocks_per_dir;
+  const int b0 = (blockIdx.x - dir * blocks_per_dir) * R;
   const int nb = min(R, batch - b0);
+  const size_t step_rows = static_cast<size_t>(ndir) * batch;
+  const size_t row0 = static_cast<size_t>(dir) * batch + b0;
+  const float* wd = w + static_cast<size_t>(dir) * hidden * gates;
 
-  for (int i = j; i < ks * gates; i += blockDim.x) w_s[i] = w[i];
-  float w_r[kRegRows];
-#pragma unroll
-  for (int k = 0; k < kRegRows; ++k)
-    w_r[k] = w[static_cast<size_t>(ks + k) * gates + j];
-  for (int i = j; i < R * hidden; i += blockDim.x) {
-    h_s[i] = 0.0f;
-    c_s[i] = 0.0f;
+  for (int i = tid; i < ks * gates; i += threads) {
+    const int th = (i >> 2) % threads;  // thread 4v' + q'
+    const int k = ((i >> 2) / (2 * threads)) * 4 + (i & 3);
+    const int c = (th & 3) * hidden + (th >> 2) + ((i >> 2) / threads & 1) * half;
+    w_s[i] = wd[static_cast<size_t>(k) * gates + c];
   }
-  float x_next[R];
+  float w_r0[kRegRows], w_r1[kRegRows];
 #pragma unroll
-  for (int r = 0; r < R; ++r)
-    x_next[r] = r < nb ? xw[static_cast<size_t>(b0 + r) * gates + j] : 0.0f;
+  for (int k = 0; k < kRegRows; ++k) {
+    w_r0[k] = wd[static_cast<size_t>(ks + k) * gates + col];
+    w_r1[k] = wd[static_cast<size_t>(ks + k) * gates + col + half];
+  }
+  for (int i = tid; i < 2 * R * hidden; i += threads) h_s[i] = 0.0f;
+  float x_next[R][2];
+  float c_reg[R][2];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float* x0 = xw + (row0 + r) * gates + col;
+    x_next[r][0] = r < nb ? x0[0] : 0.0f;
+    x_next[r][1] = r < nb ? x0[half] : 0.0f;
+    c_reg[r][0] = 0.0f;
+    c_reg[r][1] = 0.0f;
+  }
   __syncthreads();
 
   for (int t = 0; t < length; ++t) {
-    float acc[R];
+    const float* h_cur = h_s + (t & 1) * R * hidden;
+    float* h_nxt = h_s + ((t + 1) & 1) * R * hidden;
+    float acc[R][2];
 #pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = x_next[r];
-    if (t + 1 < length) {
-      const float* xw_n = xw + (static_cast<size_t>(t + 1) * batch + b0) * gates + j;
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-        x_next[r] = r < nb ? xw_n[static_cast<size_t>(r) * gates] : 0.0f;
+    for (int r = 0; r < R; ++r) {
+      acc[r][0] = x_next[r][0];
+      acc[r][1] = x_next[r][1];
     }
+    if (t + 1 < length) {
+      const float* xw_n = xw + ((t + 1) * step_rows + row0) * gates + col;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        x_next[r][0] = r < nb ? xw_n[static_cast<size_t>(r) * gates] : 0.0f;
+        x_next[r][1] = r < nb ? xw_n[static_cast<size_t>(r) * gates + half] : 0.0f;
+      }
+    }
+    const float4* w4 = reinterpret_cast<const float4*>(w_s) + tid;
+#pragma unroll 4
     for (int k = 0; k < ks; k += 4) {
-      const float* wk = w_s + k * gates + j;
-      fma4<R>(acc, h_s, hidden, k, wk[0], wk[gates], wk[2 * gates], wk[3 * gates]);
+      const float4* wk = w4 + (k >> 2) * 2 * threads;
+      fma4x2<R>(acc, h_cur, hidden, k, wk[0], wk[threads]);
     }
 #pragma unroll
     for (int k = 0; k < kRegRows; k += 4)
-      fma4<R>(acc, h_s, hidden, ks + k, w_r[k], w_r[k + 1], w_r[k + 2], w_r[k + 3]);
-#pragma unroll
-    for (int r = 0; r < R; ++r) g_s[r * gates + j] = acc[r];
-    __syncthreads();
+      fma4x2<R>(acc, h_cur, hidden, ks + k,
+                make_float4(w_r0[k], w_r0[k + 1], w_r0[k + 2], w_r0[k + 3]),
+                make_float4(w_r1[k], w_r1[k + 1], w_r1[k + 2], w_r1[k + 3]));
 
-    // i indexes (row r, unit u) as r * H + u, the layout of h_s and c_s
-    for (int i = j; i < nb * hidden; i += blockDim.x) {
-      const int r = i / hidden;
-      const int u = i - r * hidden;
-      const float* g = g_s + r * gates;
-      const float in_g = sigmoid_f32(g[u]);
-      const float forget_g = sigmoid_f32(g[hidden + u]);
-      const float cell_g = tanhf(g[2 * hidden + u]);
-      const float out_g = sigmoid_f32(g[3 * hidden + u]);
-      const float c = forget_g * c_s[i] + in_g * cell_g;
-      const float h = out_g * tanhf(c);
-      c_s[i] = c;
-      h_s[i] = h;
-      const size_t o = (static_cast<size_t>(t) * batch + b0 + r) * hidden + u;
-      hs[o] = h;
-      cs[o] = c;
+    // gate q's activation, then each unit's four gates from the lane group
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const float a = q == 2 ? tanhf(acc[r][s]) : sigmoid_f32(acc[r][s]);
+        const float in_g = __shfl_sync(0xffffffffu, a, 0, 4);
+        const float forget_g = __shfl_sync(0xffffffffu, a, 1, 4);
+        const float cell_g = __shfl_sync(0xffffffffu, a, 2, 4);
+        const float out_g = __shfl_sync(0xffffffffu, a, 3, 4);
+        c_reg[r][s] = forget_g * c_reg[r][s] + in_g * cell_g;
+        const float h = out_g * tanhf(c_reg[r][s]);
+        const int u = v + s * half;
+        if (q == 0) h_nxt[r * hidden + u] = h;
+        if (r < nb) {
+          const size_t o = (t * step_rows + row0 + r) * hidden + u;
+          if (q == 1) hs[o] = h;
+          if (q == 2) cs[o] = c_reg[r][s];
+        }
+      }
     }
+    // h_t is complete before any thread reads it; h_{t-1}'s buffer is not
+    // written again until every thread has passed the next step's barrier
     __syncthreads();
   }
 }
 
 template <int R>
 cudaError_t launch(const void* xw, const void* w_hh_t, void* hs, void* cs,
-                   int length, int batch, int hidden, cudaStream_t stream) {
+                   int length, int batch, int hidden, int ndir,
+                   cudaStream_t stream) {
   const size_t smem = smem_bytes(R, hidden);
   const cudaError_t err = cudaFuncSetAttribute(
       lstm_fwd_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  lstm_fwd_kernel<R><<<(batch + R - 1) / R, 4 * hidden, smem, stream>>>(
+  lstm_fwd_kernel<R><<<ndir * ((batch + R - 1) / R), 2 * hidden, smem, stream>>>(
       static_cast<const float*>(xw), static_cast<const float*>(w_hh_t),
-      static_cast<float*>(hs), static_cast<float*>(cs), length, batch, hidden);
+      static_cast<float*>(hs), static_cast<float*>(cs), length, batch, hidden,
+      ndir);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// xw (L, B, 4H), w_hh_t (H, 4H), hs and cs (L, B, H): contiguous float32
-// device arrays, H a multiple of 32 in [32, 128]. Launches on `stream` and
-// returns cudaGetLastError().
+// xw (L, ndir * B, 4H), w_hh_t (ndir * H, 4H), hs and cs (L, ndir * B, H):
+// contiguous float32 device arrays, H a multiple of 32 in [64, 128], ndir 1
+// or 2, B the rows of one direction. Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int rlt_lstm_fwd(const void* xw, const void* w_hh_t, void* hs,
                             void* cs, int length, int batch, int hidden,
-                            void* stream) {
+                            int ndir, void* stream) {
   if (length < 1 || batch < 1 || hidden < kRegRows || hidden % 32 != 0 ||
-      4 * hidden > kMaxThreads)
+      2 * hidden > kMaxThreads || ndir < 1 || ndir > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   int device = 0;
   int sms = 0;
@@ -176,10 +230,11 @@ extern "C" int rlt_lstm_fwd(const void* xw, const void* w_hh_t, void* hs,
   if (smem_bytes(4, hidden) > static_cast<size_t>(max_smem))
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (batch <= sms) err = launch<1>(xw, w_hh_t, hs, cs, length, batch, hidden, s);
-  else if (batch <= 2 * sms)
-    err = launch<2>(xw, w_hh_t, hs, cs, length, batch, hidden, s);
+  if (ndir * batch <= sms)
+    err = launch<1>(xw, w_hh_t, hs, cs, length, batch, hidden, ndir, s);
+  else if (ndir * ((batch + 1) / 2) <= sms)
+    err = launch<2>(xw, w_hh_t, hs, cs, length, batch, hidden, ndir, s);
   else
-    err = launch<4>(xw, w_hh_t, hs, cs, length, batch, hidden, s);
+    err = launch<4>(xw, w_hh_t, hs, cs, length, batch, hidden, ndir, s);
   return static_cast<int>(err);
 }

@@ -43,7 +43,7 @@ from rlt_tpu_torch.ops.attention import (
     fused_attention_packed,
     packed_group_size,
 )
-from rlt_tpu_torch.ops.lstm import fused_lstm
+from rlt_tpu_torch.ops.lstm import fused_lstm, fused_lstm_bidir
 
 
 def _uniform(shape, bound: float, generator: torch.Generator | None) -> nn.Parameter:
@@ -203,18 +203,33 @@ class LSTM(nn.Module):
                 setattr(self, f"bias_ih_{suffix}", _uniform((gates,), bound, generator))
                 setattr(self, f"bias_hh_{suffix}", _uniform((gates,), bound, generator))
 
+    def _params(self, layer: int, reverse: bool):
+        suffix = f"l{layer}" + ("_reverse" if reverse else "")
+        return [getattr(self, f"{name}_{suffix}")
+                for name in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in range(self.num_layers):
-            outs = []
-            for reverse in self.directions:
-                suffix = f"l{layer}" + ("_reverse" if reverse else "")
-                outs.append(_lstm_direction(
-                    x, getattr(self, f"weight_ih_{suffix}"),
-                    getattr(self, f"weight_hh_{suffix}"),
-                    getattr(self, f"bias_ih_{suffix}"),
-                    getattr(self, f"bias_hh_{suffix}"), reverse))
-            x = torch.cat(outs, dim=-1) if len(outs) > 1 else outs[0]
+            if len(self.directions) == 1:
+                x = _lstm_direction(x, *self._params(layer, False), reverse=False)
+            else:
+                x = _bilstm_layer(x, self._params(layer, False), self._params(layer, True))
         return x
+
+
+def _bilstm_layer(x, fwd_params, rev_params) -> torch.Tensor:
+    """Both directions of one layer over (B, L, F) -> (B, L, 2H) in one
+    two-direction recurrence (`ops.lstm.fused_lstm_bidir`). The reverse
+    direction projects the time-flipped input, so its gate inputs come out
+    in kernel time order, and the op's concatenation of the two time-major
+    views is the one write of the (L, 2B, 4H) gate inputs; the reverse
+    hidden states are flipped back."""
+    (wf_ih, wf_hh, bf_ih, bf_hh), (wr_ih, wr_hh, br_ih, br_hh) = fwd_params, rev_params
+    xw_f = F.linear(x, wf_ih, bf_ih + bf_hh).transpose(0, 1)
+    xw_r = F.linear(torch.flip(x, dims=(1,)), wr_ih, br_ih + br_hh).transpose(0, 1)
+    hs_f, hs_r = fused_lstm_bidir(xw_f, xw_r, wf_hh.T, wr_hh.T)
+    return torch.cat([hs_f.transpose(0, 1),
+                      torch.flip(hs_r, dims=(0,)).transpose(0, 1)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,7 @@ from rlt_tpu_torch.ops.lstm import (  # noqa: F401
     LSTM_BWD,
     LSTM_FWD,
     fused_lstm,
+    fused_lstm_bidir,
     lstm_bwd,
     lstm_bwd_plain,
     lstm_fwd,

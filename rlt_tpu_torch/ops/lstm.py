@@ -1,18 +1,24 @@
 """LSTM recurrence: CUDA kernels K1' (forward) and K2' (backward) and their
 plain PyTorch versions.
 
-The counterpart of the JAX package's `ops/lstm.py::fused_lstm` and its
-custom_vjp. The input projection for all time steps is hoisted out of the
-recurrence by the caller (`models/layers.py::_gate_inputs`); what remains
-per step is gates = xw_t + h W_hh^T in torch gate order i, f, g, o, then
-c = f c + i g and h = o tanh(c), from a zero state. The backward walks time
-in reverse from the saved hs and cs, recomputing the gates, and returns the
-gradients of xw and of W_hh^T.
+The counterpart of the JAX package's `ops/lstm.py::fused_lstm`,
+`fused_lstm_bidir` and their custom_vjp, in the layout of its kernels
+(`_fwd_pallas` / `_bwd_pallas`): `ndir` directions (1, or 2 for both
+directions of a BiLSTM layer) folded into the batch axis, xw (L, ndir * B,
+4H) with rows d * B .. d * B + B - 1 of each step for direction d, and
+W_hh^T (ndir * H, 4H) with rows d * H .. d * H + H - 1 for direction d;
+the outputs follow the same layout. The TPU kernels' padding of B to 8 is
+not carried over. The input projection for all time steps is hoisted out
+of the recurrence by the caller (`models/layers.py`); what remains per step
+and direction is gates = xw_t + h W_hh^T in torch gate order i, f, g, o,
+then c = f c + i g and h = o tanh(c), from a zero state. The backward walks
+time in reverse from the saved hs and cs, recomputing the gates, and
+returns the gradients of xw and of W_hh^T.
 
 On a CUDA tensor `lstm_fwd` and `lstm_bwd` launch the kernels of
-`rlt_tpu_torch/csrc/lstm_fwd.cu` and `csrc/lstm_bwd.cu` and raise on
-anything they do not take. On a CPU tensor they run `lstm_recurrence_plain`
-and `lstm_bwd_plain`, explicit time loops.
+`rlt_tpu_torch/csrc/lstm_fwd.cu` and `csrc/lstm_bwd.cu`, at ndir 1 or 2,
+and raise on anything they do not take. On a CPU tensor they run
+`lstm_recurrence_plain` and `lstm_bwd_plain`, explicit time loops.
 """
 
 from __future__ import annotations
@@ -23,24 +29,41 @@ import torch
 
 from rlt_tpu_torch.ops.build import Kernel, ptr, stream_handle
 
-LSTM_FWD = Kernel("rlt_lstm_fwd", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+LSTM_FWD = Kernel("rlt_lstm_fwd", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                   + [ctypes.c_void_p])
-LSTM_BWD = Kernel("rlt_lstm_bwd", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+LSTM_BWD = Kernel("rlt_lstm_bwd", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                   + [ctypes.c_void_p])
 # most chunks the dW_hh^T contraction is split into (K2' sums their partial
 # products in a second pass, in a fixed order)
 DW_SPLITS = 32
 
 
-def lstm_recurrence_plain(xw: torch.Tensor, w_hh_t: torch.Tensor):
-    """(L, B, 4H) gate inputs, (H, 4H) W_hh^T -> hs, cs, each (L, B, H)."""
-    length, batch, gates4 = xw.shape
+def dw_splits(length: int, batch: int) -> int:
+    """Chunks of K2''s dW_hh^T contraction over the (L - 1) B rows of one
+    direction: about 512 rows each, at most DW_SPLITS."""
+    return max(1, min(DW_SPLITS, (length - 1) * batch // 512))
+
+
+def _per_dir(op, a: torch.Tensor, b: torch.Tensor, ndir: int) -> torch.Tensor:
+    """op(a_d, b_d) over each direction's slice of a and of b along their
+    first axes, concatenated: the JAX package's `_dir_dot`."""
+    if ndir == 1:
+        return op(a, b)
+    m, k = a.shape[0] // ndir, b.shape[0] // ndir
+    return torch.cat([op(a[d * m:(d + 1) * m], b[d * k:(d + 1) * k])
+                      for d in range(ndir)])
+
+
+def lstm_recurrence_plain(xw: torch.Tensor, w_hh_t: torch.Tensor, ndir: int = 1):
+    """(L, ndir * B, 4H) gate inputs, (ndir * H, 4H) W_hh^T -> hs, cs, each
+    (L, ndir * B, H)."""
+    length, rows, gates4 = xw.shape
     hidden = gates4 // 4
-    h = xw.new_zeros(batch, hidden)
-    c = xw.new_zeros(batch, hidden)
+    h = xw.new_zeros(rows, hidden)
+    c = xw.new_zeros(rows, hidden)
     hs, cs = [], []
     for t in range(length):
-        gates = xw[t] + h @ w_hh_t
+        gates = xw[t] + _per_dir(torch.matmul, h, w_hh_t, ndir)
         i, f, g, o = gates.split(hidden, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h = torch.sigmoid(o) * torch.tanh(c)
@@ -50,20 +73,20 @@ def lstm_recurrence_plain(xw: torch.Tensor, w_hh_t: torch.Tensor):
 
 
 def lstm_bwd_plain(xw: torch.Tensor, w_hh_t: torch.Tensor, hs: torch.Tensor,
-                   cs: torch.Tensor, dho: torch.Tensor):
+                   cs: torch.Tensor, dho: torch.Tensor, ndir: int = 1):
     """The JAX package's reverse-time LSTM backward as an explicit loop:
-    (L, B, 4H) xw, (H, 4H) W_hh^T, hs, cs and dho (L, B, H) -> dxw (L, B,
-    4H), dW_hh^T (H, 4H)."""
-    length, batch, gates4 = xw.shape
+    (L, ndir * B, 4H) xw, (ndir * H, 4H) W_hh^T, hs, cs and dho
+    (L, ndir * B, H) -> dxw (L, ndir * B, 4H), dW_hh^T (ndir * H, 4H)."""
+    length, rows, gates4 = xw.shape
     hidden = gates4 // 4
-    zeros = xw.new_zeros(batch, hidden)
+    zeros = xw.new_zeros(rows, hidden)
     dh_carry, dc_carry = zeros, zeros
     dw = torch.zeros_like(w_hh_t)
     dxw = torch.empty_like(xw)
     for t in range(length - 1, -1, -1):
         h_prev = hs[t - 1] if t > 0 else zeros
         c_prev = cs[t - 1] if t > 0 else zeros
-        gates = xw[t] + h_prev @ w_hh_t
+        gates = xw[t] + _per_dir(torch.matmul, h_prev, w_hh_t, ndir)
         i, f, g, o = gates.split(hidden, dim=-1)
         i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
         tanh_c = torch.tanh(cs[t])
@@ -74,22 +97,26 @@ def lstm_bwd_plain(xw: torch.Tensor, w_hh_t: torch.Tensor, hs: torch.Tensor,
         dgates = torch.cat([dc * g * i * (1.0 - i), dc * c_prev * f * (1.0 - f),
                             dc * i * (1.0 - g * g), do * o * (1.0 - o)], dim=-1)
         dxw[t] = dgates
-        dh_carry = dgates @ w_hh_t.T
-        dw = dw + h_prev.T @ dgates
+        dh_carry = _per_dir(lambda g_, w_: g_ @ w_.T, dgates, w_hh_t, ndir)
+        dw = dw + _per_dir(lambda h_, g_: h_.T @ g_, h_prev, dgates, ndir)
     return dxw, dw
 
 
-def _check(xw: torch.Tensor, w_hh_t: torch.Tensor) -> None:
+def _check(xw: torch.Tensor, w_hh_t: torch.Tensor, ndir: int) -> None:
+    if ndir not in (1, 2):
+        raise ValueError(f"ndir must be 1 or 2, got {ndir}")
     if xw.dim() != 3 or w_hh_t.dim() != 2:
-        raise ValueError(f"lstm_fwd expects xw (L, B, 4H) and w_hh_t (H, 4H), "
-                         f"got {tuple(xw.shape)} and {tuple(w_hh_t.shape)}")
-    length, batch, gates4 = xw.shape
-    hidden = gates4 // 4
-    if gates4 % 4 or tuple(w_hh_t.shape) != (hidden, gates4):
-        raise ValueError(f"w_hh_t must be (H, 4H) = ({hidden}, {gates4}), got "
+        raise ValueError(f"lstm_fwd expects xw (L, ndir*B, 4H) and w_hh_t "
+                         f"(ndir*H, 4H), got {tuple(xw.shape)} and "
                          f"{tuple(w_hh_t.shape)}")
-    if length < 1 or batch < 1:
-        raise ValueError(f"lstm_fwd needs L >= 1 and B >= 1, got {tuple(xw.shape)}")
+    length, rows, gates4 = xw.shape
+    hidden = gates4 // 4
+    if gates4 % 4 or tuple(w_hh_t.shape) != (ndir * hidden, gates4):
+        raise ValueError(f"w_hh_t must be (ndir*H, 4H) = ({ndir * hidden}, {gates4}) "
+                         f"(H, 4H) per direction, got {tuple(w_hh_t.shape)}")
+    if length < 1 or rows < 1 or rows % ndir:
+        raise ValueError(f"lstm_fwd needs L >= 1 and ndir*B rows with B >= 1, got "
+                         f"{tuple(xw.shape)} at ndir = {ndir}")
     if xw.device != w_hh_t.device:
         raise ValueError(f"xw on {xw.device}, w_hh_t on {w_hh_t.device}")
 
@@ -104,77 +131,102 @@ def _check_kernel_inputs(name: str, tensors: dict) -> None:
         if not t.is_contiguous():
             raise ValueError(f"{name} kernel takes contiguous {tname}")
     hidden = first.shape[-1] // 4
-    if hidden % 32 or not 32 <= hidden <= 128:
+    if hidden % 32 or not 64 <= hidden <= 128:
         raise ValueError(f"{name} kernel takes H a multiple of 32 in "
-                         f"[32, 128], got H = {hidden}")
+                         f"[64, 128], got H = {hidden}")
 
 
-def lstm_fwd(xw: torch.Tensor, w_hh_t: torch.Tensor):
-    """One LSTM direction: (L, B, 4H) xw, (H, 4H) W_hh^T -> (hs, cs), each
-    (L, B, H) float32. The kernel on a CUDA tensor, the plain loop on a CPU
-    tensor. The kernel takes contiguous float32 with H a multiple of 32 in
-    [32, 128]."""
-    _check(xw, w_hh_t)
+def lstm_fwd(xw: torch.Tensor, w_hh_t: torch.Tensor, ndir: int = 1):
+    """`ndir` LSTM directions: (L, ndir * B, 4H) xw, (ndir * H, 4H) W_hh^T
+    -> (hs, cs), each (L, ndir * B, H) float32. The kernel on a CUDA
+    tensor, the plain loop on a CPU tensor. The kernel takes contiguous
+    float32 with H a multiple of 32 in [64, 128]."""
+    _check(xw, w_hh_t, ndir)
     if xw.device.type == "cpu":
-        return lstm_recurrence_plain(xw, w_hh_t)
+        return lstm_recurrence_plain(xw, w_hh_t, ndir)
     _check_kernel_inputs("lstm_fwd", {"xw": xw, "w_hh_t": w_hh_t})
-    length, batch, gates4 = xw.shape
+    length, rows, gates4 = xw.shape
     hidden = gates4 // 4
-    hs = torch.empty(length, batch, hidden, device=xw.device, dtype=torch.float32)
+    hs = torch.empty(length, rows, hidden, device=xw.device, dtype=torch.float32)
     cs = torch.empty_like(hs)
     with torch.cuda.device(xw.device):
-        LSTM_FWD(ptr(xw), ptr(w_hh_t), ptr(hs), ptr(cs), length, batch, hidden,
-                 stream_handle(xw.device))
+        LSTM_FWD(ptr(xw), ptr(w_hh_t), ptr(hs), ptr(cs), length, rows // ndir, hidden,
+                 ndir, stream_handle(xw.device))
     return hs, cs
 
 
 def lstm_bwd(xw: torch.Tensor, w_hh_t: torch.Tensor, hs: torch.Tensor,
-             cs: torch.Tensor, dho: torch.Tensor):
-    """Backward of one LSTM direction: `lstm_fwd`'s inputs and outputs and
-    the gradient dho of hs -> (dxw (L, B, 4H), dW_hh^T (H, 4H)) float32. The
-    kernel on a CUDA tensor, the plain loop on a CPU tensor."""
-    _check(xw, w_hh_t)
+             cs: torch.Tensor, dho: torch.Tensor, ndir: int = 1):
+    """Backward of `ndir` LSTM directions: `lstm_fwd`'s inputs and outputs
+    and the gradient dho of hs -> (dxw (L, ndir * B, 4H), dW_hh^T
+    (ndir * H, 4H)) float32. The kernel on a CUDA tensor, the plain loop on
+    a CPU tensor."""
+    _check(xw, w_hh_t, ndir)
     state = (xw.shape[0], xw.shape[1], xw.shape[2] // 4)
     for name, t in (("hs", hs), ("cs", cs), ("dho", dho)):
         if tuple(t.shape) != state or t.device != xw.device:
             raise ValueError(f"lstm_bwd: {name} must be {state} on {xw.device}, "
                              f"got {tuple(t.shape)} on {t.device}")
     if xw.device.type == "cpu":
-        return lstm_bwd_plain(xw, w_hh_t, hs, cs, dho)
+        return lstm_bwd_plain(xw, w_hh_t, hs, cs, dho, ndir)
     _check_kernel_inputs("lstm_bwd", {"xw": xw, "w_hh_t": w_hh_t, "hs": hs,
                                       "cs": cs, "dho": dho})
-    length, batch, hidden = state
-    splits = max(1, min(DW_SPLITS, (length - 1) * batch // 512))
+    length, rows, hidden = state
+    batch = rows // ndir
+    splits = dw_splits(length, batch)
     dxw = torch.empty_like(xw)
     dw = torch.empty_like(w_hh_t)
-    partial = torch.empty(splits, hidden, 4 * hidden, device=xw.device,
+    partial = torch.empty(ndir, splits, hidden, 4 * hidden, device=xw.device,
                           dtype=torch.float32)
+    # per (t, row, unit) the factors of K2''s dc update, {o(1 - tanh(c)^2), f}
+    gf = torch.empty(length, rows, hidden, 2, device=xw.device, dtype=torch.float32)
     with torch.cuda.device(xw.device):
         LSTM_BWD(ptr(xw), ptr(w_hh_t), ptr(hs), ptr(cs), ptr(dho), ptr(dxw),
-                 ptr(dw), ptr(partial), length, batch, hidden, splits,
+                 ptr(dw), ptr(partial), ptr(gf), length, batch, hidden, ndir, splits,
                  stream_handle(xw.device))
     return dxw, dw
 
 
 class LSTMRecurrence(torch.autograd.Function):
-    """Forward K1' (`lstm_fwd`), backward K2' (`lstm_bwd`), looked up as
-    module attributes at each call; it saves xw, W_hh^T, hs and cs, as the
-    JAX package's custom_vjp does."""
+    """Forward K1' (`lstm_fwd`), backward K2' (`lstm_bwd`) over `ndir`
+    directions, looked up as module attributes at each call; it saves xw,
+    W_hh^T, hs and cs, as the JAX package's custom_vjp does."""
 
     @staticmethod
-    def forward(ctx, xw, w_hh_t):
-        hs, cs = lstm_fwd(xw, w_hh_t)
+    def forward(ctx, xw, w_hh_t, ndir=1):
+        hs, cs = lstm_fwd(xw, w_hh_t, ndir)
         ctx.save_for_backward(xw, w_hh_t, hs, cs)
+        ctx.ndir = ndir
         return hs
 
     @staticmethod
     def backward(ctx, dhs):
         xw, w_hh_t, hs, cs = ctx.saved_tensors
-        return lstm_bwd(xw, w_hh_t, hs, cs, dhs.contiguous())
+        dxw, dw = lstm_bwd(xw, w_hh_t, hs, cs, dhs.contiguous(), ctx.ndir)
+        return dxw, dw, None
 
 
 def fused_lstm(xw: torch.Tensor, w_hh_t: torch.Tensor) -> torch.Tensor:
     """One LSTM direction's hidden states (L, B, H), differentiable, as the
     JAX package's `fused_lstm`. The reverse direction is the caller's time
     flip."""
-    return LSTMRecurrence.apply(xw, w_hh_t)
+    if xw.dim() != 3:
+        raise ValueError(f"fused_lstm expects xw (L, B, 4H), got {tuple(xw.shape)}")
+    return LSTMRecurrence.apply(xw, w_hh_t, 1)
+
+
+def fused_lstm_bidir(xw_fwd: torch.Tensor, xw_rev: torch.Tensor,
+                     w_hh_fwd_t: torch.Tensor, w_hh_rev_t: torch.Tensor):
+    """Both directions of a BiLSTM layer in one launch (ndir = 2), as the JAX
+    package's `fused_lstm_bidir`: xw_fwd and xw_rev (L, B, 4H), both in
+    kernel time order (the caller flips the reverse direction's inputs
+    before and its outputs after), W_hh^T (H, 4H) each -> (hs_fwd, hs_rev),
+    each (L, B, H), hs_rev still in flipped time order. Differentiable."""
+    if xw_fwd.dim() != 3 or xw_rev.shape != xw_fwd.shape:
+        raise ValueError(f"fused_lstm_bidir expects two (L, B, 4H) inputs of one "
+                         f"shape, got {tuple(xw_fwd.shape)} and {tuple(xw_rev.shape)}")
+    batch = xw_fwd.shape[1]
+    # one write each of the kernels' (L, 2B, 4H) and (2H, 4H) layouts
+    hs = LSTMRecurrence.apply(torch.cat([xw_fwd, xw_rev], dim=1),
+                              torch.cat([w_hh_fwd_t, w_hh_rev_t]), 2)
+    return hs[:, :batch], hs[:, batch:]
