@@ -5,22 +5,25 @@
 
 Builds the port's CUDA kernels from `rlt_tpu_torch/csrc`, holds each one
 against its plain PyTorch version on the card at the main paths' shapes and
-times both, then drives four main paths at robust04 width (L = 300, F = 3,
-float32, seeded random weights), for MMOECut (4 heads of dh = 64: the
-packed attention kernels) and for PLECut (2 heads of dh = 128: the
-per-slice attention kernels):
+times both, then drives twelve main paths at robust04 width (L = 300,
+F = 3, float32, seeded random weights): serving and training of MMOECut,
+MOECut, AttnCut and MtAttnCut (4 heads of dh = 64: the packed attention
+kernels, over the stacked (3 * B) experts of MMOECut and MOECut and over
+the B rows of AttnCut's and MtAttnCut's one encoder), PLECut (2 heads of
+dh = 128: the per-slice attention kernels) and BiCut (the LSTM kernels
+only):
 
 - serving: the model over HTTP through `TruncationService`, the cuts
   checked against the same model run through the plain versions on the
   card;
 - training: one epoch of `Trainer` with the model's drmm_tks preset (B = 63
-  lists, lr 3e-5, dropout 0.1) on the synthetic robust04 corpus, checked
-  against the same epoch through the plain versions on the card (same
-  weights, batch plans and dropout masks).
+  lists) on the synthetic robust04 corpus, checked against the same epoch
+  through the plain versions on the card (same weights, batch plans and
+  dropout masks).
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after, and must have launched each kernel exactly as often as its
-shape says (and the other model's attention kernels not at all). It prints
+shape says (and the other attention kernels not at all). It prints
 a `kernels` JSON line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failed check raises, and the script
 then exits with a non-zero code; without a CUDA card it exits before any
@@ -46,10 +49,17 @@ import torch.nn.functional as F
 SEQ_LEN, FEATURES, HIDDEN, HEADS, D_MODEL, EXPERTS = 300, 3, 128, 4, 256, 3
 SLICE_HEADS, SLICE_DH = 2, 128  # PLECut's experts
 BATCHES = (63, 256)
-# each model's attention kernels, forward and backward
-ATTENTION_KERNELS = {"mmoecut": ("attention_packed_fwd", "attention_packed_bwd"),
-                     "mtple": ("attention_fwd", "attention_bwd")}
-PATHS = ("mmoecut-serve", "mmoecut-train", "mtple-serve", "mtple-train")
+# the attention rows N of the packed kernels: the stacked experts of MMOECut
+# and MOECut at B = 63 and 256, and the B = 63 rows of AttnCut's and
+# MtAttnCut's unstacked encoder
+PACKED_ROWS = (EXPERTS * BATCHES[0], EXPERTS * BATCHES[1], BATCHES[0])
+# each model's attention kernels, forward and backward (BiCut has none)
+PACKED = ("attention_packed_fwd", "attention_packed_bwd")
+ATTENTION_KERNELS = {"mmoecut": PACKED, "moecut": PACKED, "attncut": PACKED,
+                     "mtattncut": PACKED, "mtple": ("attention_fwd", "attention_bwd"),
+                     "bicut": ()}
+MODELS = ("mmoecut", "mtple", "moecut", "attncut", "mtattncut", "bicut")
+PATHS = tuple(f"{m}-{p}" for m in MODELS for p in ("serve", "train"))
 # f32 tolerances on the card, kernel against plain version:
 # - the LSTM carries h and c through 300 steps, each a 128-term dot product
 #   summed in another order than cuBLAS sums it;
@@ -76,13 +86,22 @@ ATTN_BWD_REL = 1e-5
 # to 2 lr per step, which a max-abs comparison cannot tell from a fault; the
 # norm weighs those few elements against the whole leaf. A run that does not
 # update, or updates wrongly after step 1, reads about 1. Left out: the
-# softmax towers' biases, whose update is Adam-normalised rounding noise.
+# leaves whose gradient is zero by algebra (`ZERO_GRAD_LEAVES`), whose
+# update is Adam-normalised rounding noise.
 STEP_LOSS_REL = 1e-5
 STEP_GRAD_REL = 1e-3
 STEP_GRAD_FLOOR = 1e-7
 UPDATE_REL = 1e-2
-ZERO_GRAD_LEAVES = ("tower_rerank.linear.bias", "tower_cut.linear.bias")
-RATE = 0.1  # the drmm_tks preset's dropout for MMOECut and PLECut
+_TOWERS = ("tower_rerank.linear.bias", "tower_cut.linear.bias")
+ZERO_GRAD_LEAVES = {"mmoecut": _TOWERS, "moecut": _TOWERS, "mtple": _TOWERS,
+                    # the encoder's last LayerNorm bias b shifts every
+                    # position's logit by decision.weight . b, which the
+                    # softmax over positions cancels
+                    "attncut": ("decision.bias", "attention_layer.layers_0.norm2.bias"),
+                    # the rerank hinge's two batch means cancel the bias
+                    "mtattncut": ("heads.rerank.bias", "heads.decision.bias"),
+                    "bicut": ()}
+RATE = 0.1  # the drmm_tks preset's dropout of the attention models but MOECut
 # H100 SXM peak rates: HBM3 bandwidth, dense f32 without tensor cores, and
 # f32 products on the tensor cores in the 3xTF32 split (three dense TF32
 # products of 494.7 TFLOP/s per f32 product)
@@ -211,13 +230,14 @@ def check_lstm(dev, rng) -> dict:
 
 
 def check_attention(dev, rng) -> dict:
+    """K5' against its plain version at the packed rows N of the main paths
+    (`PACKED_ROWS`); library_ms: f32 scaled_dot_product_attention."""
     from rlt_tpu_torch.ops import attention
 
     pack = attention.packed_group_size(D_MODEL, HEADS)
     dh = D_MODEL // HEADS
     rows = []
-    for batch in BATCHES:
-        n = EXPERTS * batch
+    for n in PACKED_ROWS:
         q, k, v = (torch.from_numpy(rng.normal(size=(n, SEQ_LEN, D_MODEL))
                                     .astype(np.float32)).to(dev) for _ in range(3))
         o, lse = attention.fused_attention_packed(q, k, v, heads=HEADS, pack=pack)
@@ -308,8 +328,7 @@ def check_attention_dropout(dev, rng) -> dict:
     pack = attention.packed_group_size(D_MODEL, HEADS)
     dh = D_MODEL // HEADS
     rows = []
-    for batch in BATCHES:
-        n = EXPERTS * batch
+    for n in PACKED_ROWS:
         q, k, v = (torch.from_numpy(rng.normal(size=(n, SEQ_LEN, D_MODEL))
                                     .astype(np.float32)).to(dev) for _ in range(3))
         streams = random_streams(rng, n, dev)
@@ -353,8 +372,7 @@ def check_attention_bwd(dev, rng) -> dict:
     pack = attention.packed_group_size(D_MODEL, HEADS)
     dh = D_MODEL // HEADS
     rows = []
-    for batch in BATCHES:
-        n = EXPERTS * batch
+    for n in PACKED_ROWS:
         q, k, v, do = (torch.from_numpy(rng.normal(size=(n, SEQ_LEN, D_MODEL))
                                         .astype(np.float32)).to(dev) for _ in range(4))
         streams = random_streams(rng, n, dev)
@@ -517,16 +535,17 @@ def read_counts() -> dict:
 def want_counts(model_name: str, forwards: int, steps: int = 0) -> dict:
     """The launches of `forwards` eval forwards and `steps` train steps of
     `model_name`: per forward, 2 lstm_fwd (two BiLSTM layers, both
-    directions of a layer in one launch) and one launch of the model's
-    attention forward over all experts; per step, a forward and the
-    backward's 2 lstm_bwd and one attention backward. Every other kernel:
-    none."""
+    directions of a layer in one launch) and, but for BiCut, one launch of
+    the model's attention forward over all its rows (experts and lists); per
+    step, a forward and the backward's 2 lstm_bwd and, but for BiCut, one
+    attention backward. Every other kernel: none."""
     from rlt_tpu_torch.ops import KERNELS
 
-    attn_fwd, attn_bwd = ATTENTION_KERNELS[model_name]
     want = dict.fromkeys(KERNELS, 0)
-    want.update({"lstm_fwd": 2 * (forwards + steps), "lstm_bwd": 2 * steps,
-                 attn_fwd: forwards + steps, attn_bwd: steps})
+    want.update({"lstm_fwd": 2 * (forwards + steps), "lstm_bwd": 2 * steps})
+    if ATTENTION_KERNELS[model_name]:
+        attn_fwd, attn_bwd = ATTENTION_KERNELS[model_name]
+        want.update({attn_fwd: forwards + steps, attn_bwd: steps})
     return want
 
 
@@ -547,11 +566,23 @@ def get(base: str, path: str) -> dict:
         return json.load(r)
 
 
+def tied_lists(model_name: str, dist: np.ndarray) -> np.ndarray:
+    """Per list, whether its cut may move with a rounding of the
+    distribution: the two largest cut probabilities within DIST_ATOL, or
+    for BiCut's (L, 2) decision pairs any position whose pair is within
+    DIST_ATOL (its decision can flip)."""
+    if model_name == "bicut":
+        return np.any(np.abs(dist[..., 0] - dist[..., 1]) <= DIST_ATOL, axis=-1)
+    top2 = np.sort(dist, axis=-1)[:, -2:]
+    return (top2[:, 1] - top2[:, 0]) <= DIST_ATOL
+
+
 def serve_end_to_end(rng, model_name: str, list_counts: tuple[int, ...]) -> dict:
     """`model_name` served over HTTP, one request of each count of lists in
     `list_counts` (the one of 5 lists asks for the distributions); its
     cuts and distributions against the same model through the plain
-    versions on the card; then the forward timed per bucket and stage."""
+    versions on the card; then the forward timed per bucket (and per stage
+    for the expert models)."""
     from rlt_tpu_torch.config import TrainConfig
     from rlt_tpu_torch.ops import plain_ops
     from rlt_tpu_torch.serve import TruncationService, bucket_size, make_server
@@ -613,12 +644,11 @@ def serve_end_to_end(rng, model_name: str, list_counts: tuple[int, ...]) -> dict
         if want_dist:
             for i, d in enumerate(out["distribution"]):
                 d = np.asarray(d)
-                require(d.shape == (lengths[i],) and np.all(np.isfinite(d)), "dist shape")
-                worst_dist = max(worst_dist,
-                                 float(np.abs(d - dist_ref[i, :lengths[i]]).max()))
-        # a cut may differ only where the reference's top two are within tolerance
-        top2 = np.sort(dist_ref[:len(lengths)], axis=-1)[:, -2:]
-        tied = (top2[:, 1] - top2[:, 0]) <= DIST_ATOL
+                ref = dist_ref[i, :lengths[i]]  # (length,), BiCut's (length, 2)
+                require(d.shape == ref.shape and np.all(np.isfinite(d)), "dist shape")
+                worst_dist = max(worst_dist, float(np.abs(d - ref).max()))
+        # a cut may differ only where the reference's distribution is tied
+        tied = tied_lists(model_name, dist_ref[:len(lengths)])
         want_ks = np.minimum(ks_ref[:len(lengths)], lengths)
         require(np.all((ks == want_ks) | tied),
                 f"cuts differ from the plain run: {ks.tolist()} vs {want_ks.tolist()}")
@@ -630,8 +660,9 @@ def serve_end_to_end(rng, model_name: str, list_counts: tuple[int, ...]) -> dict
     timing = {}
     for b in (1, 8, 64, 256):
         timing[b] = predictor.forward_ms(b, iters=10)
-        log(f"{model_name} forward bucket {b}: {timing[b]} ms; stages "
-            f"{json.dumps(stage_ms(predictor.model, b))}")
+        stages = (f"; stages {json.dumps(stage_ms(predictor.model, b))}"
+                  if hasattr(predictor.model, "experts") else "")
+        log(f"{model_name} forward bucket {b}: {timing[b]} ms{stages}")
     log(json.dumps({f"{model_name} lists_per_s": {
         "63 lists (bucket 64)": 63 / timing[64] * 1e3,
         "256 lists (bucket 256)": 256 / timing[256] * 1e3}}))
@@ -643,20 +674,22 @@ def serve_end_to_end(rng, model_name: str, list_counts: tuple[int, ...]) -> dict
 # ---------------------------------------------------------------------------
 
 def train_end_to_end(model_name: str) -> dict:
-    """One epoch of `Trainer.run` for `model_name` (its drmm_tks preset: B =
-    63, lr 3e-5, weight decay 0, dropout 0.1; 200 train and 50 test lists of
-    the synthetic robust04 corpus) through the kernels, then the same epoch
+    """One epoch of `Trainer.run` for `model_name` (its drmm_tks preset, B =
+    63; 200 train and 50 test lists of the synthetic robust04 corpus)
+    through the kernels, then the same epoch
     through the plain versions on the card from the same weights and
     generator seed: the same batch plans and dropout masks. Before it, one
     train step of each compares step 1's loss and gradients; after it, the
     step is timed in its parts."""
-    from rlt_tpu_torch.config import TrainConfig, apply_preset
+    from rlt_tpu_torch.config import PRESETS, TrainConfig, apply_preset
     from rlt_tpu_torch.ops import plain_ops
     from rlt_tpu_torch.train import Trainer, train_step
 
     cfg = apply_preset(TrainConfig(model_name=model_name, retrieve_data="robust04"))
+    preset = PRESETS["drmm_tks"][model_name]
     require((cfg.batch_size, cfg.lr, cfg.weight_decay, cfg.dropout, cfg.seq_len,
-             cfg.input_size) == (63, 3e-5, 0.0, RATE, SEQ_LEN, FEATURES),
+             cfg.input_size) == (63, preset["lr"], preset["weight_decay"],
+                                 preset["dropout"], SEQ_LEN, FEATURES),
             f"drmm_tks preset: {cfg}")
     cfg = dataclasses.replace(cfg, epochs=1)
 
@@ -726,7 +759,7 @@ def train_end_to_end(model_name: str) -> dict:
     update_rel = {}  # each leaf's update error, L2 over the plain update's L2
     for name in kstate:
         require(bool(torch.isfinite(kstate[name]).all()), f"non-finite {name}")
-        if name in ZERO_GRAD_LEAVES:
+        if name in ZERO_GRAD_LEAVES[model_name]:
             continue
         k_move, p_move = kstate[name] - init[name], pstate[name] - init[name]
         # a leaf the plain run left where it was must stay there too
@@ -824,12 +857,12 @@ def main() -> int:
     attn_bwd_res = check_attention_bwd(dev, rng)
     slice_res = check_slice_attention(dev, rng)
     slice_bwd_res = check_slice_attention_bwd(dev, rng)
-    launches = {"mmoecut-serve": serve_end_to_end(rng, "mmoecut", (1, 5, 63))}
-    train_res = {"mmoecut": train_end_to_end("mmoecut")}
-    launches["mmoecut-train"] = train_res["mmoecut"]["launches"]
-    launches["mtple-serve"] = serve_end_to_end(rng, "mtple", (1, 5, 63, 200))
-    train_res["mtple"] = train_end_to_end("mtple")
-    launches["mtple-train"] = train_res["mtple"]["launches"]
+    launches, train_res = {}, {}
+    for model_name in MODELS:
+        launches[f"{model_name}-serve"] = serve_end_to_end(
+            rng, model_name, (1, 5, 63, 200) if model_name == "mtple" else (1, 5, 63))
+        train_res[model_name] = train_end_to_end(model_name)
+        launches[f"{model_name}-train"] = train_res[model_name]["launches"]
 
     kernels = []
     for name, res, source, replaces, library in (
@@ -883,6 +916,10 @@ def main() -> int:
             entry["dropout_0.1"] = {k: drop[k] for k in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_tc_ms", "max_abs_err")}
             entry["max_abs_err"] = max(res["max_abs_err"], attn_drop_res["max_abs_err"])
+        if name.startswith("attention_packed"):  # the unstacked encoders' N = B rows
+            row_b = next(r for r in res["rows"] if r["n"] == BATCHES[0])
+            entry[f"n_{BATCHES[0]}"] = {k: row_b[k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_tc_ms", "max_abs_err")}
         kernels.append(entry)
     for model_name, res in train_res.items():
         log(json.dumps({"model": model_name, "train_step_ms": res["timing"]["step_ms"],

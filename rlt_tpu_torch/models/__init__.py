@@ -1,6 +1,6 @@
-"""Model zoo of the port. MMOECut, the flagship, and PLECut are ported; the
-other names of the JAX package's zoo are known here and raise until their
-slice lands (ROADMAP.md)."""
+"""Model zoo of the port. MMOECut (the flagship), MOECut, PLECut, AttnCut,
+MtAttnCut and BiCut are ported; Choopy, MtChoopy and probe_base are known
+here and raise until their slice lands (ROADMAP.md)."""
 
 from rlt_tpu_torch.models.layers import (  # noqa: F401
     LSTM,
@@ -13,9 +13,18 @@ from rlt_tpu_torch.models.layers import (  # noqa: F401
     TransformerEncoder,
     TransformerEncoderLayer,
 )
-from rlt_tpu_torch.models.mmoe import ExpertStack, MMOECut, PLECut, make_towers  # noqa: F401
+from rlt_tpu_torch.models.mmoe import (  # noqa: F401
+    ExpertStack,
+    MMOECut,
+    MOECut,
+    PLECut,
+    make_towers,
+)
+from rlt_tpu_torch.models.multitask import MtAttnCut  # noqa: F401
+from rlt_tpu_torch.models.simple import AttnCut, BiCut  # noqa: F401
 
-MODELS = {"mmoecut": MMOECut, "mtple": PLECut}
+MODELS = {"bicut": BiCut, "attncut": AttnCut, "mtattncut": MtAttnCut,
+          "mmoecut": MMOECut, "moecut": MOECut, "mtple": PLECut}
 
 # every model name of the JAX package's zoo, ported or not
 MODEL_NAMES = frozenset({"bicut", "choopy", "attncut", "mtchoopy", "mtattncut",
@@ -35,15 +44,21 @@ def is_multi_head(name: str) -> bool:
 
 def build_model(name: str, *, seq_len: int, input_size: int, dropout: float,
                 num_tasks: float = 3, seed: int = 0):
-    """Model dispatch mirroring the JAX package's `build_model`, with the
-    initial weights drawn from `seed`. PLECut takes no `num_tasks`: it
-    always has its three towers."""
+    """Model dispatch mirroring the JAX package's `build_model` (the same
+    constructor arguments), with the initial weights drawn from `seed`."""
+    if name == "bicut":
+        return BiCut(input_size=input_size, dropout=dropout, seed=seed)
+    if name == "attncut":
+        return AttnCut(input_size=input_size, dropout=dropout, seed=seed)
+    if name == "mtattncut":
+        return MtAttnCut(input_size=input_size, num_tasks=num_tasks, dropout=dropout,
+                         seed=seed)
+    if name in ("mmoecut", "moecut"):
+        return MODELS[name](seq_len=seq_len, num_tasks=num_tasks,
+                            input_size=input_size, dropout=dropout, seed=seed)
     if name == "mtple":
         return PLECut(seq_len=seq_len, input_size=input_size, dropout=dropout,
                       seed=seed)
-    if name in MODELS:
-        return MODELS[name](seq_len=seq_len, num_tasks=num_tasks,
-                            input_size=input_size, dropout=dropout, seed=seed)
     if name in MODEL_NAMES:
         raise NotImplementedError(
             f"model {name!r} is not ported to rlt_tpu_torch yet; see ROADMAP.md "

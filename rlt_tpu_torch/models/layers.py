@@ -14,7 +14,10 @@ weight (out, in); attention `in_proj_weight` rows [q; k; v], each block
 head-major. The JAX package runs its experts under `nn.vmap`, which gives
 every expert parameter a leading axis E. Here the encoder layers keep that
 axis (`experts=E`) and run the E experts as one batched computation on
-(E, B, L, D) activations; a (B, L, D) input is shared by every expert.
+(E, B, L, D) activations; a (B, L, D) input is shared by every expert. With
+`experts=None` (the default) a layer is one plain encoder, as AttnCut's and
+MtAttnCut's: its parameters have no E axis, as the JAX leaves, and it maps
+(B, L, D) to (B, L, D).
 
 In training mode (`module.train()`) with a dropout rate above 0, every
 random bit comes from the explicit `torch.Generator` the caller passes to
@@ -238,7 +241,8 @@ def _bilstm_layer(x, fwd_params, rev_params) -> torch.Tensor:
 
 class SelfAttention(nn.Module):
     """E stacked multi-head self-attentions: (B, L, D) or (E, B, L, D) ->
-    (E, B, L, D).
+    (E, B, L, D); with `experts=None` one attention, (B, L, D) -> (B, L, D),
+    run as the stacked computation with E = 1.
 
     Thin heads (`packed_group_size` gives a pack, MMOECut's dh = 64): torch's
     in_proj rows are head-major, so the raw q, k, v projections (E*B, L, D)
@@ -248,9 +252,10 @@ class SelfAttention(nn.Module):
     projections land in the per-slice kernels' (E*B, H, L, dh) layout, as
     the JAX package projects them; out_proj contracts (H, dh) as (D, H, dh).
     In training, dropout on the softmax weights runs inside the kernels from
-    one seed per expert, drawn in [0, 2^31 - 1) as the JAX package draws it."""
+    one seed per expert, drawn in [0, 2^31 - 1) as the JAX package draws it
+    (the unstacked attention draws one, as the JAX package's does)."""
 
-    def __init__(self, d_model: int, n_head: int, experts: int = 1,
+    def __init__(self, d_model: int, n_head: int, experts: int | None = None,
                  generator: torch.Generator | None = None, dropout: float = 0.0):
         super().__init__()
         if d_model % n_head:
@@ -259,19 +264,27 @@ class SelfAttention(nn.Module):
         self.n_head = n_head
         self.dropout = dropout
         self.pack = packed_group_size(d_model, n_head)
+        lead = _lead(experts)
         xavier = math.sqrt(6.0 / (3 * d_model + d_model))
-        self.in_proj_weight = _uniform((experts, 3 * d_model, d_model), xavier, generator)
-        self.in_proj_bias = nn.Parameter(torch.zeros(experts, 3 * d_model))
-        self.out_proj_weight = _uniform((experts, d_model, d_model),
+        self.in_proj_weight = _uniform(lead + (3 * d_model, d_model), xavier, generator)
+        self.in_proj_bias = nn.Parameter(torch.zeros(lead + (3 * d_model,)))
+        self.out_proj_weight = _uniform(lead + (d_model, d_model),
                                         1.0 / math.sqrt(d_model), generator)
-        self.out_proj_bias = nn.Parameter(torch.zeros(experts, d_model))
+        self.out_proj_bias = nn.Parameter(torch.zeros(lead + (d_model,)))
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
+        stacked = self.in_proj_weight.dim() == 3
+        out = self._stacked(x, *(p if stacked else p[None] for p in (
+            self.in_proj_weight, self.in_proj_bias, self.out_proj_weight,
+            self.out_proj_bias)), generator=generator)
+        return out if stacked else out[0]
+
+    def _stacked(self, x, w, b, out_w, out_b, generator) -> torch.Tensor:
+        """The attention of E experts with parameters (E, ...) -> (E, B, L, D)."""
         d = self.d_model
-        experts = self.in_proj_weight.shape[0]
+        experts = w.shape[0]
         batch, length = x.shape[-3:-1]
-        w, b = self.in_proj_weight, self.in_proj_bias
         heads = self.n_head
         rate = self.dropout if self.training else 0.0
         streams = None
@@ -292,10 +305,10 @@ class SelfAttention(nn.Module):
 
             o, _ = fused_attention(proj(0), proj(1), proj(2), dropout_rate=rate,
                                    streams=streams)
-            out_w = self.out_proj_weight.reshape(experts, d, heads, dh)
+            out_w = out_w.reshape(experts, d, heads, dh)
             return (torch.einsum("ebhlk,edhk->ebld",
                                  o.reshape(experts, batch, heads, length, dh), out_w)
-                    + self.out_proj_bias[:, None, None])
+                    + out_b[:, None, None])
 
         def proj(i):  # (E, B, L, D) -> (E*B, L, D), contiguous
             y = _stacked_linear(x, w[:, i * d:(i + 1) * d], b[:, i * d:(i + 1) * d])
@@ -304,20 +317,19 @@ class SelfAttention(nn.Module):
         o, _ = fused_attention_packed(proj(0), proj(1), proj(2),
                                       heads=heads, pack=self.pack,
                                       dropout_rate=rate, streams=streams)
-        return _stacked_linear(o.reshape(experts, batch, length, d),
-                               self.out_proj_weight, self.out_proj_bias)
+        return _stacked_linear(o.reshape(experts, batch, length, d), out_w, out_b)
 
 
 class TransformerEncoderLayer(nn.Module):
-    """E stacked torch nn.TransformerEncoderLayer: post-LayerNorm, ReLU FFN
-    of width `dim_feedforward`. In training, dropout at the JAX package's
-    sites: the attention weights (in the kernels), the attention output,
-    the FFN's hidden units (fused with the ReLU) and the FFN output. Each
-    mask is drawn over the whole stacked (E, B, L, .) tensor, so the experts'
-    masks are independent."""
+    """E stacked torch nn.TransformerEncoderLayer (one with `experts=None`):
+    post-LayerNorm, ReLU FFN of width `dim_feedforward`. In training,
+    dropout at the JAX package's sites: the attention weights (in the
+    kernels), the attention output, the FFN's hidden units (fused with the
+    ReLU) and the FFN output. Each mask is drawn over the whole stacked
+    (E, B, L, .) tensor, so the experts' masks are independent."""
 
     def __init__(self, d_model: int, n_head: int, dim_feedforward: int = 2048,
-                 experts: int = 1, generator: torch.Generator | None = None,
+                 experts: int | None = None, generator: torch.Generator | None = None,
                  dropout: float = 0.1):
         super().__init__()
         self.dropout = dropout
@@ -344,7 +356,7 @@ class TransformerEncoderLayer(nn.Module):
 
 class TransformerEncoder(nn.Module):
     def __init__(self, d_model: int, n_head: int, num_layers: int,
-                 dim_feedforward: int = 2048, experts: int = 1,
+                 dim_feedforward: int = 2048, experts: int | None = None,
                  generator: torch.Generator | None = None, dropout: float = 0.1):
         super().__init__()
         self.num_layers = num_layers

@@ -1,17 +1,18 @@
-"""Mixture-of-experts truncation models in PyTorch: MMOECut and PLECut.
+"""Mixture-of-experts truncation models in PyTorch: MMOECut, MOECut and
+PLECut.
 
-The counterparts of the JAX package's `models/mmoe.py::MMOECut` and
-`::PLECut`: a 2-layer BiLSTM pre-encoding of the ranked list, E
+The counterparts of the JAX package's `models/mmoe.py::MMOECut`, `::MOECut`
+and `::PLECut`: a 2-layer BiLSTM pre-encoding of the ranked list, E
 transformer-encoder experts run as one stacked (E, B, L, D) computation (the
 JAX package's `nn.vmap` over experts; here a leading expert axis on every
 expert weight), softmax gates over the flattened BiLSTM output
 (F = 2 * 128 * L, so the models are specialised to L), and towers that mix
 the experts in logit space. MMOECut gates every task over all experts with
-one (B, F) x (T, F, E) contraction; PLECut gates each of its three fixed
-towers over its own subset of the three experts. The training forward
-(`model.train()`) applies dropout in the experts and draws every mask from
-the `torch.Generator` passed to `forward`. MOECut is not ported yet
-(ROADMAP.md).
+one (B, F) x (T, F, E) contraction; MOECut has one shared (F, E) gate that
+every tower takes; PLECut gates each of its three fixed towers over its own
+subset of the three experts. The training forward (`model.train()`) applies
+dropout in the experts and draws every mask from the `torch.Generator`
+passed to `forward`.
 """
 
 from __future__ import annotations
@@ -77,8 +78,8 @@ class MMOECut(nn.Module):
         self.pre_encoding = LSTM(input_size, encoding_size, 2, generator=g)
         self.experts = ExpertStack(num_experts, d_model, n_head, num_layers, g,
                                    dropout)
-        n_gates = int(num_tasks)
-        w_gates = torch.empty(n_gates, encoding_size * seq_len * 2, num_experts)
+        w_gates = torch.empty(self._gates_shape(num_tasks, encoding_size * seq_len * 2,
+                                                num_experts))
         self.w_gates = nn.Parameter(w_gates.normal_(generator=g))
         self.tower_names = []
         for name, tower in make_towers(num_tasks, d_model, g).items():
@@ -90,14 +91,34 @@ class MMOECut(nn.Module):
         experts_in = self.pre_encoding(x)  # (B, L, 2H)
         return self.heads(experts_in, self.experts(experts_in, generator))
 
+    @staticmethod
+    def _gates_shape(num_tasks: float, features: int, num_experts: int) -> tuple:
+        return (int(num_tasks), features, num_experts)  # one gate per task
+
+    def gates(self, flat: torch.Tensor) -> list[torch.Tensor]:
+        """Each tower's (B, E) gate from the flattened BiLSTM output."""
+        return list(torch.softmax(torch.einsum("bf,tfe->tbe", flat, self.w_gates), dim=-1))
+
     def heads(self, experts_in: torch.Tensor,
               experts_o: torch.Tensor) -> list[torch.Tensor]:
         """Gates and towers: BiLSTM output (B, L, 2H) and expert outputs
         (E, B, L, D) -> the task heads."""
         flat = experts_in.reshape(experts_in.shape[0], -1)  # (B, 2*H*L)
-        gates = torch.softmax(torch.einsum("bf,tfe->tbe", flat, self.w_gates), dim=-1)
-        return [getattr(self, name)(experts_o, gates=gates[t])
-                for t, name in enumerate(self.tower_names)]
+        return [getattr(self, name)(experts_o, gates=gate)
+                for gate, name in zip(self.gates(flat), self.tower_names)]
+
+
+class MOECut(MMOECut):
+    """MMOECut with one shared gate (reference MOECut.py:56-109): `w_gates`
+    is (2 * H * L, E) and softmax(flat @ w_gates), (B, E), mixes the experts
+    for every tower."""
+
+    @staticmethod
+    def _gates_shape(num_tasks: float, features: int, num_experts: int) -> tuple:
+        return (features, num_experts)
+
+    def gates(self, flat: torch.Tensor) -> list[torch.Tensor]:
+        return [torch.softmax(flat @ self.w_gates, dim=-1)] * len(self.tower_names)
 
 
 class PLECut(nn.Module):

@@ -1,0 +1,56 @@
+"""Shared-bottom multi-task truncation model in PyTorch: MtAttnCut.
+
+The counterpart of the JAX package's `models/multitask.py::MtAttnCut`
+(reference models/MtAttnCut.py:4-29): `pre_encoding` (2-layer BiLSTM,
+H = 128), `encoding_layer` (one unstacked post-LN encoder layer of 4 heads,
+d_model 256, on the head-packed attention kernels), then `heads` with
+`classi` (Linear + sigmoid), `rerank` (plain Linear) and `decision` (Linear
++ softmax over positions). num_tasks picks the heads returned:
+3 -> [class, rerank, cut], 2.1 -> [class, cut], 2.2 -> [rerank, cut]; the
+last is the cut distribution. MtChoopy is not ported yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from rlt_tpu_torch.models.layers import LSTM, TorchLinear, TransformerEncoder
+
+
+def select_heads(y_class, y_rerank, y_cut, num_tasks: float) -> list:
+    if num_tasks == 3:
+        return [y_class, y_rerank, y_cut]
+    if num_tasks == 2.1:
+        return [y_class, y_cut]
+    return [y_rerank, y_cut]
+
+
+class _MtHeads(nn.Module):
+    def __init__(self, d_model: int, generator: torch.Generator | None = None):
+        super().__init__()
+        self.classi = TorchLinear(d_model, 1, generator=generator)
+        self.rerank = TorchLinear(d_model, 1, generator=generator)
+        self.decision = TorchLinear(d_model, 1, generator=generator)
+
+    def forward(self, x: torch.Tensor):
+        return (torch.sigmoid(self.classi(x)), self.rerank(x),
+                torch.softmax(self.decision(x), dim=1))
+
+
+class MtAttnCut(nn.Module):
+    def __init__(self, input_size: int = 3, d_model: int = 256, n_head: int = 4,
+                 num_layers: int = 1, num_tasks: float = 3, dropout: float = 0.4,
+                 seed: int = 0):
+        super().__init__()
+        g = torch.Generator().manual_seed(seed)
+        self.num_tasks = num_tasks
+        self.pre_encoding = LSTM(input_size, 128, 2, generator=g)
+        self.encoding_layer = TransformerEncoder(d_model, n_head, num_layers,
+                                                 generator=g, dropout=dropout)
+        self.heads = _MtHeads(d_model, g)
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> list[torch.Tensor]:
+        x = self.encoding_layer(self.pre_encoding(x), generator)
+        return select_heads(*self.heads(x), self.num_tasks)

@@ -1,0 +1,63 @@
+"""Single-task truncation models in PyTorch: BiCut and AttnCut.
+
+The counterparts of the JAX package's `models/simple.py::BiCut` and
+`::AttnCut`, with its parameter names and layouts:
+
+- BiCut (reference models/Bicut.py:5-21): `bilstm` (2-layer BiLSTM,
+  H = 128), `fc` (Linear 256 -> 256), ReLU, `decision` (Linear 256 -> 2),
+  dropout on the logits in training, softmax over the decision pair:
+  (B, L, 2) per-position {truncate, continue} probabilities. It runs the
+  LSTM kernels only.
+- AttnCut (reference models/AttnCut.py:5-20): `encoding_layer` (the
+  BiLSTM), `attention_layer` (one unstacked post-LN encoder layer of 4
+  heads, d_model 256), `decision` (Linear 256 -> 1), softmax over
+  positions: a (B, L, 1) cut distribution. Its heads of dh = 64 run the
+  head-packed attention kernels on the (B, L, D) batch.
+
+The training forward (`model.train()`) with a dropout rate above 0 draws
+every mask from the `torch.Generator` passed to `forward`. Choopy is not
+ported yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from rlt_tpu_torch.models.layers import LSTM, TorchLinear, TransformerEncoder, dropout
+
+
+class BiCut(nn.Module):
+    def __init__(self, input_size: int = 3, lstm_hidden_size: int = 128,
+                 lstm_layers: int = 2, fc_dimensions: int = 256,
+                 dropout: float = 0.4, seed: int = 0):
+        super().__init__()
+        g = torch.Generator().manual_seed(seed)
+        self.dropout = dropout
+        self.bilstm = LSTM(input_size, lstm_hidden_size, lstm_layers, generator=g)
+        self.fc = TorchLinear(2 * lstm_hidden_size, fc_dimensions, generator=g)
+        self.decision = TorchLinear(fc_dimensions, 2, generator=g)
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        logits = self.decision(torch.relu(self.fc(self.bilstm(x))))
+        if self.training and self.dropout > 0.0:
+            # the reference drops logits, before the softmax
+            logits = dropout(logits, self.dropout, generator)
+        return torch.softmax(logits, dim=2)
+
+
+class AttnCut(nn.Module):
+    def __init__(self, input_size: int = 3, d_model: int = 256, n_head: int = 4,
+                 num_layers: int = 1, dropout: float = 0.4, seed: int = 0):
+        super().__init__()
+        g = torch.Generator().manual_seed(seed)
+        self.encoding_layer = LSTM(input_size, 128, 2, generator=g)
+        self.attention_layer = TransformerEncoder(d_model, n_head, num_layers,
+                                                  generator=g, dropout=dropout)
+        self.decision = TorchLinear(d_model, 1, generator=g)
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        x = self.attention_layer(self.encoding_layer(x), generator)
+        return torch.softmax(self.decision(x), dim=1)

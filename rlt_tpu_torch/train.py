@@ -1,7 +1,7 @@
 """Training harness and CLI of the port (the JAX package's `train.py`).
 
     python -m rlt_tpu_torch.train --model-name mmoecut            # on the card
-    python -m rlt_tpu_torch.train --model-name mtple              # on the card
+    python -m rlt_tpu_torch.train --model-name attncut --div-type kl
     python -m rlt_tpu_torch.train --device cpu --retrieve-data mq2007
 
 One epoch is every train batch of a shuffled, padded batch plan, each an
@@ -10,24 +10,27 @@ optax's `add_decayed_weights -> scale_by_adam`), then the whole test split
 without dropout. Each train step decodes its cuts and scores F1/DCG on the
 pre-update forward, as the reference does, and an epoch reports every
 metric as the mean of its batch means. On the card the model runs through
-the kernels K1' and K2' (BiLSTM) and the expert attention's pair, with
-dropout inside: K5' and K6' for MMOECut, K3' and K4' for PLECut; on the CPU
-(`--device cpu`) through their plain versions. The batch plans and every
-dropout mask come from one `torch.Generator` on the device, seeded from
-`--seed`; the initial weights from the model's own seeded initialisation or
-`--model-path`.
+the kernels K1' and K2' (BiLSTM) and, but for BiCut, its encoder's
+attention pair with dropout inside: K5' and K6' for MMOECut, MOECut,
+AttnCut and MtAttnCut (heads of dh = 64), K3' and K4' for PLECut; on the
+CPU (`--device cpu`) through their plain versions. The batch plans and
+every dropout mask come from one `torch.Generator` on the device, seeded
+from `--seed`; the initial weights from the model's own seeded
+initialisation or `--model-path`.
 
-MMOECut and PLECut train so far (their criterion, `mtcut_loss` with the
-fixed 0.5/0.5 task weights). Not ported yet (ROADMAP.md): resume, the
-hyper-parameter search and population training, profiling, `--draw`, the
-metrics log directory, data and model parallelism, and the bf16 lane.
+Six models train: bicut, attncut, mtattncut, mmoecut, moecut and mtple,
+each with the JAX package's criterion (`make_criterion`, with
+`--div-type`, `--augmented-reward`, `--rerank-weight`, `--class-weight`
+and `--loss-override`). Not ported yet (ROADMAP.md): choopy and mtchoopy,
+resume, the hyper-parameter search and population training, profiling,
+`--draw`, the metrics log directory, data and model parallelism, and the
+bf16 lane.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import functools
 import json
 import logging
 import os
@@ -45,7 +48,7 @@ from rlt_tpu_torch.data import (
     synthetic_dataset,
 )
 from rlt_tpu_torch.infer import decode_ks, load_state_dict
-from rlt_tpu_torch.models import build_model
+from rlt_tpu_torch.models import MODELS, build_model
 from rlt_tpu_torch.utils import losses as losses_lib
 from rlt_tpu_torch.utils import metrics as metrics_lib
 from rlt_tpu_torch.utils.platform import resolve_device
@@ -61,18 +64,41 @@ def make_optimizer(params, lr: float, weight_decay: float) -> torch.optim.Adam:
 
 
 def make_criterion(cfg: config_lib.TrainConfig) -> Callable:
-    """criterion(output, labels, valid=...) -> scalar. MMOECut's and
-    PLECut's is `mtcut_loss` with the torch defaults 0.5/0.5 for the task
-    weights, not the preset's (the reference's run.py:90 passes none);
-    PLECut's always with its three tasks, whatever `cfg.num_tasks` says."""
-    if cfg.model_name in ("mmoecut", "mtple"):
-        return functools.partial(
-            losses_lib.mtcut_loss, metric=cfg.criterion, rerank_weight=0.5,
-            classi_weight=0.5,
-            num_tasks=cfg.num_tasks if cfg.model_name == "mmoecut" else 3)
-    raise NotImplementedError(
-        f"training {cfg.model_name!r} is not ported yet: the port trains "
-        "mmoecut and mtple (ROADMAP.md)")
+    """criterion(output, labels, valid=...) -> scalar: the JAX package's
+    dispatch (the reference's run.py:59-102). `loss_override` replaces the
+    loss of attncut only (choopy too in the JAX package): the models whose
+    output is a distribution over positions; bicut -> `bicut_loss`; attncut -> `div_loss` with the
+    config's divergence and augmentation; mtattncut -> `mtcut_loss` with the
+    config's task weights; mmoecut, moecut and mtple -> `mtcut_loss` with
+    the torch defaults 0.5/0.5 (the reference passes none), PLECut always
+    with its three tasks. A model the port does not train yet raises."""
+    name, metric = cfg.model_name, cfg.criterion
+    if name not in MODELS:
+        raise NotImplementedError(
+            f"training {name!r} is not ported yet: the port trains "
+            f"{', '.join(sorted(MODELS))} (ROADMAP.md)")
+    if cfg.loss_override and name == "attncut":  # and choopy, once ported
+        if cfg.loss_override == "wass":
+            return losses_lib.wass_dist_loss
+        if cfg.loss_override in ("attncut", "choopy"):
+            return losses_lib.make_loss(cfg.loss_override, metric=metric)
+        if cfg.loss_override == "div":
+            return losses_lib.make_loss("div", metric=metric, div_type=cfg.div_type,
+                                        augmented=cfg.augmented_reward)
+        raise ValueError(f"unknown loss_override: {cfg.loss_override!r}")
+    if name == "bicut":
+        return losses_lib.make_loss("bicut", metric=metric)
+    if name == "attncut":
+        return losses_lib.make_loss("div", metric=metric, div_type=cfg.div_type,
+                                    augmented=cfg.augmented_reward)
+    if name == "mtattncut":
+        return losses_lib.make_loss("mtcut", metric=metric,
+                                    rerank_weight=cfg.rerank_weight,
+                                    classi_weight=cfg.class_weight,
+                                    num_tasks=cfg.num_tasks)
+    return losses_lib.make_loss("mtcut", metric=metric, rerank_weight=0.5,
+                                classi_weight=0.5,
+                                num_tasks=cfg.num_tasks if name != "mtple" else 3)
 
 
 def batch_metrics(model_name: str, output, y: torch.Tensor, valid: torch.Tensor):
@@ -93,7 +119,7 @@ def train_step(model, optimizer, criterion, model_name: str, x: torch.Tensor,
     loss.backward()
     optimizer.step()
     with torch.no_grad():
-        f1, dcg = batch_metrics(model_name, [o.detach() for o in output], y, valid)
+        f1, dcg = batch_metrics(model_name, output, y, valid)
     return loss.detach(), f1, dcg
 
 
@@ -223,11 +249,12 @@ class Trainer:
 
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="rlt_tpu_torch truncation model trainer (MMOECut, PLECut)",
+        description="rlt_tpu_torch truncation model trainer (bicut, attncut, "
+                    "mtattncut, mmoecut, moecut, mtple)",
         epilog="Not ported yet, so absent: --resume, --parameter-search and "
                "the other search flags, --population, --profile-dir, --draw, "
-               "--log-dir, --loss-override, --data-parallel, --model-parallel "
-               "and --compute-dtype bfloat16 (ROADMAP.md).")
+               "--log-dir, --data-parallel, --model-parallel and "
+               "--compute-dtype bfloat16 (ROADMAP.md).")
     d = config_lib.TrainConfig()
     p.add_argument("--retrieve-data", type=str, default=d.retrieve_data)
     p.add_argument("--dataset-name", type=str, default=d.dataset_name)
@@ -237,8 +264,14 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic-queries", type=int, default=d.synthetic_queries)
     p.add_argument("--batch-size", type=int, default=d.batch_size)
     p.add_argument("--model-name", type=str, default=d.model_name)
+    p.add_argument("--augmented-reward", type=int, default=1,
+                   help="div loss: reward distribution at temperature tau "
+                        "(1) or 1 (0)")
+    p.add_argument("--div-type", type=str, default=d.div_type,
+                   help="div loss: kl | js")
     p.add_argument("--criterion", type=str, default=d.criterion,
-                   help="reward metric of the cut loss: f1 | dcg")
+                   help="reward metric of the cut loss: f1 | dcg (bicut: nci "
+                        "or any other name for its alternative rewards)")
     p.add_argument("--model-path", type=str, default=None,
                    help="initial weights: a torch state_dict file")
     p.add_argument("--model-persist", type=int, default=0,
@@ -251,6 +284,10 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--dropout", type=float, default=d.dropout)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--num-tasks", type=float, default=3)
+    p.add_argument("--rerank-weight", type=float, default=d.rerank_weight)
+    p.add_argument("--class-weight", type=float, default=d.class_weight)
+    p.add_argument("--loss-override", type=str, default=None,
+                   help="single-task loss switch: attncut|choopy|div|wass")
     p.add_argument("--no-preset", action="store_true",
                    help="skip the built-in hyper-parameter presets")
     p.add_argument("--conf-file", type=str, default=None,
@@ -268,6 +305,9 @@ def config_from_args(args) -> config_lib.TrainConfig:
         dataset_base=args.dataset_base, synthetic_queries=args.synthetic_queries,
         batch_size=args.batch_size, model_name=args.model_name,
         num_tasks=args.num_tasks, dropout=args.dropout, criterion=args.criterion,
+        div_type=args.div_type, loss_override=args.loss_override,
+        augmented_reward=bool(args.augmented_reward),
+        rerank_weight=args.rerank_weight, class_weight=args.class_weight,
         epochs=args.epochs, lr=args.lr, weight_decay=args.weight_decay,
         seed=args.seed, model_path=args.model_path,
         model_persist=bool(args.model_persist), save_path=args.save_path)

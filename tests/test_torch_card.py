@@ -36,11 +36,12 @@ LSTM_BWD_REL = 1e-4
 # K6' and K4' against the plain version, relative to the gradient's max abs:
 # sums of 300 products of 64- or 128-term dot products, in another order.
 ATTN_BWD_REL = 1e-5
-# One MMOECut or PLECut training step through the kernels against the plain
+# One training step of a model through the kernels against the plain
 # versions on the card, same weights and masks: the loss within 1e-5 relative; each
 # parameter's gradient within 1e-3 of its max abs (the LSTM's 300-step
 # chains, forward and backward, feed every gradient) plus 1e-7: a softmax
-# tower's bias has zero gradient by algebra, where both give rounding noise.
+# tower's bias (and MtAttnCut's rerank bias, which its hinge cancels) has
+# zero gradient by algebra, where both give rounding noise.
 STEP_LOSS_REL = 1e-5
 STEP_GRAD_REL = 1e-3
 STEP_GRAD_FLOOR = 1e-7
@@ -193,6 +194,27 @@ def test_attention_bwd_kernel_matches_plain_on_card(cuda_device, n, length, head
         assert _max_rel_err(g, w) <= ATTN_BWD_REL
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_packed_attention_at_the_unstacked_rows_on_card(cuda_device, rate):
+    """K5' and K6' at AttnCut's and MtAttnCut's shape: the N = B = 63 rows of
+    one unstacked encoder at L = 300 (the expert models stack 3 * B)."""
+    q, k, v = (torch.from_numpy(a).to(cuda_device) for a in _qkv(40, (63, 300, 256)))
+    streams = _streams(41, 63, cuda_device)
+    o, lse = attention.fused_attention_packed(q, k, v, heads=4, pack=2,
+                                              dropout_rate=rate, streams=streams)
+    want_o, want_lse = attention.attention_packed_plain(q, k, v, 4, 2, rate, streams)
+    torch.testing.assert_close(o, want_o, rtol=0, atol=ATTN_ATOL)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=ATTN_ATOL)
+    do = torch.from_numpy(np.random.default_rng(42).normal(
+        size=tuple(q.shape)).astype(np.float32)).to(cuda_device)
+    got = attention.attention_packed_bwd(q, k, v, want_o, want_lse, do, 4, 2, rate,
+                                         streams)
+    want = attention.attention_packed_bwd_plain(q, k, v, want_o, want_lse, do, 4, 2,
+                                                rate, streams)
+    for g, w in zip(got, want):
+        assert _max_rel_err(g, w) <= ATTN_BWD_REL
+
+
 def test_packed_attention_bwd_kernel_is_deterministic_on_card(cuda_device):
     """Every gradient element is summed by one thread in a fixed order, with
     no atomics: two launches on the same inputs give the same bits."""
@@ -289,12 +311,14 @@ def _step_grads(cfg, x, y, valid, device, seed):
 
 
 @pytest.mark.parametrize("model_name,attention_launches", [
-    ("mmoecut", [0, 0, 1, 1]), ("mtple", [1, 1, 0, 0])])
+    ("mmoecut", [0, 0, 1, 1]), ("mtple", [1, 1, 0, 0]), ("moecut", [0, 0, 1, 1]),
+    ("attncut", [0, 0, 1, 1]), ("mtattncut", [0, 0, 1, 1]), ("bicut", [0, 0, 0, 0])])
 def test_training_step_on_card_matches_plain(cuda_device, model_name, attention_launches):
-    """One training step at robust04 width (dropout 0.1) through the kernels
-    against the same step through the plain versions on the card: same
-    weights, batch and generator seed, so the same masks. MMOECut runs the
-    packed attention pair K5'/K6', PLECut the per-slice pair K3'/K4'."""
+    """One training step at robust04 width with the model's drmm_tks dropout
+    through the kernels against the same step through the plain versions on
+    the card: same weights, batch and generator seed, so the same masks.
+    MMOECut, MOECut, AttnCut and MtAttnCut run the packed attention pair
+    K5'/K6', PLECut the per-slice pair K3'/K4', BiCut the LSTM pair only."""
     cfg = apply_preset(TrainConfig(model_name=model_name, retrieve_data="robust04"))
     rng = np.random.default_rng(17)
     x = torch.from_numpy(rng.normal(size=(8, cfg.seq_len, cfg.input_size))
@@ -346,4 +370,31 @@ def test_mmoecut_on_card_matches_cpu(cuda_device):
     np.testing.assert_allclose(dist, want_dist, rtol=0, atol=DIST_ATOL)
     top2 = np.sort(want_dist, axis=-1)[:, -2:]
     tied = top2[:, 1] - top2[:, 0] <= DIST_ATOL
+    assert np.all((ks == want_ks) | tied)
+
+
+@pytest.mark.parametrize("model_name,attention_launches", [
+    ("moecut", 1), ("attncut", 1), ("mtattncut", 1), ("bicut", 0)])
+def test_zoo_model_on_card_matches_cpu(cuda_device, model_name, attention_launches):
+    """A model of the zoo at robust04 width through the kernels on the card
+    against the same seeded model on the CPU (plain versions), as
+    test_mmoecut_on_card_matches_cpu: distributions within DIST_ATOL, cuts
+    equal but where the distribution is tied within DIST_ATOL (BiCut: a
+    position whose decision pair is)."""
+    cfg = TrainConfig(model_name=model_name, retrieve_data="robust04")
+    card = Predictor(cfg, device=cuda_device)
+    cpu = Predictor(cfg, device="cpu")
+    x = np.random.default_rng(43).normal(
+        size=(3, cfg.seq_len, cfg.input_size)).astype(np.float32)
+    before = (lstm.LSTM_FWD.launches, attention.ATTENTION_PACKED_FWD.launches)
+    ks, dist = card.predict_with_distribution(x)
+    assert (lstm.LSTM_FWD.launches - before[0],
+            attention.ATTENTION_PACKED_FWD.launches - before[1]) == (2, attention_launches)
+    want_ks, want_dist = cpu.predict_with_distribution(x)
+    np.testing.assert_allclose(dist, want_dist, rtol=0, atol=DIST_ATOL)
+    if model_name == "bicut":
+        tied = np.any(np.abs(want_dist[..., 0] - want_dist[..., 1]) <= DIST_ATOL, axis=-1)
+    else:
+        top2 = np.sort(want_dist, axis=-1)[:, -2:]
+        tied = top2[:, 1] - top2[:, 0] <= DIST_ATOL
     assert np.all((ks == want_ks) | tied)

@@ -75,11 +75,13 @@ def test_mtcut_loss_matches_jax(metric, num_tasks, valid):
 
 
 def test_div_loss_matches_jax():
-    """The port's only divergence: JS to the augmented target (tau 0.85)."""
+    """mtcut_loss's divergence: JS to the augmented target (tau 0.85). The
+    other divergences: tests/test_torch_zoo_losses.py."""
     heads, labels = _heads(2)
     _compare(lambda hs, y, v: jax_losses.div_loss(hs[-1], y, metric="dcg", div_type="js",
                                                   augmented=True, valid=v),
-             lambda hs, y, v: losses.div_loss(hs[-1], y, metric="dcg", valid=v),
+             lambda hs, y, v: losses.div_loss(hs[-1], y, metric="dcg", div_type="js",
+                                              augmented=True, valid=v),
              heads[-1:], labels, VALID)
 
 
