@@ -5,13 +5,15 @@
 
 Builds the port's CUDA kernels from `rlt_tpu_torch/csrc`, holds each one
 against its plain PyTorch version on the card at the main paths' shapes and
-times both, then drives twelve main paths at robust04 width (L = 300,
-F = 3, float32, seeded random weights): serving and training of MMOECut,
-MOECut, AttnCut and MtAttnCut (4 heads of dh = 64: the packed attention
+times both, then drives sixteen main paths at robust04 width (L = 300,
+float32, seeded random weights): serving and training of MMOECut, MOECut,
+AttnCut and MtAttnCut (F = 3, 4 heads of dh = 64: the packed attention
 kernels, over the stacked (3 * B) experts of MMOECut and MOECut and over
 the B rows of AttnCut's and MtAttnCut's one encoder), PLECut (2 heads of
-dh = 128: the per-slice attention kernels) and BiCut (the LSTM kernels
-only):
+dh = 128: the per-slice attention kernels), BiCut (the LSTM kernels only),
+and Choopy and MtChoopy (scores only, F = 1, served from `{"scores": ...}`
+bodies; three encoder layers of 8 heads of dh = 16: the packed attention
+kernels' dh = 16 instances, one launch per layer, and no LSTM kernel):
 
 - serving: the model over HTTP through `TruncationService`, the cuts
   checked against the same model run through the plain versions on the
@@ -48,22 +50,30 @@ import torch.nn.functional as F
 
 SEQ_LEN, FEATURES, HIDDEN, HEADS, D_MODEL, EXPERTS = 300, 3, 128, 4, 256, 3
 SLICE_HEADS, SLICE_DH = 2, 128  # PLECut's experts
+CHOOPY_HEADS, CHOOPY_D = 8, 128  # Choopy's and MtChoopy's encoder layers: dh = 16
 BATCHES = (63, 256)
 # the attention rows N of the packed kernels: the stacked experts of MMOECut
 # and MOECut at B = 63 and 256, and the B = 63 rows of AttnCut's and
-# MtAttnCut's unstacked encoder
+# MtAttnCut's unstacked encoder; at dh = 16 the B = 63 rows of Choopy's
+# training batch and the 256 of its largest serving bucket
 PACKED_ROWS = (EXPERTS * BATCHES[0], EXPERTS * BATCHES[1], BATCHES[0])
+CHOOPY_ROWS = BATCHES
 # each model's attention kernels, forward and backward (BiCut has none)
 PACKED = ("attention_packed_fwd", "attention_packed_bwd")
 ATTENTION_KERNELS = {"mmoecut": PACKED, "moecut": PACKED, "attncut": PACKED,
                      "mtattncut": PACKED, "mtple": ("attention_fwd", "attention_bwd"),
-                     "bicut": ()}
-MODELS = ("mmoecut", "mtple", "moecut", "attncut", "mtattncut", "bicut")
+                     "bicut": (), "choopy": PACKED, "mtchoopy": PACKED}
+# launches of the attention pair per forward (its encoder layers) and of the
+# LSTM pair (BiLSTM layers), where a model has other than 1 and 2
+ENCODER_LAYERS = {"choopy": 3, "mtchoopy": 3}
+BILSTM_LAYERS = {"choopy": 0, "mtchoopy": 0}
+MODELS = ("mmoecut", "mtple", "moecut", "attncut", "mtattncut", "bicut", "choopy",
+          "mtchoopy")
 PATHS = tuple(f"{m}-{p}" for m in MODELS for p in ("serve", "train"))
 # f32 tolerances on the card, kernel against plain version:
 # - the LSTM carries h and c through 300 steps, each a 128-term dot product
 #   summed in another order than cuBLAS sums it;
-# - attention sums 300 scores of 64- or 128-term dot products, outputs O(1);
+# - attention sums 300 scores of 16-, 64- or 128-term dot products, outputs O(1);
 # - the served distributions are softmaxes over 300 positions mixed by
 #   gates from a 76,800-term contraction of the LSTM outputs.
 LSTM_ATOL = 1e-4
@@ -72,7 +82,7 @@ DIST_ATOL = 1e-5
 # Backward kernels against their plain versions, relative to the gradient's
 # max abs: K2' carries dh and dc through 300 steps and sums dW_hh^T over up
 # to 76,500 (t, b) terms in another order; K6' and K4' sum 300 products of
-# 64- or 128-term dot products in another order.
+# 16-, 64- or 128-term dot products in another order.
 LSTM_BWD_REL = 1e-4
 ATTN_BWD_REL = 1e-5
 # The training step through the kernels against the plain versions on the
@@ -86,8 +96,10 @@ ATTN_BWD_REL = 1e-5
 # to 2 lr per step, which a max-abs comparison cannot tell from a fault; the
 # norm weighs those few elements against the whole leaf. A run that does not
 # update, or updates wrongly after step 1, reads about 1. Left out: the
-# leaves whose gradient is zero by algebra (`ZERO_GRAD_LEAVES`), whose
-# update is Adam-normalised rounding noise.
+# leaves whose gradient is zero by algebra (`ZERO_GRAD_LEAVES`) and the key
+# block of every in_proj_bias (`without_key_bias`), whose update is
+# Adam-normalised rounding noise: at Choopy's lr of 1e-3 that noise moved the
+# key bias by about lr a step and read 0.16 on the card.
 STEP_LOSS_REL = 1e-5
 STEP_GRAD_REL = 1e-3
 STEP_GRAD_FLOOR = 1e-7
@@ -100,7 +112,11 @@ ZERO_GRAD_LEAVES = {"mmoecut": _TOWERS, "moecut": _TOWERS, "mtple": _TOWERS,
                     "attncut": ("decision.bias", "attention_layer.layers_0.norm2.bias"),
                     # the rerank hinge's two batch means cancel the bias
                     "mtattncut": ("heads.rerank.bias", "heads.decision.bias"),
-                    "bicut": ()}
+                    "bicut": (),
+                    # as AttnCut's: the last of the three encoder layers
+                    "choopy": ("decision.bias", "attention_layer.layers_2.norm2.bias"),
+                    # as MtAttnCut's
+                    "mtchoopy": ("heads.rerank.bias", "heads.decision.bias")}
 RATE = 0.1  # the drmm_tks preset's dropout of the attention models but MOECut
 # H100 SXM peak rates: HBM3 bandwidth, dense f32 without tensor cores, and
 # f32 products on the tensor cores in the 3xTF32 split (three dense TF32
@@ -229,37 +245,39 @@ def check_lstm(dev, rng) -> dict:
     return lstm_rows(rows)
 
 
-def check_attention(dev, rng) -> dict:
+def check_attention(dev, rng, d_model: int = D_MODEL, heads: int = HEADS,
+                    rows: tuple = PACKED_ROWS) -> dict:
     """K5' against its plain version at the packed rows N of the main paths
-    (`PACKED_ROWS`); library_ms: f32 scaled_dot_product_attention."""
+    (`PACKED_ROWS`; Choopy's `CHOOPY_ROWS` at its width); library_ms: f32
+    scaled_dot_product_attention."""
     from rlt_tpu_torch.ops import attention
 
-    pack = attention.packed_group_size(D_MODEL, HEADS)
-    dh = D_MODEL // HEADS
-    rows = []
-    for n in PACKED_ROWS:
-        q, k, v = (torch.from_numpy(rng.normal(size=(n, SEQ_LEN, D_MODEL))
+    pack = attention.packed_group_size(d_model, heads)
+    dh = d_model // heads
+    out = []
+    for n in rows:
+        q, k, v = (torch.from_numpy(rng.normal(size=(n, SEQ_LEN, d_model))
                                     .astype(np.float32)).to(dev) for _ in range(3))
-        o, lse = attention.fused_attention_packed(q, k, v, heads=HEADS, pack=pack)
+        o, lse = attention.fused_attention_packed(q, k, v, heads=heads, pack=pack)
         torch.cuda.synchronize()
-        want_o, want_lse = attention.attention_packed_plain(q, k, v, HEADS, pack)
+        want_o, want_lse = attention.attention_packed_plain(q, k, v, heads, pack)
         err = max((o - want_o).abs().max().item(), (lse - want_lse).abs().max().item())
         require(bool(torch.isfinite(o).all()), "attention_packed_fwd: non-finite o")
         require(err <= ATTN_ATOL,
-                f"attention_packed_fwd N={n}: max abs err {err} > {ATTN_ATOL}")
-        ms = cuda_ms(lambda: attention.fused_attention_packed(q, k, v, heads=HEADS,
+                f"attention_packed_fwd dh={dh} N={n}: max abs err {err} > {ATTN_ATOL}")
+        ms = cuda_ms(lambda: attention.fused_attention_packed(q, k, v, heads=heads,
                                                               pack=pack), iters=10)
-        plain_ms = cuda_ms(lambda: attention.attention_packed_plain(q, k, v, HEADS, pack),
+        plain_ms = cuda_ms(lambda: attention.attention_packed_plain(q, k, v, heads, pack),
                            iters=10)
-        heads4 = [t.view(n, SEQ_LEN, HEADS, dh).transpose(1, 2) for t in (q, k, v)]
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(*heads4), iters=10)
-        nbytes = 4 * (4 * n * SEQ_LEN * D_MODEL + n * HEADS * SEQ_LEN)
-        flops = 4 * n * HEADS * SEQ_LEN * SEQ_LEN * dh
-        row = dict(n=n, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        by_head = [t.view(n, SEQ_LEN, heads, dh).transpose(1, 2) for t in (q, k, v)]
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(*by_head), iters=10)
+        nbytes = 4 * (4 * n * SEQ_LEN * d_model + n * heads * SEQ_LEN)
+        flops = 4 * n * heads * SEQ_LEN * SEQ_LEN * dh
+        row = dict(n=n, dh=dh, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                    library_ms=library_ms, **bounds(nbytes, flops))
         log("attention_packed_fwd " + json.dumps(row))
-        rows.append(row)
-    return {"rows": rows, "max_abs_err": max(r["max_abs_err"] for r in rows)}
+        out.append(row)
+    return {"rows": out, "max_abs_err": max(r["max_abs_err"] for r in out)}
 
 
 def check_lstm_bwd(dev, rng) -> dict:
@@ -318,99 +336,104 @@ def check_lstm_bwd(dev, rng) -> dict:
     return lstm_rows(rows)
 
 
-def check_attention_dropout(dev, rng) -> dict:
+def check_attention_dropout(dev, rng, d_model: int = D_MODEL, heads: int = HEADS,
+                            rows: tuple = PACKED_ROWS) -> dict:
     """K5' with dropout 0.1 against its plain version on the same streams
     (so the same keep mask), and at rate 0 with streams bit-equal to the
     call without. library_ms: f32 scaled_dot_product_attention with
     dropout_p 0.1 (its own mask)."""
     from rlt_tpu_torch.ops import attention
 
-    pack = attention.packed_group_size(D_MODEL, HEADS)
-    dh = D_MODEL // HEADS
-    rows = []
-    for n in PACKED_ROWS:
-        q, k, v = (torch.from_numpy(rng.normal(size=(n, SEQ_LEN, D_MODEL))
+    pack = attention.packed_group_size(d_model, heads)
+    dh = d_model // heads
+    out = []
+    for n in rows:
+        q, k, v = (torch.from_numpy(rng.normal(size=(n, SEQ_LEN, d_model))
                                     .astype(np.float32)).to(dev) for _ in range(3))
         streams = random_streams(rng, n, dev)
-        o, lse = attention.fused_attention_packed(q, k, v, HEADS, pack, RATE, streams)
-        o_rate0, _ = attention.fused_attention_packed(q, k, v, HEADS, pack, 0.0, streams)
-        o_none, _ = attention.fused_attention_packed(q, k, v, HEADS, pack)
+        o, lse = attention.fused_attention_packed(q, k, v, heads, pack, RATE, streams)
+        o_rate0, _ = attention.fused_attention_packed(q, k, v, heads, pack, 0.0, streams)
+        o_none, _ = attention.fused_attention_packed(q, k, v, heads, pack)
         torch.cuda.synchronize()
         require(torch.equal(o_rate0, o_none), "attention_packed_fwd: rate 0 with "
                 "streams differs from the call without dropout")
-        want_o, want_lse = attention.attention_packed_plain(q, k, v, HEADS, pack, RATE,
+        want_o, want_lse = attention.attention_packed_plain(q, k, v, heads, pack, RATE,
                                                             streams)
         err = max((o - want_o).abs().max().item(), (lse - want_lse).abs().max().item())
         require(bool(torch.isfinite(o).all()), "attention_packed_fwd: non-finite o")
-        require(err <= ATTN_ATOL, f"attention_packed_fwd dropout N={n}: max abs err "
-                f"{err} > {ATTN_ATOL}")
+        require(err <= ATTN_ATOL, f"attention_packed_fwd dropout dh={dh} N={n}: max abs "
+                f"err {err} > {ATTN_ATOL}")
         dropped = (o - o_none).abs().max().item()
         require(dropped > 1e-3, "attention_packed_fwd: dropout changed nothing")
-        ms = cuda_ms(lambda: attention.fused_attention_packed(q, k, v, HEADS, pack, RATE,
+        ms = cuda_ms(lambda: attention.fused_attention_packed(q, k, v, heads, pack, RATE,
                                                               streams), iters=10)
         plain_ms = cuda_ms(lambda: attention.attention_packed_plain(
-            q, k, v, HEADS, pack, RATE, streams), iters=3, warmup=1)
-        heads4 = [t.view(n, SEQ_LEN, HEADS, dh).transpose(1, 2) for t in (q, k, v)]
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(*heads4, dropout_p=RATE),
+            q, k, v, heads, pack, RATE, streams), iters=3, warmup=1)
+        by_head = [t.view(n, SEQ_LEN, heads, dh).transpose(1, 2) for t in (q, k, v)]
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(*by_head,
+                                                                    dropout_p=RATE),
                              iters=10)
-        nbytes = 4 * (4 * n * SEQ_LEN * D_MODEL + n * HEADS * SEQ_LEN + n)
-        flops = 4 * n * HEADS * SEQ_LEN * SEQ_LEN * dh
-        row = dict(n=n, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   **bounds(nbytes, flops))
+        nbytes = 4 * (4 * n * SEQ_LEN * d_model + n * heads * SEQ_LEN + n)
+        flops = 4 * n * heads * SEQ_LEN * SEQ_LEN * dh
+        row = dict(n=n, dh=dh, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms, **bounds(nbytes, flops))
         log("attention_packed_fwd dropout " + json.dumps(row))
-        rows.append(row)
-    return {"rows": rows, "max_abs_err": max(r["max_abs_err"] for r in rows)}
+        out.append(row)
+    return {"rows": out, "max_abs_err": max(r["max_abs_err"] for r in out)}
 
 
-def check_attention_bwd(dev, rng) -> dict:
+def check_attention_bwd(dev, rng, d_model: int = D_MODEL, heads: int = HEADS,
+                        rows: tuple = PACKED_ROWS) -> dict:
     """K6' against its plain version at rates 0 and 0.1, on K5''s o and lse,
     and a second launch at rate 0.1 bit-equal to the first. Times are at
     rate 0.1, the training path's; library_ms is the backward alone of f32
     scaled_dot_product_attention without dropout."""
     from rlt_tpu_torch.ops import attention
 
-    pack = attention.packed_group_size(D_MODEL, HEADS)
-    dh = D_MODEL // HEADS
-    rows = []
-    for n in PACKED_ROWS:
-        q, k, v, do = (torch.from_numpy(rng.normal(size=(n, SEQ_LEN, D_MODEL))
+    pack = attention.packed_group_size(d_model, heads)
+    dh = d_model // heads
+    out_rows = []
+    for n in rows:
+        q, k, v, do = (torch.from_numpy(rng.normal(size=(n, SEQ_LEN, d_model))
                                         .astype(np.float32)).to(dev) for _ in range(4))
         streams = random_streams(rng, n, dev)
         errs = []
         for rate in (0.0, RATE):
-            o, lse = attention.attention_packed_fwd(q, k, v, HEADS, pack, rate, streams)
-            got = attention.attention_packed_bwd(q, k, v, o, lse, do, HEADS, pack, rate,
+            o, lse = attention.attention_packed_fwd(q, k, v, heads, pack, rate, streams)
+            got = attention.attention_packed_bwd(q, k, v, o, lse, do, heads, pack, rate,
                                                  streams)
             torch.cuda.synchronize()
-            want = attention.attention_packed_bwd_plain(q, k, v, o, lse, do, HEADS, pack,
+            want = attention.attention_packed_bwd_plain(q, k, v, o, lse, do, heads, pack,
                                                         rate, streams)
             for g, w in zip(got, want):
                 require(bool(torch.isfinite(g).all()), "attention_packed_bwd: non-finite")
                 errs.append(max_errs(g, w))
         rel = max(e[1] for e in errs)
-        require(rel <= ATTN_BWD_REL,
-                f"attention_packed_bwd N={n}: max rel err {rel} > {ATTN_BWD_REL}")
-        again = attention.attention_packed_bwd(q, k, v, o, lse, do, HEADS, pack, RATE,
+        require(rel <= ATTN_BWD_REL, f"attention_packed_bwd dh={dh} N={n}: max rel err "
+                f"{rel} > {ATTN_BWD_REL}")
+        again = attention.attention_packed_bwd(q, k, v, o, lse, do, heads, pack, RATE,
                                                streams)
         require(all(torch.equal(a, b) for a, b in zip(got, again)),
-                f"attention_packed_bwd N={n}: two launches on the same inputs differ")
-        ms = cuda_ms(lambda: attention.attention_packed_bwd(q, k, v, o, lse, do, HEADS, pack,
-                                                            RATE, streams), iters=10)
+                f"attention_packed_bwd dh={dh} N={n}: two launches on the same inputs "
+                "differ")
+        ms = cuda_ms(lambda: attention.attention_packed_bwd(q, k, v, o, lse, do, heads,
+                                                            pack, RATE, streams), iters=10)
         plain_ms = cuda_ms(lambda: attention.attention_packed_bwd_plain(
-            q, k, v, o, lse, do, HEADS, pack, RATE, streams), iters=3, warmup=1)
-        heads4 = [t.view(n, SEQ_LEN, HEADS, dh).transpose(1, 2).detach().requires_grad_()
-                  for t in (q, k, v)]
-        out = F.scaled_dot_product_attention(*heads4)
-        g_out = do.view(n, SEQ_LEN, HEADS, dh).transpose(1, 2)
-        library_ms = cuda_ms(lambda: torch.autograd.grad(out, heads4, g_out,
+            q, k, v, o, lse, do, heads, pack, RATE, streams), iters=3, warmup=1)
+        by_head = [t.view(n, SEQ_LEN, heads, dh).transpose(1, 2).detach().requires_grad_()
+                   for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*by_head)
+        g_out = do.view(n, SEQ_LEN, heads, dh).transpose(1, 2)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(out, by_head, g_out,
                                                          retain_graph=True), iters=10)
-        nbytes = 4 * (8 * n * SEQ_LEN * D_MODEL + n * HEADS * SEQ_LEN + n)
-        flops = 10 * n * SEQ_LEN * D_MODEL * SEQ_LEN
-        row = dict(n=n, max_abs_err=max(e[0] for e in errs), max_rel_err=rel, ms=ms,
-                   plain_ms=plain_ms, library_ms=library_ms, **bounds(nbytes, flops))
+        nbytes = 4 * (8 * n * SEQ_LEN * d_model + n * heads * SEQ_LEN + n)
+        flops = 10 * n * SEQ_LEN * d_model * SEQ_LEN
+        row = dict(n=n, dh=dh, max_abs_err=max(e[0] for e in errs), max_rel_err=rel,
+                   ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   **bounds(nbytes, flops))
         log("attention_packed_bwd " + json.dumps(row))
-        rows.append(row)
-    return {"rows": rows, "max_abs_err": max(r["max_abs_err"] for r in rows)}
+        out_rows.append(row)
+    return {"rows": out_rows, "max_abs_err": max(r["max_abs_err"] for r in out_rows)}
 
 
 def slice_bound(n: int, backward: bool) -> dict:
@@ -534,18 +557,23 @@ def read_counts() -> dict:
 
 def want_counts(model_name: str, forwards: int, steps: int = 0) -> dict:
     """The launches of `forwards` eval forwards and `steps` train steps of
-    `model_name`: per forward, 2 lstm_fwd (two BiLSTM layers, both
-    directions of a layer in one launch) and, but for BiCut, one launch of
-    the model's attention forward over all its rows (experts and lists); per
-    step, a forward and the backward's 2 lstm_bwd and, but for BiCut, one
-    attention backward. Every other kernel: none."""
+    `model_name`: per forward, one lstm_fwd per BiLSTM layer (two; both
+    directions of a layer in one launch; Choopy and MtChoopy have none) and,
+    but for BiCut, one launch of the model's attention forward per encoder
+    layer over all its rows (experts and lists; three layers in Choopy and
+    MtChoopy, one elsewhere); per step, a forward and the backward's
+    lstm_bwd and attention backward, one per layer of each. Every other
+    kernel: none."""
     from rlt_tpu_torch.ops import KERNELS
 
+    lstm_layers = BILSTM_LAYERS.get(model_name, 2)
     want = dict.fromkeys(KERNELS, 0)
-    want.update({"lstm_fwd": 2 * (forwards + steps), "lstm_bwd": 2 * steps})
+    want.update({"lstm_fwd": lstm_layers * (forwards + steps),
+                 "lstm_bwd": lstm_layers * steps})
     if ATTENTION_KERNELS[model_name]:
         attn_fwd, attn_bwd = ATTENTION_KERNELS[model_name]
-        want.update({attn_fwd: forwards + steps, attn_bwd: steps})
+        layers = ENCODER_LAYERS.get(model_name, 1)
+        want.update({attn_fwd: layers * (forwards + steps), attn_bwd: layers * steps})
     return want
 
 
@@ -566,6 +594,14 @@ def get(base: str, path: str) -> dict:
         return json.load(r)
 
 
+def request_lists(feats: list) -> dict:
+    """A /truncate body of ragged lists of (length, F) features: the
+    `scores` form a scores-only client sends where F = 1."""
+    if feats[0].shape[1] == 1:
+        return {"scores": [f[:, 0].tolist() for f in feats]}
+    return {"features": [f.tolist() for f in feats]}
+
+
 def tied_lists(model_name: str, dist: np.ndarray) -> np.ndarray:
     """Per list, whether its cut may move with a rounding of the
     distribution: the two largest cut probabilities within DIST_ATOL, or
@@ -582,13 +618,15 @@ def serve_end_to_end(rng, model_name: str, list_counts: tuple[int, ...]) -> dict
     `list_counts` (the one of 5 lists asks for the distributions); its
     cuts and distributions against the same model through the plain
     versions on the card; then the forward timed per bucket (and per stage
-    for the expert models)."""
+    for the expert models). A scores-only model (F = 1: Choopy, MtChoopy)
+    is sent `{"scores": ...}` bodies, the others `{"features": ...}`."""
     from rlt_tpu_torch.config import TrainConfig
     from rlt_tpu_torch.ops import plain_ops
     from rlt_tpu_torch.serve import TruncationService, bucket_size, make_server
 
     cfg = TrainConfig(model_name=model_name, retrieve_data="robust04")
-    require(cfg.seq_len == SEQ_LEN and cfg.input_size == FEATURES, "robust04 shapes")
+    features = cfg.input_size  # 1 (the scores alone) for Choopy and MtChoopy
+    require(cfg.seq_len == SEQ_LEN, "robust04 shapes")
     service = TruncationService(cfg, max_batch=256, device="cuda")
     predictor = service.predictor
     server = make_server(service, port=0)
@@ -600,15 +638,14 @@ def serve_end_to_end(rng, model_name: str, list_counts: tuple[int, ...]) -> dict
         want_dist = n_lists == 5
         lengths = rng.integers(1, SEQ_LEN + 1, size=n_lists)
         lengths[0] = SEQ_LEN
-        feats = [rng.normal(size=(int(n), FEATURES)).astype(np.float32) for n in lengths]
+        feats = [rng.normal(size=(int(n), features)).astype(np.float32) for n in lengths]
         requests.append((lengths, feats, want_dist))
     try:
         health = get(base, "/healthz")
         require(health["ok"] and health["seq_len"] == SEQ_LEN, f"healthz: {health}")
         reset_counts()  # the serving path's counts start here
         t0 = time.perf_counter()
-        outs = [post(base, {"features": [f.tolist() for f in feats],
-                            "return_distribution": want_dist})
+        outs = [post(base, {**request_lists(feats), "return_distribution": want_dist})
                 for _, feats, want_dist in requests]
         serve_s = time.perf_counter() - t0
         launches = read_counts()
@@ -633,7 +670,7 @@ def serve_end_to_end(rng, model_name: str, list_counts: tuple[int, ...]) -> dict
     worst_dist, near_ties = 0.0, 0
     for (lengths, feats, want_dist), out in zip(requests, outs):
         bucket = out["bucket"]
-        x = np.zeros((bucket, SEQ_LEN, FEATURES), np.float32)
+        x = np.zeros((bucket, SEQ_LEN, features), np.float32)
         for i, f in enumerate(feats):
             x[i, :len(f)] = f
         with plain_ops():
@@ -687,9 +724,8 @@ def train_end_to_end(model_name: str) -> dict:
 
     cfg = apply_preset(TrainConfig(model_name=model_name, retrieve_data="robust04"))
     preset = PRESETS["drmm_tks"][model_name]
-    require((cfg.batch_size, cfg.lr, cfg.weight_decay, cfg.dropout, cfg.seq_len,
-             cfg.input_size) == (63, preset["lr"], preset["weight_decay"],
-                                 preset["dropout"], SEQ_LEN, FEATURES),
+    require((cfg.batch_size, cfg.lr, cfg.weight_decay, cfg.dropout, cfg.seq_len)
+            == (63, preset["lr"], preset["weight_decay"], preset["dropout"], SEQ_LEN),
             f"drmm_tks preset: {cfg}")
     cfg = dataclasses.replace(cfg, epochs=1)
 
@@ -720,10 +756,10 @@ def train_end_to_end(model_name: str) -> dict:
         require(bool(torch.isfinite(g).all()), f"non-finite gradient of {name}")
         w = grads_p[name]
         err = (g - w).abs().max().item()
-        limit = STEP_GRAD_REL * w.abs().max().item() + STEP_GRAD_FLOOR
-        require(err <= limit, f"step-1 gradient of {name}: max abs err {err} > {limit}")
-        grad_used[name] = err / limit
+        grad_used[name] = err / (STEP_GRAD_REL * w.abs().max().item() + STEP_GRAD_FLOOR)
     worst = max(grad_used, key=grad_used.get)
+    require(grad_used[worst] <= 1.0, f"step-1 gradients over their max abs tolerance "
+            f"(share used): {worst_of(grad_used)}")
     log(f"{model_name} train step 1: loss {loss_k} (plain {loss_p}, rel err {loss_err:.3e}); "
         f"the worst gradient, {worst}, used {grad_used[worst]:.3e} of its tolerance")
 
@@ -761,13 +797,14 @@ def train_end_to_end(model_name: str) -> dict:
         require(bool(torch.isfinite(kstate[name]).all()), f"non-finite {name}")
         if name in ZERO_GRAD_LEAVES[model_name]:
             continue
-        k_move, p_move = kstate[name] - init[name], pstate[name] - init[name]
+        k_move, p_move = (without_key_bias(name, t[name] - init[name])
+                          for t in (kstate, pstate))
         # a leaf the plain run left where it was must stay there too
         update_rel[name] = ((k_move - p_move).norm()
                             / p_move.norm().clamp(min=1e-30)).item()
-        require(update_rel[name] <= UPDATE_REL, f"update of {name} after the epoch: "
-                f"L2 rel err {update_rel[name]} > {UPDATE_REL}")
     worst_update = max(update_rel, key=update_rel.get)
+    require(update_rel[worst_update] <= UPDATE_REL, f"updates after the epoch over "
+            f"{UPDATE_REL} (L2 rel err): {worst_of(update_rel)}")
     param_err = max((kstate[n] - pstate[n]).abs().max().item() for n in kstate)
     moved = max((kstate[n] - init[n]).abs().max().item() for n in kstate)
     log(f"{model_name} train epoch: {json.dumps(metrics)}; plain {json.dumps(plain_metrics)}; "
@@ -783,6 +820,21 @@ def train_end_to_end(model_name: str) -> dict:
                   train_steps=steps, test_batches=tests)
     log(f"{model_name} train timing " + json.dumps(timing))
     return {"launches": launches, "timing": timing}
+
+
+def without_key_bias(name: str, t: torch.Tensor) -> torch.Tensor:
+    """A leaf without its elements whose gradient is zero by algebra in
+    every attention model: the key block of an in_proj_bias ([q; k; v] on the
+    last axis). Adding b to every key adds q_i . b to all of query i's
+    scores, which the softmax over keys cancels."""
+    if not name.endswith("self_attn.in_proj_bias"):
+        return t
+    d = t.shape[-1] // 3
+    return torch.cat([t[..., :d], t[..., 2 * d:]], dim=-1)
+
+
+def worst_of(errs: dict, k: int = 5) -> str:
+    return json.dumps(dict(sorted(errs.items(), key=lambda kv: -kv[1])[:k]))
 
 
 def train_step_parts(trainer, x, y, valid, iters: int = 5) -> dict:
@@ -823,6 +875,39 @@ def stage_ms(model, batch: int, iters: int = 10) -> dict:
             "gates_towers": cuda_ms(lambda: model.heads(experts_in, experts_o), iters)}
 
 
+def kernel_name(line: str) -> str:
+    """A kernel's name in a line of ptxas, with its template arguments:
+    `attn_packed_fwd_kernel<16, 4>` for the mangled
+    `..._kernelILi16ELi4EEEv...`."""
+    found = re.search(r"([A-Za-z][A-Za-z_]*_kernel)(I(?:Li\d+E)+E)?", line)
+    if not found:
+        return line.split()[-1][:120]
+    args = re.findall(r"Li(\d+)E", found.group(2) or "")
+    return found.group(1) + (f"<{', '.join(args)}>" if args else "")
+
+
+def dh16_entry(name: str, res: dict, drop: dict | None, launches: dict) -> dict:
+    """The kernels line's `dh_16` sub-entry of a packed kernel: its times at
+    Choopy's N = B = 63 rows, at N = 256 (`n_256`), with dropout 0.1 for the
+    forward (`dropout_0.1`, its times at rate 0.1 being the backward's own),
+    and its launches on the Choopy and MtChoopy paths."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_tc_ms", "bound_by",
+            "max_abs_err")
+    rows = {r["n"]: r for r in res["rows"]}
+    entry = {k: rows[CHOOPY_ROWS[0]][k] for k in keys}
+    entry[f"n_{CHOOPY_ROWS[1]}"] = {k: rows[CHOOPY_ROWS[1]][k] for k in keys}
+    entry["max_abs_err"] = res["max_abs_err"]
+    if drop is not None:
+        drops = {r["n"]: r for r in drop["rows"]}
+        entry["dropout_0.1"] = {k: drops[CHOOPY_ROWS[0]][k] for k in keys}
+        entry["dropout_0.1"][f"n_{CHOOPY_ROWS[1]}"] = {
+            k: drops[CHOOPY_ROWS[1]][k] for k in keys}
+        entry["max_abs_err"] = max(entry["max_abs_err"], drop["max_abs_err"])
+    entry["launches_by_path"] = {path: launches[path][name] for path in PATHS
+                                 if path.split("-")[0] in ("choopy", "mtchoopy")}
+    return entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available; nothing was run",
@@ -844,8 +929,7 @@ def main() -> int:
         f" at {build.LIBRARY.path}")
     for line in build.LIBRARY.ptxas_log().splitlines():
         if "Function properties for" in line:  # heads each kernel's figures
-            name = re.search(r"[A-Za-z][A-Za-z_]*_kernel", line)
-            log("ptxas kernel " + (name.group(0) if name else line.split()[-1][:120]))
+            log("ptxas kernel " + kernel_name(line))
         elif "registers" in line or "spill" in line or line.startswith("=="):
             log("ptxas " + line.strip())
 
@@ -857,6 +941,13 @@ def main() -> int:
     attn_bwd_res = check_attention_bwd(dev, rng)
     slice_res = check_slice_attention(dev, rng)
     slice_bwd_res = check_slice_attention_bwd(dev, rng)
+    # the packed kernels' dh = 16 instances at Choopy's width, on their own
+    # generator so that the paths below draw what they drew before
+    rng16 = np.random.default_rng(16)
+    choopy = dict(d_model=CHOOPY_D, heads=CHOOPY_HEADS, rows=CHOOPY_ROWS)
+    dh16 = {"attention_packed_fwd": (check_attention(dev, rng16, **choopy),
+                                     check_attention_dropout(dev, rng16, **choopy)),
+            "attention_packed_bwd": (check_attention_bwd(dev, rng16, **choopy), None)}
     launches, train_res = {}, {}
     for model_name in MODELS:
         launches[f"{model_name}-serve"] = serve_end_to_end(
@@ -920,6 +1011,8 @@ def main() -> int:
             row_b = next(r for r in res["rows"] if r["n"] == BATCHES[0])
             entry[f"n_{BATCHES[0]}"] = {k: row_b[k] for k in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_tc_ms", "max_abs_err")}
+            entry["dh_16"] = dh16_entry(name, *dh16[name], launches)
+            entry["max_abs_err"] = max(entry["max_abs_err"], entry["dh_16"]["max_abs_err"])
         kernels.append(entry)
     for model_name, res in train_res.items():
         log(json.dumps({"model": model_name, "train_step_ms": res["timing"]["step_ms"],

@@ -1,7 +1,7 @@
 // attention_mma: tensor-core products at float32 accuracy and cp.async tile
 // copies, shared by the attention kernels: the head-packed K5'
 // (attention_packed_fwd.cu) and K6' (attention_packed_bwd.cu), which work on
-// dh = 64 heads of (N, L, D) float32 arrays in blocks of 4 warps, and the
+// dh = 16 or 64 heads of (N, L, D) float32 arrays in blocks of 4 warps, and the
 // per-slice K3' (attention_fwd.cu) and K4' (attention_bwd.cu), which work on
 // dh = 128 slices of (N, L, 128) arrays in blocks of 8 warps: 4 pairs, each
 // pair 16 rows, each warp of a pair one half of the work (pair_sync below).
@@ -34,15 +34,28 @@
 
 namespace rlt {
 
-constexpr int kPackedDh = 64;
 constexpr int kPackedTile = 64;                 // rows of a block, rows of a streamed tile
 constexpr int kPackedWarps = kPackedTile / 16;  // 16 rows per warp
 constexpr int kPackedThreads = 32 * kPackedWarps;
-// row pitch of a tile in shared memory: 68 floats put the 32 lanes of a
-// B-fragment read on 32 banks, whether it walks along dh (g * 68 + t: banks
-// 4g + t) or along the rows in the relabelled order (2t * 68 + g: banks 8t + g)
-constexpr int kPackedPitch = kPackedDh + 4;
-constexpr int kPackedTileFloats = kPackedTile * kPackedPitch;
+
+// A 64-row tile of one head of width kDh in shared memory (the packed
+// kernels take dh = 16 and 64). Its row pitch of kDh + 4 floats puts the 32
+// lanes of a B-fragment read on 32 banks, whether it walks along dh
+// (g * pitch + t) or along the rows in the relabelled order (2t * pitch + g):
+// pitch 68 gives banks 4g + t and 8t + g, pitch 20 banks (20g mod 32) + t
+// and 8t + g. The same holds for the A-fragment reads of split_a_tile.
+template <int kDh>
+struct PackedShape {
+  static_assert(kDh % 8 == 0 && kDh <= 64, "dh a multiple of 8, at most 64");
+  static constexpr int kPitch = kDh + 4;
+  static constexpr int kTileFloats = kPackedTile * kPitch;
+  // accumulator tiles of 8 columns across dh, and k-steps of 8 along it
+  static constexpr int kCols = kDh / 8;
+  // blocks per SM that __launch_bounds__ asks of K5' and K6': dh = 64 was
+  // sized for two; at dh = 16 a block needs a quarter of the shared memory,
+  // and four (128 registers a thread) ran faster than three on the card
+  static constexpr int kMinBlocks = kDh == 64 ? 2 : 4;
+};
 
 // The per-slice kernels: dh = 128, pitch 132 for the same reason (g * 132 + t:
 // banks 4g + t; 2t * 132 + g: banks 8t + g), 64-row tiles, 8 warps.
@@ -86,7 +99,7 @@ __device__ __forceinline__ void mma3(float (&d)[4], const Split (&a)[4], Split b
 
 // The A fragment of 16 rows [row0, row0 + 16) of a tile of row pitch
 // kPitch at columns [8 kk, 8 kk + 8), split
-template <int kPitch = kPackedPitch>
+template <int kPitch>
 __device__ __forceinline__ void split_a_tile(Split (&a)[4], const float* tile, int row0,
                                              int kk, int g, int t) {
   const float* p = tile + (row0 + g) * kPitch + 8 * kk + t;
@@ -107,7 +120,7 @@ __device__ __forceinline__ void split_acc(const float (&c)[4], Split (&a)[4]) {
 
 // d += (16 x 8 A) x B where B's k runs along dh: b0 = tile[n][k0 + t],
 // b1 = tile[n][k0 + t + 4], n = n0 + g (a K^T or Q^T operand)
-template <int kPitch = kPackedPitch>
+template <int kPitch>
 __device__ __forceinline__ void mma3_b_rows(float (&d)[4], const Split (&a)[4],
                                             const float* tile, int n0, int k0, int g,
                                             int t) {
@@ -117,7 +130,7 @@ __device__ __forceinline__ void mma3_b_rows(float (&d)[4], const Split (&a)[4],
 
 // d += (16 x 8 A) x B in the relabelled k order, B's k running along the
 // tile's rows: b0 = tile[k0 + 2t][n0 + g], b1 = tile[k0 + 2t + 1][n0 + g]
-template <int kPitch = kPackedPitch>
+template <int kPitch>
 __device__ __forceinline__ void mma3_b_perm(float (&d)[4], const Split (&a)[4],
                                             const float* tile, int k0, int n0, int g,
                                             int t) {
@@ -208,7 +221,7 @@ __device__ __forceinline__ void cp_async_wait() {
 // an (N, L, D) array (`src` points at the head's row 0, rows d_model floats
 // apart) into a tile of pitch kDh + 4, by the whole block of kThreads
 // threads; rows at or past `length` become zeros.
-template <int kDh = kPackedDh, int kThreads = kPackedThreads>
+template <int kDh, int kThreads = kPackedThreads>
 __device__ __forceinline__ void load_tile_async(float* dst, const float* src, int row0,
                                                 int length, int d_model) {
   constexpr int kPitch = kDh + 4;

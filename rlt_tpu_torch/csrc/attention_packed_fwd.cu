@@ -3,7 +3,9 @@
 // Replaces rlt_tpu/ops/attention.py::_attn_fwd_packed_kernel (run through
 // _fwd_packed and fused_attention_packed). q, k, v are (N, L, D) in the raw
 // in_proj layout, the heads contiguous in D: head h is columns
-// [h*64, (h+1)*64). Per head: o_h = softmax(q_h k_h^T / sqrt(64)) v_h, and
+// [h*dh, (h+1)*dh), dh = 64 (MMOECut, MOECut, AttnCut, MtAttnCut: 4 heads,
+// pack 2) or 16 (Choopy, MtChoopy: 8 heads in one group of pack 8), one
+// instance of the kernel each. Per head: o_h = softmax(q_h k_h^T / sqrt(dh)) v_h, and
 // lse_h = log sum_j exp(s_j) per query row, stored in the JAX layout
 // (N, groups, L, pack) with head h at [h / pack, :, h % pack]. With a
 // dropout rate above 0, the softmax weights are dropped by the keep mask of
@@ -23,12 +25,15 @@
 // traffic, so operations bound it. The products run on the tensor cores as
 // mma.sync m16n8k8 tf32 in the 3xTF32 split of attention_mma.cuh, three
 // tf32 products per f32 product, which keeps the 1e-5 agreement with the
-// plain f32 version that one tf32 product would miss.
+// plain f32 version that one tf32 product would miss. At dh = 16 a score
+// costs a quarter of the products it costs at dh = 64 but the same exp, max,
+// sum and dropout hash, so that elementwise work, which no roofline of
+// products counts, is likely to set the pace there.
 //
 // Design: one block of 4 warps per (row n, head h, 64 query rows), each
 // warp 16 of the rows. The block's Q tile sits in shared memory, and K and V
-// stream through a two-stage ring of 64-key tiles, all with row pitch 68 and
-// filled by cp.async, so the next tile's copy runs under this tile's
+// stream through a two-stage ring of 64-key tiles, all with row pitch dh + 4
+// (PackedShape) and filled by cp.async, so the next tile's copy runs under this tile's
 // products. Per tile a warp takes S = Q K^T (16 x 64) into registers, masks
 // keys past L with -inf, raises its running row max (kept per head, as K3'
 // does) and rescales its running sum, and turns S into the weights
@@ -36,10 +41,13 @@
 // taken). These feed P V as A fragments straight from the accumulator
 // (attention_mma.cuh); the tile's P V, taken in a fresh accumulator, is
 // added to the rescaled running O. At the end o = O / sum and lse = m +
-// log(sum). The block's 85 KiB of shared memory do not grow with L, two
-// blocks share an SM, and any 1 <= L <= 65535 is taken. Q's fragments are
-// split at each use rather than held split in registers: held, they made
-// ptxas spill 104 bytes a thread at three blocks per SM.
+// log(sum). The block's shared memory (85 KiB at dh = 64, 25 KiB at
+// dh = 16) does not grow with L, and any 1 <= L <= 65535 is taken. At
+// dh = 64 two blocks share an SM; Q's fragments are split at each use rather
+// than held split in registers: held, they made ptxas spill 104 bytes a
+// thread at three blocks per SM. At dh = 16 a block needs a quarter of the
+// shared memory, so PackedShape::kMinBlocks asks ptxas for four blocks per
+// SM.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -50,28 +58,33 @@
 
 namespace {
 
-using rlt::kPackedDh;
-using rlt::kPackedPitch;
 using rlt::kPackedThreads;
 using rlt::kPackedTile;
-using rlt::kPackedTileFloats;
 using rlt::Split;
 
 constexpr int kStages = 2;
-constexpr size_t kSmem = sizeof(float) * (1 + kStages * 2) * kPackedTileFloats;
 
-// Dynamic shared memory: q_s[64][kPackedPitch] |
-// kStages x (k_t[64][kPackedPitch] | v_t[64][kPackedPitch])
-__global__ void __launch_bounds__(kPackedThreads, 2)
+template <int kDh>
+constexpr size_t fwd_smem() {
+  return sizeof(float) * (1 + kStages * 2) * rlt::PackedShape<kDh>::kTileFloats;
+}
+
+// Dynamic shared memory: q_s[64][kPitch] | kStages x (k_t[64][kPitch] | v_t[64][kPitch])
+template <int kDh, int kMinBlocks>
+__global__ void __launch_bounds__(kPackedThreads, kMinBlocks)
 attn_packed_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
                        float* __restrict__ lse,
                        const int32_t* __restrict__ streams, int length,
                        int d_model, int pack, float scale, bool dropout,
                        uint32_t threshold, float inv_keep) {
+  using Shape = rlt::PackedShape<kDh>;
+  constexpr int kPitch = Shape::kPitch;
+  constexpr int kTileFloats = Shape::kTileFloats;
+  constexpr int kCols = Shape::kCols;
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);
-  float* smem = q_s + kPackedTileFloats;
+  float* smem = q_s + kTileFloats;
 
   const int n = blockIdx.z;
   const int head = blockIdx.y;
@@ -80,12 +93,12 @@ attn_packed_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int t = lane % 4;
   const int w16 = (threadIdx.x / 32) * 16;  // the warp's rows in the block's tile
   const int r0 = blockIdx.x * kPackedTile + w16;
-  const size_t base = static_cast<size_t>(n) * length * d_model + head * kPackedDh;
+  const size_t base = static_cast<size_t>(n) * length * d_model + head * kDh;
   const int tiles = (length + kPackedTile - 1) / kPackedTile;
 
-  rlt::load_tile_async(q_s, q + base, blockIdx.x * kPackedTile, length, d_model);
-  rlt::load_tile_async(smem, k + base, 0, length, d_model);
-  rlt::load_tile_async(smem + kPackedTileFloats, v + base, 0, length, d_model);
+  rlt::load_tile_async<kDh>(q_s, q + base, blockIdx.x * kPackedTile, length, d_model);
+  rlt::load_tile_async<kDh>(smem, k + base, 0, length, d_model);
+  rlt::load_tile_async<kDh>(smem + kTileFloats, v + base, 0, length, d_model);
   rlt::cp_async_commit();
 
   // the head's keep mask: columns (head % pack) * L + j of its group's tile
@@ -95,35 +108,36 @@ attn_packed_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       dropout ? rlt::stream_key(rlt::group_stream(streams[n], head / pack)) : 0u;
 
   // rows g and g + 8 of the warp: running max, this thread's share of the
-  // running sum, and the output accumulator (8 tiles of 8 columns)
+  // running sum, and the output accumulator (dh / 8 tiles of 8 columns)
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.0f, 0.0f};
-  float acc[8][4] = {};
+  float acc[kCols][4] = {};
 
   for (int it = 0; it < tiles; ++it) {
     if (it + 1 < tiles) {
-      float* next = smem + ((it + 1) % kStages) * 2 * kPackedTileFloats;
-      rlt::load_tile_async(next, k + base, (it + 1) * kPackedTile, length, d_model);
-      rlt::load_tile_async(next + kPackedTileFloats, v + base, (it + 1) * kPackedTile,
-                           length, d_model);
+      float* next = smem + ((it + 1) % kStages) * 2 * kTileFloats;
+      rlt::load_tile_async<kDh>(next, k + base, (it + 1) * kPackedTile, length, d_model);
+      rlt::load_tile_async<kDh>(next + kTileFloats, v + base, (it + 1) * kPackedTile,
+                                length, d_model);
       rlt::cp_async_commit();
       rlt::cp_async_wait<1>();
     } else {
       rlt::cp_async_wait<0>();
     }
     __syncthreads();
-    const float* k_t = smem + (it % kStages) * 2 * kPackedTileFloats;
-    const float* v_t = k_t + kPackedTileFloats;
+    const float* k_t = smem + (it % kStages) * 2 * kTileFloats;
+    const float* v_t = k_t + kTileFloats;
     const int t0 = it * kPackedTile;
 
-    // S = Q K^T: 8 key columns per accumulator tile
+    // S = Q K^T: 8 key columns per accumulator tile, dh / 8 k-steps
     float s[8][4] = {};
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
+    for (int kk = 0; kk < kCols; ++kk) {
       Split qa[4];
-      rlt::split_a_tile(qa, q_s, w16, kk, g, t);
+      rlt::split_a_tile<kPitch>(qa, q_s, w16, kk, g, t);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) rlt::mma3_b_rows(s[j], qa, k_t, 8 * j, 8 * kk, g, t);
+      for (int j = 0; j < 8; ++j)
+        rlt::mma3_b_rows<kPitch>(s[j], qa, k_t, 8 * j, 8 * kk, g, t);
     }
 
     // running max (keys past L are -inf; key t0 < L, so m_new is finite)
@@ -165,16 +179,17 @@ attn_packed_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     // O = O corr + P V: the weights of keys 8 kk.. as A, V's rows in the
     // relabelled order, the tile's product in a fresh accumulator
-    float pv[8][4] = {};
+    float pv[kCols][4] = {};
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) {
       Split pa[4];
       rlt::split_acc(s[kk], pa);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) rlt::mma3_b_perm(pv[j], pa, v_t, 8 * kk, 8 * j, g, t);
+      for (int j = 0; j < kCols; ++j)
+        rlt::mma3_b_perm<kPitch>(pv[j], pa, v_t, 8 * kk, 8 * j, g, t);
     }
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < kCols; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[j][e] = fmaf(acc[j][e], corr[e >> 1], pv[j][e]);
     }
@@ -190,7 +205,7 @@ attn_packed_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float inv = 1.0f / sum;
       float* out = o + base + static_cast<size_t>(row) * d_model + 2 * t;
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < kCols; ++j)
         *reinterpret_cast<float2*>(out + 8 * j) =
             make_float2(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
       if (t == 0) {
@@ -203,34 +218,57 @@ attn_packed_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+template <int kDh>
+int launch_fwd(const float* q, const float* k, const float* v, float* o, float* lse,
+               const int32_t* streams, int n, int length, int heads, int pack,
+               float rate, uint32_t threshold, cudaStream_t stream) {
+  constexpr int kMinBlocks = rlt::PackedShape<kDh>::kMinBlocks;
+  constexpr size_t smem = fwd_smem<kDh>();
+  cudaError_t err = cudaFuncSetAttribute(attn_packed_fwd_kernel<kDh, kMinBlocks>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((length + kPackedTile - 1) / kPackedTile, heads, n);
+  attn_packed_fwd_kernel<kDh, kMinBlocks><<<grid, kPackedThreads, smem, stream>>>(
+      q, k, v, o, lse, streams, length, heads * kDh, pack,
+      1.0f / sqrtf(static_cast<float>(kDh)), rate > 0.0f, threshold,
+      1.0f / (1.0f - rate));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// q, k, v, o (N, L, D) with D = heads * 64, lse (N, heads / pack, L, pack):
-// contiguous float32 device arrays, q/k/v 16-byte aligned. With rate > 0,
-// `streams` holds N int32 dropout streams (one per row n) and `threshold`
-// the keep threshold of keep_mask.cuh; with rate == 0 neither is read.
-// Takes 1 <= L <= 65535. Launches on `stream` and returns
+// q, k, v, o (N, L, D) with D = heads * head_dim, head_dim 16 or 64, lse
+// (N, heads / pack, L, pack): contiguous float32 device arrays, q/k/v
+// 16-byte aligned. With rate > 0, `streams` holds N int32 dropout streams
+// (one per row n) and `threshold` the keep threshold of keep_mask.cuh; with
+// rate == 0 neither is read. Takes 1 <= L <= 65535; any other head width is
+// refused with cudaErrorInvalidValue. Launches on `stream` and returns
 // cudaGetLastError().
 extern "C" int rlt_attention_packed_fwd(const void* q, const void* k,
                                         const void* v, void* o, void* lse,
                                         const void* streams, int n, int length,
-                                        int heads, int pack, float rate,
+                                        int heads, int head_dim, int pack, float rate,
                                         unsigned int threshold, void* stream) {
   if (n < 1 || length < 1 || heads < 1 || pack < 1 || heads % pack != 0 ||
       n > 65535 || length > 65535 || heads > 65535 ||
       !(rate >= 0.0f && rate < 1.0f) || (rate > 0.0f && streams == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(attn_packed_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kSmem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((length + kPackedTile - 1) / kPackedTile, heads, n);
-  attn_packed_fwd_kernel<<<grid, kPackedThreads, kSmem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o),
-      static_cast<float*>(lse), static_cast<const int32_t*>(streams), length,
-      heads * kPackedDh, pack, 1.0f / sqrtf(static_cast<float>(kPackedDh)),
-      rate > 0.0f, threshold, 1.0f / (1.0f - rate));
-  return static_cast<int>(cudaGetLastError());
+  const auto* q_ = static_cast<const float*>(q);
+  const auto* k_ = static_cast<const float*>(k);
+  const auto* v_ = static_cast<const float*>(v);
+  auto* o_ = static_cast<float*>(o);
+  auto* lse_ = static_cast<float*>(lse);
+  const auto* s_ = static_cast<const int32_t*>(streams);
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 16:
+      return launch_fwd<16>(q_, k_, v_, o_, lse_, s_, n, length, heads, pack, rate,
+                            threshold, st);
+    case 64:
+      return launch_fwd<64>(q_, k_, v_, o_, lse_, s_, n, length, heads, pack, rate,
+                            threshold, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1,6 +1,6 @@
-"""Model zoo of the port. MMOECut (the flagship), MOECut, PLECut, AttnCut,
-MtAttnCut and BiCut are ported; Choopy, MtChoopy and probe_base are known
-here and raise until their slice lands (ROADMAP.md)."""
+"""Model zoo of the port: MMOECut (the flagship), MOECut, PLECut, Choopy,
+MtChoopy, AttnCut, MtAttnCut and BiCut. probe_base is known here and raises
+until its slice lands (ROADMAP.md)."""
 
 from rlt_tpu_torch.models.layers import (  # noqa: F401
     LSTM,
@@ -20,11 +20,12 @@ from rlt_tpu_torch.models.mmoe import (  # noqa: F401
     PLECut,
     make_towers,
 )
-from rlt_tpu_torch.models.multitask import MtAttnCut  # noqa: F401
-from rlt_tpu_torch.models.simple import AttnCut, BiCut  # noqa: F401
+from rlt_tpu_torch.models.multitask import MtAttnCut, MtChoopy  # noqa: F401
+from rlt_tpu_torch.models.simple import AttnCut, BiCut, Choopy  # noqa: F401
 
-MODELS = {"bicut": BiCut, "attncut": AttnCut, "mtattncut": MtAttnCut,
-          "mmoecut": MMOECut, "moecut": MOECut, "mtple": PLECut}
+MODELS = {"bicut": BiCut, "choopy": Choopy, "attncut": AttnCut,
+          "mtchoopy": MtChoopy, "mtattncut": MtAttnCut, "mmoecut": MMOECut,
+          "moecut": MOECut, "mtple": PLECut}
 
 # every model name of the JAX package's zoo, ported or not
 MODEL_NAMES = frozenset({"bicut", "choopy", "attncut", "mtchoopy", "mtattncut",
@@ -48,8 +49,13 @@ def build_model(name: str, *, seq_len: int, input_size: int, dropout: float,
     constructor arguments), with the initial weights drawn from `seed`."""
     if name == "bicut":
         return BiCut(input_size=input_size, dropout=dropout, seed=seed)
+    if name == "choopy":
+        return Choopy(seq_len=seq_len, dropout=dropout, seed=seed)
     if name == "attncut":
         return AttnCut(input_size=input_size, dropout=dropout, seed=seed)
+    if name == "mtchoopy":
+        return MtChoopy(seq_len=seq_len, num_tasks=num_tasks, dropout=dropout,
+                        seed=seed)
     if name == "mtattncut":
         return MtAttnCut(input_size=input_size, num_tasks=num_tasks, dropout=dropout,
                          seed=seed)

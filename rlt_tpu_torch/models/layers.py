@@ -244,10 +244,11 @@ class SelfAttention(nn.Module):
     (E, B, L, D); with `experts=None` one attention, (B, L, D) -> (B, L, D),
     run as the stacked computation with E = 1.
 
-    Thin heads (`packed_group_size` gives a pack, MMOECut's dh = 64): torch's
-    in_proj rows are head-major, so the raw q, k, v projections (E*B, L, D)
-    are already the head-packed layout the packed kernels read, and their
-    output feeds out_proj with no head split or concat. Other heads
+    Thin heads (`packed_group_size` gives a pack: MMOECut's dh = 64,
+    Choopy's dh = 16): torch's in_proj rows are head-major, so the raw q, k,
+    v projections (E*B, L, D) are already the head-packed layout the packed
+    kernels read, and their output feeds out_proj with no head split or
+    concat. Other heads
     (PLECut's dh = 128): in_proj is read as (E, 3, H, dh, D) and the
     projections land in the per-slice kernels' (E*B, H, L, dh) layout, as
     the JAX package projects them; out_proj contracts (H, dh) as (D, H, dh).

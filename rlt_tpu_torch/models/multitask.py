@@ -1,13 +1,17 @@
-"""Shared-bottom multi-task truncation model in PyTorch: MtAttnCut.
+"""Shared-bottom multi-task truncation models in PyTorch: MtChoopy and
+MtAttnCut.
 
-The counterpart of the JAX package's `models/multitask.py::MtAttnCut`
-(reference models/MtAttnCut.py:4-29): `pre_encoding` (2-layer BiLSTM,
-H = 128), `encoding_layer` (one unstacked post-LN encoder layer of 4 heads,
-d_model 256, on the head-packed attention kernels), then `heads` with
-`classi` (Linear + sigmoid), `rerank` (plain Linear) and `decision` (Linear
-+ softmax over positions). num_tasks picks the heads returned:
-3 -> [class, rerank, cut], 2.1 -> [class, cut], 2.2 -> [rerank, cut]; the
-last is the cut distribution. MtChoopy is not ported yet (ROADMAP.md).
+The counterparts of the JAX package's `models/multitask.py::MtChoopy`
+(reference models/MtChoopy.py:5-32) and `::MtAttnCut` (reference
+models/MtAttnCut.py:4-29). MtChoopy is Choopy's trunk: `position_encoding`
+(L, 127) after the score, `encoding_layer` (three unstacked post-LN encoder
+layers of 8 heads of dh = 16, d_model 128). MtAttnCut's is `pre_encoding`
+(2-layer BiLSTM, H = 128) and `encoding_layer` (one unstacked post-LN
+encoder layer of 4 heads, d_model 256). Both encoders run the head-packed
+attention kernels. Then `heads` with `classi` (Linear + sigmoid), `rerank`
+(plain Linear) and `decision` (Linear + softmax over positions). num_tasks
+picks the heads returned: 3 -> [class, rerank, cut], 2.1 -> [class, cut],
+2.2 -> [rerank, cut]; the last is the cut distribution.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import torch
 from torch import nn
 
 from rlt_tpu_torch.models.layers import LSTM, TorchLinear, TransformerEncoder
+from rlt_tpu_torch.models.simple import with_position_encoding
 
 
 def select_heads(y_class, y_rerank, y_cut, num_tasks: float) -> list:
@@ -36,6 +41,26 @@ class _MtHeads(nn.Module):
     def forward(self, x: torch.Tensor):
         return (torch.sigmoid(self.classi(x)), self.rerank(x),
                 torch.softmax(self.decision(x), dim=1))
+
+
+class MtChoopy(nn.Module):
+    def __init__(self, seq_len: int = 300, d_model: int = 128, n_head: int = 8,
+                 num_layers: int = 3, num_tasks: float = 3, dropout: float = 0.4,
+                 seed: int = 0):
+        super().__init__()
+        g = torch.Generator().manual_seed(seed)
+        self.num_tasks = num_tasks
+        self.position_encoding = nn.Parameter(
+            torch.randn(seq_len, d_model - 1, generator=g))
+        self.encoding_layer = TransformerEncoder(d_model, n_head, num_layers,
+                                                 generator=g, dropout=dropout)
+        self.heads = _MtHeads(d_model, g)
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> list[torch.Tensor]:
+        x = self.encoding_layer(with_position_encoding(x, self.position_encoding),
+                                generator)
+        return select_heads(*self.heads(x), self.num_tasks)
 
 
 class MtAttnCut(nn.Module):

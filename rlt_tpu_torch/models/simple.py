@@ -1,13 +1,20 @@
-"""Single-task truncation models in PyTorch: BiCut and AttnCut.
+"""Single-task truncation models in PyTorch: BiCut, Choopy and AttnCut.
 
-The counterparts of the JAX package's `models/simple.py::BiCut` and
-`::AttnCut`, with its parameter names and layouts:
+The counterparts of the JAX package's `models/simple.py::BiCut`,
+`::Choopy` and `::AttnCut`, with its parameter names and layouts:
 
 - BiCut (reference models/Bicut.py:5-21): `bilstm` (2-layer BiLSTM,
   H = 128), `fc` (Linear 256 -> 256), ReLU, `decision` (Linear 256 -> 2),
   dropout on the logits in training, softmax over the decision pair:
   (B, L, 2) per-position {truncate, continue} probabilities. It runs the
   LSTM kernels only.
+- Choopy (reference models/Choopy.py:6-23): a learned position encoding
+  `position_encoding` (L, d_model - 1) drawn from N(0, 1), concatenated
+  after the score (F = 1) to d_model = 128, `attention_layer` (three
+  unstacked post-LN encoder layers of 8 heads), `decision` (Linear
+  128 -> 1), softmax over positions: a (B, L, 1) cut distribution. Its
+  heads of dh = 16 run the head-packed attention kernels in one group of
+  pack 8, one launch per layer.
 - AttnCut (reference models/AttnCut.py:5-20): `encoding_layer` (the
   BiLSTM), `attention_layer` (one unstacked post-LN encoder layer of 4
   heads, d_model 256), `decision` (Linear 256 -> 1), softmax over
@@ -15,8 +22,7 @@ The counterparts of the JAX package's `models/simple.py::BiCut` and
   head-packed attention kernels on the (B, L, D) batch.
 
 The training forward (`model.train()`) with a dropout rate above 0 draws
-every mask from the `torch.Generator` passed to `forward`. Choopy is not
-ported yet (ROADMAP.md).
+every mask from the `torch.Generator` passed to `forward`.
 """
 
 from __future__ import annotations
@@ -45,6 +51,30 @@ class BiCut(nn.Module):
             # the reference drops logits, before the softmax
             logits = dropout(logits, self.dropout, generator)
         return torch.softmax(logits, dim=2)
+
+
+class Choopy(nn.Module):
+    def __init__(self, seq_len: int = 300, d_model: int = 128, n_head: int = 8,
+                 num_layers: int = 3, dropout: float = 0.2, seed: int = 0):
+        super().__init__()
+        g = torch.Generator().manual_seed(seed)
+        self.position_encoding = nn.Parameter(
+            torch.randn(seq_len, d_model - 1, generator=g))
+        self.attention_layer = TransformerEncoder(d_model, n_head, num_layers,
+                                                  generator=g, dropout=dropout)
+        self.decision = TorchLinear(d_model, 1, generator=g)
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        x = self.attention_layer(with_position_encoding(x, self.position_encoding),
+                                 generator)
+        return torch.softmax(self.decision(x), dim=1)
+
+
+def with_position_encoding(x: torch.Tensor, pe: torch.Tensor) -> torch.Tensor:
+    """(B, L, 1) scores and the (L, d_model - 1) encoding -> (B, L, d_model):
+    each list's scores, then the encoding shared by every list."""
+    return torch.cat([x, pe.expand(x.shape[0], *pe.shape)], dim=2)
 
 
 class AttnCut(nn.Module):

@@ -17,7 +17,9 @@ sharing a slice's 16 rows between the two halves of dh); on a CPU tensor
 they run `attention_plain` and `attention_bwd_plain`.
 
 Head-packed (`fused_attention_packed`, the counterpart of the JAX package's
-`fused_attention_packed` and its custom_vjp; MMOECut's heads of dh = 64):
+`fused_attention_packed` and its custom_vjp; the heads of dh = 64 of MMOECut,
+MOECut, AttnCut and MtAttnCut, 4 in groups of pack 2, and of dh = 16 of
+Choopy and MtChoopy, 8 in one group of pack 8):
 q, k, v are (N, L, D) with the H heads contiguous in the feature dim
 (D = H * dh): the raw output of torch's head-major in_proj, so no head split
 happens around the kernels. Each head computes
@@ -41,9 +43,10 @@ another head of its group (tests/test_torch_ops.py pins this).
 
 On a CUDA tensor the forward launches the kernel of
 `rlt_tpu_torch/csrc/attention_packed_fwd.cu` and the backward that of
-`csrc/attention_packed_bwd.cu` (dh = 64, float32, L <= 65535, both
-streaming 64-row tiles, their products on the tensor cores in the 3xTF32
-split that keeps float32 accuracy); each raises on anything else. On a CPU
+`csrc/attention_packed_bwd.cu` (dh = 16 or 64, one instance of each kernel
+per width, float32, L <= 65535, both streaming 64-row tiles, their products
+on the tensor cores in the 3xTF32 split that keeps float32 accuracy); each
+raises on anything else. On a CPU
 tensor they run `attention_packed_plain` and `attention_packed_bwd_plain`.
 """
 
@@ -64,16 +67,17 @@ ATTENTION_BWD = Kernel(
     "rlt_attention_bwd",
     [ctypes.c_void_p] * 11 + [ctypes.c_int] * 2
     + [ctypes.c_float, ctypes.c_uint, ctypes.c_void_p])
+# the packed kernels' int arguments: n, length, heads, head_dim, pack
 ATTENTION_PACKED_FWD = Kernel(
     "rlt_attention_packed_fwd",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
     + [ctypes.c_float, ctypes.c_uint, ctypes.c_void_p])
 ATTENTION_PACKED_BWD = Kernel(
     "rlt_attention_packed_bwd",
-    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
     + [ctypes.c_float, ctypes.c_uint, ctypes.c_void_p])
 
-KERNEL_HEAD_DIM = 64
+PACKED_HEAD_DIMS = (16, 64)  # the packed kernels' instances
 SLICE_HEAD_DIM = 128
 _U32 = 0xFFFFFFFF
 
@@ -322,12 +326,13 @@ def _check_slices(q, k, v, dropout_rate: float, streams) -> None:
     _check_rate(dropout_rate, streams, q.shape[0] * q.shape[1], q.device)
 
 
-def _check_kernel_inputs(name: str, dh: int, kernel_dh: int, tensors: dict) -> None:
+def _check_kernel_inputs(name: str, dh: int, kernel_dhs: tuple, tensors: dict) -> None:
     if next(iter(tensors.values())).device.type != "cuda":
         raise ValueError(f"{name}: unsupported device "
                          f"{next(iter(tensors.values())).device}")
-    if dh != kernel_dh:
-        raise ValueError(f"{name} kernel takes dh = {kernel_dh}, got dh = {dh}")
+    if dh not in kernel_dhs:
+        takes = " or ".join(f"dh = {w}" for w in kernel_dhs)
+        raise ValueError(f"{name} kernel takes {takes}, got dh = {dh}")
     for tname, t in tensors.items():
         if t.dtype != torch.float32:
             raise TypeError(f"{name} kernel takes float32 {tname}, got {t.dtype}")
@@ -352,7 +357,7 @@ def attention_packed_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, heads, pack, dropout_rate, streams)
     if q.device.type == "cpu":
         return attention_packed_plain(q, k, v, heads, pack, dropout_rate, streams)
-    _check_kernel_inputs("attention_packed_fwd", q.shape[-1] // heads, KERNEL_HEAD_DIM,
+    _check_kernel_inputs("attention_packed_fwd", q.shape[-1] // heads, PACKED_HEAD_DIMS,
                          {"q": q, "k": k, "v": v})
     n, length, d = q.shape
     o = torch.empty_like(q)
@@ -361,7 +366,7 @@ def attention_packed_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s_ptr, _keep = _kernel_streams(streams, dropout_rate)
     with torch.cuda.device(q.device):
         ATTENTION_PACKED_FWD(ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), s_ptr, n,
-                             length, heads, pack, dropout_rate,
+                             length, heads, d // heads, pack, dropout_rate,
                              keep_threshold(dropout_rate), stream_handle(q.device))
     return o, lse
 
@@ -375,7 +380,7 @@ def attention_packed_bwd(q, k, v, o, lse, do, heads: int, pack: int,
     if q.device.type == "cpu":
         return attention_packed_bwd_plain(q, k, v, o, lse, do, heads, pack,
                                           dropout_rate, streams)
-    _check_kernel_inputs("attention_packed_bwd", q.shape[-1] // heads, KERNEL_HEAD_DIM,
+    _check_kernel_inputs("attention_packed_bwd", q.shape[-1] // heads, PACKED_HEAD_DIMS,
                          {"q": q, "k": k, "v": v, "o": o, "do": do, "lse": lse})
     n, length, d = q.shape
     if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape):
@@ -389,7 +394,7 @@ def attention_packed_bwd(q, k, v, o, lse, do, heads: int, pack: int,
     with torch.cuda.device(q.device):
         ATTENTION_PACKED_BWD(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse),
                              s_ptr, ptr(dq), ptr(dk), ptr(dv), ptr(delta), n,
-                             length, heads, pack, dropout_rate,
+                             length, heads, d // heads, pack, dropout_rate,
                              keep_threshold(dropout_rate), stream_handle(q.device))
     return dq, dk, dv
 
@@ -436,7 +441,7 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_slices(q, k, v, dropout_rate, streams)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, dropout_rate, streams)
-    _check_kernel_inputs("attention_fwd", q.shape[-1], SLICE_HEAD_DIM,
+    _check_kernel_inputs("attention_fwd", q.shape[-1], (SLICE_HEAD_DIM,),
                          {"q": q, "k": k, "v": v})
     batch, heads, length, _ = q.shape
     o = torch.empty_like(q)
@@ -456,7 +461,7 @@ def attention_bwd(q, k, v, o, lse, do, dropout_rate: float = 0.0,
     _check_slices(q, k, v, dropout_rate, streams)
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, o, lse, do, dropout_rate, streams)
-    _check_kernel_inputs("attention_bwd", q.shape[-1], SLICE_HEAD_DIM,
+    _check_kernel_inputs("attention_bwd", q.shape[-1], (SLICE_HEAD_DIM,),
                          {"q": q, "k": k, "v": v, "o": o, "do": do, "lse": lse})
     batch, heads, length, _ = q.shape
     if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape):

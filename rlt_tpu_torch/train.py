@@ -10,19 +10,22 @@ optax's `add_decayed_weights -> scale_by_adam`), then the whole test split
 without dropout. Each train step decodes its cuts and scores F1/DCG on the
 pre-update forward, as the reference does, and an epoch reports every
 metric as the mean of its batch means. On the card the model runs through
-the kernels K1' and K2' (BiLSTM) and, but for BiCut, its encoder's
-attention pair with dropout inside: K5' and K6' for MMOECut, MOECut,
-AttnCut and MtAttnCut (heads of dh = 64), K3' and K4' for PLECut; on the
-CPU (`--device cpu`) through their plain versions. The batch plans and
+the kernels K1' and K2' (BiLSTM; not Choopy or MtChoopy, which have none)
+and, but for BiCut, its encoder's attention pair with dropout inside: K5'
+and K6' for MMOECut, MOECut, AttnCut and MtAttnCut (heads of dh = 64) and
+for Choopy and MtChoopy (heads of dh = 16, one launch per encoder layer),
+K3' and K4' for PLECut; on the CPU (`--device cpu`) through their plain
+versions. The batch plans and
 every dropout mask come from one `torch.Generator` on the device, seeded
 from `--seed`; the initial weights from the model's own seeded
 initialisation or `--model-path`.
 
-Six models train: bicut, attncut, mtattncut, mmoecut, moecut and mtple,
-each with the JAX package's criterion (`make_criterion`, with
-`--div-type`, `--augmented-reward`, `--rerank-weight`, `--class-weight`
-and `--loss-override`). Not ported yet (ROADMAP.md): choopy and mtchoopy,
-resume, the hyper-parameter search and population training, profiling,
+Eight models train: bicut, choopy, attncut, mtchoopy, mtattncut, mmoecut,
+moecut and mtple, each with the JAX package's criterion
+(`make_criterion`, with `--div-type`, `--augmented-reward`,
+`--rerank-weight`, `--class-weight` and `--loss-override`). Not ported yet
+(ROADMAP.md): probe_base, resume, the hyper-parameter search and population
+training, profiling,
 `--draw`, the metrics log directory, data and model parallelism, and the
 bf16 lane.
 """
@@ -66,18 +69,19 @@ def make_optimizer(params, lr: float, weight_decay: float) -> torch.optim.Adam:
 def make_criterion(cfg: config_lib.TrainConfig) -> Callable:
     """criterion(output, labels, valid=...) -> scalar: the JAX package's
     dispatch (the reference's run.py:59-102). `loss_override` replaces the
-    loss of attncut only (choopy too in the JAX package): the models whose
-    output is a distribution over positions; bicut -> `bicut_loss`; attncut -> `div_loss` with the
-    config's divergence and augmentation; mtattncut -> `mtcut_loss` with the
-    config's task weights; mmoecut, moecut and mtple -> `mtcut_loss` with
-    the torch defaults 0.5/0.5 (the reference passes none), PLECut always
-    with its three tasks. A model the port does not train yet raises."""
+    loss of choopy and attncut, the single-task models whose output is a
+    distribution over positions; bicut -> `bicut_loss`; choopy ->
+    `choopy_loss`; attncut -> `div_loss` with the config's divergence and
+    augmentation; mtchoopy and mtattncut -> `mtcut_loss` with the config's
+    task weights; mmoecut, moecut and mtple -> `mtcut_loss` with the torch
+    defaults 0.5/0.5 (the reference passes none), PLECut always with its
+    three tasks. A model the port does not train yet raises."""
     name, metric = cfg.model_name, cfg.criterion
     if name not in MODELS:
         raise NotImplementedError(
             f"training {name!r} is not ported yet: the port trains "
             f"{', '.join(sorted(MODELS))} (ROADMAP.md)")
-    if cfg.loss_override and name == "attncut":  # and choopy, once ported
+    if cfg.loss_override and name in ("choopy", "attncut"):
         if cfg.loss_override == "wass":
             return losses_lib.wass_dist_loss
         if cfg.loss_override in ("attncut", "choopy"):
@@ -88,10 +92,12 @@ def make_criterion(cfg: config_lib.TrainConfig) -> Callable:
         raise ValueError(f"unknown loss_override: {cfg.loss_override!r}")
     if name == "bicut":
         return losses_lib.make_loss("bicut", metric=metric)
+    if name == "choopy":
+        return losses_lib.make_loss("choopy", metric=metric)
     if name == "attncut":
         return losses_lib.make_loss("div", metric=metric, div_type=cfg.div_type,
                                     augmented=cfg.augmented_reward)
-    if name == "mtattncut":
+    if name in ("mtchoopy", "mtattncut"):
         return losses_lib.make_loss("mtcut", metric=metric,
                                     rerank_weight=cfg.rerank_weight,
                                     classi_weight=cfg.class_weight,
@@ -249,8 +255,8 @@ class Trainer:
 
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="rlt_tpu_torch truncation model trainer (bicut, attncut, "
-                    "mtattncut, mmoecut, moecut, mtple)",
+        description="rlt_tpu_torch truncation model trainer (bicut, choopy, "
+                    "attncut, mtchoopy, mtattncut, mmoecut, moecut, mtple)",
         epilog="Not ported yet, so absent: --resume, --parameter-search and "
                "the other search flags, --population, --profile-dir, --draw, "
                "--log-dir, --data-parallel, --model-parallel and "

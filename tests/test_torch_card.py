@@ -230,6 +230,67 @@ def test_packed_attention_bwd_kernel_is_deterministic_on_card(cuda_device):
         assert torch.equal(a, b)
 
 
+# K5' and K6' at Choopy's width (D = 128, 8 heads of dh = 16 in one group of
+# pack 8): its N = B = 63 rows, a few rows, ragged and whole 64-row tiles,
+# the main path's L = 300 and L = 700. (Not L = 1 for the backward: there
+# o = v and dq, dk are zero by algebra.)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("length", [37, 128, 300, 700])
+@pytest.mark.parametrize("n", [3, 63])
+def test_packed_attention_at_dh16_matches_plain_on_card(cuda_device, n, length, rate):
+    q, k, v = (torch.from_numpy(a).to(cuda_device) for a in _qkv(44, (n, length, 128)))
+    streams = _streams(45, n, cuda_device)
+    before = attention.ATTENTION_PACKED_FWD.launches
+    o, lse = attention.fused_attention_packed(q, k, v, heads=8, pack=8,
+                                              dropout_rate=rate, streams=streams)
+    torch.cuda.synchronize()
+    assert attention.ATTENTION_PACKED_FWD.launches == before + 1
+    want_o, want_lse = attention.attention_packed_plain(q, k, v, 8, 8, rate, streams)
+    torch.testing.assert_close(o, want_o, rtol=0, atol=ATTN_ATOL)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=ATTN_ATOL)
+    o_none, _ = attention.fused_attention_packed(q, k, v, heads=8, pack=8)
+    assert torch.equal(o, o_none) == (rate == 0.0)
+    do = torch.from_numpy(np.random.default_rng(46).normal(
+        size=tuple(q.shape)).astype(np.float32)).to(cuda_device)
+    before = attention.ATTENTION_PACKED_BWD.launches
+    got = attention.attention_packed_bwd(q, k, v, want_o, want_lse, do, 8, 8, rate,
+                                         streams)
+    torch.cuda.synchronize()
+    assert attention.ATTENTION_PACKED_BWD.launches == before + 1
+    want = attention.attention_packed_bwd_plain(q, k, v, want_o, want_lse, do, 8, 8,
+                                                rate, streams)
+    for g, w in zip(got, want):
+        assert _max_rel_err(g, w) <= ATTN_BWD_REL
+
+
+def test_packed_attention_bwd_at_dh16_is_deterministic_on_card(cuda_device):
+    q, k, v = (torch.from_numpy(a).to(cuda_device) for a in _qkv(47, (63, 300, 128)))
+    streams = _streams(48, 63, cuda_device)
+    o, lse = attention.attention_packed_plain(q, k, v, 8, 8, 0.1, streams)
+    do = torch.from_numpy(np.random.default_rng(49).normal(
+        size=tuple(q.shape)).astype(np.float32)).to(cuda_device)
+    first = attention.attention_packed_bwd(q, k, v, o, lse, do, 8, 8, 0.1, streams)
+    second = attention.attention_packed_bwd(q, k, v, o, lse, do, 8, 8, 0.1, streams)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_packed_attention_rejects_other_head_widths_on_card(cuda_device):
+    """The packed kernels have instances for dh = 16 and 64 alone: 8 heads
+    of dh = 32 raise, forward and backward, and nothing falls back."""
+    q = torch.zeros(2, 8, 256, device=cuda_device)
+    lse = torch.zeros(2, 1, 8, 8, device=cuda_device)
+    before = (attention.ATTENTION_PACKED_FWD.launches,
+              attention.ATTENTION_PACKED_BWD.launches)
+    with pytest.raises(ValueError, match="takes dh = 16 or dh = 64, got dh = 32"):
+        attention.attention_packed_fwd(q, q, q, 8, 8)
+    with pytest.raises(ValueError, match="takes dh = 16 or dh = 64, got dh = 32"):
+        attention.attention_packed_bwd(q, q, q, q, lse, q, 8, 8)
+    assert (attention.ATTENTION_PACKED_FWD.launches,
+            attention.ATTENTION_PACKED_BWD.launches) == before
+
+
 # K3' and K4' at PLECut's shapes (N = 2 * 3 * 63 and 2 * 3 * 256 slices of
 # L = 300, whose last tile of 64 rows is part-filled), at a ragged L, at
 # whole tiles, and at an L beyond any one block's shared memory. The
@@ -310,6 +371,10 @@ def _step_grads(cfg, x, y, valid, device, seed):
     return loss, {n: p.grad.clone() for n, p in trainer.model.named_parameters()}
 
 
+# the BiLSTM's layers, each one K1' and one K2' launch (Choopy's have none)
+BILSTM_LAYERS = {"choopy": 0, "mtchoopy": 0}
+
+
 @pytest.mark.parametrize("model_name,attention_launches", [
     ("mmoecut", [0, 0, 1, 1]), ("mtple", [1, 1, 0, 0]), ("moecut", [0, 0, 1, 1]),
     ("attncut", [0, 0, 1, 1]), ("mtattncut", [0, 0, 1, 1]), ("bicut", [0, 0, 0, 0])])
@@ -339,6 +404,54 @@ def test_training_step_on_card_matches_plain(cuda_device, model_name, attention_
         assert torch.isfinite(g).all(), name
         w = want_grads[name]
         assert (g - w).abs().max() <= STEP_GRAD_REL * w.abs().max() + STEP_GRAD_FLOOR, name
+
+
+# Choopy's and MtChoopy's three post-LN layers of ReLU FFNs: a hidden unit
+# whose pre-activation lies within rounding of 0 switches its ReLU between
+# two correct runs and moves a whole position's share of one row of
+# linear1's gradient. Float32 against float64 on the CPU, at this test's
+# batch, moves single elements of MtChoopy's layers_2.linear1.weight
+# gradient by 6.6e-3 of its max abs but the whole leaf by 4.1e-4 of its L2
+# norm, so these models' step gradients are held leaf by leaf in L2. Their
+# leaves whose gradient is zero by algebra (the biases under the softmax
+# over positions, the rerank bias under its hinge) read rounding noise of
+# the loss's scale on both sides (float32 on the CPU: at most 1.9e-6 of the
+# model's largest gradient) and must stay under ZERO_GRAD_REL of it.
+CHOOPY_ZERO_GRAD = {"choopy": ("decision.bias", "attention_layer.layers_2.norm2.bias"),
+                    "mtchoopy": ("heads.rerank.bias", "heads.decision.bias")}
+ZERO_GRAD_REL = 1e-4
+
+
+@pytest.mark.parametrize("model_name", ["choopy", "mtchoopy"])
+def test_choopy_training_step_on_card_matches_plain(cuda_device, model_name):
+    """One training step of Choopy or MtChoopy at robust04 width (scores
+    only) with the drmm_tks dropout, through the kernels against the plain
+    versions on the card, as test_training_step_on_card_matches_plain: no
+    LSTM launch, 3 K5' and 3 K6' (one per encoder layer, dh = 16)."""
+    cfg = apply_preset(TrainConfig(model_name=model_name, retrieve_data="robust04"))
+    assert cfg.input_size == 1
+    rng = np.random.default_rng(17)
+    x = torch.from_numpy(rng.normal(size=(8, cfg.seq_len, 1)).astype(np.float32)).to(cuda_device)
+    y = torch.from_numpy((rng.random((8, cfg.seq_len)) < 0.2).astype(np.float32)).to(cuda_device)
+    valid = torch.ones(8, device=cuda_device)
+    kernels = (lstm.LSTM_FWD, lstm.LSTM_BWD, attention.ATTENTION_FWD,
+               attention.ATTENTION_BWD, attention.ATTENTION_PACKED_FWD,
+               attention.ATTENTION_PACKED_BWD)
+    counts = [k.launches for k in kernels]
+    loss, grads = _step_grads(cfg, x, y, valid, cuda_device, 18)
+    torch.cuda.synchronize()
+    assert [k.launches - c for k, c in zip(kernels, counts)] == [0, 0, 0, 0, 3, 3]
+    with plain_ops():
+        want_loss, want_grads = _step_grads(cfg, x, y, valid, cuda_device, 18)
+    assert torch.isfinite(loss) and abs(float(loss - want_loss)) <= STEP_LOSS_REL * abs(float(want_loss))
+    largest = max(w.abs().max() for w in want_grads.values())
+    for name, g in grads.items():
+        assert torch.isfinite(g).all(), name
+        w = want_grads[name]
+        if name in CHOOPY_ZERO_GRAD[model_name]:
+            assert max(g.abs().max(), w.abs().max()) <= ZERO_GRAD_REL * largest, name
+        else:
+            assert (g - w).norm() <= STEP_GRAD_REL * w.norm(), name
 
 
 def test_kernel_wrappers_reject_on_card(cuda_device):
@@ -374,7 +487,8 @@ def test_mmoecut_on_card_matches_cpu(cuda_device):
 
 
 @pytest.mark.parametrize("model_name,attention_launches", [
-    ("moecut", 1), ("attncut", 1), ("mtattncut", 1), ("bicut", 0)])
+    ("moecut", 1), ("attncut", 1), ("mtattncut", 1), ("bicut", 0), ("choopy", 3),
+    ("mtchoopy", 3)])
 def test_zoo_model_on_card_matches_cpu(cuda_device, model_name, attention_launches):
     """A model of the zoo at robust04 width through the kernels on the card
     against the same seeded model on the CPU (plain versions), as
@@ -389,7 +503,8 @@ def test_zoo_model_on_card_matches_cpu(cuda_device, model_name, attention_launch
     before = (lstm.LSTM_FWD.launches, attention.ATTENTION_PACKED_FWD.launches)
     ks, dist = card.predict_with_distribution(x)
     assert (lstm.LSTM_FWD.launches - before[0],
-            attention.ATTENTION_PACKED_FWD.launches - before[1]) == (2, attention_launches)
+            attention.ATTENTION_PACKED_FWD.launches - before[1]) == (
+                BILSTM_LAYERS.get(model_name, 2), attention_launches)
     want_ks, want_dist = cpu.predict_with_distribution(x)
     np.testing.assert_allclose(dist, want_dist, rtol=0, atol=DIST_ATOL)
     if model_name == "bicut":

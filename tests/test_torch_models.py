@@ -142,7 +142,7 @@ def test_unported_models_and_training_forward_raise():
     """Unported models still raise; MMOECut's training forward now runs (a
     fresh module is in training mode), given a generator for its masks."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model("choopy", seq_len=16, input_size=1, dropout=0.1)
+        build_model("probe_base", seq_len=16, input_size=3, dropout=0.1)
     with pytest.raises(ValueError, match="unknown model"):
         build_model("nope", seq_len=16, input_size=3, dropout=0.1)
     model = build_model("mmoecut", seq_len=16, input_size=3, dropout=0.1)

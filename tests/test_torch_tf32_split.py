@@ -10,7 +10,9 @@ Here that arithmetic is emulated in numpy (tf32 rounding to nearest even at
 differs only at exact ties) and run through the kernels' own order of
 operations, with the dropout mask of the port's `keep_mask`: the packed
 kernels at MMOECut's widths (N = 2, L = 300, D = 256, 4 heads of dh = 64,
-pack 2), the per-slice ones at PLECut's (N = 2 rows of 2 heads of dh = 128,
+pack 2) and at Choopy's (D = 128, 8 heads of dh = 16, pack 8), whose
+16-deep score products are two k-steps of the tensor cores' 8, each
+product in one fresh accumulator; the per-slice ones at PLECut's (N = 2 rows of 2 heads of dh = 128,
 L = 300), whose 128-deep score products (s = q k^T, dp = do v^T) are taken
 as two 64-deep parts joined by a float32 add, as K3' and K4' take them. The
 results must agree with the plain float32 versions within the card's
@@ -30,9 +32,9 @@ from rlt_tpu_torch.ops import attention
 # the tolerances of tests/test_torch_card.py and chip_smoke.py
 ATTN_ATOL = 1e-5
 ATTN_BWD_REL = 1e-5
-N, L, D, HEADS, PACK = 2, 300, 256, 4, 2
-DH = D // HEADS
-SCALE = np.float32(1.0 / np.sqrt(DH))
+N, L = 2, 300
+# the packed kernels' widths: (D, heads, pack) of MMOECut and of Choopy
+PACKED = {"packed": (256, 4, 2), "packed_dh16": (128, 8, 8)}
 # the per-slice kernels: N rows of SLICE_HEADS heads of SLICE_DH
 SLICE_HEADS, SLICE_DH = 2, 128
 SLICE_SCALE = np.float32(1.0 / np.sqrt(SLICE_DH))
@@ -58,47 +60,50 @@ def matmul_1xtf32(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 PRODUCTS = {"3xtf32": matmul_3xtf32, "1xtf32": matmul_1xtf32}
 
 
-def _heads(t: torch.Tensor) -> np.ndarray:
+def _heads(t: torch.Tensor, heads: int) -> np.ndarray:
     """(N, L, D) -> (N, H, L, dh) float32 numpy."""
-    return t.reshape(N, L, HEADS, DH).transpose(1, 2).numpy()
+    return t.reshape(N, L, heads, -1).transpose(1, 2).numpy()
 
 
 def _merge(x: np.ndarray) -> np.ndarray:
-    return x.transpose(0, 2, 1, 3).reshape(N, L, D)
+    return x.transpose(0, 2, 1, 3).reshape(N, L, -1)
 
 
 @functools.lru_cache(maxsize=None)
-def _inputs(rate: float):
+def _inputs(kernels: str, rate: float):
+    d, heads, pack = PACKED[kernels]
     rng = np.random.default_rng(40)
-    q, k, v, do = (torch.from_numpy(rng.normal(size=(N, L, D)).astype(np.float32))
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(N, L, d)).astype(np.float32))
                    for _ in range(4))
     streams = torch.from_numpy(rng.integers(-2**31, 2**31, size=N, dtype=np.int64)
                                .astype(np.int32))
-    keep = attention.head_keep_mask(streams, HEADS, PACK, L, rate).numpy()
+    keep = attention.head_keep_mask(streams, heads, pack, L, rate).numpy()
     return q, k, v, do, streams, keep
 
 
-def _emulated_fwd(matmul, q, k, v, keep, rate):
+def _emulated_fwd(matmul, heads, pack, q, k, v, keep, rate):
     """K5''s order: s = q k^T scale, per-head max, weights exp(s - m)
     summed before dropout, o = (weights v) / sum, lse = m + log(sum)."""
-    s = matmul(_heads(q), _heads(k).transpose(0, 1, 3, 2)) * SCALE
+    qh, kh, vh = (_heads(t, heads) for t in (q, k, v))
+    s = matmul(qh, kh.transpose(0, 1, 3, 2)) * np.float32(1.0 / np.sqrt(qh.shape[-1]))
     m = s.max(-1, keepdims=True)
     e = np.exp(s - m)
     total = e.sum(-1, keepdims=True, dtype=np.float32)
     if rate > 0.0:
         e = np.where(keep, e * np.float32(1.0 / (1.0 - rate)), np.float32(0.0))
-    o = matmul(e, _heads(v)) / total
-    lse = (m + np.log(total))[..., 0].reshape(N, HEADS // PACK, PACK, L).transpose(0, 1, 3, 2)
+    o = matmul(e, vh) / total
+    lse = (m + np.log(total))[..., 0].reshape(N, heads // pack, pack, L).transpose(0, 1, 3, 2)
     return _merge(o), lse
 
 
-def _emulated_bwd(matmul, q, k, v, o, lse, do, keep, rate):
+def _emulated_bwd(matmul, heads, q, k, v, o, lse, do, keep, rate):
     """K6''s order: p = exp(q k^T scale - lse), dp = do v^T, the keep mask
     on dp and on pd, ds = p (dp - delta) scale, dq = ds k, dk = ds^T q,
     dv = pd^T do."""
-    qh, kh, vh, oh, doh = (_heads(t) for t in (q, k, v, o, do))
-    lse_h = lse.transpose(2, 3).reshape(N, HEADS, L).numpy()[..., None]
-    p = np.exp(matmul(qh, kh.transpose(0, 1, 3, 2)) * SCALE - lse_h)
+    qh, kh, vh, oh, doh = (_heads(t, heads) for t in (q, k, v, o, do))
+    scale = np.float32(1.0 / np.sqrt(qh.shape[-1]))
+    lse_h = lse.transpose(2, 3).reshape(N, heads, L).numpy()[..., None]
+    p = np.exp(matmul(qh, kh.transpose(0, 1, 3, 2)) * scale - lse_h)
     dp = matmul(doh, vh.transpose(0, 1, 3, 2))
     pd = p
     if rate > 0.0:
@@ -106,25 +111,27 @@ def _emulated_bwd(matmul, q, k, v, o, lse, do, keep, rate):
         pd = np.where(keep, p * inv, np.float32(0.0))
         dp = np.where(keep, dp * inv, np.float32(0.0))
     delta = (doh * oh).sum(-1, keepdims=True, dtype=np.float32)
-    ds = p * (dp - delta) * SCALE
+    ds = p * (dp - delta) * scale
     return (_merge(matmul(ds, kh)), _merge(matmul(ds.transpose(0, 1, 3, 2), qh)),
             _merge(matmul(pd.transpose(0, 1, 3, 2), doh)))
 
 
-def _fwd_err(products: str, rate: float) -> float:
-    q, k, v, _, streams, keep = _inputs(rate)
-    want_o, want_lse = attention.attention_packed_plain(q, k, v, HEADS, PACK, rate, streams)
-    o, lse = _emulated_fwd(PRODUCTS[products], q, k, v, keep, rate)
+def _fwd_err(kernels: str, products: str, rate: float) -> float:
+    _, heads, pack = PACKED[kernels]
+    q, k, v, _, streams, keep = _inputs(kernels, rate)
+    want_o, want_lse = attention.attention_packed_plain(q, k, v, heads, pack, rate, streams)
+    o, lse = _emulated_fwd(PRODUCTS[products], heads, pack, q, k, v, keep, rate)
     assert o.dtype == np.float32 and np.isfinite(o).all()
     return max(np.abs(o - want_o.numpy()).max(), np.abs(lse - want_lse.numpy()).max())
 
 
-def _bwd_rel_err(products: str, rate: float) -> float:
-    q, k, v, do, streams, keep = _inputs(rate)
-    o, lse = attention.attention_packed_plain(q, k, v, HEADS, PACK, rate, streams)
-    want = attention.attention_packed_bwd_plain(q, k, v, o, lse, do, HEADS, PACK, rate,
+def _bwd_rel_err(kernels: str, products: str, rate: float) -> float:
+    _, heads, pack = PACKED[kernels]
+    q, k, v, do, streams, keep = _inputs(kernels, rate)
+    o, lse = attention.attention_packed_plain(q, k, v, heads, pack, rate, streams)
+    want = attention.attention_packed_bwd_plain(q, k, v, o, lse, do, heads, pack, rate,
                                                 streams)
-    got = _emulated_bwd(PRODUCTS[products], q, k, v, o, lse, do, keep, rate)
+    got = _emulated_bwd(PRODUCTS[products], heads, q, k, v, o, lse, do, keep, rate)
     errs = []
     for g, w in zip(got, want):
         w = w.numpy()
@@ -209,7 +216,9 @@ def _slice_bwd_rel_err(products: str, rate: float) -> float:
 
 
 # each kernel pair's (forward error, backward relative error)
-ERRORS = {"packed": (_fwd_err, _bwd_rel_err), "slice": (_slice_fwd_err, _slice_bwd_rel_err)}
+ERRORS = {name: (functools.partial(_fwd_err, name), functools.partial(_bwd_rel_err, name))
+          for name in PACKED}
+ERRORS["slice"] = (_slice_fwd_err, _slice_bwd_rel_err)
 
 
 def test_tf32_rounding_keeps_ten_mantissa_bits():
@@ -222,7 +231,7 @@ def test_tf32_rounding_keeps_ten_mantissa_bits():
     np.testing.assert_array_equal(hi + tf32(x - hi), x)  # the split is exact here
 
 
-@pytest.mark.parametrize("kernels", ["packed", "slice"])
+@pytest.mark.parametrize("kernels", ["packed", "packed_dh16", "slice"])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("direction", ["forward", "backward"])
 def test_3xtf32_split_meets_the_card_tolerance(direction, rate, kernels):
@@ -233,7 +242,7 @@ def test_3xtf32_split_meets_the_card_tolerance(direction, rate, kernels):
         assert bwd_rel_err("3xtf32", rate) <= ATTN_BWD_REL
 
 
-@pytest.mark.parametrize("kernels", ["packed", "slice"])
+@pytest.mark.parametrize("kernels", ["packed", "packed_dh16", "slice"])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("direction", ["forward", "backward"])
 def test_one_tf32_product_misses_the_card_tolerance(direction, rate, kernels):

@@ -206,7 +206,7 @@ def test_make_criterion_covers_the_ported_models(model_name, num_tasks):
     assert crit.keywords == dict(metric="dcg", rerank_weight=0.5, classi_weight=0.5,
                                  num_tasks=num_tasks)
     with pytest.raises(NotImplementedError, match=model_name):
-        train.make_criterion(TrainConfig(model_name="choopy"))
+        train.make_criterion(TrainConfig(model_name="probe_base"))
 
 
 # ---------------------------------------------------------------------------

@@ -282,7 +282,7 @@ def test_task_weights_of_the_presets():
                                                        augmented=True)
 
 
-@pytest.mark.parametrize("name", ["choopy", "mtchoopy", "probe_base"])
+@pytest.mark.parametrize("name", ["probe_base"])
 def test_unported_models_still_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build_model(name, seq_len=16, input_size=1, dropout=0.1)
