@@ -66,8 +66,10 @@ class TrainConfig:
     seq_len_override: Optional[int] = None
     input_size_override: Optional[int] = None
 
-    # execution: only float32 is served so far; "bfloat16" raises in the
-    # Predictor (ROADMAP.md). The JAX package's TPU switches (use_pallas,
+    # execution: "bfloat16" serves (the Predictor casts the parameters and
+    # the features to bf16 and runs the bf16 kernels) but does not train yet:
+    # the Trainer takes float32 only until the bf16 backward kernels land
+    # (ROADMAP.md). The JAX package's TPU switches (use_pallas,
     # fast_dropout_rng, scan_block_epochs, data_parallel, model_parallel)
     # have no meaning here: the port always runs its CUDA kernels on a
     # CUDA tensor and their plain versions on a CPU tensor.

@@ -1,4 +1,6 @@
-// K3' attention_fwd: per-slice self-attention forward, float32, dh = 128.
+// K3' attention_fwd: per-slice self-attention forward, dh = 128, float32
+// (this file's kernel) and bf16 (attention_bf16.cuh's at dh = 128, behind
+// rlt_attention_fwd_bf16: a slice is one head of D = 128 in a group of 1).
 //
 // Replaces rlt_tpu/ops/attention.py::_attn_fwd_kernel (run through
 // _fwd_pallas, fused_attention and multi_head_attention). q, k, v are
@@ -44,6 +46,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_bf16.cuh"
 #include "attention_mma.cuh"
 #include "keep_mask.cuh"
 
@@ -251,4 +254,20 @@ extern "C" int rlt_attention_fwd(const void* q, const void* k, const void* v,
       1.0f / sqrtf(static_cast<float>(kSliceDh)), rate > 0.0f, threshold,
       1.0f / (1.0f - rate));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 instance: q, k, v, o (N, L, 128) bf16 and lse (N, 1, L) float32,
+// the rest as rlt_attention_fwd. Each slice runs as one head of width 128
+// in a group of pack 1, so its keep-mask index is i * L + j on its own
+// stream, as above. Launches on `stream` and returns cudaGetLastError().
+extern "C" int rlt_attention_fwd_bf16(const void* q, const void* k, const void* v,
+                                      void* o, void* lse, const void* streams, int n,
+                                      int length, float rate, unsigned int threshold,
+                                      void* stream) {
+  if (n < 1 || length < 1 || n > 65535 || length > 65535 ||
+      !(rate >= 0.0f && rate < 1.0f) || (rate > 0.0f && streams == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return rlt::launch_attn_fwd_bf16<kSliceDh>(q, k, v, o, lse, streams, n, length, 1, 1,
+                                             rate, threshold,
+                                             static_cast<cudaStream_t>(stream));
 }

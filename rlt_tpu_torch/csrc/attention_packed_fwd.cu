@@ -1,4 +1,6 @@
-// K5' attention_packed_fwd: head-packed self-attention forward, float32.
+// K5' attention_packed_fwd: head-packed self-attention forward, float32
+// (this file's kernel) and bf16 (attention_bf16.cuh's, instanced here at
+// dh = 16 and 64 behind rlt_attention_packed_fwd_bf16).
 //
 // Replaces rlt_tpu/ops/attention.py::_attn_fwd_packed_kernel (run through
 // _fwd_packed and fused_attention_packed). q, k, v are (N, L, D) in the raw
@@ -53,6 +55,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_bf16.cuh"
 #include "attention_mma.cuh"
 #include "keep_mask.cuh"
 
@@ -268,6 +271,33 @@ extern "C" int rlt_attention_packed_fwd(const void* q, const void* k,
     case 64:
       return launch_fwd<64>(q_, k_, v_, o_, lse_, s_, n, length, heads, pack, rate,
                             threshold, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The bf16 instances: q, k, v, o (N, L, D) bf16 with D = heads * head_dim,
+// head_dim 16 or 64, lse (N, heads / pack, L, pack) float32, the rest as
+// rlt_attention_packed_fwd. Launches on `stream` and returns
+// cudaGetLastError().
+extern "C" int rlt_attention_packed_fwd_bf16(const void* q, const void* k,
+                                             const void* v, void* o, void* lse,
+                                             const void* streams, int n, int length,
+                                             int heads, int head_dim, int pack,
+                                             float rate, unsigned int threshold,
+                                             void* stream) {
+  if (n < 1 || length < 1 || heads < 1 || pack < 1 || heads % pack != 0 ||
+      n > 65535 || length > 65535 || heads > 65535 ||
+      !(rate >= 0.0f && rate < 1.0f) || (rate > 0.0f && streams == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 16:
+      return rlt::launch_attn_fwd_bf16<16>(q, k, v, o, lse, streams, n, length, heads,
+                                           pack, rate, threshold, st);
+    case 64:
+      return rlt::launch_attn_fwd_bf16<64>(q, k, v, o, lse, streams, n, length, heads,
+                                           pack, rate, threshold, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

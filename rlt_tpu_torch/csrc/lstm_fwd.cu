@@ -1,4 +1,5 @@
-// K1' lstm_fwd: the LSTM recurrence forward, one or two directions, float32.
+// K1' lstm_fwd: the LSTM recurrence forward, one or two directions, float32
+// or bf16 (one template on the element type of xw, W_hh^T and hs).
 //
 // Replaces rlt_tpu/ops/lstm.py::_lstm_fwd_kernel (run through _fwd_pallas by
 // fused_lstm at ndir = 1 and fused_lstm_bidir at ndir = 2), in its layout:
@@ -41,17 +42,51 @@
 // took two barriers a step: the gates went through shared memory to a
 // second set of threads, and h and c back through shared memory. The next
 // step's xw is loaded into registers while this step computes.
+//
+// bf16 (rlt_lstm_fwd_bf16; the JAX kernel on bf16 operands): xw and
+// W_hh^T arrive in bf16 and hs leaves in bf16, while the carried h_s and
+// c_s stay f32, as the TPU kernel's f32 scratch: gates = xw + h W_hh^T is
+// taken in f32 from the f32 h and the bf16 weights widened, and only the
+// stored hs is rounded (carrying the rounded h along the 300-step chain would
+// compute another function). cs is f32 in both forms. W_hh^T's 64 register
+// rows are widened to f32 once at load, so the per-step products are the f32
+// instance's; its H - 64 shared-memory rows stay bf16, half the bytes: a
+// thread reads four rows of both its columns as one 16-byte load (the f32
+// instance: two) and widens them by shifts, and the step reads 64 KB of
+// weights from shared memory where the f32 instance reads 128 KB. On the
+// H100 the widening costs more issue slots than the halved bytes save: the
+// bf16 instance takes 1.12x the f32 one's time (PERF.md §6).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr int kRegRows = 64;      // rows of each of a thread's columns in registers
 constexpr int kMaxThreads = 256;  // 2H at H = 128
 
+using bf16 = __nv_bfloat16;
+
 __device__ __forceinline__ float sigmoid_f32(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(bf16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T narrow(float x);
+template <>
+__device__ __forceinline__ float narrow<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 narrow<bf16>(float x) { return __float2bfloat16_rn(x); }
+
+// the bf16 pair in the lower and upper halves of u, as floats
+__device__ __forceinline__ float bf16_lo(uint32_t u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
 
 // acc[r][s] += sum over the 4 units k..k+3 of h[r][k+i] * w_s.i, h from
 // shared memory with a row pitch of `pitch` floats: one broadcast read of h
@@ -73,28 +108,32 @@ __device__ __forceinline__ void fma4x2(float (&acc)[R][2], const float* h, int p
   }
 }
 
+template <typename T>
 size_t smem_bytes(int rows, int hidden) {
-  return sizeof(float) * (static_cast<size_t>(hidden - kRegRows) * 4 * hidden +
-                          2 * rows * hidden);
+  return sizeof(T) * static_cast<size_t>(hidden - kRegRows) * 4 * hidden +
+         sizeof(float) * 2 * rows * hidden;
 }
 
-// Dynamic shared memory: w_s[(H - 64) / 4][2][2H][4], where
-// w_s[m][s][4v + q][e] = W_hh^T[4m + e][qH + v + s H/2] | h_s[2][R][H]
-// (h_{t-1} and h_t, alternating by step). blockDim.x == 2H <= 256 with H a
-// multiple of 32, so every h row starts on a 16-byte boundary.
-template <int R>
+// Dynamic shared memory: the shared-memory rows of W_hh^T, then
+// h_s[2][R][H] (h_{t-1} and h_t, f32, alternating by step). float:
+// w_s[(H - 64) / 4][2][2H][4], where w_s[m][s][4v + q][e] =
+// W_hh^T[4m + e][qH + v + s H/2]; bf16: w_s[(H - 64) / 4][2H][2][4], the
+// same elements with a thread's two columns side by side (16 bytes). With H
+// a multiple of 32 and blockDim.x == 2H <= 256, h_s starts on a 16-byte
+// boundary, and so does every h row.
+template <typename T, int R>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-lstm_fwd_kernel(const float* __restrict__ xw, const float* __restrict__ w,
-                float* __restrict__ hs, float* __restrict__ cs, int length,
+lstm_fwd_kernel(const T* __restrict__ xw, const T* __restrict__ w,
+                T* __restrict__ hs, float* __restrict__ cs, int length,
                 int batch, int hidden, int ndir) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
   const int gates = 4 * hidden;
   const int half = hidden / 2;
   const int threads = 2 * hidden;
   const int ks = hidden - kRegRows;  // rows of W_hh^T in shared memory
-  float* w_s = smem;
-  float* h_s = w_s + static_cast<size_t>(ks) * gates;
+  T* w_s = reinterpret_cast<T*>(smem4);
+  float* h_s = reinterpret_cast<float*>(w_s + static_cast<size_t>(ks) * gates);
 
   const int tid = threadIdx.x;
   const int v = tid >> 2;  // hidden units v and v + H/2
@@ -106,28 +145,36 @@ lstm_fwd_kernel(const float* __restrict__ xw, const float* __restrict__ w,
   const int nb = min(R, batch - b0);
   const size_t step_rows = static_cast<size_t>(ndir) * batch;
   const size_t row0 = static_cast<size_t>(dir) * batch + b0;
-  const float* wd = w + static_cast<size_t>(dir) * hidden * gates;
+  const T* wd = w + static_cast<size_t>(dir) * hidden * gates;
 
   for (int i = tid; i < ks * gates; i += threads) {
-    const int th = (i >> 2) % threads;  // thread 4v' + q'
-    const int k = ((i >> 2) / (2 * threads)) * 4 + (i & 3);
-    const int c = (th & 3) * hidden + (th >> 2) + ((i >> 2) / threads & 1) * half;
+    int th, k, s;  // thread 4v' + q', row, column half
+    if (kF32) {
+      th = (i >> 2) % threads;
+      k = ((i >> 2) / (2 * threads)) * 4 + (i & 3);
+      s = (i >> 2) / threads & 1;
+    } else {
+      th = (i >> 3) % threads;
+      k = ((i >> 3) / threads) * 4 + (i & 3);
+      s = (i >> 2) & 1;
+    }
+    const int c = (th & 3) * hidden + (th >> 2) + s * half;
     w_s[i] = wd[static_cast<size_t>(k) * gates + c];
   }
   float w_r0[kRegRows], w_r1[kRegRows];
 #pragma unroll
   for (int k = 0; k < kRegRows; ++k) {
-    w_r0[k] = wd[static_cast<size_t>(ks + k) * gates + col];
-    w_r1[k] = wd[static_cast<size_t>(ks + k) * gates + col + half];
+    w_r0[k] = widen(wd[static_cast<size_t>(ks + k) * gates + col]);
+    w_r1[k] = widen(wd[static_cast<size_t>(ks + k) * gates + col + half]);
   }
   for (int i = tid; i < 2 * R * hidden; i += threads) h_s[i] = 0.0f;
   float x_next[R][2];
   float c_reg[R][2];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    const float* x0 = xw + (row0 + r) * gates + col;
-    x_next[r][0] = r < nb ? x0[0] : 0.0f;
-    x_next[r][1] = r < nb ? x0[half] : 0.0f;
+    const T* x0 = xw + (row0 + r) * gates + col;
+    x_next[r][0] = r < nb ? widen(x0[0]) : 0.0f;
+    x_next[r][1] = r < nb ? widen(x0[half]) : 0.0f;
     c_reg[r][0] = 0.0f;
     c_reg[r][1] = 0.0f;
   }
@@ -143,18 +190,30 @@ lstm_fwd_kernel(const float* __restrict__ xw, const float* __restrict__ w,
       acc[r][1] = x_next[r][1];
     }
     if (t + 1 < length) {
-      const float* xw_n = xw + ((t + 1) * step_rows + row0) * gates + col;
+      const T* xw_n = xw + ((t + 1) * step_rows + row0) * gates + col;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        x_next[r][0] = r < nb ? xw_n[static_cast<size_t>(r) * gates] : 0.0f;
-        x_next[r][1] = r < nb ? xw_n[static_cast<size_t>(r) * gates + half] : 0.0f;
+        x_next[r][0] = r < nb ? widen(xw_n[static_cast<size_t>(r) * gates]) : 0.0f;
+        x_next[r][1] =
+            r < nb ? widen(xw_n[static_cast<size_t>(r) * gates + half]) : 0.0f;
       }
     }
-    const float4* w4 = reinterpret_cast<const float4*>(w_s) + tid;
+    if (kF32) {
+      const float4* w4 = reinterpret_cast<const float4*>(w_s) + tid;
 #pragma unroll 4
-    for (int k = 0; k < ks; k += 4) {
-      const float4* wk = w4 + (k >> 2) * 2 * threads;
-      fma4x2<R>(acc, h_cur, hidden, k, wk[0], wk[threads]);
+      for (int k = 0; k < ks; k += 4) {
+        const float4* wk = w4 + (k >> 2) * 2 * threads;
+        fma4x2<R>(acc, h_cur, hidden, k, wk[0], wk[threads]);
+      }
+    } else {
+      const uint4* w8 = reinterpret_cast<const uint4*>(w_s) + tid;
+#pragma unroll 4
+      for (int k = 0; k < ks; k += 4) {
+        const uint4 u = w8[(k >> 2) * threads];
+        fma4x2<R>(acc, h_cur, hidden, k,
+                  make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y), bf16_hi(u.y)),
+                  make_float4(bf16_lo(u.z), bf16_hi(u.z), bf16_lo(u.w), bf16_hi(u.w)));
+      }
     }
 #pragma unroll
     for (int k = 0; k < kRegRows; k += 4)
@@ -178,7 +237,7 @@ lstm_fwd_kernel(const float* __restrict__ xw, const float* __restrict__ w,
         if (q == 0) h_nxt[r * hidden + u] = h;
         if (r < nb) {
           const size_t o = (t * step_rows + row0 + r) * hidden + u;
-          if (q == 1) hs[o] = h;
+          if (q == 1) hs[o] = narrow<T>(h);
           if (q == 2) cs[o] = c_reg[r][s];
         }
       }
@@ -189,31 +248,24 @@ lstm_fwd_kernel(const float* __restrict__ xw, const float* __restrict__ w,
   }
 }
 
-template <int R>
+template <typename T, int R>
 cudaError_t launch(const void* xw, const void* w_hh_t, void* hs, void* cs,
                    int length, int batch, int hidden, int ndir,
                    cudaStream_t stream) {
-  const size_t smem = smem_bytes(R, hidden);
+  const size_t smem = smem_bytes<T>(R, hidden);
   const cudaError_t err = cudaFuncSetAttribute(
-      lstm_fwd_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      lstm_fwd_kernel<T, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  lstm_fwd_kernel<R><<<ndir * ((batch + R - 1) / R), 2 * hidden, smem, stream>>>(
-      static_cast<const float*>(xw), static_cast<const float*>(w_hh_t),
-      static_cast<float*>(hs), static_cast<float*>(cs), length, batch, hidden,
-      ndir);
+  lstm_fwd_kernel<T, R><<<ndir * ((batch + R - 1) / R), 2 * hidden, smem, stream>>>(
+      static_cast<const T*>(xw), static_cast<const T*>(w_hh_t), static_cast<T*>(hs),
+      static_cast<float*>(cs), length, batch, hidden, ndir);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// xw (L, ndir * B, 4H), w_hh_t (ndir * H, 4H), hs and cs (L, ndir * B, H):
-// contiguous float32 device arrays, H a multiple of 32 in [64, 128], ndir 1
-// or 2, B the rows of one direction. Launches on `stream` and returns
-// cudaGetLastError().
-extern "C" int rlt_lstm_fwd(const void* xw, const void* w_hh_t, void* hs,
-                            void* cs, int length, int batch, int hidden,
-                            int ndir, void* stream) {
+template <typename T>
+int lstm_fwd(const void* xw, const void* w_hh_t, void* hs, void* cs, int length,
+             int batch, int hidden, int ndir, void* stream) {
   if (length < 1 || batch < 1 || hidden < kRegRows || hidden % 32 != 0 ||
       2 * hidden > kMaxThreads || ndir < 1 || ndir > 2)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -227,14 +279,34 @@ extern "C" int rlt_lstm_fwd(const void* xw, const void* w_hh_t, void* hs,
     err = cudaDeviceGetAttribute(&max_smem,
                                  cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (smem_bytes(4, hidden) > static_cast<size_t>(max_smem))
+  if (smem_bytes<T>(4, hidden) > static_cast<size_t>(max_smem))
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (ndir * batch <= sms)
-    err = launch<1>(xw, w_hh_t, hs, cs, length, batch, hidden, ndir, s);
+    err = launch<T, 1>(xw, w_hh_t, hs, cs, length, batch, hidden, ndir, s);
   else if (ndir * ((batch + 1) / 2) <= sms)
-    err = launch<2>(xw, w_hh_t, hs, cs, length, batch, hidden, ndir, s);
+    err = launch<T, 2>(xw, w_hh_t, hs, cs, length, batch, hidden, ndir, s);
   else
-    err = launch<4>(xw, w_hh_t, hs, cs, length, batch, hidden, ndir, s);
+    err = launch<T, 4>(xw, w_hh_t, hs, cs, length, batch, hidden, ndir, s);
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+// xw (L, ndir * B, 4H), w_hh_t (ndir * H, 4H), hs and cs (L, ndir * B, H):
+// contiguous float32 device arrays, H a multiple of 32 in [64, 128], ndir 1
+// or 2, B the rows of one direction. Launches on `stream` and returns
+// cudaGetLastError().
+extern "C" int rlt_lstm_fwd(const void* xw, const void* w_hh_t, void* hs,
+                            void* cs, int length, int batch, int hidden,
+                            int ndir, void* stream) {
+  return lstm_fwd<float>(xw, w_hh_t, hs, cs, length, batch, hidden, ndir, stream);
+}
+
+// The bf16 instance: xw, w_hh_t and hs bf16 (2-byte aligned), cs float32,
+// the rest as rlt_lstm_fwd.
+extern "C" int rlt_lstm_fwd_bf16(const void* xw, const void* w_hh_t, void* hs,
+                                 void* cs, int length, int batch, int hidden,
+                                 int ndir, void* stream) {
+  return lstm_fwd<bf16>(xw, w_hh_t, hs, cs, length, batch, hidden, ndir, stream);
 }

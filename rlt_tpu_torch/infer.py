@@ -6,10 +6,19 @@ the CUDA card unless the caller passes `device="cpu"`, where the kernels'
 plain PyTorch versions run instead. Weights come from the model's own seeded
 initialisation, a torch state_dict file (`--model-path`), or a JAX
 parameter tree through `rlt_tpu_torch.utils.convert.params_from_jax`.
+
+`compute_dtype="bfloat16"` serves as the JAX package's `Predictor` does
+with it: every float32 parameter and the (B, L, F) features are cast to
+bf16, the model runs in bf16 (its LSTM and attention kernels through their
+bf16 instances), and its outputs are cast back to float32 before the cuts
+are decoded and the distribution returned. The bf16 copy of the model is
+made once; `model` stays the float32 master (its state_dict is what a
+checkpoint holds).
 """
 
 from __future__ import annotations
 
+import copy
 import os
 
 import numpy as np
@@ -41,6 +50,17 @@ def load_state_dict(path: str) -> dict[str, torch.Tensor]:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def to_float32(output):
+    """A model's output (a tensor or a list of heads) in float32; a float32
+    output as it is."""
+    if isinstance(output, (list, tuple)):
+        return [o.float() for o in output]
+    return output.float()
+
+
 class Predictor:
     """Truncation predictor for one model family on one device."""
 
@@ -49,10 +69,9 @@ class Predictor:
         if cfg.model_name == "probe_base":
             raise ValueError("probe_base is a probing vehicle, not an "
                              "inference model")
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={cfg.compute_dtype!r} is not ported yet; the "
-                "port serves float32 (the bf16 lane is on ROADMAP.md)")
+        if cfg.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, "
+                             f"got {cfg.compute_dtype!r}")
         self.device = resolve_device(device)
         self.cfg = cfg
         model = build_model(cfg.model_name, seq_len=cfg.seq_len,
@@ -63,10 +82,14 @@ class Predictor:
         if state_dict is not None:
             model.load_state_dict(state_dict)
         self.model = model.to(self.device).eval()
+        self.dtype = COMPUTE_DTYPES[cfg.compute_dtype]
+        # the module that serves: the model itself, or its bf16 copy
+        self.net = (self.model if self.dtype == torch.float32
+                    else copy.deepcopy(self.model).to(self.dtype))
 
     @torch.inference_mode()
     def _forward(self, x: torch.Tensor):
-        output = self.model(x)
+        output = to_float32(self.net(x.to(self.dtype)))
         ks = decode_ks(self.cfg.model_name, output)
         if self.cfg.model_name == "bicut":
             dist = output  # (B, L, 2) decision probabilities
@@ -90,7 +113,9 @@ class Predictor:
                    warmup: int = 3) -> float:
         """Device time of one forward + decode at `batch_size`, in ms: the
         mean over `iters` back-to-back calls between two CUDA events, after
-        `warmup` calls. A device measurement: raises off the card."""
+        `warmup` calls, in the predictor's compute dtype (the casts of the
+        features and the outputs included). A device measurement: raises
+        off the card."""
         if self.device.type != "cuda":
             raise RuntimeError("forward_ms times the CUDA card; this "
                                f"predictor runs on {self.device}")
@@ -130,6 +155,9 @@ def main(argv=None):
     p.add_argument("--dataset-name", type=str, default="drmm_tks")
     p.add_argument("--throughput", action="store_true",
                    help="also report steady-state ranked-lists/sec (card only)")
+    p.add_argument("--compute-dtype", type=str, default="float32",
+                   choices=tuple(COMPUTE_DTYPES),
+                   help="serve with bf16 parameters, features and kernels")
     p.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"))
     p.add_argument("--out", type=str, default=None, help="write JSON here")
     args = p.parse_args(argv)
@@ -137,7 +165,8 @@ def main(argv=None):
     cfg = TrainConfig(model_name=args.model_name, model_path=args.model_path,
                       retrieve_data=args.retrieve_data,
                       dataset_name=args.dataset_name,
-                      dataset_base=args.dataset_base)
+                      dataset_base=args.dataset_base,
+                      compute_dtype=args.compute_dtype)
     family = loader_family(cfg.model_name, cfg.retrieve_data)
     if cfg.dataset_base:
         data = load_pkl_dataset(cfg.dataset_base, cfg.retrieve_data,
@@ -155,6 +184,7 @@ def main(argv=None):
     result = {
         "model": cfg.model_name,
         "device": str(predictor.device),
+        "compute_dtype": cfg.compute_dtype,
         "n_lists": int(ks.shape[0]),
         "cuts": ks.tolist(),
         "test_f1": float(metrics_lib.f1_at_k(y, kt)),

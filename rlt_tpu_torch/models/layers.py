@@ -30,6 +30,19 @@ whole-model comparison with the JAX package is made at rate 0. In eval mode
 the forward draws nothing and runs exactly the serving computation.
 Initial values follow the torch distributions the JAX package reproduces,
 drawn from an explicit `torch.Generator`.
+
+In bf16 (a module cast with `.to(torch.bfloat16)`, as `infer.Predictor`
+serves it) every layer rounds where the JAX package's does on bf16
+parameters and inputs: each product and each bias add rounds to bf16 (the
+products accumulate in f32), the LSTM and attention kernels run their bf16
+instances, `LayerNorm` takes its statistics and its affine map in f32 and
+rounds once (flax's `LayerNorm`), and `softmax` and `sigmoid` follow the
+ops of `jax.nn.softmax` and `jax.nn.sigmoid` on bf16. Where the JAX code
+widens a bf16 result to f32 right after the op that makes it, XLA keeps
+that op's f32 result unrounded (its default excess precision), and so does
+the port: the residual sums that enter a LayerNorm, the exps that a
+softmax sums, and the last op of every output head, whose f32 result is
+what the JAX package's Predictor decodes (`final=True` below).
 """
 
 from __future__ import annotations
@@ -110,6 +123,14 @@ def relu_dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> to
     return ReluDropout.apply(x, mask, keep)
 
 
+def final_linear(linear: "TorchLinear", x: torch.Tensor) -> torch.Tensor:
+    """`linear(x)` as an output head: on bf16 the product rounds and the
+    bias add stays f32 (the JAX package's Predictor widens it at once)."""
+    if x.dtype != torch.bfloat16:
+        return linear(x)
+    return (x @ linear.weight.T).float() + linear.bias.float()
+
+
 class TorchLinear(nn.Module):
     """Linear with torch layout (weight (out, in)) and torch's default
     initialisation U(+-1/sqrt(in)). With `experts=E` the weight is (E, out,
@@ -142,7 +163,10 @@ class LayerNorm(nn.Module):
     """LayerNorm over the last axis with eps 1e-5; with `experts=E` its
     weight and bias carry the leading expert axis. (The JAX package's flax
     LayerNorm names them scale/bias and takes the variance as
-    E[x^2] - E[x]^2, which differs from this in the last bits.)"""
+    E[x^2] - E[x]^2, which differs from this in the last bits in float32.)
+    On bf16 it computes as flax's does: mean and E[x^2] - E[x]^2 (clamped
+    at 0) of the widened input in f32, (x - mean) (rsqrt(var + eps) weight)
+    + bias in f32, rounded once to bf16."""
 
     def __init__(self, d_model: int, experts: int | None = None, eps: float = 1e-5):
         super().__init__()
@@ -152,10 +176,48 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(lead + (d_model,)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x, x.shape[-1:], eps=self.eps)
-        if self.weight.dim() == 1:
-            return y * self.weight + self.bias
-        return y * self.weight[:, None, None] + self.bias[:, None, None]
+        """x, or in a bf16 layer the f32 residual sum of `residual`."""
+        w, b = self.weight, self.bias
+        if w.dim() == 2:  # (E, D) against (E, B, L, D)
+            w, b = w[:, None, None], b[:, None, None]
+        if w.dtype != torch.bfloat16:
+            return F.layer_norm(x, x.shape[-1:], eps=self.eps) * w + b
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = ((xf * xf).mean(dim=-1, keepdim=True) - mean * mean).clamp(min=0.0)
+        mul = torch.rsqrt(var + self.eps) * w.float()
+        return ((xf - mean) * mul + b.float()).to(w.dtype)
+
+
+def residual(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x + y, the input of a post-LayerNorm; on bf16 summed in f32 and left
+    there, as XLA feeds the JAX package's sum to flax's f32 statistics."""
+    if x.dtype != torch.bfloat16:
+        return x + y
+    return x.float() + y.float()
+
+
+def softmax(x: torch.Tensor, dim: int, final: bool = False) -> torch.Tensor:
+    """torch.softmax; on bf16, the roundings of the JAX package's
+    `jax.nn.softmax` on bf16 as XLA evaluates it: x - max rounded to bf16,
+    its exp summed in f32, the exp and the sum each rounded to bf16 and
+    their quotient rounded to bf16, or with `final` (an output head) left
+    in f32."""
+    if x.dtype != torch.bfloat16:
+        return torch.softmax(x, dim=dim)
+    e = torch.exp((x - x.amax(dim=dim, keepdim=True)).float())
+    p = e.to(x.dtype).float() / e.sum(dim=dim, keepdim=True).to(x.dtype).float()
+    return p if final else p.to(x.dtype)
+
+
+def sigmoid(x: torch.Tensor, final: bool = False) -> torch.Tensor:
+    """torch.sigmoid; on bf16 the JAX package's `jax.nn.sigmoid` as XLA
+    expands it, 1 / (1 + exp(-x)), every op rounding to bf16 but the
+    quotient of an output head (`final`), which stays f32."""
+    if x.dtype != torch.bfloat16:
+        return torch.sigmoid(x)
+    p = 1.0 / (1.0 + torch.exp(-x)).float()
+    return p if final else p.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -180,6 +242,15 @@ def _lstm_direction(x, w_ih, w_hh, b_ih, b_hh, reverse: bool) -> torch.Tensor:
     if reverse:
         ys = torch.flip(ys, dims=(0,))
     return ys.transpose(0, 1)
+
+
+def _projection(x, w_ih, b_ih, b_hh) -> torch.Tensor:
+    """x W_ih^T + b_ih + b_hh: in float32 one fused product with the two
+    biases summed first; in bf16 in the JAX package's order of roundings
+    (the product, then each bias, each rounded to bf16)."""
+    if x.dtype != torch.bfloat16:
+        return F.linear(x, w_ih, b_ih + b_hh)
+    return x @ w_ih.T + b_ih + b_hh
 
 
 class LSTM(nn.Module):
@@ -228,8 +299,8 @@ def _bilstm_layer(x, fwd_params, rev_params) -> torch.Tensor:
     views is the one write of the (L, 2B, 4H) gate inputs; the reverse
     hidden states are flipped back."""
     (wf_ih, wf_hh, bf_ih, bf_hh), (wr_ih, wr_hh, br_ih, br_hh) = fwd_params, rev_params
-    xw_f = F.linear(x, wf_ih, bf_ih + bf_hh).transpose(0, 1)
-    xw_r = F.linear(torch.flip(x, dims=(1,)), wr_ih, br_ih + br_hh).transpose(0, 1)
+    xw_f = _projection(x, wf_ih, bf_ih, bf_hh).transpose(0, 1)
+    xw_r = _projection(torch.flip(x, dims=(1,)), wr_ih, br_ih, br_hh).transpose(0, 1)
     hs_f, hs_r = fused_lstm_bidir(xw_f, xw_r, wf_hh.T, wr_hh.T)
     return torch.cat([hs_f.transpose(0, 1),
                       torch.flip(hs_r, dims=(0,)).transpose(0, 1)], dim=-1)
@@ -346,13 +417,13 @@ class TransformerEncoderLayer(nn.Module):
         attn = self.self_attn(x, generator)
         if rate > 0.0:
             attn = dropout(attn, rate, generator)
-        x = self.norm1(x + attn)
+        x = self.norm1(residual(x, attn))
         h = self.linear1(x)
         h = relu_dropout(h, rate, generator) if rate > 0.0 else torch.relu(h)
         h = self.linear2(h)
         if rate > 0.0:
             h = dropout(h, rate, generator)
-        return self.norm2(x + h)
+        return self.norm2(residual(x, h))
 
 
 class TransformerEncoder(nn.Module):
@@ -398,18 +469,18 @@ class TowerCut(_Tower):
     """Linear -> softmax over positions: a cut distribution (B, L, 1)."""
 
     def forward(self, x, gates=None):
-        return torch.softmax(_tower_logits(self.linear, x, gates), dim=1)
+        return softmax(_tower_logits(self.linear, x, gates), dim=1, final=True)
 
 
 class TowerClass(_Tower):
     """Linear -> sigmoid: per-position relevance probability (B, L, 1)."""
 
     def forward(self, x, gates=None):
-        return torch.sigmoid(_tower_logits(self.linear, x, gates))
+        return sigmoid(_tower_logits(self.linear, x, gates), final=True)
 
 
 class TowerRerank(_Tower):
     """Linear -> softmax over positions: rerank score distribution (B, L, 1)."""
 
     def forward(self, x, gates=None):
-        return torch.softmax(_tower_logits(self.linear, x, gates), dim=1)
+        return softmax(_tower_logits(self.linear, x, gates), dim=1, final=True)

@@ -12,7 +12,8 @@ one (B, F) x (T, F, E) contraction; MOECut has one shared (F, E) gate that
 every tower takes; PLECut gates each of its three fixed towers over its own
 subset of the three experts. The training forward (`model.train()`) applies
 dropout in the experts and draws every mask from the `torch.Generator`
-passed to `forward`.
+passed to `forward`. Cast to bf16, the gates (their contraction and
+softmax) and the towers' logit mix run in bf16 as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from rlt_tpu_torch.models.layers import (
     TowerCut,
     TowerRerank,
     TransformerEncoder,
+    softmax,
 )
 
 
@@ -97,7 +99,7 @@ class MMOECut(nn.Module):
 
     def gates(self, flat: torch.Tensor) -> list[torch.Tensor]:
         """Each tower's (B, E) gate from the flattened BiLSTM output."""
-        return list(torch.softmax(torch.einsum("bf,tfe->tbe", flat, self.w_gates), dim=-1))
+        return list(softmax(torch.einsum("bf,tfe->tbe", flat, self.w_gates), dim=-1))
 
     def heads(self, experts_in: torch.Tensor,
               experts_o: torch.Tensor) -> list[torch.Tensor]:
@@ -118,7 +120,7 @@ class MOECut(MMOECut):
         return (features, num_experts)
 
     def gates(self, flat: torch.Tensor) -> list[torch.Tensor]:
-        return [torch.softmax(flat @ self.w_gates, dim=-1)] * len(self.tower_names)
+        return [softmax(flat @ self.w_gates, dim=-1)] * len(self.tower_names)
 
 
 class PLECut(nn.Module):
@@ -164,6 +166,6 @@ class PLECut(nn.Module):
         flat = experts_in.reshape(experts_in.shape[0], -1)  # (B, 2*H*L)
         outputs = []
         for t, (subset, (name, _)) in enumerate(zip(self.SUBSETS, self.TOWERS)):
-            gate = torch.softmax(flat @ getattr(self, f"w_gate_{t}"), dim=-1)
+            gate = softmax(flat @ getattr(self, f"w_gate_{t}"), dim=-1)
             outputs.append(getattr(self, name)(experts_o[subset], gates=gate))
         return outputs

@@ -19,7 +19,14 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from rlt_tpu_torch.models.layers import LSTM, TorchLinear, TransformerEncoder
+from rlt_tpu_torch.models.layers import (
+    LSTM,
+    TorchLinear,
+    TransformerEncoder,
+    final_linear,
+    sigmoid,
+    softmax,
+)
 from rlt_tpu_torch.models.simple import with_position_encoding
 
 
@@ -39,8 +46,8 @@ class _MtHeads(nn.Module):
         self.decision = TorchLinear(d_model, 1, generator=generator)
 
     def forward(self, x: torch.Tensor):
-        return (torch.sigmoid(self.classi(x)), self.rerank(x),
-                torch.softmax(self.decision(x), dim=1))
+        return (sigmoid(self.classi(x), final=True), final_linear(self.rerank, x),
+                softmax(self.decision(x), dim=1, final=True))
 
 
 class MtChoopy(nn.Module):

@@ -30,7 +30,13 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from rlt_tpu_torch.models.layers import LSTM, TorchLinear, TransformerEncoder, dropout
+from rlt_tpu_torch.models.layers import (
+    LSTM,
+    TorchLinear,
+    TransformerEncoder,
+    dropout,
+    softmax,
+)
 
 
 class BiCut(nn.Module):
@@ -50,7 +56,7 @@ class BiCut(nn.Module):
         if self.training and self.dropout > 0.0:
             # the reference drops logits, before the softmax
             logits = dropout(logits, self.dropout, generator)
-        return torch.softmax(logits, dim=2)
+        return softmax(logits, dim=2, final=True)
 
 
 class Choopy(nn.Module):
@@ -68,12 +74,14 @@ class Choopy(nn.Module):
                 generator: torch.Generator | None = None) -> torch.Tensor:
         x = self.attention_layer(with_position_encoding(x, self.position_encoding),
                                  generator)
-        return torch.softmax(self.decision(x), dim=1)
+        return softmax(self.decision(x), dim=1, final=True)
 
 
 def with_position_encoding(x: torch.Tensor, pe: torch.Tensor) -> torch.Tensor:
     """(B, L, 1) scores and the (L, d_model - 1) encoding -> (B, L, d_model):
-    each list's scores, then the encoding shared by every list."""
+    each list's scores, then the encoding shared by every list (both bf16
+    in a model cast to bf16, as the JAX package casts the encoding with the
+    parameters)."""
     return torch.cat([x, pe.expand(x.shape[0], *pe.shape)], dim=2)
 
 
@@ -90,4 +98,4 @@ class AttnCut(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         x = self.attention_layer(self.encoding_layer(x), generator)
-        return torch.softmax(self.decision(x), dim=1)
+        return softmax(self.decision(x), dim=1, final=True)

@@ -6,14 +6,18 @@ from rlt_tpu_torch.ops import attention, lstm
 from rlt_tpu_torch.ops.attention import (  # noqa: F401
     ATTENTION_BWD,
     ATTENTION_FWD,
+    ATTENTION_FWD_BF16,
     ATTENTION_PACKED_BWD,
     ATTENTION_PACKED_FWD,
+    ATTENTION_PACKED_FWD_BF16,
     attention_bwd,
     attention_bwd_plain,
     attention_fwd,
+    attention_fwd_bf16,
     attention_packed_bwd,
     attention_packed_bwd_plain,
     attention_packed_fwd,
+    attention_packed_fwd_bf16,
     attention_packed_plain,
     attention_plain,
     fused_attention,
@@ -23,19 +27,24 @@ from rlt_tpu_torch.ops.attention import (  # noqa: F401
 from rlt_tpu_torch.ops.lstm import (  # noqa: F401
     LSTM_BWD,
     LSTM_FWD,
+    LSTM_FWD_BF16,
     fused_lstm,
     fused_lstm_bidir,
     lstm_bwd,
     lstm_bwd_plain,
     lstm_fwd,
+    lstm_fwd_bf16,
     lstm_recurrence_plain,
 )
 
-# every kernel of the port, by the name chip_smoke.py and PERF.md use
+# every kernel instance of the port, by the name chip_smoke.py and PERF.md
+# use; the bf16 instances count their launches apart from the float32 ones
 KERNELS = {"lstm_fwd": LSTM_FWD, "lstm_bwd": LSTM_BWD,
            "attention_fwd": ATTENTION_FWD, "attention_bwd": ATTENTION_BWD,
            "attention_packed_fwd": ATTENTION_PACKED_FWD,
-           "attention_packed_bwd": ATTENTION_PACKED_BWD}
+           "attention_packed_bwd": ATTENTION_PACKED_BWD,
+           "lstm_fwd_bf16": LSTM_FWD_BF16, "attention_fwd_bf16": ATTENTION_FWD_BF16,
+           "attention_packed_fwd_bf16": ATTENTION_PACKED_FWD_BF16}
 
 # each kernel's wrapper, by the same name, as (its module, its plain version)
 PLAIN_VERSIONS = {"lstm_fwd": (lstm, lstm_recurrence_plain),
@@ -43,7 +52,10 @@ PLAIN_VERSIONS = {"lstm_fwd": (lstm, lstm_recurrence_plain),
                   "attention_fwd": (attention, attention_plain),
                   "attention_bwd": (attention, attention_bwd_plain),
                   "attention_packed_fwd": (attention, attention_packed_plain),
-                  "attention_packed_bwd": (attention, attention_packed_bwd_plain)}
+                  "attention_packed_bwd": (attention, attention_packed_bwd_plain),
+                  "lstm_fwd_bf16": (lstm, lstm_recurrence_plain),
+                  "attention_fwd_bf16": (attention, attention_plain),
+                  "attention_packed_fwd_bf16": (attention, attention_packed_plain)}
 
 
 @contextlib.contextmanager

@@ -48,6 +48,21 @@ per width, float32, L <= 65535, both streaming 64-row tiles, their products
 on the tensor cores in the 3xTF32 split that keeps float32 accuracy); each
 raises on anything else. On a CPU
 tensor they run `attention_packed_plain` and `attention_packed_bwd_plain`.
+
+bf16 (the serving lane): `attention_packed_fwd_bf16` (dh 16 and 64) and
+`attention_fwd_bf16` (dh 128) take bf16 q, k and v and return bf16 o
+beside f32 lse, with the JAX kernels' semantics on bf16 operands: the
+products of bf16 values summed in f32, the softmax statistics in f32, the
+weights rounded to bf16 before P V. On a CUDA tensor they launch the bf16
+instances of `csrc/attention_bf16.cuh` (through `attention_packed_fwd.cu`
+and `attention_fwd.cu`), which stream the keys and so round the weights
+against the running max before the final division (the plain versions
+round the normalised weights, as the JAX kernels do; the difference is
+rounding noise, emulated in tests/test_torch_bf16.py); on a CPU tensor
+they run `attention_packed_plain` and `attention_plain`, which compute
+either dtype's semantics. The float32 wrappers raise on bf16 and the bf16
+ones on anything else; `AttentionPacked` and `Attention` pick one by q's
+dtype. The bf16 backward is not ported: training runs in float32.
 """
 
 from __future__ import annotations
@@ -57,10 +72,21 @@ import math
 
 import torch
 
-from rlt_tpu_torch.ops.build import Kernel, ptr, stream_handle
+from rlt_tpu_torch.ops.build import (
+    Kernel,
+    ptr,
+    refuse_bf16,
+    require_bf16,
+    stream_handle,
+    widen,
+)
 
 ATTENTION_FWD = Kernel(
     "rlt_attention_fwd",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+    + [ctypes.c_float, ctypes.c_uint, ctypes.c_void_p])
+ATTENTION_FWD_BF16 = Kernel(
+    "rlt_attention_fwd_bf16",
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
     + [ctypes.c_float, ctypes.c_uint, ctypes.c_void_p])
 ATTENTION_BWD = Kernel(
@@ -70,6 +96,10 @@ ATTENTION_BWD = Kernel(
 # the packed kernels' int arguments: n, length, heads, head_dim, pack
 ATTENTION_PACKED_FWD = Kernel(
     "rlt_attention_packed_fwd",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+    + [ctypes.c_float, ctypes.c_uint, ctypes.c_void_p])
+ATTENTION_PACKED_FWD_BF16 = Kernel(
+    "rlt_attention_packed_fwd_bf16",
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
     + [ctypes.c_float, ctypes.c_uint, ctypes.c_void_p])
 ATTENTION_PACKED_BWD = Kernel(
@@ -196,9 +226,11 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Explicit per-slice softmax attention: q, k, v (B, H, L, dh) -> (o
     (B, H, L, dh), lse (B * H, 1, L)). With a rate above 0 the softmax
     weights are dropped by `slice_keep_mask(streams, ...)` and the kept ones
-    divided by 1 - rate."""
+    divided by 1 - rate. bf16 q, k, v: the scores and the softmax in
+    float32 from the widened values, the weights rounded to bf16 before
+    P V, o rounded to bf16 and lse float32."""
     batch, heads, length, dh = q.shape
-    s = q @ k.transpose(-1, -2) * (1.0 / math.sqrt(dh))
+    s = widen(q) @ widen(k).transpose(-1, -2) * (1.0 / math.sqrt(dh))
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp(s - m)
     denom = e.sum(dim=-1, keepdim=True)
@@ -207,7 +239,7 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         keep = slice_keep_mask(streams, length, dropout_rate).reshape(p.shape)
         p = torch.where(keep, p / (1.0 - dropout_rate), 0.0)
     lse = (m + torch.log(denom)).reshape(batch * heads, 1, length)
-    return p @ v, lse
+    return (widen(p.to(v.dtype)) @ widen(v)).to(q.dtype), lse
 
 
 def attention_bwd_plain(q, k, v, o, lse, do, dropout_rate: float = 0.0,
@@ -246,11 +278,13 @@ def attention_packed_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            streams: torch.Tensor | None = None):
     """Explicit per-head softmax attention: (o (N, L, D), lse (N, H / pack,
     L, pack)). With a rate above 0 the softmax weights are dropped by
-    `head_keep_mask(streams, ...)` and the kept ones divided by 1 - rate."""
+    `head_keep_mask(streams, ...)` and the kept ones divided by 1 - rate.
+    bf16 q, k, v as in `attention_plain`."""
     n, length, d = q.shape
     dh = d // heads
     groups = heads // pack
-    s = _split_heads(q, heads) @ _split_heads(k, heads).transpose(-1, -2) * (1.0 / math.sqrt(dh))
+    s = (_split_heads(widen(q), heads) @ _split_heads(widen(k), heads).transpose(-1, -2)
+         * (1.0 / math.sqrt(dh)))
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp(s - m)
     denom = e.sum(dim=-1, keepdim=True)
@@ -258,7 +292,7 @@ def attention_packed_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dropout_rate > 0.0:
         keep = head_keep_mask(streams, heads, pack, length, dropout_rate)
         p = torch.where(keep, p / (1.0 - dropout_rate), 0.0)
-    o = _merge_heads(p @ _split_heads(v, heads))
+    o = _merge_heads(widen(p.to(v.dtype)) @ _split_heads(widen(v), heads)).to(q.dtype)
     lse = (m + torch.log(denom))[..., 0]  # (N, H, L)
     lse = lse.reshape(n, groups, pack, length).transpose(2, 3).contiguous()
     return o, lse
@@ -326,7 +360,8 @@ def _check_slices(q, k, v, dropout_rate: float, streams) -> None:
     _check_rate(dropout_rate, streams, q.shape[0] * q.shape[1], q.device)
 
 
-def _check_kernel_inputs(name: str, dh: int, kernel_dhs: tuple, tensors: dict) -> None:
+def _check_kernel_inputs(name: str, dh: int, kernel_dhs: tuple, tensors: dict,
+                         dtype: torch.dtype = torch.float32) -> None:
     if next(iter(tensors.values())).device.type != "cuda":
         raise ValueError(f"{name}: unsupported device "
                          f"{next(iter(tensors.values())).device}")
@@ -334,8 +369,10 @@ def _check_kernel_inputs(name: str, dh: int, kernel_dhs: tuple, tensors: dict) -
         takes = " or ".join(f"dh = {w}" for w in kernel_dhs)
         raise ValueError(f"{name} kernel takes {takes}, got dh = {dh}")
     for tname, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} kernel takes float32 {tname}, got {t.dtype}")
+        if t.dtype != dtype and tname != "lse":
+            raise TypeError(f"{name} kernel takes {dtype} {tname}, got {t.dtype}")
+        if tname == "lse" and t.dtype != torch.float32:
+            raise TypeError(f"{name} kernel takes float32 lse, got {t.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} kernel takes a contiguous, 16-byte "
                              f"aligned {tname}")
@@ -353,8 +390,10 @@ def attention_packed_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          heads: int, pack: int, dropout_rate: float = 0.0,
                          streams: torch.Tensor | None = None):
     """K5' on a CUDA tensor, `attention_packed_plain` on a CPU tensor:
-    (o (N, L, D), lse (N, H / pack, L, pack) float32)."""
+    (o (N, L, D), lse (N, H / pack, L, pack) float32). bf16 goes to
+    `attention_packed_fwd_bf16`."""
     _check(q, k, v, heads, pack, dropout_rate, streams)
+    refuse_bf16("attention_packed_fwd", {"q": q, "k": k, "v": v})
     if q.device.type == "cpu":
         return attention_packed_plain(q, k, v, heads, pack, dropout_rate, streams)
     _check_kernel_inputs("attention_packed_fwd", q.shape[-1] // heads, PACKED_HEAD_DIMS,
@@ -371,12 +410,37 @@ def attention_packed_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
+def attention_packed_fwd_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              heads: int, pack: int, dropout_rate: float = 0.0,
+                              streams: torch.Tensor | None = None):
+    """K5''s bf16 instance on a CUDA tensor, `attention_packed_plain` on a
+    CPU tensor: bf16 q, k, v -> (o (N, L, D) bf16, lse (N, H / pack, L,
+    pack) float32). Raises on any other dtype."""
+    _check(q, k, v, heads, pack, dropout_rate, streams)
+    require_bf16("attention_packed_fwd_bf16", {"q": q, "k": k, "v": v})
+    if q.device.type == "cpu":
+        return attention_packed_plain(q, k, v, heads, pack, dropout_rate, streams)
+    _check_kernel_inputs("attention_packed_fwd_bf16", q.shape[-1] // heads,
+                         PACKED_HEAD_DIMS, {"q": q, "k": k, "v": v}, torch.bfloat16)
+    n, length, d = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty(n, heads // pack, length, pack, device=q.device,
+                      dtype=torch.float32)
+    s_ptr, _keep = _kernel_streams(streams, dropout_rate)
+    with torch.cuda.device(q.device):
+        ATTENTION_PACKED_FWD_BF16(ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), s_ptr, n,
+                                  length, heads, d // heads, pack, dropout_rate,
+                                  keep_threshold(dropout_rate), stream_handle(q.device))
+    return o, lse
+
+
 def attention_packed_bwd(q, k, v, o, lse, do, heads: int, pack: int,
                          dropout_rate: float = 0.0,
                          streams: torch.Tensor | None = None):
     """K6' on a CUDA tensor, `attention_packed_bwd_plain` on a CPU tensor:
     (dq, dk, dv), each (N, L, D)."""
     _check(q, k, v, heads, pack, dropout_rate, streams)
+    refuse_bf16("attention_packed_bwd", {"q": q, "k": k, "v": v, "do": do})
     if q.device.type == "cpu":
         return attention_packed_bwd_plain(q, k, v, o, lse, do, heads, pack,
                                           dropout_rate, streams)
@@ -400,13 +464,16 @@ def attention_packed_bwd(q, k, v, o, lse, do, heads: int, pack: int,
 
 
 class AttentionPacked(torch.autograd.Function):
-    """Forward K5' (`attention_packed_fwd`), backward K6'
-    (`attention_packed_bwd`); lse is returned but takes no gradient. The
-    two are looked up as module attributes at each call."""
+    """Forward K5' (`attention_packed_fwd`, or `attention_packed_fwd_bf16`
+    for bf16 q), backward K6' (`attention_packed_bwd`, float32 only); lse
+    is returned but takes no gradient. The wrappers are looked up as module
+    attributes at each call."""
 
     @staticmethod
     def forward(ctx, q, k, v, heads, pack, dropout_rate, streams):
-        o, lse = attention_packed_fwd(q, k, v, heads, pack, dropout_rate, streams)
+        fwd = (attention_packed_fwd_bf16 if q.dtype == torch.bfloat16
+               else attention_packed_fwd)
+        o, lse = fwd(q, k, v, heads, pack, dropout_rate, streams)
         ctx.save_for_backward(q, k, v, o, lse, streams)
         ctx.args = (heads, pack, dropout_rate)
         ctx.mark_non_differentiable(lse)
@@ -437,8 +504,9 @@ def fused_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   dropout_rate: float = 0.0, streams: torch.Tensor | None = None):
     """K3' on a CUDA tensor, `attention_plain` on a CPU tensor: (o (B, H, L,
-    dh), lse (B * H, 1, L) float32)."""
+    dh), lse (B * H, 1, L) float32). bf16 goes to `attention_fwd_bf16`."""
     _check_slices(q, k, v, dropout_rate, streams)
+    refuse_bf16("attention_fwd", {"q": q, "k": k, "v": v})
     if q.device.type == "cpu":
         return attention_plain(q, k, v, dropout_rate, streams)
     _check_kernel_inputs("attention_fwd", q.shape[-1], (SLICE_HEAD_DIM,),
@@ -454,11 +522,34 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
+def attention_fwd_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       dropout_rate: float = 0.0, streams: torch.Tensor | None = None):
+    """K3''s bf16 instance on a CUDA tensor, `attention_plain` on a CPU
+    tensor: bf16 q, k, v (B, H, L, dh) -> (o (B, H, L, dh) bf16, lse
+    (B * H, 1, L) float32). Raises on any other dtype."""
+    _check_slices(q, k, v, dropout_rate, streams)
+    require_bf16("attention_fwd_bf16", {"q": q, "k": k, "v": v})
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, dropout_rate, streams)
+    _check_kernel_inputs("attention_fwd_bf16", q.shape[-1], (SLICE_HEAD_DIM,),
+                         {"q": q, "k": k, "v": v}, torch.bfloat16)
+    batch, heads, length, _ = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty(batch * heads, 1, length, device=q.device, dtype=torch.float32)
+    s_ptr, _keep = _kernel_streams(streams, dropout_rate)
+    with torch.cuda.device(q.device):
+        ATTENTION_FWD_BF16(ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), s_ptr,
+                           batch * heads, length, dropout_rate,
+                           keep_threshold(dropout_rate), stream_handle(q.device))
+    return o, lse
+
+
 def attention_bwd(q, k, v, o, lse, do, dropout_rate: float = 0.0,
                   streams: torch.Tensor | None = None):
     """K4' on a CUDA tensor, `attention_bwd_plain` on a CPU tensor: (dq, dk,
     dv), each (B, H, L, dh)."""
     _check_slices(q, k, v, dropout_rate, streams)
+    refuse_bf16("attention_bwd", {"q": q, "k": k, "v": v, "do": do})
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, o, lse, do, dropout_rate, streams)
     _check_kernel_inputs("attention_bwd", q.shape[-1], (SLICE_HEAD_DIM,),
@@ -481,13 +572,15 @@ def attention_bwd(q, k, v, o, lse, do, dropout_rate: float = 0.0,
 
 
 class Attention(torch.autograd.Function):
-    """Forward K3' (`attention_fwd`), backward K4' (`attention_bwd`); lse is
-    returned but takes no gradient. The two are looked up as module
-    attributes at each call."""
+    """Forward K3' (`attention_fwd`, or `attention_fwd_bf16` for bf16 q),
+    backward K4' (`attention_bwd`, float32 only); lse is returned but takes
+    no gradient. The wrappers are looked up as module attributes at each
+    call."""
 
     @staticmethod
     def forward(ctx, q, k, v, dropout_rate, streams):
-        o, lse = attention_fwd(q, k, v, dropout_rate, streams)
+        fwd = attention_fwd_bf16 if q.dtype == torch.bfloat16 else attention_fwd
+        o, lse = fwd(q, k, v, dropout_rate, streams)
         ctx.save_for_backward(q, k, v, o, lse, streams)
         ctx.rate = dropout_rate
         ctx.mark_non_differentiable(lse)

@@ -160,3 +160,36 @@ def stream_handle(device) -> ctypes.c_void_p:
 
 def ptr(tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(tensor.data_ptr())
+
+
+# ---------------------------------------------------------------------------
+# dtype rules the wrappers share: a float32 kernel and its bf16 instance are
+# two kernels, each counted on its own, and neither takes the other's dtype
+# ---------------------------------------------------------------------------
+
+def refuse_bf16(name: str, tensors: dict) -> None:
+    """Raise if any tensor is bf16: `name` is the float32 op."""
+    import torch
+
+    for tname, t in tensors.items():
+        if t.dtype == torch.bfloat16:
+            raise TypeError(f"{name} takes no bf16 ({tname}): bf16 goes to "
+                            f"{name}_bf16, its own kernel")
+
+
+def require_bf16(name: str, tensors: dict) -> None:
+    """Raise unless every tensor is bf16: `name` is a bf16 instance."""
+    import torch
+
+    for tname, t in tensors.items():
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name} takes bf16, got {t.dtype} for {tname}")
+
+
+def widen(t):
+    """A bf16 tensor in float32 (exactly); any other as it is. The plain
+    versions compute on bf16 inputs from their widened values."""
+    import torch
+
+    return t.float() if t.dtype == torch.bfloat16 else t
+

@@ -19,6 +19,15 @@ On a CUDA tensor `lstm_fwd` and `lstm_bwd` launch the kernels of
 `rlt_tpu_torch/csrc/lstm_fwd.cu` and `csrc/lstm_bwd.cu`, at ndir 1 or 2,
 and raise on anything they do not take. On a CPU tensor they run
 `lstm_recurrence_plain` and `lstm_bwd_plain`, explicit time loops.
+
+bf16 (the serving lane): `lstm_fwd_bf16` takes bf16 xw and W_hh^T and
+returns bf16 hs beside f32 cs, as the JAX kernel does on bf16 operands: the
+carried h and c are f32, gates = xw + h W_hh^T is taken in f32 from the
+widened bf16 values, and only the stored hs is rounded. On a CUDA tensor it
+launches K1''s bf16 instance, on a CPU tensor `lstm_recurrence_plain`, which
+computes either dtype's semantics. `lstm_fwd` raises on bf16 and
+`lstm_fwd_bf16` on anything else; `LSTMRecurrence` picks one by xw's dtype.
+The bf16 backward is not ported: training runs in float32.
 """
 
 from __future__ import annotations
@@ -27,10 +36,19 @@ import ctypes
 
 import torch
 
-from rlt_tpu_torch.ops.build import Kernel, ptr, stream_handle
+from rlt_tpu_torch.ops.build import (
+    Kernel,
+    ptr,
+    refuse_bf16,
+    require_bf16,
+    stream_handle,
+    widen,
+)
 
 LSTM_FWD = Kernel("rlt_lstm_fwd", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                   + [ctypes.c_void_p])
+LSTM_FWD_BF16 = Kernel("rlt_lstm_fwd_bf16", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
 LSTM_BWD = Kernel("rlt_lstm_bwd", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                   + [ctypes.c_void_p])
 # most chunks the dW_hh^T contraction is split into (K2' sums their partial
@@ -56,20 +74,24 @@ def _per_dir(op, a: torch.Tensor, b: torch.Tensor, ndir: int) -> torch.Tensor:
 
 def lstm_recurrence_plain(xw: torch.Tensor, w_hh_t: torch.Tensor, ndir: int = 1):
     """(L, ndir * B, 4H) gate inputs, (ndir * H, 4H) W_hh^T -> hs, cs, each
-    (L, ndir * B, H)."""
+    (L, ndir * B, H). On bf16 inputs h and c are carried in float32 from
+    the widened xw and W_hh^T, hs is rounded to bf16 as it is stored and cs
+    stays float32 (the JAX kernel's f32 scratch and output types)."""
     length, rows, gates4 = xw.shape
     hidden = gates4 // 4
-    h = xw.new_zeros(rows, hidden)
-    c = xw.new_zeros(rows, hidden)
+    state = torch.float32 if xw.dtype == torch.bfloat16 else xw.dtype
+    h = torch.zeros(rows, hidden, dtype=state, device=xw.device)
+    c = torch.zeros(rows, hidden, dtype=state, device=xw.device)
+    w = widen(w_hh_t)
     hs, cs = [], []
     for t in range(length):
-        gates = xw[t] + _per_dir(torch.matmul, h, w_hh_t, ndir)
+        gates = widen(xw[t]) + _per_dir(torch.matmul, h, w, ndir)
         i, f, g, o = gates.split(hidden, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h = torch.sigmoid(o) * torch.tanh(c)
         hs.append(h)
         cs.append(c)
-    return torch.stack(hs), torch.stack(cs)
+    return torch.stack(hs).to(xw.dtype), torch.stack(cs)
 
 
 def lstm_bwd_plain(xw: torch.Tensor, w_hh_t: torch.Tensor, hs: torch.Tensor,
@@ -121,13 +143,14 @@ def _check(xw: torch.Tensor, w_hh_t: torch.Tensor, ndir: int) -> None:
         raise ValueError(f"xw on {xw.device}, w_hh_t on {w_hh_t.device}")
 
 
-def _check_kernel_inputs(name: str, tensors: dict) -> None:
+def _check_kernel_inputs(name: str, tensors: dict,
+                         dtype: torch.dtype = torch.float32) -> None:
     first = next(iter(tensors.values()))
     if first.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {first.device}")
     for tname, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} kernel takes float32, got {t.dtype} for {tname}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} kernel takes {dtype}, got {t.dtype} for {tname}")
         if not t.is_contiguous():
             raise ValueError(f"{name} kernel takes contiguous {tname}")
     hidden = first.shape[-1] // 4
@@ -140,8 +163,10 @@ def lstm_fwd(xw: torch.Tensor, w_hh_t: torch.Tensor, ndir: int = 1):
     """`ndir` LSTM directions: (L, ndir * B, 4H) xw, (ndir * H, 4H) W_hh^T
     -> (hs, cs), each (L, ndir * B, H) float32. The kernel on a CUDA
     tensor, the plain loop on a CPU tensor. The kernel takes contiguous
-    float32 with H a multiple of 32 in [64, 128]."""
+    float32 with H a multiple of 32 in [64, 128]; bf16 goes to
+    `lstm_fwd_bf16`."""
     _check(xw, w_hh_t, ndir)
+    refuse_bf16("lstm_fwd", {"xw": xw, "w_hh_t": w_hh_t})
     if xw.device.type == "cpu":
         return lstm_recurrence_plain(xw, w_hh_t, ndir)
     _check_kernel_inputs("lstm_fwd", {"xw": xw, "w_hh_t": w_hh_t})
@@ -155,6 +180,25 @@ def lstm_fwd(xw: torch.Tensor, w_hh_t: torch.Tensor, ndir: int = 1):
     return hs, cs
 
 
+def lstm_fwd_bf16(xw: torch.Tensor, w_hh_t: torch.Tensor, ndir: int = 1):
+    """`lstm_fwd` on bf16 xw and W_hh^T -> (hs bf16, cs float32), each
+    (L, ndir * B, H): K1''s bf16 instance on a CUDA tensor, the plain loop
+    on a CPU tensor. Raises on any other dtype."""
+    _check(xw, w_hh_t, ndir)
+    require_bf16("lstm_fwd_bf16", {"xw": xw, "w_hh_t": w_hh_t})
+    if xw.device.type == "cpu":
+        return lstm_recurrence_plain(xw, w_hh_t, ndir)
+    _check_kernel_inputs("lstm_fwd_bf16", {"xw": xw, "w_hh_t": w_hh_t}, torch.bfloat16)
+    length, rows, gates4 = xw.shape
+    hidden = gates4 // 4
+    hs = torch.empty(length, rows, hidden, device=xw.device, dtype=torch.bfloat16)
+    cs = torch.empty(length, rows, hidden, device=xw.device, dtype=torch.float32)
+    with torch.cuda.device(xw.device):
+        LSTM_FWD_BF16(ptr(xw), ptr(w_hh_t), ptr(hs), ptr(cs), length, rows // ndir,
+                      hidden, ndir, stream_handle(xw.device))
+    return hs, cs
+
+
 def lstm_bwd(xw: torch.Tensor, w_hh_t: torch.Tensor, hs: torch.Tensor,
              cs: torch.Tensor, dho: torch.Tensor, ndir: int = 1):
     """Backward of `ndir` LSTM directions: `lstm_fwd`'s inputs and outputs
@@ -162,6 +206,7 @@ def lstm_bwd(xw: torch.Tensor, w_hh_t: torch.Tensor, hs: torch.Tensor,
     (ndir * H, 4H)) float32. The kernel on a CUDA tensor, the plain loop on
     a CPU tensor."""
     _check(xw, w_hh_t, ndir)
+    refuse_bf16("lstm_bwd", {"xw": xw, "w_hh_t": w_hh_t, "dho": dho})
     state = (xw.shape[0], xw.shape[1], xw.shape[2] // 4)
     for name, t in (("hs", hs), ("cs", cs), ("dho", dho)):
         if tuple(t.shape) != state or t.device != xw.device:
@@ -188,13 +233,15 @@ def lstm_bwd(xw: torch.Tensor, w_hh_t: torch.Tensor, hs: torch.Tensor,
 
 
 class LSTMRecurrence(torch.autograd.Function):
-    """Forward K1' (`lstm_fwd`), backward K2' (`lstm_bwd`) over `ndir`
-    directions, looked up as module attributes at each call; it saves xw,
-    W_hh^T, hs and cs, as the JAX package's custom_vjp does."""
+    """Forward K1' (`lstm_fwd`, or `lstm_fwd_bf16` for bf16 xw), backward
+    K2' (`lstm_bwd`, float32 only) over `ndir` directions, looked up as
+    module attributes at each call; it saves xw, W_hh^T, hs and cs, as the
+    JAX package's custom_vjp does."""
 
     @staticmethod
     def forward(ctx, xw, w_hh_t, ndir=1):
-        hs, cs = lstm_fwd(xw, w_hh_t, ndir)
+        fwd = lstm_fwd_bf16 if xw.dtype == torch.bfloat16 else lstm_fwd
+        hs, cs = fwd(xw, w_hh_t, ndir)
         ctx.save_for_backward(xw, w_hh_t, hs, cs)
         ctx.ndir = ndir
         return hs

@@ -41,7 +41,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from rlt_tpu_torch.config import TrainConfig
-from rlt_tpu_torch.infer import Predictor
+from rlt_tpu_torch.infer import COMPUTE_DTYPES, Predictor
 
 
 def bucket_size(n: int, max_batch: int) -> int:
@@ -306,6 +306,9 @@ def main(argv=None):
                    help="torch state_dict file (torch.save(model.state_dict()))")
     p.add_argument("--retrieve-data", type=str, default="robust04",
                    help="shape preset: robust04 (L=300) | mq2007 (L=40)")
+    p.add_argument("--compute-dtype", type=str, default="float32",
+                   choices=tuple(COMPUTE_DTYPES),
+                   help="serve with bf16 parameters, features and kernels")
     p.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"))
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--port", type=int, default=8321)
@@ -321,7 +324,8 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     cfg = TrainConfig(model_name=args.model_name, model_path=args.model_path,
-                      retrieve_data=args.retrieve_data)
+                      retrieve_data=args.retrieve_data,
+                      compute_dtype=args.compute_dtype)
     service = TruncationService(cfg, max_batch=args.max_batch,
                                 microbatch=args.microbatch,
                                 max_wait_ms=args.max_wait_ms,
@@ -334,9 +338,9 @@ def main(argv=None):
                 (b, 1, cfg.input_size), np.float32).tolist()})
             b *= 2
     server = make_server(service, args.host, args.port)
-    logger.info("serving %s on http://%s:%d (seq_len=%d, max_batch=%d)",
+    logger.info("serving %s on http://%s:%d (seq_len=%d, max_batch=%d, %s)",
                 cfg.model_name, *server.server_address, cfg.seq_len,
-                service.max_batch)
+                service.max_batch, cfg.compute_dtype)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

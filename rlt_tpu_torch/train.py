@@ -170,8 +170,10 @@ class Trainer:
                  device: str | torch.device | None = None, state_dict=None):
         if cfg.compute_dtype != "float32":
             raise NotImplementedError(
-                f"compute_dtype={cfg.compute_dtype!r} is not ported yet; the "
-                "port trains in float32 (the bf16 lane is on ROADMAP.md)")
+                f"compute_dtype={cfg.compute_dtype!r} is not ported for training "
+                "yet: the port trains in float32. bf16 serves (Predictor), but "
+                "the bf16 backward kernels (K2', K4' and K6' in bf16) are the next "
+                "slice (ROADMAP.md)")
         self.cfg = cfg
         self.model_name = cfg.model_name
         self.criterion = make_criterion(cfg)

@@ -84,7 +84,11 @@ def dcg_at_k(labels: torch.Tensor, ks: torch.Tensor, penalty: float = -1.0,
 
 
 def decode_cut(scores: torch.Tensor) -> torch.Tensor:
-    """k = argmax over positions + 1, for (B, L) or (B, L, 1) distributions."""
+    """k = argmax over positions + 1, for (B, L) or (B, L, 1) distributions.
+    The Predictor hands the decoders float32 outputs in either compute dtype
+    (a bf16 model's are cast back first, as the JAX package's are); equal
+    maxima, which bf16's rounding makes common, go to the first position,
+    as with jnp.argmax."""
     if scores.dim() == 3:
         scores = scores[..., 0]
     return torch.argmax(scores, dim=-1).to(torch.int32) + 1

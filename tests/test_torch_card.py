@@ -17,7 +17,7 @@ import torch
 from rlt_tpu_torch.config import TrainConfig, apply_preset
 from rlt_tpu_torch.data import synthetic_dataset
 from rlt_tpu_torch.infer import Predictor
-from rlt_tpu_torch.ops import attention, lstm, plain_ops
+from rlt_tpu_torch.ops import KERNELS, attention, lstm, plain_ops
 from rlt_tpu_torch.train import Trainer, train_step
 
 # f32 on both sides. The kernel sums each step's 128-term dot products in
@@ -512,4 +512,135 @@ def test_zoo_model_on_card_matches_cpu(cuda_device, model_name, attention_launch
     else:
         top2 = np.sort(want_dist, axis=-1)[:, -2:]
         tied = top2[:, 1] - top2[:, 0] <= DIST_ATOL
+    assert np.all((ks == want_ks) | tied)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 instances of K1', K3' and K5' (the bf16 serving lane)
+# ---------------------------------------------------------------------------
+
+# tests/test_torch_bf16.py's tolerances: cs is the float32 carry (LSTM_ATOL
+# over up to 300 steps, as the float32 instance), hs is bf16 and may round
+# one step the other way beyond that; attention's lse is float32
+# (ATTN_ATOL) and its bf16 o within 2 bf16 steps of max|o| (the kernels
+# round each weight against the running max, the plain versions the
+# normalised weight).
+O_BF16_STEPS = 2
+# Served bf16 distributions through the kernels against the plain versions
+# on the card, per batch: RMS within sqrt(2) of d_ref's and max within
+# 3 max|d_ref|, d_ref being the plain bf16 run against the plain float32
+# one (two roundings of one f32 function; tests/test_torch_bf16.py).
+BF16_RMS_OF_REF = 2.0 ** 0.5
+BF16_MAX_OF_REF = 3.0
+
+
+def _bf16_step(x: torch.Tensor) -> torch.Tensor:
+    return torch.exp2(torch.floor(torch.log2(x.float().abs().clamp(min=2.0 ** -126))) - 7)
+
+
+def _assert_bf16_attention(o, lse, want_o, want_lse):
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    limit = O_BF16_STEPS * _bf16_step(want_o.float().abs().max()).item()
+    assert (o.float() - want_o.float()).abs().max().item() <= limit
+    assert (lse - want_lse).abs().max().item() <= ATTN_ATOL
+
+
+@pytest.mark.parametrize("ndir", [1, 2])
+@pytest.mark.parametrize("length,batch", [(16, 3), (300, 63), (300, 256), (40, 301)])
+def test_lstm_bf16_kernel_matches_plain_on_card(cuda_device, length, batch, ndir):
+    xw, w = (torch.from_numpy(a).to(cuda_device).bfloat16()
+             for a in _lstm_inputs(150 + batch, length, batch, 128, ndir))
+    before = (lstm.LSTM_FWD.launches, lstm.LSTM_FWD_BF16.launches)
+    hs, cs = lstm.lstm_fwd_bf16(xw, w, ndir)
+    torch.cuda.synchronize()
+    assert (lstm.LSTM_FWD.launches, lstm.LSTM_FWD_BF16.launches) == (before[0],
+                                                                     before[1] + 1)
+    want_hs, want_cs = lstm.lstm_recurrence_plain(xw, w, ndir)
+    assert hs.dtype == torch.bfloat16 and cs.dtype == torch.float32
+    assert (cs - want_cs).abs().max().item() <= LSTM_ATOL
+    beyond = (hs.float() - want_hs.float()).abs() - _bf16_step(want_hs)
+    assert beyond.max().item() <= LSTM_ATOL
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dh,n,length", [(64, 9, 300), (64, 3, 37), (64, 2, 700),
+                                         (16, 63, 300), (16, 3, 37), (16, 2, 700)])
+def test_packed_attention_bf16_kernel_matches_plain_on_card(cuda_device, dh, n, length,
+                                                            rate):
+    d, heads = (256, 4) if dh == 64 else (128, 8)
+    pack = attention.packed_group_size(d, heads)
+    q, k, v = (torch.from_numpy(a).to(cuda_device).bfloat16()
+               for a in _qkv(160 + n, (n, length, d)))
+    streams = _streams(161, n, cuda_device)
+    before = attention.ATTENTION_PACKED_FWD_BF16.launches
+    o, lse = attention.attention_packed_fwd_bf16(q, k, v, heads, pack, rate, streams)
+    torch.cuda.synchronize()
+    assert attention.ATTENTION_PACKED_FWD_BF16.launches == before + 1
+    _assert_bf16_attention(o, lse, *attention.attention_packed_plain(q, k, v, heads, pack,
+                                                                     rate, streams))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("batch,length", SLICE_SHAPES + [(4, 1)])
+def test_slice_attention_bf16_kernel_matches_plain_on_card(cuda_device, batch, length,
+                                                           rate):
+    q, k, v = (torch.from_numpy(a).to(cuda_device).bfloat16()
+               for a in _qkv(170 + batch, (batch, 2, length, 128)))
+    streams = _streams(171, batch * 2, cuda_device)
+    before = attention.ATTENTION_FWD_BF16.launches
+    o, lse = attention.attention_fwd_bf16(q, k, v, rate, streams)
+    torch.cuda.synchronize()
+    assert attention.ATTENTION_FWD_BF16.launches == before + 1
+    _assert_bf16_attention(o, lse, *attention.attention_plain(q, k, v, rate, streams))
+
+
+def test_bf16_wrappers_reject_on_card(cuda_device):
+    q = torch.zeros(1, 8, 256, device=cuda_device)
+    with pytest.raises(TypeError, match="bf16"):
+        attention.attention_packed_fwd_bf16(q, q, q, 4, 2)
+    with pytest.raises(TypeError, match="attention_packed_fwd_bf16"):
+        attention.attention_packed_fwd(q.bfloat16(), q.bfloat16(), q.bfloat16(), 4, 2)
+    qb = q.bfloat16()
+    with pytest.raises(ValueError, match="dh = 16 or dh = 64"):
+        attention.attention_packed_fwd_bf16(qb, qb, qb, 2, 2)
+    xw = torch.zeros(4, 8, 512, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="lstm_fwd_bf16"):
+        lstm.lstm_fwd(xw, torch.zeros(128, 512, device=cuda_device, dtype=torch.bfloat16))
+    with pytest.raises(TypeError, match="bf16"):
+        lstm.lstm_fwd_bf16(xw, torch.zeros(128, 512, device=cuda_device))
+
+
+@pytest.mark.parametrize("model_name", ["mmoecut", "mtple", "bicut", "choopy"])
+def test_bf16_predictor_on_card_matches_plain(cuda_device, model_name):
+    """A bf16 Predictor at robust04 width through the bf16 kernels (and no
+    float32 kernel) against the same bf16 model through the plain versions
+    on the card, within the bounds of d_ref (the plain bf16 run against
+    the plain float32 one); cuts equal where the top two are further apart
+    than the max bound."""
+    cfg = TrainConfig(model_name=model_name, retrieve_data="robust04",
+                      compute_dtype="bfloat16")
+    card = Predictor(cfg, device=cuda_device)
+    ref32 = Predictor(TrainConfig(model_name=model_name, retrieve_data="robust04"),
+                      state_dict=card.model.state_dict(), device=cuda_device)
+    x = np.random.default_rng(180).normal(
+        size=(4, cfg.seq_len, cfg.input_size)).astype(np.float32)
+    before = {name: k.launches for name, k in KERNELS.items()}
+    ks, dist = card.predict_with_distribution(x)
+    used = {name for name, k in KERNELS.items() if k.launches != before[name]}
+    assert used and all(name.endswith("_bf16") for name in used), used
+    with plain_ops():
+        want_ks, want_dist = card.predict_with_distribution(x)
+        dist32 = ref32.predict_with_distribution(x)[1]
+    assert dist.dtype == np.float32 and np.all(np.isfinite(dist))
+    d_ref = want_dist - dist32
+    rms = lambda a: float(np.sqrt(np.mean(np.square(a, dtype=np.float64))))  # noqa: E731
+    assert rms(dist - want_dist) <= BF16_RMS_OF_REF * rms(d_ref)
+    limit = BF16_MAX_OF_REF * np.abs(d_ref).max()
+    assert np.abs(dist - want_dist).max() <= limit
+    if model_name == "bicut":
+        tied = np.any(np.abs(want_dist[..., 0] - want_dist[..., 1]) <= limit, axis=-1)
+    else:
+        top2 = np.sort(want_dist, axis=-1)[:, -2:]
+        tied = top2[:, 1] - top2[:, 0] <= limit
     assert np.all((ks == want_ks) | tied)

@@ -24,6 +24,7 @@ from rlt_tpu_torch.config import TrainConfig
 from rlt_tpu_torch.data import datasets
 from rlt_tpu_torch.infer import Predictor, decode_ks
 from rlt_tpu_torch.serve import TruncationService, bucket_size, make_server
+from rlt_tpu_torch.train import Trainer
 from rlt_tpu_torch.utils import metrics
 from rlt_tpu_torch.utils.convert import params_from_jax
 
@@ -109,8 +110,9 @@ def test_predictor_matches_jax_predictor():
 
 
 def test_predictor_refuses_what_is_not_ported(tmp_path):
+    # bf16 serves (tests/test_torch_bf16.py); training in bf16 is not ported
     with pytest.raises(NotImplementedError, match="bf16"):
-        Predictor(tiny_cfg(compute_dtype="bfloat16"), device="cpu")
+        Trainer(tiny_cfg(compute_dtype="bfloat16"), device="cpu")
     with pytest.raises(FileNotFoundError, match="refusing"):
         Predictor(tiny_cfg(model_path=str(tmp_path / "missing.pt")), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA card"):
