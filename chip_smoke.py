@@ -4,12 +4,13 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `rlt_tpu_torch/csrc`, holds each one
-(the float32 instances and the bf16 ones of K1', K3' and K5') against its
+(the float32 instances and the bf16 ones of all six, K1'-K6') against its
 plain PyTorch version on the card at the main paths' shapes and times both,
-then drives twenty-four main paths at robust04 width (L = 300, seeded
-random weights): serving and training in float32, and serving in bf16
-(`<model>-serve-bf16`: `compute_dtype="bfloat16"`, through the bf16
-kernel instances only), of MMOECut, MOECut,
+then drives thirty-two main paths at robust04 width (L = 300, seeded
+random weights): serving and training in float32, and serving and training
+in bf16 (`<model>-serve-bf16` and `<model>-train-bf16`:
+`compute_dtype="bfloat16"`, through the bf16 kernel instances only), of
+MMOECut, MOECut,
 AttnCut and MtAttnCut (F = 3, 4 heads of dh = 64: the packed attention
 kernels, over the stacked (3 * B) experts of MMOECut and MOECut and over
 the B rows of AttnCut's and MtAttnCut's one encoder), PLECut (2 heads of
@@ -29,9 +30,10 @@ kernels' dh = 16 instances, one launch per layer, and no LSTM kernel):
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after, and must have launched each kernel exactly as often as its
 shape says (and the other attention kernels, and the other dtype's
-instances, not at all). A bf16 path's served distributions are held to the
-same bf16 model through the plain versions on the card, against d_ref, the
-distance between that bf16 plain run and the float32 one. It prints
+instances, not at all). A bf16 path's served distributions, and its step-1
+gradients, step losses and epoch updates, are held to the same bf16 run
+through the plain versions on the card, against d_ref, the distance between
+that bf16 plain run and the float32 one. It prints
 a `kernels` JSON line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failed check raises, and the script
 then exits with a non-zero code; without a CUDA card it exits before any
@@ -77,14 +79,23 @@ MODELS = ("mmoecut", "mtple", "moecut", "attncut", "mtattncut", "bicut", "choopy
           "mtchoopy")
 PATHS = tuple(f"{m}-{p}" for m in MODELS for p in ("serve", "train"))
 BF16_PATHS = tuple(f"{m}-serve-bf16" for m in MODELS)
+BF16_TRAIN_PATHS = tuple(f"{m}-train-bf16" for m in MODELS)
 # each bf16 instance, by the float32 kernel whose bf16 form it is
 BF16_OF = {"lstm_fwd": "lstm_fwd_bf16", "attention_fwd": "attention_fwd_bf16",
-           "attention_packed_fwd": "attention_packed_fwd_bf16"}
+           "attention_packed_fwd": "attention_packed_fwd_bf16",
+           "lstm_bwd": "lstm_bwd_bf16", "attention_bwd": "attention_bwd_bf16",
+           "attention_packed_bwd": "attention_packed_bwd_bf16"}
 BF16_LIBRARY = {
-    "lstm_fwd": "torch.nn.LSTM (cuDNN) in bf16, 1 layer 2 directions, input projection "
-                "included",
+    "lstm_fwd": "torch.nn.LSTM (cuDNN) in bf16, 1 layer 2 directions, weights "
+                "flattened, input projection included",
     "attention_fwd": "torch.nn.functional.scaled_dot_product_attention, bf16",
-    "attention_packed_fwd": "torch.nn.functional.scaled_dot_product_attention, bf16"}
+    "attention_packed_fwd": "torch.nn.functional.scaled_dot_product_attention, bf16",
+    "lstm_bwd": "backward of torch.nn.LSTM (cuDNN) in bf16, 1 layer 2 directions, "
+                "weights flattened, dx and dW_ih included",
+    "attention_bwd": "backward of torch.nn.functional.scaled_dot_product_attention, "
+                     "bf16, dropout_p 0.1",
+    "attention_packed_bwd": "backward of torch.nn.functional."
+                            "scaled_dot_product_attention, bf16, dropout_p 0.1"}
 # f32 tolerances on the card, kernel against plain version:
 # - the LSTM carries h and c through 300 steps, each a 128-term dot product
 #   summed in another order than cuBLAS sums it;
@@ -111,27 +122,14 @@ ATTN_BWD_REL = 1e-5
 # to 2 lr per step, which a max-abs comparison cannot tell from a fault; the
 # norm weighs those few elements against the whole leaf. A run that does not
 # update, or updates wrongly after step 1, reads about 1. Left out: the
-# leaves whose gradient is zero by algebra (`ZERO_GRAD_LEAVES`) and the key
-# block of every in_proj_bias (`without_key_bias`), whose update is
-# Adam-normalised rounding noise: at Choopy's lr of 1e-3 that noise moved the
-# key bias by about lr a step and read 0.16 on the card.
+# leaves whose gradient is zero by algebra (the models' ZERO_GRAD_LEAVES)
+# and the key block of every in_proj_bias (`without_key_bias`), whose
+# update is Adam-normalised rounding noise: at Choopy's lr of 1e-3 that
+# noise moved the key bias by about lr a step and read 0.16 on the card.
 STEP_LOSS_REL = 1e-5
 STEP_GRAD_REL = 1e-3
 STEP_GRAD_FLOOR = 1e-7
 UPDATE_REL = 1e-2
-_TOWERS = ("tower_rerank.linear.bias", "tower_cut.linear.bias")
-ZERO_GRAD_LEAVES = {"mmoecut": _TOWERS, "moecut": _TOWERS, "mtple": _TOWERS,
-                    # the encoder's last LayerNorm bias b shifts every
-                    # position's logit by decision.weight . b, which the
-                    # softmax over positions cancels
-                    "attncut": ("decision.bias", "attention_layer.layers_0.norm2.bias"),
-                    # the rerank hinge's two batch means cancel the bias
-                    "mtattncut": ("heads.rerank.bias", "heads.decision.bias"),
-                    "bicut": (),
-                    # as AttnCut's: the last of the three encoder layers
-                    "choopy": ("decision.bias", "attention_layer.layers_2.norm2.bias"),
-                    # as MtAttnCut's
-                    "mtchoopy": ("heads.rerank.bias", "heads.decision.bias")}
 # bf16 kernels against their plain versions (tests/test_torch_bf16.py's
 # tolerances): the LSTM's cs is the float32 carry, as above (LSTM_ATOL), and
 # its bf16 hs within one bf16 step of the plain hs beyond that; attention's
@@ -152,6 +150,45 @@ ZERO_GRAD_LEAVES = {"mmoecut": _TOWERS, "moecut": _TOWERS, "mtple": _TOWERS,
 O_BF16_STEPS = 2
 BF16_RMS_OF_REF = 2.0
 BF16_MAX_OF_REF = 3.0
+# bf16 backward kernels against their plain versions (the tolerances of
+# tests/test_torch_bf16_train_ops.py, where the plain versions are held to
+# the JAX kernels): K2''s dxw is rounded from f32 dgates summed in another
+# order, so within one bf16 step of the plain dxw beyond LSTM_BWD_REL of its
+# max abs, and its f32 dW_hh^T within LSTM_BWD_REL as in f32; K4' and K6'
+# round the same ds and pd as the plain versions and sum in another order:
+# dq, dk and dv within 2 bf16 steps of each one's max abs.
+GRAD_BF16_STEPS = 2
+# The bf16 training step and epoch through the kernels against the same bf16
+# run through the plain versions on the card (same weights, batch plans and
+# masks), with d_ref the plain bf16 run against the plain float32 one. The
+# kernels' bf16 attention forwards round each weight against the running max
+# (the plain versions the normalised weight), so the two bf16 runs are two
+# independent roundings of one f32 function from the first encoder on, and
+# every gradient parts from the plain one by about sqrt(2) of d_ref. That
+# ratio is an average: a small leaf (a scalar bias) is one sample of it, and
+# its d_ref can be near 0 by chance. So, per step-1 gradient leaf:
+# - its yardstick is the larger of RMS(d_ref) and rho times its own RMS, rho
+#   being the median over the model's leaves of RMS(d_ref) / RMS(gradient)
+#   (the model's relative bf16 noise; a leaf has at least that much);
+# - the median over leaves of RMS(error) / yardstick within 2 (sqrt(2)
+#   expected), and every leaf within 4 (room for a small leaf's spread); a
+#   faulty kernel moves gradients by their own size, 1 / rho (16 or more)
+#   of the yardstick;
+# - no per-leaf max-abs bound: the max of two roundings' difference is
+#   noisier still.
+# The leaves zero by algebra (`ZERO_GRAD_LEAVES`, the key block of every
+# in_proj_bias) are rounding noise on both sides, in bf16 up to 3.7e-2 of the
+# model's largest gradient (Choopy's decision bias, 8 lists, on an H100):
+# each within ZERO_GRAD_BF16_REL of it. Step losses: within
+# BF16_MAX_OF_REF of |d_ref| plus one bf16 step of the loss (d_ref of one
+# scalar may be near 0 by chance). After the epoch, the updates (params minus
+# init) over all leaves but those above, in L2: within 2 of d_ref's (Adam
+# moves each element by about lr * sign(g), and a gradient near 0 takes
+# either sign in each bf16 run: independent again).
+BF16_GRAD_MEDIAN_OF_REF = 2.0
+BF16_GRAD_LEAF_OF_REF = 4.0
+ZERO_GRAD_BF16_REL = 0.1
+BF16_UPDATE_OF_REF = 2.0
 RATE = 0.1  # the drmm_tks preset's dropout of the attention models but MOECut
 # H100 SXM peak rates: HBM3 bandwidth, dense f32 without tensor cores, and
 # f32 products on the tensor cores in the 3xTF32 split (three dense TF32
@@ -639,6 +676,10 @@ def check_lstm_bf16(dev, rng) -> dict:
             x_in = torch.from_numpy(rng.normal(size=(batch, SEQ_LEN, HIDDEN))
                                     .astype(np.float32)).to(dev).bfloat16()
             with torch.no_grad():
+                # timed with its weights as built (not compacted; torch
+                # warns) and compacted, the latter as library_ms
+                unflattened_ms = cuda_ms(lambda: cudnn(x_in), iters=20)
+                cudnn.flatten_parameters()
                 library_ms = cuda_ms(lambda: cudnn(x_in), iters=20)
             state = SEQ_LEN * ndir * batch * HIDDEN
             # xw, W_hh^T and hs at 2 bytes, cs at 4; K1''s products in f32
@@ -648,7 +689,8 @@ def check_lstm_bf16(dev, rng) -> dict:
             row = dict(ndir=ndir, batch=batch, max_abs_err=max(cs_err, hs_diff.max().item()),
                        cs_err=cs_err, hs_beyond_step=hs_beyond, ms=ms,
                        ms_per_step=ms / SEQ_LEN, plain_ms=plain_ms, library_ms=library_ms,
-                       bound_ms=bound_ms, bound_by=bound_by)
+                       library_unflattened_ms=unflattened_ms, bound_ms=bound_ms,
+                       bound_by=bound_by)
             log("lstm_fwd_bf16 " + json.dumps(row))
             rows.append(row)
     return lstm_rows(rows)
@@ -752,6 +794,192 @@ def check_slice_attention_bf16(dev, rng) -> dict:
     return {"rows": rows, "max_abs_err": max(r["max_abs_err"] for r in rows)}
 
 
+def check_lstm_bwd_bf16(dev, rng) -> dict:
+    """K2''s bf16 instance against `lstm_bwd_plain` on the same bf16 xw,
+    W_hh^T, hs and dho and f32 cs (K1''s plain bf16 outputs), at one and two
+    directions, B lists per direction: dxw within one bf16 step of the plain
+    dxw beyond LSTM_BWD_REL of its max abs, the f32 dW_hh^T within
+    LSTM_BWD_REL of its max abs; at ndir = 2 a second launch bit-equal to the
+    first. library_ms is the backward alone of cuDNN's bf16 one-layer LSTM
+    of the same directions, its weights flattened (which also computes dx
+    and dW_ih of its input projection)."""
+    from rlt_tpu_torch.ops import lstm
+
+    rows = []
+    for ndir in (1, 2):
+        for batch in BATCHES:
+            xw = torch.from_numpy(rng.normal(size=(SEQ_LEN, ndir * batch, 4 * HIDDEN))
+                                  .astype(np.float32)).to(dev).bfloat16()
+            w = lstm_weights(rng, ndir, dev).bfloat16()
+            hs, cs = lstm.lstm_recurrence_plain(xw, w, ndir)
+            dho = torch.from_numpy(rng.normal(size=(SEQ_LEN, ndir * batch, HIDDEN))
+                                   .astype(np.float32)).to(dev).bfloat16()
+            dxw, dw = lstm.lstm_bwd_bf16(xw, w, hs, cs, dho, ndir)
+            torch.cuda.synchronize()
+            want_dxw, want_dw = lstm.lstm_bwd_plain(xw, w, hs, cs, dho, ndir)
+            require(dxw.dtype == torch.bfloat16 and dw.dtype == torch.float32,
+                    "lstm_bwd_bf16: dtypes")
+            require(bool(torch.isfinite(dxw).all() and torch.isfinite(dw).all()),
+                    "lstm_bwd_bf16: non-finite gradient")
+            dxw_beyond = ((dxw.float() - want_dxw.float()).abs()
+                          - bf16_step(want_dxw)).max().item()
+            dxw_limit = LSTM_BWD_REL * want_dxw.float().abs().max().item()
+            dw_err, dw_rel = max_errs(dw, want_dw)
+            require(dxw_beyond <= dxw_limit and dw_rel <= LSTM_BWD_REL,
+                    f"lstm_bwd_bf16 ndir={ndir} B={batch}: dxw {dxw_beyond} beyond one "
+                    f"bf16 step (limit {dxw_limit}), dW_hh^T max rel err {dw_rel} "
+                    f"(limit {LSTM_BWD_REL})")
+            if ndir == 2:
+                again = lstm.lstm_bwd_bf16(xw, w, hs, cs, dho, ndir)
+                require(torch.equal(dxw, again[0]) and torch.equal(dw, again[1]),
+                        f"lstm_bwd_bf16 ndir=2 B={batch}: two launches on the same "
+                        "inputs differ")
+            ms = cuda_ms(lambda: lstm.lstm_bwd_bf16(xw, w, hs, cs, dho, ndir), iters=20)
+            plain_ms = cuda_ms(lambda: lstm.lstm_bwd_plain(xw, w, hs, cs, dho, ndir),
+                               iters=3, warmup=1)
+            cudnn = torch.nn.LSTM(HIDDEN, HIDDEN, batch_first=True, bidirectional=ndir == 2,
+                                  device=dev, dtype=torch.bfloat16)
+            cudnn.flatten_parameters()
+            x_in = torch.from_numpy(rng.normal(size=(batch, SEQ_LEN, HIDDEN))
+                                    .astype(np.float32)).to(dev).bfloat16().requires_grad_()
+            out, _ = cudnn(x_in)
+            g_out = torch.randn_like(out)
+            wrt = [x_in, *cudnn.parameters()]
+            library_ms = cuda_ms(lambda: torch.autograd.grad(out, wrt, g_out,
+                                                             retain_graph=True), iters=20)
+            state = SEQ_LEN * ndir * batch * HIDDEN
+            # xw, dxw (4H wide), W_hh^T, hs and dho at 2 bytes; cs at 4 and
+            # dW_hh^T at 4; three (state x 4H) products: the chain's dgates
+            # W_hh and dW_hh^T take f32 dgates (f32 rate), the gate
+            # recompute bf16 hs and W_hh^T (bf16 tensor-core rate), the
+            # operations' time the sum of the two
+            nbytes = (2 * (2 * 4 * state + ndir * HIDDEN * 4 * HIDDEN + 2 * state)
+                      + 4 * (state + ndir * HIDDEN * 4 * HIDDEN))
+            product = 2 * 4 * state * HIDDEN
+            bound_ms, bound_by = bound(
+                nbytes, 2 * product + product * PEAK_F32_FLOPS / PEAK_BF16_FLOPS)
+            row = dict(ndir=ndir, batch=batch, max_abs_err=max(
+                           (dxw.float() - want_dxw.float()).abs().max().item(), dw_err),
+                       dxw_beyond_step=dxw_beyond, max_rel_err=dw_rel, ms=ms,
+                       ms_per_step=ms / SEQ_LEN, plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=bound_ms, bound_by=bound_by)
+            log("lstm_bwd_bf16 " + json.dumps(row))
+            rows.append(row)
+    return lstm_rows(rows)
+
+
+def bf16_grads_check(name: str, got, want) -> float:
+    """The largest of dq's, dk's and dv's max abs error against the plain
+    version's; raises past GRAD_BF16_STEPS bf16 steps of each one's max abs."""
+    errs = []
+    for tag, g, w in zip(("dq", "dk", "dv"), got, want):
+        require(g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all()),
+                f"{name}: {tag} not finite bf16")
+        err = (g.float() - w.float()).abs().max().item()
+        limit = GRAD_BF16_STEPS * bf16_step(w.float().abs().max()).item()
+        require(err <= limit, f"{name}: {tag} max abs err {err} > {limit}")
+        errs.append(err)
+    return max(errs)
+
+
+def bf16_attention_bwd_bound(n_heads_rows: int, dh: int) -> dict:
+    """bound_ms of a bf16 attention backward over n (row, head) pairs of
+    width dh at L = 300 with dropout streams: q, k, v, o and do read and dq,
+    dk and dv written at 2 bytes, lse read at 4, against five L x L x dh
+    products' flops (scores, dP, dq, dk, dv) at the dense bf16 tensor-core
+    rate."""
+    elems = n_heads_rows * SEQ_LEN * dh
+    nbytes = 2 * 8 * elems + 4 * n_heads_rows * SEQ_LEN + 4 * n_heads_rows
+    bound_ms, bound_by = bound(nbytes, 10 * elems * SEQ_LEN, PEAK_BF16_FLOPS)
+    return dict(bound_ms=bound_ms, bound_by=bound_by)
+
+
+def check_attention_bwd_bf16(dev, rng, d_model: int = D_MODEL, heads: int = HEADS,
+                             rows: tuple = PACKED_ROWS) -> dict:
+    """K6''s bf16 instance against `attention_packed_bwd_plain` on the same
+    bf16 q, k, v, do and the plain version's o and lse, at rates 0 and 0.1,
+    and a second launch at rate 0.1 bit-equal to the first. Times are at rate
+    0.1, the training path's; library_ms is the backward alone of bf16
+    scaled_dot_product_attention with dropout_p 0.1 (its own mask)."""
+    from rlt_tpu_torch.ops import attention
+
+    pack = attention.packed_group_size(d_model, heads)
+    dh = d_model // heads
+    out_rows = []
+    for n in rows:
+        q, k, v, do = (torch.from_numpy(rng.normal(size=(n, SEQ_LEN, d_model))
+                                        .astype(np.float32)).to(dev).bfloat16()
+                       for _ in range(4))
+        streams = random_streams(rng, n, dev)
+        errs = []
+        for rate in (0.0, RATE):
+            o, lse = attention.attention_packed_plain(q, k, v, heads, pack, rate, streams)
+            got = attention.attention_packed_bwd_bf16(q, k, v, o, lse, do, heads, pack,
+                                                      rate, streams)
+            torch.cuda.synchronize()
+            want = attention.attention_packed_bwd_plain(q, k, v, o, lse, do, heads, pack,
+                                                        rate, streams)
+            errs.append(bf16_grads_check(f"attention_packed_bwd_bf16 dh={dh} N={n} "
+                                         f"rate {rate}", got, want))
+        again = attention.attention_packed_bwd_bf16(q, k, v, o, lse, do, heads, pack, RATE,
+                                                    streams)
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"attention_packed_bwd_bf16 dh={dh} N={n}: two launches on the same "
+                "inputs differ")
+        ms = cuda_ms(lambda: attention.attention_packed_bwd_bf16(
+            q, k, v, o, lse, do, heads, pack, RATE, streams), iters=10)
+        plain_ms = cuda_ms(lambda: attention.attention_packed_bwd_plain(
+            q, k, v, o, lse, do, heads, pack, RATE, streams), iters=3, warmup=1)
+        by_head = [t.view(n, SEQ_LEN, heads, dh).transpose(1, 2).detach().requires_grad_()
+                   for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*by_head, dropout_p=RATE)
+        g_out = do.view(n, SEQ_LEN, heads, dh).transpose(1, 2)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(out, by_head, g_out,
+                                                         retain_graph=True), iters=10)
+        row = dict(n=n, dh=dh, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms, **bf16_attention_bwd_bound(n * heads, dh))
+        log("attention_packed_bwd_bf16 " + json.dumps(row))
+        out_rows.append(row)
+    return {"rows": out_rows, "max_abs_err": max(r["max_abs_err"] for r in out_rows)}
+
+
+def check_slice_attention_bwd_bf16(dev, rng) -> dict:
+    """K4''s bf16 instance against `attention_bwd_plain` on the same bf16 q,
+    k, v, do and the plain version's o and lse, at PLECut's 378 slices of its
+    63-list batch, rates 0 and 0.1, and a second launch at rate 0.1 bit-equal
+    to the first. Times at rate 0.1; library_ms: the backward alone of bf16
+    scaled_dot_product_attention with dropout_p 0.1."""
+    from rlt_tpu_torch.ops import attention
+
+    n = EXPERTS * BATCHES[0]
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(n, SLICE_HEADS, SEQ_LEN, SLICE_DH))
+                                    .astype(np.float32)).to(dev).bfloat16()
+                   for _ in range(4))
+    streams = random_streams(rng, n * SLICE_HEADS, dev)
+    errs = []
+    for rate in (0.0, RATE):
+        o, lse = attention.attention_plain(q, k, v, rate, streams)
+        got = attention.attention_bwd_bf16(q, k, v, o, lse, do, rate, streams)
+        torch.cuda.synchronize()
+        want = attention.attention_bwd_plain(q, k, v, o, lse, do, rate, streams)
+        errs.append(bf16_grads_check(f"attention_bwd_bf16 N={n} rate {rate}", got, want))
+    again = attention.attention_bwd_bf16(q, k, v, o, lse, do, RATE, streams)
+    require(all(torch.equal(a, b) for a, b in zip(got, again)),
+            f"attention_bwd_bf16 N={n}: two launches on the same inputs differ")
+    ms = cuda_ms(lambda: attention.attention_bwd_bf16(q, k, v, o, lse, do, RATE, streams),
+                 iters=10)
+    plain_ms = cuda_ms(lambda: attention.attention_bwd_plain(q, k, v, o, lse, do, RATE,
+                                                             streams), iters=3, warmup=1)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, dropout_p=RATE)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+                         iters=10)
+    row = dict(n=n, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               **bf16_attention_bwd_bound(n * SLICE_HEADS, SLICE_DH))
+    log("attention_bwd_bf16 " + json.dumps(row))
+    return {"rows": [row], "max_abs_err": row["max_abs_err"]}
+
+
 def reset_counts() -> None:
     from rlt_tpu_torch.ops import KERNELS
 
@@ -774,19 +1002,20 @@ def want_counts(model_name: str, forwards: int, steps: int = 0,
     layer over all its rows (experts and lists; three layers in Choopy and
     MtChoopy, one elsewhere); per step, a forward and the backward's
     lstm_bwd and attention backward, one per layer of each. `bf16`: the
-    forwards launch the bf16 instances of the same forward kernels instead
-    (bf16 serves; it does not train). Every other kernel: none."""
+    forwards and backwards launch the bf16 instances of the same kernels
+    instead. Every other kernel: none."""
     from rlt_tpu_torch.ops import KERNELS
 
     lstm_layers = BILSTM_LAYERS.get(model_name, 2)
-    fwd = BF16_OF.get if bf16 else (lambda name: name)
+    kernel = BF16_OF.get if bf16 else (lambda name: name)
     want = dict.fromkeys(KERNELS, 0)
-    want.update({fwd("lstm_fwd"): lstm_layers * (forwards + steps),
-                 "lstm_bwd": lstm_layers * steps})
+    want.update({kernel("lstm_fwd"): lstm_layers * (forwards + steps),
+                 kernel("lstm_bwd"): lstm_layers * steps})
     if ATTENTION_KERNELS[model_name]:
         attn_fwd, attn_bwd = ATTENTION_KERNELS[model_name]
         layers = ENCODER_LAYERS.get(model_name, 1)
-        want.update({fwd(attn_fwd): layers * (forwards + steps), attn_bwd: layers * steps})
+        want.update({kernel(attn_fwd): layers * (forwards + steps),
+                     kernel(attn_bwd): layers * steps})
     return want
 
 
@@ -965,6 +1194,7 @@ def train_end_to_end(model_name: str) -> dict:
     train step of each compares step 1's loss and gradients; after it, the
     step is timed in its parts."""
     from rlt_tpu_torch.config import PRESETS, TrainConfig, apply_preset
+    from rlt_tpu_torch.models import ZERO_GRAD_LEAVES
     from rlt_tpu_torch.ops import plain_ops
     from rlt_tpu_torch.train import Trainer, train_step
 
@@ -1068,6 +1298,140 @@ def train_end_to_end(model_name: str) -> dict:
     return {"launches": launches, "timing": timing}
 
 
+def train_end_to_end_bf16(model_name: str) -> dict:
+    """One epoch of `Trainer.run` for `model_name` in bf16
+    (`compute_dtype="bfloat16"`, its drmm_tks preset, B = 63) through the
+    bf16 kernels, against the same bf16 epoch through the plain versions on
+    the card and, for d_ref, the float32 epoch through them, all from the
+    same weights and generator seed (the same batch plans and dropout
+    masks); before it, step 1 the same three ways. The bounds and their
+    reasons are at BF16_GRAD_MEDIAN_OF_REF. After it, the bf16 step timed in
+    its parts."""
+    from rlt_tpu_torch.config import TrainConfig, apply_preset
+    from rlt_tpu_torch.models import ZERO_GRAD_LEAVES
+    from rlt_tpu_torch.ops import plain_ops
+    from rlt_tpu_torch.train import Trainer, train_step
+
+    label = f"{model_name}-train-bf16"
+    cfg = dataclasses.replace(
+        apply_preset(TrainConfig(model_name=model_name, retrieve_data="robust04",
+                                 compute_dtype="bfloat16")), epochs=1)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    require((cfg.batch_size, cfg.seq_len) == (63, SEQ_LEN), f"drmm_tks preset: {cfg}")
+
+    def first_step(c, route_plain: bool):
+        trainer = Trainer(c, device="cuda")
+        idx, valid = trainer.data.plan(trainer.generator, "train")
+        x, y, v = trainer.data.x_train[idx[0]], trainer.data.y_train[idx[0]], valid[0]
+        with plain_ops() if route_plain else contextlib.nullcontext():
+            loss, _, _ = train_step(trainer.model, trainer.optimizer, trainer.criterion,
+                                    c.model_name, x, y, v, trainer.generator,
+                                    trainer.dtype)
+        grads = {n: p.grad.clone() for n, p in trainer.model.named_parameters()}
+        return trainer, (x, y, v), float(loss), grads
+
+    before = read_counts()
+    timed, batch, loss_k, grads_k = first_step(cfg, False)
+    torch.cuda.synchronize()
+    step_launches = {k: read_counts()[k] - before[k] for k in before}
+    require(step_launches == want_counts(model_name, forwards=0, steps=1, bf16=True),
+            f"kernel launches of one {label} step: {step_launches}")
+    _, _, loss_p, grads_p = first_step(cfg, True)
+    _, _, loss_32, grads_32 = first_step(cfg32, True)
+    require(all(p.dtype == torch.float32 for p in timed.model.parameters())
+            and all(g.dtype == torch.float32 for g in grads_k.values()),
+            f"{label}: the master parameters and their gradients are float32")
+    loss_limit = (BF16_MAX_OF_REF * abs(loss_p - loss_32)
+                  + bf16_step(torch.tensor(loss_p)).item())
+    require(np.isfinite(loss_k) and abs(loss_k - loss_p) <= loss_limit,
+            f"{label} step-1 loss {loss_k} vs plain {loss_p} (f32 {loss_32}): limit "
+            f"{loss_limit}")
+    rms = lambda t: t.double().pow(2).mean().sqrt().item()  # noqa: E731
+    zero = set(ZERO_GRAD_LEAVES[model_name])
+    largest = max(g.abs().max().item() for g in grads_p.values())
+    leaves = {}
+    for name, g in grads_k.items():
+        require(bool(torch.isfinite(g).all()), f"{label}: non-finite gradient of {name}")
+        if name in zero:
+            noise = g.abs().max().item()
+            require(noise <= ZERO_GRAD_BF16_REL * largest, f"{label}: {name}, zero by "
+                    f"algebra, reads {noise} > {ZERO_GRAD_BF16_REL} x {largest}")
+            continue
+        k, p, p32 = (without_key_bias(name, t[name]) for t in (grads_k, grads_p, grads_32))
+        leaves[name] = (rms(k - p), rms(p - p32), rms(p))
+    rho = float(np.median([d / max(r, 1e-30) for _, d, r in leaves.values()]))
+    ratio = {name: err / max(d, rho * r, 1e-30) for name, (err, d, r) in leaves.items()}
+    median = float(np.median(list(ratio.values())))
+    worst = max(ratio, key=ratio.get)
+    require(median <= BF16_GRAD_MEDIAN_OF_REF and ratio[worst] <= BF16_GRAD_LEAF_OF_REF,
+            f"{label} step-1 gradients against d_ref: median {median} (limit "
+            f"{BF16_GRAD_MEDIAN_OF_REF}), worst {worst_of(ratio)} (limit "
+            f"{BF16_GRAD_LEAF_OF_REF})")
+    log(f"{label} step 1: loss {loss_k} (plain bf16 {loss_p}, f32 {loss_32}); gradients "
+        f"rms err over the yardstick: median {median:.3f}, worst {worst_of(ratio)}; "
+        f"rho {rho:.3e}")
+
+    # the training path: one epoch through the entry point a user calls
+    trainer = Trainer(cfg, device="cuda")
+    init = {n: t.clone() for n, t in trainer.model.state_dict().items()}
+    torch.cuda.synchronize()
+    reset_counts()  # the training path's counts start here
+    t0 = time.perf_counter()
+    summary = trainer.run()
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    launches = read_counts()
+    steps, tests = trainer.data.train_batches, trainer.data.test_batches
+    want = want_counts(model_name, forwards=tests, steps=steps, bf16=True)
+    require(launches == want, f"kernel launches on the {label} path: {launches}, want "
+            f"{want} ({steps} train steps, {tests} test batches)")
+    require(summary["compute_dtype"] == "bfloat16" and all(
+        t.dtype == torch.float32 for t in trainer.model.state_dict().values()),
+        f"{label}: summary {summary} and a float32 state_dict")
+    metrics = trainer.history[0]
+    require(all(np.isfinite(v) for k, v in metrics.items() if k != "train_loss_steps")
+            and all(np.isfinite(metrics["train_loss_steps"])), f"metrics {metrics}")
+    runs = {}
+    for key, c in (("plain", cfg), ("plain32", cfg32)):
+        ref = Trainer(c, device="cuda")
+        with plain_ops():
+            ref.run()
+        runs[key] = ref
+    k_steps, p_steps, p32_steps = (np.asarray(t.history[0]["train_loss_steps"]) for t in (
+        trainer, runs["plain"], runs["plain32"]))
+    limit = (BF16_MAX_OF_REF * np.abs(p_steps - p32_steps)
+             + bf16_step(torch.from_numpy(p_steps)).numpy())
+    require(len(k_steps) == steps and np.all(np.abs(k_steps - p_steps) <= limit),
+            f"{label} epoch step losses {k_steps.tolist()} vs plain {p_steps.tolist()} "
+            f"(f32 {p32_steps.tolist()}): limits {limit.tolist()}")
+    kstate, pstate, p32state = (t.model.state_dict() for t in (
+        trainer, runs["plain"], runs["plain32"]))
+    err2 = ref2 = 0.0
+    for name in kstate:
+        require(bool(torch.isfinite(kstate[name]).all()), f"non-finite {name}")
+        if name in zero:
+            continue
+        k_move, p_move, p32_move = (without_key_bias(name, t[name] - init[name])
+                                    for t in (kstate, pstate, p32state))
+        err2 += (k_move - p_move).double().pow(2).sum().item()
+        ref2 += (p_move - p32_move).double().pow(2).sum().item()
+    update_ratio = (err2 / max(ref2, 1e-300)) ** 0.5
+    require(update_ratio <= BF16_UPDATE_OF_REF, f"{label}: updates after the epoch part "
+            f"from the plain bf16 run's by {update_ratio} of d_ref's (L2, limit "
+            f"{BF16_UPDATE_OF_REF})")
+    log(f"{label} epoch: {json.dumps(metrics)}; plain bf16 "
+        f"{json.dumps(runs['plain'].history[0])}; step losses {k_steps.tolist()} vs plain "
+        f"{p_steps.tolist()} (f32 {p32_steps.tolist()}); updates L2 err at "
+        f"{update_ratio:.3f} of d_ref's; summary {json.dumps(summary)}")
+
+    part_ms = train_step_parts(timed, *batch)
+    epoch_ms = cuda_ms(lambda: trainer.run_epoch(), iters=3, warmup=1)
+    timing = dict(first_epoch_s=epoch_s, epoch_ms=epoch_ms, step_ms=part_ms,
+                  train_steps=steps, test_batches=tests)
+    log(f"{label} timing " + json.dumps(timing))
+    return {"launches": launches, "timing": timing}
+
+
 def without_key_bias(name: str, t: torch.Tensor) -> torch.Tensor:
     """A leaf without its elements whose gradient is zero by algebra in
     every attention model: the key block of an in_proj_bias ([q; k; v] on the
@@ -1085,8 +1449,10 @@ def worst_of(errs: dict, k: int = 5) -> str:
 
 def train_step_parts(trainer, x, y, valid, iters: int = 5) -> dict:
     """Device ms of one train step's forward (with the loss and the dropout
-    masks), backward and optimizer update, each the mean over `iters` steps
-    between CUDA events."""
+    masks; in bf16 the parameter casts), backward and optimizer update, each
+    the mean over `iters` steps between CUDA events."""
+    from rlt_tpu_torch.train import forward
+
     model, opt = trainer.model, trainer.optimizer
     model.train()
     events = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
@@ -1094,7 +1460,8 @@ def train_step_parts(trainer, x, y, valid, iters: int = 5) -> dict:
     for ev in events:  # the first step warms up
         opt.zero_grad()
         ev[0].record()
-        loss = trainer.criterion(model(x, trainer.generator), y, valid=valid)
+        loss = trainer.criterion(forward(model, x, trainer.generator, trainer.dtype), y,
+                                 valid=valid)
         ev[1].record()
         loss.backward()
         ev[2].record()
@@ -1170,15 +1537,17 @@ def dh16_entry(name: str, res: dict, drop: dict | None, launches: dict) -> dict:
 
 def bf16_entry(name: str, res: dict, source: str, replaces: str, library: str,
                launches: dict, dh16: dict) -> dict:
-    """The kernels line's `bf16` sub-entry of a forward kernel: its bf16
-    instance's keys, at the flagship batch of 63 lists (the LSTM at
-    ndir = 2 with its ndir = 1 times, the packed attention at N = 189 with
-    its N = 63 times and its dh = 16 instance at N = 63 and 256), with
-    dropout 0.1 for the attention kernels, and its launches on every path."""
+    """The kernels line's `bf16` sub-entry of a kernel: its bf16 instance's
+    keys, at the flagship batch of 63 lists (the LSTM at ndir = 2 with its
+    ndir = 1 times, the packed attention at N = 189 with its N = 63 times
+    and its dh = 16 instance at N = 63 and 256), with dropout 0.1 for the
+    attention forwards (the backwards are timed at rate 0.1), and its
+    launches on every path."""
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")
     bf16_name = BF16_OF[name]
     row = res.get("main", res["rows"][0])
-    by_path = {path: launches[path][bf16_name] for path in PATHS + BF16_PATHS}
+    by_path = {path: launches[path][bf16_name]
+               for path in PATHS + BF16_PATHS + BF16_TRAIN_PATHS}
     entry = {"name": bf16_name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": sum(by_path.values()), "launches_by_path": by_path,
              **{k: row[k] for k in keys}, "max_abs_err": res["max_abs_err"],
@@ -1189,7 +1558,7 @@ def bf16_entry(name: str, res: dict, source: str, replaces: str, library: str,
         entry["ndir_1"] = {k: res["ndir_1"][k] for k in keys + ("ms_per_step",)}
     if "dropout_0.1" in row:
         entry["dropout_0.1"] = {k: row["dropout_0.1"][k] for k in keys}
-    if name == "attention_packed_fwd":
+    if name.startswith("attention_packed"):
         rows = {r["n"]: r for r in res["rows"]}
         entry[f"n_{BATCHES[0]}"] = {k: rows[BATCHES[0]][k] for k in keys}
         rows16 = {r["n"]: r for r in dh16["rows"]}
@@ -1246,7 +1615,16 @@ def main() -> int:
     attn_bf16_res = check_attention_bf16(dev, rngb)
     attn_bf16_dh16_res = check_attention_bf16(dev, rngb, **choopy)
     slice_bf16_res = check_slice_attention_bf16(dev, rngb)
-    launches, train_res = {}, {}
+    # the bf16 backward instances, on their own generator: K6' at the expert
+    # models' N = 189 rows and the unstacked encoders' 63, and at Choopy's
+    # width at N = 63 and 256
+    rngt = np.random.default_rng(170)
+    lstm_bwd_bf16_res = check_lstm_bwd_bf16(dev, rngt)
+    attn_bwd_bf16_res = check_attention_bwd_bf16(dev, rngt, rows=(PACKED_ROWS[0],
+                                                                  PACKED_ROWS[2]))
+    attn_bwd_bf16_dh16_res = check_attention_bwd_bf16(dev, rngt, **choopy)
+    slice_bwd_bf16_res = check_slice_attention_bwd_bf16(dev, rngt)
+    launches, train_res, train_bf16_res = {}, {}, {}
     for model_name in MODELS:
         launches[f"{model_name}-serve"] = serve_end_to_end(
             rng, model_name, (1, 5, 63, 200) if model_name == "mtple" else (1, 5, 63))
@@ -1255,9 +1633,16 @@ def main() -> int:
     for model_name in MODELS:  # the bf16 serving lane
         launches[f"{model_name}-serve-bf16"] = serve_end_to_end(
             rngb, model_name, (1, 5, 63), compute_dtype="bfloat16")
+    for model_name in MODELS:  # the bf16 training lane
+        train_bf16_res[model_name] = train_end_to_end_bf16(model_name)
+        launches[f"{model_name}-train-bf16"] = train_bf16_res[model_name]["launches"]
     bf16_res = {"lstm_fwd": lstm_bf16_res, "attention_fwd": slice_bf16_res,
-                "attention_packed_fwd": attn_bf16_res}
-    all_paths = PATHS + BF16_PATHS
+                "attention_packed_fwd": attn_bf16_res, "lstm_bwd": lstm_bwd_bf16_res,
+                "attention_bwd": slice_bwd_bf16_res,
+                "attention_packed_bwd": attn_bwd_bf16_res}
+    bf16_dh16 = {"attention_packed_fwd": attn_bf16_dh16_res,
+                 "attention_packed_bwd": attn_bwd_bf16_dh16_res}
+    all_paths = PATHS + BF16_PATHS + BF16_TRAIN_PATHS
 
     kernels = []
     for name, res, source, replaces, library in (
@@ -1320,10 +1705,14 @@ def main() -> int:
         if name in BF16_OF:
             entry["bf16"] = bf16_entry(name, bf16_res[name], source, replaces,
                                        BF16_LIBRARY[name], launches,
-                                       attn_bf16_dh16_res)
+                                       bf16_dh16.get(name))
         kernels.append(entry)
     for model_name, res in train_res.items():
         log(json.dumps({"model": model_name, "train_step_ms": res["timing"]["step_ms"],
+                        "epoch_ms": res["timing"]["epoch_ms"]}))
+    for model_name, res in train_bf16_res.items():
+        log(json.dumps({"model": model_name, "compute_dtype": "bfloat16",
+                        "train_step_ms": res["timing"]["step_ms"],
                         "epoch_ms": res["timing"]["epoch_ms"]}))
     log(json.dumps({"kernels": kernels}))
     log(card)

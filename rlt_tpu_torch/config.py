@@ -67,9 +67,10 @@ class TrainConfig:
     input_size_override: Optional[int] = None
 
     # execution: "bfloat16" serves (the Predictor casts the parameters and
-    # the features to bf16 and runs the bf16 kernels) but does not train yet:
-    # the Trainer takes float32 only until the bf16 backward kernels land
-    # (ROADMAP.md). The JAX package's TPU switches (use_pallas,
+    # the features to bf16 and runs the bf16 kernels) and trains (the
+    # Trainer keeps f32 master parameters and casts them and the features
+    # to bf16 inside each step, through the bf16 kernels forward and
+    # backward; losses and metrics stay f32). The JAX package's TPU switches (use_pallas,
     # fast_dropout_rng, scan_block_epochs, data_parallel, model_parallel)
     # have no meaning here: the port always runs its CUDA kernels on a
     # CUDA tensor and their plain versions on a CPU tensor.

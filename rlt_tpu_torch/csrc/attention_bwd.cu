@@ -1,4 +1,7 @@
-// K4' attention_bwd: per-slice self-attention backward, float32, dh = 128.
+// K4' attention_bwd: per-slice self-attention backward, dh = 128, float32
+// (this file's kernels) and bf16 (attention_bf16_bwd.cuh's at dh = 128,
+// behind rlt_attention_bwd_bf16: a slice is one head of D = 128 in a group of
+// 1).
 //
 // Replaces rlt_tpu/ops/attention.py::_attn_bwd_kernel (run through
 // _bwd_pallas and the custom_vjp of fused_attention). q, k, v, o and the
@@ -53,6 +56,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_bf16_bwd.cuh"
 #include "attention_mma.cuh"
 #include "keep_mask.cuh"
 
@@ -463,4 +467,22 @@ extern "C" int rlt_attention_bwd(const void* q, const void* k, const void* v,
       static_cast<const int32_t*>(streams), static_cast<float*>(dk),
       static_cast<float*>(dv), length, scale, dropout, threshold, inv_keep);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 instance: q, k, v, o, dout, dq, dk, dv (N, L, 128) bf16, lse
+// (N, 1, L) and the delta scratch (N, L) float32, the rest as
+// rlt_attention_bwd. Each slice runs as one head of width 128 in a group of
+// pack 1, so its keep-mask index is i * L + j on its own stream, as above.
+// Launches its two kernels on `stream` and returns the first error.
+extern "C" int rlt_attention_bwd_bf16(const void* q, const void* k, const void* v,
+                                      const void* o, const void* dout, const void* lse,
+                                      const void* streams, void* dq, void* dk, void* dv,
+                                      void* delta, int n, int length, float rate,
+                                      unsigned int threshold, void* stream) {
+  if (n < 1 || length < 1 || n > 65535 || length > 65535 ||
+      !(rate >= 0.0f && rate < 1.0f) || (rate > 0.0f && streams == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return rlt::launch_attn_bwd_bf16<kSliceDh>(q, k, v, o, dout, lse, streams, dq, dk, dv,
+                                             delta, n, length, 1, 1, rate, threshold,
+                                             static_cast<cudaStream_t>(stream));
 }

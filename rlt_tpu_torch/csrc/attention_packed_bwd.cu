@@ -1,4 +1,6 @@
-// K6' attention_packed_bwd: head-packed self-attention backward, float32.
+// K6' attention_packed_bwd: head-packed self-attention backward, float32
+// (this file's kernels) and bf16 (attention_bf16_bwd.cuh's, instanced here at
+// dh = 16 and 64 behind rlt_attention_packed_bwd_bf16).
 //
 // Replaces rlt_tpu/ops/attention.py::_attn_bwd_packed_kernel (run through
 // _bwd_packed and the custom_vjp of fused_attention_packed). q, k, v, o and
@@ -50,6 +52,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_bf16_bwd.cuh"
 #include "attention_mma.cuh"
 #include "keep_mask.cuh"
 
@@ -463,6 +466,35 @@ extern "C" int rlt_attention_packed_bwd(
     case 64:
       return launch_bwd<64>(q_, k_, v_, o_, do_, lse_, s_, dq_, dk_, dv_, delta_, n,
                             length, heads, pack, rate, threshold, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The bf16 instances: q, k, v, o, dout, dq, dk, dv (N, L, D) bf16 with
+// D = heads * head_dim, head_dim 16 or 64, lse (N, heads / pack, L, pack) and
+// the delta scratch (N, heads, L) float32, the rest as
+// rlt_attention_packed_bwd. Launches its two kernels on `stream` and returns
+// the first error.
+extern "C" int rlt_attention_packed_bwd_bf16(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, const void* streams, void* dq, void* dk,
+    void* dv, void* delta, int n, int length, int heads, int head_dim, int pack,
+    float rate, unsigned int threshold, void* stream) {
+  if (n < 1 || length < 1 || heads < 1 || pack < 1 || heads % pack != 0 ||
+      n > 65535 || length > 65535 || heads > 65535 ||
+      !(rate >= 0.0f && rate < 1.0f) || (rate > 0.0f && streams == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 16:
+      return rlt::launch_attn_bwd_bf16<16>(q, k, v, o, dout, lse, streams, dq, dk, dv,
+                                           delta, n, length, heads, pack, rate,
+                                           threshold, st);
+    case 64:
+      return rlt::launch_attn_bwd_bf16<64>(q, k, v, o, dout, lse, streams, dq, dk, dv,
+                                           delta, n, length, heads, pack, rate,
+                                           threshold, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,4 +1,5 @@
-// K2' lstm_bwd: the LSTM recurrence backward, one or two directions, float32.
+// K2' lstm_bwd: the LSTM recurrence backward, one or two directions, float32
+// or bf16 (one template on the element type of xw, W_hh^T, hs, dho and dxw).
 //
 // Replaces rlt_tpu/ops/lstm.py::_lstm_bwd_kernel (run through _bwd_pallas and
 // the custom_vjp of fused_lstm and fused_lstm_bidir), in K1''s layout: xw
@@ -59,8 +60,26 @@
 //     each block writing its chunk's partial product: no atomics.
 //  4. dw_reduce_kernel: sums the partials in chunk order, so the result is
 //     the same on every run.
+//
+// bf16 (rlt_lstm_bwd_bf16; the JAX kernel on bf16 operands): xw, W_hh^T,
+// hs and dho arrive in bf16 and cs in f32. The gates are recomputed from
+// the rounded bf16 h_{t-1} of hs and the bf16 weights, widened (their
+// products are exact in f32, summed in f32 as in the f32 instance); the
+// carries dh and dc are f32; dgates is f32 and feeds the carried dh and
+// dW_hh^T unrounded; only the stored dxw is rounded to bf16; dW_hh^T is
+// f32. The f32 instance's in-place trick (coefficients written into dxw,
+// overwritten there by dgates, which dw_partial_kernel reads back) would
+// hand dW_hh^T the rounded dgates in bf16, so the bf16 instance takes an f32
+// scratch dg of (L, ndir B, 4H) in dxw's place for the coefficients and
+// dgates (77 MB at B = 63), and the chain writes each dgate twice: f32 into
+// dg, rounded into dxw. W_hh^T is widened to f32 as the chain loads it, so
+// its register rows and shared-memory rows and every per-step product are
+// the f32 instance's; only the loads of xw, hs, dho and W_hh^T are narrower.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -73,9 +92,14 @@ constexpr int kGemmThreads = 256;
 constexpr int kLoads = kTileK * kTile / kGemmThreads;  // a thread's loads per operand and stage
 constexpr int kGateUnits = 16;    // hidden units per gate-kernel tile
 
+using bf16 = __nv_bfloat16;
+
 __device__ __forceinline__ float sigmoid_f32(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(bf16 x) { return __bfloat162float(x); }
 
 // acc[x][y] += sum over the stage's kTileK rows of a_s[kk][4tm + x] *
 // b_s[kk][4tn + y]
@@ -103,10 +127,12 @@ __device__ __forceinline__ size_t layout_row(int t, int b, int batch, int ndir,
 
 // Grid (ceil(L B / 64), H / 16, ndir), 256 threads. Tile rows m = t B + b,
 // tile columns 4j + q = gate q of unit u0 + j: thread (tm, tn) ends with the
-// four gates of unit u0 + tn for rows 4tm .. 4tm + 3.
+// four gates of unit u0 + tn for rows 4tm .. 4tm + 3. `coef` is f32: dxw
+// itself in the f32 instance, the scratch dg in the bf16 one.
+template <typename T>
 __global__ void __launch_bounds__(kGemmThreads)
-lstm_bwd_gates_kernel(const float* __restrict__ xw, const float* __restrict__ w,
-                      const float* __restrict__ hs, const float* __restrict__ cs,
+lstm_bwd_gates_kernel(const T* __restrict__ xw, const T* __restrict__ w,
+                      const T* __restrict__ hs, const float* __restrict__ cs,
                       float* __restrict__ coef, float2* __restrict__ gf,
                       int length, int batch, int hidden, int ndir) {
   __shared__ __align__(16) float a_s[kTileK][kPitchA];
@@ -116,7 +142,7 @@ lstm_bwd_gates_kernel(const float* __restrict__ xw, const float* __restrict__ w,
   const int u0 = blockIdx.y * kGateUnits;
   const int dir = blockIdx.z;
   const int gates = 4 * hidden;
-  const float* wd = w + static_cast<size_t>(dir) * hidden * gates;
+  const T* wd = w + static_cast<size_t>(dir) * hidden * gates;
   const int tid = threadIdx.x;
   const int tm = tid / 16;
   const int tn = tid % 16;
@@ -141,8 +167,8 @@ lstm_bwd_gates_kernel(const float* __restrict__ xw, const float* __restrict__ w,
   const auto load = [&](int k0) {
 #pragma unroll
     for (int l = 0; l < kLoads; ++l) {
-      ra[l] = a_off[l] >= 0 ? hs[a_off[l] + k0] : 0.0f;
-      rb[l] = wd[static_cast<size_t>(k0) * gates + b_off[l]];
+      ra[l] = a_off[l] >= 0 ? widen(hs[a_off[l] + k0]) : 0.0f;
+      rb[l] = widen(wd[static_cast<size_t>(k0) * gates + b_off[l]]);
     }
   };
   float acc[4][4] = {};
@@ -167,11 +193,11 @@ lstm_bwd_gates_kernel(const float* __restrict__ xw, const float* __restrict__ w,
     if (m >= m_dim) continue;
     const int t = m / batch;
     const size_t row = layout_row(t, m - t * batch, batch, ndir, dir);
-    const float* xr = xw + row * gates + u;
-    const float in_g = sigmoid_f32(acc[x][0] + xr[0]);
-    const float forget_g = sigmoid_f32(acc[x][1] + xr[hidden]);
-    const float cell_g = tanhf(acc[x][2] + xr[2 * hidden]);
-    const float out_g = sigmoid_f32(acc[x][3] + xr[3 * hidden]);
+    const T* xr = xw + row * gates + u;
+    const float in_g = sigmoid_f32(acc[x][0] + widen(xr[0]));
+    const float forget_g = sigmoid_f32(acc[x][1] + widen(xr[hidden]));
+    const float cell_g = tanhf(acc[x][2] + widen(xr[2 * hidden]));
+    const float out_g = sigmoid_f32(acc[x][3] + widen(xr[3 * hidden]));
     const float c_prev =
         t > 0 ? cs[(row - static_cast<size_t>(ndir) * batch) * hidden + u] : 0.0f;
     const float tanh_c = tanhf(cs[row * hidden + u]);
@@ -210,13 +236,14 @@ __device__ __forceinline__ void fma4x2(float (&acc)[R][2], const float* v, int p
 }
 
 // A chain step's inputs of rows row .. row + R - 1 (zero past the nb rows of
-// the batch), for units k0 and k0 + H/2: this lane's coefficient (its dxw
-// slot, gate q), the unit's dc factors {o(1 - tanh(c)^2), f}, and dho.
-template <int R>
+// the batch), for units k0 and k0 + H/2: this lane's coefficient (its slot of
+// the f32 dgates array `dg`, gate q), the unit's dc factors
+// {o(1 - tanh(c)^2), f}, and dho.
+template <typename T, int R>
 __device__ __forceinline__ void load_step(float (&coef)[R][2], float (&gam)[R][2],
                                           float (&fgt)[R][2], float (&dh_in)[R][2],
-                                          const float* dxw, const float2* gf,
-                                          const float* dho, size_t row, int nb,
+                                          const float* dg, const float2* gf,
+                                          const T* dho, size_t row, int nb,
                                           int hidden, int q, int k0) {
 #pragma unroll
   for (int r = 0; r < R; ++r) {
@@ -225,23 +252,28 @@ __device__ __forceinline__ void load_step(float (&coef)[R][2], float (&gam)[R][2
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
       const int k = k0 + s * (hidden / 2);
-      coef[r][s] = in ? dxw[rr * 4 * hidden + q * hidden + k] : 0.0f;
+      coef[r][s] = in ? dg[rr * 4 * hidden + q * hidden + k] : 0.0f;
       const float2 g = in ? gf[rr * hidden + k] : make_float2(0.0f, 0.0f);
       gam[r][s] = g.x;
       fgt[r][s] = g.y;
-      dh_in[r][s] = in ? dho[rr * hidden + k] : 0.0f;
+      dh_in[r][s] = in ? widen(dho[rr * hidden + k]) : 0.0f;
     }
   }
 }
 
 // Dynamic shared memory: w_s[(H - 64) / 4][2][2H][4], where
-// w_s[m][s][4v + q][e] = W_hh^T[v + s H/2][qH + 4m + e] | dg_s[2][R][4][H + 8]
-// (dgates gate-major, alternating by step).
-template <int R>
+// w_s[m][s][4v + q][e] = W_hh^T[v + s H/2][qH + 4m + e] (f32, W_hh^T widened
+// in the bf16 instance) | dg_s[2][R][4][H + 8] (dgates gate-major,
+// alternating by step). `dg` holds the coefficients, overwritten by the f32
+// dgates; the f32 instance's dg is dxw, the bf16 one also writes the rounded
+// dgates to dxw.
+template <typename T, int R>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-lstm_bwd_chain_kernel(const float* __restrict__ w, const float2* __restrict__ gf,
-                      const float* __restrict__ dho, float* __restrict__ dxw,
-                      int length, int batch, int hidden, int ndir) {
+lstm_bwd_chain_kernel(const T* __restrict__ w, const float2* __restrict__ gf,
+                      const T* __restrict__ dho, float* __restrict__ dg,
+                      T* __restrict__ dxw, int length, int batch, int hidden,
+                      int ndir) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int gates = 4 * hidden;
@@ -250,7 +282,7 @@ lstm_bwd_chain_kernel(const float* __restrict__ w, const float2* __restrict__ gf
   const int ks = hidden - kRegRows;  // values of a unit's slice in shared memory
   const int pitch = hidden + 8;
   float* w_s = smem;
-  float* dg_s = w_s + static_cast<size_t>(ks) * gates;
+  float* dg_s = w_s + static_cast<size_t>(ks) * gates;  // dgates of a step
 
   const int tid = threadIdx.x;
   const int v = tid >> 2;  // hidden units v and v + H/2
@@ -261,24 +293,24 @@ lstm_bwd_chain_kernel(const float* __restrict__ w, const float2* __restrict__ gf
   const int nb = min(R, batch - b0);
   const size_t step_rows = static_cast<size_t>(ndir) * batch;
   const size_t row0 = static_cast<size_t>(dir) * batch + b0;
-  const float* wd = w + static_cast<size_t>(dir) * hidden * gates;
+  const T* wd = w + static_cast<size_t>(dir) * hidden * gates;
 
   for (int i = tid; i < ks * gates; i += threads) {
     const int th = (i >> 2) % threads;  // thread 4v' + q'
     const int k = (th >> 2) + ((i >> 2) / threads & 1) * half;
     const int u = ((i >> 2) / (2 * threads)) * 4 + (i & 3);
-    w_s[i] = wd[static_cast<size_t>(k) * gates + (th & 3) * hidden + u];
+    w_s[i] = widen(wd[static_cast<size_t>(k) * gates + (th & 3) * hidden + u]);
   }
   float w_r0[kRegRows], w_r1[kRegRows];
 #pragma unroll
   for (int u = 0; u < kRegRows; ++u) {
-    w_r0[u] = wd[static_cast<size_t>(v) * gates + q * hidden + ks + u];
-    w_r1[u] = wd[static_cast<size_t>(v + half) * gates + q * hidden + ks + u];
+    w_r0[u] = widen(wd[static_cast<size_t>(v) * gates + q * hidden + ks + u]);
+    w_r1[u] = widen(wd[static_cast<size_t>(v + half) * gates + q * hidden + ks + u]);
   }
 
   float coef[R][2], gam[R][2], fgt[R][2], dh_in[R][2];
-  load_step<R>(coef, gam, fgt, dh_in, dxw, gf, dho, (length - 1) * step_rows + row0,
-               nb, hidden, q, v);
+  load_step<T, R>(coef, gam, fgt, dh_in, dg, gf, dho, (length - 1) * step_rows + row0,
+                  nb, hidden, q, v);
   float dh_carry[R][2], dc_carry[R][2];
 #pragma unroll
   for (int r = 0; r < R; ++r)
@@ -290,7 +322,7 @@ lstm_bwd_chain_kernel(const float* __restrict__ w, const float2* __restrict__ gf
   __syncthreads();
 
   for (int t = length - 1; t >= 0; --t) {
-    float* dg = dg_s + (t & 1) * R * 4 * pitch;
+    float* dgs = dg_s + (t & 1) * R * 4 * pitch;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
 #pragma unroll
@@ -300,13 +332,17 @@ lstm_bwd_chain_kernel(const float* __restrict__ w, const float2* __restrict__ gf
         dc_carry[r][s] = dc * fgt[r][s];
         const float d = (q == 3 ? dh : dc) * coef[r][s];
         const int k = v + s * half;
-        dg[(r * 4 + q) * pitch + k] = d;
-        if (r < nb) dxw[(t * step_rows + row0 + r) * gates + q * hidden + k] = d;
+        dgs[(r * 4 + q) * pitch + k] = d;
+        if (r < nb) {
+          const size_t o = (t * step_rows + row0 + r) * gates + q * hidden + k;
+          dg[o] = d;
+          if constexpr (!kF32) dxw[o] = __float2bfloat16_rn(d);
+        }
       }
     }
     if (t == 0) break;  // no carry into step -1; every thread leaves here
-    load_step<R>(coef, gam, fgt, dh_in, dxw, gf, dho, (t - 1) * step_rows + row0, nb,
-                 hidden, q, v);
+    load_step<T, R>(coef, gam, fgt, dh_in, dg, gf, dho, (t - 1) * step_rows + row0, nb,
+                    hidden, q, v);
     // this step's dgates are complete before any thread reads them; their
     // buffer is not written again until every thread has passed the next
     // step's barrier
@@ -319,7 +355,7 @@ lstm_bwd_chain_kernel(const float* __restrict__ w, const float2* __restrict__ gf
       acc[r][0] = 0.0f;
       acc[r][1] = 0.0f;
     }
-    const float* dq = dg + q * pitch;
+    const float* dq = dgs + q * pitch;
     const float4* w4 = reinterpret_cast<const float4*>(w_s) + tid;
 #pragma unroll 4
     for (int u = 0; u < ks; u += 4) {
@@ -343,10 +379,12 @@ lstm_bwd_chain_kernel(const float* __restrict__ w, const float2* __restrict__ gf
 
 // partial[dir][s] = A_dir[k0:k1]^T B_dir[k0:k1] over chunk s of the
 // contraction rows kk = t B + b: A_dir's row kk is a[(t ndir + dir) B + b]
-// (m_dim wide), B_dir's is b[(t ndir + dir) B + b] (n_dim wide); partial
+// (m_dim wide; hs, widened in the bf16 instance), B_dir's is
+// b[(t ndir + dir) B + b] (n_dim wide; the f32 dgates); partial
 // (ndir, splits, m_dim, n_dim). Grid (n tiles, m tiles, ndir * splits).
+template <typename T>
 __global__ void __launch_bounds__(kGemmThreads)
-dw_partial_kernel(const float* __restrict__ a, const float* __restrict__ b,
+dw_partial_kernel(const T* __restrict__ a, const float* __restrict__ b,
                   float* __restrict__ partial, int kdim, int m_dim, int n_dim,
                   int chunk, int batch, int ndir, int splits) {
   __shared__ __align__(16) float a_s[kTileK][kPitchA];
@@ -370,7 +408,7 @@ dw_partial_kernel(const float* __restrict__ a, const float* __restrict__ b,
       const int c = i % kTile;
       const int t = k / batch;
       const size_t row = layout_row(t, k - t * batch, batch, ndir, dir);
-      ra[l] = (k < k_end && m0 + c < m_dim) ? a[row * m_dim + m0 + c] : 0.0f;
+      ra[l] = (k < k_end && m0 + c < m_dim) ? widen(a[row * m_dim + m0 + c]) : 0.0f;
       rb[l] = (k < k_end && n0 + c < n_dim) ? b[row * n_dim + n0 + c] : 0.0f;
     }
   };
@@ -415,35 +453,29 @@ __global__ void dw_reduce_kernel(const float* __restrict__ partial,
   out[i] = a;
 }
 
-template <int R>
+template <typename T, int R>
 cudaError_t launch_chain(const void* w_hh_t, const void* gf, const void* dho,
-                         void* dxw, int length, int batch, int hidden, int ndir,
-                         cudaStream_t stream) {
+                         float* dg, void* dxw, int length, int batch, int hidden,
+                         int ndir, cudaStream_t stream) {
   const size_t smem = chain_smem_bytes(R, hidden);
   const cudaError_t err = cudaFuncSetAttribute(
-      lstm_bwd_chain_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      lstm_bwd_chain_kernel<T, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  lstm_bwd_chain_kernel<R><<<ndir * ((batch + R - 1) / R), 2 * hidden, smem, stream>>>(
-      static_cast<const float*>(w_hh_t), static_cast<const float2*>(gf),
-      static_cast<const float*>(dho), static_cast<float*>(dxw), length, batch,
-      hidden, ndir);
+  lstm_bwd_chain_kernel<T, R><<<ndir * ((batch + R - 1) / R), 2 * hidden, smem, stream>>>(
+      static_cast<const T*>(w_hh_t), static_cast<const float2*>(gf),
+      static_cast<const T*>(dho), dg, static_cast<T*>(dxw), length, batch, hidden,
+      ndir);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// xw, dxw (L, ndir * B, 4H), w_hh_t, dw_hh_t (ndir * H, 4H), hs, cs, dho
-// (L, ndir * B, H), scratch arrays gf (L, ndir * B, H, 2) and partial
-// (ndir, splits, H, 4H): contiguous float32 device arrays, H a multiple of
-// 32 in [64, 128], ndir 1 or 2, B the rows of one direction,
-// 1 <= splits <= 32767. Launches its four kernels on `stream` and returns
-// the first error.
-extern "C" int rlt_lstm_bwd(const void* xw, const void* w_hh_t, const void* hs,
-                            const void* cs, const void* dho, void* dxw,
-                            void* dw_hh_t, void* partial, void* gf, int length,
-                            int batch, int hidden, int ndir, int splits,
-                            void* stream) {
+// The four kernels on `stream`; `dg` is the f32 coefficient and dgates
+// array (dxw itself in the f32 instance). Returns the first error.
+template <typename T>
+int lstm_bwd(const void* xw, const void* w_hh_t, const void* hs, const void* cs,
+             const void* dho, void* dxw, void* dw_hh_t, void* partial, void* gf,
+             float* dg, int length, int batch, int hidden, int ndir, int splits,
+             void* stream) {
   if (length < 1 || batch < 1 || hidden < kRegRows || hidden % 32 != 0 ||
       2 * hidden > kMaxThreads || ndir < 1 || ndir > 2 || splits < 1 ||
       splits > 32767)
@@ -463,34 +495,32 @@ extern "C" int rlt_lstm_bwd(const void* xw, const void* w_hh_t, const void* hs,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int gates = 4 * hidden;
 
-  // 1. coefficients into dxw, dc factors into gf
+  // 1. coefficients into dg, dc factors into gf
   const dim3 gate_grid((length * batch + kTile - 1) / kTile, hidden / kGateUnits, ndir);
-  lstm_bwd_gates_kernel<<<gate_grid, kGemmThreads, 0, s>>>(
-      static_cast<const float*>(xw), static_cast<const float*>(w_hh_t),
-      static_cast<const float*>(hs), static_cast<const float*>(cs),
-      static_cast<float*>(dxw), static_cast<float2*>(gf), length, batch, hidden,
-      ndir);
+  lstm_bwd_gates_kernel<T><<<gate_grid, kGemmThreads, 0, s>>>(
+      static_cast<const T*>(xw), static_cast<const T*>(w_hh_t),
+      static_cast<const T*>(hs), static_cast<const float*>(cs), dg,
+      static_cast<float2*>(gf), length, batch, hidden, ndir);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  // 2. the chain: dgates over the coefficients, in place
+  // 2. the chain: dgates over the coefficients, in place (and into dxw)
   if (ndir * batch <= sms)
-    err = launch_chain<1>(w_hh_t, gf, dho, dxw, length, batch, hidden, ndir, s);
+    err = launch_chain<T, 1>(w_hh_t, gf, dho, dg, dxw, length, batch, hidden, ndir, s);
   else if (ndir * ((batch + 1) / 2) <= sms)
-    err = launch_chain<2>(w_hh_t, gf, dho, dxw, length, batch, hidden, ndir, s);
+    err = launch_chain<T, 2>(w_hh_t, gf, dho, dg, dxw, length, batch, hidden, ndir, s);
   else
-    err = launch_chain<4>(w_hh_t, gf, dho, dxw, length, batch, hidden, ndir, s);
+    err = launch_chain<T, 4>(w_hh_t, gf, dho, dg, dxw, length, batch, hidden, ndir, s);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  // 3-4. dW_hh^T = hs[0 : L-1]^T dxw[1 : L] per direction, contracted over
+  // 3-4. dW_hh^T = hs[0 : L-1]^T dgates[1 : L] per direction, contracted over
   // (L - 1) * B rows
   const int kdim = (length - 1) * batch;
   const int chunk = (kdim + splits - 1) / splits;
   const dim3 grid((gates + kTile - 1) / kTile, (hidden + kTile - 1) / kTile,
                   ndir * splits);
-  dw_partial_kernel<<<grid, kGemmThreads, 0, s>>>(
-      static_cast<const float*>(hs),
-      static_cast<const float*>(dxw) + static_cast<size_t>(ndir) * batch * gates,
+  dw_partial_kernel<T><<<grid, kGemmThreads, 0, s>>>(
+      static_cast<const T*>(hs), dg + static_cast<size_t>(ndir) * batch * gates,
       static_cast<float*>(partial), kdim, hidden, gates, chunk, batch, ndir, splits);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -499,4 +529,36 @@ extern "C" int rlt_lstm_bwd(const void* xw, const void* w_hh_t, const void* hs,
       static_cast<const float*>(partial), static_cast<float*>(dw_hh_t), splits, size,
       ndir);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// xw, dxw (L, ndir * B, 4H), w_hh_t, dw_hh_t (ndir * H, 4H), hs, cs, dho
+// (L, ndir * B, H), scratch arrays gf (L, ndir * B, H, 2) and partial
+// (ndir, splits, H, 4H): contiguous float32 device arrays, H a multiple of
+// 32 in [64, 128], ndir 1 or 2, B the rows of one direction,
+// 1 <= splits <= 32767. Launches its four kernels on `stream` and returns
+// the first error.
+extern "C" int rlt_lstm_bwd(const void* xw, const void* w_hh_t, const void* hs,
+                            const void* cs, const void* dho, void* dxw,
+                            void* dw_hh_t, void* partial, void* gf, int length,
+                            int batch, int hidden, int ndir, int splits,
+                            void* stream) {
+  return lstm_bwd<float>(xw, w_hh_t, hs, cs, dho, dxw, dw_hh_t, partial, gf,
+                         static_cast<float*>(dxw), length, batch, hidden, ndir, splits,
+                         stream);
+}
+
+// The bf16 instance: xw, w_hh_t, hs, dho and dxw bf16 (2-byte aligned), cs,
+// dw_hh_t and the scratch arrays float32, and a further float32 scratch dg
+// of dxw's shape for the coefficients and the unrounded dgates; the rest as
+// rlt_lstm_bwd.
+extern "C" int rlt_lstm_bwd_bf16(const void* xw, const void* w_hh_t, const void* hs,
+                                 const void* cs, const void* dho, void* dxw,
+                                 void* dw_hh_t, void* partial, void* gf, void* dg,
+                                 int length, int batch, int hidden, int ndir,
+                                 int splits, void* stream) {
+  return lstm_bwd<bf16>(xw, w_hh_t, hs, cs, dho, dxw, dw_hh_t, partial, gf,
+                        static_cast<float*>(dg), length, batch, hidden, ndir, splits,
+                        stream);
 }

@@ -13,7 +13,8 @@ bf16, the model runs in bf16 (its LSTM and attention kernels through their
 bf16 instances), and its outputs are cast back to float32 before the cuts
 are decoded and the distribution returned. The bf16 copy of the model is
 made once; `model` stays the float32 master (its state_dict is what a
-checkpoint holds).
+checkpoint holds). Training in bf16 casts the same way inside each step
+(`rlt_tpu_torch/train.py`).
 """
 
 from __future__ import annotations

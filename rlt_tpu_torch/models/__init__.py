@@ -36,6 +36,27 @@ MODEL_NAMES = frozenset({"bicut", "choopy", "attncut", "mtchoopy", "mtattncut",
 MULTI_HEAD = frozenset({"mtchoopy", "mtattncut", "mmoecut", "moecut", "mtple"})
 
 
+# Per model, the parameters whose gradient is zero by algebra: a training
+# step's gradient there is rounding noise, which a comparison of two runs
+# holds to the model's largest gradient rather than to its own size.
+_TOWER_BIASES = ("tower_rerank.linear.bias", "tower_cut.linear.bias")
+ZERO_GRAD_LEAVES = {
+    # the towers' biases under a softmax over positions (the cut tower) or
+    # the rerank criterion
+    "mmoecut": _TOWER_BIASES, "moecut": _TOWER_BIASES, "mtple": _TOWER_BIASES,
+    # the encoder's last LayerNorm bias b shifts every position's logit by
+    # decision.weight . b, which the softmax over positions cancels
+    "attncut": ("decision.bias", "attention_layer.layers_0.norm2.bias"),
+    # the rerank hinge's two batch means cancel the bias
+    "mtattncut": ("heads.rerank.bias", "heads.decision.bias"),
+    "bicut": (),
+    # as AttnCut's: the last of the three encoder layers
+    "choopy": ("decision.bias", "attention_layer.layers_2.norm2.bias"),
+    # as MtAttnCut's
+    "mtchoopy": ("heads.rerank.bias", "heads.decision.bias"),
+}
+
+
 def is_multi_head(name: str) -> bool:
     """True when `name`'s forward output is a list of heads."""
     if name not in MODEL_NAMES:

@@ -43,6 +43,14 @@ that op's f32 result unrounded (its default excess precision), and so does
 the port: the residual sums that enter a LayerNorm, the exps that a
 softmax sums, and the last op of every output head, whose f32 result is
 what the JAX package's Predictor decodes (`final=True` below).
+
+Training in bf16 (`compute_params` below, as the JAX package's
+`build_epoch_fn` casts its f32 parameters inside the loss) differentiates
+that forward. Most ops are differentiated by autograd through their f32 and
+bf16 steps. `softmax` and `sigmoid` have backwards of their own, the ones
+XLA derives for `jax.nn.softmax` and `jax.nn.sigmoid` on bf16 with every op
+rounding to bf16. The LSTM's recurrent weights reach its op in f32 (see
+`compute_params`).
 """
 
 from __future__ import annotations
@@ -197,27 +205,91 @@ def residual(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return x.float() + y.float()
 
 
+def _round(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x rounded to `dtype` and widened back to f32."""
+    return x.to(dtype).float()
+
+
+def _sum_bf16(z: torch.Tensor, dim: int) -> torch.Tensor:
+    """The sum over `dim` of bf16 values z (held in f32), summed in f32 and
+    rounded once to bf16; returned in f32 with `dim` kept. (XLA on the CPU,
+    which runs the JAX package's tests, sums bf16 in windows of 32 with
+    every add rounded: the two part by a few roundings of the sum,
+    tests/test_torch_bf16_train_ops.py.)"""
+    return _round(z.sum(dim=dim, keepdim=True), torch.bfloat16)
+
+
+class _Bf16Softmax(torch.autograd.Function):
+    """`softmax` on bf16. Forward: x - max rounded to bf16, its exp summed
+    in f32, the exp s and the sum w each rounded to bf16 and their quotient
+    rounded to bf16, or with `final` left in f32. Backward: `jax.nn.softmax`
+    is the quotient s / w, which XLA differentiates op by op, each rounding
+    to bf16 (a final head's f32 cotangent rounded first):
+      dx = (g / w - sum(g w^-2 s)) s,  w^-2 = 1 / (w w)
+    with the bf16 terms z = g w^-2 s summed in f32 and rounded once
+    (`_sum_bf16`). Its result sums to zero over `dim` in exact arithmetic;
+    in bf16 it leaves a residual of the size of one rounding of g / w,
+    which the downstream gradients carry."""
+
+    @staticmethod
+    def forward(ctx, x, dim, final):
+        e = torch.exp((x - x.amax(dim=dim, keepdim=True)).float())
+        s = e.to(x.dtype)
+        w = e.sum(dim=dim, keepdim=True).to(x.dtype)
+        p = s.float() / w.float()
+        ctx.save_for_backward(s, w)
+        ctx.dim = dim
+        return p if final else p.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        s, w = ctx.saved_tensors
+        bf = s.dtype
+        g, s, w = _round(g, bf), s.float(), w.float()
+        w_m2 = _round(1.0 / _round(w * w, bf), bf)
+        z = _round(_round(g * w_m2, bf) * s, bf)
+        sz = _sum_bf16(z, ctx.dim)
+        return (_round(_round(g / w, bf) - sz, bf) * s).to(bf), None, None
+
+
 def softmax(x: torch.Tensor, dim: int, final: bool = False) -> torch.Tensor:
     """torch.softmax; on bf16, the roundings of the JAX package's
     `jax.nn.softmax` on bf16 as XLA evaluates it: x - max rounded to bf16,
     its exp summed in f32, the exp and the sum each rounded to bf16 and
     their quotient rounded to bf16, or with `final` (an output head) left
-    in f32."""
+    in f32; differentiated as XLA differentiates it (`_Bf16Softmax`)."""
     if x.dtype != torch.bfloat16:
         return torch.softmax(x, dim=dim)
-    e = torch.exp((x - x.amax(dim=dim, keepdim=True)).float())
-    p = e.to(x.dtype).float() / e.sum(dim=dim, keepdim=True).to(x.dtype).float()
-    return p if final else p.to(x.dtype)
+    return _Bf16Softmax.apply(x, dim, final)
+
+
+class _Bf16Sigmoid(torch.autograd.Function):
+    """`sigmoid` on bf16. Forward: 1 / (1 + exp(-x)), every op rounding to
+    bf16 but a final head's quotient, which stays f32. Backward: the JVP of
+    `lax.logistic`, g y (1 - y) on the rounded bf16 y, every op rounding to
+    bf16 (a final head's f32 cotangent rounded first)."""
+
+    @staticmethod
+    def forward(ctx, x, final):
+        p = 1.0 / (1.0 + torch.exp(-x)).float()
+        y = p.to(x.dtype)
+        ctx.save_for_backward(y)
+        return p if final else y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g.to(y.dtype) * (y * (1.0 - y)), None
 
 
 def sigmoid(x: torch.Tensor, final: bool = False) -> torch.Tensor:
     """torch.sigmoid; on bf16 the JAX package's `jax.nn.sigmoid` as XLA
     expands it, 1 / (1 + exp(-x)), every op rounding to bf16 but the
-    quotient of an output head (`final`), which stays f32."""
+    quotient of an output head (`final`), which stays f32; differentiated
+    as XLA differentiates `lax.logistic` (`_Bf16Sigmoid`)."""
     if x.dtype != torch.bfloat16:
         return torch.sigmoid(x)
-    p = 1.0 / (1.0 + torch.exp(-x)).float()
-    return p if final else p.to(x.dtype)
+    return _Bf16Sigmoid.apply(x, final)
 
 
 # ---------------------------------------------------------------------------
@@ -231,6 +303,24 @@ def _gate_inputs(x, w_ih, b_ih, b_hh, reverse: bool) -> torch.Tensor:
     xw = x @ w_ih.T + b_ih + b_hh
     xw = xw.transpose(0, 1)
     return (torch.flip(xw, dims=(0,)) if reverse else xw).contiguous()
+
+
+def compute_params(model: nn.Module, dtype: torch.dtype) -> dict[str, torch.Tensor]:
+    """`model`'s parameters for a forward in `dtype`, by name, for
+    `torch.func.functional_call`: each float32 parameter cast to `dtype`
+    inside the autograd graph, so that its gradient reaches the f32 master
+    through the cast, as the JAX package's `build_epoch_fn` casts its
+    parameters inside the loss. An `LSTM`'s parameters stay f32: the layer
+    casts them itself (`LSTM._params`), and hands its recurrent weight to
+    the LSTM op in f32, which rounds it for its kernels and returns its
+    gradient, K2''s f32 sum, in f32, as the JAX package's custom_vjp hands
+    it to the f32 master; cast here, autograd would round that gradient to
+    bf16."""
+    if dtype == torch.float32:
+        return dict(model.named_parameters())
+    own = {id(p) for m in model.modules() if isinstance(m, LSTM) for p in m.parameters()}
+    return {name: p if id(p) in own or p.dtype != torch.float32 else p.to(dtype)
+            for name, p in model.named_parameters()}
 
 
 def _lstm_direction(x, w_ih, w_hh, b_ih, b_hh, reverse: bool) -> torch.Tensor:
@@ -277,17 +367,23 @@ class LSTM(nn.Module):
                 setattr(self, f"bias_ih_{suffix}", _uniform((gates,), bound, generator))
                 setattr(self, f"bias_hh_{suffix}", _uniform((gates,), bound, generator))
 
-    def _params(self, layer: int, reverse: bool):
+    def _params(self, layer: int, reverse: bool, dtype: torch.dtype):
+        """(W_ih, W_hh, b_ih, b_hh) of one direction for a forward on `dtype`
+        inputs: W_ih and the biases cast to `dtype` (inside the autograd
+        graph), W_hh as it is, which the LSTM op rounds to its inputs' dtype
+        itself and whose gradient it returns in W_hh's own dtype."""
         suffix = f"l{layer}" + ("_reverse" if reverse else "")
-        return [getattr(self, f"{name}_{suffix}")
-                for name in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")]
+        w_ih, w_hh, b_ih, b_hh = (getattr(self, f"{name}_{suffix}") for name in (
+            "weight_ih", "weight_hh", "bias_ih", "bias_hh"))
+        return w_ih.to(dtype), w_hh, b_ih.to(dtype), b_hh.to(dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in range(self.num_layers):
             if len(self.directions) == 1:
-                x = _lstm_direction(x, *self._params(layer, False), reverse=False)
+                x = _lstm_direction(x, *self._params(layer, False, x.dtype), reverse=False)
             else:
-                x = _bilstm_layer(x, self._params(layer, False), self._params(layer, True))
+                x = _bilstm_layer(x, self._params(layer, False, x.dtype),
+                                  self._params(layer, True, x.dtype))
         return x
 
 

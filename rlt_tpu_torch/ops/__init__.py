@@ -5,16 +5,20 @@ import contextlib
 from rlt_tpu_torch.ops import attention, lstm
 from rlt_tpu_torch.ops.attention import (  # noqa: F401
     ATTENTION_BWD,
+    ATTENTION_BWD_BF16,
     ATTENTION_FWD,
     ATTENTION_FWD_BF16,
     ATTENTION_PACKED_BWD,
+    ATTENTION_PACKED_BWD_BF16,
     ATTENTION_PACKED_FWD,
     ATTENTION_PACKED_FWD_BF16,
     attention_bwd,
+    attention_bwd_bf16,
     attention_bwd_plain,
     attention_fwd,
     attention_fwd_bf16,
     attention_packed_bwd,
+    attention_packed_bwd_bf16,
     attention_packed_bwd_plain,
     attention_packed_fwd,
     attention_packed_fwd_bf16,
@@ -26,11 +30,13 @@ from rlt_tpu_torch.ops.attention import (  # noqa: F401
 )
 from rlt_tpu_torch.ops.lstm import (  # noqa: F401
     LSTM_BWD,
+    LSTM_BWD_BF16,
     LSTM_FWD,
     LSTM_FWD_BF16,
     fused_lstm,
     fused_lstm_bidir,
     lstm_bwd,
+    lstm_bwd_bf16,
     lstm_bwd_plain,
     lstm_fwd,
     lstm_fwd_bf16,
@@ -44,7 +50,9 @@ KERNELS = {"lstm_fwd": LSTM_FWD, "lstm_bwd": LSTM_BWD,
            "attention_packed_fwd": ATTENTION_PACKED_FWD,
            "attention_packed_bwd": ATTENTION_PACKED_BWD,
            "lstm_fwd_bf16": LSTM_FWD_BF16, "attention_fwd_bf16": ATTENTION_FWD_BF16,
-           "attention_packed_fwd_bf16": ATTENTION_PACKED_FWD_BF16}
+           "attention_packed_fwd_bf16": ATTENTION_PACKED_FWD_BF16,
+           "lstm_bwd_bf16": LSTM_BWD_BF16, "attention_bwd_bf16": ATTENTION_BWD_BF16,
+           "attention_packed_bwd_bf16": ATTENTION_PACKED_BWD_BF16}
 
 # each kernel's wrapper, by the same name, as (its module, its plain version)
 PLAIN_VERSIONS = {"lstm_fwd": (lstm, lstm_recurrence_plain),
@@ -55,7 +63,10 @@ PLAIN_VERSIONS = {"lstm_fwd": (lstm, lstm_recurrence_plain),
                   "attention_packed_bwd": (attention, attention_packed_bwd_plain),
                   "lstm_fwd_bf16": (lstm, lstm_recurrence_plain),
                   "attention_fwd_bf16": (attention, attention_plain),
-                  "attention_packed_fwd_bf16": (attention, attention_packed_plain)}
+                  "attention_packed_fwd_bf16": (attention, attention_packed_plain),
+                  "lstm_bwd_bf16": (lstm, lstm_bwd_plain),
+                  "attention_bwd_bf16": (attention, attention_bwd_plain),
+                  "attention_packed_bwd_bf16": (attention, attention_packed_bwd_plain)}
 
 
 @contextlib.contextmanager

@@ -62,7 +62,19 @@ rounding noise, emulated in tests/test_torch_bf16.py); on a CPU tensor
 they run `attention_packed_plain` and `attention_plain`, which compute
 either dtype's semantics. The float32 wrappers raise on bf16 and the bf16
 ones on anything else; `AttentionPacked` and `Attention` pick one by q's
-dtype. The bf16 backward is not ported: training runs in float32.
+dtype, in the forward and in the backward.
+
+bf16 (the training lane): `attention_packed_bwd_bf16` (dh 16 and 64) and
+`attention_bwd_bf16` (dh 128) take bf16 q, k, v, o and do beside f32 lse
+and return bf16 dq, dk and dv, with the JAX kernels' semantics on bf16
+operands: s, p = exp(s scale - lse), dP = do v^T and delta = rowsum(do o)
+in f32, ds = p (dp - delta) scale and the dropped weights pd rounded to
+bf16 before the products dq = ds k, dk = ds^T q and dv = pd^T do, which sum
+in f32 and are stored in bf16. On a CUDA tensor they launch the bf16
+instances of `csrc/attention_bf16_bwd.cuh` (through
+`attention_packed_bwd.cu` and `attention_bwd.cu`), which round what the JAX
+kernels round; on a CPU tensor `attention_packed_bwd_plain` and
+`attention_bwd_plain`, which compute either dtype's semantics.
 """
 
 from __future__ import annotations
@@ -93,6 +105,10 @@ ATTENTION_BWD = Kernel(
     "rlt_attention_bwd",
     [ctypes.c_void_p] * 11 + [ctypes.c_int] * 2
     + [ctypes.c_float, ctypes.c_uint, ctypes.c_void_p])
+ATTENTION_BWD_BF16 = Kernel(
+    "rlt_attention_bwd_bf16",
+    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 2
+    + [ctypes.c_float, ctypes.c_uint, ctypes.c_void_p])
 # the packed kernels' int arguments: n, length, heads, head_dim, pack
 ATTENTION_PACKED_FWD = Kernel(
     "rlt_attention_packed_fwd",
@@ -104,6 +120,10 @@ ATTENTION_PACKED_FWD_BF16 = Kernel(
     + [ctypes.c_float, ctypes.c_uint, ctypes.c_void_p])
 ATTENTION_PACKED_BWD = Kernel(
     "rlt_attention_packed_bwd",
+    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+    + [ctypes.c_float, ctypes.c_uint, ctypes.c_void_p])
+ATTENTION_PACKED_BWD_BF16 = Kernel(
+    "rlt_attention_packed_bwd_bf16",
     [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
     + [ctypes.c_float, ctypes.c_uint, ctypes.c_void_p])
 
@@ -242,25 +262,36 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (widen(p.to(v.dtype)) @ widen(v)).to(q.dtype), lse
 
 
+def _rounded_like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (and widened back) where `ref` is bf16: the JAX
+    kernels' rounding of ds and pd before the gradient products."""
+    return x.to(ref.dtype).float() if ref.dtype == torch.bfloat16 else x
+
+
 def attention_bwd_plain(q, k, v, o, lse, do, dropout_rate: float = 0.0,
                         streams: torch.Tensor | None = None):
     """The JAX package's per-slice backward: p from lse, delta =
     rowsum(do * o), ds = p (dp - delta) scale -> (dq, dk, dv), each
-    (B, H, L, dh)."""
+    (B, H, L, dh). bf16 q, k, v, o, do: every step in f32 from the widened
+    values, ds and pd rounded to bf16 before the products, dq, dk and dv
+    rounded to bf16."""
     batch, heads, length, dh = q.shape
     scale = 1.0 / math.sqrt(dh)
-    p = torch.exp(q @ k.transpose(-1, -2) * scale
+    qf, kf, vf, of, dof = (widen(t) for t in (q, k, v, o, do))
+    p = torch.exp(qf @ kf.transpose(-1, -2) * scale
                   - lse.reshape(batch, heads, length, 1))
-    dp = do @ v.transpose(-1, -2)
+    dp = dof @ vf.transpose(-1, -2)
     pd = p
     if dropout_rate > 0.0:
         keep = slice_keep_mask(streams, length, dropout_rate).reshape(p.shape)
         inv = 1.0 / (1.0 - dropout_rate)
         pd = torch.where(keep, p * inv, 0.0)
         dp = torch.where(keep, dp * inv, 0.0)
-    delta = (do * o).sum(dim=-1, keepdim=True)
-    ds = p * (dp - delta) * scale
-    return ds @ k, ds.transpose(-1, -2) @ q, pd.transpose(-1, -2) @ do
+    delta = (dof * of).sum(dim=-1, keepdim=True)
+    ds = _rounded_like(p * (dp - delta) * scale, q)
+    pd = _rounded_like(pd, q)
+    return ((ds @ kf).to(q.dtype), (ds.transpose(-1, -2) @ qf).to(q.dtype),
+            (pd.transpose(-1, -2) @ dof).to(q.dtype))
 
 
 def _split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
@@ -302,10 +333,11 @@ def attention_packed_bwd_plain(q, k, v, o, lse, do, heads: int, pack: int,
                                dropout_rate: float = 0.0,
                                streams: torch.Tensor | None = None):
     """The JAX package's packed backward, per head: p from lse, delta =
-    rowsum(do * o), ds = p (dp - delta) scale -> (dq, dk, dv), each (N, L, D)."""
+    rowsum(do * o), ds = p (dp - delta) scale -> (dq, dk, dv), each (N, L, D).
+    bf16 q, k, v, o, do as in `attention_bwd_plain`."""
     n, length, d = q.shape
     scale = 1.0 / math.sqrt(d // heads)
-    qh, kh, vh, oh, doh = (_split_heads(t, heads) for t in (q, k, v, o, do))
+    qh, kh, vh, oh, doh = (_split_heads(widen(t), heads) for t in (q, k, v, o, do))
     lse_h = lse.transpose(2, 3).reshape(n, heads, length)  # (N, H, L)
     p = torch.exp(qh @ kh.transpose(-1, -2) * scale - lse_h[..., None])
     dp = doh @ vh.transpose(-1, -2)
@@ -316,9 +348,10 @@ def attention_packed_bwd_plain(q, k, v, o, lse, do, heads: int, pack: int,
         pd = torch.where(keep, p * inv, 0.0)
         dp = torch.where(keep, dp * inv, 0.0)
     delta = (doh * oh).sum(dim=-1, keepdim=True)
-    ds = p * (dp - delta) * scale
-    return (_merge_heads(ds @ kh), _merge_heads(ds.transpose(-1, -2) @ qh),
-            _merge_heads(pd.transpose(-1, -2) @ doh))
+    ds = _rounded_like(p * (dp - delta) * scale, q)
+    pd = _rounded_like(pd, q)
+    return tuple(_merge_heads(t).to(q.dtype) for t in (
+        ds @ kh, ds.transpose(-1, -2) @ qh, pd.transpose(-1, -2) @ doh))
 
 
 # ---------------------------------------------------------------------------
@@ -434,18 +467,11 @@ def attention_packed_fwd_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
-def attention_packed_bwd(q, k, v, o, lse, do, heads: int, pack: int,
-                         dropout_rate: float = 0.0,
-                         streams: torch.Tensor | None = None):
-    """K6' on a CUDA tensor, `attention_packed_bwd_plain` on a CPU tensor:
-    (dq, dk, dv), each (N, L, D)."""
-    _check(q, k, v, heads, pack, dropout_rate, streams)
-    refuse_bf16("attention_packed_bwd", {"q": q, "k": k, "v": v, "do": do})
-    if q.device.type == "cpu":
-        return attention_packed_bwd_plain(q, k, v, o, lse, do, heads, pack,
-                                          dropout_rate, streams)
-    _check_kernel_inputs("attention_packed_bwd", q.shape[-1] // heads, PACKED_HEAD_DIMS,
-                         {"q": q, "k": k, "v": v, "o": o, "do": do, "lse": lse})
+def _packed_bwd(name: str, kernel: Kernel, dtype: torch.dtype, q, k, v, o, lse, do,
+                heads: int, pack: int, dropout_rate: float, streams):
+    """K6' or its bf16 instance: checks, outputs and launch."""
+    _check_kernel_inputs(name, q.shape[-1] // heads, PACKED_HEAD_DIMS,
+                         {"q": q, "k": k, "v": v, "o": o, "do": do, "lse": lse}, dtype)
     n, length, d = q.shape
     if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape):
         raise ValueError("o and do must have q's shape")
@@ -456,18 +482,47 @@ def attention_packed_bwd(q, k, v, o, lse, do, heads: int, pack: int,
     delta = torch.empty(n, heads, length, device=q.device, dtype=torch.float32)
     s_ptr, _keep = _kernel_streams(streams, dropout_rate)
     with torch.cuda.device(q.device):
-        ATTENTION_PACKED_BWD(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse),
-                             s_ptr, ptr(dq), ptr(dk), ptr(dv), ptr(delta), n,
-                             length, heads, d // heads, pack, dropout_rate,
-                             keep_threshold(dropout_rate), stream_handle(q.device))
+        kernel(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse), s_ptr, ptr(dq),
+               ptr(dk), ptr(dv), ptr(delta), n, length, heads, d // heads, pack,
+               dropout_rate, keep_threshold(dropout_rate), stream_handle(q.device))
     return dq, dk, dv
+
+
+def attention_packed_bwd(q, k, v, o, lse, do, heads: int, pack: int,
+                         dropout_rate: float = 0.0,
+                         streams: torch.Tensor | None = None):
+    """K6' on a CUDA tensor, `attention_packed_bwd_plain` on a CPU tensor:
+    (dq, dk, dv), each (N, L, D). bf16 goes to `attention_packed_bwd_bf16`."""
+    _check(q, k, v, heads, pack, dropout_rate, streams)
+    refuse_bf16("attention_packed_bwd", {"q": q, "k": k, "v": v, "do": do})
+    if q.device.type == "cpu":
+        return attention_packed_bwd_plain(q, k, v, o, lse, do, heads, pack,
+                                          dropout_rate, streams)
+    return _packed_bwd("attention_packed_bwd", ATTENTION_PACKED_BWD, torch.float32,
+                       q, k, v, o, lse, do, heads, pack, dropout_rate, streams)
+
+
+def attention_packed_bwd_bf16(q, k, v, o, lse, do, heads: int, pack: int,
+                              dropout_rate: float = 0.0,
+                              streams: torch.Tensor | None = None):
+    """K6''s bf16 instance on a CUDA tensor, `attention_packed_bwd_plain` on
+    a CPU tensor: bf16 q, k, v, o, do and float32 lse -> (dq, dk, dv), each
+    (N, L, D) bf16. Raises on any other dtype."""
+    _check(q, k, v, heads, pack, dropout_rate, streams)
+    require_bf16("attention_packed_bwd_bf16", {"q": q, "k": k, "v": v, "o": o, "do": do})
+    if q.device.type == "cpu":
+        return attention_packed_bwd_plain(q, k, v, o, lse, do, heads, pack,
+                                          dropout_rate, streams)
+    return _packed_bwd("attention_packed_bwd_bf16", ATTENTION_PACKED_BWD_BF16,
+                       torch.bfloat16, q, k, v, o, lse, do, heads, pack, dropout_rate,
+                       streams)
 
 
 class AttentionPacked(torch.autograd.Function):
     """Forward K5' (`attention_packed_fwd`, or `attention_packed_fwd_bf16`
-    for bf16 q), backward K6' (`attention_packed_bwd`, float32 only); lse
-    is returned but takes no gradient. The wrappers are looked up as module
-    attributes at each call."""
+    for bf16 q), backward K6' (`attention_packed_bwd`, or
+    `attention_packed_bwd_bf16`); lse is returned but takes no gradient. The
+    wrappers are looked up as module attributes at each call."""
 
     @staticmethod
     def forward(ctx, q, k, v, heads, pack, dropout_rate, streams):
@@ -483,8 +538,9 @@ class AttentionPacked(torch.autograd.Function):
     def backward(ctx, do, _dlse):
         q, k, v, o, lse, streams = ctx.saved_tensors
         heads, pack, rate = ctx.args
-        dq, dk, dv = attention_packed_bwd(q, k, v, o, lse, do.contiguous(), heads,
-                                          pack, rate, streams)
+        bwd = (attention_packed_bwd_bf16 if q.dtype == torch.bfloat16
+               else attention_packed_bwd)
+        dq, dk, dv = bwd(q, k, v, o, lse, do.contiguous(), heads, pack, rate, streams)
         return dq, dk, dv, None, None, None, None
 
 
@@ -544,16 +600,11 @@ def attention_fwd_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
-def attention_bwd(q, k, v, o, lse, do, dropout_rate: float = 0.0,
-                  streams: torch.Tensor | None = None):
-    """K4' on a CUDA tensor, `attention_bwd_plain` on a CPU tensor: (dq, dk,
-    dv), each (B, H, L, dh)."""
-    _check_slices(q, k, v, dropout_rate, streams)
-    refuse_bf16("attention_bwd", {"q": q, "k": k, "v": v, "do": do})
-    if q.device.type == "cpu":
-        return attention_bwd_plain(q, k, v, o, lse, do, dropout_rate, streams)
-    _check_kernel_inputs("attention_bwd", q.shape[-1], (SLICE_HEAD_DIM,),
-                         {"q": q, "k": k, "v": v, "o": o, "do": do, "lse": lse})
+def _slice_bwd(name: str, kernel: Kernel, dtype: torch.dtype, q, k, v, o, lse, do,
+               dropout_rate: float, streams):
+    """K4' or its bf16 instance: checks, outputs and launch."""
+    _check_kernel_inputs(name, q.shape[-1], (SLICE_HEAD_DIM,),
+                         {"q": q, "k": k, "v": v, "o": o, "do": do, "lse": lse}, dtype)
     batch, heads, length, _ = q.shape
     if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape):
         raise ValueError("o and do must have q's shape")
@@ -564,18 +615,42 @@ def attention_bwd(q, k, v, o, lse, do, dropout_rate: float = 0.0,
     delta = torch.empty(batch * heads, length, device=q.device, dtype=torch.float32)
     s_ptr, _keep = _kernel_streams(streams, dropout_rate)
     with torch.cuda.device(q.device):
-        ATTENTION_BWD(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse), s_ptr,
-                      ptr(dq), ptr(dk), ptr(dv), ptr(delta), batch * heads, length,
-                      dropout_rate, keep_threshold(dropout_rate),
-                      stream_handle(q.device))
+        kernel(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse), s_ptr, ptr(dq),
+               ptr(dk), ptr(dv), ptr(delta), batch * heads, length, dropout_rate,
+               keep_threshold(dropout_rate), stream_handle(q.device))
     return dq, dk, dv
+
+
+def attention_bwd(q, k, v, o, lse, do, dropout_rate: float = 0.0,
+                  streams: torch.Tensor | None = None):
+    """K4' on a CUDA tensor, `attention_bwd_plain` on a CPU tensor: (dq, dk,
+    dv), each (B, H, L, dh). bf16 goes to `attention_bwd_bf16`."""
+    _check_slices(q, k, v, dropout_rate, streams)
+    refuse_bf16("attention_bwd", {"q": q, "k": k, "v": v, "do": do})
+    if q.device.type == "cpu":
+        return attention_bwd_plain(q, k, v, o, lse, do, dropout_rate, streams)
+    return _slice_bwd("attention_bwd", ATTENTION_BWD, torch.float32, q, k, v, o, lse,
+                      do, dropout_rate, streams)
+
+
+def attention_bwd_bf16(q, k, v, o, lse, do, dropout_rate: float = 0.0,
+                       streams: torch.Tensor | None = None):
+    """K4''s bf16 instance on a CUDA tensor, `attention_bwd_plain` on a CPU
+    tensor: bf16 q, k, v, o, do and float32 lse -> (dq, dk, dv), each
+    (B, H, L, dh) bf16. Raises on any other dtype."""
+    _check_slices(q, k, v, dropout_rate, streams)
+    require_bf16("attention_bwd_bf16", {"q": q, "k": k, "v": v, "o": o, "do": do})
+    if q.device.type == "cpu":
+        return attention_bwd_plain(q, k, v, o, lse, do, dropout_rate, streams)
+    return _slice_bwd("attention_bwd_bf16", ATTENTION_BWD_BF16, torch.bfloat16, q, k, v,
+                      o, lse, do, dropout_rate, streams)
 
 
 class Attention(torch.autograd.Function):
     """Forward K3' (`attention_fwd`, or `attention_fwd_bf16` for bf16 q),
-    backward K4' (`attention_bwd`, float32 only); lse is returned but takes
-    no gradient. The wrappers are looked up as module attributes at each
-    call."""
+    backward K4' (`attention_bwd`, or `attention_bwd_bf16`); lse is returned
+    but takes no gradient. The wrappers are looked up as module attributes
+    at each call."""
 
     @staticmethod
     def forward(ctx, q, k, v, dropout_rate, streams):
@@ -589,7 +664,8 @@ class Attention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do, _dlse):
         q, k, v, o, lse, streams = ctx.saved_tensors
-        dq, dk, dv = attention_bwd(q, k, v, o, lse, do.contiguous(), ctx.rate, streams)
+        bwd = attention_bwd_bf16 if q.dtype == torch.bfloat16 else attention_bwd
+        dq, dk, dv = bwd(q, k, v, o, lse, do.contiguous(), ctx.rate, streams)
         return dq, dk, dv, None, None
 
 

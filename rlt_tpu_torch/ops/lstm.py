@@ -27,7 +27,18 @@ widened bf16 values, and only the stored hs is rounded. On a CUDA tensor it
 launches K1''s bf16 instance, on a CPU tensor `lstm_recurrence_plain`, which
 computes either dtype's semantics. `lstm_fwd` raises on bf16 and
 `lstm_fwd_bf16` on anything else; `LSTMRecurrence` picks one by xw's dtype.
-The bf16 backward is not ported: training runs in float32.
+
+bf16 (the training lane): `lstm_bwd_bf16` takes bf16 xw, W_hh^T, hs and
+dho beside f32 cs, as the JAX kernel does on bf16 operands: the gates are
+recomputed from the rounded bf16 hs[t-1] and the widened weights, the
+carries dh and dc are f32, dgates is f32 and feeds the dh carry and the
+dW_hh^T sum unrounded, only the stored dxw is rounded to bf16, and dW_hh^T
+is f32. On a CUDA tensor it launches K2''s bf16 instance, on a CPU tensor
+`lstm_bwd_plain`, which computes either dtype's semantics.
+`LSTMRecurrence` takes W_hh^T in f32 or bf16 beside bf16 xw: it rounds an
+f32 W_hh^T for the kernels itself and returns dW_hh^T in f32, so the f32
+master weight of a bf16 training step receives K2''s f32 sum unrounded,
+as the JAX package's custom_vjp hands it to its f32 master.
 """
 
 from __future__ import annotations
@@ -51,6 +62,8 @@ LSTM_FWD_BF16 = Kernel("rlt_lstm_fwd_bf16", [ctypes.c_void_p] * 4 + [ctypes.c_in
                        + [ctypes.c_void_p])
 LSTM_BWD = Kernel("rlt_lstm_bwd", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                   + [ctypes.c_void_p])
+LSTM_BWD_BF16 = Kernel("rlt_lstm_bwd_bf16", [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
 # most chunks the dW_hh^T contraction is split into (K2' sums their partial
 # products in a second pass, in a fixed order)
 DW_SPLITS = 32
@@ -98,17 +111,21 @@ def lstm_bwd_plain(xw: torch.Tensor, w_hh_t: torch.Tensor, hs: torch.Tensor,
                    cs: torch.Tensor, dho: torch.Tensor, ndir: int = 1):
     """The JAX package's reverse-time LSTM backward as an explicit loop:
     (L, ndir * B, 4H) xw, (ndir * H, 4H) W_hh^T, hs, cs and dho
-    (L, ndir * B, H) -> dxw (L, ndir * B, 4H), dW_hh^T (ndir * H, 4H)."""
+    (L, ndir * B, H) -> dxw (L, ndir * B, 4H), dW_hh^T (ndir * H, 4H). On
+    bf16 xw, W_hh^T, hs and dho (cs f32): everything in f32 from the widened
+    values, dxw rounded to bf16 as it is stored, dW_hh^T f32."""
     length, rows, gates4 = xw.shape
     hidden = gates4 // 4
-    zeros = xw.new_zeros(rows, hidden)
+    state = torch.float32 if xw.dtype == torch.bfloat16 else xw.dtype
+    w, xs, hs, dho = widen(w_hh_t), widen(xw), widen(hs), widen(dho)
+    zeros = torch.zeros(rows, hidden, dtype=state, device=xw.device)
     dh_carry, dc_carry = zeros, zeros
-    dw = torch.zeros_like(w_hh_t)
-    dxw = torch.empty_like(xw)
+    dw = torch.zeros_like(w)
+    dxw = torch.empty(xw.shape, dtype=state, device=xw.device)
     for t in range(length - 1, -1, -1):
         h_prev = hs[t - 1] if t > 0 else zeros
         c_prev = cs[t - 1] if t > 0 else zeros
-        gates = xw[t] + _per_dir(torch.matmul, h_prev, w_hh_t, ndir)
+        gates = xs[t] + _per_dir(torch.matmul, h_prev, w, ndir)
         i, f, g, o = gates.split(hidden, dim=-1)
         i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
         tanh_c = torch.tanh(cs[t])
@@ -119,9 +136,9 @@ def lstm_bwd_plain(xw: torch.Tensor, w_hh_t: torch.Tensor, hs: torch.Tensor,
         dgates = torch.cat([dc * g * i * (1.0 - i), dc * c_prev * f * (1.0 - f),
                             dc * i * (1.0 - g * g), do * o * (1.0 - o)], dim=-1)
         dxw[t] = dgates
-        dh_carry = _per_dir(lambda g_, w_: g_ @ w_.T, dgates, w_hh_t, ndir)
+        dh_carry = _per_dir(lambda g_, w_: g_ @ w_.T, dgates, w, ndir)
         dw = dw + _per_dir(lambda h_, g_: h_.T @ g_, h_prev, dgates, ndir)
-    return dxw, dw
+    return dxw.to(xw.dtype), dw
 
 
 def _check(xw: torch.Tensor, w_hh_t: torch.Tensor, ndir: int) -> None:
@@ -199,57 +216,105 @@ def lstm_fwd_bf16(xw: torch.Tensor, w_hh_t: torch.Tensor, ndir: int = 1):
     return hs, cs
 
 
+def _check_bwd(name: str, xw, hs, cs, dho) -> None:
+    state = (xw.shape[0], xw.shape[1], xw.shape[2] // 4)
+    for tname, t in (("hs", hs), ("cs", cs), ("dho", dho)):
+        if tuple(t.shape) != state or t.device != xw.device:
+            raise ValueError(f"{name}: {tname} must be {state} on {xw.device}, "
+                             f"got {tuple(t.shape)} on {t.device}")
+
+
+def _bwd_scratch(xw: torch.Tensor, ndir: int):
+    """K2''s scratch arrays: the dW_hh^T partial products (ndir, splits, H,
+    4H) and the dc factors gf (L, ndir * B, H, 2), both float32."""
+    length, rows, gates4 = xw.shape
+    hidden = gates4 // 4
+    splits = dw_splits(length, rows // ndir)
+    partial = torch.empty(ndir, splits, hidden, gates4, device=xw.device,
+                          dtype=torch.float32)
+    # per (t, row, unit) the factors of K2''s dc update, {o(1 - tanh(c)^2), f}
+    gf = torch.empty(length, rows, hidden, 2, device=xw.device, dtype=torch.float32)
+    return splits, partial, gf
+
+
 def lstm_bwd(xw: torch.Tensor, w_hh_t: torch.Tensor, hs: torch.Tensor,
              cs: torch.Tensor, dho: torch.Tensor, ndir: int = 1):
     """Backward of `ndir` LSTM directions: `lstm_fwd`'s inputs and outputs
     and the gradient dho of hs -> (dxw (L, ndir * B, 4H), dW_hh^T
     (ndir * H, 4H)) float32. The kernel on a CUDA tensor, the plain loop on
-    a CPU tensor."""
+    a CPU tensor; bf16 goes to `lstm_bwd_bf16`."""
     _check(xw, w_hh_t, ndir)
     refuse_bf16("lstm_bwd", {"xw": xw, "w_hh_t": w_hh_t, "dho": dho})
-    state = (xw.shape[0], xw.shape[1], xw.shape[2] // 4)
-    for name, t in (("hs", hs), ("cs", cs), ("dho", dho)):
-        if tuple(t.shape) != state or t.device != xw.device:
-            raise ValueError(f"lstm_bwd: {name} must be {state} on {xw.device}, "
-                             f"got {tuple(t.shape)} on {t.device}")
+    _check_bwd("lstm_bwd", xw, hs, cs, dho)
     if xw.device.type == "cpu":
         return lstm_bwd_plain(xw, w_hh_t, hs, cs, dho, ndir)
     _check_kernel_inputs("lstm_bwd", {"xw": xw, "w_hh_t": w_hh_t, "hs": hs,
                                       "cs": cs, "dho": dho})
-    length, rows, hidden = state
-    batch = rows // ndir
-    splits = dw_splits(length, batch)
+    length, rows, gates4 = xw.shape
+    splits, partial, gf = _bwd_scratch(xw, ndir)
     dxw = torch.empty_like(xw)
     dw = torch.empty_like(w_hh_t)
-    partial = torch.empty(ndir, splits, hidden, 4 * hidden, device=xw.device,
-                          dtype=torch.float32)
-    # per (t, row, unit) the factors of K2''s dc update, {o(1 - tanh(c)^2), f}
-    gf = torch.empty(length, rows, hidden, 2, device=xw.device, dtype=torch.float32)
     with torch.cuda.device(xw.device):
         LSTM_BWD(ptr(xw), ptr(w_hh_t), ptr(hs), ptr(cs), ptr(dho), ptr(dxw),
-                 ptr(dw), ptr(partial), ptr(gf), length, batch, hidden, ndir, splits,
-                 stream_handle(xw.device))
+                 ptr(dw), ptr(partial), ptr(gf), length, rows // ndir, gates4 // 4, ndir,
+                 splits, stream_handle(xw.device))
+    return dxw, dw
+
+
+def lstm_bwd_bf16(xw: torch.Tensor, w_hh_t: torch.Tensor, hs: torch.Tensor,
+                  cs: torch.Tensor, dho: torch.Tensor, ndir: int = 1):
+    """`lstm_bwd` on bf16 xw, W_hh^T, hs and dho beside float32 cs ->
+    (dxw (L, ndir * B, 4H) bf16, dW_hh^T (ndir * H, 4H) float32): K2''s
+    bf16 instance on a CUDA tensor, the plain loop on a CPU tensor. Raises
+    on any other dtype."""
+    _check(xw, w_hh_t, ndir)
+    require_bf16("lstm_bwd_bf16", {"xw": xw, "w_hh_t": w_hh_t, "hs": hs, "dho": dho})
+    if cs.dtype != torch.float32:
+        raise TypeError(f"lstm_bwd_bf16 takes float32 cs, got {cs.dtype}")
+    _check_bwd("lstm_bwd_bf16", xw, hs, cs, dho)
+    if xw.device.type == "cpu":
+        return lstm_bwd_plain(xw, w_hh_t, hs, cs, dho, ndir)
+    _check_kernel_inputs("lstm_bwd_bf16", {"xw": xw, "w_hh_t": w_hh_t, "hs": hs,
+                                           "dho": dho}, torch.bfloat16)
+    if not cs.is_contiguous():
+        raise ValueError("lstm_bwd_bf16 kernel takes contiguous cs")
+    length, rows, gates4 = xw.shape
+    splits, partial, gf = _bwd_scratch(xw, ndir)
+    dxw = torch.empty_like(xw)
+    dw = torch.empty(w_hh_t.shape, device=xw.device, dtype=torch.float32)
+    # the f32 dgates, which feed the dh carry and dW_hh^T unrounded
+    dg = torch.empty(xw.shape, device=xw.device, dtype=torch.float32)
+    with torch.cuda.device(xw.device):
+        LSTM_BWD_BF16(ptr(xw), ptr(w_hh_t), ptr(hs), ptr(cs), ptr(dho), ptr(dxw),
+                      ptr(dw), ptr(partial), ptr(gf), ptr(dg), length, rows // ndir,
+                      gates4 // 4, ndir, splits, stream_handle(xw.device))
     return dxw, dw
 
 
 class LSTMRecurrence(torch.autograd.Function):
     """Forward K1' (`lstm_fwd`, or `lstm_fwd_bf16` for bf16 xw), backward
-    K2' (`lstm_bwd`, float32 only) over `ndir` directions, looked up as
-    module attributes at each call; it saves xw, W_hh^T, hs and cs, as the
-    JAX package's custom_vjp does."""
+    K2' (`lstm_bwd`, or `lstm_bwd_bf16`) over `ndir` directions, looked up
+    as module attributes at each call; it saves xw, W_hh^T, hs and cs, as
+    the JAX package's custom_vjp does. Beside bf16 xw, W_hh^T may be f32
+    (the master weight of a bf16 training step): it is rounded to bf16 for
+    the kernels here, and its gradient, K2''s f32 sum, is returned in f32,
+    which autograd would round to bf16 had the Function received W_hh^T in
+    bf16."""
 
     @staticmethod
     def forward(ctx, xw, w_hh_t, ndir=1):
-        fwd = lstm_fwd_bf16 if xw.dtype == torch.bfloat16 else lstm_fwd
-        hs, cs = fwd(xw, w_hh_t, ndir)
-        ctx.save_for_backward(xw, w_hh_t, hs, cs)
+        bf16 = xw.dtype == torch.bfloat16
+        w = w_hh_t.to(torch.bfloat16) if bf16 else w_hh_t
+        hs, cs = (lstm_fwd_bf16 if bf16 else lstm_fwd)(xw, w, ndir)
+        ctx.save_for_backward(xw, w, hs, cs)
         ctx.ndir = ndir
         return hs
 
     @staticmethod
     def backward(ctx, dhs):
         xw, w_hh_t, hs, cs = ctx.saved_tensors
-        dxw, dw = lstm_bwd(xw, w_hh_t, hs, cs, dhs.contiguous(), ctx.ndir)
+        bwd = lstm_bwd_bf16 if xw.dtype == torch.bfloat16 else lstm_bwd
+        dxw, dw = bwd(xw, w_hh_t, hs, cs, dhs.contiguous(), ctx.ndir)
         return dxw, dw, None
 
 

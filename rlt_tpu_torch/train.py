@@ -3,6 +3,7 @@
     python -m rlt_tpu_torch.train --model-name mmoecut            # on the card
     python -m rlt_tpu_torch.train --model-name attncut --div-type kl
     python -m rlt_tpu_torch.train --device cpu --retrieve-data mq2007
+    python -m rlt_tpu_torch.train --model-name mmoecut --compute-dtype bfloat16
 
 One epoch is every train batch of a shuffled, padded batch plan, each an
 update of Adam with coupled L2 (torch's `Adam(weight_decay=...)`, which is
@@ -20,14 +21,26 @@ every dropout mask come from one `torch.Generator` on the device, seeded
 from `--seed`; the initial weights from the model's own seeded
 initialisation or `--model-path`.
 
+`--compute-dtype bfloat16` (`compute_dtype="bfloat16"`) trains as the JAX
+package's `build_epoch_fn` does with it: the master parameters stay f32 and
+Adam updates them; every step casts them to bf16 inside the autograd graph
+(`models.layers.compute_params`, through `torch.func.functional_call`) and
+the features with them, runs the model in bf16 and casts its outputs back
+to f32 before the criterion, so losses, F1 and DCG are f32, and each
+gradient reaches its f32 master through the cast. The test pass casts the
+same way without dropout. The kernels run their bf16 instances, forward
+and backward (K1', K2', and K3'/K4' or K5'/K6' in bf16); the LSTM's
+recurrent weights take K2''s f32 gradient unrounded. No loss scaling (bf16
+has f32's exponent range, and the JAX package scales none). best_state,
+state_dict and `--model-persist` stay f32.
+
 Eight models train: bicut, choopy, attncut, mtchoopy, mtattncut, mmoecut,
 moecut and mtple, each with the JAX package's criterion
 (`make_criterion`, with `--div-type`, `--augmented-reward`,
 `--rerank-weight`, `--class-weight` and `--loss-override`). Not ported yet
 (ROADMAP.md): probe_base, resume, the hyper-parameter search and population
 training, profiling,
-`--draw`, the metrics log directory, data and model parallelism, and the
-bf16 lane.
+`--draw`, the metrics log directory, and data and model parallelism.
 """
 
 from __future__ import annotations
@@ -50,8 +63,9 @@ from rlt_tpu_torch.data import (
     synthetic_config,
     synthetic_dataset,
 )
-from rlt_tpu_torch.infer import decode_ks, load_state_dict
+from rlt_tpu_torch.infer import COMPUTE_DTYPES, decode_ks, load_state_dict, to_float32
 from rlt_tpu_torch.models import MODELS, build_model
+from rlt_tpu_torch.models.layers import compute_params
 from rlt_tpu_torch.utils import losses as losses_lib
 from rlt_tpu_torch.utils import metrics as metrics_lib
 from rlt_tpu_torch.utils.platform import resolve_device
@@ -114,13 +128,26 @@ def batch_metrics(model_name: str, output, y: torch.Tensor, valid: torch.Tensor)
             metrics_lib.dcg_at_k(y, ks, valid=valid))
 
 
+def forward(model, x: torch.Tensor, generator: torch.Generator | None = None,
+            dtype: torch.dtype = torch.float32):
+    """The model's outputs on f32 features x, in f32: the model itself in
+    float32, or in `dtype` on its parameters cast inside the autograd graph
+    (`compute_params`) with x cast alike, the outputs cast back to f32."""
+    if dtype == torch.float32:
+        return model(x, generator)
+    return to_float32(torch.func.functional_call(
+        model, compute_params(model, dtype), (x.to(dtype), generator)))
+
+
 def train_step(model, optimizer, criterion, model_name: str, x: torch.Tensor,
-               y: torch.Tensor, valid: torch.Tensor, generator: torch.Generator):
-    """One update on a batch; returns (loss, f1, dcg), 0-dim tensors of the
-    pre-update forward. The gradients stay in the parameters' `.grad`."""
+               y: torch.Tensor, valid: torch.Tensor, generator: torch.Generator,
+               dtype: torch.dtype = torch.float32):
+    """One update on a batch, the forward in `dtype`; returns (loss, f1,
+    dcg), 0-dim f32 tensors of the pre-update forward. The gradients stay in
+    the parameters' `.grad`."""
     model.train()
     optimizer.zero_grad()
-    output = model(x, generator)
+    output = forward(model, x, generator, dtype)
     loss = criterion(output, y, valid=valid)
     loss.backward()
     optimizer.step()
@@ -131,27 +158,30 @@ def train_step(model, optimizer, criterion, model_name: str, x: torch.Tensor,
 
 @torch.no_grad()
 def eval_step(model, criterion, model_name: str, x: torch.Tensor, y: torch.Tensor,
-              valid: torch.Tensor):
-    """The loss and F1/DCG of a batch without dropout."""
+              valid: torch.Tensor, dtype: torch.dtype = torch.float32):
+    """The loss and F1/DCG of a batch without dropout, the forward in
+    `dtype`."""
     model.eval()
-    output = model(x)
+    output = forward(model, x, dtype=dtype)
     loss = criterion(output, y, valid=valid)
     f1, dcg = batch_metrics(model_name, output, y, valid)
     return loss, f1, dcg
 
 
 def run_epoch(model, optimizer, criterion, model_name: str, data: DeviceDataset,
-              generator: torch.Generator, train_plan=None, test_plan=None) -> dict:
-    """Every train batch, then the test split. The plans are drawn from
-    `generator` (train first) unless given as (idx, valid) pairs. Returns
-    the means of the batch means and the per-step train losses."""
+              generator: torch.Generator, train_plan=None, test_plan=None,
+              dtype: torch.dtype = torch.float32) -> dict:
+    """Every train batch, then the test split, the forwards in `dtype`. The
+    plans are drawn from `generator` (train first) unless given as (idx,
+    valid) pairs. Returns the means of the batch means and the per-step
+    train losses."""
     tr_idx, tr_valid = data.plan(generator, "train", *(train_plan or (None, None)))
     te_idx, te_valid = data.plan(generator, "test", *(test_plan or (None, None)))
     train = [train_step(model, optimizer, criterion, model_name,
-                        data.x_train[idx], data.y_train[idx], valid, generator)
+                        data.x_train[idx], data.y_train[idx], valid, generator, dtype)
              for idx, valid in zip(tr_idx, tr_valid)]
     test = [eval_step(model, criterion, model_name, data.x_test[idx],
-                      data.y_test[idx], valid)
+                      data.y_test[idx], valid, dtype)
             for idx, valid in zip(te_idx, te_valid)]
     tr = torch.stack([torch.stack(s) for s in train]).cpu().numpy().astype(np.float64)
     te = torch.stack([torch.stack(s) for s in test]).cpu().numpy().astype(np.float64)
@@ -164,16 +194,16 @@ def run_epoch(model, optimizer, criterion, model_name: str, data: DeviceDataset,
 
 class Trainer:
     """The reference's Trainer (run.py:26-240): epochs with best and best-5
-    test F1/DCG, and the best weights written as a torch state_dict."""
+    test F1/DCG, and the best weights written as a torch state_dict. Its
+    steps run in `cfg.compute_dtype` (float32, or bfloat16 on f32 master
+    parameters)."""
 
     def __init__(self, cfg: config_lib.TrainConfig, data=None,
                  device: str | torch.device | None = None, state_dict=None):
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={cfg.compute_dtype!r} is not ported for training "
-                "yet: the port trains in float32. bf16 serves (Predictor), but "
-                "the bf16 backward kernels (K2', K4' and K6' in bf16) are the next "
-                "slice (ROADMAP.md)")
+        if cfg.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, "
+                             f"got {cfg.compute_dtype!r}")
+        self.dtype = COMPUTE_DTYPES[cfg.compute_dtype]
         self.cfg = cfg
         self.model_name = cfg.model_name
         self.criterion = make_criterion(cfg)
@@ -217,7 +247,7 @@ class Trainer:
     def run_epoch(self, train_plan=None, test_plan=None) -> dict:
         return run_epoch(self.model, self.optimizer, self.criterion,
                          self.model_name, self.data, self.generator,
-                         train_plan, test_plan)
+                         train_plan, test_plan, self.dtype)
 
     def run(self) -> dict:
         """`cfg.epochs` epochs with best / best-5 tracking (run.py:222-232);
@@ -246,13 +276,15 @@ class Trainer:
         return self.summary()
 
     def summary(self) -> dict:
-        """best / best-5 test F1 and DCG (run.py:229-232)."""
+        """best / best-5 test F1 and DCG (run.py:229-232), and the compute
+        dtype of the steps."""
         best5_f1 = float(np.mean(sorted(self.f1_record, reverse=True)[:5]))
         best5_dcg = float(np.mean(sorted(self.dcg_record, reverse=True)[:5]))
         logger.info("best: f1=%.7f dcg=%.6f | best-5: f1=%.7f dcg=%.6f",
                     self.best_test_f1, self.best_test_dcg, best5_f1, best5_dcg)
         return {"best_f1": self.best_test_f1, "best_dcg": self.best_test_dcg,
-                "best5_f1": best5_f1, "best5_dcg": best5_dcg}
+                "best5_f1": best5_f1, "best5_dcg": best5_dcg,
+                "compute_dtype": self.cfg.compute_dtype}
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -261,8 +293,7 @@ def build_argparser() -> argparse.ArgumentParser:
                     "attncut, mtchoopy, mtattncut, mmoecut, moecut, mtple)",
         epilog="Not ported yet, so absent: --resume, --parameter-search and "
                "the other search flags, --population, --profile-dir, --draw, "
-               "--log-dir, --data-parallel, --model-parallel and "
-               "--compute-dtype bfloat16 (ROADMAP.md).")
+               "--log-dir, --data-parallel and --model-parallel (ROADMAP.md).")
     d = config_lib.TrainConfig()
     p.add_argument("--retrieve-data", type=str, default=d.retrieve_data)
     p.add_argument("--dataset-name", type=str, default=d.dataset_name)
@@ -300,6 +331,11 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="skip the built-in hyper-parameter presets")
     p.add_argument("--conf-file", type=str, default=None,
                    help="reference-format hyper_parameter_*.conf to apply")
+    p.add_argument("--compute-dtype", type=str, default=d.compute_dtype,
+                   choices=tuple(COMPUTE_DTYPES),
+                   help="the steps' dtype: bfloat16 casts the f32 master parameters "
+                        "and the features to bf16 inside each step and runs the bf16 "
+                        "kernels; losses and metrics stay f32")
     p.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"),
                    help="cuda (the kernels) unless cpu (their plain versions)")
     p.add_argument("--out", type=str, default=None,
@@ -318,7 +354,8 @@ def config_from_args(args) -> config_lib.TrainConfig:
         rerank_weight=args.rerank_weight, class_weight=args.class_weight,
         epochs=args.epochs, lr=args.lr, weight_decay=args.weight_decay,
         seed=args.seed, model_path=args.model_path,
-        model_persist=bool(args.model_persist), save_path=args.save_path)
+        model_persist=bool(args.model_persist), save_path=args.save_path,
+        compute_dtype=args.compute_dtype)
     # config-file override chain (run.py:339-347)
     if args.conf_file:
         cfg = config_lib.load_conf_file(cfg, args.conf_file)

@@ -472,8 +472,14 @@ def test_service_reports_and_serves_bf16():
 
 
 def test_trainer_refuses_bf16():
-    with pytest.raises(NotImplementedError, match="K2', K4' and K6'"):
-        Trainer(_tiny(compute_dtype="bfloat16"), device="cpu")
+    """The Trainer builds in bf16 (its steps, tests/test_torch_bf16_train.py)
+    on f32 master parameters, and refuses a dtype the port has no kernels
+    for."""
+    trainer = Trainer(_tiny(compute_dtype="bfloat16"), device="cpu")
+    assert trainer.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in trainer.model.parameters())
+    with pytest.raises(ValueError, match="compute_dtype"):
+        Trainer(_tiny(compute_dtype="float16"), device="cpu")
 
 
 def test_infer_cli_takes_compute_dtype(tmp_path):

@@ -10,6 +10,8 @@ nor the JAX package, so that it runs on a machine that has only PyTorch:
 Inputs are made with numpy from fixed seeds.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +19,7 @@ import torch
 from rlt_tpu_torch.config import TrainConfig, apply_preset
 from rlt_tpu_torch.data import synthetic_dataset
 from rlt_tpu_torch.infer import Predictor
+from rlt_tpu_torch.models import ZERO_GRAD_LEAVES
 from rlt_tpu_torch.ops import KERNELS, attention, lstm, plain_ops
 from rlt_tpu_torch.train import Trainer, train_step
 
@@ -413,12 +416,11 @@ def test_training_step_on_card_matches_plain(cuda_device, model_name, attention_
 # batch, moves single elements of MtChoopy's layers_2.linear1.weight
 # gradient by 6.6e-3 of its max abs but the whole leaf by 4.1e-4 of its L2
 # norm, so these models' step gradients are held leaf by leaf in L2. Their
-# leaves whose gradient is zero by algebra (the biases under the softmax
-# over positions, the rerank bias under its hinge) read rounding noise of
-# the loss's scale on both sides (float32 on the CPU: at most 1.9e-6 of the
-# model's largest gradient) and must stay under ZERO_GRAD_REL of it.
-CHOOPY_ZERO_GRAD = {"choopy": ("decision.bias", "attention_layer.layers_2.norm2.bias"),
-                    "mtchoopy": ("heads.rerank.bias", "heads.decision.bias")}
+# leaves whose gradient is zero by algebra (`ZERO_GRAD_LEAVES`: the biases
+# under the softmax over positions, the rerank bias under its hinge) read
+# rounding noise of the loss's scale on both sides (float32 on the CPU: at
+# most 1.9e-6 of the model's largest gradient) and must stay under
+# ZERO_GRAD_REL of it.
 ZERO_GRAD_REL = 1e-4
 
 
@@ -448,7 +450,7 @@ def test_choopy_training_step_on_card_matches_plain(cuda_device, model_name):
     for name, g in grads.items():
         assert torch.isfinite(g).all(), name
         w = want_grads[name]
-        if name in CHOOPY_ZERO_GRAD[model_name]:
+        if name in ZERO_GRAD_LEAVES[model_name]:
             assert max(g.abs().max(), w.abs().max()) <= ZERO_GRAD_REL * largest, name
         else:
             assert (g - w).norm() <= STEP_GRAD_REL * w.norm(), name
@@ -644,3 +646,206 @@ def test_bf16_predictor_on_card_matches_plain(cuda_device, model_name):
         top2 = np.sort(want_dist, axis=-1)[:, -2:]
         tied = top2[:, 1] - top2[:, 0] <= limit
     assert np.all((ks == want_ks) | tied)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 backward instances (K2', K4', K6' in bf16) against their plain
+# versions, which round what the JAX kernels round. K2''s dxw is rounded from
+# f32 dgates whose sums run in another order: within one bf16 step of the
+# plain dxw beyond LSTM_BWD_REL of its max abs; its dW_hh^T is f32, as in
+# f32 (LSTM_BWD_REL). The attention gradients are bf16 sums of the same
+# rounded ds and pd in another order: within 2 bf16 steps of each one's max
+# abs (tests/test_torch_bf16_train_ops.py holds the plain versions to the
+# JAX kernels at that bound).
+# ---------------------------------------------------------------------------
+
+GRAD_BF16_STEPS = 2
+
+
+def _lstm_bwd_bf16_inputs(seed, length, batch, ndir, device):
+    xw, w = (torch.from_numpy(a).to(device).bfloat16()
+             for a in _lstm_inputs(seed, length, batch, 128, ndir))
+    hs, cs = lstm.lstm_recurrence_plain(xw, w, ndir)
+    dho = torch.from_numpy(np.random.default_rng(seed + 1).normal(
+        size=tuple(hs.shape)).astype(np.float32)).to(device).bfloat16()
+    return xw, w, hs, cs, dho
+
+
+@pytest.mark.parametrize("ndir", [1, 2])
+@pytest.mark.parametrize("length,batch", [(16, 3), (300, 63), (300, 256), (40, 301)])
+def test_lstm_bwd_bf16_kernel_matches_plain_on_card(cuda_device, length, batch, ndir):
+    args = _lstm_bwd_bf16_inputs(190 + batch, length, batch, ndir, cuda_device)
+    before = (lstm.LSTM_BWD.launches, lstm.LSTM_BWD_BF16.launches)
+    dxw, dw = lstm.lstm_bwd_bf16(*args, ndir)
+    torch.cuda.synchronize()
+    assert (lstm.LSTM_BWD.launches, lstm.LSTM_BWD_BF16.launches) == (before[0],
+                                                                     before[1] + 1)
+    want_dxw, want_dw = lstm.lstm_bwd_plain(*args, ndir)
+    assert dxw.dtype == torch.bfloat16 and dw.dtype == torch.float32
+    assert torch.isfinite(dxw.float()).all() and torch.isfinite(dw).all()
+    beyond = ((dxw.float() - want_dxw.float()).abs() - _bf16_step(want_dxw)).max().item()
+    assert beyond <= LSTM_BWD_REL * want_dxw.float().abs().max().item()
+    assert _max_rel_err(dw, want_dw) <= LSTM_BWD_REL
+
+
+def test_lstm_bwd_bf16_kernel_is_deterministic_on_card(cuda_device):
+    args = _lstm_bwd_bf16_inputs(195, 300, 63, 2, cuda_device)
+    first = lstm.lstm_bwd_bf16(*args, 2)
+    again = lstm.lstm_bwd_bf16(*args, 2)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def _assert_bf16_grads(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and torch.isfinite(g.float()).all()
+        limit = GRAD_BF16_STEPS * _bf16_step(w.float().abs().max()).item()
+        assert (g.float() - w.float()).abs().max().item() <= limit
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dh,n,length", [(64, 9, 300), (64, 3, 37), (64, 2, 700),
+                                         (16, 63, 300), (16, 3, 37), (16, 2, 700)])
+def test_packed_attention_bwd_bf16_kernel_matches_plain_on_card(cuda_device, dh, n,
+                                                                length, rate):
+    d, heads = (256, 4) if dh == 64 else (128, 8)
+    pack = attention.packed_group_size(d, heads)
+    q, k, v, do = (torch.from_numpy(a).to(cuda_device).bfloat16()
+                   for a in _qkv(200 + n, (n, length, d)) + _qkv(201, (n, length, d))[:1])
+    streams = _streams(202, n, cuda_device)
+    o, lse = attention.attention_packed_plain(q, k, v, heads, pack, rate, streams)
+    before = (attention.ATTENTION_PACKED_BWD.launches,
+              attention.ATTENTION_PACKED_BWD_BF16.launches)
+    got = attention.attention_packed_bwd_bf16(q, k, v, o, lse, do, heads, pack, rate,
+                                              streams)
+    torch.cuda.synchronize()
+    assert (attention.ATTENTION_PACKED_BWD.launches,
+            attention.ATTENTION_PACKED_BWD_BF16.launches) == (before[0], before[1] + 1)
+    _assert_bf16_grads(got, attention.attention_packed_bwd_plain(
+        q, k, v, o, lse, do, heads, pack, rate, streams))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("batch,length", SLICE_SHAPES)
+def test_slice_attention_bwd_bf16_kernel_matches_plain_on_card(cuda_device, batch, length,
+                                                               rate):
+    q, k, v, do = (torch.from_numpy(a).to(cuda_device).bfloat16()
+                   for a in _qkv(210 + batch, (batch, 2, length, 128))
+                   + _qkv(211, (batch, 2, length, 128))[:1])
+    streams = _streams(212, batch * 2, cuda_device)
+    o, lse = attention.attention_plain(q, k, v, rate, streams)
+    before = (attention.ATTENTION_BWD.launches, attention.ATTENTION_BWD_BF16.launches)
+    got = attention.attention_bwd_bf16(q, k, v, o, lse, do, rate, streams)
+    torch.cuda.synchronize()
+    assert (attention.ATTENTION_BWD.launches,
+            attention.ATTENTION_BWD_BF16.launches) == (before[0], before[1] + 1)
+    _assert_bf16_grads(got, attention.attention_bwd_plain(q, k, v, o, lse, do, rate,
+                                                          streams))
+
+
+def test_attention_bwd_bf16_kernels_are_deterministic_on_card(cuda_device):
+    q, k, v, do = (torch.from_numpy(a).to(cuda_device).bfloat16()
+                   for a in _qkv(220, (9, 300, 256)) + _qkv(221, (9, 300, 256))[:1])
+    streams = _streams(222, 9, cuda_device)
+    o, lse = attention.attention_packed_fwd_bf16(q, k, v, 4, 2, 0.1, streams)
+    first = attention.attention_packed_bwd_bf16(q, k, v, o, lse, do, 4, 2, 0.1, streams)
+    again = attention.attention_packed_bwd_bf16(q, k, v, o, lse, do, 4, 2, 0.1, streams)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    qs, ks, vs, dos = (torch.from_numpy(a).to(cuda_device).bfloat16()
+                       for a in _qkv(224, (9, 2, 300, 128)) + _qkv(225, (9, 2, 300, 128))[:1])
+    streams = _streams(223, 18, cuda_device)
+    o, lse = attention.attention_fwd_bf16(qs, ks, vs, 0.1, streams)
+    first = attention.attention_bwd_bf16(qs, ks, vs, o, lse, dos, 0.1, streams)
+    again = attention.attention_bwd_bf16(qs, ks, vs, o, lse, dos, 0.1, streams)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_bf16_bwd_wrappers_reject_on_card(cuda_device):
+    q = torch.zeros(1, 8, 256, device=cuda_device)
+    lse = torch.zeros(1, 2, 8, 2, device=cuda_device)
+    with pytest.raises(TypeError, match="bf16"):
+        attention.attention_packed_bwd_bf16(q, q, q, q, lse, q, 4, 2)
+    qb = q.bfloat16()
+    with pytest.raises(TypeError, match="attention_packed_bwd_bf16"):
+        attention.attention_packed_bwd(qb, qb, qb, qb, lse, qb, 4, 2)
+    with pytest.raises(TypeError, match="float32 lse"):
+        attention.attention_packed_bwd_bf16(qb, qb, qb, qb, lse.bfloat16(), qb, 4, 2)
+    s = qb.reshape(1, 2, 8, 128)
+    with pytest.raises(TypeError, match="attention_bwd_bf16"):
+        attention.attention_bwd(s, s, s, s, torch.zeros(2, 1, 8, device=cuda_device), s)
+    xw = torch.zeros(4, 8, 512, device=cuda_device, dtype=torch.bfloat16)
+    w = torch.zeros(128, 512, device=cuda_device, dtype=torch.bfloat16)
+    hs = torch.zeros(4, 8, 128, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="lstm_bwd_bf16"):
+        lstm.lstm_bwd(xw, w, hs, hs.float(), hs)
+    with pytest.raises(TypeError, match="float32 cs"):
+        lstm.lstm_bwd_bf16(xw, w, hs, hs, hs)
+
+
+# The bf16 train step through the bf16 kernels against the same bf16 step
+# through the plain versions on the card, with d_ref the plain bf16 step
+# against the plain float32 one (chip_smoke.py's bounds, and why): the
+# kernels' bf16 attention forwards round each weight at another point than
+# the plain versions, so the two bf16 steps are two independent roundings,
+# about sqrt(2) of d_ref apart on average. Per leaf the yardstick is the
+# larger of RMS(d_ref) and rho times the leaf's RMS, rho the median relative
+# d_ref of the model's leaves; the median leaf within 2 of it, every leaf
+# within 4. The leaves zero by algebra are rounding noise on both sides (up
+# to 3.7e-2 of the model's largest gradient, Choopy's decision bias), each
+# within 0.1 of it. The loss within 3 |d_ref| plus one bf16 step of it.
+
+
+def _bf16_train_grads(cfg, x, y, valid, device, seed):
+    """The loss and gradients of one train step in cfg's compute dtype from
+    the seeded initial weights."""
+    trainer = Trainer(cfg, data=synthetic_dataset(num_queries=10, seq_len=cfg.seq_len,
+                                                  num_features=cfg.input_size),
+                      device=device)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    loss, _, _ = train_step(trainer.model, trainer.optimizer, trainer.criterion,
+                            cfg.model_name, x, y, valid, generator, trainer.dtype)
+    return float(loss), {n: p.grad.clone() for n, p in trainer.model.named_parameters()}
+
+
+def _without_key_bias(name, t):
+    if not name.endswith("self_attn.in_proj_bias"):
+        return t
+    d = t.shape[-1] // 3
+    return torch.cat([t[..., :d], t[..., 2 * d:]], dim=-1)
+
+
+@pytest.mark.parametrize("model_name", list(ZERO_GRAD_LEAVES))
+def test_bf16_training_step_on_card_matches_plain(cuda_device, model_name):
+    cfg = apply_preset(TrainConfig(model_name=model_name, retrieve_data="robust04",
+                                   compute_dtype="bfloat16"))
+    rng = np.random.default_rng(230)
+    x = torch.from_numpy(rng.normal(size=(8, cfg.seq_len, cfg.input_size))
+                         .astype(np.float32)).to(cuda_device)
+    y = torch.from_numpy((rng.random((8, cfg.seq_len)) < 0.2).astype(np.float32)).to(cuda_device)
+    valid = torch.ones(8, device=cuda_device)
+    before = {name: k.launches for name, k in KERNELS.items()}
+    loss, grads = _bf16_train_grads(cfg, x, y, valid, cuda_device, 231)
+    torch.cuda.synchronize()
+    used = {name for name, k in KERNELS.items() if k.launches != before[name]}
+    assert used and all(name.endswith("_bf16") for name in used), used
+    assert (model_name in ("choopy", "mtchoopy")) == ("lstm_bwd_bf16" not in used)
+    with plain_ops():
+        want_loss, want = _bf16_train_grads(cfg, x, y, valid, cuda_device, 231)
+        loss32, want32 = _bf16_train_grads(
+            dataclasses.replace(cfg, compute_dtype="float32"), x, y, valid, cuda_device, 231)
+    step = _bf16_step(torch.tensor(want_loss)).item()
+    assert abs(loss - want_loss) <= 3 * abs(want_loss - loss32) + step
+    rms = lambda t: t.double().pow(2).mean().sqrt().item()  # noqa: E731
+    largest = max(g.abs().max().item() for g in want.values())
+    stats = {}
+    for name, g in grads.items():
+        assert g.dtype == torch.float32 and torch.isfinite(g).all(), name
+        if name in ZERO_GRAD_LEAVES[model_name]:
+            assert g.abs().max().item() <= 0.1 * largest, name
+            continue
+        k, p, p32 = (_without_key_bias(name, t[name]) for t in (grads, want, want32))
+        stats[name] = (rms(k - p), rms(p - p32), rms(p))
+    rho = float(np.median([d / max(r, 1e-30) for _, d, r in stats.values()]))
+    ratio = {n: e / max(d, rho * r, 1e-30) for n, (e, d, r) in stats.items()}
+    assert np.median(list(ratio.values())) <= 2.0, ratio
+    assert max(ratio.values()) <= 4.0, ratio
+

@@ -110,9 +110,12 @@ def test_predictor_matches_jax_predictor():
 
 
 def test_predictor_refuses_what_is_not_ported(tmp_path):
-    # bf16 serves (tests/test_torch_bf16.py); training in bf16 is not ported
-    with pytest.raises(NotImplementedError, match="bf16"):
-        Trainer(tiny_cfg(compute_dtype="bfloat16"), device="cpu")
+    # bf16 serves (tests/test_torch_bf16.py) and trains
+    # (tests/test_torch_bf16_train.py); a dtype the port has no kernels for
+    # is refused
+    assert Trainer(tiny_cfg(compute_dtype="bfloat16"), device="cpu").dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="compute_dtype"):
+        Trainer(tiny_cfg(compute_dtype="float16"), device="cpu")
     with pytest.raises(FileNotFoundError, match="refusing"):
         Predictor(tiny_cfg(model_path=str(tmp_path / "missing.pt")), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA card"):

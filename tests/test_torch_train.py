@@ -307,3 +307,29 @@ def test_train_cli_on_cpu(tmp_path):
                       model_path=str(tmp_path / "mmoecut.pt"))
     ks = Predictor(cfg, device="cpu").predict(np.zeros((2, 40, 47), np.float32))
     assert ks.shape == (2,)
+
+
+def test_convergence_summarises_each_model_against_results(tmp_path, monkeypatch):
+    """`python -m rlt_tpu_torch.convergence` trains every (model, seed) and
+    prints, per model, the seeds' best F1, their mean and its difference
+    from RESULTS.json's mean_best_f1; unknown arguments reach every run."""
+    from rlt_tpu_torch import convergence
+
+    calls = []
+
+    def fake_train(model, seed, args, extra, out_dir):
+        calls.append((model, seed, args.compute_dtype, tuple(extra), out_dir))
+        return {"best_f1": 0.5 + 0.1 * seed}
+
+    monkeypatch.setattr(convergence, "_train", fake_train)
+    result = convergence.main(["--models", "bicut", "choopy", "--seeds", "0", "1",
+                               "--compute-dtype", "bfloat16", "--out-dir", str(tmp_path),
+                               "--device", "cpu"])
+    assert sorted(c[:2] for c in calls) == [("bicut", 0), ("bicut", 1), ("choopy", 0),
+                                           ("choopy", 1)]
+    assert all(c[2:] == ("bfloat16", ("--device", "cpu"), tmp_path) for c in calls)
+    reference = json.loads((Path(convergence.REPO) / "RESULTS.json").read_text())
+    for model in ("bicut", "choopy"):
+        got = result[model]
+        assert got["best_f1"] == [0.5, 0.6] and got["mean_best_f1"] == pytest.approx(0.55)
+        assert got["diff"] == pytest.approx(0.55 - reference[model]["mean_best_f1"])
