@@ -6,7 +6,7 @@
 Builds the port's CUDA kernels from `rlt_tpu_torch/csrc`, holds each one
 (the float32 instances and the bf16 ones of all six, K1'-K6') against its
 plain PyTorch version on the card at the main paths' shapes and times both,
-then drives thirty-two main paths at robust04 width (L = 300, seeded
+then drives thirty-three main paths at robust04 width (L = 300, seeded
 random weights): serving and training in float32, and serving and training
 in bf16 (`<model>-serve-bf16` and `<model>-train-bf16`:
 `compute_dtype="bfloat16"`, through the bf16 kernel instances only), of
@@ -33,8 +33,22 @@ shape says (and the other attention kernels, and the other dtype's
 instances, not at all). A bf16 path's served distributions, and its step-1
 gradients, step losses and epoch updates, are held to the same bf16 run
 through the plain versions on the card, against d_ref, the distance between
-that bf16 plain run and the float32 one. It prints
-a `kernels` JSON line, the card's name and power limit, and last
+that bf16 plain run and the float32 one.
+
+Population training (`rlt_tpu_torch/population.py`) comes last: K1' and K2'
+over K = 4 and 8 members' BiLSTM layers in one launch (ndir = 2K) against
+their plain versions, K launches at ndir = 2 and cuDNN; the
+`mmoecut-population` path, `train_population` of 4 MMOECut members of
+distinct seed, lr and weight decay for one epoch (2 K1', 2 K2', 1 K5' and
+1 K6' a step for the whole population), each member held to its own
+sequential `Trainer` on the card; and a population of 8 members' epoch
+against 8 sequential epochs.
+
+Every time is the median of rounds taken in turns with what it is compared
+with (`rlt_tpu_torch/utils/timing.py`), printed with its spread; every
+train step, the bf16 bucket-64 forwards and the population's epochs also
+carry the card's busy time from torch.profiler and the host's share. It
+prints a `kernels` JSON line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failed check raises, and the script
 then exits with a non-zero code; without a CUDA card it exits before any
 result.
@@ -79,6 +93,16 @@ MODELS = ("mmoecut", "mtple", "moecut", "attncut", "mtattncut", "bicut", "choopy
           "mtchoopy")
 PATHS = tuple(f"{m}-{p}" for m in MODELS for p in ("serve", "train"))
 BF16_PATHS = tuple(f"{m}-serve-bf16" for m in MODELS)
+# population training (rlt_tpu_torch/population.py): MMOECut's members as
+# one model; its path runs K1'/K2' at ndir = 2K and K5'/K6' over K * E * B
+# rows. The members of the checked path (distinct seed, lr and weight
+# decay, one dropout rate), and the sizes the member-batched LSTM kernels
+# and the population's epoch are timed at.
+POPULATION_PATH = "mmoecut-population"
+POPULATION_MEMBERS = ((0, 3e-5, 0.0), (1, 1e-4, 1e-3), (2, 1e-5, 5e-3), (3, 3e-4, 1e-2))
+POPULATION_SIZES = (4, 8)
+# the packed attention rows of the checked population path: K * E * B
+POPULATION_ROWS = POPULATION_SIZES[0] * EXPERTS * BATCHES[0]
 BF16_TRAIN_PATHS = tuple(f"{m}-train-bf16" for m in MODELS)
 # each bf16 instance, by the float32 kernel whose bf16 form it is
 BF16_OF = {"lstm_fwd": "lstm_fwd_bf16", "attention_fwd": "attention_fwd_bf16",
@@ -199,6 +223,15 @@ PEAK_3XTF32_FLOPS = 494.7e12 / 3
 PEAK_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores
 
 
+# Timing (rlt_tpu_torch/utils/timing.py): every time is the median of
+# REPEATS rounds taken in turns with what it is compared with in the same
+# call (a kernel with its library call; a population with its sequential
+# runs), printed with its least and most round; a plain version, which is
+# no yardstick of speed, the median of PLAIN_REPEATS single calls.
+REPEATS = 7
+PLAIN_REPEATS = 3
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -208,19 +241,37 @@ def require(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of `fn` over `iters` back-to-back calls, in ms."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+def cuda_ms(fn, iters: int = 3, repeats: int = REPEATS) -> float:
+    """The median device ms of `fn` over `repeats` rounds of `iters` calls
+    (`rlt_tpu_torch.utils.timing.interleaved_ms`, one candidate)."""
+    from rlt_tpu_torch.utils.timing import interleaved_ms
+
+    return interleaved_ms({"fn": fn}, iters, repeats)["fn"]["median"]
+
+
+def plain_time(fn) -> float:
+    """A plain version's median device ms over PLAIN_REPEATS single calls:
+    it repeats the kernel's arithmetic and is no yardstick of speed, and
+    some take a second a call."""
+    return cuda_ms(fn, iters=1, repeats=PLAIN_REPEATS)
+
+
+def timed(kernel, library=None, iters: int = 3, **others) -> dict:
+    """The kernel, the library call and any `others` in turns, `REPEATS`
+    rounds of `iters` calls each (`interleaved_ms`): the kernel's median as
+    `ms`, the library's as `library_ms`, each other's as `<name>_ms`, each
+    one's least and most round under `spread_ms`, and the kernel's median
+    over the library's as `library_ratio`."""
+    from rlt_tpu_torch.utils.timing import interleaved_ms
+
+    candidates = {"kernel": kernel, **({"library": library} if library else {}), **others}
+    t = interleaved_ms(candidates, iters)
+    key = {"kernel": "ms", "library": "library_ms"}
+    out = {key.get(n, f"{n}_ms"): r["median"] for n, r in t.items()}
+    out["spread_ms"] = {key.get(n, f"{n}_ms"): [r["min"], r["max"]] for n, r in t.items()}
+    if library:
+        out["library_ratio"] = out["ms"] / out["library_ms"]
+    return out
 
 
 def bound(nbytes: float, flops: float,
@@ -248,6 +299,17 @@ def max_errs(got, want) -> tuple[float, float]:
 def random_streams(rng, n: int, dev) -> torch.Tensor:
     return torch.from_numpy(rng.integers(-2**31, 2**31, size=n, dtype=np.int64)
                             .astype(np.int32)).to(dev)
+
+
+def packed_streams(rng, n: int, dev) -> torch.Tensor:
+    """The dropout streams of n packed rows: at POPULATION_ROWS as the
+    population path draws them (`expert_streams` over K * E per-(member,
+    expert) seeds of B rows each), elsewhere one random stream a row."""
+    if n != POPULATION_ROWS:
+        return random_streams(rng, n, dev)
+    from rlt_tpu_torch.ops import attention
+
+    return attention.expert_streams(random_streams(rng, n // BATCHES[0], dev), BATCHES[0])
 
 
 def nvidia_smi() -> str:
@@ -296,26 +358,119 @@ def check_lstm(dev, rng) -> dict:
             require(bool(torch.isfinite(hs).all()), "lstm_fwd: non-finite hs")
             require(err <= LSTM_ATOL, f"lstm_fwd ndir={ndir} B={batch}: max abs err "
                     f"{err} > {LSTM_ATOL}")
-            ms = cuda_ms(lambda: lstm.lstm_fwd(xw, w, ndir), iters=20)
-            plain_ms = cuda_ms(lambda: lstm.lstm_recurrence_plain(xw, w, ndir), iters=3,
-                               warmup=1)
+            plain_ms = plain_time(lambda: lstm.lstm_recurrence_plain(xw, w, ndir))
             cudnn = torch.nn.LSTM(HIDDEN, HIDDEN, batch_first=True,
                                   bidirectional=ndir == 2).to(dev)
             x_in = torch.from_numpy(rng.normal(size=(batch, SEQ_LEN, HIDDEN))
                                     .astype(np.float32)).to(dev)
             with torch.no_grad():
-                library_ms = cuda_ms(lambda: cudnn(x_in), iters=20)
+                t = timed(lambda: lstm.lstm_fwd(xw, w, ndir), lambda: cudnn(x_in))
             nbytes = 4 * ndir * (SEQ_LEN * batch * 4 * HIDDEN + HIDDEN * 4 * HIDDEN
                                  + 2 * SEQ_LEN * batch * HIDDEN)
             flops = ndir * (2 * SEQ_LEN * batch * HIDDEN * 4 * HIDDEN
                             + 10 * SEQ_LEN * batch * HIDDEN)
             bound_ms, bound_by = bound(nbytes, flops)
-            row = dict(ndir=ndir, batch=batch, max_abs_err=err, ms=ms,
-                       ms_per_step=ms / SEQ_LEN, plain_ms=plain_ms,
-                       library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+            row = dict(ndir=ndir, batch=batch, max_abs_err=err, **t,
+                       ms_per_step=t["ms"] / SEQ_LEN, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=bound_by)
             log("lstm_fwd " + json.dumps(row))
             rows.append(row)
     return lstm_rows(rows)
+
+
+def lstm_waves(ndir: int, batch: int) -> tuple[int, int, int]:
+    """(R, blocks, waves) of K1' and K2''s chain at ndir directions of
+    `batch` rows: R rows a block, the fewest of 1, 2 and 4 whose ndir *
+    ceil(B / R) blocks fit the SMs, else 4 (csrc/lstm_fwd.cu's launcher),
+    and the waves of one block per SM those blocks take."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = next((r for r in (1, 2) if ndir * -(-batch // r) <= sms), 4)
+    blocks = ndir * -(-batch // rows)
+    return rows, blocks, -(-blocks // sms)
+
+
+def check_lstm_members(dev, rng) -> dict:
+    """K1' and K2' member-batched, as the population runs them: K members'
+    BiLSTM layers in one launch at ndir = 2K, direction 2m + s with its own
+    W_hh^T, at B = 63 lists a member, K in POPULATION_SIZES. Each against
+    its plain version (K1' within LSTM_ATOL, K2' within LSTM_BWD_REL of the
+    max abs, two K2' launches bit-equal), and timed in turns against K
+    launches at ndir = 2 on the members' slices (`sequential_ms`, the
+    population's alternative) and against cuDNN's two-direction LSTM over
+    the K * B rows with ONE set of weights (`cudnn_shared_ms`: not the same
+    function, so library_ms is null)."""
+    from rlt_tpu_torch.ops import lstm
+
+    batch, out = BATCHES[0], {}
+    for k in POPULATION_SIZES:
+        ndir = 2 * k
+        xw = torch.from_numpy(rng.normal(size=(SEQ_LEN, ndir * batch, 4 * HIDDEN))
+                              .astype(np.float32)).to(dev)
+        w = lstm_weights(rng, ndir, dev)
+        dho = torch.from_numpy(rng.normal(size=(SEQ_LEN, ndir * batch, HIDDEN))
+                               .astype(np.float32)).to(dev)
+        hs, cs = lstm.lstm_fwd(xw, w, ndir)
+        torch.cuda.synchronize()
+        want_hs, want_cs = lstm.lstm_recurrence_plain(xw, w, ndir)
+        fwd_err = max((hs - want_hs).abs().max().item(), (cs - want_cs).abs().max().item())
+        require(bool(torch.isfinite(hs).all()) and fwd_err <= LSTM_ATOL,
+                f"lstm_fwd K={k} (ndir {ndir}): max abs err {fwd_err} > {LSTM_ATOL}")
+        dxw, dw = lstm.lstm_bwd(xw, w, want_hs, want_cs, dho, ndir)
+        torch.cuda.synchronize()
+        want_dxw, want_dw = lstm.lstm_bwd_plain(xw, w, want_hs, want_cs, dho, ndir)
+        errs = [max_errs(dxw, want_dxw), max_errs(dw, want_dw)]
+        bwd_rel = max(e[1] for e in errs)
+        require(bool(torch.isfinite(dxw).all() and torch.isfinite(dw).all())
+                and bwd_rel <= LSTM_BWD_REL,
+                f"lstm_bwd K={k} (ndir {ndir}): max rel err {bwd_rel} > {LSTM_BWD_REL}")
+        again = lstm.lstm_bwd(xw, w, want_hs, want_cs, dho, ndir)
+        require(torch.equal(dxw, again[0]) and torch.equal(dw, again[1]),
+                f"lstm_bwd K={k}: two launches on the same inputs differ")
+        # each member's slice at ndir = 2, contiguous, as its own run holds it
+        rows = 2 * batch
+        slices = [(xw[:, m * rows:(m + 1) * rows].contiguous(),
+                   w[m * 2 * HIDDEN:(m + 1) * 2 * HIDDEN].contiguous(),
+                   want_hs[:, m * rows:(m + 1) * rows].contiguous(),
+                   want_cs[:, m * rows:(m + 1) * rows].contiguous(),
+                   dho[:, m * rows:(m + 1) * rows].contiguous()) for m in range(k)]
+        cudnn = torch.nn.LSTM(HIDDEN, HIDDEN, batch_first=True, bidirectional=True).to(dev)
+        x_in = torch.from_numpy(rng.normal(size=(k * batch, SEQ_LEN, HIDDEN))
+                                .astype(np.float32)).to(dev)
+        with torch.no_grad():
+            fwd_t = timed(lambda: lstm.lstm_fwd(xw, w, ndir),
+                          sequential=lambda: [lstm.lstm_fwd(a, b, 2)
+                                              for a, b, *_ in slices],
+                          cudnn_shared=lambda: cudnn(x_in))
+        x_in.requires_grad_()
+        y, _ = cudnn(x_in)
+        g_out = torch.randn_like(y)
+        wrt = [x_in, *cudnn.parameters()]
+        bwd_t = timed(lambda: lstm.lstm_bwd(xw, w, want_hs, want_cs, dho, ndir),
+                      sequential=lambda: [lstm.lstm_bwd(*sl, 2) for sl in slices],
+                      cudnn_shared=lambda: torch.autograd.grad(y, wrt, g_out,
+                                                               retain_graph=True))
+        fwd_plain = plain_time(lambda: lstm.lstm_recurrence_plain(xw, w, ndir))
+        bwd_plain = plain_time(lambda: lstm.lstm_bwd_plain(xw, w, want_hs, want_cs, dho,
+                                                           ndir))
+        state = SEQ_LEN * ndir * batch * HIDDEN
+        fwd_bound = bound(4 * (4 * state + ndir * HIDDEN * 4 * HIDDEN + 2 * state),
+                          2 * state * 4 * HIDDEN + 10 * state)
+        bwd_bound = bound(4 * (2 * 4 * state + 2 * ndir * HIDDEN * 4 * HIDDEN + 3 * state),
+                          3 * 2 * 4 * state * HIDDEN)
+        r, blocks, waves = lstm_waves(ndir, batch)
+        shape = dict(members=k, ndir=ndir, batch=batch, rows_per_block=r, blocks=blocks,
+                     waves=waves, library_ms=None)
+        out[k] = {
+            "lstm_fwd": dict(shape, max_abs_err=fwd_err, **fwd_t, plain_ms=fwd_plain,
+                             sequential_ratio=fwd_t["ms"] / fwd_t["sequential_ms"],
+                             bound_ms=fwd_bound[0], bound_by=fwd_bound[1]),
+            "lstm_bwd": dict(shape, max_abs_err=max(e[0] for e in errs),
+                             max_rel_err=bwd_rel, **bwd_t, plain_ms=bwd_plain,
+                             sequential_ratio=bwd_t["ms"] / bwd_t["sequential_ms"],
+                             bound_ms=bwd_bound[0], bound_by=bwd_bound[1])}
+        for name, row in out[k].items():
+            log(f"{name} members " + json.dumps(row))
+    return out
 
 
 def check_attention(dev, rng, d_model: int = D_MODEL, heads: int = HEADS,
@@ -338,16 +493,14 @@ def check_attention(dev, rng, d_model: int = D_MODEL, heads: int = HEADS,
         require(bool(torch.isfinite(o).all()), "attention_packed_fwd: non-finite o")
         require(err <= ATTN_ATOL,
                 f"attention_packed_fwd dh={dh} N={n}: max abs err {err} > {ATTN_ATOL}")
-        ms = cuda_ms(lambda: attention.fused_attention_packed(q, k, v, heads=heads,
-                                                              pack=pack), iters=10)
-        plain_ms = cuda_ms(lambda: attention.attention_packed_plain(q, k, v, heads, pack),
-                           iters=10)
+        plain_ms = plain_time(lambda: attention.attention_packed_plain(q, k, v, heads, pack))
         by_head = [t.view(n, SEQ_LEN, heads, dh).transpose(1, 2) for t in (q, k, v)]
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(*by_head), iters=10)
+        t = timed(lambda: attention.fused_attention_packed(q, k, v, heads=heads, pack=pack),
+                  lambda: F.scaled_dot_product_attention(*by_head))
         nbytes = 4 * (4 * n * SEQ_LEN * d_model + n * heads * SEQ_LEN)
         flops = 4 * n * heads * SEQ_LEN * SEQ_LEN * dh
-        row = dict(n=n, dh=dh, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                   library_ms=library_ms, **bounds(nbytes, flops))
+        row = dict(n=n, dh=dh, max_abs_err=err, **t, plain_ms=plain_ms,
+                   **bounds(nbytes, flops))
         log("attention_packed_fwd " + json.dumps(row))
         out.append(row)
     return {"rows": out, "max_abs_err": max(r["max_abs_err"] for r in out)}
@@ -384,9 +537,7 @@ def check_lstm_bwd(dev, rng) -> dict:
                 require(torch.equal(dxw, again[0]) and torch.equal(dw, again[1]),
                         f"lstm_bwd ndir=2 B={batch}: two launches on the same inputs "
                         "differ")
-            ms = cuda_ms(lambda: lstm.lstm_bwd(xw, w, hs, cs, dho, ndir), iters=20)
-            plain_ms = cuda_ms(lambda: lstm.lstm_bwd_plain(xw, w, hs, cs, dho, ndir),
-                               iters=3, warmup=1)
+            plain_ms = plain_time(lambda: lstm.lstm_bwd_plain(xw, w, hs, cs, dho, ndir))
             cudnn = torch.nn.LSTM(HIDDEN, HIDDEN, batch_first=True,
                                   bidirectional=ndir == 2).to(dev)
             x_in = torch.from_numpy(rng.normal(size=(batch, SEQ_LEN, HIDDEN))
@@ -394,16 +545,15 @@ def check_lstm_bwd(dev, rng) -> dict:
             out, _ = cudnn(x_in)
             g_out = torch.randn_like(out)
             wrt = [x_in, *cudnn.parameters()]
-            library_ms = cuda_ms(lambda: torch.autograd.grad(out, wrt, g_out,
-                                                             retain_graph=True), iters=20)
+            t = timed(lambda: lstm.lstm_bwd(xw, w, hs, cs, dho, ndir),
+                      lambda: torch.autograd.grad(out, wrt, g_out, retain_graph=True))
             state = SEQ_LEN * ndir * batch * HIDDEN
             nbytes = 4 * (2 * 4 * state + 2 * ndir * HIDDEN * 4 * HIDDEN + 3 * state)
             flops = 3 * 2 * 4 * state * HIDDEN  # gates, carried dh, dW_hh^T
             bound_ms, bound_by = bound(nbytes, flops)
             row = dict(ndir=ndir, batch=batch, max_abs_err=max(e[0] for e in errs),
-                       max_rel_err=rel, ms=ms, ms_per_step=ms / SEQ_LEN,
-                       plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                       bound_by=bound_by)
+                       max_rel_err=rel, **t, ms_per_step=t["ms"] / SEQ_LEN,
+                       plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
             log("lstm_bwd " + json.dumps(row))
             rows.append(row)
     return lstm_rows(rows)
@@ -423,7 +573,7 @@ def check_attention_dropout(dev, rng, d_model: int = D_MODEL, heads: int = HEADS
     for n in rows:
         q, k, v = (torch.from_numpy(rng.normal(size=(n, SEQ_LEN, d_model))
                                     .astype(np.float32)).to(dev) for _ in range(3))
-        streams = random_streams(rng, n, dev)
+        streams = packed_streams(rng, n, dev)
         o, lse = attention.fused_attention_packed(q, k, v, heads, pack, RATE, streams)
         o_rate0, _ = attention.fused_attention_packed(q, k, v, heads, pack, 0.0, streams)
         o_none, _ = attention.fused_attention_packed(q, k, v, heads, pack)
@@ -438,18 +588,16 @@ def check_attention_dropout(dev, rng, d_model: int = D_MODEL, heads: int = HEADS
                 f"err {err} > {ATTN_ATOL}")
         dropped = (o - o_none).abs().max().item()
         require(dropped > 1e-3, "attention_packed_fwd: dropout changed nothing")
-        ms = cuda_ms(lambda: attention.fused_attention_packed(q, k, v, heads, pack, RATE,
-                                                              streams), iters=10)
-        plain_ms = cuda_ms(lambda: attention.attention_packed_plain(
-            q, k, v, heads, pack, RATE, streams), iters=3, warmup=1)
+        plain_ms = plain_time(lambda: attention.attention_packed_plain(
+            q, k, v, heads, pack, RATE, streams))
         by_head = [t.view(n, SEQ_LEN, heads, dh).transpose(1, 2) for t in (q, k, v)]
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(*by_head,
-                                                                    dropout_p=RATE),
-                             iters=10)
+        t = timed(lambda: attention.fused_attention_packed(q, k, v, heads, pack, RATE,
+                                                           streams),
+                  lambda: F.scaled_dot_product_attention(*by_head, dropout_p=RATE))
         nbytes = 4 * (4 * n * SEQ_LEN * d_model + n * heads * SEQ_LEN + n)
         flops = 4 * n * heads * SEQ_LEN * SEQ_LEN * dh
-        row = dict(n=n, dh=dh, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                   library_ms=library_ms, **bounds(nbytes, flops))
+        row = dict(n=n, dh=dh, max_abs_err=err, **t, plain_ms=plain_ms,
+                   **bounds(nbytes, flops))
         log("attention_packed_fwd dropout " + json.dumps(row))
         out.append(row)
     return {"rows": out, "max_abs_err": max(r["max_abs_err"] for r in out)}
@@ -469,7 +617,7 @@ def check_attention_bwd(dev, rng, d_model: int = D_MODEL, heads: int = HEADS,
     for n in rows:
         q, k, v, do = (torch.from_numpy(rng.normal(size=(n, SEQ_LEN, d_model))
                                         .astype(np.float32)).to(dev) for _ in range(4))
-        streams = random_streams(rng, n, dev)
+        streams = packed_streams(rng, n, dev)
         errs = []
         for rate in (0.0, RATE):
             o, lse = attention.attention_packed_fwd(q, k, v, heads, pack, rate, streams)
@@ -489,21 +637,19 @@ def check_attention_bwd(dev, rng, d_model: int = D_MODEL, heads: int = HEADS,
         require(all(torch.equal(a, b) for a, b in zip(got, again)),
                 f"attention_packed_bwd dh={dh} N={n}: two launches on the same inputs "
                 "differ")
-        ms = cuda_ms(lambda: attention.attention_packed_bwd(q, k, v, o, lse, do, heads,
-                                                            pack, RATE, streams), iters=10)
-        plain_ms = cuda_ms(lambda: attention.attention_packed_bwd_plain(
-            q, k, v, o, lse, do, heads, pack, RATE, streams), iters=3, warmup=1)
+        plain_ms = plain_time(lambda: attention.attention_packed_bwd_plain(
+            q, k, v, o, lse, do, heads, pack, RATE, streams))
         by_head = [t.view(n, SEQ_LEN, heads, dh).transpose(1, 2).detach().requires_grad_()
                    for t in (q, k, v)]
         out = F.scaled_dot_product_attention(*by_head)
         g_out = do.view(n, SEQ_LEN, heads, dh).transpose(1, 2)
-        library_ms = cuda_ms(lambda: torch.autograd.grad(out, by_head, g_out,
-                                                         retain_graph=True), iters=10)
+        t = timed(lambda: attention.attention_packed_bwd(q, k, v, o, lse, do, heads, pack,
+                                                         RATE, streams),
+                  lambda: torch.autograd.grad(out, by_head, g_out, retain_graph=True))
         nbytes = 4 * (8 * n * SEQ_LEN * d_model + n * heads * SEQ_LEN + n)
         flops = 10 * n * SEQ_LEN * d_model * SEQ_LEN
         row = dict(n=n, dh=dh, max_abs_err=max(e[0] for e in errs), max_rel_err=rel,
-                   ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   **bounds(nbytes, flops))
+                   **t, plain_ms=plain_ms, **bounds(nbytes, flops))
         log("attention_packed_bwd " + json.dumps(row))
         out_rows.append(row)
     return {"rows": out_rows, "max_abs_err": max(r["max_abs_err"] for r in out_rows)}
@@ -552,14 +698,12 @@ def check_slice_attention(dev, rng) -> dict:
             else:
                 require((o - o_none).abs().max().item() > 1e-3,
                         "attention_fwd: dropout changed nothing")
-            ms = cuda_ms(lambda: attention.attention_fwd(q, k, v, rate, streams), iters=10)
-            plain_ms = cuda_ms(lambda: attention.attention_plain(q, k, v, rate, streams),
-                               iters=3, warmup=1)
-            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, dropout_p=rate), iters=10)
-            timed = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                         **slice_bound(n * SLICE_HEADS, backward=False))
-            row.update(timed if rate == 0.0 else {"dropout_0.1": timed})
+            plain_ms = plain_time(lambda: attention.attention_plain(q, k, v, rate, streams))
+            t = timed(lambda: attention.attention_fwd(q, k, v, rate, streams),
+                      lambda: F.scaled_dot_product_attention(q, k, v, dropout_p=rate))
+            t.update(max_abs_err=err, plain_ms=plain_ms,
+                     **slice_bound(n * SLICE_HEADS, backward=False))
+            row.update(t if rate == 0.0 else {"dropout_0.1": t})
         row["max_abs_err"] = max(row["max_abs_err"], row["dropout_0.1"]["max_abs_err"])
         log("attention_fwd " + json.dumps(row))
         rows.append(row)
@@ -597,18 +741,15 @@ def check_slice_attention_bwd(dev, rng) -> dict:
                 again = attention.attention_bwd(q, k, v, o, lse, do, rate, streams)
                 require(all(torch.equal(a, b) for a, b in zip(got, again)),
                         f"attention_bwd N={n}: two launches on the same inputs differ")
-            ms = cuda_ms(lambda: attention.attention_bwd(q, k, v, o, lse, do, rate,
-                                                         streams), iters=10)
-            plain_ms = cuda_ms(lambda: attention.attention_bwd_plain(
-                q, k, v, o, lse, do, rate, streams), iters=3, warmup=1)
+            plain_ms = plain_time(lambda: attention.attention_bwd_plain(
+                q, k, v, o, lse, do, rate, streams))
             leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
             out = F.scaled_dot_product_attention(*leaves, dropout_p=rate)
-            library_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, do,
-                                                             retain_graph=True), iters=10)
-            timed = dict(max_abs_err=max(e[0] for e in errs), max_rel_err=rel, ms=ms,
-                         plain_ms=plain_ms, library_ms=library_ms,
-                         **slice_bound(n * SLICE_HEADS, backward=True))
-            row.update(timed if rate == RATE else {"rate_0": timed})
+            t = timed(lambda: attention.attention_bwd(q, k, v, o, lse, do, rate, streams),
+                      lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
+            t.update(max_abs_err=max(e[0] for e in errs), max_rel_err=rel, plain_ms=plain_ms,
+                     **slice_bound(n * SLICE_HEADS, backward=True))
+            row.update(t if rate == RATE else {"rate_0": t})
         row["max_abs_err"] = max(row["max_abs_err"], row["rate_0"]["max_abs_err"])
         log("attention_bwd " + json.dumps(row))
         rows.append(row)
@@ -668,9 +809,7 @@ def check_lstm_bf16(dev, rng) -> dict:
             require(cs_err <= LSTM_ATOL and hs_beyond <= LSTM_ATOL,
                     f"lstm_fwd_bf16 ndir={ndir} B={batch}: cs max abs err {cs_err}, hs "
                     f"{hs_beyond} beyond one bf16 step (limit {LSTM_ATOL})")
-            ms = cuda_ms(lambda: lstm.lstm_fwd_bf16(xw, w, ndir), iters=20)
-            plain_ms = cuda_ms(lambda: lstm.lstm_recurrence_plain(xw, w, ndir), iters=3,
-                               warmup=1)
+            plain_ms = plain_time(lambda: lstm.lstm_recurrence_plain(xw, w, ndir))
             cudnn = torch.nn.LSTM(HIDDEN, HIDDEN, batch_first=True, bidirectional=ndir == 2,
                                   device=dev, dtype=torch.bfloat16)
             x_in = torch.from_numpy(rng.normal(size=(batch, SEQ_LEN, HIDDEN))
@@ -678,17 +817,17 @@ def check_lstm_bf16(dev, rng) -> dict:
             with torch.no_grad():
                 # timed with its weights as built (not compacted; torch
                 # warns) and compacted, the latter as library_ms
-                unflattened_ms = cuda_ms(lambda: cudnn(x_in), iters=20)
+                unflattened_ms = cuda_ms(lambda: cudnn(x_in))
                 cudnn.flatten_parameters()
-                library_ms = cuda_ms(lambda: cudnn(x_in), iters=20)
+                t = timed(lambda: lstm.lstm_fwd_bf16(xw, w, ndir), lambda: cudnn(x_in))
             state = SEQ_LEN * ndir * batch * HIDDEN
             # xw, W_hh^T and hs at 2 bytes, cs at 4; K1''s products in f32
             nbytes = 2 * (4 * state + ndir * HIDDEN * 4 * HIDDEN + state) + 4 * state
             flops = 2 * state * 4 * HIDDEN + 10 * state
             bound_ms, bound_by = bound(nbytes, flops)
             row = dict(ndir=ndir, batch=batch, max_abs_err=max(cs_err, hs_diff.max().item()),
-                       cs_err=cs_err, hs_beyond_step=hs_beyond, ms=ms,
-                       ms_per_step=ms / SEQ_LEN, plain_ms=plain_ms, library_ms=library_ms,
+                       cs_err=cs_err, hs_beyond_step=hs_beyond, **t,
+                       ms_per_step=t["ms"] / SEQ_LEN, plain_ms=plain_ms,
                        library_unflattened_ms=unflattened_ms, bound_ms=bound_ms,
                        bound_by=bound_by)
             log("lstm_fwd_bf16 " + json.dumps(row))
@@ -736,17 +875,15 @@ def check_attention_bf16(dev, rng, d_model: int = D_MODEL, heads: int = HEADS,
             if rate == 0.0:
                 require(torch.equal(o, o_none), "attention_packed_fwd_bf16: rate 0 with "
                         "streams differs from the call without dropout")
-            ms = cuda_ms(lambda: attention.attention_packed_fwd_bf16(
-                q, k, v, heads, pack, rate, streams), iters=10)
-            plain_ms = cuda_ms(lambda: attention.attention_packed_plain(
-                q, k, v, heads, pack, rate, streams), iters=3, warmup=1)
+            plain_ms = plain_time(lambda: attention.attention_packed_plain(
+                q, k, v, heads, pack, rate, streams))
             by_head = [t.view(n, SEQ_LEN, heads, dh).transpose(1, 2) for t in (q, k, v)]
-            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                *by_head, dropout_p=rate), iters=10)
-            timed = dict(max_abs_err=o_err, lse_err=lse_err, ms=ms, plain_ms=plain_ms,
-                         library_ms=library_ms,
-                         **bf16_attention_bound(n * heads, dh, rate > 0.0))
-            row.update(timed if rate == 0.0 else {"dropout_0.1": timed})
+            t = timed(lambda: attention.attention_packed_fwd_bf16(q, k, v, heads, pack, rate,
+                                                                  streams),
+                      lambda: F.scaled_dot_product_attention(*by_head, dropout_p=rate))
+            t.update(max_abs_err=o_err, lse_err=lse_err, plain_ms=plain_ms,
+                     **bf16_attention_bound(n * heads, dh, rate > 0.0))
+            row.update(t if rate == 0.0 else {"dropout_0.1": t})
         row["max_abs_err"] = max(row["max_abs_err"], row["dropout_0.1"]["max_abs_err"])
         log("attention_packed_fwd_bf16 " + json.dumps(row))
         out.append(row)
@@ -778,16 +915,12 @@ def check_slice_attention_bf16(dev, rng) -> dict:
             if rate == 0.0:
                 require(torch.equal(o, o_none), "attention_fwd_bf16: rate 0 with streams "
                         "differs from the call without dropout")
-            ms = cuda_ms(lambda: attention.attention_fwd_bf16(q, k, v, rate, streams),
-                         iters=10)
-            plain_ms = cuda_ms(lambda: attention.attention_plain(q, k, v, rate, streams),
-                               iters=3, warmup=1)
-            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, dropout_p=rate), iters=10)
-            timed = dict(max_abs_err=o_err, lse_err=lse_err, ms=ms, plain_ms=plain_ms,
-                         library_ms=library_ms,
-                         **bf16_attention_bound(n * SLICE_HEADS, SLICE_DH, rate > 0.0))
-            row.update(timed if rate == 0.0 else {"dropout_0.1": timed})
+            plain_ms = plain_time(lambda: attention.attention_plain(q, k, v, rate, streams))
+            t = timed(lambda: attention.attention_fwd_bf16(q, k, v, rate, streams),
+                      lambda: F.scaled_dot_product_attention(q, k, v, dropout_p=rate))
+            t.update(max_abs_err=o_err, lse_err=lse_err, plain_ms=plain_ms,
+                     **bf16_attention_bound(n * SLICE_HEADS, SLICE_DH, rate > 0.0))
+            row.update(t if rate == 0.0 else {"dropout_0.1": t})
         row["max_abs_err"] = max(row["max_abs_err"], row["dropout_0.1"]["max_abs_err"])
         log("attention_fwd_bf16 " + json.dumps(row))
         rows.append(row)
@@ -834,9 +967,7 @@ def check_lstm_bwd_bf16(dev, rng) -> dict:
                 require(torch.equal(dxw, again[0]) and torch.equal(dw, again[1]),
                         f"lstm_bwd_bf16 ndir=2 B={batch}: two launches on the same "
                         "inputs differ")
-            ms = cuda_ms(lambda: lstm.lstm_bwd_bf16(xw, w, hs, cs, dho, ndir), iters=20)
-            plain_ms = cuda_ms(lambda: lstm.lstm_bwd_plain(xw, w, hs, cs, dho, ndir),
-                               iters=3, warmup=1)
+            plain_ms = plain_time(lambda: lstm.lstm_bwd_plain(xw, w, hs, cs, dho, ndir))
             cudnn = torch.nn.LSTM(HIDDEN, HIDDEN, batch_first=True, bidirectional=ndir == 2,
                                   device=dev, dtype=torch.bfloat16)
             cudnn.flatten_parameters()
@@ -845,8 +976,8 @@ def check_lstm_bwd_bf16(dev, rng) -> dict:
             out, _ = cudnn(x_in)
             g_out = torch.randn_like(out)
             wrt = [x_in, *cudnn.parameters()]
-            library_ms = cuda_ms(lambda: torch.autograd.grad(out, wrt, g_out,
-                                                             retain_graph=True), iters=20)
+            t = timed(lambda: lstm.lstm_bwd_bf16(xw, w, hs, cs, dho, ndir),
+                      lambda: torch.autograd.grad(out, wrt, g_out, retain_graph=True))
             state = SEQ_LEN * ndir * batch * HIDDEN
             # xw, dxw (4H wide), W_hh^T, hs and dho at 2 bytes; cs at 4 and
             # dW_hh^T at 4; three (state x 4H) products: the chain's dgates
@@ -860,8 +991,8 @@ def check_lstm_bwd_bf16(dev, rng) -> dict:
                 nbytes, 2 * product + product * PEAK_F32_FLOPS / PEAK_BF16_FLOPS)
             row = dict(ndir=ndir, batch=batch, max_abs_err=max(
                            (dxw.float() - want_dxw.float()).abs().max().item(), dw_err),
-                       dxw_beyond_step=dxw_beyond, max_rel_err=dw_rel, ms=ms,
-                       ms_per_step=ms / SEQ_LEN, plain_ms=plain_ms, library_ms=library_ms,
+                       dxw_beyond_step=dxw_beyond, max_rel_err=dw_rel, **t,
+                       ms_per_step=t["ms"] / SEQ_LEN, plain_ms=plain_ms,
                        bound_ms=bound_ms, bound_by=bound_by)
             log("lstm_bwd_bf16 " + json.dumps(row))
             rows.append(row)
@@ -926,18 +1057,17 @@ def check_attention_bwd_bf16(dev, rng, d_model: int = D_MODEL, heads: int = HEAD
         require(all(torch.equal(a, b) for a, b in zip(got, again)),
                 f"attention_packed_bwd_bf16 dh={dh} N={n}: two launches on the same "
                 "inputs differ")
-        ms = cuda_ms(lambda: attention.attention_packed_bwd_bf16(
-            q, k, v, o, lse, do, heads, pack, RATE, streams), iters=10)
-        plain_ms = cuda_ms(lambda: attention.attention_packed_bwd_plain(
-            q, k, v, o, lse, do, heads, pack, RATE, streams), iters=3, warmup=1)
+        plain_ms = plain_time(lambda: attention.attention_packed_bwd_plain(
+            q, k, v, o, lse, do, heads, pack, RATE, streams))
         by_head = [t.view(n, SEQ_LEN, heads, dh).transpose(1, 2).detach().requires_grad_()
                    for t in (q, k, v)]
         out = F.scaled_dot_product_attention(*by_head, dropout_p=RATE)
         g_out = do.view(n, SEQ_LEN, heads, dh).transpose(1, 2)
-        library_ms = cuda_ms(lambda: torch.autograd.grad(out, by_head, g_out,
-                                                         retain_graph=True), iters=10)
-        row = dict(n=n, dh=dh, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                   library_ms=library_ms, **bf16_attention_bwd_bound(n * heads, dh))
+        t = timed(lambda: attention.attention_packed_bwd_bf16(q, k, v, o, lse, do, heads,
+                                                              pack, RATE, streams),
+                  lambda: torch.autograd.grad(out, by_head, g_out, retain_graph=True))
+        row = dict(n=n, dh=dh, max_abs_err=max(errs), **t, plain_ms=plain_ms,
+                   **bf16_attention_bwd_bound(n * heads, dh))
         log("attention_packed_bwd_bf16 " + json.dumps(row))
         out_rows.append(row)
     return {"rows": out_rows, "max_abs_err": max(r["max_abs_err"] for r in out_rows)}
@@ -966,15 +1096,13 @@ def check_slice_attention_bwd_bf16(dev, rng) -> dict:
     again = attention.attention_bwd_bf16(q, k, v, o, lse, do, RATE, streams)
     require(all(torch.equal(a, b) for a, b in zip(got, again)),
             f"attention_bwd_bf16 N={n}: two launches on the same inputs differ")
-    ms = cuda_ms(lambda: attention.attention_bwd_bf16(q, k, v, o, lse, do, RATE, streams),
-                 iters=10)
-    plain_ms = cuda_ms(lambda: attention.attention_bwd_plain(q, k, v, o, lse, do, RATE,
-                                                             streams), iters=3, warmup=1)
+    plain_ms = plain_time(lambda: attention.attention_bwd_plain(q, k, v, o, lse, do, RATE,
+                                                                streams))
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     out = F.scaled_dot_product_attention(*leaves, dropout_p=RATE)
-    library_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
-                         iters=10)
-    row = dict(n=n, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+    t = timed(lambda: attention.attention_bwd_bf16(q, k, v, o, lse, do, RATE, streams),
+              lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
+    row = dict(n=n, max_abs_err=max(errs), **t, plain_ms=plain_ms,
                **bf16_attention_bwd_bound(n * SLICE_HEADS, SLICE_DH))
     log("attention_bwd_bf16 " + json.dumps(row))
     return {"rows": [row], "max_abs_err": row["max_abs_err"]}
@@ -1069,6 +1197,7 @@ def serve_end_to_end(rng, model_name: str, list_counts: tuple[int, ...],
     from rlt_tpu_torch.infer import Predictor
     from rlt_tpu_torch.ops import plain_ops
     from rlt_tpu_torch.serve import TruncationService, bucket_size, make_server
+    from rlt_tpu_torch.utils.timing import device_busy_ms, host_share
 
     bf16 = compute_dtype == "bfloat16"
     label = f"{model_name}-bf16" if bf16 else model_name
@@ -1171,10 +1300,17 @@ def serve_end_to_end(rng, model_name: str, list_counts: tuple[int, ...],
 
     timing = {}
     for b in (1, 8, 64, 256):
-        timing[b] = predictor.forward_ms(b, iters=10)
+        timing[b] = predictor.forward_ms(b)
+        busy = ""
+        if b == 64 and bf16:  # with the card's busy time and the host's share
+            x = torch.zeros(b, predictor.cfg.seq_len, predictor.cfg.input_size,
+                            device=predictor.device)
+            busy_ms = device_busy_ms(lambda: predictor._forward(x))
+            busy = " " + json.dumps({"busy_ms": busy_ms,
+                                     "host_share": host_share(busy_ms, timing[b])})
         stages = (f"; stages {json.dumps(stage_ms(predictor.net, b))}"
                   if hasattr(predictor.net, "experts") else "")
-        log(f"{label} forward bucket {b}: {timing[b]} ms{stages}")
+        log(f"{label} forward bucket {b}: {timing[b]} ms" + busy + stages)
     log(json.dumps({f"{label} lists_per_s": {
         "63 lists (bucket 64)": 63 / timing[64] * 1e3,
         "256 lists (bucket 256)": 256 / timing[256] * 1e3}}))
@@ -1291,8 +1427,9 @@ def train_end_to_end(model_name: str) -> dict:
 
     # one step in its parts, on the batch of the step-1 comparison
     part_ms = train_step_parts(timed, *batch)
-    epoch_ms = cuda_ms(lambda: trainer.run_epoch(), iters=3, warmup=1)
-    timing = dict(first_epoch_s=epoch_s, epoch_ms=epoch_ms, step_ms=part_ms,
+    epoch = epoch_timing(trainer)
+    timing = dict(first_epoch_s=epoch_s, epoch_ms=epoch["median"],
+                  epoch_spread=[epoch["min"], epoch["max"]], step_ms=part_ms,
                   train_steps=steps, test_batches=tests)
     log(f"{model_name} train timing " + json.dumps(timing))
     return {"launches": launches, "timing": timing}
@@ -1425,11 +1562,143 @@ def train_end_to_end_bf16(model_name: str) -> dict:
         f"{update_ratio:.3f} of d_ref's; summary {json.dumps(summary)}")
 
     part_ms = train_step_parts(timed, *batch)
-    epoch_ms = cuda_ms(lambda: trainer.run_epoch(), iters=3, warmup=1)
-    timing = dict(first_epoch_s=epoch_s, epoch_ms=epoch_ms, step_ms=part_ms,
+    epoch = epoch_timing(trainer)
+    timing = dict(first_epoch_s=epoch_s, epoch_ms=epoch["median"],
+                  epoch_spread=[epoch["min"], epoch["max"]], step_ms=part_ms,
                   train_steps=steps, test_batches=tests)
     log(f"{label} timing " + json.dumps(timing))
     return {"launches": launches, "timing": timing}
+
+
+def epoch_timing(trainer) -> dict:
+    """Device ms of one more epoch of `trainer` (its train steps and test
+    batches): the median, least and most of REPEATS epochs."""
+    from rlt_tpu_torch.utils.timing import interleaved_ms
+
+    return interleaved_ms({"epoch": trainer.run_epoch}, 1)["epoch"]
+
+
+def population_config():
+    from rlt_tpu_torch.config import TrainConfig, apply_preset
+
+    cfg = dataclasses.replace(apply_preset(TrainConfig(model_name="mmoecut",
+                                                       retrieve_data="robust04")), epochs=1)
+    require((cfg.batch_size, cfg.seq_len) == (63, SEQ_LEN) and cfg.dropout > 0.0,
+            f"drmm_tks preset with dropout on: {cfg}")
+    return cfg
+
+
+def population_end_to_end() -> dict:
+    """Population training's main path: `train_population` of MMOECut at
+    robust04 width (its drmm_tks preset, B = 63, the preset's dropout 0.1
+    shared) with the POPULATION_MEMBERS (distinct seed, lr and weight
+    decay), one epoch through the kernels. Before it, one population step
+    must launch 2 K1' (ndir = 2K), 2 K2', 1 K5' and 1 K6' (K * E * B rows)
+    for the whole population. After it, each member against a sequential
+    `Trainer` at its own config on the card, also through the kernels (the
+    same weights, corpus, plans and dropout bits, products batched another
+    way): every step loss within STEP_LOSS_REL, the epoch's updates within
+    UPDATE_REL in L2, leaving out what train_end_to_end leaves out."""
+    from rlt_tpu_torch.models import ZERO_GRAD_LEAVES
+    from rlt_tpu_torch.population import Member, Population, train_population
+    from rlt_tpu_torch.train import Trainer
+
+    cfg = population_config()
+    members = [Member(seed=s, lr=lr, weight_decay=wd) for s, lr, wd in POPULATION_MEMBERS]
+    pop = Population(cfg, members, device="cuda")
+    idx, valid = pop.plans("train")
+    before = read_counts()
+    pop.train_step(*pop.batch("train", idx[:, 0]), valid[:, 0])
+    torch.cuda.synchronize()
+    step_launches = {k: read_counts()[k] - before[k] for k in before}
+    require(step_launches == want_counts("mmoecut", forwards=0, steps=1),
+            f"kernel launches of one population step of {len(members)} members: "
+            f"{step_launches}")
+    del pop
+
+    reset_counts()  # the population path's counts start here
+    t0 = time.perf_counter()
+    out = train_population(cfg, members, track_best_params=True, device="cuda")
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    launches = read_counts()
+    worst_step, worst_update = 0.0, {}
+    for m, (member, row) in enumerate(zip(members, out["per_member"])):
+        trainer = Trainer(dataclasses.replace(cfg, seed=member.seed, lr=member.lr,
+                                              weight_decay=member.weight_decay),
+                          device="cuda")
+        if m == 0:
+            steps, tests = trainer.data.train_batches, trainer.data.test_batches
+            want = want_counts("mmoecut", forwards=tests, steps=steps)
+            require(launches == want, f"kernel launches on the {POPULATION_PATH} path: "
+                    f"{launches}, want {want} ({steps} steps, {tests} test batches)")
+        init = {n: t.clone() for n, t in trainer.model.state_dict().items()}
+        trainer.run()
+        seq = np.asarray(trainer.history[0]["train_loss_steps"])
+        got = np.asarray(row["history"][0]["train_loss_steps"])
+        step_rel = np.abs(got - seq) / np.abs(seq)
+        require(len(got) == len(seq) == steps and np.all(step_rel <= STEP_LOSS_REL)
+                and np.all(np.isfinite(got)),
+                f"population member {m}: step losses {got.tolist()} vs its Trainer's "
+                f"{seq.tolist()}: rel err {step_rel.tolist()} > {STEP_LOSS_REL}")
+        worst_step = max(worst_step, float(step_rel.max()))
+        update_rel = {}
+        for name, final in trainer.model.state_dict().items():
+            if name in ZERO_GRAD_LEAVES["mmoecut"]:
+                continue
+            pop_move, seq_move = (without_key_bias(name, t - init[name]) for t in (
+                out["best_state"][name][m], final))
+            require(bool(torch.isfinite(pop_move).all()), f"member {m}: non-finite {name}")
+            update_rel[name] = ((pop_move - seq_move).norm()
+                                / seq_move.norm().clamp(min=1e-30)).item()
+        name = max(update_rel, key=update_rel.get)
+        require(update_rel[name] <= UPDATE_REL, f"population member {m}: updates over "
+                f"{UPDATE_REL} (L2 rel err) against its Trainer: {worst_of(update_rel)}")
+        worst_update[f"member_{m}"] = [name, update_rel[name]]
+    log(f"{POPULATION_PATH}: {len(members)} members {json.dumps(POPULATION_MEMBERS)}, "
+        f"first epoch {epoch_s:.3f} s; against each member's Trainer: step losses max "
+        f"rel err {worst_step:.3e}, worst update (L2 rel err) {json.dumps(worst_update)}; "
+        f"summaries {json.dumps([{k: r[k] for k in ('best_f1', 'best_dcg')} for r in out['per_member']])}")
+    return launches
+
+
+def population_timing() -> dict:
+    """A population of K = POPULATION_SIZES[-1] members (seeds 0..K-1, the
+    POPULATION_MEMBERS' lr and weight decay in turn) against the same K
+    members as sequential `Trainer`s, one epoch each a round, in turns
+    (`interleaved_ms`): epoch ms as medians with their spread, lists/s
+    (every member's train and test lists over the epoch's time), and each
+    one's busy ms and host share from torch.profiler."""
+    from rlt_tpu_torch.population import Member, Population
+    from rlt_tpu_torch.train import Trainer
+    from rlt_tpu_torch.utils.timing import device_busy_ms, host_share, interleaved_ms
+
+    cfg, k = population_config(), POPULATION_SIZES[-1]
+    members = [Member(seed=i, lr=POPULATION_MEMBERS[i % len(POPULATION_MEMBERS)][1],
+                      weight_decay=POPULATION_MEMBERS[i % len(POPULATION_MEMBERS)][2])
+               for i in range(k)]
+    pop = Population(cfg, members, device="cuda")
+    trainers = [Trainer(dataclasses.replace(cfg, seed=m.seed, lr=m.lr,
+                                            weight_decay=m.weight_decay), device="cuda")
+                for m in members]
+
+    def sequential():
+        for trainer in trainers:
+            trainer.run_epoch()
+
+    t = interleaved_ms({"population": pop.run_epoch, "sequential": sequential}, 1)
+    lists = k * (trainers[0].data.n_train + trainers[0].data.n_test)
+    out = {"members": k, "lists_per_epoch": lists}
+    for name, fn in (("population", pop.run_epoch), ("sequential", sequential)):
+        busy = device_busy_ms(fn, calls=1)
+        out[name] = dict(epoch_ms=t[name]["median"],
+                         epoch_spread=[t[name]["min"], t[name]["max"]],
+                         lists_per_s=lists / t[name]["median"] * 1e3, busy_ms=busy,
+                         host_share=host_share(busy, t[name]["median"]))
+    out["speedup"] = t["sequential"]["median"] / t["population"]["median"]
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log("population timing " + json.dumps(out))
+    return out
 
 
 def without_key_bias(name: str, t: torch.Tensor) -> torch.Tensor:
@@ -1447,17 +1716,23 @@ def worst_of(errs: dict, k: int = 5) -> str:
     return json.dumps(dict(sorted(errs.items(), key=lambda kv: -kv[1])[:k]))
 
 
-def train_step_parts(trainer, x, y, valid, iters: int = 5) -> dict:
-    """Device ms of one train step's forward (with the loss and the dropout
-    masks; in bf16 the parameter casts), backward and optimizer update, each
-    the mean over `iters` steps between CUDA events."""
+def train_step_parts(trainer, x, y, valid, iters: int = 2) -> dict:
+    """Device ms of one train step, and of its forward (with the loss and
+    the dropout masks; in bf16 the parameter casts), backward and optimizer
+    update: the step's median over REPEATS rounds of `iters` steps between
+    CUDA events (`interleaved_ms`) with its least and most round, each
+    part's median over those steps from events inside them; and the card's
+    busy ms per step from torch.profiler, with the host's share of the
+    step's window."""
     from rlt_tpu_torch.train import forward
+    from rlt_tpu_torch.utils.timing import device_busy_ms, host_share, interleaved_ms
 
     model, opt = trainer.model, trainer.optimizer
     model.train()
-    events = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
-              for _ in range(iters + 1)]
-    for ev in events:  # the first step warms up
+    marks = []
+
+    def step():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         opt.zero_grad()
         ev[0].record()
         loss = trainer.criterion(forward(model, x, trainer.generator, trainer.dtype), y,
@@ -1467,26 +1742,35 @@ def train_step_parts(trainer, x, y, valid, iters: int = 5) -> dict:
         ev[2].record()
         opt.step()
         ev[3].record()
+        marks.append(ev)
+
+    t = interleaved_ms({"step": step}, iters)["step"]
     torch.cuda.synchronize()
-    parts = {name: float(np.mean([ev[i].elapsed_time(ev[i + 1]) for ev in events[1:]]))
+    steps = marks[1:]  # the first warms up
+    parts = {name: float(np.median([ev[i].elapsed_time(ev[i + 1]) for ev in steps]))
              for i, name in enumerate(("forward", "backward", "optimizer"))}
-    parts["step"] = float(np.mean([ev[0].elapsed_time(ev[3]) for ev in events[1:]]))
-    return parts
+    busy = device_busy_ms(step)
+    return dict(parts, step=t["median"], step_spread=[t["min"], t["max"]], busy_ms=busy,
+                host_share=host_share(busy, t["median"]))
 
 
 @torch.inference_mode()
-def stage_ms(model, batch: int, iters: int = 10) -> dict:
+def stage_ms(model, batch: int, iters: int = 3) -> dict:
     """Device ms of each stage of one MMOECut or PLECut forward at `batch`,
-    in the model's dtype: the BiLSTM (2 lstm_fwd launches and the input
-    projections), the expert stack (one attention forward launch and the
-    projections and FFN), and the gates with the towers."""
+    in the model's dtype, the three in turns (`interleaved_ms`, medians):
+    the BiLSTM (2 lstm_fwd launches and the input projections), the expert
+    stack (one attention forward launch and the projections and FFN), and
+    the gates with the towers."""
+    from rlt_tpu_torch.utils.timing import interleaved_ms
+
     dtype = next(model.parameters()).dtype
     x = torch.zeros(batch, SEQ_LEN, FEATURES, device="cuda", dtype=dtype)
     experts_in = model.pre_encoding(x)
     experts_o = model.experts(experts_in)
-    return {"bilstm": cuda_ms(lambda: model.pre_encoding(x), iters),
-            "experts": cuda_ms(lambda: model.experts(experts_in), iters),
-            "gates_towers": cuda_ms(lambda: model.heads(experts_in, experts_o), iters)}
+    t = interleaved_ms({"bilstm": lambda: model.pre_encoding(x),
+                        "experts": lambda: model.experts(experts_in),
+                        "gates_towers": lambda: model.heads(experts_in, experts_o)}, iters)
+    return {name: r["median"] for name, r in t.items()}
 
 
 def kernel_name(line: str) -> str:
@@ -1535,6 +1819,20 @@ def dh16_entry(name: str, res: dict, drop: dict | None, launches: dict) -> dict:
     return entry
 
 
+def rows_entry(res: dict, drop: dict | None) -> dict:
+    """The kernels line's `n_<POPULATION_ROWS>` sub-entry of a packed f32
+    kernel: its times and errors at the population path's K * E * B rows,
+    with dropout 0.1 for the forward (the backward is timed at rate 0.1)."""
+    keys = ("ms", "plain_ms", "library_ms", "library_ratio", "spread_ms", "bound_ms",
+            "bound_tc_ms", "bound_by", "max_abs_err", "max_rel_err")
+    entry = {k: res["rows"][0][k] for k in keys if k in res["rows"][0]}
+    entry["n"] = POPULATION_ROWS
+    if drop is not None:
+        entry["dropout_0.1"] = {k: drop["rows"][0][k] for k in keys if k in drop["rows"][0]}
+        entry["max_abs_err"] = max(entry["max_abs_err"], drop["max_abs_err"])
+    return entry
+
+
 def bf16_entry(name: str, res: dict, source: str, replaces: str, library: str,
                launches: dict, dh16: dict) -> dict:
     """The kernels line's `bf16` sub-entry of a kernel: its bf16 instance's
@@ -1543,7 +1841,8 @@ def bf16_entry(name: str, res: dict, source: str, replaces: str, library: str,
     and its dh = 16 instance at N = 63 and 256), with dropout 0.1 for the
     attention forwards (the backwards are timed at rate 0.1), and its
     launches on every path."""
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")
+    keys = ("ms", "plain_ms", "library_ms", "library_ratio", "spread_ms", "bound_ms",
+            "bound_by", "max_abs_err")
     bf16_name = BF16_OF[name]
     row = res.get("main", res["rows"][0])
     by_path = {path: launches[path][bf16_name]
@@ -1593,6 +1892,7 @@ def main() -> int:
         elif "registers" in line or "spill" in line or line.startswith("=="):
             log("ptxas " + line.strip())
 
+    marks = [("kernel checks", time.perf_counter())]  # each phase's start
     rng = np.random.default_rng(0)
     lstm_res = check_lstm(dev, rng)
     attn_res = check_attention(dev, rng)
@@ -1625,24 +1925,42 @@ def main() -> int:
     attn_bwd_bf16_dh16_res = check_attention_bwd_bf16(dev, rngt, **choopy)
     slice_bwd_bf16_res = check_slice_attention_bwd_bf16(dev, rngt)
     launches, train_res, train_bf16_res = {}, {}, {}
+    marks.append(("f32 paths", time.perf_counter()))
     for model_name in MODELS:
         launches[f"{model_name}-serve"] = serve_end_to_end(
             rng, model_name, (1, 5, 63, 200) if model_name == "mtple" else (1, 5, 63))
         train_res[model_name] = train_end_to_end(model_name)
         launches[f"{model_name}-train"] = train_res[model_name]["launches"]
+    marks.append(("bf16 serving", time.perf_counter()))
     for model_name in MODELS:  # the bf16 serving lane
         launches[f"{model_name}-serve-bf16"] = serve_end_to_end(
             rngb, model_name, (1, 5, 63), compute_dtype="bfloat16")
+    marks.append(("bf16 training", time.perf_counter()))
     for model_name in MODELS:  # the bf16 training lane
         train_bf16_res[model_name] = train_end_to_end_bf16(model_name)
         launches[f"{model_name}-train-bf16"] = train_bf16_res[model_name]["launches"]
+    # population training: the member-batched LSTM kernels on their own
+    # generator, then the population's path and its timing
+    marks.append(("population", time.perf_counter()))
+    members_res = check_lstm_members(dev, np.random.default_rng(180))
+    # K5' and K6' at the population path's K * E * B rows, with its streams
+    rngp, pop_rows = np.random.default_rng(190), dict(rows=(POPULATION_ROWS,))
+    population_attn = {
+        "attention_packed_fwd": (check_attention(dev, rngp, **pop_rows),
+                                 check_attention_dropout(dev, rngp, **pop_rows)),
+        "attention_packed_bwd": (check_attention_bwd(dev, rngp, **pop_rows), None)}
+    launches[POPULATION_PATH] = population_end_to_end()
+    population_res = population_timing()
+    marks.append(("end", time.perf_counter()))
+    log(json.dumps({"phase_seconds": {name: marks[i + 1][1] - t for i, (name, t) in
+                                      enumerate(marks[:-1])}}))
     bf16_res = {"lstm_fwd": lstm_bf16_res, "attention_fwd": slice_bf16_res,
                 "attention_packed_fwd": attn_bf16_res, "lstm_bwd": lstm_bwd_bf16_res,
                 "attention_bwd": slice_bwd_bf16_res,
                 "attention_packed_bwd": attn_bwd_bf16_res}
     bf16_dh16 = {"attention_packed_fwd": attn_bf16_dh16_res,
                  "attention_packed_bwd": attn_bwd_bf16_dh16_res}
-    all_paths = PATHS + BF16_PATHS + BF16_TRAIN_PATHS
+    all_paths = PATHS + BF16_PATHS + BF16_TRAIN_PATHS + (POPULATION_PATH,)
 
     kernels = []
     for name, res, source, replaces, library in (
@@ -1678,6 +1996,7 @@ def main() -> int:
             "max_abs_err": res["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "library_ratio": row["library_ratio"], "spread_ms": row["spread_ms"],
             "library_call": library, "batch": BATCHES[0]}
         if "ndir_1" in res:  # the LSTM kernels: one direction, cuDNN's one direction
             entry["ndir"] = 2
@@ -1702,10 +2021,39 @@ def main() -> int:
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_tc_ms", "max_abs_err")}
             entry["dh_16"] = dh16_entry(name, *dh16[name], launches)
             entry["max_abs_err"] = max(entry["max_abs_err"], entry["dh_16"]["max_abs_err"])
+            entry[f"n_{POPULATION_ROWS}"] = rows_entry(*population_attn[name])
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       entry[f"n_{POPULATION_ROWS}"]["max_abs_err"])
         if name in BF16_OF:
             entry["bf16"] = bf16_entry(name, bf16_res[name], source, replaces,
                                        BF16_LIBRARY[name], launches,
                                        bf16_dh16.get(name))
+        kernels.append(entry)
+    for name, source, replaces in (
+            ("lstm_fwd", "rlt_tpu_torch/csrc/lstm_fwd.cu", "rlt_tpu/ops/lstm.py:82"),
+            ("lstm_bwd", "rlt_tpu_torch/csrc/lstm_bwd.cu", "rlt_tpu/ops/lstm.py:101")):
+        # the member-batched form (jax.vmap over population members), at
+        # K = POPULATION_SIZES[0] with the larger K beside it; its launches
+        # are the population path's
+        rows = {k: members_res[k][name] for k in POPULATION_SIZES}
+        main_row = rows[POPULATION_SIZES[0]]
+        entry = {"name": f"{name}_members", "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": launches[POPULATION_PATH][name],
+                 "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+                 **{key: main_row[key] for key in (
+                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "members",
+                     "ndir", "batch", "rows_per_block", "blocks", "waves",
+                     "sequential_ms", "sequential_ratio", "cudnn_shared_ms",
+                     "spread_ms")},
+                 "library_call": None,
+                 "cudnn_shared_call": "torch.nn.LSTM (cuDNN), 1 layer 2 directions, over "
+                                      "the K * B rows with one set of weights"}
+        for k, row in rows.items():
+            if k != POPULATION_SIZES[0]:
+                entry[f"members_{k}"] = {key: row[key] for key in (
+                    "ms", "plain_ms", "bound_ms", "ndir", "blocks", "waves",
+                    "sequential_ms", "sequential_ratio", "cudnn_shared_ms", "spread_ms",
+                    "max_abs_err")}
         kernels.append(entry)
     for model_name, res in train_res.items():
         log(json.dumps({"model": model_name, "train_step_ms": res["timing"]["step_ms"],
@@ -1714,6 +2062,7 @@ def main() -> int:
         log(json.dumps({"model": model_name, "compute_dtype": "bfloat16",
                         "train_step_ms": res["timing"]["step_ms"],
                         "epoch_ms": res["timing"]["epoch_ms"]}))
+    log(json.dumps({"population": population_res}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
-// K2' lstm_bwd: the LSTM recurrence backward, one or two directions, float32
+// K2' lstm_bwd: the LSTM recurrence backward over ndir directions, float32
 // or bf16 (one template on the element type of xw, W_hh^T, hs, dho and dxw).
 //
 // Replaces rlt_tpu/ops/lstm.py::_lstm_bwd_kernel (run through _bwd_pallas and
-// the custom_vjp of fused_lstm and fused_lstm_bidir), in K1''s layout: xw
+// the custom_vjp of fused_lstm and fused_lstm_bidir, and under jax.vmap over
+// population members, ndir = 2K as in K1'), in K1''s layout: xw
 // (L, ndir * B, 4H) and W_hh^T (ndir * H, 4H) partitioned by direction, K1''s
 // outputs hs and cs and the gradient dho of hs (L, ndir * B, H). Per
 // direction it walks time in reverse with the carries dh and dc (zero at
@@ -60,6 +61,11 @@
 //     each block writing its chunk's partial product: no atomics.
 //  4. dw_reduce_kernel: sums the partials in chunk order, so the result is
 //     the same on every run.
+// Population members fold in as K1''s do, at ndir = 2K: the chain's grid is
+// ndir * ceil(B / R) blocks, the gate and dW passes carry the direction on
+// the grid's z axis (ndir and ndir * splits), and each member's dW_hh^T
+// stays its own. The scratch grows with ndir: at B = 63 and K = 8
+// (ndir = 16) gf is 310 MB and the partials (ndir, 32, H, 4H) 134 MB.
 //
 // bf16 (rlt_lstm_bwd_bf16; the JAX kernel on bf16 operands): xw, W_hh^T,
 // hs and dho arrive in bf16 and cs in f32. The gates are recomputed from
@@ -85,6 +91,8 @@ namespace {
 
 constexpr int kRegRows = 64;      // W_hh^T values of each unit held in registers
 constexpr int kMaxThreads = 256;  // 2H at H = 128
+constexpr long long kMaxBlocks = 2147483647;  // gridDim.x
+constexpr int kMaxGridZ = 65535;              // gridDim.z: ndir, ndir * splits
 constexpr int kTile = 64;         // GEMM output tile (rows and columns)
 constexpr int kTileK = 16;        // contraction rows per shared-memory stage
 constexpr int kPitchA = kTile + 4;
@@ -477,8 +485,10 @@ int lstm_bwd(const void* xw, const void* w_hh_t, const void* hs, const void* cs,
              float* dg, int length, int batch, int hidden, int ndir, int splits,
              void* stream) {
   if (length < 1 || batch < 1 || hidden < kRegRows || hidden % 32 != 0 ||
-      2 * hidden > kMaxThreads || ndir < 1 || ndir > 2 || splits < 1 ||
-      splits > 32767)
+      2 * hidden > kMaxThreads || ndir < 1 || splits < 1 ||
+      static_cast<long long>(ndir) * splits > kMaxGridZ ||
+      static_cast<long long>(ndir) * ((batch + 3) / 4) > kMaxBlocks ||
+      static_cast<long long>(ndir) * hidden * 4 * hidden > kMaxBlocks)
     return static_cast<int>(cudaErrorInvalidValue);
   int device = 0;
   int sms = 0;
@@ -536,9 +546,10 @@ int lstm_bwd(const void* xw, const void* w_hh_t, const void* hs, const void* cs,
 // xw, dxw (L, ndir * B, 4H), w_hh_t, dw_hh_t (ndir * H, 4H), hs, cs, dho
 // (L, ndir * B, H), scratch arrays gf (L, ndir * B, H, 2) and partial
 // (ndir, splits, H, 4H): contiguous float32 device arrays, H a multiple of
-// 32 in [64, 128], ndir 1 or 2, B the rows of one direction,
-// 1 <= splits <= 32767. Launches its four kernels on `stream` and returns
-// the first error.
+// 32 in [64, 128], ndir >= 1 (1, 2, or 2K for K population members), B the
+// rows of one direction, splits >= 1 and ndir * splits <= 65535 (the grid's
+// z extent). Launches its four kernels on `stream` and returns the first
+// error.
 extern "C" int rlt_lstm_bwd(const void* xw, const void* w_hh_t, const void* hs,
                             const void* cs, const void* dho, void* dxw,
                             void* dw_hh_t, void* partial, void* gf, int length,

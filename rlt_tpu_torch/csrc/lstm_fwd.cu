@@ -1,8 +1,10 @@
-// K1' lstm_fwd: the LSTM recurrence forward, one or two directions, float32
+// K1' lstm_fwd: the LSTM recurrence forward over ndir directions, float32
 // or bf16 (one template on the element type of xw, W_hh^T and hs).
 //
 // Replaces rlt_tpu/ops/lstm.py::_lstm_fwd_kernel (run through _fwd_pallas by
-// fused_lstm at ndir = 1 and fused_lstm_bidir at ndir = 2), in its layout:
+// fused_lstm at ndir = 1, fused_lstm_bidir at ndir = 2, and
+// jax.vmap(fused_lstm_bidir) over K population members, which Pallas
+// batching turns into one kernel over the members), in its layout:
 // pre-projected gate inputs xw = x W_ih^T + b_ih + b_hh of shape
 // (L, ndir * B, 4H), rows d * B .. d * B + B - 1 of each step belonging to
 // direction d (in kernel time order; the caller flips the reverse one), and
@@ -12,6 +14,14 @@
 //   c_t = sigmoid(f) c_{t-1} + sigmoid(i) tanh(g),  h_t = sigmoid(o) tanh(c_t)
 // from a zero state, writing every h_t to hs and every c_t to cs
 // (L, ndir * B, H); cs is what the backward kernel K2' reads.
+//
+// Population members (rlt_tpu/population.py, under jax.vmap): K members'
+// BiLSTM layers are K * 2 independent directions, each with its own W_hh^T,
+// so they fold into the same layout at ndir = 2K, direction d = 2m + s for
+// member m and side s (0 forward, 1 reverse). Nothing in the kernel depends
+// on how many directions there are: a block finds its direction from
+// blockIdx.x and its W_hh^T block from the direction, and every offset is a
+// size_t. The launcher takes any ndir >= 1 whose grid fits.
 //
 // What bounds it on an H100: the L-step serial chain, not the card's byte or
 // FLOP rate. Each step multiplies the (rows, H) state by the whole of
@@ -25,6 +35,8 @@
 // carried over). R is 1, 2 or 4: the fewest rows per block that keep the
 // ndir * ceil(B / R) blocks within the card's SMs, since a block fills an
 // SM's shared memory; at B = 63 the two directions' 126 chains run at once.
+// Past 4 rows a block more directions take more waves: at B = 63, K = 4
+// members (ndir = 8) fill 128 of the 132 SMs once, K = 8 (ndir = 16) twice.
 // A step's cost is the shared memory its warps read: W_hh^T once, and the
 // whole of h_{t-1} once per warp. So a block has 2H threads, 8 warps at
 // H = 128, each thread owning gate q of the two units v and v + H/2
@@ -67,6 +79,7 @@ namespace {
 
 constexpr int kRegRows = 64;      // rows of each of a thread's columns in registers
 constexpr int kMaxThreads = 256;  // 2H at H = 128
+constexpr long long kMaxBlocks = 2147483647;  // gridDim.x
 
 using bf16 = __nv_bfloat16;
 
@@ -267,7 +280,8 @@ template <typename T>
 int lstm_fwd(const void* xw, const void* w_hh_t, void* hs, void* cs, int length,
              int batch, int hidden, int ndir, void* stream) {
   if (length < 1 || batch < 1 || hidden < kRegRows || hidden % 32 != 0 ||
-      2 * hidden > kMaxThreads || ndir < 1 || ndir > 2)
+      2 * hidden > kMaxThreads || ndir < 1 ||
+      static_cast<long long>(ndir) * ((batch + 3) / 4) > kMaxBlocks)
     return static_cast<int>(cudaErrorInvalidValue);
   int device = 0;
   int sms = 0;
@@ -294,8 +308,9 @@ int lstm_fwd(const void* xw, const void* w_hh_t, void* hs, void* cs, int length,
 }  // namespace
 
 // xw (L, ndir * B, 4H), w_hh_t (ndir * H, 4H), hs and cs (L, ndir * B, H):
-// contiguous float32 device arrays, H a multiple of 32 in [64, 128], ndir 1
-// or 2, B the rows of one direction. Launches on `stream` and returns
+// contiguous float32 device arrays, H a multiple of 32 in [64, 128], ndir
+// >= 1 (1, 2, or 2K for K population members), B the rows of one
+// direction. Launches on `stream` and returns
 // cudaGetLastError().
 extern "C" int rlt_lstm_fwd(const void* xw, const void* w_hh_t, void* hs,
                             void* cs, int length, int batch, int hidden,

@@ -29,6 +29,7 @@ from rlt_tpu_torch.config import TrainConfig
 from rlt_tpu_torch.models import build_model, is_multi_head
 from rlt_tpu_torch.utils import metrics as metrics_lib
 from rlt_tpu_torch.utils.platform import resolve_device
+from rlt_tpu_torch.utils.timing import REPEATS, interleaved_ms
 
 
 def decode_ks(model_name: str, output) -> torch.Tensor:
@@ -110,30 +111,22 @@ class Predictor:
         ks, dist = self._forward(self._to_device(x))
         return ks.cpu().numpy(), dist.cpu().numpy()
 
-    def forward_ms(self, batch_size: int = 256, iters: int = 20,
-                   warmup: int = 3) -> float:
-        """Device time of one forward + decode at `batch_size`, in ms: the
-        mean over `iters` back-to-back calls between two CUDA events, after
-        `warmup` calls, in the predictor's compute dtype (the casts of the
-        features and the outputs included). A device measurement: raises
-        off the card."""
+    def forward_ms(self, batch_size: int = 256, iters: int = 3,
+                   repeats: int = REPEATS) -> float:
+        """Device ms of one forward + decode at `batch_size` in the
+        predictor's compute dtype (the casts of the features and the outputs
+        included): the median over `repeats` rounds of `iters` back-to-back
+        calls between two CUDA events (`utils.timing.interleaved_ms`). A
+        device measurement: raises off the card."""
         if self.device.type != "cuda":
             raise RuntimeError("forward_ms times the CUDA card; this "
                                f"predictor runs on {self.device}")
         x = torch.zeros(batch_size, self.cfg.seq_len, self.cfg.input_size,
                         device=self.device)
-        for _ in range(warmup):
-            self._forward(x)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            self._forward(x)
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / iters
+        return interleaved_ms({"forward": lambda: self._forward(x)}, iters,
+                              repeats)["forward"]["median"]
 
-    def throughput(self, batch_size: int = 256, iters: int = 20) -> float:
+    def throughput(self, batch_size: int = 256, iters: int = 3) -> float:
         """Steady-state ranked lists per second at `batch_size` on the card."""
         return batch_size / (self.forward_ms(batch_size, iters) / 1e3)
 

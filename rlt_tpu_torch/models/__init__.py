@@ -1,6 +1,7 @@
 """Model zoo of the port: MMOECut (the flagship), MOECut, PLECut, Choopy,
 MtChoopy, AttnCut, MtAttnCut and BiCut. probe_base is known here and raises
-until its slice lands (ROADMAP.md)."""
+until its slice lands (ROADMAP.md). `build_population_model` stacks K
+seeded MMOECuts into one model with a member axis (population training)."""
 
 from rlt_tpu_torch.models.layers import (  # noqa: F401
     LSTM,
@@ -22,6 +23,7 @@ from rlt_tpu_torch.models.mmoe import (  # noqa: F401
 )
 from rlt_tpu_torch.models.multitask import MtAttnCut, MtChoopy  # noqa: F401
 from rlt_tpu_torch.models.simple import AttnCut, BiCut, Choopy  # noqa: F401
+from rlt_tpu_torch.utils.convert import stack_state_dicts
 
 MODELS = {"bicut": BiCut, "choopy": Choopy, "attncut": AttnCut,
           "mtchoopy": MtChoopy, "mtattncut": MtAttnCut, "mmoecut": MMOECut,
@@ -91,3 +93,33 @@ def build_model(name: str, *, seq_len: int, input_size: int, dropout: float,
             f"model {name!r} is not ported to rlt_tpu_torch yet; see ROADMAP.md "
             "for the order in which the zoo is ported")
     raise ValueError(f"unknown model: {name!r}")
+
+
+# the models that train as a population, K members in one model (ROADMAP.md
+# A1 queues the others)
+POPULATION_MODELS = frozenset({"mmoecut"})
+
+
+def check_population_model(name: str) -> None:
+    """Raise a ValueError unless `name` trains as a population."""
+    if name not in POPULATION_MODELS:
+        raise ValueError(f"population training takes {sorted(POPULATION_MODELS)}, not "
+                         f"{name!r}: the other models with a member axis are "
+                         "ROADMAP.md A1's next slice")
+
+
+def build_population_model(name: str, *, seq_len: int, input_size: int,
+                           dropout: float, seeds, num_tasks: float = 3):
+    """K models in one, member m initialised exactly as `build_model(...,
+    seed=seeds[m])` and stacked on a leading member axis of every leaf.
+    MMOECut only: another model raises (ROADMAP.md A1)."""
+    check_population_model(name)
+    seeds = list(seeds)
+    if not seeds:
+        raise ValueError("a population needs at least one member")
+    kwargs = dict(seq_len=seq_len, input_size=input_size, dropout=dropout,
+                  num_tasks=num_tasks)
+    model = MODELS[name](members=len(seeds), **kwargs)
+    model.load_state_dict(stack_state_dicts(
+        [build_model(name, seed=seed, **kwargs).state_dict() for seed in seeds]))
+    return model

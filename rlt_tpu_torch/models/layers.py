@@ -19,12 +19,24 @@ axis (`experts=E`) and run the E experts as one batched computation on
 MtAttnCut's: its parameters have no E axis, as the JAX leaves, and it maps
 (B, L, D) to (B, L, D).
 
+Population training (`rlt_tpu_torch/population.py`; the JAX package runs
+its `jax.vmap` over members) carries a further leading MEMBER axis K on
+every parameter, written out as the expert axis is (`members=K`): the
+BiLSTM maps (K, B, L, F) to (K, B, L, 2H) through one member-batched LSTM
+op per layer (ndir = 2K), the expert layers take (K, 1, B, L, D) or (K, E,
+B, L, D) with (K, E, ...) parameters and run their attention over the
+K * E * B rows at once, and the towers and gates carry K in front. Each
+member computes what its own model computes.
+
 In training mode (`module.train()`) with a dropout rate above 0, every
 random bit comes from the explicit `torch.Generator` the caller passes to
 `forward`, on the activations' device: the attention's per-expert dropout
 seeds first, then the three masks of each encoder layer, in the order of
-the JAX package's `TransformerEncoderLayer`. `Dropout` and `ReluDropout`
-use the JAX package's 16-bit scheme (16 random bits per unit against
+the JAX package's `TransformerEncoderLayer`. A model with members takes a
+list of K generators, one per member: each site draws member m's seeds or
+mask, of the shape its own model draws, from generator m, so that member m
+draws exactly the bits of its own run with that generator. `Dropout` and
+`ReluDropout` use the JAX package's 16-bit scheme (16 random bits per unit against
 min(round(keep * 65536), 65535)); the bits are torch's, not JAX's, so a
 whole-model comparison with the JAX package is made at rate 0. In eval mode
 the forward draws nothing and runs exactly the serving computation.
@@ -76,8 +88,10 @@ def _uniform(shape, bound: float, generator: torch.Generator | None) -> nn.Param
     return nn.Parameter(t)
 
 
-def _lead(experts: int | None) -> tuple:
-    return () if experts is None else (experts,)
+def _lead(experts: int | None, members: int | None = None) -> tuple:
+    """The leading parameter axes: (K,) for `members`, then (E,) for
+    `experts`."""
+    return (() if members is None else (members,)) + (() if experts is None else (experts,))
 
 
 # ---------------------------------------------------------------------------
@@ -91,15 +105,30 @@ def _generator(generator: torch.Generator | None) -> torch.Generator:
     return generator
 
 
-def dropout_keep_mask(shape, keep: float, generator: torch.Generator,
-                      device: torch.device) -> torch.Tensor:
-    """16 random bits per unit against min(round(keep * 65536), 65535)."""
-    bits = torch.randint(0, 65536, tuple(shape), generator=_generator(generator),
-                         device=device, dtype=torch.int32)
-    return bits < min(round(keep * 65536.0), 65535)
+def member_draw(generator, draw) -> torch.Tensor:
+    """draw(g) from the generator, or with a list of K member generators,
+    draw(g_m) from each member's own, stacked on a leading member axis."""
+    if isinstance(generator, (list, tuple)):
+        return torch.stack([draw(_generator(g)) for g in generator])
+    return draw(_generator(generator))
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+def dropout_keep_mask(shape, keep: float, generator, device: torch.device) -> torch.Tensor:
+    """16 random bits per unit against min(round(keep * 65536), 65535).
+    With a list of K member generators `shape` leads with the member axis,
+    and member m's (shape[1:]) bits come from generator m."""
+    shape = tuple(shape)
+    if isinstance(generator, (list, tuple)):
+        if shape[0] != len(generator):
+            raise ValueError(f"{len(generator)} member generators for a mask of "
+                             f"shape {shape}")
+        shape = shape[1:]
+    threshold = min(round(keep * 65536.0), 65535)
+    return member_draw(generator, lambda g: torch.randint(
+        0, 65536, shape, generator=g, device=device, dtype=torch.int32) < threshold)
+
+
+def dropout(x: torch.Tensor, rate: float, generator) -> torch.Tensor:
     """Drop units with probability `rate`, scale the kept ones by 1 / keep."""
     keep = 1.0 - rate
     mask = dropout_keep_mask(x.shape, keep, generator, x.device)
@@ -125,7 +154,7 @@ class ReluDropout(torch.autograd.Function):
         return torch.where(h > 0, g / ctx.keep, 0.0), None, None
 
 
-def relu_dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+def relu_dropout(x: torch.Tensor, rate: float, generator) -> torch.Tensor:
     keep = 1.0 - rate
     mask = dropout_keep_mask(x.shape, keep, generator, x.device)
     return ReluDropout.apply(x, mask, keep)
@@ -142,13 +171,15 @@ def final_linear(linear: "TorchLinear", x: torch.Tensor) -> torch.Tensor:
 class TorchLinear(nn.Module):
     """Linear with torch layout (weight (out, in)) and torch's default
     initialisation U(+-1/sqrt(in)). With `experts=E` the weight is (E, out,
-    in) and the layer maps (B, L, in) or (E, B, L, in) to (E, B, L, out)."""
+    in) and the layer maps (B, L, in) or (E, B, L, in) to (E, B, L, out);
+    with `members=K` too, (K, E, out, in) maps (K, 1, B, L, in) or (K, E,
+    B, L, in) to (K, E, B, L, out)."""
 
     def __init__(self, in_features: int, features: int, experts: int | None = None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, members: int | None = None):
         super().__init__()
         bound = 1.0 / math.sqrt(in_features)
-        lead = _lead(experts)
+        lead = _lead(experts, members)
         self.weight = _uniform(lead + (features, in_features), bound, generator)
         self.bias = _uniform(lead + (features,), bound, generator)
 
@@ -160,11 +191,13 @@ class TorchLinear(nn.Module):
 
 def _stacked_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """x (B, L, in) shared by every expert or (E, B, L, in); w (E, out, in);
-    b (E, out) -> (E, B, L, out), as one batched matrix product."""
+    b (E, out) -> (E, B, L, out), as one batched matrix product. With a
+    member axis in front of both, x (K, 1 or E, B, L, in), w (K, E, out,
+    in) and b (K, E, out) -> (K, E, B, L, out)."""
     batch, length, d_in = x.shape[-3:]
     xf = x.reshape(*x.shape[:-3], batch * length, d_in)
-    y = torch.matmul(xf, w.transpose(1, 2)) + b[:, None]
-    return y.reshape(w.shape[0], batch, length, w.shape[1])
+    y = torch.matmul(xf, w.transpose(-1, -2)) + b[..., None, :]
+    return y.reshape(*y.shape[:-2], batch, length, w.shape[-2])
 
 
 class LayerNorm(nn.Module):
@@ -176,9 +209,10 @@ class LayerNorm(nn.Module):
     at 0) of the widened input in f32, (x - mean) (rsqrt(var + eps) weight)
     + bias in f32, rounded once to bf16."""
 
-    def __init__(self, d_model: int, experts: int | None = None, eps: float = 1e-5):
+    def __init__(self, d_model: int, experts: int | None = None, eps: float = 1e-5,
+                 members: int | None = None):
         super().__init__()
-        lead = _lead(experts)
+        lead = _lead(experts, members)
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(lead + (d_model,)))
         self.bias = nn.Parameter(torch.zeros(lead + (d_model,)))
@@ -186,8 +220,8 @@ class LayerNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x, or in a bf16 layer the f32 residual sum of `residual`."""
         w, b = self.weight, self.bias
-        if w.dim() == 2:  # (E, D) against (E, B, L, D)
-            w, b = w[:, None, None], b[:, None, None]
+        if w.dim() > 1:  # (E, D) against (E, B, L, D); (K, E, D) against (K, E, B, L, D)
+            w, b = w[..., None, None, :], b[..., None, None, :]
         if w.dtype != torch.bfloat16:
             return F.layer_norm(x, x.shape[-1:], eps=self.eps) * w + b
         xf = x.float()
@@ -337,7 +371,12 @@ def _lstm_direction(x, w_ih, w_hh, b_ih, b_hh, reverse: bool) -> torch.Tensor:
 def _projection(x, w_ih, b_ih, b_hh) -> torch.Tensor:
     """x W_ih^T + b_ih + b_hh: in float32 one fused product with the two
     biases summed first; in bf16 in the JAX package's order of roundings
-    (the product, then each bias, each rounded to bf16)."""
+    (the product, then each bias, each rounded to bf16). K members' weights
+    (K, 4H, F) against their inputs (K, B, L, F): one batched float32
+    product."""
+    if w_ih.dim() == 3:
+        y = torch.baddbmm((b_ih + b_hh)[:, None], x.flatten(1, 2), w_ih.transpose(1, 2))
+        return y.view(*x.shape[:-1], w_ih.shape[1])
     if x.dtype != torch.bfloat16:
         return F.linear(x, w_ih, b_ih + b_hh)
     return x @ w_ih.T + b_ih + b_hh
@@ -345,12 +384,18 @@ def _projection(x, w_ih, b_ih, b_hh) -> torch.Tensor:
 
 class LSTM(nn.Module):
     """Stacked (bi)directional LSTM returning the top layer's per-step
-    hidden states, directions concatenated: (B, L, F) -> (B, L, D*H)."""
+    hidden states, directions concatenated: (B, L, F) -> (B, L, D*H). With
+    `members=K` (bidirectional only) every weight leads with K and the
+    layer maps (K, B, L, F) to (K, B, L, 2H), each layer's K members in one
+    recurrence launch."""
 
     def __init__(self, input_size: int, hidden_size: int = 128, num_layers: int = 2,
                  bidirectional: bool = True,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, members: int | None = None):
         super().__init__()
+        if members is not None and not bidirectional:
+            raise ValueError("an LSTM with members is bidirectional")
+        lead = _lead(None, members)
         self.hidden_size = hidden_size
         self.num_layers = num_layers
         self.directions = (False, True) if bidirectional else (False,)
@@ -361,11 +406,13 @@ class LSTM(nn.Module):
             for reverse in self.directions:
                 suffix = f"l{layer}" + ("_reverse" if reverse else "")
                 setattr(self, f"weight_ih_{suffix}",
-                        _uniform((gates, in_features), bound, generator))
+                        _uniform(lead + (gates, in_features), bound, generator))
                 setattr(self, f"weight_hh_{suffix}",
-                        _uniform((gates, hidden_size), bound, generator))
-                setattr(self, f"bias_ih_{suffix}", _uniform((gates,), bound, generator))
-                setattr(self, f"bias_hh_{suffix}", _uniform((gates,), bound, generator))
+                        _uniform(lead + (gates, hidden_size), bound, generator))
+                setattr(self, f"bias_ih_{suffix}",
+                        _uniform(lead + (gates,), bound, generator))
+                setattr(self, f"bias_hh_{suffix}",
+                        _uniform(lead + (gates,), bound, generator))
 
     def _params(self, layer: int, reverse: bool, dtype: torch.dtype):
         """(W_ih, W_hh, b_ih, b_hh) of one direction for a forward on `dtype`
@@ -393,13 +440,15 @@ def _bilstm_layer(x, fwd_params, rev_params) -> torch.Tensor:
     direction projects the time-flipped input, so its gate inputs come out
     in kernel time order, and the op's concatenation of the two time-major
     views is the one write of the (L, 2B, 4H) gate inputs; the reverse
-    hidden states are flipped back."""
+    hidden states are flipped back. With K members' weights, (K, B, L, F)
+    -> (K, B, L, 2H) through one launch over the 2K directions."""
     (wf_ih, wf_hh, bf_ih, bf_hh), (wr_ih, wr_hh, br_ih, br_hh) = fwd_params, rev_params
-    xw_f = _projection(x, wf_ih, bf_ih, bf_hh).transpose(0, 1)
-    xw_r = _projection(torch.flip(x, dims=(1,)), wr_ih, br_ih, br_hh).transpose(0, 1)
-    hs_f, hs_r = fused_lstm_bidir(xw_f, xw_r, wf_hh.T, wr_hh.T)
-    return torch.cat([hs_f.transpose(0, 1),
-                      torch.flip(hs_r, dims=(0,)).transpose(0, 1)], dim=-1)
+    xw_f = _projection(x, wf_ih, bf_ih, bf_hh).transpose(-3, -2)
+    xw_r = _projection(torch.flip(x, dims=(-2,)), wr_ih, br_ih, br_hh).transpose(-3, -2)
+    hs_f, hs_r = fused_lstm_bidir(xw_f, xw_r, wf_hh.transpose(-1, -2),
+                                  wr_hh.transpose(-1, -2))
+    return torch.cat([hs_f.transpose(-3, -2),
+                      torch.flip(hs_r, dims=(-3,)).transpose(-3, -2)], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -421,10 +470,16 @@ class SelfAttention(nn.Module):
     the JAX package projects them; out_proj contracts (H, dh) as (D, H, dh).
     In training, dropout on the softmax weights runs inside the kernels from
     one seed per expert, drawn in [0, 2^31 - 1) as the JAX package draws it
-    (the unstacked attention draws one, as the JAX package's does)."""
+    (the unstacked attention draws one, as the JAX package's does).
+
+    With `members=K` (head-packed only) the parameters are (K, E, ...), the
+    input (K, 1, B, L, D) or (K, E, B, L, D), and the K * E stacks run as
+    one: the packed kernels take their K * E * B rows in one launch, and
+    each member draws its E seeds from its own generator."""
 
     def __init__(self, d_model: int, n_head: int, experts: int | None = None,
-                 generator: torch.Generator | None = None, dropout: float = 0.0):
+                 generator: torch.Generator | None = None, dropout: float = 0.0,
+                 members: int | None = None):
         super().__init__()
         if d_model % n_head:
             raise ValueError(f"d_model={d_model} not divisible by n_head={n_head}")
@@ -432,7 +487,9 @@ class SelfAttention(nn.Module):
         self.n_head = n_head
         self.dropout = dropout
         self.pack = packed_group_size(d_model, n_head)
-        lead = _lead(experts)
+        if members is not None and self.pack is None:
+            raise ValueError("an attention with members takes head-packed widths only")
+        lead = _lead(experts, members)
         xavier = math.sqrt(6.0 / (3 * d_model + d_model))
         self.in_proj_weight = _uniform(lead + (3 * d_model, d_model), xavier, generator)
         self.in_proj_bias = nn.Parameter(torch.zeros(lead + (3 * d_model,)))
@@ -440,25 +497,26 @@ class SelfAttention(nn.Module):
                                         1.0 / math.sqrt(d_model), generator)
         self.out_proj_bias = nn.Parameter(torch.zeros(lead + (d_model,)))
 
-    def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        stacked = self.in_proj_weight.dim() == 3
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        stacked = self.in_proj_weight.dim() > 2
         out = self._stacked(x, *(p if stacked else p[None] for p in (
             self.in_proj_weight, self.in_proj_bias, self.out_proj_weight,
             self.out_proj_bias)), generator=generator)
         return out if stacked else out[0]
 
     def _stacked(self, x, w, b, out_w, out_b, generator) -> torch.Tensor:
-        """The attention of E experts with parameters (E, ...) -> (E, B, L, D)."""
+        """The attention of E experts with parameters (E, ...) -> (E, B, L, D),
+        or of K members' E experts with (K, E, ...) -> (K, E, B, L, D)."""
         d = self.d_model
-        experts = w.shape[0]
+        lead = w.shape[:-2]
+        experts = w.shape[-3]
         batch, length = x.shape[-3:-1]
         heads = self.n_head
         rate = self.dropout if self.training else 0.0
         streams = None
         if rate > 0.0:
-            seeds = torch.randint(0, 2**31 - 1, (experts,),
-                                  generator=_generator(generator), device=x.device)
+            seeds = member_draw(generator, lambda g: torch.randint(
+                0, 2**31 - 1, (experts,), generator=g, device=x.device)).reshape(-1)
             streams = expert_streams(seeds, batch if self.pack else batch * heads)
 
         if self.pack is None:
@@ -478,14 +536,14 @@ class SelfAttention(nn.Module):
                                  o.reshape(experts, batch, heads, length, dh), out_w)
                     + out_b[:, None, None])
 
-        def proj(i):  # (E, B, L, D) -> (E*B, L, D), contiguous
-            y = _stacked_linear(x, w[:, i * d:(i + 1) * d], b[:, i * d:(i + 1) * d])
-            return y.reshape(experts * batch, length, d)
+        def proj(i):  # (..., E, B, L, D) -> (... E * B, L, D), contiguous
+            y = _stacked_linear(x, w[..., i * d:(i + 1) * d, :], b[..., i * d:(i + 1) * d])
+            return y.reshape(-1, length, d)
 
         o, _ = fused_attention_packed(proj(0), proj(1), proj(2),
                                       heads=heads, pack=self.pack,
                                       dropout_rate=rate, streams=streams)
-        return _stacked_linear(o.reshape(experts, batch, length, d), out_w, out_b)
+        return _stacked_linear(o.reshape(*lead, batch, length, d), out_w, out_b)
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -498,17 +556,17 @@ class TransformerEncoderLayer(nn.Module):
 
     def __init__(self, d_model: int, n_head: int, dim_feedforward: int = 2048,
                  experts: int | None = None, generator: torch.Generator | None = None,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, members: int | None = None):
         super().__init__()
         self.dropout = dropout
-        self.self_attn = SelfAttention(d_model, n_head, experts, generator, dropout)
-        self.norm1 = LayerNorm(d_model, experts)
-        self.linear1 = TorchLinear(d_model, dim_feedforward, experts, generator)
-        self.linear2 = TorchLinear(dim_feedforward, d_model, experts, generator)
-        self.norm2 = LayerNorm(d_model, experts)
+        self.self_attn = SelfAttention(d_model, n_head, experts, generator, dropout,
+                                       members)
+        self.norm1 = LayerNorm(d_model, experts, members=members)
+        self.linear1 = TorchLinear(d_model, dim_feedforward, experts, generator, members)
+        self.linear2 = TorchLinear(dim_feedforward, d_model, experts, generator, members)
+        self.norm2 = LayerNorm(d_model, experts, members=members)
 
-    def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         rate = self.dropout if self.training else 0.0
         attn = self.self_attn(x, generator)
         if rate > 0.0:
@@ -525,15 +583,15 @@ class TransformerEncoderLayer(nn.Module):
 class TransformerEncoder(nn.Module):
     def __init__(self, d_model: int, n_head: int, num_layers: int,
                  dim_feedforward: int = 2048, experts: int | None = None,
-                 generator: torch.Generator | None = None, dropout: float = 0.1):
+                 generator: torch.Generator | None = None, dropout: float = 0.1,
+                 members: int | None = None):
         super().__init__()
         self.num_layers = num_layers
         for i in range(num_layers):
             self.add_module(f"layers_{i}", TransformerEncoderLayer(
-                d_model, n_head, dim_feedforward, experts, generator, dropout))
+                d_model, n_head, dim_feedforward, experts, generator, dropout, members))
 
-    def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         for i in range(self.num_layers):
             x = getattr(self, f"layers_{i}")(x, generator)
         return x
@@ -548,7 +606,11 @@ def _tower_logits(linear: TorchLinear, x: torch.Tensor,
     """Affine tower head with the MMOE gate mix in LOGIT space: with gates
     (B, E) and x (E, B, L, D), sum_e g_e (x_e W + b) == (sum_e g_e x_e) W + b
     because the gates sum to 1, so the per-expert (B, L, 1) logits are mixed
-    instead of (B, L, D) activations."""
+    instead of (B, L, D) activations. With members: the tower's (K, 1, D)
+    weight against (K, E, B, L, D) and gates (K, B, E) -> (K, B, L, 1)."""
+    if linear.weight.dim() == 3:
+        logits = _stacked_linear(x, linear.weight[:, None], linear.bias[:, None])
+        return torch.einsum("kbe,keblo->kblo", gates, logits)
     logits = linear(x)
     if gates is not None:
         logits = torch.einsum("be,eblo->blo", gates, logits)
@@ -556,16 +618,17 @@ def _tower_logits(linear: TorchLinear, x: torch.Tensor,
 
 
 class _Tower(nn.Module):
-    def __init__(self, d_model: int, generator: torch.Generator | None = None):
+    def __init__(self, d_model: int, generator: torch.Generator | None = None,
+                 members: int | None = None):
         super().__init__()
-        self.linear = TorchLinear(d_model, 1, generator=generator)
+        self.linear = TorchLinear(d_model, 1, generator=generator, members=members)
 
 
 class TowerCut(_Tower):
     """Linear -> softmax over positions: a cut distribution (B, L, 1)."""
 
     def forward(self, x, gates=None):
-        return softmax(_tower_logits(self.linear, x, gates), dim=1, final=True)
+        return softmax(_tower_logits(self.linear, x, gates), dim=-2, final=True)
 
 
 class TowerClass(_Tower):
@@ -579,4 +642,4 @@ class TowerRerank(_Tower):
     """Linear -> softmax over positions: rerank score distribution (B, L, 1)."""
 
     def forward(self, x, gates=None):
-        return softmax(_tower_logits(self.linear, x, gates), dim=1, final=True)
+        return softmax(_tower_logits(self.linear, x, gates), dim=-2, final=True)

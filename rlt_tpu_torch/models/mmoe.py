@@ -14,6 +14,13 @@ subset of the three experts. The training forward (`model.train()`) applies
 dropout in the experts and draws every mask from the `torch.Generator`
 passed to `forward`. Cast to bf16, the gates (their contraction and
 softmax) and the towers' logit mix run in bf16 as the JAX package's do.
+
+`MMOECut(members=K)` is K MMOECuts as one module (population training,
+`rlt_tpu_torch/population.py`): every parameter leads with the member axis,
+the input is (K, B, L, F), the heads (K, B, L, 1), the two BiLSTM layers
+launch K1' once each over the 2K directions, and the expert stack runs its
+K * E experts as one stack of K * E * B attention rows. Its training forward
+takes K generators, one per member.
 """
 
 from __future__ import annotations
@@ -38,19 +45,23 @@ class ExpertStack(nn.Module):
 
     def __init__(self, num_experts: int, d_model: int = 256, n_head: int = 4,
                  num_layers: int = 1, generator: torch.Generator | None = None,
-                 dropout: float = 0.2):
+                 dropout: float = 0.2, members: int | None = None):
         super().__init__()
+        self.members = members
         self.attention_layer = TransformerEncoder(
             d_model, n_head, num_layers, experts=num_experts, generator=generator,
-            dropout=dropout)
+            dropout=dropout, members=members)
 
-    def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        """(B, L, D) -> (E, B, L, D); with members (K, B, L, D), each
+        member's input shared by its experts, -> (K, E, B, L, D)."""
+        if self.members is not None:
+            x = x[:, None]
         return self.attention_layer(x, generator)
 
 
-def make_towers(num_tasks: float, d_model: int,
-                generator: torch.Generator | None = None) -> dict[str, nn.Module]:
+def make_towers(num_tasks: float, d_model: int, generator: torch.Generator | None = None,
+                members: int | None = None) -> dict[str, nn.Module]:
     """Towers by num_tasks, in output order (reference MMOECut.py:69-84)."""
     if num_tasks == 3:
         names = (("tower_class", TowerClass), ("tower_rerank", TowerRerank),
@@ -59,38 +70,43 @@ def make_towers(num_tasks: float, d_model: int,
         names = (("tower_class", TowerClass), ("tower_cut", TowerCut))
     else:
         names = (("tower_rerank", TowerRerank), ("tower_cut", TowerCut))
-    return {name: cls(d_model, generator) for name, cls in names}
+    return {name: cls(d_model, generator, members) for name, cls in names}
 
 
 class MMOECut(nn.Module):
     """Multi-gate mixture-of-experts (reference MMOECut.py:56-110). Returns
     the task heads as a list of (B, L, 1) tensors; the last is the cut
     distribution. In training mode with dropout above 0, `forward` needs a
-    `torch.Generator` on the input's device for the dropout masks."""
+    `torch.Generator` on the input's device for the dropout masks. With
+    `members=K` (MMOECut only) it is K models in one, each member's
+    parameters in slice m of every leaf, (K, B, L, F) -> (K, B, L, 1) heads,
+    K generators in training; `build_population_model` fills it from K
+    seeded models."""
 
     def __init__(self, seq_len: int = 300, num_experts: int = 3,
                  num_tasks: float = 3, input_size: int = 3,
                  encoding_size: int = 128, d_model: int = 256, n_head: int = 4,
-                 num_layers: int = 1, dropout: float = 0.2, seed: int = 0):
+                 num_layers: int = 1, dropout: float = 0.2, seed: int = 0,
+                 members: int | None = None):
         super().__init__()
         if d_model != 2 * encoding_size:
             raise ValueError(f"d_model={d_model} must be twice the BiLSTM "
                              f"encoding_size={encoding_size}")
         g = torch.Generator().manual_seed(seed)
-        self.pre_encoding = LSTM(input_size, encoding_size, 2, generator=g)
+        self.pre_encoding = LSTM(input_size, encoding_size, 2, generator=g,
+                                 members=members)
         self.experts = ExpertStack(num_experts, d_model, n_head, num_layers, g,
-                                   dropout)
-        w_gates = torch.empty(self._gates_shape(num_tasks, encoding_size * seq_len * 2,
-                                                num_experts))
+                                   dropout, members)
+        w_gates = torch.empty((() if members is None else (members,)) + self._gates_shape(
+            num_tasks, encoding_size * seq_len * 2, num_experts))
         self.w_gates = nn.Parameter(w_gates.normal_(generator=g))
         self.tower_names = []
-        for name, tower in make_towers(num_tasks, d_model, g).items():
+        for name, tower in make_towers(num_tasks, d_model, g, members).items():
             self.add_module(name, tower)
             self.tower_names.append(name)
 
-    def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> list[torch.Tensor]:
-        experts_in = self.pre_encoding(x)  # (B, L, 2H)
+    def forward(self, x: torch.Tensor, generator=None) -> list[torch.Tensor]:
+        experts_in = self.pre_encoding(x)  # (B, L, 2H), or (K, B, L, 2H)
         return self.heads(experts_in, self.experts(experts_in, generator))
 
     @staticmethod
@@ -98,14 +114,17 @@ class MMOECut(nn.Module):
         return (int(num_tasks), features, num_experts)  # one gate per task
 
     def gates(self, flat: torch.Tensor) -> list[torch.Tensor]:
-        """Each tower's (B, E) gate from the flattened BiLSTM output."""
-        return list(softmax(torch.einsum("bf,tfe->tbe", flat, self.w_gates), dim=-1))
+        """Each tower's (B, E) gate from the flattened BiLSTM output; with
+        members (K, B, E) from (K, B, F)."""
+        eq = "bf,tfe->tbe" if self.w_gates.dim() == 3 else "kbf,ktfe->tkbe"
+        return list(softmax(torch.einsum(eq, flat, self.w_gates), dim=-1))
 
     def heads(self, experts_in: torch.Tensor,
               experts_o: torch.Tensor) -> list[torch.Tensor]:
         """Gates and towers: BiLSTM output (B, L, 2H) and expert outputs
-        (E, B, L, D) -> the task heads."""
-        flat = experts_in.reshape(experts_in.shape[0], -1)  # (B, 2*H*L)
+        (E, B, L, D) -> the task heads; with members (K, B, L, 2H) and
+        (K, E, B, L, D) -> (K, B, L, 1) heads."""
+        flat = experts_in.flatten(-2)  # (B, 2*H*L), or (K, B, 2*H*L)
         return [getattr(self, name)(experts_o, gates=gate)
                 for gate, name in zip(self.gates(flat), self.tower_names)]
 

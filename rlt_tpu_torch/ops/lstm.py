@@ -3,8 +3,10 @@ plain PyTorch versions.
 
 The counterpart of the JAX package's `ops/lstm.py::fused_lstm`,
 `fused_lstm_bidir` and their custom_vjp, in the layout of its kernels
-(`_fwd_pallas` / `_bwd_pallas`): `ndir` directions (1, or 2 for both
-directions of a BiLSTM layer) folded into the batch axis, xw (L, ndir * B,
+(`_fwd_pallas` / `_bwd_pallas`): `ndir` directions (1, 2 for both
+directions of a BiLSTM layer, or 2K for the BiLSTM layers of K population
+members, which the JAX package reaches by `jax.vmap` over
+`fused_lstm_bidir`) folded into the batch axis, xw (L, ndir * B,
 4H) with rows d * B .. d * B + B - 1 of each step for direction d, and
 W_hh^T (ndir * H, 4H) with rows d * H .. d * H + H - 1 for direction d;
 the outputs follow the same layout. The TPU kernels' padding of B to 8 is
@@ -16,8 +18,8 @@ time in reverse from the saved hs and cs, recomputing the gates, and
 returns the gradients of xw and of W_hh^T.
 
 On a CUDA tensor `lstm_fwd` and `lstm_bwd` launch the kernels of
-`rlt_tpu_torch/csrc/lstm_fwd.cu` and `csrc/lstm_bwd.cu`, at ndir 1 or 2,
-and raise on anything they do not take. On a CPU tensor they run
+`rlt_tpu_torch/csrc/lstm_fwd.cu` and `csrc/lstm_bwd.cu`, at any ndir up to
+MAX_DIRECTIONS, and raise on anything they do not take. On a CPU tensor they run
 `lstm_recurrence_plain` and `lstm_bwd_plain`, explicit time loops.
 
 bf16 (the serving lane): `lstm_fwd_bf16` takes bf16 xw and W_hh^T and
@@ -67,6 +69,9 @@ LSTM_BWD_BF16 = Kernel("rlt_lstm_bwd_bf16", [ctypes.c_void_p] * 10 + [ctypes.c_i
 # most chunks the dW_hh^T contraction is split into (K2' sums their partial
 # products in a second pass, in a fixed order)
 DW_SPLITS = 32
+# most directions a kernel launch takes: K2''s dW_hh^T pass puts ndir *
+# splits blocks on the grid's z axis, at most 65535
+MAX_DIRECTIONS = 65535 // DW_SPLITS
 
 
 def dw_splits(length: int, batch: int) -> int:
@@ -142,8 +147,8 @@ def lstm_bwd_plain(xw: torch.Tensor, w_hh_t: torch.Tensor, hs: torch.Tensor,
 
 
 def _check(xw: torch.Tensor, w_hh_t: torch.Tensor, ndir: int) -> None:
-    if ndir not in (1, 2):
-        raise ValueError(f"ndir must be 1 or 2, got {ndir}")
+    if not isinstance(ndir, int) or ndir < 1:
+        raise ValueError(f"ndir must be a positive int, got {ndir!r}")
     if xw.dim() != 3 or w_hh_t.dim() != 2:
         raise ValueError(f"lstm_fwd expects xw (L, ndir*B, 4H) and w_hh_t "
                          f"(ndir*H, 4H), got {tuple(xw.shape)} and "
@@ -174,6 +179,10 @@ def _check_kernel_inputs(name: str, tensors: dict,
     if hidden % 32 or not 64 <= hidden <= 128:
         raise ValueError(f"{name} kernel takes H a multiple of 32 in "
                          f"[64, 128], got H = {hidden}")
+    ndir = tensors["w_hh_t"].shape[0] // hidden
+    if ndir > MAX_DIRECTIONS:
+        raise ValueError(f"{name} kernel takes at most {MAX_DIRECTIONS} directions, "
+                         f"got {ndir}")
 
 
 def lstm_fwd(xw: torch.Tensor, w_hh_t: torch.Tensor, ndir: int = 1):
@@ -333,12 +342,34 @@ def fused_lstm_bidir(xw_fwd: torch.Tensor, xw_rev: torch.Tensor,
     package's `fused_lstm_bidir`: xw_fwd and xw_rev (L, B, 4H), both in
     kernel time order (the caller flips the reverse direction's inputs
     before and its outputs after), W_hh^T (H, 4H) each -> (hs_fwd, hs_rev),
-    each (L, B, H), hs_rev still in flipped time order. Differentiable."""
-    if xw_fwd.dim() != 3 or xw_rev.shape != xw_fwd.shape:
+    each (L, B, H), hs_rev still in flipped time order. Differentiable.
+
+    With a leading member axis, the counterpart of `jax.vmap` of the JAX
+    function over K population members: xw_fwd and xw_rev (K, L, B, 4H),
+    W_hh^T (K, H, 4H) each -> hs_fwd and hs_rev (K, L, B, H), all K
+    members' layers in one launch at ndir = 2K, member m's directions at
+    d = 2m (forward) and 2m + 1 (reverse), each with its own W_hh^T."""
+    members = xw_fwd.dim() == 4
+    if xw_fwd.dim() not in (3, 4) or xw_rev.shape != xw_fwd.shape:
         raise ValueError(f"fused_lstm_bidir expects two (L, B, 4H) inputs of one "
-                         f"shape, got {tuple(xw_fwd.shape)} and {tuple(xw_rev.shape)}")
-    batch = xw_fwd.shape[1]
-    # one write each of the kernels' (L, 2B, 4H) and (2H, 4H) layouts
-    hs = LSTMRecurrence.apply(torch.cat([xw_fwd, xw_rev], dim=1),
-                              torch.cat([w_hh_fwd_t, w_hh_rev_t]), 2)
-    return hs[:, :batch], hs[:, batch:]
+                         f"shape, or (K, L, B, 4H) over K members, got "
+                         f"{tuple(xw_fwd.shape)} and {tuple(xw_rev.shape)}")
+    if not members:
+        batch = xw_fwd.shape[1]
+        # one write each of the kernels' (L, 2B, 4H) and (2H, 4H) layouts
+        hs = LSTMRecurrence.apply(torch.cat([xw_fwd, xw_rev], dim=1),
+                                  torch.cat([w_hh_fwd_t, w_hh_rev_t]), 2)
+        return hs[:, :batch], hs[:, batch:]
+    k, length, batch, gates4 = xw_fwd.shape
+    if w_hh_fwd_t.shape != (k, gates4 // 4, gates4) or w_hh_rev_t.shape != w_hh_fwd_t.shape:
+        raise ValueError(f"fused_lstm_bidir over {k} members expects W_hh^T "
+                         f"({k}, H, 4H) each, got {tuple(w_hh_fwd_t.shape)} and "
+                         f"{tuple(w_hh_rev_t.shape)}")
+    # one write each of the kernels' (L, 2K B, 4H) and (2K H, 4H) layouts:
+    # the time-major views stacked as (L, K, 2, B, 4H), rows (2m + s) B + b
+    xw = torch.stack([xw_fwd.transpose(0, 1), xw_rev.transpose(0, 1)], dim=2)
+    w = torch.stack([w_hh_fwd_t, w_hh_rev_t], dim=1)
+    hs = LSTMRecurrence.apply(xw.reshape(length, 2 * k * batch, gates4),
+                              w.reshape(2 * k * w.shape[2], gates4), 2 * k)
+    hs = hs.view(length, k, 2, batch, -1).transpose(0, 1)  # (K, L, 2, B, H)
+    return hs[:, :, 0], hs[:, :, 1]

@@ -4,6 +4,7 @@
     python -m rlt_tpu_torch.train --model-name attncut --div-type kl
     python -m rlt_tpu_torch.train --device cpu --retrieve-data mq2007
     python -m rlt_tpu_torch.train --model-name mmoecut --compute-dtype bfloat16
+    python -m rlt_tpu_torch.train --parameter-search 1 --search-times 8 --population 4
 
 One epoch is every train batch of a shuffled, padded batch plan, each an
 update of Adam with coupled L2 (torch's `Adam(weight_decay=...)`, which is
@@ -37,10 +38,18 @@ state_dict and `--model-persist` stay f32.
 Eight models train: bicut, choopy, attncut, mtchoopy, mtattncut, mmoecut,
 moecut and mtple, each with the JAX package's criterion
 (`make_criterion`, with `--div-type`, `--augmented-reward`,
-`--rerank-weight`, `--class-weight` and `--loss-override`). Not ported yet
-(ROADMAP.md): probe_base, resume, the hyper-parameter search and population
-training, profiling,
-`--draw`, the metrics log directory, and data and model parallelism.
+`--rerank-weight`, `--class-weight` and `--loss-override`).
+
+The hyper-parameter search (`--parameter-search 1`, with
+`--regularizer-search 1` or `--mt-search 1` for the reference's other
+search axes, `--search-times` and `--parameter-record`) draws the JAX
+package's trials (`draw_search_trials`) and appends its record lines.
+It trains the trials one after another, or with `--population K` K at a
+time as one population (`rlt_tpu_torch/population.py`): MMOECut in float32,
+trials that share one dropout rate; any other search raises a ValueError
+with `--population` rather than fall back. Not ported yet (ROADMAP.md):
+probe_base, resume, profiling, `--draw`, the metrics log directory, and
+data and model parallelism.
 """
 
 from __future__ import annotations
@@ -291,9 +300,11 @@ def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="rlt_tpu_torch truncation model trainer (bicut, choopy, "
                     "attncut, mtchoopy, mtattncut, mmoecut, moecut, mtple)",
-        epilog="Not ported yet, so absent: --resume, --parameter-search and "
-               "the other search flags, --population, --profile-dir, --draw, "
-               "--log-dir, --data-parallel and --model-parallel (ROADMAP.md).")
+        epilog="--population K trains K search trials at a time as one population: "
+               "MMOECut in float32, trials that share one dropout rate (so not "
+               "--regularizer-search); the rest raises. Not ported yet, so absent: "
+               "--resume, --profile-dir, --draw, --log-dir, --data-parallel and "
+               "--model-parallel (ROADMAP.md).")
     d = config_lib.TrainConfig()
     p.add_argument("--retrieve-data", type=str, default=d.retrieve_data)
     p.add_argument("--dataset-name", type=str, default=d.dataset_name)
@@ -323,6 +334,15 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--dropout", type=float, default=d.dropout)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--num-tasks", type=float, default=3)
+    p.add_argument("--parameter-record", type=str, default=d.parameter_record)
+    p.add_argument("--parameter-search", type=int, default=0)
+    p.add_argument("--regularizer-search", type=int, default=0)
+    p.add_argument("--mt-search", type=int, default=0)
+    p.add_argument("--search-times", type=int, default=d.search_times)
+    p.add_argument("--population", type=int, default=0,
+                   help="with --parameter-search 1: train K search trials at a time "
+                        "as one population instead of K sequential runs "
+                        "(rlt_tpu_torch/population.py)")
     p.add_argument("--rerank-weight", type=float, default=d.rerank_weight)
     p.add_argument("--class-weight", type=float, default=d.class_weight)
     p.add_argument("--loss-override", type=str, default=None,
@@ -355,7 +375,10 @@ def config_from_args(args) -> config_lib.TrainConfig:
         epochs=args.epochs, lr=args.lr, weight_decay=args.weight_decay,
         seed=args.seed, model_path=args.model_path,
         model_persist=bool(args.model_persist), save_path=args.save_path,
-        compute_dtype=args.compute_dtype)
+        parameter_search=bool(args.parameter_search),
+        regularizer_search=bool(args.regularizer_search),
+        mt_search=bool(args.mt_search), search_times=args.search_times,
+        parameter_record=args.parameter_record, compute_dtype=args.compute_dtype)
     # config-file override chain (run.py:339-347)
     if args.conf_file:
         cfg = config_lib.load_conf_file(cfg, args.conf_file)
@@ -364,11 +387,96 @@ def config_from_args(args) -> config_lib.TrainConfig:
     return cfg
 
 
+def draw_search_trials(cfg: config_lib.TrainConfig) -> list[dict]:
+    """The reference's trial distributions (run.py:349-364) as a list of
+    config-override dicts, drawn with the exact rng chain the sequential
+    search uses — so the sequential and population engines train the SAME
+    trials for a given (cfg.seed, search mode, search_times)."""
+    rng = np.random.default_rng(cfg.seed)
+    task_weight_range = np.logspace(-2, 1, num=250, base=10)
+    trials = []
+    for i in range(cfg.search_times):
+        if cfg.regularizer_search:
+            trials.append({
+                "dropout": float(rng.uniform(0.05, 0.5)),
+                "weight_decay": float(rng.uniform(0.001, 0.02)),
+            })
+        elif cfg.mt_search:
+            rw = float(rng.uniform(0.01, 10)) if i >= 50 else float(task_weight_range[i])
+            cw = float(rng.uniform(0.01, 10)) if i >= 50 else float(task_weight_range[i])
+            trials.append({"rerank_weight": rw, "class_weight": cw})
+        else:
+            trials.append({})
+    return trials
+
+
+def _search_record_path(cfg: config_lib.TrainConfig) -> str:
+    # the reference derives the record name in search mode (run.py:350);
+    # an explicitly set parameter_record wins here
+    if cfg.parameter_record is not None:
+        return cfg.parameter_record
+    return (
+        f"{cfg.model_name}_{cfg.retrieve_data}_{cfg.dataset_name}_"
+        f"{cfg.criterion}_params.log"
+    )
+
+
+def _search_record_line(trial: config_lib.TrainConfig, result: dict) -> str:
+    return (
+        f"dropout: {trial.dropout}, L2_weight: {trial.weight_decay}, "
+        f"rerank_weight: {trial.rerank_weight}, class_weight: {trial.class_weight}, "
+        f"best_f1: {result['best_f1']}, best_dcg: {result['best_dcg']}"
+    )
+
+
+def parameter_search(cfg: config_lib.TrainConfig, population: int = 0,
+                     device: str | torch.device | None = None) -> str:
+    """The random / logspace hyper-parameter search (run.py:349-364); returns
+    the record file's path, to which it appends one line per trial.
+
+    population=0 (or 1) trains the trials one after another, each a full
+    `Trainer` run, for every model; population=K trains them K at a time as
+    one population (`population.train_population`): the same trials and the
+    same record lines, written when the last chunk is done. The population
+    takes MMOECut float32 trials that share one dropout rate; for any other
+    search it raises before the first trial, and nothing falls back to the
+    sequential engine."""
+    trials = draw_search_trials(cfg)
+    record = _search_record_path(cfg)
+
+    def write(trial, result):
+        with open(record, "a+") as f:
+            f.write("\n" + _search_record_line(trial, result))
+
+    if population > 1:
+        from rlt_tpu_torch.population import Member, train_population
+
+        members = [Member(seed=cfg.seed, **ov) for ov in trials]
+        logger.info("population search, %d trials %d at a time: %s", len(members),
+                    population, members)
+        out = train_population(cfg, members, chunk_size=population, device=device)
+        for ov, row in zip(trials, out["per_member"]):
+            write(dataclasses.replace(cfg, **ov), row)
+        return record
+
+    for i, ov in enumerate(trials):
+        trial = dataclasses.replace(cfg, **ov)
+        logger.info("search trial %d: %s", i, trial)
+        write(trial, Trainer(trial, device=device).run())
+    return record
+
+
 def main(argv=None) -> dict:
     logging.basicConfig(level=logging.INFO)
     args = build_argparser().parse_args(argv)
     cfg = config_from_args(args)
     logger.info("%s", cfg)
+    if cfg.parameter_search:
+        record = parameter_search(cfg, population=args.population, device=args.device)
+        summary = {"parameter_record": record, "trials": cfg.search_times,
+                   "population": args.population}
+        print(json.dumps(summary))
+        return summary
     trainer = Trainer(cfg, device=args.device)
     summary = dict(trainer.run(), device=str(trainer.device),
                    config=dataclasses.asdict(cfg))

@@ -7,7 +7,8 @@ reward distribution at temperature tau or 1), `rerank_loss`, `bce_loss`,
 the registry `LOSSES` and `make_loss`. Gradients come from autograd. Every
 loss takes an optional `valid` (B,) row mask: padded rows of a ragged final
 batch contribute nothing, and every division by the batch size uses the
-true row count.
+true row count. `member_losses` applies a criterion member by member to
+a population's stacked outputs (`rlt_tpu_torch/population.py`).
 """
 
 from __future__ import annotations
@@ -213,6 +214,20 @@ def wass_dist_loss(output: torch.Tensor, labels: torch.Tensor, *, eps: float = 1
         u, v = torch.where(done, u, u_new), torch.where(done, v, v_new)
         done = done | (err < threshold)
     return torch.sum(torch.exp(modified_cost(u, v)) * cost)
+
+
+def member_losses(criterion: Callable, output, labels: torch.Tensor,
+                  valid: torch.Tensor) -> torch.Tensor:
+    """(K,) losses of K population members: `criterion` on member m's slice
+    of every head (a list of (K, B, L, 1) heads, or one (K, ...) tensor),
+    labels[m] and valid[m]. Each is the member's own mean over its rows,
+    so their sum, the population's loss, gives each member exactly its own
+    gradient (a mean over the K * B rows would scale each by 1 / K)."""
+    heads = isinstance(output, (list, tuple))
+    return torch.stack([
+        criterion([h[m] for h in output] if heads else output[m], labels[m],
+                  valid=valid[m])
+        for m in range(labels.shape[0])])
 
 
 # the criterion registry of the JAX package (its `LOSSES`)

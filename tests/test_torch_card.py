@@ -154,6 +154,49 @@ def test_lstm_bwd_kernel_is_deterministic_on_card(cuda_device):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("members", [2, 4])
+def test_member_batched_lstm_kernels_match_plain_on_card(cuda_device, members):
+    """K1' and K2' over K population members' BiLSTM layers in one launch
+    (ndir = 2K, each direction its own W_hh^T) at the main path's length
+    and batch, against the plain versions; two K2' launches bit-equal."""
+    ndir = 2 * members
+    xw, w_hh_t = (torch.from_numpy(a).to(cuda_device)
+                  for a in _lstm_inputs(40 + members, 300, 63, 128, ndir))
+    hs, cs = lstm.lstm_fwd(xw, w_hh_t, ndir)
+    torch.cuda.synchronize()
+    want_hs, want_cs = lstm.lstm_recurrence_plain(xw, w_hh_t, ndir)
+    assert (hs - want_hs).abs().max() <= LSTM_ATOL
+    assert (cs - want_cs).abs().max() <= LSTM_ATOL
+    args = _lstm_bwd_inputs(50 + members, 300, 63, ndir, cuda_device)
+    first = lstm.lstm_bwd(*args, ndir)
+    second = lstm.lstm_bwd(*args, ndir)
+    torch.cuda.synchronize()
+    for got, again, want in zip(first, second, lstm.lstm_bwd_plain(*args, ndir)):
+        assert torch.equal(got, again)
+        assert _max_rel_err(got, want) <= LSTM_BWD_REL
+
+
+def test_population_step_launches_on_card(cuda_device):
+    """One step of a population of three MMOECut members at robust04 width
+    launches K1' and K2' twice each (one per BiLSTM layer over all members'
+    directions) and K5' and K6' once each (all members' experts), not once
+    per member, with a finite loss per member."""
+    from rlt_tpu_torch.population import Member, Population
+
+    cfg = dataclasses.replace(apply_preset(TrainConfig(model_name="mmoecut",
+                                                       retrieve_data="robust04")),
+                              synthetic_queries=40, batch_size=8)
+    pop = Population(cfg, [Member(seed=s) for s in range(3)], device=cuda_device)
+    idx, valid = pop.plans("train")
+    kernels = (lstm.LSTM_FWD, lstm.LSTM_BWD, attention.ATTENTION_PACKED_FWD,
+               attention.ATTENTION_PACKED_BWD)
+    counts = [k.launches for k in kernels]
+    losses, _ = pop.train_step(*pop.batch("train", idx[:, 0]), valid[:, 0])
+    torch.cuda.synchronize()
+    assert [k.launches - c for k, c in zip(kernels, counts)] == [2, 2, 1, 1]
+    assert losses.shape == (3,) and torch.isfinite(losses).all()
+
+
 @pytest.mark.parametrize("n,length,heads", [(2, 128, 4), (3, 37, 6), (9, 300, 4),
                                             (3, 64, 4), (2, 700, 4), (4, 1, 4)])
 def test_attention_dropout_kernel_matches_plain_on_card(cuda_device, n, length, heads):
