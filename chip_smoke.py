@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from `rlt_tpu_torch/csrc`, holds each one
+Builds the port's CUDA kernels from `rlt_tpu_torch/csrc`, prints ptxas's
+registers and spills of each (and any wgmma it serialized), holds each one
 (the float32 instances and the bf16 ones of all six, K1'-K6') against its
-plain PyTorch version on the card at the main paths' shapes and times both,
+plain PyTorch version on the card at the main paths' shapes and times both
+(the bf16 forwards of dh = 64 and 128 also at a list of L = 2048),
 then drives thirty-three main paths at robust04 width (L = 300, seeded
 random weights): serving and training in float32, and serving and training
 in bf16 (`<model>-serve-bf16` and `<model>-train-bf16`:
@@ -103,12 +105,24 @@ POPULATION_MEMBERS = ((0, 3e-5, 0.0), (1, 1e-4, 1e-3), (2, 1e-5, 5e-3), (3, 3e-4
 POPULATION_SIZES = (4, 8)
 # the packed attention rows of the checked population path: K * E * B
 POPULATION_ROWS = POPULATION_SIZES[0] * EXPERTS * BATCHES[0]
+# the bf16 forwards of dh = 64 and 128 also at a list of LONG_L, whose K/V
+# stream outlasts any shared-memory residency: rows of 4 heads, and rows of
+# PLECut's 2 slices, each from their own generator
+LONG_L = 2048
+LONG_PACKED_ROWS = 8
+LONG_SLICE_ROWS = 8
 BF16_TRAIN_PATHS = tuple(f"{m}-train-bf16" for m in MODELS)
 # each bf16 instance, by the float32 kernel whose bf16 form it is
 BF16_OF = {"lstm_fwd": "lstm_fwd_bf16", "attention_fwd": "attention_fwd_bf16",
            "attention_packed_fwd": "attention_packed_fwd_bf16",
            "lstm_bwd": "lstm_bwd_bf16", "attention_bwd": "attention_bwd_bf16",
            "attention_packed_bwd": "attention_packed_bwd_bf16"}
+# the bf16 forwards of dh = 64 and 128 have a kernel of their own, launched
+# through the entry points of attention_packed_fwd.cu and attention_fwd.cu;
+# dh = 16 keeps attention_bf16.cuh's
+BF16_SOURCE = {"attention_fwd": "rlt_tpu_torch/csrc/attention_bf16_wgmma.cuh",
+               "attention_packed_fwd": "rlt_tpu_torch/csrc/attention_bf16_wgmma.cuh"}
+BF16_DH16_SOURCE = "rlt_tpu_torch/csrc/attention_bf16.cuh"
 BF16_LIBRARY = {
     "lstm_fwd": "torch.nn.LSTM (cuDNN) in bf16, 1 layer 2 directions, weights "
                 "flattened, input projection included",
@@ -835,36 +849,41 @@ def check_lstm_bf16(dev, rng) -> dict:
     return lstm_rows(rows)
 
 
-def bf16_attention_bound(n_heads_rows: int, dh: int, with_streams: bool) -> dict:
+def bf16_attention_bound(n_heads_rows: int, dh: int, with_streams: bool,
+                         length: int = SEQ_LEN) -> dict:
     """bound_ms of a bf16 attention forward over n (row, head) pairs of
-    width dh at L = 300: q, k, v read and o written at 2 bytes, lse written
-    at 4 (and the streams read), against four L x L x dh products' flops at
-    the dense bf16 tensor-core rate."""
-    elems = n_heads_rows * SEQ_LEN * dh
-    nbytes = 2 * 4 * elems + 4 * n_heads_rows * SEQ_LEN + (4 * n_heads_rows if with_streams
-                                                           else 0)
-    bound_ms, bound_by = bound(nbytes, 4 * elems * SEQ_LEN, PEAK_BF16_FLOPS)
+    width dh at L = `length`: q, k, v read and o written at 2 bytes, lse
+    written at 4 (and the streams read), against four L x L x dh products'
+    flops at the dense bf16 tensor-core rate."""
+    elems = n_heads_rows * length * dh
+    nbytes = 2 * 4 * elems + 4 * n_heads_rows * length + (4 * n_heads_rows if with_streams
+                                                          else 0)
+    bound_ms, bound_by = bound(nbytes, 4 * elems * length, PEAK_BF16_FLOPS)
     return dict(bound_ms=bound_ms, bound_by=bound_by)
 
 
 def check_attention_bf16(dev, rng, d_model: int = D_MODEL, heads: int = HEADS,
-                         rows: tuple = PACKED_ROWS) -> dict:
+                         rows: tuple = PACKED_ROWS, long_rows: int | None = None) -> dict:
     """K5''s bf16 instance against `attention_packed_plain` on the same bf16
     q, k, v at the packed rows N of the main paths, at rate 0 and with
     dropout 0.1 on the same streams (rate 0 with streams bit-equal to the
-    call without). library_ms: bf16 scaled_dot_product_attention."""
+    call without); with `long_rows`, also `long_rows` rows at L = LONG_L
+    (a K/V stream longer than any shared-memory residency) as res["long"].
+    library_ms: bf16 scaled_dot_product_attention."""
     from rlt_tpu_torch.ops import attention
 
     pack = attention.packed_group_size(d_model, heads)
     dh = d_model // heads
     out = []
-    for n in rows:
-        q, k, v = (torch.from_numpy(rng.normal(size=(n, SEQ_LEN, d_model))
+    shapes = [(n, SEQ_LEN) for n in rows] + ([(long_rows, LONG_L)] if long_rows else [])
+    for n, length in shapes:
+        gen = rng if length == SEQ_LEN else np.random.default_rng(LONG_L)
+        q, k, v = (torch.from_numpy(gen.normal(size=(n, length, d_model))
                                     .astype(np.float32)).to(dev).bfloat16()
                    for _ in range(3))
-        streams = random_streams(rng, n, dev)
+        streams = random_streams(gen, n, dev)
         o_none, _ = attention.attention_packed_fwd_bf16(q, k, v, heads, pack)
-        row = dict(n=n, dh=dh)
+        row = dict(n=n, dh=dh, length=length)
         for rate in (0.0, RATE):
             o, lse = attention.attention_packed_fwd_bf16(q, k, v, heads, pack, rate, streams)
             torch.cuda.synchronize()
@@ -877,41 +896,47 @@ def check_attention_bf16(dev, rng, d_model: int = D_MODEL, heads: int = HEADS,
                         "streams differs from the call without dropout")
             plain_ms = plain_time(lambda: attention.attention_packed_plain(
                 q, k, v, heads, pack, rate, streams))
-            by_head = [t.view(n, SEQ_LEN, heads, dh).transpose(1, 2) for t in (q, k, v)]
+            by_head = [t.view(n, length, heads, dh).transpose(1, 2) for t in (q, k, v)]
             t = timed(lambda: attention.attention_packed_fwd_bf16(q, k, v, heads, pack, rate,
                                                                   streams),
                       lambda: F.scaled_dot_product_attention(*by_head, dropout_p=rate))
             t.update(max_abs_err=o_err, lse_err=lse_err, plain_ms=plain_ms,
-                     **bf16_attention_bound(n * heads, dh, rate > 0.0))
+                     **bf16_attention_bound(n * heads, dh, rate > 0.0, length))
             row.update(t if rate == 0.0 else {"dropout_0.1": t})
         row["max_abs_err"] = max(row["max_abs_err"], row["dropout_0.1"]["max_abs_err"])
         log("attention_packed_fwd_bf16 " + json.dumps(row))
         out.append(row)
-    return {"rows": out, "max_abs_err": max(r["max_abs_err"] for r in out)}
+    res = {"rows": [r for r in out if r["length"] == SEQ_LEN],
+           "max_abs_err": max(r["max_abs_err"] for r in out)}
+    if long_rows:
+        res["long"] = out[-1]
+    return res
 
 
 def check_slice_attention_bf16(dev, rng) -> dict:
     """K3''s bf16 instance against `attention_plain` on the same bf16 q, k,
     v at PLECut's shapes, rates 0 and 0.1 on the same streams (rate 0 with
-    streams bit-equal to the call without). library_ms: bf16
+    streams bit-equal to the call without), and at LONG_SLICE_ROWS rows of
+    L = LONG_L as res["long"]. library_ms: bf16
     scaled_dot_product_attention."""
     from rlt_tpu_torch.ops import attention
 
     rows = []
-    for batch in BATCHES:
-        n = EXPERTS * batch
-        q, k, v = (torch.from_numpy(rng.normal(size=(n, SLICE_HEADS, SEQ_LEN, SLICE_DH))
+    shapes = [(EXPERTS * batch, SEQ_LEN) for batch in BATCHES] + [(LONG_SLICE_ROWS, LONG_L)]
+    for n, length in shapes:
+        gen = rng if length == SEQ_LEN else np.random.default_rng(LONG_L)
+        q, k, v = (torch.from_numpy(gen.normal(size=(n, SLICE_HEADS, length, SLICE_DH))
                                     .astype(np.float32)).to(dev).bfloat16()
                    for _ in range(3))
-        streams = random_streams(rng, n * SLICE_HEADS, dev)
+        streams = random_streams(gen, n * SLICE_HEADS, dev)
         o_none, _ = attention.attention_fwd_bf16(q, k, v)
-        row = dict(n=n)
+        row = dict(n=n, slices=n * SLICE_HEADS, length=length)
         for rate in (0.0, RATE):
             o, lse = attention.attention_fwd_bf16(q, k, v, rate, streams)
             torch.cuda.synchronize()
             want_o, want_lse = attention.attention_plain(q, k, v, rate, streams)
-            o_err, lse_err = bf16_o_check(f"attention_fwd_bf16 N={n} rate {rate}", o, lse,
-                                          want_o, want_lse)
+            o_err, lse_err = bf16_o_check(f"attention_fwd_bf16 N={n} L={length} rate {rate}",
+                                          o, lse, want_o, want_lse)
             if rate == 0.0:
                 require(torch.equal(o, o_none), "attention_fwd_bf16: rate 0 with streams "
                         "differs from the call without dropout")
@@ -919,12 +944,13 @@ def check_slice_attention_bf16(dev, rng) -> dict:
             t = timed(lambda: attention.attention_fwd_bf16(q, k, v, rate, streams),
                       lambda: F.scaled_dot_product_attention(q, k, v, dropout_p=rate))
             t.update(max_abs_err=o_err, lse_err=lse_err, plain_ms=plain_ms,
-                     **bf16_attention_bound(n * SLICE_HEADS, SLICE_DH, rate > 0.0))
+                     **bf16_attention_bound(n * SLICE_HEADS, SLICE_DH, rate > 0.0, length))
             row.update(t if rate == 0.0 else {"dropout_0.1": t})
         row["max_abs_err"] = max(row["max_abs_err"], row["dropout_0.1"]["max_abs_err"])
         log("attention_fwd_bf16 " + json.dumps(row))
         rows.append(row)
-    return {"rows": rows, "max_abs_err": max(r["max_abs_err"] for r in rows)}
+    return {"rows": rows[:-1], "long": rows[-1],
+            "max_abs_err": max(r["max_abs_err"] for r in rows)}
 
 
 def check_lstm_bwd_bf16(dev, rng) -> dict:
@@ -1777,8 +1803,8 @@ def kernel_name(line: str) -> str:
     """A kernel's name in a line of ptxas, with its template arguments:
     `attn_packed_fwd_kernel<16, 4>` for the mangled
     `..._kernelILi16ELi4EEEv...`, `lstm_fwd_kernel<bf16, 1>` for
-    `..._kernelI13__nv_bfloat16Li1EEEv...`. A mangled name is its length,
-    then its characters."""
+    `..._kernelI13__nv_bfloat16Li1EEEv...`, a bool argument as 0 or 1
+    (`Lb0E`). A mangled name is its length, then its characters."""
     i = 0
     while i < len(line):
         m = re.match(r"\d+", line[i:])
@@ -1790,9 +1816,10 @@ def kernel_name(line: str) -> str:
         i = start + len(name)
         if not name.endswith("_kernel"):
             continue
-        tail = re.match(r"I((?:Li\d+E|13__nv_bfloat16|f)+)E", line[i:])
-        args = [a.group(1) or ("bf16" if a.group(2) else "float") for a in
-                re.finditer(r"Li(\d+)E|(13__nv_bfloat16)|f", tail.group(1) if tail else "")]
+        tail = re.match(r"I((?:Li\d+E|Lb[01]E|13__nv_bfloat16|f)+)E", line[i:])
+        args = [a.group(1) or a.group(2) or ("bf16" if a.group(3) else "float") for a in
+                re.finditer(r"Li(\d+)E|Lb([01])E|(13__nv_bfloat16)|f",
+                            tail.group(1) if tail else "")]
         return name + (f"<{', '.join(args)}>" if args else "")
     return line.split()[-1][:120]
 
@@ -1847,7 +1874,8 @@ def bf16_entry(name: str, res: dict, source: str, replaces: str, library: str,
     row = res.get("main", res["rows"][0])
     by_path = {path: launches[path][bf16_name]
                for path in PATHS + BF16_PATHS + BF16_TRAIN_PATHS}
-    entry = {"name": bf16_name, "route": "cuda", "source": source, "replaces": replaces,
+    entry = {"name": bf16_name, "route": "cuda", "source": BF16_SOURCE.get(name, source),
+             "replaces": replaces,
              "launches": sum(by_path.values()), "launches_by_path": by_path,
              **{k: row[k] for k in keys}, "max_abs_err": res["max_abs_err"],
              "library_call": library, "batch": BATCHES[0]}
@@ -1857,11 +1885,23 @@ def bf16_entry(name: str, res: dict, source: str, replaces: str, library: str,
         entry["ndir_1"] = {k: res["ndir_1"][k] for k in keys + ("ms_per_step",)}
     if "dropout_0.1" in row:
         entry["dropout_0.1"] = {k: row["dropout_0.1"][k] for k in keys}
-    if name.startswith("attention_packed"):
+    for other in (res["rows"][1:] + [res["long"]] if name in BF16_SOURCE else []):
+        # the bf16 forwards' other rows: N = 768 and 63, 1536 slices, L = LONG_L
+        if other["length"] != SEQ_LEN:
+            label = f"l_{other['length']}"
+        elif name.startswith("attention_packed"):
+            label = f"n_{other['n']}"
+        else:
+            label = f"slices_{other['slices']}"
+        entry[label] = {k: other[k] for k in keys}
+        entry[label]["dropout_0.1"] = {k: other["dropout_0.1"][k] for k in keys}
+    if name == "attention_packed_bwd":
         rows = {r["n"]: r for r in res["rows"]}
         entry[f"n_{BATCHES[0]}"] = {k: rows[BATCHES[0]][k] for k in keys}
+    if name.startswith("attention_packed"):
         rows16 = {r["n"]: r for r in dh16["rows"]}
-        entry["dh_16"] = {k: rows16[CHOOPY_ROWS[0]][k] for k in keys}
+        entry["dh_16"] = {"source": BF16_DH16_SOURCE,
+                          **{k: rows16[CHOOPY_ROWS[0]][k] for k in keys}}
         entry["dh_16"][f"n_{CHOOPY_ROWS[1]}"] = {k: rows16[CHOOPY_ROWS[1]][k] for k in keys}
         entry["max_abs_err"] = max(res["max_abs_err"], dh16["max_abs_err"])
     return entry
@@ -1889,7 +1929,8 @@ def main() -> int:
     for line in build.LIBRARY.ptxas_log().splitlines():
         if "Function properties for" in line:  # heads each kernel's figures
             log("ptxas kernel " + kernel_name(line))
-        elif "registers" in line or "spill" in line or line.startswith("=="):
+        elif ("registers" in line or "spill" in line or "Performance" in line
+              or line.startswith("==")):
             log("ptxas " + line.strip())
 
     marks = [("kernel checks", time.perf_counter())]  # each phase's start
@@ -1912,7 +1953,7 @@ def main() -> int:
     # draw what they drew before
     rngb = np.random.default_rng(160)
     lstm_bf16_res = check_lstm_bf16(dev, rngb)
-    attn_bf16_res = check_attention_bf16(dev, rngb)
+    attn_bf16_res = check_attention_bf16(dev, rngb, long_rows=LONG_PACKED_ROWS)
     attn_bf16_dh16_res = check_attention_bf16(dev, rngb, **choopy)
     slice_bf16_res = check_slice_attention_bf16(dev, rngb)
     # the bf16 backward instances, on their own generator: K6' at the expert

@@ -1,18 +1,18 @@
-// attention_bf16: the bf16 forward of the attention kernels, one template for
-// the head-packed K5' (attention_packed_fwd.cu: heads of dh = 16 and 64 of
-// (N, L, D) arrays) and the per-slice K3' (attention_fwd.cu: slices of
-// dh = 128, the packed layout with one head of D = 128 and pack 1).
+// attention_bf16: the bf16 forward of the head-packed K5' at dh = 16
+// (attention_packed_fwd.cu: Choopy's and MtChoopy's 8 heads of (N, L, 128)
+// arrays), and the bf16 helpers (Bf16Shape, pack_bf16x2, mma_bf16,
+// ldmatrix_x4) that attention_bf16_bwd.cuh shares. The bf16 forwards at
+// dh = 64 and 128 are attention_bf16_wgmma.cuh's.
 //
 // Replaces the bf16 form of rlt_tpu/ops/attention.py::_attn_fwd_packed_kernel
-// (through _fwd_packed) and ::_attn_fwd_kernel (through _fwd_pallas), whose
-// `_mxu` keeps bf16 operands bf16: q, k and v enter the products in bf16, S
-// accumulates in f32 (a product of two bf16 values is exact in f32), the
-// softmax statistics (max, exp, sum, lse) are f32, the weights are rounded
-// to bf16 before P V, and o is written in bf16; lse is f32 in the f32
-// kernels' layouts, (N, H / pack, L, pack), which for the per-slice kernel is
-// (N, 1, L). With a dropout rate above 0 the weights are dropped by the keep
-// mask of keep_mask.cuh (the f32 kernels' streams, groups and columns) and
-// the kept ones scaled by 1 / (1 - rate) before the rounding; lse stays the
+// (through _fwd_packed), whose `_mxu` keeps bf16 operands bf16: q, k and v
+// enter the products in bf16, S accumulates in f32 (a product of two bf16
+// values is exact in f32), the softmax statistics (max, exp, sum, lse) are
+// f32, the weights are rounded to bf16 before P V, and o is written in
+// bf16; lse is f32 in the f32 kernel's layout, (N, H / pack, L, pack). With
+// a dropout rate above 0 the weights are dropped by the keep mask of
+// keep_mask.cuh (the f32 kernels' streams, groups and columns) and the kept
+// ones scaled by 1 / (1 - rate) before the rounding; lse stays the
 // pre-dropout one.
 //
 // One rounding differs from the TPU kernel, by design. That kernel rounds
@@ -20,32 +20,30 @@
 // rounds e = exp(s - m) against the running max m, dividing O by the f32 sum
 // at the end. Each weight is rounded once either way (relative error at most
 // 2^-9), so o differs by rounding noise of the same size as the TPU
-// kernel's own; tests/test_torch_bf16.py emulates both orders in numpy at
-// L = 300 and holds this one to the JAX kernel within 2 bf16 ulps of max|o|
-// (and lse, which no rounding of P touches, within 1e-5). Rounding what the
-// TPU kernel rounds would take every score twice (a pass for the sums, then
-// one for P V): the flash standard is kept.
+// kernel's own; tests/test_torch_bf16.py emulates this order in numpy at
+// L = 300 and holds it to the JAX kernel within 2 bf16 ulps of max|o| (and
+// lse, which no rounding of P touches, within 1e-5). Rounding what the TPU
+// kernel rounds would take every score twice (a pass for the sums, then one
+// for P V): the flash standard is kept.
 //
-// What bounds it on an H100: by the roofline the bytes, 2 an element of
-// q, k, v and o (0.035 ms at N = 189, 4 heads of dh = 64, L = 300, against
-// 0.018 ms of bf16 products); in fact the exp, max and sum of every score,
-// the same work at any dh, which the tensor cores do not take: measured
-// 3.5-9x over the byte bound (PERF.md §6).
+// What bounds it on an H100: by the roofline the bytes, 2 an element of q,
+// k, v and o; in fact the exp, max and sum of every score, the same work at
+// any dh, which the tensor cores do not take (PERF.md §6 has its times
+// against that bound).
 //
 // Design: K5''s in bf16. One block of 4 warps per (row n, head h, 64 query
 // rows), each warp 16 of the rows; the Q tile and a two-stage cp.async ring
 // of 64-key K and V tiles in shared memory as bf16, at a row pitch of
-// dh + 8 elements, so the 8 rows an ldmatrix phase reads fall on 8 distinct
-// 16-byte bank groups (dh 16: 48-byte rows; 64: 144; 128: 272). The products
-// are mma.sync m16n8k16 bf16 with f32 accumulators, one product per tile,
-// their fragments loaded by ldmatrix (K^T and Q directly, V with .trans).
-// A warp's S tile, 16 x 64 in 8 accumulator tiles, becomes P's A fragments
+// dh + 8 = 24 elements (48 bytes), so the 8 rows an ldmatrix phase reads
+// fall on 8 distinct 16-byte bank groups. The products are mma.sync
+// m16n8k16 bf16 with f32 accumulators, one product per tile, their
+// fragments loaded by ldmatrix (K^T and Q directly, V with .trans). A
+// warp's S tile, 16 x 64 in 8 accumulator tiles, becomes P's A fragments
 // without a shuffle: the accumulators of the two n8 tiles of keys
 // 16 kk .. 16 kk + 15 are, packed to bf16x2, the k16 step's A fragment.
 // The running O is rescaled by exp(m_old - m_new) before each tile's P V
-// accumulates into it. The block's shared memory (15 KiB at dh = 16, 45 KiB
-// at dh = 64, 85 KiB at dh = 128) does not grow with L, and any
-// 1 <= L <= 65535 is taken.
+// accumulates into it. The block's 15 KiB of shared memory does not grow
+// with L, and any 1 <= L <= 65535 is taken.
 //
 // Fragment layouts of m16n8k16 (lane = 4 g + t), each register two bf16,
 // the lower column (or k) in the lower half:

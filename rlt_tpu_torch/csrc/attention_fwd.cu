@@ -1,6 +1,7 @@
 // K3' attention_fwd: per-slice self-attention forward, dh = 128, float32
-// (this file's kernel) and bf16 (attention_bf16.cuh's at dh = 128, behind
-// rlt_attention_fwd_bf16: a slice is one head of D = 128 in a group of 1).
+// (this file's kernel) and bf16 (attention_bf16_wgmma.cuh's at dh = 128,
+// behind rlt_attention_fwd_bf16: a slice is one head of D = 128 in a group
+// of 1).
 //
 // Replaces rlt_tpu/ops/attention.py::_attn_fwd_kernel (run through
 // _fwd_pallas, fused_attention and multi_head_attention). q, k, v are
@@ -46,7 +47,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "attention_bf16.cuh"
+#include "attention_bf16_wgmma.cuh"
 #include "attention_mma.cuh"
 #include "keep_mask.cuh"
 
@@ -267,7 +268,7 @@ extern "C" int rlt_attention_fwd_bf16(const void* q, const void* k, const void* 
   if (n < 1 || length < 1 || n > 65535 || length > 65535 ||
       !(rate >= 0.0f && rate < 1.0f) || (rate > 0.0f && streams == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  return rlt::launch_attn_fwd_bf16<kSliceDh>(q, k, v, o, lse, streams, n, length, 1, 1,
-                                             rate, threshold,
-                                             static_cast<cudaStream_t>(stream));
+  return rlt::launch_attn_fwd_wgmma<kSliceDh>(q, k, v, o, lse, streams, n, length, 1, 1,
+                                              rate, threshold,
+                                              static_cast<cudaStream_t>(stream));
 }

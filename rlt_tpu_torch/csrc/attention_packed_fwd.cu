@@ -1,6 +1,6 @@
 // K5' attention_packed_fwd: head-packed self-attention forward, float32
-// (this file's kernel) and bf16 (attention_bf16.cuh's, instanced here at
-// dh = 16 and 64 behind rlt_attention_packed_fwd_bf16).
+// (this file's kernel) and bf16 (behind rlt_attention_packed_fwd_bf16:
+// attention_bf16_wgmma.cuh's at dh = 64, attention_bf16.cuh's at dh = 16).
 //
 // Replaces rlt_tpu/ops/attention.py::_attn_fwd_packed_kernel (run through
 // _fwd_packed and fused_attention_packed). q, k, v are (N, L, D) in the raw
@@ -56,6 +56,7 @@
 #include <stdint.h>
 
 #include "attention_bf16.cuh"
+#include "attention_bf16_wgmma.cuh"
 #include "attention_mma.cuh"
 #include "keep_mask.cuh"
 
@@ -296,8 +297,8 @@ extern "C" int rlt_attention_packed_fwd_bf16(const void* q, const void* k,
       return rlt::launch_attn_fwd_bf16<16>(q, k, v, o, lse, streams, n, length, heads,
                                            pack, rate, threshold, st);
     case 64:
-      return rlt::launch_attn_fwd_bf16<64>(q, k, v, o, lse, streams, n, length, heads,
-                                           pack, rate, threshold, st);
+      return rlt::launch_attn_fwd_wgmma<64>(q, k, v, o, lse, streams, n, length, heads,
+                                            pack, rate, threshold, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

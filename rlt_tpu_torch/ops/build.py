@@ -58,9 +58,11 @@ def source_hash(csrc: Path = CSRC) -> str:
 
 
 class KernelLibrary:
-    """The built shared library, loaded once per process."""
+    """The shared library built from the sources of `csrc` (this package's,
+    or another tree's to compare with), loaded once per process."""
 
-    def __init__(self):
+    def __init__(self, csrc: Path = CSRC):
+        self.csrc = csrc
         self._lock = threading.Lock()
         self._lib: ctypes.CDLL | None = None
         self.build_seconds: float | None = None  # None: loaded from cache
@@ -73,7 +75,7 @@ class KernelLibrary:
         tmp.mkdir(parents=True)
         t0 = time.perf_counter()
         procs = []
-        for src in _sources():
+        for src in _sources(self.csrc):
             obj = tmp / (src.stem + ".o")
             cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
             procs.append((src, obj, subprocess.Popen(
@@ -104,7 +106,7 @@ class KernelLibrary:
     def get(self) -> ctypes.CDLL:
         with self._lock:
             if self._lib is None:
-                out_dir = BUILD_ROOT / source_hash()
+                out_dir = BUILD_ROOT / source_hash(self.csrc)
                 lib_path = out_dir / LIB_NAME
                 if not lib_path.exists():
                     lib_path = self._build(out_dir)
@@ -152,10 +154,13 @@ class Kernel:
 
 
 def stream_handle(device) -> ctypes.c_void_p:
-    """PyTorch's current CUDA stream on `device`, as the C launchers take it."""
+    """PyTorch's current CUDA stream on `device`, as the C launchers take it:
+    its raw handle, read without building a `torch.cuda.Stream` object at
+    every launch."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(index))
 
 
 def ptr(tensor) -> ctypes.c_void_p:

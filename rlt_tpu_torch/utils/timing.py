@@ -28,12 +28,15 @@ REPEATS = 7
 
 
 def interleaved_ms(candidates: dict[str, Callable], iters: int | dict[str, int] = 1,
-                   repeats: int = REPEATS, warmup: int = 1) -> dict[str, dict]:
+                   repeats: int = REPEATS, warmup: int = 1,
+                   alternate: bool = False) -> dict[str, dict]:
     """Each candidate's device ms per call: `repeats` rounds in which every
     candidate in turn runs `iters` calls (an int, or one per name) between
-    two CUDA events. Returns {name: {"median", "min", "max"}} over the
-    rounds. Every candidate is called `warmup` times first. A device
-    measurement: raises off the card."""
+    two CUDA events; with `alternate`, odd rounds take the candidates in
+    reverse order, so that none always follows the same one. Returns
+    {name: {"median", "min", "max"}} over the rounds. Every candidate is
+    called `warmup` times first. A device measurement: raises off the
+    card."""
     if not torch.cuda.is_available():
         raise RuntimeError("interleaved_ms times the CUDA card, and none is available")
     counts = iters if isinstance(iters, dict) else dict.fromkeys(candidates, iters)
@@ -42,8 +45,10 @@ def interleaved_ms(candidates: dict[str, Callable], iters: int | dict[str, int] 
             fn()
     torch.cuda.synchronize()
     rounds: dict[str, list[float]] = {name: [] for name in candidates}
-    for _ in range(repeats):
-        for name, fn in candidates.items():
+    names = list(candidates)
+    for r in range(repeats):
+        for name in (names[::-1] if alternate and r % 2 else names):
+            fn = candidates[name]
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()

@@ -1,0 +1,244 @@
+#!/usr/bin/env python3
+"""The bf16 attention forwards on one CUDA card, against other trees' builds
+of the same entry points, in one process.
+
+    python3 scripts/bench_attention_bf16.py [--tree DIR ...] [--serving]
+        [--out build/attention_bf16_ab.json]
+
+Times K5''s bf16 instance (`rlt_attention_packed_fwd_bf16`) at dh = 64
+(N = 63, 189 and 768 rows of 4 heads in groups of 2) and dh = 16 (N = 63
+and 256 rows of 8 heads in one group), and K3''s (`rlt_attention_fwd_bf16`,
+dh = 128) at 378 and 1536 slices, all at L = 300, and both at L = 2048 (8
+rows, 8 slices: about the products of N = 189 at L = 300 in a few long
+lists), at dropout rates 0 and 0.1, beside bf16
+`scaled_dot_product_attention` of the same q, k, v. Every library's o and
+lse are first held to the plain version (`rlt_tpu_torch.ops.attention`)
+with `chip_smoke.py`'s bound.
+
+- `--tree DIR` (repeatable): DIR holds another tree (`git archive <commit>
+  rlt_tpu_torch/csrc | tar -x -C DIR`), named by DIR's last part. Its
+  `rlt_tpu_torch/csrc` is built as this tree's is (`ops/build.py`) and
+  loaded through ctypes beside this tree's library ("new"), and every row
+  times them all in turns (`utils/timing.py::interleaved_ms`, 14 rounds of
+  20 calls, the order reversed in odd rounds), medians. At N = 189 (378
+  slices), rate 0, the host's microseconds a launch (200 launches without a
+  synchronise) are taken for each library's entry point, this tree's
+  wrapper in `ops/attention.py` and SDPA, and for reading the current
+  stream as `ops/build.py::stream_handle` does and through a
+  `torch.cuda.Stream` object.
+- `--serving`: the bf16 Predictor's forward of MMOECut and PLECut at
+  buckets 64 and 256 (robust04 width, seeded weights), once through the
+  first tree's bf16 attention forward and once through this tree's, in
+  turns, each with the card's busy ms (torch.profiler) and the host's share.
+
+Prints one JSON line a row and the card's name and power limit, and writes
+every row to `--out`. Needs a CUDA card and nvcc.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+
+from chip_smoke import bf16_o_check  # noqa: E402
+from rlt_tpu_torch.ops import attention, build  # noqa: E402
+from rlt_tpu_torch.utils.timing import device_busy_ms, host_share, interleaved_ms  # noqa: E402
+
+SEQ_LEN = 300
+LONG_L = 2048  # about the products of N = 189 at L = 300, in few long lists
+RATE = 0.1
+ROUNDS = 14
+PACKED_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_uint,
+                                                            ctypes.c_void_p]
+SLICE_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_uint,
+                                                           ctypes.c_void_p]
+
+
+def log(row: dict) -> None:
+    print(json.dumps(row), flush=True)
+
+
+def bind(lib: ctypes.CDLL, symbol: str, argtypes: list):
+    fn = getattr(lib, symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds a launch: `calls` launches without a synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+def qkv(rng, shape, dev):
+    return [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev).bfloat16()
+            for _ in range(3)]
+
+
+def kernel_rows(dev, libs: dict) -> list[dict]:
+    rng = np.random.default_rng(12)
+    stream = build.stream_handle(dev)
+    cases = [("packed", 64, n, SEQ_LEN) for n in (63, 189, 768)] + \
+            [("packed", 16, n, SEQ_LEN) for n in (63, 256)] + \
+            [("slice", 128, n, SEQ_LEN) for n in (189, 768)] + \
+            [("packed", 64, 8, LONG_L), ("slice", 128, 4, LONG_L)]
+    rows = []
+    for kind, dh, n, length in cases:
+        if kind == "packed":
+            heads, d = (4, 256) if dh == 64 else (8, 128)
+            pack = attention.packed_group_size(d, heads)
+            q, k, v = qkv(rng, (n, length, d), dev)
+            lse_shape = (n, heads // pack, length, pack)
+            by_head = [t.view(n, length, heads, dh).transpose(1, 2) for t in (q, k, v)]
+        else:
+            q, k, v = qkv(rng, (n, 2, length, dh), dev)
+            lse_shape = (2 * n, 1, length)
+            by_head = (q, k, v)
+        streams = torch.from_numpy(rng.integers(-2**31, 2**31, size=lse_shape[0],
+                                                dtype=np.int64).astype(np.int32)).to(dev)
+        for rate in (0.0, RATE):
+            if kind == "packed":
+                want = attention.attention_packed_plain(q, k, v, heads, pack, rate, streams)
+                wrapper = lambda: attention.attention_packed_fwd_bf16(  # noqa: E731
+                    q, k, v, heads, pack, rate, streams)
+            else:
+                want = attention.attention_plain(q, k, v, rate, streams)
+                wrapper = lambda: attention.attention_fwd_bf16(q, k, v, rate,  # noqa: E731
+                                                               streams)
+            threshold = attention.keep_threshold(rate)
+            s_ptr = ctypes.c_void_p(streams.data_ptr() if rate > 0 else None)
+            symbol, argtypes = (("rlt_attention_packed_fwd_bf16", PACKED_ARGS)
+                                if kind == "packed" else ("rlt_attention_fwd_bf16", SLICE_ARGS))
+            cands, errs = {}, {}
+            for name, lib in libs.items():
+                fn = bind(lib, symbol, argtypes)
+                o = torch.empty_like(q)
+                lse = torch.empty(lse_shape, device=dev, dtype=torch.float32)
+                ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, o, lse)] + [s_ptr]
+                shape = [n, length, heads, dh, pack] if kind == "packed" else [2 * n, length]
+                args = ptrs + shape + [rate, threshold, stream]
+
+                def call(fn=fn, args=args, name=name):
+                    code = fn(*args)
+                    if code != 0:
+                        raise RuntimeError(f"{name} {symbol}: CUDA error {code}")
+                call()
+                torch.cuda.synchronize()
+                errs[name] = bf16_o_check(f"{name} {kind} dh={dh} n={n} L={length} "
+                                          f"rate={rate}", o, lse, *want)
+                cands[name] = call
+            cands["sdpa"] = lambda: F.scaled_dot_product_attention(*by_head, dropout_p=rate)
+            t = interleaved_ms(cands, iters=20, repeats=ROUNDS, alternate=True)
+            row = {"kernel": kind, "dh": dh, "n": n, "length": length, "rate": rate,
+                   "ms": {name: r["median"] for name, r in t.items()},
+                   "spread_ms": {name: [r["min"], r["max"]] for name, r in t.items()},
+                   "o_lse_errs": errs}
+            row["library_ratio"] = {name: row["ms"][name] / row["ms"]["sdpa"] for name in libs}
+            row["new_over"] = {name: row["ms"]["new"] / row["ms"][name]
+                               for name in libs if name != "new"}
+            if rate == 0.0 and n == 189:
+                row["host_us"] = {**{name: host_us(cands[name]) for name in libs},
+                                  "wrapper": host_us(wrapper), "sdpa": host_us(cands["sdpa"]),
+                                  "stream_handle": host_us(lambda: build.stream_handle(dev)),
+                                  "stream_object": host_us(lambda: ctypes.c_void_p(
+                                      torch.cuda.current_stream(dev).cuda_stream))}
+            log(row)
+            rows.append(row)
+    return rows
+
+
+def serving_rows(dev, other: ctypes.CDLL) -> list[dict]:
+    """The bf16 Predictor of MMOECut and PLECut, its bf16 attention forward
+    through `other`'s entry point or this tree's, in turns."""
+    from rlt_tpu_torch.config import TrainConfig
+    from rlt_tpu_torch.infer import Predictor
+
+    kernels = {"mmoecut": (attention.ATTENTION_PACKED_FWD_BF16, PACKED_ARGS),
+               "mtple": (attention.ATTENTION_FWD_BF16, SLICE_ARGS)}
+    rows = []
+    for model_name, (kernel, argtypes) in kernels.items():
+        cfg = TrainConfig(model_name=model_name, compute_dtype="bfloat16")
+        predictor = Predictor(cfg, device=dev)
+        fns = {"other": bind(other, kernel.symbol, argtypes)}
+        rng = np.random.default_rng(5)
+        for b in (64, 256):
+            x = torch.from_numpy(rng.normal(size=(b, cfg.seq_len, cfg.input_size))
+                                 .astype(np.float32)).to(dev)
+            predictor._forward(x)  # this tree's entry point bound as kernel._fn
+            fns["new"] = kernel._fn
+
+            def through(name):
+                def call():
+                    kernel._fn = fns[name]
+                    return predictor._forward(x)
+                return call
+
+            cands = {name: through(name) for name in ("other", "new")}
+            t = interleaved_ms(cands, iters=3, repeats=ROUNDS, alternate=True)
+            row = {"model": model_name, "compute_dtype": "bfloat16", "bucket": b,
+                   "ms": {n: r["median"] for n, r in t.items()},
+                   "spread_ms": {n: [r["min"], r["max"]] for n, r in t.items()}}
+            for name, fn in cands.items():
+                busy = device_busy_ms(fn)
+                row[f"{name}_busy_ms"] = busy
+                row[f"{name}_host_share"] = host_share(busy, row["ms"][name])
+            kernel._fn = fns["new"]
+            log(row)
+            rows.append(row)
+    return rows
+
+
+def main() -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--tree", type=Path, action="append", default=[])
+    p.add_argument("--serving", action="store_true")
+    p.add_argument("--out", type=Path, default=REPO / "build" / "attention_bf16_ab.json")
+    args = p.parse_args()
+    if not torch.cuda.is_available():
+        print("bench_attention_bf16: no CUDA card is available", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip()
+    result = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
+    t0 = time.perf_counter()
+    libs = {}
+    for tree in args.tree:
+        other = build.KernelLibrary(tree / "rlt_tpu_torch" / "csrc")
+        libs[tree.name] = other.get()
+        result[f"{tree.name}_build_seconds"] = other.build_seconds
+    libs["new"] = build.LIBRARY.get()
+    result["build_seconds"] = build.LIBRARY.build_seconds
+    log(dict(result))
+    result["rows"] = kernel_rows(dev, libs)
+    if args.serving and args.tree:
+        result["serving"] = serving_rows(dev, libs[args.tree[0].name])
+    result["seconds"] = time.perf_counter() - t0
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps(result, indent=1))
+    print(card, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -608,8 +608,23 @@ def test_lstm_bf16_kernel_matches_plain_on_card(cuda_device, length, batch, ndir
     assert beyond.max().item() <= LSTM_ATOL
 
 
+def _assert_repeatable(first, again, without=None):
+    """A second launch bit-equal to the first; at rate 0, the call with
+    streams bit-equal to the call without (`without`)."""
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    if without is not None:
+        assert all(torch.equal(a, b) for a, b in zip(first, without))
+
+
+# The bf16 forwards of dh = 64 and 128 (attention_bf16_wgmma.cuh) at every
+# kind of length: one key, a ragged single tile, one whole tile and one key
+# past it, PLECut's and the experts' L = 300, and K/V streams longer than any
+# shared-memory residency (700, 2048); and at the population's N = 756 rows
+# (K5') and 756 slices (K3'). dh = 16 keeps attention_bf16.cuh's kernel.
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dh,n,length", [(64, 9, 300), (64, 3, 37), (64, 2, 700),
+                                         (64, 4, 1), (64, 3, 64), (64, 3, 65),
+                                         (64, 2, 2048), (64, 756, 300),
                                          (16, 63, 300), (16, 3, 37), (16, 2, 700)])
 def test_packed_attention_bf16_kernel_matches_plain_on_card(cuda_device, dh, n, length,
                                                             rate):
@@ -624,10 +639,16 @@ def test_packed_attention_bf16_kernel_matches_plain_on_card(cuda_device, dh, n, 
     assert attention.ATTENTION_PACKED_FWD_BF16.launches == before + 1
     _assert_bf16_attention(o, lse, *attention.attention_packed_plain(q, k, v, heads, pack,
                                                                      rate, streams))
+    _assert_repeatable((o, lse),
+                       attention.attention_packed_fwd_bf16(q, k, v, heads, pack, rate,
+                                                           streams),
+                       attention.attention_packed_fwd_bf16(q, k, v, heads, pack)
+                       if rate == 0.0 else None)
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("batch,length", SLICE_SHAPES + [(4, 1)])
+@pytest.mark.parametrize("batch,length", SLICE_SHAPES + [(4, 1), (3, 65), (1, 2048),
+                                                         (378, 300)])
 def test_slice_attention_bf16_kernel_matches_plain_on_card(cuda_device, batch, length,
                                                            rate):
     q, k, v = (torch.from_numpy(a).to(cuda_device).bfloat16()
@@ -638,6 +659,8 @@ def test_slice_attention_bf16_kernel_matches_plain_on_card(cuda_device, batch, l
     torch.cuda.synchronize()
     assert attention.ATTENTION_FWD_BF16.launches == before + 1
     _assert_bf16_attention(o, lse, *attention.attention_plain(q, k, v, rate, streams))
+    _assert_repeatable((o, lse), attention.attention_fwd_bf16(q, k, v, rate, streams),
+                       attention.attention_fwd_bf16(q, k, v) if rate == 0.0 else None)
 
 
 def test_bf16_wrappers_reject_on_card(cuda_device):
@@ -745,17 +768,22 @@ def _assert_bf16_grads(got, want):
         assert (g.float() - w.float()).abs().max().item() <= limit
 
 
+# The backwards fed o and lse from the plain forward and from the bf16
+# forward kernel (whose lse layout and dropout bits they read).
+@pytest.mark.parametrize("forward", ["plain", "kernel"])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dh,n,length", [(64, 9, 300), (64, 3, 37), (64, 2, 700),
                                          (16, 63, 300), (16, 3, 37), (16, 2, 700)])
 def test_packed_attention_bwd_bf16_kernel_matches_plain_on_card(cuda_device, dh, n,
-                                                                length, rate):
+                                                                length, rate, forward):
     d, heads = (256, 4) if dh == 64 else (128, 8)
     pack = attention.packed_group_size(d, heads)
     q, k, v, do = (torch.from_numpy(a).to(cuda_device).bfloat16()
                    for a in _qkv(200 + n, (n, length, d)) + _qkv(201, (n, length, d))[:1])
     streams = _streams(202, n, cuda_device)
-    o, lse = attention.attention_packed_plain(q, k, v, heads, pack, rate, streams)
+    fwd = (attention.attention_packed_plain if forward == "plain"
+           else attention.attention_packed_fwd_bf16)
+    o, lse = fwd(q, k, v, heads, pack, rate, streams)
     before = (attention.ATTENTION_PACKED_BWD.launches,
               attention.ATTENTION_PACKED_BWD_BF16.launches)
     got = attention.attention_packed_bwd_bf16(q, k, v, o, lse, do, heads, pack, rate,
@@ -767,15 +795,17 @@ def test_packed_attention_bwd_bf16_kernel_matches_plain_on_card(cuda_device, dh,
         q, k, v, o, lse, do, heads, pack, rate, streams))
 
 
+@pytest.mark.parametrize("forward", ["plain", "kernel"])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("batch,length", SLICE_SHAPES)
 def test_slice_attention_bwd_bf16_kernel_matches_plain_on_card(cuda_device, batch, length,
-                                                               rate):
+                                                               rate, forward):
     q, k, v, do = (torch.from_numpy(a).to(cuda_device).bfloat16()
                    for a in _qkv(210 + batch, (batch, 2, length, 128))
                    + _qkv(211, (batch, 2, length, 128))[:1])
     streams = _streams(212, batch * 2, cuda_device)
-    o, lse = attention.attention_plain(q, k, v, rate, streams)
+    fwd = attention.attention_plain if forward == "plain" else attention.attention_fwd_bf16
+    o, lse = fwd(q, k, v, rate, streams)
     before = (attention.ATTENTION_BWD.launches, attention.ATTENTION_BWD_BF16.launches)
     got = attention.attention_bwd_bf16(q, k, v, o, lse, do, rate, streams)
     torch.cuda.synchronize()
