@@ -7,7 +7,8 @@ Builds the port's CUDA kernels from `rlt_tpu_torch/csrc`, prints ptxas's
 registers and spills of each (and any wgmma it serialized), holds each one
 (the float32 instances and the bf16 ones of all six, K1'-K6') against its
 plain PyTorch version on the card at the main paths' shapes and times both
-(the bf16 forwards of dh = 64 and 128 also at a list of L = 2048),
+(the bf16 attention forwards and backwards of dh = 64 and 128 also at a
+list of L = 2048, the backwards at dropout rates 0 and 0.1),
 then drives thirty-three main paths at robust04 width (L = 300, seeded
 random weights): serving and training in float32, and serving and training
 in bf16 (`<model>-serve-bf16` and `<model>-train-bf16`:
@@ -117,12 +118,16 @@ BF16_OF = {"lstm_fwd": "lstm_fwd_bf16", "attention_fwd": "attention_fwd_bf16",
            "attention_packed_fwd": "attention_packed_fwd_bf16",
            "lstm_bwd": "lstm_bwd_bf16", "attention_bwd": "attention_bwd_bf16",
            "attention_packed_bwd": "attention_packed_bwd_bf16"}
-# the bf16 forwards of dh = 64 and 128 have a kernel of their own, launched
-# through the entry points of attention_packed_fwd.cu and attention_fwd.cu;
-# dh = 16 keeps attention_bf16.cuh's
+# the bf16 attention kernels of dh = 64 and 128 have kernels of their own,
+# launched through the entry points of attention_packed_fwd.cu,
+# attention_fwd.cu, attention_packed_bwd.cu and attention_bwd.cu; dh = 16
+# keeps attention_bf16.cuh's and attention_bf16_bwd.cuh's
 BF16_SOURCE = {"attention_fwd": "rlt_tpu_torch/csrc/attention_bf16_wgmma.cuh",
-               "attention_packed_fwd": "rlt_tpu_torch/csrc/attention_bf16_wgmma.cuh"}
-BF16_DH16_SOURCE = "rlt_tpu_torch/csrc/attention_bf16.cuh"
+               "attention_packed_fwd": "rlt_tpu_torch/csrc/attention_bf16_wgmma.cuh",
+               "attention_bwd": "rlt_tpu_torch/csrc/attention_bf16_bwd_wgmma.cuh",
+               "attention_packed_bwd": "rlt_tpu_torch/csrc/attention_bf16_bwd_wgmma.cuh"}
+BF16_DH16_SOURCE = {"attention_packed_fwd": "rlt_tpu_torch/csrc/attention_bf16.cuh",
+                    "attention_packed_bwd": "rlt_tpu_torch/csrc/attention_bf16_bwd.cuh"}
 BF16_LIBRARY = {
     "lstm_fwd": "torch.nn.LSTM (cuDNN) in bf16, 1 layer 2 directions, weights "
                 "flattened, input projection included",
@@ -1039,99 +1044,133 @@ def bf16_grads_check(name: str, got, want) -> float:
     return max(errs)
 
 
-def bf16_attention_bwd_bound(n_heads_rows: int, dh: int) -> dict:
+def bf16_attention_bwd_bound(n_heads_rows: int, dh: int, with_streams: bool = True,
+                             length: int = SEQ_LEN) -> dict:
     """bound_ms of a bf16 attention backward over n (row, head) pairs of
-    width dh at L = 300 with dropout streams: q, k, v, o and do read and dq,
-    dk and dv written at 2 bytes, lse read at 4, against five L x L x dh
-    products' flops (scores, dP, dq, dk, dv) at the dense bf16 tensor-core
-    rate."""
-    elems = n_heads_rows * SEQ_LEN * dh
-    nbytes = 2 * 8 * elems + 4 * n_heads_rows * SEQ_LEN + 4 * n_heads_rows
-    bound_ms, bound_by = bound(nbytes, 10 * elems * SEQ_LEN, PEAK_BF16_FLOPS)
+    width dh at L = `length`: q, k, v, o and do read and dq, dk and dv
+    written at 2 bytes, lse read at 4 (and the streams read), against five
+    L x L x dh products' flops (scores, dP, dq, dk, dv) at the dense bf16
+    tensor-core rate."""
+    elems = n_heads_rows * length * dh
+    nbytes = 2 * 8 * elems + 4 * n_heads_rows * length + (4 * n_heads_rows if with_streams
+                                                          else 0)
+    bound_ms, bound_by = bound(nbytes, 10 * elems * length, PEAK_BF16_FLOPS)
     return dict(bound_ms=bound_ms, bound_by=bound_by)
 
 
+def bf16_bwd_rates(name: str, kernel, plain, library, forward, n_heads_rows: int, dh: int,
+                   length: int) -> dict:
+    """A bf16 attention backward against its plain version on the plain
+    forward's o and lse (`forward(rate)`), at rates 0 and 0.1 on the same
+    streams: dq, dk and dv within GRAD_BF16_STEPS, rate 0 with streams
+    bit-equal to the call without (`kernel(o, lse, rate, with_streams)`),
+    and a second launch at rate 0.1 bit-equal to the first. Times at rate
+    0.1, the training path's, with the rate-0 times under `rate_0`;
+    library_ms: the backward alone of `library(rate)`'s output."""
+    errs, by_rate = [], {}
+    for rate in (0.0, RATE):
+        o, lse = forward(rate)
+        got = kernel(o, lse, rate, True)
+        torch.cuda.synchronize()
+        errs.append(bf16_grads_check(f"{name} rate {rate}", got, plain(o, lse, rate)))
+        if rate == 0.0:
+            require(all(torch.equal(a, b) for a, b in zip(got, kernel(o, lse, rate, False))),
+                    f"{name}: rate 0 with streams differs from the call without dropout")
+        by_rate[rate] = (o, lse)
+    again = kernel(*by_rate[RATE], RATE, True)
+    require(all(torch.equal(a, b) for a, b in zip(got, again)),
+            f"{name}: two launches on the same inputs differ")
+    row = {}
+    for rate in (RATE, 0.0):
+        o, lse = by_rate[rate]
+        plain_ms = plain_time(lambda: plain(o, lse, rate))
+        grad = library(rate)
+        t = timed(lambda: kernel(o, lse, rate, True), grad)
+        t.update(plain_ms=plain_ms, **bf16_attention_bwd_bound(n_heads_rows, dh, rate > 0.0,
+                                                               length))
+        row.update(t if rate == RATE else {"rate_0": t})
+    row["max_abs_err"] = row["rate_0"]["max_abs_err"] = max(errs)
+    return row
+
+
 def check_attention_bwd_bf16(dev, rng, d_model: int = D_MODEL, heads: int = HEADS,
-                             rows: tuple = PACKED_ROWS) -> dict:
+                             rows: tuple = PACKED_ROWS, long_rows: int | None = None) -> dict:
     """K6''s bf16 instance against `attention_packed_bwd_plain` on the same
-    bf16 q, k, v, do and the plain version's o and lse, at rates 0 and 0.1,
-    and a second launch at rate 0.1 bit-equal to the first. Times are at rate
-    0.1, the training path's; library_ms is the backward alone of bf16
-    scaled_dot_product_attention with dropout_p 0.1 (its own mask)."""
+    bf16 q, k, v, do and the plain version's o and lse, at the rows N of the
+    main paths (`bf16_bwd_rates`); with `long_rows`, also `long_rows` rows at
+    L = LONG_L as res["long"]. library_ms is the backward alone of bf16
+    scaled_dot_product_attention at the same dropout rate (its own mask)."""
     from rlt_tpu_torch.ops import attention
 
     pack = attention.packed_group_size(d_model, heads)
     dh = d_model // heads
     out_rows = []
-    for n in rows:
-        q, k, v, do = (torch.from_numpy(rng.normal(size=(n, SEQ_LEN, d_model))
+    shapes = [(n, SEQ_LEN) for n in rows] + ([(long_rows, LONG_L)] if long_rows else [])
+    for n, length in shapes:
+        gen = rng if length == SEQ_LEN else np.random.default_rng(LONG_L + 1)
+        q, k, v, do = (torch.from_numpy(gen.normal(size=(n, length, d_model))
                                         .astype(np.float32)).to(dev).bfloat16()
                        for _ in range(4))
-        streams = random_streams(rng, n, dev)
-        errs = []
-        for rate in (0.0, RATE):
-            o, lse = attention.attention_packed_plain(q, k, v, heads, pack, rate, streams)
-            got = attention.attention_packed_bwd_bf16(q, k, v, o, lse, do, heads, pack,
-                                                      rate, streams)
-            torch.cuda.synchronize()
-            want = attention.attention_packed_bwd_plain(q, k, v, o, lse, do, heads, pack,
-                                                        rate, streams)
-            errs.append(bf16_grads_check(f"attention_packed_bwd_bf16 dh={dh} N={n} "
-                                         f"rate {rate}", got, want))
-        again = attention.attention_packed_bwd_bf16(q, k, v, o, lse, do, heads, pack, RATE,
-                                                    streams)
-        require(all(torch.equal(a, b) for a, b in zip(got, again)),
-                f"attention_packed_bwd_bf16 dh={dh} N={n}: two launches on the same "
-                "inputs differ")
-        plain_ms = plain_time(lambda: attention.attention_packed_bwd_plain(
-            q, k, v, o, lse, do, heads, pack, RATE, streams))
-        by_head = [t.view(n, SEQ_LEN, heads, dh).transpose(1, 2).detach().requires_grad_()
+        streams = random_streams(gen, n, dev)
+        by_head = [t.view(n, length, heads, dh).transpose(1, 2).detach().requires_grad_()
                    for t in (q, k, v)]
-        out = F.scaled_dot_product_attention(*by_head, dropout_p=RATE)
-        g_out = do.view(n, SEQ_LEN, heads, dh).transpose(1, 2)
-        t = timed(lambda: attention.attention_packed_bwd_bf16(q, k, v, o, lse, do, heads,
-                                                              pack, RATE, streams),
-                  lambda: torch.autograd.grad(out, by_head, g_out, retain_graph=True))
-        row = dict(n=n, dh=dh, max_abs_err=max(errs), **t, plain_ms=plain_ms,
-                   **bf16_attention_bwd_bound(n * heads, dh))
+        g_out = do.view(n, length, heads, dh).transpose(1, 2)
+
+        def library(rate):
+            out = F.scaled_dot_product_attention(*by_head, dropout_p=rate)
+            return lambda: torch.autograd.grad(out, by_head, g_out, retain_graph=True)
+
+        row = dict(n=n, dh=dh, length=length, **bf16_bwd_rates(
+            f"attention_packed_bwd_bf16 dh={dh} N={n} L={length}",
+            lambda o, lse, rate, with_streams: attention.attention_packed_bwd_bf16(
+                q, k, v, o, lse, do, heads, pack, rate, streams if with_streams else None),
+            lambda o, lse, rate: attention.attention_packed_bwd_plain(
+                q, k, v, o, lse, do, heads, pack, rate, streams),
+            library,
+            lambda rate: attention.attention_packed_plain(q, k, v, heads, pack, rate, streams),
+            n * heads, dh, length))
         log("attention_packed_bwd_bf16 " + json.dumps(row))
         out_rows.append(row)
-    return {"rows": out_rows, "max_abs_err": max(r["max_abs_err"] for r in out_rows)}
+    res = {"rows": [r for r in out_rows if r["length"] == SEQ_LEN],
+           "max_abs_err": max(r["max_abs_err"] for r in out_rows)}
+    if long_rows:
+        res["long"] = out_rows[-1]
+    return res
 
 
 def check_slice_attention_bwd_bf16(dev, rng) -> dict:
     """K4''s bf16 instance against `attention_bwd_plain` on the same bf16 q,
     k, v, do and the plain version's o and lse, at PLECut's 378 slices of its
-    63-list batch, rates 0 and 0.1, and a second launch at rate 0.1 bit-equal
-    to the first. Times at rate 0.1; library_ms: the backward alone of bf16
-    scaled_dot_product_attention with dropout_p 0.1."""
+    63-list batch (`bf16_bwd_rates`), and at LONG_SLICE_ROWS rows of L =
+    LONG_L as res["long"]. library_ms: the backward alone of bf16
+    scaled_dot_product_attention at the same dropout rate."""
     from rlt_tpu_torch.ops import attention
 
-    n = EXPERTS * BATCHES[0]
-    q, k, v, do = (torch.from_numpy(rng.normal(size=(n, SLICE_HEADS, SEQ_LEN, SLICE_DH))
-                                    .astype(np.float32)).to(dev).bfloat16()
-                   for _ in range(4))
-    streams = random_streams(rng, n * SLICE_HEADS, dev)
-    errs = []
-    for rate in (0.0, RATE):
-        o, lse = attention.attention_plain(q, k, v, rate, streams)
-        got = attention.attention_bwd_bf16(q, k, v, o, lse, do, rate, streams)
-        torch.cuda.synchronize()
-        want = attention.attention_bwd_plain(q, k, v, o, lse, do, rate, streams)
-        errs.append(bf16_grads_check(f"attention_bwd_bf16 N={n} rate {rate}", got, want))
-    again = attention.attention_bwd_bf16(q, k, v, o, lse, do, RATE, streams)
-    require(all(torch.equal(a, b) for a, b in zip(got, again)),
-            f"attention_bwd_bf16 N={n}: two launches on the same inputs differ")
-    plain_ms = plain_time(lambda: attention.attention_bwd_plain(q, k, v, o, lse, do, RATE,
-                                                                streams))
-    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    out = F.scaled_dot_product_attention(*leaves, dropout_p=RATE)
-    t = timed(lambda: attention.attention_bwd_bf16(q, k, v, o, lse, do, RATE, streams),
-              lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
-    row = dict(n=n, max_abs_err=max(errs), **t, plain_ms=plain_ms,
-               **bf16_attention_bwd_bound(n * SLICE_HEADS, SLICE_DH))
-    log("attention_bwd_bf16 " + json.dumps(row))
-    return {"rows": [row], "max_abs_err": row["max_abs_err"]}
+    rows = []
+    for n, length in ((EXPERTS * BATCHES[0], SEQ_LEN), (LONG_SLICE_ROWS, LONG_L)):
+        gen = rng if length == SEQ_LEN else np.random.default_rng(LONG_L + 2)
+        q, k, v, do = (torch.from_numpy(gen.normal(size=(n, SLICE_HEADS, length, SLICE_DH))
+                                        .astype(np.float32)).to(dev).bfloat16()
+                       for _ in range(4))
+        streams = random_streams(gen, n * SLICE_HEADS, dev)
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+        def library(rate):
+            out = F.scaled_dot_product_attention(*leaves, dropout_p=rate)
+            return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+        row = dict(n=n, slices=n * SLICE_HEADS, length=length, **bf16_bwd_rates(
+            f"attention_bwd_bf16 N={n} L={length}",
+            lambda o, lse, rate, with_streams: attention.attention_bwd_bf16(
+                q, k, v, o, lse, do, rate, streams if with_streams else None),
+            lambda o, lse, rate: attention.attention_bwd_plain(q, k, v, o, lse, do, rate,
+                                                               streams),
+            library, lambda rate: attention.attention_plain(q, k, v, rate, streams),
+            n * SLICE_HEADS, SLICE_DH, length))
+        log("attention_bwd_bf16 " + json.dumps(row))
+        rows.append(row)
+    return {"rows": rows[:-1], "long": rows[-1],
+            "max_abs_err": max(r["max_abs_err"] for r in rows)}
 
 
 def reset_counts() -> None:
@@ -1883,10 +1922,14 @@ def bf16_entry(name: str, res: dict, source: str, replaces: str, library: str,
         entry["ndir"] = 2
         entry["ms_per_step"] = row["ms_per_step"]
         entry["ndir_1"] = {k: res["ndir_1"][k] for k in keys + ("ms_per_step",)}
-    if "dropout_0.1" in row:
-        entry["dropout_0.1"] = {k: row["dropout_0.1"][k] for k in keys}
+    # the bf16 attention kernels' other rate: dropout 0.1 for the forwards,
+    # rate 0 for the backwards (timed at 0.1, the training path's)
+    variants = [v for v in ("dropout_0.1", "rate_0") if v in row]
+    for variant in variants:
+        entry[variant] = {k: row[variant][k] for k in keys}
     for other in (res["rows"][1:] + [res["long"]] if name in BF16_SOURCE else []):
-        # the bf16 forwards' other rows: N = 768 and 63, 1536 slices, L = LONG_L
+        # the bf16 attention kernels' other rows: N = 768 and 63, 1536
+        # slices, L = LONG_L
         if other["length"] != SEQ_LEN:
             label = f"l_{other['length']}"
         elif name.startswith("attention_packed"):
@@ -1894,13 +1937,11 @@ def bf16_entry(name: str, res: dict, source: str, replaces: str, library: str,
         else:
             label = f"slices_{other['slices']}"
         entry[label] = {k: other[k] for k in keys}
-        entry[label]["dropout_0.1"] = {k: other["dropout_0.1"][k] for k in keys}
-    if name == "attention_packed_bwd":
-        rows = {r["n"]: r for r in res["rows"]}
-        entry[f"n_{BATCHES[0]}"] = {k: rows[BATCHES[0]][k] for k in keys}
+        for variant in variants:
+            entry[label][variant] = {k: other[variant][k] for k in keys}
     if name.startswith("attention_packed"):
         rows16 = {r["n"]: r for r in dh16["rows"]}
-        entry["dh_16"] = {"source": BF16_DH16_SOURCE,
+        entry["dh_16"] = {"source": BF16_DH16_SOURCE[name],
                           **{k: rows16[CHOOPY_ROWS[0]][k] for k in keys}}
         entry["dh_16"][f"n_{CHOOPY_ROWS[1]}"] = {k: rows16[CHOOPY_ROWS[1]][k] for k in keys}
         entry["max_abs_err"] = max(res["max_abs_err"], dh16["max_abs_err"])
@@ -1930,7 +1971,7 @@ def main() -> int:
         if "Function properties for" in line:  # heads each kernel's figures
             log("ptxas kernel " + kernel_name(line))
         elif ("registers" in line or "spill" in line or "Performance" in line
-              or line.startswith("==")):
+              or "warning" in line or line.startswith("==")):
             log("ptxas " + line.strip())
 
     marks = [("kernel checks", time.perf_counter())]  # each phase's start
@@ -1961,8 +2002,7 @@ def main() -> int:
     # width at N = 63 and 256
     rngt = np.random.default_rng(170)
     lstm_bwd_bf16_res = check_lstm_bwd_bf16(dev, rngt)
-    attn_bwd_bf16_res = check_attention_bwd_bf16(dev, rngt, rows=(PACKED_ROWS[0],
-                                                                  PACKED_ROWS[2]))
+    attn_bwd_bf16_res = check_attention_bwd_bf16(dev, rngt, long_rows=LONG_PACKED_ROWS)
     attn_bwd_bf16_dh16_res = check_attention_bwd_bf16(dev, rngt, **choopy)
     slice_bwd_bf16_res = check_slice_attention_bwd_bf16(dev, rngt)
     launches, train_res, train_bf16_res = {}, {}, {}

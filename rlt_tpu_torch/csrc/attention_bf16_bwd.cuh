@@ -1,14 +1,13 @@
-// attention_bf16_bwd: the bf16 backward of the attention kernels, one
-// template for the head-packed K6' (attention_packed_bwd.cu: heads of dh = 16
-// and 64 of (N, L, D) arrays) and the per-slice K4' (attention_bwd.cu: slices
-// of dh = 128, the packed layout with one head of D = 128 and pack 1), as
-// attention_bf16.cuh is for the forwards.
+// attention_bf16_bwd: the bf16 backward of the head-packed attention at
+// dh = 16 (K6' in attention_packed_bwd.cu: Choopy's and MtChoopy's 8 heads
+// of (N, L, D) arrays), as attention_bf16.cuh is for its forward. (dh = 64
+// and 128 run attention_bf16_bwd_wgmma.cuh's TMA and wgmma kernels; its
+// 64-column swizzled tiles do not take dh = 16.)
 //
 // Replaces the bf16 form of rlt_tpu/ops/attention.py::_attn_bwd_packed_kernel
-// (through _bwd_packed) and ::_attn_bwd_kernel (through _bwd_pallas), whose
-// `_mxu` keeps bf16 operands bf16. q, k, v, o and the incoming gradient do
-// arrive in bf16, lse in f32 (K3''s or K5''s layout). Per head, recomputing
-// the probabilities from lse:
+// (through _bwd_packed), whose `_mxu` keeps bf16 operands bf16. q, k, v, o
+// and the incoming gradient do arrive in bf16, lse in f32 (K5''s layout).
+// Per head, recomputing the probabilities from lse:
 //   s = q k^T (f32 sums of exact bf16 products),  p = exp(s scale - lse)  f32
 //   dP = do v^T  f32;  with dropout pd = keep ? p / (1 - rate) : 0 and
 //                       dp = keep ? dP / (1 - rate) : 0, both f32
@@ -24,21 +23,20 @@
 // idempotent and per-head products compute the same function.)
 //
 // What bounds it on an H100: by the roofline the bytes, 2 an element of
-// q, k, v, o, do, dq, dk and dv (0.070 ms at N = 189, 4 heads of dh = 64,
-// L = 300, against 0.032 ms of bf16 products in the 7 L x L x dh products
-// per head of this two-pass design); in fact the exp, the mask hash and ds of
-// every score, taken once in each pass, which the tensor cores do not take.
+// q, k, v, o, do, dq, dk and dv; in fact the exp, the mask hash and ds of
+// every score, taken once in each pass, which weigh four times as much
+// against the products at dh = 16 as at dh = 64.
 //
-// Design: K6''s two passes in bf16, with the forward template's tiles and
-// fragments. Blocks of 4 warps, each warp 16 of the block's 64 rows; the
-// block's own rows of two operands sit in shared memory as bf16 at a row
-// pitch of dh + 8 elements (ldmatrix phases on distinct bank groups), while
-// the other operands stream through a two-stage cp.async ring of 64-row
-// tiles. The products are mma.sync m16n8k16 bf16 with f32 accumulators; an
-// operand read along its rows loads by ldmatrix, one read across them by
-// ldmatrix.trans; ds and pd, rounded and packed to bf16x2 straight from the
-// S and dP accumulators, are the A fragments of the gradient products (the
-// forward's trick for P).
+// Design: two passes with the forward template's tiles and fragments.
+// Blocks of 4 warps, each warp 16 of the block's 64 rows; the block's own
+// rows of two operands sit in shared memory as bf16 at a row pitch of dh + 8
+// elements (ldmatrix phases on distinct bank groups), while the other
+// operands stream through a two-stage cp.async ring of 64-row tiles. The
+// products are mma.sync m16n8k16 bf16 with f32 accumulators; an operand read
+// along its rows loads by ldmatrix, one read across them by ldmatrix.trans;
+// ds and pd, rounded and packed to bf16x2 straight from the S and dP
+// accumulators, are the A fragments of the gradient products (the forward's
+// trick for P).
 //  1. dq kernel: one block per (n, head, 64 query rows) holds Q and dO,
 //     takes delta of its rows (from o and do in device memory) and writes it
 //     for the second pass, then streams K and V tiles: S = Q K^T and
@@ -46,12 +44,10 @@
 //  2. dkv kernel: one block per (n, head, 64 key rows) holds K and V and
 //     streams tiles of Q and dO with their lse and delta, in halves of 32
 //     queries: S^T = K Q^T and dP^T = V dO^T, ds^T and pd^T in registers,
-//     dV += pd^T dO and dK += ds^T Q. The halves keep a warp's accumulators
-//     at dh = 128 (dK and dV, 128 floats a thread) beside 32 of S^T and dP^T.
+//     dV += pd^T dO and dK += ds^T Q.
 // Every output element is summed by one thread in a fixed order, so two
-// launches on the same inputs give the same bits. Shared memory (dq and dkv:
-// 19 KiB at dh = 16, 55 KiB at dh = 64, 103 KiB at dh = 128) does not grow
-// with L; any 1 <= L <= 65535 is taken.
+// launches on the same inputs give the same bits. Shared memory (19 KiB a
+// kernel) does not grow with L; any 1 <= L <= 65535 is taken.
 
 #pragma once
 

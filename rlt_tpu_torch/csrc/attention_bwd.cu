@@ -1,7 +1,7 @@
 // K4' attention_bwd: per-slice self-attention backward, dh = 128, float32
-// (this file's kernels) and bf16 (attention_bf16_bwd.cuh's at dh = 128,
-// behind rlt_attention_bwd_bf16: a slice is one head of D = 128 in a group of
-// 1).
+// (this file's kernels) and bf16 (attention_bf16_bwd_wgmma.cuh's TMA and
+// wgmma kernels at dh = 128, behind rlt_attention_bwd_bf16: a slice is one
+// head of D = 128 in a group of 1).
 //
 // Replaces rlt_tpu/ops/attention.py::_attn_bwd_kernel (run through
 // _bwd_pallas and the custom_vjp of fused_attention). q, k, v, o and the
@@ -56,7 +56,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "attention_bf16_bwd.cuh"
+#include "attention_bf16_bwd_wgmma.cuh"
 #include "attention_mma.cuh"
 #include "keep_mask.cuh"
 
@@ -482,7 +482,7 @@ extern "C" int rlt_attention_bwd_bf16(const void* q, const void* k, const void* 
   if (n < 1 || length < 1 || n > 65535 || length > 65535 ||
       !(rate >= 0.0f && rate < 1.0f) || (rate > 0.0f && streams == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  return rlt::launch_attn_bwd_bf16<kSliceDh>(q, k, v, o, dout, lse, streams, dq, dk, dv,
-                                             delta, n, length, 1, 1, rate, threshold,
-                                             static_cast<cudaStream_t>(stream));
+  return rlt::launch_attn_bwd_wgmma<kSliceDh>(q, k, v, o, dout, lse, streams, dq, dk, dv,
+                                              delta, n, length, 1, 1, rate, threshold,
+                                              static_cast<cudaStream_t>(stream));
 }

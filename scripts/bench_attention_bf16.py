@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""The bf16 attention forwards on one CUDA card, against other trees' builds
+"""The bf16 attention kernels on one CUDA card, against other trees' builds
 of the same entry points, in one process.
 
-    python3 scripts/bench_attention_bf16.py [--tree DIR ...] [--serving]
-        [--out build/attention_bf16_ab.json]
+    python3 scripts/bench_attention_bf16.py [--tree DIR ...] [--backward]
+        [--serving] [--training] [--out build/attention_bf16_ab.json]
 
 Times K5''s bf16 instance (`rlt_attention_packed_fwd_bf16`) at dh = 64
 (N = 63, 189 and 768 rows of 4 heads in groups of 2) and dh = 16 (N = 63
@@ -15,6 +15,12 @@ lists), at dropout rates 0 and 0.1, beside bf16
 lse are first held to the plain version (`rlt_tpu_torch.ops.attention`)
 with `chip_smoke.py`'s bound.
 
+- `--backward`: the same rows of the backwards instead, K6''s bf16 instance
+  (`rlt_attention_packed_bwd_bf16`) and K4''s (`rlt_attention_bwd_bf16`),
+  on the plain forward's o and lse, beside the backward alone of bf16
+  `scaled_dot_product_attention` (its own dropout mask at rate 0.1); every
+  library's dq, dk and dv first held to the plain backward with
+  `chip_smoke.py`'s bound.
 - `--tree DIR` (repeatable): DIR holds another tree (`git archive <commit>
   rlt_tpu_torch/csrc | tar -x -C DIR`), named by DIR's last part. Its
   `rlt_tpu_torch/csrc` is built as this tree's is (`ops/build.py`) and
@@ -30,6 +36,11 @@ with `chip_smoke.py`'s bound.
   buckets 64 and 256 (robust04 width, seeded weights), once through the
   first tree's bf16 attention forward and once through this tree's, in
   turns, each with the card's busy ms (torch.profiler) and the host's share.
+- `--training`: the bf16 train step (forward with the loss, backward, Adam;
+  the drmm_tks preset, B = 63, robust04 width) of MMOECut, MOECut (dropout
+  rate 0), PLECut and AttnCut, once through the first tree's bf16 attention
+  backward and once through this tree's, in turns, each with the card's
+  busy ms and the host's share.
 
 Prints one JSON line a row and the card's name and power limit, and writes
 every row to `--out`. Needs a CUDA card and nvcc.
@@ -52,7 +63,7 @@ import torch.nn.functional as F
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
-from chip_smoke import bf16_o_check  # noqa: E402
+from chip_smoke import bf16_grads_check, bf16_o_check  # noqa: E402
 from rlt_tpu_torch.ops import attention, build  # noqa: E402
 from rlt_tpu_torch.utils.timing import device_busy_ms, host_share, interleaved_ms  # noqa: E402
 
@@ -64,6 +75,15 @@ PACKED_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctyp
                                                             ctypes.c_void_p]
 SLICE_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_uint,
                                                            ctypes.c_void_p]
+PACKED_BWD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_uint,
+                                                                 ctypes.c_void_p]
+SLICE_BWD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_uint,
+                                                                ctypes.c_void_p]
+# the rows of either pass: (kernel, dh, rows or slice pairs, L)
+CASES = ([("packed", 64, n, SEQ_LEN) for n in (63, 189, 768)]
+         + [("packed", 16, n, SEQ_LEN) for n in (63, 256)]
+         + [("slice", 128, n, SEQ_LEN) for n in (189, 768)]
+         + [("packed", 64, 8, LONG_L), ("slice", 128, 4, LONG_L)])
 
 
 def log(row: dict) -> None:
@@ -97,12 +117,8 @@ def qkv(rng, shape, dev):
 def kernel_rows(dev, libs: dict) -> list[dict]:
     rng = np.random.default_rng(12)
     stream = build.stream_handle(dev)
-    cases = [("packed", 64, n, SEQ_LEN) for n in (63, 189, 768)] + \
-            [("packed", 16, n, SEQ_LEN) for n in (63, 256)] + \
-            [("slice", 128, n, SEQ_LEN) for n in (189, 768)] + \
-            [("packed", 64, 8, LONG_L), ("slice", 128, 4, LONG_L)]
     rows = []
-    for kind, dh, n, length in cases:
+    for kind, dh, n, length in CASES:
         if kind == "packed":
             heads, d = (4, 256) if dh == 64 else (8, 128)
             pack = attention.packed_group_size(d, heads)
@@ -147,23 +163,127 @@ def kernel_rows(dev, libs: dict) -> list[dict]:
                                           f"rate={rate}", o, lse, *want)
                 cands[name] = call
             cands["sdpa"] = lambda: F.scaled_dot_product_attention(*by_head, dropout_p=rate)
-            t = interleaved_ms(cands, iters=20, repeats=ROUNDS, alternate=True)
-            row = {"kernel": kind, "dh": dh, "n": n, "length": length, "rate": rate,
-                   "ms": {name: r["median"] for name, r in t.items()},
-                   "spread_ms": {name: [r["min"], r["max"]] for name, r in t.items()},
-                   "o_lse_errs": errs}
-            row["library_ratio"] = {name: row["ms"][name] / row["ms"]["sdpa"] for name in libs}
-            row["new_over"] = {name: row["ms"]["new"] / row["ms"][name]
-                               for name in libs if name != "new"}
+            row = timed_row({"kernel": kind, "dh": dh, "n": n, "length": length, "rate": rate},
+                            cands, libs, {"o_lse_errs": errs})
             if rate == 0.0 and n == 189:
-                row["host_us"] = {**{name: host_us(cands[name]) for name in libs},
-                                  "wrapper": host_us(wrapper), "sdpa": host_us(cands["sdpa"]),
-                                  "stream_handle": host_us(lambda: build.stream_handle(dev)),
-                                  "stream_object": host_us(lambda: ctypes.c_void_p(
-                                      torch.cuda.current_stream(dev).cuda_stream))}
+                row["host_us"] = host_row(dev, cands, libs, wrapper)
             log(row)
             rows.append(row)
     return rows
+
+
+def timed_row(meta: dict, cands: dict, libs: dict, errs: dict) -> dict:
+    """One row: every library's build and SDPA in turns (14 rounds of 20
+    calls, odd rounds reversed), medians, spreads, ratios to SDPA and this
+    tree's build over each other's."""
+    t = interleaved_ms(cands, iters=20, repeats=ROUNDS, alternate=True)
+    row = {**meta, "ms": {name: r["median"] for name, r in t.items()},
+           "spread_ms": {name: [r["min"], r["max"]] for name, r in t.items()}, **errs}
+    row["library_ratio"] = {name: row["ms"][name] / row["ms"]["sdpa"] for name in libs}
+    row["new_over"] = {name: row["ms"]["new"] / row["ms"][name]
+                       for name in libs if name != "new"}
+    return row
+
+
+def host_row(dev, cands: dict, libs: dict, wrapper) -> dict:
+    """Host microseconds a launch of each library's entry point, this tree's
+    wrapper and SDPA, and of reading the current stream two ways."""
+    return {**{name: host_us(cands[name]) for name in libs},
+            "wrapper": host_us(wrapper), "sdpa": host_us(cands["sdpa"]),
+            "stream_handle": host_us(lambda: build.stream_handle(dev)),
+            "stream_object": host_us(lambda: ctypes.c_void_p(
+                torch.cuda.current_stream(dev).cuda_stream))}
+
+
+def backward_rows(dev, libs: dict) -> list[dict]:
+    """The bf16 backwards (K6' packed, K4' per slice) at CASES, on the plain
+    forward's o and lse, every library's build and SDPA's backward in turns."""
+    rng = np.random.default_rng(13)
+    stream = build.stream_handle(dev)
+    rows = []
+    for kind, dh, n, length in CASES:
+        if kind == "packed":
+            heads, d = (4, 256) if dh == 64 else (8, 128)
+            pack = attention.packed_group_size(d, heads)
+            q, k, v, do = qkv(rng, (n, length, d), dev) + qkv(rng, (n, length, d), dev)[:1]
+            slices, n_streams = n * heads, n
+            by_head = lambda t: t.view(n, length, heads, dh).transpose(1, 2)  # noqa: E731
+            shape = [n, length, heads, dh, pack]
+            symbol, argtypes = "rlt_attention_packed_bwd_bf16", PACKED_BWD_ARGS
+        else:
+            q, k, v, do = qkv(rng, (n, 2, length, dh), dev) + qkv(rng, (n, 2, length, dh),
+                                                                 dev)[:1]
+            slices, n_streams = 2 * n, 2 * n
+            by_head = lambda t: t  # noqa: E731
+            shape = [2 * n, length]
+            symbol, argtypes = "rlt_attention_bwd_bf16", SLICE_BWD_ARGS
+        streams = torch.from_numpy(rng.integers(-2**31, 2**31, size=n_streams,
+                                                dtype=np.int64).astype(np.int32)).to(dev)
+        for rate in (0.0, RATE):
+            if kind == "packed":
+                o, lse = attention.attention_packed_plain(q, k, v, heads, pack, rate, streams)
+                want = attention.attention_packed_bwd_plain(q, k, v, o, lse, do, heads, pack,
+                                                            rate, streams)
+                wrapper = lambda: attention.attention_packed_bwd_bf16(  # noqa: E731
+                    q, k, v, o, lse, do, heads, pack, rate, streams)
+            else:
+                o, lse = attention.attention_plain(q, k, v, rate, streams)
+                want = attention.attention_bwd_plain(q, k, v, o, lse, do, rate, streams)
+                wrapper = lambda: attention.attention_bwd_bf16(  # noqa: E731
+                    q, k, v, o, lse, do, rate, streams)
+            threshold = attention.keep_threshold(rate)
+            s_ptr = ctypes.c_void_p(streams.data_ptr() if rate > 0 else None)
+            cands, errs = {}, {}
+            for name, lib in libs.items():
+                fn = bind(lib, symbol, argtypes)
+                grads = [torch.empty_like(q) for _ in range(3)]
+                delta = torch.empty(slices, length, device=dev, dtype=torch.float32)
+                ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, o, do, lse)] + \
+                    [s_ptr] + [ctypes.c_void_p(t.data_ptr()) for t in (*grads, delta)]
+                args = ptrs + shape + [rate, threshold, stream]
+
+                def call(fn=fn, args=args, name=name):
+                    code = fn(*args)
+                    if code != 0:
+                        raise RuntimeError(f"{name} {symbol}: CUDA error {code}")
+                call()
+                torch.cuda.synchronize()
+                errs[name] = bf16_grads_check(f"{name} {kind} bwd dh={dh} n={n} L={length} "
+                                              f"rate={rate}", grads, want)
+                cands[name] = call
+            leaves = [by_head(t).detach().clone().requires_grad_() for t in (q, k, v)]
+            out = F.scaled_dot_product_attention(*leaves, dropout_p=rate)
+            g_out = by_head(do)
+            cands["sdpa"] = lambda: torch.autograd.grad(out, leaves, g_out, retain_graph=True)
+            row = timed_row({"kernel": f"{kind}_bwd", "dh": dh, "n": n, "slices": slices,
+                             "length": length, "rate": rate}, cands, libs,
+                            {"grad_errs": errs})
+            if n == 189:
+                row["kernel_us"] = {name: kernel_us(cands[name]) for name in libs}
+            if rate == 0.0 and n == 189:
+                row["host_us"] = host_row(dev, cands, libs, wrapper)
+            log(row)
+            rows.append(row)
+    return rows
+
+
+def kernel_us(fn, calls: int = 20) -> dict:
+    """Device microseconds a call of each kernel that `fn` launches, by name
+    (torch.profiler): the backward's passes apart."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        if us > 0:
+            out[e.key[:80]] = us / calls
+    return out
 
 
 def serving_rows(dev, other: ctypes.CDLL) -> list[dict]:
@@ -207,10 +327,64 @@ def serving_rows(dev, other: ctypes.CDLL) -> list[dict]:
     return rows
 
 
+def training_rows(dev, other: ctypes.CDLL) -> list[dict]:
+    """The bf16 train step of MMOECut, MOECut, PLECut and AttnCut, its bf16
+    attention backward through `other`'s entry point or this tree's, in
+    turns."""
+    from rlt_tpu_torch.config import TrainConfig, apply_preset
+    from rlt_tpu_torch.train import Trainer, forward
+
+    models = {"mmoecut": (attention.ATTENTION_PACKED_BWD_BF16, PACKED_BWD_ARGS),
+              "moecut": (attention.ATTENTION_PACKED_BWD_BF16, PACKED_BWD_ARGS),
+              "mtple": (attention.ATTENTION_BWD_BF16, SLICE_BWD_ARGS),
+              "attncut": (attention.ATTENTION_PACKED_BWD_BF16, PACKED_BWD_ARGS)}
+    rows = []
+    for model_name, (kernel, argtypes) in models.items():
+        cfg = apply_preset(TrainConfig(model_name=model_name, retrieve_data="robust04",
+                                       compute_dtype="bfloat16"))
+        trainer = Trainer(cfg, device=dev)
+        idx, valid = trainer.data.plan(trainer.generator, "train")
+        x, y, v = trainer.data.x_train[idx[0]], trainer.data.y_train[idx[0]], valid[0]
+        model, opt = trainer.model, trainer.optimizer
+        model.train()
+
+        def step():
+            opt.zero_grad()
+            loss = trainer.criterion(forward(model, x, trainer.generator, trainer.dtype), y,
+                                     valid=v)
+            loss.backward()
+            opt.step()
+
+        step()  # this tree's entry point bound as kernel._fn
+        fns = {"other": bind(other, kernel.symbol, argtypes), "new": kernel._fn}
+
+        def through(name):
+            def call():
+                kernel._fn = fns[name]
+                step()
+            return call
+
+        cands = {name: through(name) for name in ("other", "new")}
+        t = interleaved_ms(cands, iters=3, repeats=ROUNDS, alternate=True)
+        row = {"model": model_name, "compute_dtype": "bfloat16", "batch": cfg.batch_size,
+               "dropout": cfg.dropout, "ms": {n: r["median"] for n, r in t.items()},
+               "spread_ms": {n: [r["min"], r["max"]] for n, r in t.items()}}
+        for name, fn in cands.items():
+            busy = device_busy_ms(fn)
+            row[f"{name}_busy_ms"] = busy
+            row[f"{name}_host_share"] = host_share(busy, row["ms"][name])
+        kernel._fn = fns["new"]
+        log(row)
+        rows.append(row)
+    return rows
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--tree", type=Path, action="append", default=[])
+    p.add_argument("--backward", action="store_true")
     p.add_argument("--serving", action="store_true")
+    p.add_argument("--training", action="store_true")
     p.add_argument("--out", type=Path, default=REPO / "build" / "attention_bf16_ab.json")
     args = p.parse_args()
     if not torch.cuda.is_available():
@@ -230,9 +404,11 @@ def main() -> int:
     libs["new"] = build.LIBRARY.get()
     result["build_seconds"] = build.LIBRARY.build_seconds
     log(dict(result))
-    result["rows"] = kernel_rows(dev, libs)
+    result["rows"] = (backward_rows if args.backward else kernel_rows)(dev, libs)
     if args.serving and args.tree:
         result["serving"] = serving_rows(dev, libs[args.tree[0].name])
+    if args.training and args.tree:
+        result["training"] = training_rows(dev, libs[args.tree[0].name])
     result["seconds"] = time.perf_counter() - t0
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(result, indent=1))

@@ -761,18 +761,38 @@ def test_lstm_bwd_bf16_kernel_is_deterministic_on_card(cuda_device):
     assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
-def _assert_bf16_grads(got, want):
-    for g, w in zip(got, want):
+def _assert_bf16_grads(got, want, floors=(0.0, 0.0, 0.0)):
+    for g, w, floor in zip(got, want, floors):
         assert g.dtype == torch.bfloat16 and torch.isfinite(g.float()).all()
-        limit = GRAD_BF16_STEPS * _bf16_step(w.float().abs().max()).item()
+        limit = max(GRAD_BF16_STEPS * _bf16_step(w.float().abs().max()).item(), floor)
         assert (g.float() - w.float()).abs().max().item() <= limit
 
 
+def _single_key_floors(q, k, o, do, dh):
+    """dq's and dk's bounds at L = 1, where they are 0 in exact arithmetic:
+    every probability is 1 and o = v, so dp = do v^T and delta = rowsum(do o)
+    are one sum of dh products taken two ways, and each version returns the
+    f32 rounding of dp - delta, |ds| <= 2 dh 2^-24 scale max rowsum |do o|,
+    times k (dq) or q (dk); the two versions differ by at most twice that.
+    (A bound relative to the plain version's max abs, which is that rounding
+    too, says nothing here.) dv = do is held as everywhere."""
+    terms = (do.float() * o.float()).abs().unflatten(-1, (-1, dh)).sum(-1).max().item()
+    ds = 4 * dh * 2.0 ** -24 * dh ** -0.5 * terms
+    return ds * k.float().abs().max().item(), ds * q.float().abs().max().item(), 0.0
+
+
 # The backwards fed o and lse from the plain forward and from the bf16
-# forward kernel (whose lse layout and dropout bits they read).
+# forward kernel (whose lse layout and dropout bits they read); dh = 64 and
+# 128 (attention_bf16_bwd_wgmma.cuh) at every kind of length: one key, a
+# ragged single tile, one whole tile and one key past it, the experts' and
+# PLECut's L = 300, and streams longer than any shared-memory residency (700,
+# 2048), up to N = 768 rows (1536 slices); at rate 0 the call with streams
+# bit-equal to the call without.
 @pytest.mark.parametrize("forward", ["plain", "kernel"])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dh,n,length", [(64, 9, 300), (64, 3, 37), (64, 2, 700),
+                                         (64, 4, 1), (64, 3, 64), (64, 3, 65),
+                                         (64, 2, 2048), (64, 768, 300),
                                          (16, 63, 300), (16, 3, 37), (16, 2, 700)])
 def test_packed_attention_bwd_bf16_kernel_matches_plain_on_card(cuda_device, dh, n,
                                                                 length, rate, forward):
@@ -791,13 +811,17 @@ def test_packed_attention_bwd_bf16_kernel_matches_plain_on_card(cuda_device, dh,
     torch.cuda.synchronize()
     assert (attention.ATTENTION_PACKED_BWD.launches,
             attention.ATTENTION_PACKED_BWD_BF16.launches) == (before[0], before[1] + 1)
+    floors = _single_key_floors(q, k, o, do, dh) if length == 1 else (0.0, 0.0, 0.0)
     _assert_bf16_grads(got, attention.attention_packed_bwd_plain(
-        q, k, v, o, lse, do, heads, pack, rate, streams))
+        q, k, v, o, lse, do, heads, pack, rate, streams), floors)
+    if rate == 0.0:
+        _assert_repeatable(got, attention.attention_packed_bwd_bf16(q, k, v, o, lse, do,
+                                                                    heads, pack))
 
 
 @pytest.mark.parametrize("forward", ["plain", "kernel"])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("batch,length", SLICE_SHAPES)
+@pytest.mark.parametrize("batch,length", SLICE_SHAPES + [(4, 1), (3, 65), (1, 2048)])
 def test_slice_attention_bwd_bf16_kernel_matches_plain_on_card(cuda_device, batch, length,
                                                                rate, forward):
     q, k, v, do = (torch.from_numpy(a).to(cuda_device).bfloat16()
@@ -811,8 +835,11 @@ def test_slice_attention_bwd_bf16_kernel_matches_plain_on_card(cuda_device, batc
     torch.cuda.synchronize()
     assert (attention.ATTENTION_BWD.launches,
             attention.ATTENTION_BWD_BF16.launches) == (before[0], before[1] + 1)
+    floors = _single_key_floors(q, k, o, do, 128) if length == 1 else (0.0, 0.0, 0.0)
     _assert_bf16_grads(got, attention.attention_bwd_plain(q, k, v, o, lse, do, rate,
-                                                          streams))
+                                                          streams), floors)
+    if rate == 0.0:
+        _assert_repeatable(got, attention.attention_bwd_bf16(q, k, v, o, lse, do))
 
 
 def test_attention_bwd_bf16_kernels_are_deterministic_on_card(cuda_device):
