@@ -8,8 +8,9 @@ registers and spills of each (and any wgmma it serialized), holds each one
 (the float32 instances and the bf16 ones of all six, K1'-K6') against its
 plain PyTorch version on the card at the main paths' shapes and times both
 (the bf16 attention forwards and backwards of dh = 64 and 128 also at a
-list of L = 2048, the backwards at dropout rates 0 and 0.1),
-then drives thirty-three main paths at robust04 width (L = 300, seeded
+list of L = 2048, the backwards at dropout rates 0 and 0.1; the bf16 LSTM
+kernels with their tensor-core bound, K2''s passes timed apart by
+torch.profiler), then drives thirty-three main paths at robust04 width (L = 300, seeded
 random weights): serving and training in float32, and serving and training
 in bf16 (`<model>-serve-bf16` and `<model>-train-bf16`:
 `compute_dtype="bfloat16"`, through the bf16 kernel instances only), of
@@ -126,6 +127,10 @@ BF16_SOURCE = {"attention_fwd": "rlt_tpu_torch/csrc/attention_bf16_wgmma.cuh",
                "attention_packed_fwd": "rlt_tpu_torch/csrc/attention_bf16_wgmma.cuh",
                "attention_bwd": "rlt_tpu_torch/csrc/attention_bf16_bwd_wgmma.cuh",
                "attention_packed_bwd": "rlt_tpu_torch/csrc/attention_bf16_bwd_wgmma.cuh"}
+# the bf16 LSTM kernels (csrc/lstm_bf16_mma.cuh), launched through the entry
+# points of lstm_fwd.cu and lstm_bwd.cu
+BF16_LSTM_SOURCE = {"lstm_fwd": "rlt_tpu_torch/csrc/lstm_bf16_mma.cuh",
+                    "lstm_bwd": "rlt_tpu_torch/csrc/lstm_bf16_mma.cuh"}
 BF16_DH16_SOURCE = {"attention_packed_fwd": "rlt_tpu_torch/csrc/attention_bf16.cuh",
                     "attention_packed_bwd": "rlt_tpu_torch/csrc/attention_bf16_bwd.cuh"}
 BF16_LIBRARY = {
@@ -309,6 +314,25 @@ def bounds(nbytes: float, flops: float) -> dict:
                 bound_tc_ms=bound(nbytes, flops, PEAK_3XTF32_FLOPS)[0])
 
 
+def kernel_us(fn, calls: int = 10) -> dict:
+    """Device microseconds a call of each CUDA kernel that `fn` launches, by
+    name (torch.profiler): a wrapper's passes apart."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        if us > 0:
+            out[e.key[:80]] = us / calls
+    return out
+
+
 def max_errs(got, want) -> tuple[float, float]:
     """(max abs error, max abs error over the reference's max abs)."""
     err = (got - want).abs().max().item()
@@ -353,6 +377,7 @@ def lstm_rows(rows: list) -> dict:
     main = next(r for r in rows if r["ndir"] == 2 and r["batch"] == BATCHES[0])
     return {"rows": rows, "main": main,
             "ndir_1": next(r for r in rows if r["ndir"] == 1 and r["batch"] == BATCHES[0]),
+            "b_256": next(r for r in rows if r["ndir"] == 2 and r["batch"] == BATCHES[1]),
             "max_abs_err": max(r["max_abs_err"] for r in rows)}
 
 
@@ -844,11 +869,14 @@ def check_lstm_bf16(dev, rng) -> dict:
             nbytes = 2 * (4 * state + ndir * HIDDEN * 4 * HIDDEN + state) + 4 * state
             flops = 2 * state * 4 * HIDDEN + 10 * state
             bound_ms, bound_by = bound(nbytes, flops)
+            # bound_tc_ms: the same bytes against the kernel's own products,
+            # h_{t-1} in three bf16 parts, at the dense bf16 rate
+            bound_tc_ms = bound(nbytes, 3 * 2 * state * 4 * HIDDEN, PEAK_BF16_FLOPS)[0]
             row = dict(ndir=ndir, batch=batch, max_abs_err=max(cs_err, hs_diff.max().item()),
                        cs_err=cs_err, hs_beyond_step=hs_beyond, **t,
                        ms_per_step=t["ms"] / SEQ_LEN, plain_ms=plain_ms,
                        library_unflattened_ms=unflattened_ms, bound_ms=bound_ms,
-                       bound_by=bound_by)
+                       bound_by=bound_by, bound_tc_ms=bound_tc_ms)
             log("lstm_fwd_bf16 " + json.dumps(row))
             rows.append(row)
     return lstm_rows(rows)
@@ -1020,11 +1048,17 @@ def check_lstm_bwd_bf16(dev, rng) -> dict:
             product = 2 * 4 * state * HIDDEN
             bound_ms, bound_by = bound(
                 nbytes, 2 * product + product * PEAK_F32_FLOPS / PEAK_BF16_FLOPS)
+            # bound_tc_ms: the same bytes against the kernel's own products at
+            # the dense bf16 rate: the gate recompute (one part), the chain's
+            # dgates W_hh and dW_hh^T (three parts of dgates each)
+            bound_tc_ms = bound(nbytes, 7 * product, PEAK_BF16_FLOPS)[0]
             row = dict(ndir=ndir, batch=batch, max_abs_err=max(
                            (dxw.float() - want_dxw.float()).abs().max().item(), dw_err),
                        dxw_beyond_step=dxw_beyond, max_rel_err=dw_rel, **t,
                        ms_per_step=t["ms"] / SEQ_LEN, plain_ms=plain_ms,
-                       bound_ms=bound_ms, bound_by=bound_by)
+                       bound_ms=bound_ms, bound_by=bound_by, bound_tc_ms=bound_tc_ms,
+                       parts_us=kernel_us(lambda: lstm.lstm_bwd_bf16(xw, w, hs, cs, dho,
+                                                                     ndir)))
             log("lstm_bwd_bf16 " + json.dumps(row))
             rows.append(row)
     return lstm_rows(rows)
@@ -1913,15 +1947,19 @@ def bf16_entry(name: str, res: dict, source: str, replaces: str, library: str,
     row = res.get("main", res["rows"][0])
     by_path = {path: launches[path][bf16_name]
                for path in PATHS + BF16_PATHS + BF16_TRAIN_PATHS}
-    entry = {"name": bf16_name, "route": "cuda", "source": BF16_SOURCE.get(name, source),
+    entry = {"name": bf16_name, "route": "cuda",
+             "source": BF16_SOURCE.get(name) or BF16_LSTM_SOURCE.get(name, source),
              "replaces": replaces,
              "launches": sum(by_path.values()), "launches_by_path": by_path,
              **{k: row[k] for k in keys}, "max_abs_err": res["max_abs_err"],
              "library_call": library, "batch": BATCHES[0]}
-    if "ndir_1" in res:
+    if "ndir_1" in res:  # the LSTM kernels: their tensor-core bound, K2''s passes
+        lstm_keys = ("ms_per_step", "bound_tc_ms") + (("parts_us",) if "parts_us" in row
+                                                      else ())
         entry["ndir"] = 2
-        entry["ms_per_step"] = row["ms_per_step"]
-        entry["ndir_1"] = {k: res["ndir_1"][k] for k in keys + ("ms_per_step",)}
+        entry.update({k: row[k] for k in lstm_keys})
+        entry["ndir_1"] = {k: res["ndir_1"][k] for k in keys + lstm_keys}
+        entry["b_256"] = {k: res["b_256"][k] for k in keys + lstm_keys}
     # the bf16 attention kernels' other rate: dropout 0.1 for the forwards,
     # rate 0 for the backwards (timed at 0.1, the training path's)
     variants = [v for v in ("dropout_0.1", "rate_0") if v in row]

@@ -1,5 +1,5 @@
 // K2' lstm_bwd: the LSTM recurrence backward over ndir directions, float32
-// or bf16 (one template on the element type of xw, W_hh^T, hs, dho and dxw).
+// and bf16 (the bf16 instance's kernels in lstm_bf16_mma.cuh).
 //
 // Replaces rlt_tpu/ops/lstm.py::_lstm_bwd_kernel (run through _bwd_pallas and
 // the custom_vjp of fused_lstm and fused_lstm_bidir, and under jax.vmap over
@@ -68,24 +68,19 @@
 // (ndir = 16) gf is 310 MB and the partials (ndir, 32, H, 4H) 134 MB.
 //
 // bf16 (rlt_lstm_bwd_bf16; the JAX kernel on bf16 operands): xw, W_hh^T,
-// hs and dho arrive in bf16 and cs in f32. The gates are recomputed from
-// the rounded bf16 h_{t-1} of hs and the bf16 weights, widened (their
-// products are exact in f32, summed in f32 as in the f32 instance); the
-// carries dh and dc are f32; dgates is f32 and feeds the carried dh and
-// dW_hh^T unrounded; only the stored dxw is rounded to bf16; dW_hh^T is
-// f32. The f32 instance's in-place trick (coefficients written into dxw,
-// overwritten there by dgates, which dw_partial_kernel reads back) would
-// hand dW_hh^T the rounded dgates in bf16, so the bf16 instance takes an f32
-// scratch dg of (L, ndir B, 4H) in dxw's place for the coefficients and
-// dgates (77 MB at B = 63), and the chain writes each dgate twice: f32 into
-// dg, rounded into dxw. W_hh^T is widened to f32 as the chain loads it, so
-// its register rows and shared-memory rows and every per-step product are
-// the f32 instance's; only the loads of xw, hs, dho and W_hh^T are narrower.
+// hs and dho arrive in bf16 and cs in f32; the carries dh and dc and dgates
+// are f32, only the stored dxw is rounded to bf16, and dW_hh^T is f32. Its
+// gate recompute, chain and dW_hh^T products are lstm_bf16_mma.cuh's (the
+// tensor cores; W_hh^T resident in the chain's registers), its partials
+// summed by dw_reduce_kernel below. The template below is launched for
+// float32 only: its bf16 branches are not instantiated.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
+
+#include "lstm_bf16_mma.cuh"
 
 namespace {
 
@@ -107,7 +102,6 @@ __device__ __forceinline__ float sigmoid_f32(float x) {
 }
 
 __device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(bf16 x) { return __bfloat162float(x); }
 
 // acc[x][y] += sum over the stage's kTileK rows of a_s[kk][4tm + x] *
 // b_s[kk][4tn + y]
@@ -560,16 +554,58 @@ extern "C" int rlt_lstm_bwd(const void* xw, const void* w_hh_t, const void* hs,
                          stream);
 }
 
-// The bf16 instance: xw, w_hh_t, hs, dho and dxw bf16 (2-byte aligned), cs,
-// dw_hh_t and the scratch arrays float32, and a further float32 scratch dg
-// of dxw's shape for the coefficients and the unrounded dgates; the rest as
-// rlt_lstm_bwd.
+// The bf16 instance: xw, w_hh_t, hs, dho and dxw bf16, cs, dw_hh_t and the
+// scratch arrays float32, and a further float32 scratch dg of dxw's shape
+// (the coefficients, then dgates' mid and lo parts); w_hh_t, hs and dho
+// 16-byte aligned (TMA and bulk copies), H one of 64, 96 and 128; the rest
+// as rlt_lstm_bwd.
 extern "C" int rlt_lstm_bwd_bf16(const void* xw, const void* w_hh_t, const void* hs,
                                  const void* cs, const void* dho, void* dxw,
                                  void* dw_hh_t, void* partial, void* gf, void* dg,
                                  int length, int batch, int hidden, int ndir,
                                  int splits, void* stream) {
-  return lstm_bwd<bf16>(xw, w_hh_t, hs, cs, dho, dxw, dw_hh_t, partial, gf,
-                        static_cast<float*>(dg), length, batch, hidden, ndir, splits,
-                        stream);
+  using rlt::lstm_bf16::bwd_passes;
+  if (length < 1 || batch < 1 || ndir < 1 || splits < 1 ||
+      (hidden != 64 && hidden != 96 && hidden != 128) ||
+      static_cast<long long>(ndir) * splits > kMaxGridZ ||
+      static_cast<long long>(ndir) * ((batch + 1) / 2) > kMaxBlocks ||
+      static_cast<long long>(length) * ndir > kMaxBlocks)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* const ptrs[] = {xw, w_hh_t, hs, cs, dho, dxw, partial, gf, dg};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
+      return static_cast<int>(cudaErrorMisalignedAddress);
+  int device = 0;
+  int sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16* x = static_cast<const bf16*>(xw);
+  const bf16* w = static_cast<const bf16*>(w_hh_t);
+  const bf16* h = static_cast<const bf16*>(hs);
+  const float* c = static_cast<const float*>(cs);
+  const bf16* d = static_cast<const bf16*>(dho);
+  bf16* dx = static_cast<bf16*>(dxw);
+  float* part = static_cast<float*>(partial);
+  float2* f = static_cast<float2*>(gf);
+  float* g = static_cast<float*>(dg);
+  int code;
+  switch (hidden) {
+    case 64:
+      code = bwd_passes<64>(x, w, h, c, d, dx, part, f, g, length, batch, ndir, splits, sms, s);
+      break;
+    case 96:
+      code = bwd_passes<96>(x, w, h, c, d, dx, part, f, g, length, batch, ndir, splits, sms, s);
+      break;
+    default:
+      code = bwd_passes<128>(x, w, h, c, d, dx, part, f, g, length, batch, ndir, splits, sms,
+                             s);
+  }
+  if (code != 0) return code;
+  const int size = hidden * 4 * hidden;
+  dw_reduce_kernel<<<(ndir * size + 255) / 256, 256, 0, s>>>(
+      part, static_cast<float*>(dw_hh_t), splits, size, ndir);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,5 @@
 // K1' lstm_fwd: the LSTM recurrence forward over ndir directions, float32
-// or bf16 (one template on the element type of xw, W_hh^T and hs).
+// and bf16 (the bf16 instance's kernel in lstm_bf16_mma.cuh).
 //
 // Replaces rlt_tpu/ops/lstm.py::_lstm_fwd_kernel (run through _fwd_pallas by
 // fused_lstm at ndir = 1, fused_lstm_bidir at ndir = 2, and
@@ -55,25 +55,19 @@
 // second set of threads, and h and c back through shared memory. The next
 // step's xw is loaded into registers while this step computes.
 //
-// bf16 (rlt_lstm_fwd_bf16; the JAX kernel on bf16 operands): xw and
-// W_hh^T arrive in bf16 and hs leaves in bf16, while the carried h_s and
-// c_s stay f32, as the TPU kernel's f32 scratch: gates = xw + h W_hh^T is
-// taken in f32 from the f32 h and the bf16 weights widened, and only the
-// stored hs is rounded (carrying the rounded h along the 300-step chain would
-// compute another function). cs is f32 in both forms. W_hh^T's 64 register
-// rows are widened to f32 once at load, so the per-step products are the f32
-// instance's; its H - 64 shared-memory rows stay bf16, half the bytes: a
-// thread reads four rows of both its columns as one 16-byte load (the f32
-// instance: two) and widens them by shifts, and the step reads 64 KB of
-// weights from shared memory where the f32 instance reads 128 KB. On the
-// H100 the widening costs more issue slots than the halved bytes save: the
-// bf16 instance takes 1.12x the f32 one's time (PERF.md §6).
+// bf16 (rlt_lstm_fwd_bf16; the JAX kernel on bf16 operands): xw and W_hh^T
+// arrive in bf16 and hs leaves in bf16, while h and c are carried in f32.
+// Its kernel is lstm_bf16_mma.cuh's, on the tensor cores with W_hh^T
+// resident in registers. The template below is launched for float32 only:
+// its bf16 branches are not instantiated.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "lstm_bf16_mma.cuh"
 
 namespace {
 
@@ -88,14 +82,11 @@ __device__ __forceinline__ float sigmoid_f32(float x) {
 }
 
 __device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(bf16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ T narrow(float x);
 template <>
 __device__ __forceinline__ float narrow<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 narrow<bf16>(float x) { return __float2bfloat16_rn(x); }
 
 // the bf16 pair in the lower and upper halves of u, as floats
 __device__ __forceinline__ float bf16_lo(uint32_t u) { return __uint_as_float(u << 16); }
@@ -318,10 +309,35 @@ extern "C" int rlt_lstm_fwd(const void* xw, const void* w_hh_t, void* hs,
   return lstm_fwd<float>(xw, w_hh_t, hs, cs, length, batch, hidden, ndir, stream);
 }
 
-// The bf16 instance: xw, w_hh_t and hs bf16 (2-byte aligned), cs float32,
-// the rest as rlt_lstm_fwd.
+// The bf16 instance: xw, w_hh_t and hs bf16, cs float32, xw 16-byte
+// aligned (its rows arrive by bulk copies), H one of 64, 96 and 128; the
+// rest as rlt_lstm_fwd.
 extern "C" int rlt_lstm_fwd_bf16(const void* xw, const void* w_hh_t, void* hs,
                                  void* cs, int length, int batch, int hidden,
                                  int ndir, void* stream) {
-  return lstm_fwd<bf16>(xw, w_hh_t, hs, cs, length, batch, hidden, ndir, stream);
+  using rlt::lstm_bf16::fwd_tiles;
+  if (length < 1 || batch < 1 || ndir < 1 ||
+      (hidden != 64 && hidden != 96 && hidden != 128) ||
+      static_cast<long long>(ndir) * ((batch + 1) / 2) > kMaxBlocks)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (reinterpret_cast<uintptr_t>(xw) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  int device = 0;
+  int sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nt = rlt::lstm_bf16::chain_tiles(ndir, batch, sms);
+  const bf16* x = static_cast<const bf16*>(xw);
+  const bf16* w = static_cast<const bf16*>(w_hh_t);
+  bf16* h = static_cast<bf16*>(hs);
+  float* c = static_cast<float*>(cs);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (hidden) {
+    case 64: err = fwd_tiles<64>(nt, x, w, h, c, length, batch, ndir, s); break;
+    case 96: err = fwd_tiles<96>(nt, x, w, h, c, length, batch, ndir, s); break;
+    default: err = fwd_tiles<128>(nt, x, w, h, c, length, batch, ndir, s);
+  }
+  return static_cast<int>(err);
 }

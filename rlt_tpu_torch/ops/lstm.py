@@ -26,8 +26,9 @@ bf16 (the serving lane): `lstm_fwd_bf16` takes bf16 xw and W_hh^T and
 returns bf16 hs beside f32 cs, as the JAX kernel does on bf16 operands: the
 carried h and c are f32, gates = xw + h W_hh^T is taken in f32 from the
 widened bf16 values, and only the stored hs is rounded. On a CUDA tensor it
-launches K1''s bf16 instance, on a CPU tensor `lstm_recurrence_plain`, which
-computes either dtype's semantics. `lstm_fwd` raises on bf16 and
+launches K1''s bf16 instance (`csrc/lstm_bf16_mma.cuh`: the tensor cores,
+h_{t-1} in three exact bf16 parts), on a CPU tensor `lstm_recurrence_plain`,
+which computes either dtype's semantics. `lstm_fwd` raises on bf16 and
 `lstm_fwd_bf16` on anything else; `LSTMRecurrence` picks one by xw's dtype.
 
 bf16 (the training lane): `lstm_bwd_bf16` takes bf16 xw, W_hh^T, hs and
@@ -78,6 +79,21 @@ def dw_splits(length: int, batch: int) -> int:
     """Chunks of K2''s dW_hh^T contraction over the (L - 1) B rows of one
     direction: about 512 rows each, at most DW_SPLITS."""
     return max(1, min(DW_SPLITS, (length - 1) * batch // 512))
+
+
+def dw_boxes(batch: int) -> tuple[int, int, int]:
+    """The 64-row boxes of K2' bf16's products (`csrc/lstm_bf16_mma.cuh`'s
+    `boxes_of`): (rows, steps, boxes a step): min(B, 64) rows b of each of
+    64 // B steps at B <= 64, else one step in ceil(B / 64) boxes."""
+    return (batch, 64 // batch, 1) if batch <= 64 else (64, 1, -(-batch // 64))
+
+
+def dw_splits_bf16(length: int, batch: int) -> int:
+    """Chunks of K2' bf16's dW_hh^T contraction over the boxes of steps 1 ..
+    L - 1 (`dw_boxes`): about 8 boxes each, at most DW_SPLITS."""
+    _, steps, per_step = dw_boxes(batch)
+    boxes = -(-(length - 1) // steps) * per_step
+    return max(1, min(DW_SPLITS, -(-boxes // 8)))
 
 
 def _per_dir(op, a: torch.Tensor, b: torch.Tensor, ndir: int) -> torch.Tensor:
@@ -165,6 +181,12 @@ def _check(xw: torch.Tensor, w_hh_t: torch.Tensor, ndir: int) -> None:
         raise ValueError(f"xw on {xw.device}, w_hh_t on {w_hh_t.device}")
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t itself where its data starts on a 16-byte boundary, else a copy
+    that does: the bf16 kernels take their inputs by bulk copies and TMA."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _check_kernel_inputs(name: str, tensors: dict,
                          dtype: torch.dtype = torch.float32) -> None:
     first = next(iter(tensors.values()))
@@ -219,6 +241,7 @@ def lstm_fwd_bf16(xw: torch.Tensor, w_hh_t: torch.Tensor, ndir: int = 1):
     hidden = gates4 // 4
     hs = torch.empty(length, rows, hidden, device=xw.device, dtype=torch.bfloat16)
     cs = torch.empty(length, rows, hidden, device=xw.device, dtype=torch.float32)
+    xw = _aligned(xw)
     with torch.cuda.device(xw.device):
         LSTM_FWD_BF16(ptr(xw), ptr(w_hh_t), ptr(hs), ptr(cs), length, rows // ndir,
                       hidden, ndir, stream_handle(xw.device))
@@ -233,17 +256,16 @@ def _check_bwd(name: str, xw, hs, cs, dho) -> None:
                              f"got {tuple(t.shape)} on {t.device}")
 
 
-def _bwd_scratch(xw: torch.Tensor, ndir: int):
+def _bwd_scratch(xw: torch.Tensor, ndir: int, splits: int):
     """K2''s scratch arrays: the dW_hh^T partial products (ndir, splits, H,
     4H) and the dc factors gf (L, ndir * B, H, 2), both float32."""
     length, rows, gates4 = xw.shape
     hidden = gates4 // 4
-    splits = dw_splits(length, rows // ndir)
     partial = torch.empty(ndir, splits, hidden, gates4, device=xw.device,
                           dtype=torch.float32)
     # per (t, row, unit) the factors of K2''s dc update, {o(1 - tanh(c)^2), f}
     gf = torch.empty(length, rows, hidden, 2, device=xw.device, dtype=torch.float32)
-    return splits, partial, gf
+    return partial, gf
 
 
 def lstm_bwd(xw: torch.Tensor, w_hh_t: torch.Tensor, hs: torch.Tensor,
@@ -260,7 +282,8 @@ def lstm_bwd(xw: torch.Tensor, w_hh_t: torch.Tensor, hs: torch.Tensor,
     _check_kernel_inputs("lstm_bwd", {"xw": xw, "w_hh_t": w_hh_t, "hs": hs,
                                       "cs": cs, "dho": dho})
     length, rows, gates4 = xw.shape
-    splits, partial, gf = _bwd_scratch(xw, ndir)
+    splits = dw_splits(length, rows // ndir)
+    partial, gf = _bwd_scratch(xw, ndir, splits)
     dxw = torch.empty_like(xw)
     dw = torch.empty_like(w_hh_t)
     with torch.cuda.device(xw.device):
@@ -288,11 +311,14 @@ def lstm_bwd_bf16(xw: torch.Tensor, w_hh_t: torch.Tensor, hs: torch.Tensor,
     if not cs.is_contiguous():
         raise ValueError("lstm_bwd_bf16 kernel takes contiguous cs")
     length, rows, gates4 = xw.shape
-    splits, partial, gf = _bwd_scratch(xw, ndir)
+    splits = dw_splits_bf16(length, rows // ndir)
+    partial, gf = _bwd_scratch(xw, ndir, splits)
     dxw = torch.empty_like(xw)
     dw = torch.empty(w_hh_t.shape, device=xw.device, dtype=torch.float32)
-    # the f32 dgates, which feed the dh carry and dW_hh^T unrounded
+    # the f32 coefficients of the gate recompute, then dgates' mid and lo
+    # parts (dxw holds hi), which feed dW_hh^T
     dg = torch.empty(xw.shape, device=xw.device, dtype=torch.float32)
+    xw, w_hh_t, hs, cs, dho = (_aligned(t) for t in (xw, w_hh_t, hs, cs, dho))
     with torch.cuda.device(xw.device):
         LSTM_BWD_BF16(ptr(xw), ptr(w_hh_t), ptr(hs), ptr(cs), ptr(dho), ptr(dxw),
                       ptr(dw), ptr(partial), ptr(gf), ptr(dg), length, rows // ndir,

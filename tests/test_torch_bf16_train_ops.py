@@ -11,10 +11,11 @@ and `jax.nn.sigmoid` on bf16 under jit (the softmax's sum of its bf16 terms
 as XLA sums them, and as the port does), and the output head (LayerNorm,
 Linear, softmax over positions) against JAX's.
 
-The CUDA kernels' order of work: K2''s bf16 instance sums dW_hh^T over
-chunks of the (L - 1) B rows and the carried dh over four quarters, in f32,
-from the f32 dgates; that order is emulated at L = 300 below and held to the
-JAX kernel at (a)'s tolerances. K4' and K6' round exactly the values the
+The CUDA kernels' order of work: K2''s bf16 instance takes the carried dh
+and dW_hh^T from dgates' three bf16 parts (hi + mid + lo, exact) on the
+tensor cores, each part's product an f32 sum, dW_hh^T over chunks of
+64-row boxes of (t, b) rows summed in order; that order is emulated at L =
+300 below and held to the JAX kernel at (a)'s tolerances. K4' and K6' round exactly the values the
 plain versions round (ds and pd from f32 p, dp and delta; dq, dk and dv from
 f32 sums), and differ from them only in the order of those f32 sums (the
 tensor cores' accumulation, 64 keys or queries a tile): f32 noise of about
@@ -144,12 +145,21 @@ def _per_dir(a: torch.Tensor, ndir: int, axis: int = 0) -> tuple:
     return a.split(a.shape[axis] // ndir, dim=axis)
 
 
+def _parts(x: torch.Tensor) -> tuple:
+    """The bf16 kernels' split of an f32 x into hi + mid + lo, each a bf16
+    value (as f32), each difference taken in f32."""
+    hi = x.bfloat16().float()
+    mid = (x - hi).bfloat16().float()
+    return hi, mid, ((x - hi) - mid).bfloat16().float()
+
+
 def k2_bf16_emulated(xw, w_hh_t, hs, cs, dho, ndir):
     """K2''s bf16 instance in its order of work, from bf16 xw, W_hh^T, hs
     and dho (f32 cs): the gates of every step from the rounded h_{t-1} and
-    the widened weights, the chain's f32 dgates with the carried dh summed
-    over four quarters, dxw their rounding, dW_hh^T from the f32 dgates over
-    chunks of the (L - 1) B rows summed in order."""
+    the widened weights; the chain's f32 dgates, its carried dh the product
+    of dgates' three bf16 parts with W_hh, one f32 sum a part, summed as
+    (hi + lo) + mid; dxw their rounding (hi); dW_hh^T from the three parts
+    over chunks of the 64-row boxes (`lstm.dw_boxes`), summed in order."""
     length, rows, gates4 = xw.shape
     hidden = gates4 // 4
     batch = rows // ndir
@@ -173,19 +183,23 @@ def k2_bf16_emulated(xw, w_hh_t, hs, cs, dho, ndir):
         dgates = torch.cat([dc * coef[0][t], dc * coef[1][t], dc * coef[2][t],
                             dh * coef[3][t]], dim=-1)
         dg[t] = dgates
-        quarters = [torch.cat([d[:, q * hidden:(q + 1) * hidden]
-                               @ w[:, q * hidden:(q + 1) * hidden].T
-                               for d, w in zip(_per_dir(dgates, ndir), w_dirs)])
-                    for q in range(4)]
-        dh_carry = (quarters[0] + quarters[1]) + (quarters[2] + quarters[3])
-    splits = lstm.dw_splits(length, batch)
+        hi, mid, lo = (torch.cat([d @ w.T for d, w in zip(_per_dir(p, ndir), w_dirs)])
+                       for p in _parts(dgates))
+        dh_carry = (hi + lo) + mid
+    splits = lstm.dw_splits_bf16(length, batch)
+    rows, steps, _ = lstm.dw_boxes(batch)
+    boxes = [(t, b0) for t in range(1, length, steps) for b0 in range(0, batch, 64)]
+    chunk = -(-len(boxes) // splits)
     dws = []
-    for a, b in zip(_per_dir(hs[:-1], ndir, 1), _per_dir(dg[1:], ndir, 1)):
-        a, b = a.reshape(-1, hidden), b.reshape(-1, gates4)
-        chunk = -(-a.shape[0] // splits)
+    for a, b in zip(_per_dir(hs, ndir, 1), _per_dir(dg, ndir, 1)):
         dw = torch.zeros(hidden, gates4)
         for s in range(splits):
-            dw = dw + a[s * chunk:(s + 1) * chunk].T @ b[s * chunk:(s + 1) * chunk]
+            part = torch.zeros(hidden, gates4)
+            for t, b0 in boxes[s * chunk:(s + 1) * chunk]:
+                h_box = a[t - 1:t - 1 + steps, b0:b0 + rows][:length - t].reshape(-1, hidden)
+                for p in _parts(b[t:t + steps, b0:b0 + rows].reshape(-1, gates4)):
+                    part = part + h_box.T @ p
+            dw = dw + part
         dws.append(dw)
     return dg.bfloat16(), torch.cat(dws)
 

@@ -591,8 +591,17 @@ def _assert_bf16_attention(o, lse, want_o, want_lse):
     assert (lse - want_lse).abs().max().item() <= ATTN_ATOL
 
 
-@pytest.mark.parametrize("ndir", [1, 2])
-@pytest.mark.parametrize("length,batch", [(16, 3), (300, 63), (300, 256), (40, 301)])
+# The bf16 K1' and K2' (csrc/lstm_bf16_mma.cuh) at every edge of their
+# geometry: 1 to 301 rows a direction (a block takes 2, 4 or 8 rows, the
+# last block of a direction fewer, and K2''s products take 64-row boxes of
+# one step), one step and many, and ndir 8 (the BiLSTM layers of K = 4
+# population members, 2 or 8 rows a block).
+LSTM_BF16_SHAPES = [(1, 1), (1, 63), (16, 1), (16, 3), (16, 8), (16, 9), (16, 17),
+                    (300, 1), (300, 63), (300, 256), (40, 301)]
+
+
+@pytest.mark.parametrize("ndir", [1, 2, 8])
+@pytest.mark.parametrize("length,batch", LSTM_BF16_SHAPES)
 def test_lstm_bf16_kernel_matches_plain_on_card(cuda_device, length, batch, ndir):
     xw, w = (torch.from_numpy(a).to(cuda_device).bfloat16()
              for a in _lstm_inputs(150 + batch, length, batch, 128, ndir))
@@ -606,6 +615,14 @@ def test_lstm_bf16_kernel_matches_plain_on_card(cuda_device, length, batch, ndir
     assert (cs - want_cs).abs().max().item() <= LSTM_ATOL
     beyond = (hs.float() - want_hs.float()).abs() - _bf16_step(want_hs)
     assert beyond.max().item() <= LSTM_ATOL
+
+
+def test_lstm_bf16_kernel_is_deterministic_on_card(cuda_device):
+    xw, w = (torch.from_numpy(a).to(cuda_device).bfloat16()
+             for a in _lstm_inputs(155, 300, 63, 128, 2))
+    first = lstm.lstm_fwd_bf16(xw, w, 2)
+    again = lstm.lstm_fwd_bf16(xw, w, 2)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 def _assert_repeatable(first, again, without=None):
@@ -737,8 +754,8 @@ def _lstm_bwd_bf16_inputs(seed, length, batch, ndir, device):
     return xw, w, hs, cs, dho
 
 
-@pytest.mark.parametrize("ndir", [1, 2])
-@pytest.mark.parametrize("length,batch", [(16, 3), (300, 63), (300, 256), (40, 301)])
+@pytest.mark.parametrize("ndir", [1, 2, 8])
+@pytest.mark.parametrize("length,batch", LSTM_BF16_SHAPES)
 def test_lstm_bwd_bf16_kernel_matches_plain_on_card(cuda_device, length, batch, ndir):
     args = _lstm_bwd_bf16_inputs(190 + batch, length, batch, ndir, cuda_device)
     before = (lstm.LSTM_BWD.launches, lstm.LSTM_BWD_BF16.launches)
