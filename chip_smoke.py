@@ -7,10 +7,12 @@ Builds the port's CUDA kernels from `rlt_tpu_torch/csrc`, prints ptxas's
 registers and spills of each (and any wgmma it serialized), holds each one
 (the float32 instances and the bf16 ones of all six, K1'-K6') against its
 plain PyTorch version on the card at the main paths' shapes and times both
-(the bf16 attention forwards and backwards of dh = 64 and 128 also at a
-list of L = 2048, the backwards at dropout rates 0 and 0.1; the bf16 LSTM
-kernels with their tensor-core bound, K2''s passes timed apart by
-torch.profiler), then drives thirty-three main paths at robust04 width (L = 300, seeded
+(the bf16 attention forwards and backwards of dh = 64, 128 and 16 also at
+a list of L = 2048, the backwards at dropout rates 0 and 0.1, each bound
+by the largest of its bytes, its products and one exponential a score,
+with the keep hash's floor beside it at rate 0.1; the bf16 LSTM kernels
+with their tensor-core bound, K2''s passes timed apart by torch.profiler),
+then drives thirty-three main paths at robust04 width (L = 300, seeded
 random weights): serving and training in float32, and serving and training
 in bf16 (`<model>-serve-bf16` and `<model>-train-bf16`:
 `compute_dtype="bfloat16"`, through the bf16 kernel instances only), of
@@ -62,6 +64,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import re
 import subprocess
@@ -122,7 +125,7 @@ BF16_OF = {"lstm_fwd": "lstm_fwd_bf16", "attention_fwd": "attention_fwd_bf16",
 # the bf16 attention kernels of dh = 64 and 128 have kernels of their own,
 # launched through the entry points of attention_packed_fwd.cu,
 # attention_fwd.cu, attention_packed_bwd.cu and attention_bwd.cu; dh = 16
-# keeps attention_bf16.cuh's and attention_bf16_bwd.cuh's
+# has attention_bf16_dh16.cuh's, through the packed entry points
 BF16_SOURCE = {"attention_fwd": "rlt_tpu_torch/csrc/attention_bf16_wgmma.cuh",
                "attention_packed_fwd": "rlt_tpu_torch/csrc/attention_bf16_wgmma.cuh",
                "attention_bwd": "rlt_tpu_torch/csrc/attention_bf16_bwd_wgmma.cuh",
@@ -131,8 +134,8 @@ BF16_SOURCE = {"attention_fwd": "rlt_tpu_torch/csrc/attention_bf16_wgmma.cuh",
 # points of lstm_fwd.cu and lstm_bwd.cu
 BF16_LSTM_SOURCE = {"lstm_fwd": "rlt_tpu_torch/csrc/lstm_bf16_mma.cuh",
                     "lstm_bwd": "rlt_tpu_torch/csrc/lstm_bf16_mma.cuh"}
-BF16_DH16_SOURCE = {"attention_packed_fwd": "rlt_tpu_torch/csrc/attention_bf16.cuh",
-                    "attention_packed_bwd": "rlt_tpu_torch/csrc/attention_bf16_bwd.cuh"}
+BF16_DH16_SOURCE = {"attention_packed_fwd": "rlt_tpu_torch/csrc/attention_bf16_dh16.cuh",
+                    "attention_packed_bwd": "rlt_tpu_torch/csrc/attention_bf16_dh16.cuh"}
 BF16_LIBRARY = {
     "lstm_fwd": "torch.nn.LSTM (cuDNN) in bf16, 1 layer 2 directions, weights "
                 "flattened, input projection included",
@@ -245,6 +248,14 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_3XTF32_FLOPS = 494.7e12 / 3
 PEAK_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores
+# Per-score floors of the bf16 attention kernels, whose products are nearly
+# free at dh = 16: one exponential a score (MUFU.EX2, 16 a clock an SM), and
+# at a dropout rate above 0 the keep hash (keep_mask.cuh: ~10 integer
+# operations a score, ~64 a clock an SM), both at the card's maximum SM
+# clock (nvidia-smi's clocks.max.sm) on all its SMs.
+EX2_PER_CLOCK_SM = 16
+HASH_OPS_PER_SCORE = 10
+INT_OPS_PER_CLOCK_SM = 64
 
 
 # Timing (rlt_tpu_torch/utils/timing.py): every time is the median of
@@ -355,10 +366,37 @@ def packed_streams(rng, n: int, dev) -> torch.Tensor:
     return attention.expert_streams(random_streams(rng, n // BATCHES[0], dev), BATCHES[0])
 
 
-def nvidia_smi() -> str:
+def nvidia_smi(query: str = "name,power.limit") -> str:
     return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+@functools.lru_cache(maxsize=None)
+def sm_clocks_per_s() -> float:
+    """The card's SMs times its maximum SM clock (clocks.max.sm, MHz)."""
+    mhz = float(nvidia_smi("clocks.max.sm").splitlines()[0].split()[0])
+    return torch.cuda.get_device_properties(0).multi_processor_count * mhz * 1e6
+
+
+def score_bound(nbytes: float, flops: float, scores: int, with_streams: bool) -> dict:
+    """bound_ms of a bf16 attention kernel: the largest of its bytes at
+    PEAK_BYTES_PER_S, its products at PEAK_BF16_FLOPS and one exponential a
+    score; bound_by "bytes" or "operations", bound_term
+    the term ("bytes", "products" or "exponentials"); at a dropout rate
+    above 0 also hash_floor_ms, the keep hash's floor (HASH_OPS_PER_SCORE at
+    INT_OPS_PER_CLOCK_SM), on its own; both floors at the card's maximum SM
+    clock on all its SMs."""
+    terms = {"bytes": nbytes / PEAK_BYTES_PER_S * 1e3,
+             "products": flops / PEAK_BF16_FLOPS * 1e3,
+             "exponentials": scores / EX2_PER_CLOCK_SM / sm_clocks_per_s() * 1e3}
+    term = max(terms, key=terms.get)
+    out = dict(bound_ms=terms[term], bound_by="bytes" if term == "bytes" else "operations",
+               bound_term=term)
+    if with_streams:
+        out["hash_floor_ms"] = (scores * HASH_OPS_PER_SCORE / INT_OPS_PER_CLOCK_SM
+                                / sm_clocks_per_s() * 1e3)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -885,14 +923,14 @@ def check_lstm_bf16(dev, rng) -> dict:
 def bf16_attention_bound(n_heads_rows: int, dh: int, with_streams: bool,
                          length: int = SEQ_LEN) -> dict:
     """bound_ms of a bf16 attention forward over n (row, head) pairs of
-    width dh at L = `length`: q, k, v read and o written at 2 bytes, lse
-    written at 4 (and the streams read), against four L x L x dh products'
-    flops at the dense bf16 tensor-core rate."""
+    width dh at L = `length` (`score_bound`): q, k, v read and o written at
+    2 bytes, lse written at 4 (and the streams read), four L x L x dh
+    products' flops, and one exponential a score."""
     elems = n_heads_rows * length * dh
     nbytes = 2 * 4 * elems + 4 * n_heads_rows * length + (4 * n_heads_rows if with_streams
                                                           else 0)
-    bound_ms, bound_by = bound(nbytes, 4 * elems * length, PEAK_BF16_FLOPS)
-    return dict(bound_ms=bound_ms, bound_by=bound_by)
+    return score_bound(nbytes, 4 * elems * length, n_heads_rows * length * length,
+                       with_streams)
 
 
 def check_attention_bf16(dev, rng, d_model: int = D_MODEL, heads: int = HEADS,
@@ -1081,15 +1119,15 @@ def bf16_grads_check(name: str, got, want) -> float:
 def bf16_attention_bwd_bound(n_heads_rows: int, dh: int, with_streams: bool = True,
                              length: int = SEQ_LEN) -> dict:
     """bound_ms of a bf16 attention backward over n (row, head) pairs of
-    width dh at L = `length`: q, k, v, o and do read and dq, dk and dv
-    written at 2 bytes, lse read at 4 (and the streams read), against five
-    L x L x dh products' flops (scores, dP, dq, dk, dv) at the dense bf16
-    tensor-core rate."""
+    width dh at L = `length` (`score_bound`): q, k, v, o and do read and dq,
+    dk and dv written at 2 bytes, lse read at 4 (and the streams read), five
+    L x L x dh products' flops (scores, dP, dq, dk, dv), and one exponential
+    a score (p, whatever a design takes again)."""
     elems = n_heads_rows * length * dh
     nbytes = 2 * 8 * elems + 4 * n_heads_rows * length + (4 * n_heads_rows if with_streams
                                                           else 0)
-    bound_ms, bound_by = bound(nbytes, 10 * elems * length, PEAK_BF16_FLOPS)
-    return dict(bound_ms=bound_ms, bound_by=bound_by)
+    return score_bound(nbytes, 10 * elems * length, n_heads_rows * length * length,
+                       with_streams)
 
 
 def bf16_bwd_rates(name: str, kernel, plain, library, forward, n_heads_rows: int, dh: int,
@@ -1943,6 +1981,11 @@ def bf16_entry(name: str, res: dict, source: str, replaces: str, library: str,
     launches on every path."""
     keys = ("ms", "plain_ms", "library_ms", "library_ratio", "spread_ms", "bound_ms",
             "bound_by", "max_abs_err")
+
+    def pick(r: dict, more: tuple = ()) -> dict:
+        # the attention rows' bound term and, at rate 0.1, their hash floor
+        return {k: r[k] for k in keys + more + ("bound_term", "hash_floor_ms") if k in r}
+
     bf16_name = BF16_OF[name]
     row = res.get("main", res["rows"][0])
     by_path = {path: launches[path][bf16_name]
@@ -1951,7 +1994,7 @@ def bf16_entry(name: str, res: dict, source: str, replaces: str, library: str,
              "source": BF16_SOURCE.get(name) or BF16_LSTM_SOURCE.get(name, source),
              "replaces": replaces,
              "launches": sum(by_path.values()), "launches_by_path": by_path,
-             **{k: row[k] for k in keys}, "max_abs_err": res["max_abs_err"],
+             **pick(row), "max_abs_err": res["max_abs_err"],
              "library_call": library, "batch": BATCHES[0]}
     if "ndir_1" in res:  # the LSTM kernels: their tensor-core bound, K2''s passes
         lstm_keys = ("ms_per_step", "bound_tc_ms") + (("parts_us",) if "parts_us" in row
@@ -1964,7 +2007,7 @@ def bf16_entry(name: str, res: dict, source: str, replaces: str, library: str,
     # rate 0 for the backwards (timed at 0.1, the training path's)
     variants = [v for v in ("dropout_0.1", "rate_0") if v in row]
     for variant in variants:
-        entry[variant] = {k: row[variant][k] for k in keys}
+        entry[variant] = pick(row[variant])
     for other in (res["rows"][1:] + [res["long"]] if name in BF16_SOURCE else []):
         # the bf16 attention kernels' other rows: N = 768 and 63, 1536
         # slices, L = LONG_L
@@ -1974,14 +2017,21 @@ def bf16_entry(name: str, res: dict, source: str, replaces: str, library: str,
             label = f"n_{other['n']}"
         else:
             label = f"slices_{other['slices']}"
-        entry[label] = {k: other[k] for k in keys}
+        entry[label] = pick(other)
         for variant in variants:
-            entry[label][variant] = {k: other[variant][k] for k in keys}
+            entry[label][variant] = pick(other[variant])
     if name.startswith("attention_packed"):
+        # dh = 16 at Choopy's N = 63 rows, its bucket's 256 and L = LONG_L,
+        # each at both rates
         rows16 = {r["n"]: r for r in dh16["rows"]}
-        entry["dh_16"] = {"source": BF16_DH16_SOURCE[name],
-                          **{k: rows16[CHOOPY_ROWS[0]][k] for k in keys}}
-        entry["dh_16"][f"n_{CHOOPY_ROWS[1]}"] = {k: rows16[CHOOPY_ROWS[1]][k] for k in keys}
+        entry["dh_16"] = {"source": BF16_DH16_SOURCE[name]}
+        for label, r in ((None, rows16[CHOOPY_ROWS[0]]),
+                         (f"n_{CHOOPY_ROWS[1]}", rows16[CHOOPY_ROWS[1]]),
+                         (f"l_{LONG_L}", dh16["long"])):
+            sub = entry["dh_16"] if label is None else entry["dh_16"].setdefault(label, {})
+            sub.update(pick(r))
+            for variant in variants:
+                sub[variant] = pick(r[variant])
         entry["max_abs_err"] = max(res["max_abs_err"], dh16["max_abs_err"])
     return entry
 
@@ -2033,7 +2083,7 @@ def main() -> int:
     rngb = np.random.default_rng(160)
     lstm_bf16_res = check_lstm_bf16(dev, rngb)
     attn_bf16_res = check_attention_bf16(dev, rngb, long_rows=LONG_PACKED_ROWS)
-    attn_bf16_dh16_res = check_attention_bf16(dev, rngb, **choopy)
+    attn_bf16_dh16_res = check_attention_bf16(dev, rngb, long_rows=LONG_PACKED_ROWS, **choopy)
     slice_bf16_res = check_slice_attention_bf16(dev, rngb)
     # the bf16 backward instances, on their own generator: K6' at the expert
     # models' N = 189 rows and the unstacked encoders' 63, and at Choopy's
@@ -2041,7 +2091,8 @@ def main() -> int:
     rngt = np.random.default_rng(170)
     lstm_bwd_bf16_res = check_lstm_bwd_bf16(dev, rngt)
     attn_bwd_bf16_res = check_attention_bwd_bf16(dev, rngt, long_rows=LONG_PACKED_ROWS)
-    attn_bwd_bf16_dh16_res = check_attention_bwd_bf16(dev, rngt, **choopy)
+    attn_bwd_bf16_dh16_res = check_attention_bwd_bf16(dev, rngt, long_rows=LONG_PACKED_ROWS,
+                                                      **choopy)
     slice_bwd_bf16_res = check_slice_attention_bwd_bf16(dev, rngt)
     launches, train_res, train_bf16_res = {}, {}, {}
     marks.append(("f32 paths", time.perf_counter()))

@@ -2,13 +2,12 @@
 // packed heads, attention_packed_bwd.cu) and dh = 128 (K4''s slices,
 // attention_bwd.cu: one head of D = 128 in a group of pack 1), written for
 // Hopper: tiles by TMA into rings guarded by mbarriers, products by wgmma.
-// (dh = 16, Choopy's and MtChoopy's heads, keeps attention_bf16_bwd.cuh's
-// mma.sync kernels.)
+// (dh = 16, Choopy's and MtChoopy's heads, is attention_bf16_dh16.cuh's.)
 //
 // Replaces the bf16 form of rlt_tpu/ops/attention.py::_attn_bwd_packed_kernel
 // (:412, through _bwd_packed) and ::_attn_bwd_kernel (:117, through
 // _bwd_pallas), whose `_mxu` keeps bf16 operands bf16. It computes what the
-// kernels it succeeds (attention_bf16_bwd.cuh's) compute. q, k, v, o and the
+// first bf16 kernels (mma.sync designs, since removed) computed. q, k, v, o and the
 // incoming gradient do arrive in bf16, lse in f32 (K3''s or K5''s layout,
 // (N, H / pack, L, pack)). Per head, recomputing the probabilities from lse:
 //   s = q k^T (f32 sums of exact bf16 products),  p = exp(s scale - lse)  f32
@@ -94,7 +93,6 @@
 
 #include <type_traits>
 
-#include "attention_bf16.cuh"
 #include "hopper.cuh"
 #include "keep_mask.cuh"
 

@@ -2,13 +2,12 @@
 // heads, attention_packed_fwd.cu) and dh = 128 (K3''s slices,
 // attention_fwd.cu: one head of D = 128 in a group of pack 1), written for
 // Hopper: tiles by TMA into a ring guarded by mbarriers, products by wgmma.
-// (dh = 16, Choopy's and MtChoopy's heads, keeps attention_bf16.cuh's
-// mma.sync kernel.)
+// (dh = 16, Choopy's and MtChoopy's heads, is attention_bf16_dh16.cuh's.)
 //
 // Replaces the bf16 form of rlt_tpu/ops/attention.py::_attn_fwd_packed_kernel
 // (:369, through _fwd_packed) and ::_attn_fwd_kernel (:89, through
 // _fwd_pallas), whose `_mxu` keeps bf16 operands bf16. It computes what the
-// kernel it succeeds (attention_bf16.cuh's attn_fwd_bf16_kernel) computes:
+// first bf16 kernel (an mma.sync design, since removed) computed:
 // o = softmax(q k^T / sqrt(dh)) v per head with bf16 q, k and v; S summed in
 // f32 (a product of two bf16 values is exact in f32); the running max, the
 // weights e = exp(s - m), their sum and lse = m + log(sum) in f32; each
@@ -23,8 +22,8 @@
 // dropped by keep_mask.cuh's keep_element at index row * pack * L +
 // (head % pack) * L + col on its group's stream, and the kept ones scaled
 // by 1 / (1 - rate) before the rounding; lse stays the pre-dropout one. The
-// bf16 backward (attention_bf16_bwd.cuh) regenerates the same bits from the
-// same index.
+// bf16 backward (attention_bf16_bwd_wgmma.cuh) regenerates the same bits
+// from the same index.
 //
 // What bounds it on an H100: by the roofline the bytes, 2 an element of q,
 // k, v and o: at N = 189 rows of 4 heads of dh = 64 and L = 300, or 378
@@ -89,7 +88,6 @@
 
 #include <type_traits>
 
-#include "attention_bf16.cuh"
 #include "attention_mma.cuh"
 #include "hopper.cuh"
 #include "keep_mask.cuh"

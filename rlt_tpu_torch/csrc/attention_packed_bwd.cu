@@ -1,7 +1,7 @@
 // K6' attention_packed_bwd: head-packed self-attention backward, float32
 // (this file's kernels) and bf16, behind rlt_attention_packed_bwd_bf16:
 // attention_bf16_bwd_wgmma.cuh's TMA and wgmma kernels at dh = 64,
-// attention_bf16_bwd.cuh's mma.sync kernels at dh = 16.
+// attention_bf16_dh16.cuh's at dh = 16.
 //
 // Replaces rlt_tpu/ops/attention.py::_attn_bwd_packed_kernel (run through
 // _bwd_packed and the custom_vjp of fused_attention_packed). q, k, v, o and
@@ -53,8 +53,8 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "attention_bf16_bwd.cuh"
 #include "attention_bf16_bwd_wgmma.cuh"
+#include "attention_bf16_dh16.cuh"
 #include "attention_mma.cuh"
 #include "keep_mask.cuh"
 
@@ -490,9 +490,8 @@ extern "C" int rlt_attention_packed_bwd_bf16(
   const auto st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 16:
-      return rlt::launch_attn_bwd_bf16<16>(q, k, v, o, dout, lse, streams, dq, dk, dv,
-                                           delta, n, length, heads, pack, rate,
-                                           threshold, st);
+      return rlt::launch_attn_bwd_dh16(q, k, v, o, dout, lse, streams, dq, dk, dv, delta,
+                                       n, length, heads, pack, rate, threshold, st);
     case 64:
       return rlt::launch_attn_bwd_wgmma<64>(q, k, v, o, dout, lse, streams, dq, dk, dv,
                                             delta, n, length, heads, pack, rate,

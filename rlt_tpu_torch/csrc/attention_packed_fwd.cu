@@ -1,6 +1,6 @@
 // K5' attention_packed_fwd: head-packed self-attention forward, float32
 // (this file's kernel) and bf16 (behind rlt_attention_packed_fwd_bf16:
-// attention_bf16_wgmma.cuh's at dh = 64, attention_bf16.cuh's at dh = 16).
+// attention_bf16_wgmma.cuh's at dh = 64, attention_bf16_dh16.cuh's at dh = 16).
 //
 // Replaces rlt_tpu/ops/attention.py::_attn_fwd_packed_kernel (run through
 // _fwd_packed and fused_attention_packed). q, k, v are (N, L, D) in the raw
@@ -55,7 +55,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "attention_bf16.cuh"
+#include "attention_bf16_dh16.cuh"
 #include "attention_bf16_wgmma.cuh"
 #include "attention_mma.cuh"
 #include "keep_mask.cuh"
@@ -294,8 +294,8 @@ extern "C" int rlt_attention_packed_fwd_bf16(const void* q, const void* k,
   const auto st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 16:
-      return rlt::launch_attn_fwd_bf16<16>(q, k, v, o, lse, streams, n, length, heads,
-                                           pack, rate, threshold, st);
+      return rlt::launch_attn_fwd_dh16(q, k, v, o, lse, streams, n, length, heads, pack,
+                                       rate, threshold, st);
     case 64:
       return rlt::launch_attn_fwd_wgmma<64>(q, k, v, o, lse, streams, n, length, heads,
                                             pack, rate, threshold, st);

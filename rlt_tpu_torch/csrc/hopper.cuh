@@ -1,6 +1,7 @@
-// hopper: the Hopper (sm_90a) device pieces that the bf16 attention kernels
-// written for TMA and wgmma share: the forward (attention_bf16_wgmma.cuh)
-// and the backward (attention_bf16_bwd_wgmma.cuh). Tiles of 64 rows by 64
+// hopper: the Hopper (sm_90a) device pieces that the bf16 kernels written
+// for TMA and wgmma share: the attention forward and backward at dh = 64 and
+// 128 (attention_bf16_wgmma.cuh, attention_bf16_bwd_wgmma.cuh) and at dh = 16
+// (attention_bf16_dh16.cuh), and the bf16 LSTM (lstm_bf16_mma.cuh). Tiles of 64 rows by 64
 // bf16 columns (128 bytes) are copied by TMA into shared memory with the
 // 128-byte swizzle, every copy completing on an mbarrier; the products are
 // wgmma.m64n64k16 with f32 accumulators in one of two operand forms:
@@ -29,9 +30,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "attention_bf16.cuh"
-
 namespace rlt {
+
+using bf16 = __nv_bfloat16;
+
+// {lo, hi} rounded to bf16 and packed, lo in the lower half
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
 namespace sm90 {
 
 constexpr int kRows = 64;               // rows of a tile: query rows of a work item, keys
@@ -232,6 +241,12 @@ __device__ __forceinline__ void regs_down() {
 template <int kRegs>
 __device__ __forceinline__ void regs_up() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kRegs));
+}
+
+// Makes this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma's and TMA's reads of it).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 // A barrier of the 128 threads of warpgroup 0 alone (named barrier 1). Each

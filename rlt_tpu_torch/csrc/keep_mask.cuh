@@ -1,6 +1,6 @@
 // keep_mask: the counter-based dropout bits shared by the attention kernels
 // (attention_packed_fwd.cu, attention_packed_bwd.cu, attention_fwd.cu,
-// attention_bwd.cu).
+// attention_bwd.cu and the bf16 headers they include).
 //
 // Replaces rlt_tpu/ops/attention.py::keep_mask (with _streams and
 // _group_stream), which the TPU kernels evaluate inside their bodies so that
@@ -44,6 +44,21 @@ __device__ __forceinline__ bool keep_element(uint32_t index, uint32_t key,
                                              uint32_t threshold) {
   uint32_t x = index ^ key;
   x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x < threshold;
+}
+
+// keep_element with the key's part of the first mixing step taken once:
+// (index ^ key) ^ ((index ^ key) >> 16) = index ^ (index >> 16) ^ mixed_key(key),
+// so a score costs one xor less. The bits are keep_element's.
+__device__ __forceinline__ uint32_t mixed_key(uint32_t key) { return key ^ (key >> 16); }
+
+__device__ __forceinline__ bool keep_mixed(uint32_t index, uint32_t mixed,
+                                           uint32_t threshold) {
+  uint32_t x = index ^ (index >> 16) ^ mixed;
   x *= 0x7FEB352Du;
   x ^= x >> 15;
   x *= 0x846CA68Bu;

@@ -141,10 +141,6 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
       : "memory");
 }
 
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
 // The B operand (K x 8, bf16) of one n-tile in fragment order: for k-steps
 // 2 kp and 2 kp + 1, lane l's b0, b1 of each as one uint4 at [kp][l]. The
 // bf16 index of B[k][n]: mma.m16n8k16's b0 holds (k = 2t, 2t + 1; n = g) and

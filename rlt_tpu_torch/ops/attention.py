@@ -54,8 +54,9 @@ bf16 (the serving lane): `attention_packed_fwd_bf16` (dh 16 and 64) and
 beside f32 lse, with the JAX kernels' semantics on bf16 operands: the
 products of bf16 values summed in f32, the softmax statistics in f32, the
 weights rounded to bf16 before P V. On a CUDA tensor they launch the bf16
-instances of `csrc/attention_bf16.cuh` (through `attention_packed_fwd.cu`
-and `attention_fwd.cu`), which stream the keys and so round the weights
+kernels of `csrc/attention_bf16_wgmma.cuh` (dh 64 and 128) and
+`csrc/attention_bf16_dh16.cuh` (dh 16), through `attention_packed_fwd.cu`
+and `attention_fwd.cu`, which stream the keys and so round the weights
 against the running max before the final division (the plain versions
 round the normalised weights, as the JAX kernels do; the difference is
 rounding noise, emulated in tests/test_torch_bf16.py); on a CPU tensor
@@ -71,9 +72,9 @@ operands: s, p = exp(s scale - lse), dP = do v^T and delta = rowsum(do o)
 in f32, ds = p (dp - delta) scale and the dropped weights pd rounded to
 bf16 before the products dq = ds k, dk = ds^T q and dv = pd^T do, which sum
 in f32 and are stored in bf16. On a CUDA tensor they launch the bf16
-instances of `csrc/attention_bf16_bwd.cuh` (through
-`attention_packed_bwd.cu` and `attention_bwd.cu`), which round what the JAX
-kernels round; on a CPU tensor `attention_packed_bwd_plain` and
+kernels of `csrc/attention_bf16_bwd_wgmma.cuh` (dh 64 and 128) and
+`csrc/attention_bf16_dh16.cuh` (dh 16), through `attention_packed_bwd.cu`
+and `attention_bwd.cu`, which round what the JAX kernels round; on a CPU tensor `attention_packed_bwd_plain` and
 `attention_bwd_plain`, which compute either dtype's semantics.
 """
 

@@ -26,8 +26,12 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "rlt_tpu_torch"
+# -fno-gnu-unique: a static local of a template or inline launcher (the
+# persistent grids' resident-block counts) stays the library's own; as a
+# GNU-unique symbol it would be shared with every other build of the same
+# sources loaded in the process (scripts/bench_*.py load several)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xcompiler", "-fno-gnu-unique", "-Xptxas", "-v")
 LIB_NAME = "librlt_kernels.so"
 
 

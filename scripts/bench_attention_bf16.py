@@ -3,14 +3,14 @@
 of the same entry points, in one process.
 
     python3 scripts/bench_attention_bf16.py [--tree DIR ...] [--backward]
-        [--serving] [--training] [--out build/attention_bf16_ab.json]
+        [--serving] [--training] [--dh16] [--out build/attention_bf16_ab.json]
 
 Times K5''s bf16 instance (`rlt_attention_packed_fwd_bf16`) at dh = 64
 (N = 63, 189 and 768 rows of 4 heads in groups of 2) and dh = 16 (N = 63
 and 256 rows of 8 heads in one group), and K3''s (`rlt_attention_fwd_bf16`,
-dh = 128) at 378 and 1536 slices, all at L = 300, and both at L = 2048 (8
-rows, 8 slices: about the products of N = 189 at L = 300 in a few long
-lists), at dropout rates 0 and 0.1, beside bf16
+dh = 128) at 378 and 1536 slices, all at L = 300, and all three at L = 2048
+(8 rows of dh 64 or 16, 8 slices: about the products of N = 189 at L = 300
+in a few long lists), at dropout rates 0 and 0.1, beside bf16
 `scaled_dot_product_attention` of the same q, k, v. Every library's o and
 lse are first held to the plain version (`rlt_tpu_torch.ops.attention`)
 with `chip_smoke.py`'s bound.
@@ -21,6 +21,7 @@ with `chip_smoke.py`'s bound.
   `scaled_dot_product_attention` (its own dropout mask at rate 0.1); every
   library's dq, dk and dv first held to the plain backward with
   `chip_smoke.py`'s bound.
+- `--dh16`: only the kernel rows of dh = 16.
 - `--tree DIR` (repeatable): DIR holds another tree (`git archive <commit>
   rlt_tpu_torch/csrc | tar -x -C DIR`), named by DIR's last part. Its
   `rlt_tpu_torch/csrc` is built as this tree's is (`ops/build.py`) and
@@ -31,16 +32,19 @@ with `chip_smoke.py`'s bound.
   synchronise) are taken for each library's entry point, this tree's
   wrapper in `ops/attention.py` and SDPA, and for reading the current
   stream as `ops/build.py::stream_handle` does and through a
-  `torch.cuda.Stream` object.
-- `--serving`: the bf16 Predictor's forward of MMOECut and PLECut at
-  buckets 64 and 256 (robust04 width, seeded weights), once through the
+  `torch.cuda.Stream` object. With `--backward`, every row at N = 189 and
+  every dh = 16 row also gives each build's kernels' device microseconds
+  by name (torch.profiler): the two passes apart.
+- `--serving`: the bf16 Predictor's forward of MMOECut, PLECut, Choopy and
+  MtChoopy at buckets 64 and 256 (robust04 width, seeded weights), once through the
   first tree's bf16 attention forward and once through this tree's, in
   turns, each with the card's busy ms (torch.profiler) and the host's share.
 - `--training`: the bf16 train step (forward with the loss, backward, Adam;
   the drmm_tks preset, B = 63, robust04 width) of MMOECut, MOECut (dropout
   rate 0), PLECut and AttnCut, once through the first tree's bf16 attention
-  backward and once through this tree's, in turns, each with the card's
-  busy ms and the host's share.
+  backward and once through this tree's, and of Choopy and MtChoopy once
+  through the first tree's dh = 16 forward and backward and once through
+  this tree's, in turns, each with the card's busy ms and the host's share.
 
 Prints one JSON line a row and the card's name and power limit, and writes
 every row to `--out`. Needs a CUDA card and nvcc.
@@ -83,7 +87,7 @@ SLICE_BWD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 2 + [ctypes.c_float, 
 CASES = ([("packed", 64, n, SEQ_LEN) for n in (63, 189, 768)]
          + [("packed", 16, n, SEQ_LEN) for n in (63, 256)]
          + [("slice", 128, n, SEQ_LEN) for n in (189, 768)]
-         + [("packed", 64, 8, LONG_L), ("slice", 128, 4, LONG_L)])
+         + [("packed", 64, 8, LONG_L), ("slice", 128, 4, LONG_L), ("packed", 16, 8, LONG_L)])
 
 
 def log(row: dict) -> None:
@@ -114,11 +118,11 @@ def qkv(rng, shape, dev):
             for _ in range(3)]
 
 
-def kernel_rows(dev, libs: dict) -> list[dict]:
+def kernel_rows(dev, libs: dict, cases: list) -> list[dict]:
     rng = np.random.default_rng(12)
     stream = build.stream_handle(dev)
     rows = []
-    for kind, dh, n, length in CASES:
+    for kind, dh, n, length in cases:
         if kind == "packed":
             heads, d = (4, 256) if dh == 64 else (8, 128)
             pack = attention.packed_group_size(d, heads)
@@ -195,13 +199,14 @@ def host_row(dev, cands: dict, libs: dict, wrapper) -> dict:
                 torch.cuda.current_stream(dev).cuda_stream))}
 
 
-def backward_rows(dev, libs: dict) -> list[dict]:
-    """The bf16 backwards (K6' packed, K4' per slice) at CASES, on the plain
-    forward's o and lse, every library's build and SDPA's backward in turns."""
+def backward_rows(dev, libs: dict, cases: list) -> list[dict]:
+    """The bf16 backwards (K6' packed, K4' per slice) at `cases`, on the
+    plain forward's o and lse, every library's build and SDPA's backward in
+    turns."""
     rng = np.random.default_rng(13)
     stream = build.stream_handle(dev)
     rows = []
-    for kind, dh, n, length in CASES:
+    for kind, dh, n, length in cases:
         if kind == "packed":
             heads, d = (4, 256) if dh == 64 else (8, 128)
             pack = attention.packed_group_size(d, heads)
@@ -258,7 +263,7 @@ def backward_rows(dev, libs: dict) -> list[dict]:
             row = timed_row({"kernel": f"{kind}_bwd", "dh": dh, "n": n, "slices": slices,
                              "length": length, "rate": rate}, cands, libs,
                             {"grad_errs": errs})
-            if n == 189:
+            if n == 189 or dh == 16:
                 row["kernel_us"] = {name: kernel_us(cands[name]) for name in libs}
             if rate == 0.0 and n == 189:
                 row["host_us"] = host_row(dev, cands, libs, wrapper)
@@ -287,13 +292,16 @@ def kernel_us(fn, calls: int = 20) -> dict:
 
 
 def serving_rows(dev, other: ctypes.CDLL) -> list[dict]:
-    """The bf16 Predictor of MMOECut and PLECut, its bf16 attention forward
-    through `other`'s entry point or this tree's, in turns."""
+    """The bf16 Predictor of MMOECut, PLECut, Choopy and MtChoopy, its bf16
+    attention forward through `other`'s entry point or this tree's, in
+    turns."""
     from rlt_tpu_torch.config import TrainConfig
     from rlt_tpu_torch.infer import Predictor
 
     kernels = {"mmoecut": (attention.ATTENTION_PACKED_FWD_BF16, PACKED_ARGS),
-               "mtple": (attention.ATTENTION_FWD_BF16, SLICE_ARGS)}
+               "mtple": (attention.ATTENTION_FWD_BF16, SLICE_ARGS),
+               "choopy": (attention.ATTENTION_PACKED_FWD_BF16, PACKED_ARGS),
+               "mtchoopy": (attention.ATTENTION_PACKED_FWD_BF16, PACKED_ARGS)}
     rows = []
     for model_name, (kernel, argtypes) in kernels.items():
         cfg = TrainConfig(model_name=model_name, compute_dtype="bfloat16")
@@ -329,17 +337,19 @@ def serving_rows(dev, other: ctypes.CDLL) -> list[dict]:
 
 def training_rows(dev, other: ctypes.CDLL) -> list[dict]:
     """The bf16 train step of MMOECut, MOECut, PLECut and AttnCut, its bf16
-    attention backward through `other`'s entry point or this tree's, in
-    turns."""
+    attention backward through `other`'s entry point or this tree's, and of
+    Choopy and MtChoopy, both of their dh = 16 attention kernels (forward
+    and backward) through `other`'s or this tree's, in turns."""
     from rlt_tpu_torch.config import TrainConfig, apply_preset
     from rlt_tpu_torch.train import Trainer, forward
 
-    models = {"mmoecut": (attention.ATTENTION_PACKED_BWD_BF16, PACKED_BWD_ARGS),
-              "moecut": (attention.ATTENTION_PACKED_BWD_BF16, PACKED_BWD_ARGS),
-              "mtple": (attention.ATTENTION_BWD_BF16, SLICE_BWD_ARGS),
-              "attncut": (attention.ATTENTION_PACKED_BWD_BF16, PACKED_BWD_ARGS)}
+    packed_bwd = (attention.ATTENTION_PACKED_BWD_BF16, PACKED_BWD_ARGS)
+    dh16 = ((attention.ATTENTION_PACKED_FWD_BF16, PACKED_ARGS), packed_bwd)
+    models = {"mmoecut": (packed_bwd,), "moecut": (packed_bwd,),
+              "mtple": ((attention.ATTENTION_BWD_BF16, SLICE_BWD_ARGS),),
+              "attncut": (packed_bwd,), "choopy": dh16, "mtchoopy": dh16}
     rows = []
-    for model_name, (kernel, argtypes) in models.items():
+    for model_name, swapped in models.items():
         cfg = apply_preset(TrainConfig(model_name=model_name, retrieve_data="robust04",
                                        compute_dtype="bfloat16"))
         trainer = Trainer(cfg, device=dev)
@@ -355,25 +365,28 @@ def training_rows(dev, other: ctypes.CDLL) -> list[dict]:
             loss.backward()
             opt.step()
 
-        step()  # this tree's entry point bound as kernel._fn
-        fns = {"other": bind(other, kernel.symbol, argtypes), "new": kernel._fn}
+        step()  # this tree's entry points bound as each kernel's _fn
+        fns = {"other": [bind(other, kernel.symbol, argtypes) for kernel, argtypes in swapped],
+               "new": [kernel._fn for kernel, _ in swapped]}
 
         def through(name):
             def call():
-                kernel._fn = fns[name]
+                for (kernel, _), fn in zip(swapped, fns[name]):
+                    kernel._fn = fn
                 step()
             return call
 
         cands = {name: through(name) for name in ("other", "new")}
         t = interleaved_ms(cands, iters=3, repeats=ROUNDS, alternate=True)
         row = {"model": model_name, "compute_dtype": "bfloat16", "batch": cfg.batch_size,
-               "dropout": cfg.dropout, "ms": {n: r["median"] for n, r in t.items()},
+               "dropout": cfg.dropout, "swapped": [k.symbol for k, _ in swapped],
+               "ms": {n: r["median"] for n, r in t.items()},
                "spread_ms": {n: [r["min"], r["max"]] for n, r in t.items()}}
         for name, fn in cands.items():
             busy = device_busy_ms(fn)
             row[f"{name}_busy_ms"] = busy
             row[f"{name}_host_share"] = host_share(busy, row["ms"][name])
-        kernel._fn = fns["new"]
+        through("new")
         log(row)
         rows.append(row)
     return rows
@@ -385,6 +398,7 @@ def main() -> int:
     p.add_argument("--backward", action="store_true")
     p.add_argument("--serving", action="store_true")
     p.add_argument("--training", action="store_true")
+    p.add_argument("--dh16", action="store_true", help="only the rows of dh = 16")
     p.add_argument("--out", type=Path, default=REPO / "build" / "attention_bf16_ab.json")
     args = p.parse_args()
     if not torch.cuda.is_available():
@@ -404,7 +418,8 @@ def main() -> int:
     libs["new"] = build.LIBRARY.get()
     result["build_seconds"] = build.LIBRARY.build_seconds
     log(dict(result))
-    result["rows"] = (backward_rows if args.backward else kernel_rows)(dev, libs)
+    cases = [c for c in CASES if c[1] == 16] if args.dh16 else CASES
+    result["rows"] = (backward_rows if args.backward else kernel_rows)(dev, libs, cases)
     if args.serving and args.tree:
         result["serving"] = serving_rows(dev, libs[args.tree[0].name])
     if args.training and args.tree:

@@ -223,19 +223,17 @@ def test_attention_wrappers_keep_their_dtypes():
 # (d) the CUDA kernels' order of rounding, emulated at L = 300
 # ---------------------------------------------------------------------------
 
-def streamed_bf16(q, k, v, scale, keep=None, rate=0.0, tile=64, exp2=False):
-    """One head as the bf16 kernels compute it: q, k, v (L, dh) float32
-    holding bf16 values; `tile`-key tiles, the running max, the weights
-    exp(s - m) summed in f32 and rounded to bf16 (dropped and scaled first
-    where `keep` says) for P V, the running O rescaled by exp(m_old -
-    m_new), o = O / sum rounded to bf16, lse = m + log(sum). With `exp2`
-    as attention_bf16_wgmma.cuh takes the exponential: the max of the raw
+def streamed_bf16(q, k, v, scale, keep=None, rate=0.0, tile=64):
+    """One head as the bf16 kernels compute it (attention_bf16_wgmma.cuh at
+    dh 64 and 128, attention_bf16_dh16.cuh at dh 16): q, k, v (L, dh)
+    float32 holding bf16 values; `tile`-key tiles, the max of the raw
     scores m, each weight exp2(fma(s, c, -m c)) with c = scale log2(e) (the
-    fma's one rounding from the exact product in float64), the rescale
-    exp2((m_old - m_new) c) and lse = m scale + log(sum); without, as
-    attention_bf16.cuh: exp of the scaled scores less their max. The f32
-    sums run in numpy's order, not the kernels' (per thread, then across
-    the four threads of a row)."""
+    fma's one rounding from the exact product in float64), summed in f32
+    and rounded to bf16 (dropped and scaled first where `keep` says) for
+    P V, the running O rescaled by exp2((m_old - m_new) c), o = O / sum
+    rounded to bf16, lse = m scale + log(sum). The f32 sums run in numpy's
+    order, not the kernels' (per thread, then across the four threads of a
+    row)."""
     length = q.shape[0]
     m = np.full(length, -np.inf, np.float32)
     total = np.zeros(length, np.float32)
@@ -243,28 +241,23 @@ def streamed_bf16(q, k, v, scale, keep=None, rate=0.0, tile=64, exp2=False):
     c = np.float32(scale) * np.float32(np.log2(np.e))
     for t0 in range(0, length, tile):
         s = q @ k[t0:t0 + tile].T
-        if exp2:
-            m_new = np.maximum(m, s.max(axis=1))
-            corr = np.exp2((m - m_new) * c)
-            mc = m_new * c
-            w = np.exp2((s.astype(np.float64) * np.float64(c)
-                         - mc[:, None].astype(np.float64)).astype(np.float32))
-        else:
-            s = s * np.float32(scale)
-            m_new = np.maximum(m, s.max(axis=1))
-            corr = np.exp(m - m_new)
-            w = np.exp(s - m_new[:, None])
+        m_new = np.maximum(m, s.max(axis=1))
+        corr = np.exp2((m - m_new) * c)
+        mc = m_new * c
+        w = np.exp2((s.astype(np.float64) * np.float64(c)
+                     - mc[:, None].astype(np.float64)).astype(np.float32))
         total, acc, m = total * corr, acc * corr[:, None], m_new
         total = total + w.sum(axis=1, dtype=np.float32)
         if keep is not None:
             w = np.where(keep[:, t0:t0 + tile], w * np.float32(1.0 / (1.0 - rate)), 0.0)
         acc = acc + to_bf16(w) @ v[t0:t0 + tile]
-    lse = (m * np.float32(scale) if exp2 else m) + np.log(total)
+    lse = m * np.float32(scale) + np.log(total)
     return to_bf16(acc / total[:, None]), lse
 
 
-# dh = 64 in attention_bf16_wgmma.cuh's order, dh = 16 in attention_bf16.cuh's
-@pytest.mark.parametrize("dh,rate", [(64, 0.0), (16, 0.0), (64, 0.1)])
+# dh = 64 in attention_bf16_wgmma.cuh's order, dh = 16 in attention_bf16_dh16.cuh's
+# (the same order)
+@pytest.mark.parametrize("dh,rate", [(64, 0.0), (16, 0.0), (64, 0.1), (16, 0.1)])
 def test_streamed_rounding_meets_the_packed_tolerances(dh, rate):
     d, heads, pack = PACKED_WIDTHS[dh]
     length, n = 300, 1
@@ -281,7 +274,7 @@ def test_streamed_rounding_meets_the_packed_tolerances(dh, rate):
         cols = slice(h * dh, (h + 1) * dh)
         o[0, :, cols], lse[0, h] = streamed_bf16(
             *(a[0, :, cols] for a in qkv), 1.0 / np.sqrt(dh),
-            None if keep is None else keep[0, h], rate, exp2=dh != 16)
+            None if keep is None else keep[0, h], rate)
     want_lse = np.asarray(want_lse).transpose(0, 1, 3, 2).reshape(n, heads, length)
     np.testing.assert_allclose(lse, want_lse, rtol=0, atol=LSE_ATOL)
     assert_o_close(o, _f32(want_o))
@@ -295,7 +288,7 @@ def test_streamed_rounding_meets_the_slice_tolerances():
     want_o, want_lse = jax_attention._fwd_pallas(
         0.0, True, *(jnp.asarray(a, jnp.bfloat16) for a in qkv), jnp.zeros((1,), jnp.int32))
     for h in range(2):
-        o, lse = streamed_bf16(*(a[0, h] for a in qkv), 1.0 / np.sqrt(128), exp2=True)
+        o, lse = streamed_bf16(*(a[0, h] for a in qkv), 1.0 / np.sqrt(128))
         np.testing.assert_allclose(lse, np.asarray(want_lse)[h, 0], rtol=0, atol=LSE_ATOL)
         assert_o_close(o, _f32(want_o)[0, h])
 

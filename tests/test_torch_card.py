@@ -637,12 +637,15 @@ def _assert_repeatable(first, again, without=None):
 # kind of length: one key, a ragged single tile, one whole tile and one key
 # past it, PLECut's and the experts' L = 300, and K/V streams longer than any
 # shared-memory residency (700, 2048); and at the population's N = 756 rows
-# (K5') and 756 slices (K3'). dh = 16 keeps attention_bf16.cuh's kernel.
+# (K5') and 756 slices (K3'). dh = 16 (attention_bf16_dh16.cuh) at the same
+# kinds of length, at Choopy's N = 63 and its serving bucket's 256.
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dh,n,length", [(64, 9, 300), (64, 3, 37), (64, 2, 700),
                                          (64, 4, 1), (64, 3, 64), (64, 3, 65),
                                          (64, 2, 2048), (64, 756, 300),
-                                         (16, 63, 300), (16, 3, 37), (16, 2, 700)])
+                                         (16, 63, 300), (16, 3, 37), (16, 2, 700),
+                                         (16, 4, 1), (16, 3, 64), (16, 3, 65),
+                                         (16, 2, 2048), (16, 256, 300)])
 def test_packed_attention_bf16_kernel_matches_plain_on_card(cuda_device, dh, n, length,
                                                             rate):
     d, heads = (256, 4) if dh == 64 else (128, 8)
@@ -654,6 +657,28 @@ def test_packed_attention_bf16_kernel_matches_plain_on_card(cuda_device, dh, n, 
     o, lse = attention.attention_packed_fwd_bf16(q, k, v, heads, pack, rate, streams)
     torch.cuda.synchronize()
     assert attention.ATTENTION_PACKED_FWD_BF16.launches == before + 1
+    _assert_bf16_attention(o, lse, *attention.attention_packed_plain(q, k, v, heads, pack,
+                                                                     rate, streams))
+    _assert_repeatable((o, lse),
+                       attention.attention_packed_fwd_bf16(q, k, v, heads, pack, rate,
+                                                           streams),
+                       attention.attention_packed_fwd_bf16(q, k, v, heads, pack)
+                       if rate == 0.0 else None)
+
+
+# dh = 16 at 16 heads (D = 256): two groups of pack 8, the second on
+# group_stream(stream, 1), and two 4-head boxes of each row's 64-column tiles
+# in each group.
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_packed_attention_bf16_dh16_two_groups_on_card(cuda_device, rate):
+    n, length, d, heads = 5, 130, 256, 16
+    pack = attention.packed_group_size(d, heads)
+    assert (pack, heads // pack) == (8, 2)
+    q, k, v = (torch.from_numpy(a).to(cuda_device).bfloat16()
+               for a in _qkv(165, (n, length, d)))
+    streams = _streams(166, n, cuda_device)
+    o, lse = attention.attention_packed_fwd_bf16(q, k, v, heads, pack, rate, streams)
+    torch.cuda.synchronize()
     _assert_bf16_attention(o, lse, *attention.attention_packed_plain(q, k, v, heads, pack,
                                                                      rate, streams))
     _assert_repeatable((o, lse),
@@ -803,14 +828,17 @@ def _single_key_floors(q, k, o, do, dh):
 # 128 (attention_bf16_bwd_wgmma.cuh) at every kind of length: one key, a
 # ragged single tile, one whole tile and one key past it, the experts' and
 # PLECut's L = 300, and streams longer than any shared-memory residency (700,
-# 2048), up to N = 768 rows (1536 slices); at rate 0 the call with streams
-# bit-equal to the call without.
+# 2048), up to N = 768 rows (1536 slices); dh = 16 (attention_bf16_dh16.cuh)
+# at the same kinds of length, at Choopy's N = 63 and 256; at rate 0 the
+# call with streams bit-equal to the call without.
 @pytest.mark.parametrize("forward", ["plain", "kernel"])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dh,n,length", [(64, 9, 300), (64, 3, 37), (64, 2, 700),
                                          (64, 4, 1), (64, 3, 64), (64, 3, 65),
                                          (64, 2, 2048), (64, 768, 300),
-                                         (16, 63, 300), (16, 3, 37), (16, 2, 700)])
+                                         (16, 63, 300), (16, 3, 37), (16, 2, 700),
+                                         (16, 4, 1), (16, 3, 64), (16, 3, 65),
+                                         (16, 2, 2048), (16, 256, 300)])
 def test_packed_attention_bwd_bf16_kernel_matches_plain_on_card(cuda_device, dh, n,
                                                                 length, rate, forward):
     d, heads = (256, 4) if dh == 64 else (128, 8)
@@ -834,6 +862,41 @@ def test_packed_attention_bwd_bf16_kernel_matches_plain_on_card(cuda_device, dh,
     if rate == 0.0:
         _assert_repeatable(got, attention.attention_packed_bwd_bf16(q, k, v, o, lse, do,
                                                                     heads, pack))
+
+
+# dh = 16 at 16 heads (two groups of pack 8), as the forward's case.
+@pytest.mark.parametrize("forward", ["plain", "kernel"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_packed_attention_bwd_bf16_dh16_two_groups_on_card(cuda_device, rate, forward):
+    n, length, d, heads = 5, 130, 256, 16
+    pack = attention.packed_group_size(d, heads)
+    q, k, v, do = (torch.from_numpy(a).to(cuda_device).bfloat16()
+                   for a in _qkv(205, (n, length, d)) + _qkv(206, (n, length, d))[:1])
+    streams = _streams(207, n, cuda_device)
+    fwd = (attention.attention_packed_plain if forward == "plain"
+           else attention.attention_packed_fwd_bf16)
+    o, lse = fwd(q, k, v, heads, pack, rate, streams)
+    got = attention.attention_packed_bwd_bf16(q, k, v, o, lse, do, heads, pack, rate,
+                                              streams)
+    torch.cuda.synchronize()
+    _assert_bf16_grads(got, attention.attention_packed_bwd_plain(
+        q, k, v, o, lse, do, heads, pack, rate, streams))
+    if rate == 0.0:
+        _assert_repeatable(got, attention.attention_packed_bwd_bf16(q, k, v, o, lse, do,
+                                                                    heads, pack))
+
+
+# dh = 16's backward at Choopy's shape and dropout: two launches on the same
+# inputs bit-equal (every element summed by one thread in a fixed order).
+def test_packed_attention_bwd_bf16_dh16_is_deterministic_on_card(cuda_device):
+    n, length, d, heads = 63, 300, 128, 8
+    q, k, v, do = (torch.from_numpy(a).to(cuda_device).bfloat16()
+                   for a in _qkv(208, (n, length, d)) + _qkv(209, (n, length, d))[:1])
+    streams = _streams(210, n, cuda_device)
+    o, lse = attention.attention_packed_fwd_bf16(q, k, v, heads, 8, 0.1, streams)
+    first = attention.attention_packed_bwd_bf16(q, k, v, o, lse, do, heads, 8, 0.1, streams)
+    _assert_repeatable(first, attention.attention_packed_bwd_bf16(q, k, v, o, lse, do,
+                                                                  heads, 8, 0.1, streams))
 
 
 @pytest.mark.parametrize("forward", ["plain", "kernel"])
