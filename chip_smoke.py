@@ -33,10 +33,23 @@ kernels' dh = 16 instances, one launch per layer, and no LSTM kernel):
   through the plain versions on the card (same weights, batch plans and
   dropout masks).
 
+On the card each train step, test step and serving bucket is one CUDA
+graph (`rlt_tpu_torch/utils/graphs.py`), so every main path runs graphed;
+the plain references run eager (`graphs=False`: a replay inside
+`plain_ops()` raises, and each path shows that it does). Each path also
+holds its graphs to the eager route of the same model: every serving
+bucket's forward (1 to 256) bit for bit, and three train steps of a fresh
+graphed `Trainer` against three of a fresh eager one (the step results,
+gradients, parameters and Adam's state, and a test batch), and times the
+graphed step and buckets 64 and 256 against the eager ones with the card's
+busy time (the union of its device intervals) and the host's share; a
+graphed step's busy time must be measured and within 5% of the eager
+step's, since the graph replays the same device work.
+
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after, and must have launched each kernel exactly as often as its
 shape says (and the other attention kernels, and the other dtype's
-instances, not at all). A bf16 path's served distributions, and its step-1
+instances, not at all); a replay adds the launches its graph captured. A bf16 path's served distributions, and its step-1
 gradients, step losses and epoch updates, are held to the same bf16 run
 through the plain versions on the card, against d_ref, the distance between
 that bf16 plain run and the float32 one.
@@ -52,9 +65,12 @@ against 8 sequential epochs.
 
 Every time is the median of rounds taken in turns with what it is compared
 with (`rlt_tpu_torch/utils/timing.py`), printed with its spread; every
-train step, the bf16 bucket-64 forwards and the population's epochs also
-carry the card's busy time from torch.profiler and the host's share. It
-prints a `kernels` JSON line, the card's name and power limit, and last
+train step, the bucket-64 and bucket-256 forwards and the population's
+epochs also carry the card's busy time from torch.profiler and the host's
+share of the window timed without the profiler (a busy time above that
+window is printed as a failed row, with no share). It prints a `graphs` JSON line per model and dtype (the graphed
+and eager step and buckets), a `kernels` JSON line, the card's name and
+power limit, and last
 `{"ok": true, "device": {...}}`. Any failed check raises, and the script
 then exits with a non-zero code; without a CUDA card it exits before any
 result.
@@ -1326,15 +1342,16 @@ def serve_end_to_end(rng, model_name: str, list_counts: tuple[int, ...],
     count of lists in `list_counts` (the one of 5 lists asks for the
     distributions); its cuts and distributions against the same model
     through the plain versions on the card (in bf16, within the bounds of
-    d_ref, that plain bf16 run against the plain float32 one); then the
-    forward timed per bucket (and per stage for the expert models). A
+    d_ref, that plain bf16 run against the plain float32 one); then every
+    bucket's graphed forward against the eager one (`graphed_forward_check`)
+    and the forward timed per bucket, graphed against eager (and per stage
+    for the expert models). A
     scores-only model (F = 1: Choopy, MtChoopy) is sent `{"scores": ...}`
     bodies, the others `{"features": ...}`."""
     from rlt_tpu_torch.config import TrainConfig
     from rlt_tpu_torch.infer import Predictor
     from rlt_tpu_torch.ops import plain_ops
     from rlt_tpu_torch.serve import TruncationService, bucket_size, make_server
-    from rlt_tpu_torch.utils.timing import device_busy_ms, host_share
 
     bf16 = compute_dtype == "bfloat16"
     label = f"{model_name}-bf16" if bf16 else model_name
@@ -1381,10 +1398,15 @@ def serve_end_to_end(rng, model_name: str, list_counts: tuple[int, ...],
     require(launches == want, f"kernel launches on the {label} serving path: "
             f"{launches}, want {want}")
 
-    # the same model through the plain versions on the card; in bf16 also
-    # the float32 model (the master weights) through them, for d_ref
+    # the same model through the plain versions on the card, eager (a graph
+    # replays its kernels); in bf16 also the float32 model (the master
+    # weights) through them, for d_ref
+    require(predictor.graphs, f"{label}: the service's predictor is graphed")
+    eager = Predictor(cfg, state_dict=predictor.model.state_dict(), device="cuda",
+                      graphs=False)
     ref32 = (Predictor(dataclasses.replace(cfg, compute_dtype="float32"),
-                       state_dict=predictor.model.state_dict(), device="cuda")
+                       state_dict=predictor.model.state_dict(), device="cuda",
+                       graphs=False)
              if bf16 else None)
     worst_dist, worst_rms, near_ties, moved = 0.0, 0.0, 0, 0
     for (lengths, feats, want_dist), out in zip(requests, outs):
@@ -1394,7 +1416,7 @@ def serve_end_to_end(rng, model_name: str, list_counts: tuple[int, ...],
             x[i, :len(f)] = f
         n = len(lengths)
         with plain_ops():
-            ks_ref, dist_ref = predictor.predict_with_distribution(x)
+            ks_ref, dist_ref = eager.predict_with_distribution(x)
             dist32 = ref32.predict_with_distribution(x)[1] if bf16 else None
         limit = DIST_ATOL
         if bf16:
@@ -1435,23 +1457,86 @@ def serve_end_to_end(rng, model_name: str, list_counts: tuple[int, ...],
             f", rms at {worst_rms:.3f} of d_ref's" if bf16 else "") +
         f"; near-ties {near_ties}, cuts that moved at one {moved}")
 
-    timing = {}
+    graphed_forward_check(label, model_name, predictor, eager, bf16)
+    timing, rows = {}, {}
     for b in (1, 8, 64, 256):
-        timing[b] = predictor.forward_ms(b)
-        busy = ""
-        if b == 64 and bf16:  # with the card's busy time and the host's share
-            x = torch.zeros(b, predictor.cfg.seq_len, predictor.cfg.input_size,
-                            device=predictor.device)
-            busy_ms = device_busy_ms(lambda: predictor._forward(x))
-            busy = " " + json.dumps({"busy_ms": busy_ms,
-                                     "host_share": host_share(busy_ms, timing[b])})
+        x = torch.zeros(b, predictor.cfg.seq_len, predictor.cfg.input_size, device="cuda")
+        t = graphed_against_eager(lambda: predictor._forward(x), lambda: eager._forward(x),
+                                  3, with_busy=b in (64, 256))
+        timing[b] = t["graphed"]["window_ms"]
+        if b in (64, 256):
+            rows[f"bucket_{b}"] = t
         stages = (f"; stages {json.dumps(stage_ms(predictor.net, b))}"
                   if hasattr(predictor.net, "experts") else "")
-        log(f"{label} forward bucket {b}: {timing[b]} ms" + busy + stages)
+        log(f"{label} forward bucket {b} (graphed against eager): {json.dumps(t)}" + stages)
     log(json.dumps({f"{label} lists_per_s": {
         "63 lists (bucket 64)": 63 / timing[64] * 1e3,
         "256 lists (bucket 256)": 256 / timing[256] * 1e3}}))
-    return launches
+    return {"launches": launches, "graphs": rows}
+
+
+def graphed_forward_check(label: str, model_name: str, predictor, eager, bf16: bool) -> None:
+    """Every serving bucket's graphed forward (captured on first use) against
+    the eager forward of the same model, on features from their own
+    generator: the cuts and distributions bit for bit, each replay's
+    launches those of one forward; then a replay inside plain_ops() must
+    raise."""
+    from rlt_tpu_torch.ops import plain_ops
+    from rlt_tpu_torch.serve import bucket_sizes
+
+    rng = np.random.default_rng(200)
+    want = want_counts(model_name, forwards=1, bf16=bf16)
+    shape = (predictor.cfg.seq_len, predictor.cfg.input_size)
+    for b in bucket_sizes(256):
+        x = torch.from_numpy(rng.normal(size=(b,) + shape).astype(np.float32)).cuda()
+        predictor.prepare(b)  # the capture, whose warm-up launches do not count
+        before = read_counts()
+        ks, dist = (t.clone() for t in predictor._forward(x))
+        launches = {k: n - before[k] for k, n in read_counts().items()}
+        require(launches == want, f"{label} bucket {b}: a replay launched {launches}, "
+                f"one forward launches {want}")
+        want_ks, want_dist = eager._forward(x)
+        err = (dist - want_dist).abs().max().item()
+        require(torch.equal(ks, want_ks) and torch.equal(dist, want_dist),
+                f"{label} bucket {b}: the graphed forward differs from the eager one "
+                f"(distribution max abs err {err}, cuts equal {torch.equal(ks, want_ks)})")
+    require(refuses_in_plain_ops(lambda: predictor._forward(x)),
+            f"{label}: a graph replay inside plain_ops() did not raise")
+    log(f"{label}: every bucket's graphed forward {bucket_sizes(256)} equals the eager "
+        f"one bit for bit, one forward's launches a replay; a replay inside plain_ops() "
+        f"raises")
+
+
+def refuses_in_plain_ops(replay) -> bool:
+    """Whether `replay`, a graph replay, raises inside plain_ops(), as it must:
+    the graph would run the kernels it captured, not the plain versions."""
+    from rlt_tpu_torch.ops import plain_ops
+
+    with plain_ops():
+        try:
+            replay()
+        except RuntimeError as e:
+            return "plain_ops" in str(e)
+    return False
+
+
+def graphed_against_eager(graphed, eager, iters: int, with_busy: bool = True,
+                          busy_calls: int = 3) -> dict:
+    """The window of `graphed` (a graph replay) and of `eager` (the same work
+    issued op by op) in turns (`interleaved_ms`, the order reversed in odd
+    rounds), each with its spread and, with `with_busy`, the card's busy ms
+    over `busy_calls` profiled calls (`device_busy`) and the host share of
+    the window (`busy_row`: a busy time above its window is a failed row)."""
+    from rlt_tpu_torch.utils.timing import busy_row, device_busy, interleaved_ms
+
+    t = interleaved_ms({"graphed": graphed, "eager": eager}, iters, alternate=True)
+    out = {}
+    for name, fn in (("graphed", graphed), ("eager", eager)):
+        out[name] = {"window_ms": t[name]["median"], "spread_ms": [t[name]["min"],
+                                                                   t[name]["max"]]}
+        if with_busy:
+            out[name].update(busy_row(device_busy(fn, busy_calls), t[name]["median"]))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1465,7 +1550,9 @@ def train_end_to_end(model_name: str) -> dict:
     through the plain versions on the card from the same weights and
     generator seed: the same batch plans and dropout masks. Before it, one
     train step of each compares step 1's loss and gradients; after it, the
-    step is timed in its parts."""
+    eager step is timed in its parts and the graphs are held to the eager
+    route (`graphed_train_check`). The epoch runs graphed, the plain one
+    eager."""
     from rlt_tpu_torch.config import PRESETS, TrainConfig, apply_preset
     from rlt_tpu_torch.models import ZERO_GRAD_LEAVES
     from rlt_tpu_torch.ops import plain_ops
@@ -1530,7 +1617,7 @@ def train_end_to_end(model_name: str) -> dict:
     require(all(np.isfinite(v) for k, v in metrics.items() if k != "train_loss_steps")
             and all(np.isfinite(metrics["train_loss_steps"])), f"metrics {metrics}")
 
-    plain = Trainer(cfg, device="cuda")
+    plain = Trainer(cfg, device="cuda", graphs=False)  # plain versions run eager
     with plain_ops():
         plain.run()
     plain_metrics = plain.history[0]
@@ -1565,9 +1652,10 @@ def train_end_to_end(model_name: str) -> dict:
     # one step in its parts, on the batch of the step-1 comparison
     part_ms = train_step_parts(timed, *batch)
     epoch = epoch_timing(trainer)
+    graphed = graphed_train_check(cfg, model_name)
     timing = dict(first_epoch_s=epoch_s, epoch_ms=epoch["median"],
                   epoch_spread=[epoch["min"], epoch["max"]], step_ms=part_ms,
-                  train_steps=steps, test_batches=tests)
+                  graphed_step=graphed, train_steps=steps, test_batches=tests)
     log(f"{model_name} train timing " + json.dumps(timing))
     return {"launches": launches, "timing": timing}
 
@@ -1579,8 +1667,8 @@ def train_end_to_end_bf16(model_name: str) -> dict:
     the card and, for d_ref, the float32 epoch through them, all from the
     same weights and generator seed (the same batch plans and dropout
     masks); before it, step 1 the same three ways. The bounds and their
-    reasons are at BF16_GRAD_MEDIAN_OF_REF. After it, the bf16 step timed in
-    its parts."""
+    reasons are at BF16_GRAD_MEDIAN_OF_REF. After it, the bf16 eager step
+    timed in its parts, and the graphs held to the eager route."""
     from rlt_tpu_torch.config import TrainConfig, apply_preset
     from rlt_tpu_torch.models import ZERO_GRAD_LEAVES
     from rlt_tpu_torch.ops import plain_ops
@@ -1667,7 +1755,7 @@ def train_end_to_end_bf16(model_name: str) -> dict:
             and all(np.isfinite(metrics["train_loss_steps"])), f"metrics {metrics}")
     runs = {}
     for key, c in (("plain", cfg), ("plain32", cfg32)):
-        ref = Trainer(c, device="cuda")
+        ref = Trainer(c, device="cuda", graphs=False)  # plain versions run eager
         with plain_ops():
             ref.run()
         runs[key] = ref
@@ -1700,11 +1788,79 @@ def train_end_to_end_bf16(model_name: str) -> dict:
 
     part_ms = train_step_parts(timed, *batch)
     epoch = epoch_timing(trainer)
+    graphed = graphed_train_check(cfg, label)
     timing = dict(first_epoch_s=epoch_s, epoch_ms=epoch["median"],
                   epoch_spread=[epoch["min"], epoch["max"]], step_ms=part_ms,
-                  train_steps=steps, test_batches=tests)
+                  graphed_step=graphed, train_steps=steps, test_batches=tests)
     log(f"{label} timing " + json.dumps(timing))
     return {"launches": launches, "timing": timing}
+
+
+GRAPH_CHECK_STEPS = 3
+BUSY_REL = 0.05  # a graph replays the eager step's device work: its busy ms within 5%
+
+
+def graphed_train_check(cfg, label: str) -> dict:
+    """Graphed against eager training: a fresh graphed `Trainer` (the
+    default on the card) and a fresh eager one (`graphs=False`) from the
+    same seed, dropout on (the preset's rate, or RATE where the preset has
+    none), each takes GRAPH_CHECK_STEPS steps of the same plan: every step's
+    (loss, f1, dcg), then the gradients, parameters and Adam's state, and a
+    test batch, bit for bit; each replay launches what one eager step does.
+    A replay inside plain_ops() must raise. Then the train step of each, in
+    turns, with its busy ms and host share."""
+    from rlt_tpu_torch.train import Trainer
+
+    cfg = dataclasses.replace(cfg, dropout=cfg.dropout or RATE)
+    graphed, eager = Trainer(cfg, device="cuda"), Trainer(cfg, device="cuda", graphs=False)
+    require(graphed.graphs and not eager.graphs
+            and graphed.optimizer.defaults["capturable"]
+            and eager.optimizer.defaults["capturable"],
+            f"{label}: graphed and eager trainers, both with capturable Adam")
+    plans = [t.data.plan(t.generator, "train") for t in (graphed, eager)]
+    idx, valid = plans[0]
+    require(all(torch.equal(a, b) for a, b in zip(*plans)), f"{label}: plans differ")
+    for s in range(GRAPH_CHECK_STEPS):
+        counts = []
+        for t in (graphed, eager):
+            before = read_counts()
+            out = t.train_batch(idx[s], valid[s])
+            torch.cuda.synchronize()
+            counts.append(({k: n - before[k] for k, n in read_counts().items()}, out))
+        (launches, got), (eager_launches, want) = counts
+        require(launches == eager_launches, f"{label} step {s + 1}: a replay launched "
+                f"{launches}, the eager step {eager_launches}")
+        require(torch.equal(got, want), f"{label} step {s + 1}: graphed (loss, f1, dcg) "
+                f"{got.tolist()} against eager {want.tolist()}")
+    differ = []
+    for (name, p), q in zip(graphed.model.named_parameters(), eager.model.parameters()):
+        pairs = [("param", p, q), ("grad", p.grad, q.grad)] + [
+            (f"adam {k}", v, eager.optimizer.state[q][k])
+            for k, v in graphed.optimizer.state[p].items()]
+        differ += [f"{name} {what}: max abs {(a.float() - b.float()).abs().max().item()}"
+                   for what, a, b in pairs if not torch.equal(a, b)]
+    require(not differ, f"{label}: after {GRAPH_CHECK_STEPS} steps the graphed trainer "
+            f"differs from the eager one: {differ[:8]}")
+    te = [t.data.plan(t.generator, "test") for t in (graphed, eager)]
+    require(torch.equal(graphed.test_batch(te[0][0][0], te[0][1][0]),
+                        eager.test_batch(te[1][0][0], te[1][1][0])),
+            f"{label}: a graphed test batch differs from the eager one")
+    require(refuses_in_plain_ops(lambda: graphed.train_batch(idx[0], valid[0])),
+            f"{label}: a train-step replay inside plain_ops() did not raise")
+    out = graphed_against_eager(lambda: graphed.train_batch(idx[0], valid[0]),
+                                lambda: eager.train_batch(idx[0], valid[0]), 2,
+                                busy_calls=5)
+    busy = [out[name]["busy_ms"] for name in ("graphed", "eager")]
+    require(None not in busy, f"{label}: the profiler recorded no device work of a step: "
+            f"busy ms graphed {busy[0]}, eager {busy[1]}")
+    require(abs(busy[0] - busy[1]) <= BUSY_REL * busy[1],
+            f"{label}: the graphed step's busy {busy[0]} ms is not within "
+            f"{BUSY_REL:.0%} of the eager step's {busy[1]} ms")
+    log(f"{label}: {GRAPH_CHECK_STEPS} graphed steps equal the eager ones bit for bit "
+        f"(results, gradients, parameters, Adam's state; dropout {cfg.dropout}), and a "
+        f"test batch; one eager step's launches a replay; a replay inside plain_ops() "
+        f"raises; step {json.dumps(out)}")
+    return out
 
 
 def epoch_timing(trainer) -> dict:
@@ -1808,7 +1964,7 @@ def population_timing() -> dict:
     one's busy ms and host share from torch.profiler."""
     from rlt_tpu_torch.population import Member, Population
     from rlt_tpu_torch.train import Trainer
-    from rlt_tpu_torch.utils.timing import device_busy_ms, host_share, interleaved_ms
+    from rlt_tpu_torch.utils.timing import busy_row, device_busy, interleaved_ms
 
     cfg, k = population_config(), POPULATION_SIZES[-1]
     members = [Member(seed=i, lr=POPULATION_MEMBERS[i % len(POPULATION_MEMBERS)][1],
@@ -1827,11 +1983,10 @@ def population_timing() -> dict:
     lists = k * (trainers[0].data.n_train + trainers[0].data.n_test)
     out = {"members": k, "lists_per_epoch": lists}
     for name, fn in (("population", pop.run_epoch), ("sequential", sequential)):
-        busy = device_busy_ms(fn, calls=1)
         out[name] = dict(epoch_ms=t[name]["median"],
                          epoch_spread=[t[name]["min"], t[name]["max"]],
-                         lists_per_s=lists / t[name]["median"] * 1e3, busy_ms=busy,
-                         host_share=host_share(busy, t[name]["median"]))
+                         lists_per_s=lists / t[name]["median"] * 1e3,
+                         **busy_row(device_busy(fn, calls=1), t[name]["median"]))
     out["speedup"] = t["sequential"]["median"] / t["population"]["median"]
     out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log("population timing " + json.dumps(out))
@@ -1862,7 +2017,7 @@ def train_step_parts(trainer, x, y, valid, iters: int = 2) -> dict:
     busy ms per step from torch.profiler, with the host's share of the
     step's window."""
     from rlt_tpu_torch.train import forward
-    from rlt_tpu_torch.utils.timing import device_busy_ms, host_share, interleaved_ms
+    from rlt_tpu_torch.utils.timing import busy_row, device_busy, interleaved_ms
 
     model, opt = trainer.model, trainer.optimizer
     model.train()
@@ -1886,9 +2041,8 @@ def train_step_parts(trainer, x, y, valid, iters: int = 2) -> dict:
     steps = marks[1:]  # the first warms up
     parts = {name: float(np.median([ev[i].elapsed_time(ev[i + 1]) for ev in steps]))
              for i, name in enumerate(("forward", "backward", "optimizer"))}
-    busy = device_busy_ms(step)
-    return dict(parts, step=t["median"], step_spread=[t["min"], t["max"]], busy_ms=busy,
-                host_share=host_share(busy, t["median"]))
+    return dict(parts, step=t["median"], step_spread=[t["min"], t["max"]],
+                **busy_row(device_busy(step), t["median"]))
 
 
 @torch.inference_mode()
@@ -2094,17 +2248,19 @@ def main() -> int:
     attn_bwd_bf16_dh16_res = check_attention_bwd_bf16(dev, rngt, long_rows=LONG_PACKED_ROWS,
                                                       **choopy)
     slice_bwd_bf16_res = check_slice_attention_bwd_bf16(dev, rngt)
-    launches, train_res, train_bf16_res = {}, {}, {}
+    launches, train_res, train_bf16_res, serve_res, serve_bf16_res = {}, {}, {}, {}, {}
     marks.append(("f32 paths", time.perf_counter()))
     for model_name in MODELS:
-        launches[f"{model_name}-serve"] = serve_end_to_end(
+        serve_res[model_name] = serve_end_to_end(
             rng, model_name, (1, 5, 63, 200) if model_name == "mtple" else (1, 5, 63))
+        launches[f"{model_name}-serve"] = serve_res[model_name]["launches"]
         train_res[model_name] = train_end_to_end(model_name)
         launches[f"{model_name}-train"] = train_res[model_name]["launches"]
     marks.append(("bf16 serving", time.perf_counter()))
     for model_name in MODELS:  # the bf16 serving lane
-        launches[f"{model_name}-serve-bf16"] = serve_end_to_end(
+        serve_bf16_res[model_name] = serve_end_to_end(
             rngb, model_name, (1, 5, 63), compute_dtype="bfloat16")
+        launches[f"{model_name}-serve-bf16"] = serve_bf16_res[model_name]["launches"]
     marks.append(("bf16 training", time.perf_counter()))
     for model_name in MODELS:  # the bf16 training lane
         train_bf16_res[model_name] = train_end_to_end_bf16(model_name)
@@ -2233,6 +2389,17 @@ def main() -> int:
                         "train_step_ms": res["timing"]["step_ms"],
                         "epoch_ms": res["timing"]["epoch_ms"]}))
     log(json.dumps({"population": population_res}))
+    busy_rows = []
+    for dtype, trains, serves in (("float32", train_res, serve_res),
+                                  ("bfloat16", train_bf16_res, serve_bf16_res)):
+        for model_name in MODELS:  # graphed against eager: windows, busy, host shares
+            rows = {"train_step": trains[model_name]["timing"]["graphed_step"],
+                    **serves[model_name]["graphs"]}
+            busy_rows += [r for row in rows.values() for r in row.values()]
+            log(json.dumps({"graphs": {"model": model_name, "compute_dtype": dtype, **rows}}))
+    log(json.dumps({"busy_rows": {
+        "rows": len(busy_rows), "measured": sum(r["busy_ms"] is not None for r in busy_rows),
+        "failed": sum("failed" in r for r in busy_rows)}}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

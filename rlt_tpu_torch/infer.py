@@ -15,6 +15,14 @@ are decoded and the distribution returned. The bf16 copy of the model is
 made once; `model` stays the float32 master (its state_dict is what a
 checkpoint holds). Training in bf16 casts the same way inside each step
 (`rlt_tpu_torch/train.py`).
+
+On the card each batch size is one CUDA graph, as the JAX package serves
+each shape through one jitted `_predict`: the forward with its casts and
+the decode of the cuts, captured at the first forward of that size into a
+static (B, L, F) buffer (`rlt_tpu_torch/utils/graphs.py`; one memory pool
+for all sizes) and replayed for every forward after it. `graphs=False`
+serves eager on the card, for reference runs through `ops.plain_ops()`
+(which refuses graphs) and to hold the graphs to. The CPU serves eager.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import torch
 from rlt_tpu_torch.config import TrainConfig
 from rlt_tpu_torch.models import build_model, is_multi_head
 from rlt_tpu_torch.utils import metrics as metrics_lib
+from rlt_tpu_torch.utils.graphs import GraphedCall
 from rlt_tpu_torch.utils.platform import resolve_device
 from rlt_tpu_torch.utils.timing import REPEATS, interleaved_ms
 
@@ -64,10 +73,14 @@ def to_float32(output):
 
 
 class Predictor:
-    """Truncation predictor for one model family on one device."""
+    """Truncation predictor for one model family on one device: each batch
+    size one CUDA graph (`graphs`, the default on a CUDA device), or eager
+    (False: the CPU's only route). Graphs on the CPU raise. A graphed
+    predictor's sizes own static buffers: one forward at a time (the
+    server's device lock)."""
 
     def __init__(self, cfg: TrainConfig, state_dict=None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, graphs: bool | None = None):
         if cfg.model_name == "probe_base":
             raise ValueError("probe_base is a probing vehicle, not an "
                              "inference model")
@@ -75,6 +88,12 @@ class Predictor:
             raise ValueError(f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, "
                              f"got {cfg.compute_dtype!r}")
         self.device = resolve_device(device)
+        if graphs is None:
+            graphs = self.device.type == "cuda"
+        if graphs and self.device.type != "cuda":
+            raise ValueError(f"CUDA graphs are captured on a CUDA device, not on "
+                             f"{self.device}: the CPU serves eager (graphs=False)")
+        self.graphs = graphs
         self.cfg = cfg
         model = build_model(cfg.model_name, seq_len=cfg.seq_len,
                             input_size=cfg.input_size, dropout=cfg.dropout,
@@ -85,12 +104,49 @@ class Predictor:
             model.load_state_dict(state_dict)
         self.model = model.to(self.device).eval()
         self.dtype = COMPUTE_DTYPES[cfg.compute_dtype]
-        # the module that serves: the model itself, or its bf16 copy
+        # the module that serves: the model itself, or its bf16 copy, made
+        # before any capture and never moved after it
         self.net = (self.model if self.dtype == torch.float32
                     else copy.deepcopy(self.model).to(self.dtype))
+        # batch size -> (its static input, its graph), captured at first use
+        self._graphed: dict[int, tuple[torch.Tensor, GraphedCall]] = {}
+        if graphs:
+            self._pool = torch.cuda.graph_pool_handle()
+
+    def _bucket(self, batch_size: int) -> tuple[torch.Tensor, GraphedCall]:
+        if batch_size not in self._graphed:
+            static = torch.zeros(batch_size, self.cfg.seq_len, self.cfg.input_size,
+                                 device=self.device)
+            # thread_local: a server captures on its worker thread while
+            # other threads run
+            self._graphed[batch_size] = (static, GraphedCall(
+                lambda: self._forward_body(static), pool=self._pool,
+                capture_error_mode="thread_local"))
+        return self._graphed[batch_size]
 
     @torch.inference_mode()
     def _forward(self, x: torch.Tensor):
+        """(cuts, distributions) of (B, L, F) float32 features on the
+        device. Graphed: x is copied into size B's static input and its
+        graph replayed, and the outputs are the graph's own, which the next
+        forward of size B overwrites."""
+        if not self.graphs:
+            return self._forward_body(x)
+        static, graph = self._bucket(x.shape[0])
+        static.copy_(x)
+        return graph()
+
+    @torch.inference_mode()
+    def prepare(self, batch_size: int) -> None:
+        """Ready the forward of `batch_size` lists before traffic: capture
+        its graph (graphed), or run it once (eager)."""
+        if self.graphs:
+            self._bucket(batch_size)
+        else:
+            self._forward(torch.zeros(batch_size, self.cfg.seq_len,
+                                      self.cfg.input_size, device=self.device))
+
+    def _forward_body(self, x: torch.Tensor):
         output = to_float32(self.net(x.to(self.dtype)))
         ks = decode_ks(self.cfg.model_name, output)
         if self.cfg.model_name == "bicut":
@@ -115,9 +171,10 @@ class Predictor:
                    repeats: int = REPEATS) -> float:
         """Device ms of one forward + decode at `batch_size` in the
         predictor's compute dtype (the casts of the features and the outputs
-        included): the median over `repeats` rounds of `iters` back-to-back
-        calls between two CUDA events (`utils.timing.interleaved_ms`). A
-        device measurement: raises off the card."""
+        included; graphed, the copy into the static input and the replay):
+        the median over `repeats` rounds of `iters` back-to-back calls
+        between two CUDA events (`utils.timing.interleaved_ms`). A device
+        measurement: raises off the card."""
         if self.device.type != "cuda":
             raise RuntimeError("forward_ms times the CUDA card; this "
                                f"predictor runs on {self.device}")

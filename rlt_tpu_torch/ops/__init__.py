@@ -69,6 +69,14 @@ PLAIN_VERSIONS = {"lstm_fwd": (lstm, lstm_recurrence_plain),
                   "attention_packed_bwd_bf16": (attention, attention_packed_bwd_plain)}
 
 
+def plain_active() -> bool:
+    """Whether `plain_ops()` routes the wrappers to their plain versions
+    now. A CUDA graph replays the kernels it captured whatever the wrappers
+    are, so `utils.graphs` neither captures nor replays while it does."""
+    return any(getattr(module, name) is plain
+               for name, (module, plain) in PLAIN_VERSIONS.items())
+
+
 @contextlib.contextmanager
 def plain_ops():
     """Route every kernel wrapper to its plain version, for reference runs

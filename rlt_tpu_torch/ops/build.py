@@ -135,7 +135,8 @@ class Kernel:
     """One C launcher of the library, with a count of its launches.
 
     `launches` rises by one each time the launcher started its kernel
-    without error, and nowhere else."""
+    without error, and nowhere else but at a CUDA graph's replay, which
+    adds the launches its capture made (`rlt_tpu_torch/utils/graphs.py`)."""
 
     def __init__(self, symbol: str, argtypes: list):
         self.symbol = symbol

@@ -188,8 +188,8 @@ def _summary(member: Member, f1: list, dcg: list) -> dict:
 class Population:
     """K members of one model on one device: the stacked model, MemberAdam,
     the stacked corpora, one generator per member, and per-member records.
-    `run_epoch` is one epoch of every member, as `train.run_epoch` is one
-    of a Trainer."""
+    `run_epoch` is one epoch of every member, as `train.Trainer.run_epoch`
+    is one of a Trainer."""
 
     def __init__(self, cfg: config_lib.TrainConfig, members: Sequence[Member],
                  data=None, device: str | torch.device | None = None):
@@ -258,8 +258,8 @@ class Population:
 
     def run_epoch(self) -> list[dict]:
         """Every train batch of every member, then each member's test split:
-        per member the metrics `train.run_epoch` gives (the means of the
-        batch means, and the per-step train losses)."""
+        per member the metrics `train.Trainer.run_epoch` gives (the means of
+        the batch means, and the per-step train losses)."""
         tr_idx, tr_valid = self.plans("train")
         te_idx, te_valid = self.plans("test")
         train = [self.train_step(*self.batch("train", tr_idx[:, s]), tr_valid[:, s])

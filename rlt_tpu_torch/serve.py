@@ -6,7 +6,10 @@ CUDA card unless `--device cpu` is given, with:
 
 * **power-of-two bucketing** — requests are zero-padded up to the next
   power-of-two batch (<= max_batch), so the card sees at most
-  log2(max_batch)+1 batch shapes; pad rows are sliced off the response.
+  log2(max_batch)+1 batch shapes (`bucket_sizes`); pad rows are sliced off
+  the response. On the card each bucket is one CUDA graph, captured at its
+  first dispatch (or by `--warmup`, every bucket before traffic) and
+  replayed under the device lock.
 * **ragged list handling** — ranked lists shorter than the model's seq_len
   are zero-padded (the training convention) and the returned cut k is
   clamped to the true list length.
@@ -52,6 +55,11 @@ def bucket_size(n: int, max_batch: int) -> int:
     while b < n:
         b *= 2
     return min(b, max_batch)
+
+
+def bucket_sizes(max_batch: int) -> list[int]:
+    """Every bucket `bucket_size` can give under `max_batch`."""
+    return sorted({bucket_size(n, max_batch) for n in range(1, max_batch + 1)})
 
 
 class _PendingRequest:
@@ -227,6 +235,15 @@ class TruncationService:
             ]
         return out
 
+    def warmup(self) -> list[int]:
+        """Ready every bucket before traffic, under the device lock: on the
+        card, capture its graph. Returns the buckets."""
+        sizes = bucket_sizes(self.max_batch)
+        with self._lock:
+            for b in sizes:
+                self.predictor.prepare(b)
+        return sizes
+
     def health(self) -> dict:
         return {
             "ok": True,
@@ -320,7 +337,8 @@ def main(argv=None):
                    help="micro-batch co-arrival window (first-request "
                    "latency bound)")
     p.add_argument("--warmup", action="store_true",
-                   help="run every bucket once before accepting traffic")
+                   help="ready every bucket before accepting traffic (on the card: "
+                   "capture its CUDA graph)")
     args = p.parse_args(argv)
 
     cfg = TrainConfig(model_name=args.model_name, model_path=args.model_path,
@@ -331,12 +349,7 @@ def main(argv=None):
                                 max_wait_ms=args.max_wait_ms,
                                 device=args.device)
     if args.warmup:
-        b = 1
-        while b <= service.max_batch:
-            logger.info("warmup: bucket %d", b)
-            service.truncate({"features": np.zeros(
-                (b, 1, cfg.input_size), np.float32).tolist()})
-            b *= 2
+        logger.info("warmup: buckets %s ready", service.warmup())
     server = make_server(service, args.host, args.port)
     logger.info("serving %s on http://%s:%d (seq_len=%d, max_batch=%d, %s)",
                 cfg.model_name, *server.server_address, cfg.seq_len,

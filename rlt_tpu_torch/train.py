@@ -22,6 +22,17 @@ every dropout mask come from one `torch.Generator` on the device, seeded
 from `--seed`; the initial weights from the model's own seeded
 initialisation or `--model-path`.
 
+On the card each train step and each test step is one CUDA graph, as the
+JAX package runs its steps inside one jitted program: the step is captured
+at its first batch (`rlt_tpu_torch/utils/graphs.py`) and replayed for every
+batch after it, the batch gathered inside the graph from the dataset on the
+card through static index and mask buffers; the first replay is step 1 of
+the run, with the dropout bits the eager step would draw. `Trainer(...,
+graphs=False)` runs the same steps eager on the card, for reference runs
+(through `ops.plain_ops()`, which refuses graphs) and to hold the graphs to.
+The CPU runs eager. `--profile-dir DIR` writes a torch.profiler trace of
+epochs 1-3 there, as the JAX trainer traces them with jax.profiler.
+
 `--compute-dtype bfloat16` (`compute_dtype="bfloat16"`) trains as the JAX
 package's `build_epoch_fn` does with it: the master parameters stay f32 and
 Adam updates them; every step casts them to bf16 inside the autograd graph
@@ -48,8 +59,8 @@ It trains the trials one after another, or with `--population K` K at a
 time as one population (`rlt_tpu_torch/population.py`): MMOECut in float32,
 trials that share one dropout rate; any other search raises a ValueError
 with `--population` rather than fall back. Not ported yet (ROADMAP.md):
-probe_base, resume, profiling, `--draw`, the metrics log directory, and
-data and model parallelism.
+probe_base, resume, `--draw`, the metrics log directory, and data and model
+parallelism.
 """
 
 from __future__ import annotations
@@ -77,6 +88,7 @@ from rlt_tpu_torch.models import MODELS, build_model
 from rlt_tpu_torch.models.layers import compute_params
 from rlt_tpu_torch.utils import losses as losses_lib
 from rlt_tpu_torch.utils import metrics as metrics_lib
+from rlt_tpu_torch.utils.graphs import GraphedCall
 from rlt_tpu_torch.utils.platform import resolve_device
 
 logger = logging.getLogger("rlt_tpu_torch")
@@ -84,9 +96,14 @@ logger = logging.getLogger("rlt_tpu_torch")
 
 def make_optimizer(params, lr: float, weight_decay: float) -> torch.optim.Adam:
     """torch optim.Adam as the reference builds it (run.py:104): the L2 term
-    is added to the gradient before the moments, not decoupled."""
+    is added to the gradient before the moments, not decoupled. On CUDA
+    parameters it is capturable (its step count and bias corrections on the
+    card, no host sync), so that a CUDA graph holds the whole step; capturable
+    Adam takes no CPU tensors, so the CPU keeps the default."""
+    params = list(params)
     return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=weight_decay)
+                            weight_decay=weight_decay,
+                            capturable=all(p.is_cuda for p in params))
 
 
 def make_criterion(cfg: config_lib.TrainConfig) -> Callable:
@@ -177,38 +194,19 @@ def eval_step(model, criterion, model_name: str, x: torch.Tensor, y: torch.Tenso
     return loss, f1, dcg
 
 
-def run_epoch(model, optimizer, criterion, model_name: str, data: DeviceDataset,
-              generator: torch.Generator, train_plan=None, test_plan=None,
-              dtype: torch.dtype = torch.float32) -> dict:
-    """Every train batch, then the test split, the forwards in `dtype`. The
-    plans are drawn from `generator` (train first) unless given as (idx,
-    valid) pairs. Returns the means of the batch means and the per-step
-    train losses."""
-    tr_idx, tr_valid = data.plan(generator, "train", *(train_plan or (None, None)))
-    te_idx, te_valid = data.plan(generator, "test", *(test_plan or (None, None)))
-    train = [train_step(model, optimizer, criterion, model_name,
-                        data.x_train[idx], data.y_train[idx], valid, generator, dtype)
-             for idx, valid in zip(tr_idx, tr_valid)]
-    test = [eval_step(model, criterion, model_name, data.x_test[idx],
-                      data.y_test[idx], valid, dtype)
-            for idx, valid in zip(te_idx, te_valid)]
-    tr = torch.stack([torch.stack(s) for s in train]).cpu().numpy().astype(np.float64)
-    te = torch.stack([torch.stack(s) for s in test]).cpu().numpy().astype(np.float64)
-    metrics = {f"{split}_{name}": float(np.mean(values[:, i]))
-               for split, values in (("train", tr), ("test", te))
-               for i, name in enumerate(("loss", "f1", "dcg"))}
-    metrics["train_loss_steps"] = tr[:, 0].tolist()
-    return metrics
-
-
 class Trainer:
     """The reference's Trainer (run.py:26-240): epochs with best and best-5
     test F1/DCG, and the best weights written as a torch state_dict. Its
     steps run in `cfg.compute_dtype` (float32, or bfloat16 on f32 master
-    parameters)."""
+    parameters).
+
+    `graphs`: each step one CUDA graph replay (the default on a CUDA
+    device), or eager (False: the CPU's only route; on the card for
+    reference runs). Graphs on the CPU raise."""
 
     def __init__(self, cfg: config_lib.TrainConfig, data=None,
-                 device: str | torch.device | None = None, state_dict=None):
+                 device: str | torch.device | None = None, state_dict=None,
+                 graphs: bool | None = None):
         if cfg.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, "
                              f"got {cfg.compute_dtype!r}")
@@ -217,6 +215,12 @@ class Trainer:
         self.model_name = cfg.model_name
         self.criterion = make_criterion(cfg)
         self.device = resolve_device(device)
+        if graphs is None:
+            graphs = self.device.type == "cuda"
+        if graphs and self.device.type != "cuda":
+            raise ValueError(f"CUDA graphs are captured on a CUDA device, not on "
+                             f"{self.device}: the CPU runs eager (graphs=False)")
+        self.graphs = graphs
         if data is None:
             if cfg.dataset_base:
                 family = config_lib.loader_family(cfg.model_name, cfg.retrieve_data)
@@ -245,6 +249,11 @@ class Trainer:
         self.f1_record: list[float] = []
         self.dcg_record: list[float] = []
         self.history: list[dict] = []  # each epoch's metrics, as run_epoch gives them
+        self._graphed: dict[str, GraphedCall] = {}  # "train", "test": captured at first use
+        if graphs:  # the graphs' inputs: a row of the plan, and one pool for both
+            self._idx = torch.zeros(cfg.batch_size, dtype=torch.int64, device=self.device)
+            self._valid = torch.zeros(cfg.batch_size, device=self.device)
+            self._pool = torch.cuda.graph_pool_handle()
 
     def _snapshot(self) -> dict[str, torch.Tensor]:
         return {k: v.detach().clone() for k, v in self.model.state_dict().items()}
@@ -253,36 +262,106 @@ class Trainer:
     def best_path(self) -> str:
         return os.path.join(self.cfg.save_path, f"{self.model_name}.pt")
 
-    def run_epoch(self, train_plan=None, test_plan=None) -> dict:
-        return run_epoch(self.model, self.optimizer, self.criterion,
-                         self.model_name, self.data, self.generator,
-                         train_plan, test_plan, self.dtype)
+    def _train(self, idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        d = self.data
+        return torch.stack(train_step(self.model, self.optimizer, self.criterion,
+                                      self.model_name, d.x_train[idx], d.y_train[idx],
+                                      valid, self.generator, self.dtype))
 
-    def run(self) -> dict:
+    def _test(self, idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        d = self.data
+        return torch.stack(eval_step(self.model, self.criterion, self.model_name,
+                                     d.x_test[idx], d.y_test[idx], valid, self.dtype))
+
+    def _step(self, split: str, idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        body = self._train if split == "train" else self._test
+        if not self.graphs:
+            return body(idx, valid)
+        self._idx.copy_(idx)
+        self._valid.copy_(valid)
+        graph = self._graphed.get(split)
+        if graph is None:
+            state = (dict(params=list(self.model.parameters()), optimizer=self.optimizer,
+                          generators=[self.generator]) if split == "train" else {})
+            graph = self._graphed[split] = GraphedCall(
+                lambda: body(self._idx, self._valid), pool=self._pool, **state)
+        return graph().clone()  # the next replay overwrites the graph's output
+
+    def train_batch(self, idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        """One update on the train batch of plan row (idx, valid): the
+        (loss, f1, dcg) of its pre-update forward as a (3,) f32 tensor of
+        its own. The gradients stay in the parameters' `.grad`."""
+        return self._step("train", idx, valid)
+
+    def test_batch(self, idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        """(loss, f1, dcg) of the test batch of plan row (idx, valid)
+        without dropout, as a (3,) f32 tensor of its own."""
+        return self._step("test", idx, valid)
+
+    def run_epoch(self, train_plan=None, test_plan=None) -> dict:
+        """Every train batch, then the test split, the forwards in the
+        compute dtype. The plans are drawn from the generator (train first)
+        unless given as (idx, valid) pairs; the host fetches the epoch's
+        batch results once. Returns the means of the batch means and the
+        per-step train losses."""
+        data, generator = self.data, self.generator
+        tr_idx, tr_valid = data.plan(generator, "train", *(train_plan or (None, None)))
+        te_idx, te_valid = data.plan(generator, "test", *(test_plan or (None, None)))
+        train = [self.train_batch(idx, valid) for idx, valid in zip(tr_idx, tr_valid)]
+        test = [self.test_batch(idx, valid) for idx, valid in zip(te_idx, te_valid)]
+        tr = torch.stack(train).cpu().numpy().astype(np.float64)
+        te = torch.stack(test).cpu().numpy().astype(np.float64)
+        metrics = {f"{split}_{name}": float(np.mean(values[:, i]))
+                   for split, values in (("train", tr), ("test", te))
+                   for i, name in enumerate(("loss", "f1", "dcg"))}
+        metrics["train_loss_steps"] = tr[:, 0].tolist()
+        return metrics
+
+    def run(self, profile_dir: str | None = None) -> dict:
         """`cfg.epochs` epochs with best / best-5 tracking (run.py:222-232);
-        with `model_persist`, each new best test F1 writes its weights."""
+        with `model_persist`, each new best test F1 writes its weights.
+        With `profile_dir`, epochs 1-3 (epoch 0 builds the kernels and
+        captures the graphs) are traced with torch.profiler into
+        `profile_dir/epochs.pt.trace.json`, each epoch under a span of its
+        own ("epoch <n>")."""
         cfg = self.cfg
-        logger.info("Train the %s model on %s", self.model_name, self.device)
-        for epoch in range(cfg.epochs):
-            start = time.perf_counter()
-            metrics = self.run_epoch()
-            self.history.append(metrics)
-            self.f1_record.append(metrics["test_f1"])
-            self.dcg_record.append(metrics["test_dcg"])
-            if metrics["test_f1"] > self.best_test_f1:
-                self.best_test_f1 = metrics["test_f1"]
-                self.best_state = self._snapshot()
-                if cfg.model_persist:
-                    os.makedirs(cfg.save_path, exist_ok=True)
-                    torch.save({k: v.cpu() for k, v in self.best_state.items()},
-                               self.best_path)
-            self.best_test_dcg = max(self.best_test_dcg, metrics["test_dcg"])
-            logger.info(
-                "Epoch %d (%.2fs): train loss=%.5f f1=%.5f dcg=%.5f | "
-                "test loss=%.5f f1=%.5f dcg=%.5f", epoch, time.perf_counter() - start,
-                metrics["train_loss"], metrics["train_f1"], metrics["train_dcg"],
-                metrics["test_loss"], metrics["test_f1"], metrics["test_dcg"])
+        logger.info("Train the %s model on %s (%s)", self.model_name, self.device,
+                    "CUDA graphs" if self.graphs else "eager")
+        prof = None
+        try:
+            for epoch in range(cfg.epochs):
+                if profile_dir is not None and epoch == 1:
+                    prof = _start_profiler(self.device)
+                with torch.profiler.record_function(f"epoch {epoch}"):
+                    self._epoch(epoch)
+                if prof is not None and epoch == 3:
+                    _write_trace(prof, profile_dir)
+                    prof = None
+        finally:
+            if prof is not None:
+                _write_trace(prof, profile_dir)
         return self.summary()
+
+    def _epoch(self, epoch: int) -> None:
+        cfg = self.cfg
+        start = time.perf_counter()
+        metrics = self.run_epoch()
+        self.history.append(metrics)
+        self.f1_record.append(metrics["test_f1"])
+        self.dcg_record.append(metrics["test_dcg"])
+        if metrics["test_f1"] > self.best_test_f1:
+            self.best_test_f1 = metrics["test_f1"]
+            self.best_state = self._snapshot()
+            if cfg.model_persist:
+                os.makedirs(cfg.save_path, exist_ok=True)
+                torch.save({k: v.cpu() for k, v in self.best_state.items()},
+                           self.best_path)
+        self.best_test_dcg = max(self.best_test_dcg, metrics["test_dcg"])
+        logger.info(
+            "Epoch %d (%.2fs): train loss=%.5f f1=%.5f dcg=%.5f | "
+            "test loss=%.5f f1=%.5f dcg=%.5f", epoch, time.perf_counter() - start,
+            metrics["train_loss"], metrics["train_f1"], metrics["train_dcg"],
+            metrics["test_loss"], metrics["test_f1"], metrics["test_dcg"])
 
     def summary(self) -> dict:
         """best / best-5 test F1 and DCG (run.py:229-232), and the compute
@@ -296,15 +375,35 @@ class Trainer:
                 "compute_dtype": self.cfg.compute_dtype}
 
 
+def _start_profiler(device: torch.device):
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _write_trace(prof, profile_dir: str) -> None:
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, "epochs.pt.trace.json")
+    prof.export_chrome_trace(path)
+    logger.info("torch.profiler trace of epochs 1-3: %s", path)
+
+
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="rlt_tpu_torch truncation model trainer (bicut, choopy, "
                     "attncut, mtchoopy, mtattncut, mmoecut, moecut, mtple)",
         epilog="--population K trains K search trials at a time as one population: "
                "MMOECut in float32, trials that share one dropout rate (so not "
-               "--regularizer-search); the rest raises. Not ported yet, so absent: "
-               "--resume, --profile-dir, --draw, --log-dir, --data-parallel and "
-               "--model-parallel (ROADMAP.md).")
+               "--regularizer-search); the rest raises. On the card every train and "
+               "test step is one CUDA graph replay. Not ported yet, so absent: "
+               "--resume, --draw, --log-dir, --data-parallel and --model-parallel "
+               "(ROADMAP.md).")
     d = config_lib.TrainConfig()
     p.add_argument("--retrieve-data", type=str, default=d.retrieve_data)
     p.add_argument("--dataset-name", type=str, default=d.dataset_name)
@@ -360,6 +459,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="cuda (the kernels) unless cpu (their plain versions)")
     p.add_argument("--out", type=str, default=None,
                    help="write the summary as JSON here")
+    p.add_argument("--profile-dir", type=str, default=None,
+                   help="write a torch.profiler trace of epochs 1-3 here")
     return p
 
 
@@ -478,7 +579,7 @@ def main(argv=None) -> dict:
         print(json.dumps(summary))
         return summary
     trainer = Trainer(cfg, device=args.device)
-    summary = dict(trainer.run(), device=str(trainer.device),
+    summary = dict(trainer.run(profile_dir=args.profile_dir), device=str(trainer.device),
                    config=dataclasses.asdict(cfg))
     print(json.dumps({k: v for k, v in summary.items() if k != "config"}))
     if args.out:

@@ -30,7 +30,7 @@ def _squeeze_last(x: torch.Tensor) -> torch.Tensor:
 def _row_weights(batch: int, valid: torch.Tensor | None, device):
     if valid is None:
         return (torch.ones(batch, dtype=torch.float32, device=device),
-                torch.tensor(float(batch), device=device))
+                torch.full((), float(batch), device=device))
     w = valid.to(torch.float32)
     return w, torch.clamp(torch.sum(w), min=1.0)
 
@@ -144,7 +144,7 @@ def bce_loss(output: torch.Tensor, labels: torch.Tensor, *,
     y = labels.to(torch.float32)
     tiny = torch.finfo(torch.float32).tiny
     q = 1.0 - p
-    neg_inf = torch.tensor(-float("inf"), device=p.device)
+    neg_inf = torch.full((), -float("inf"), device=p.device)
     log_p = torch.clamp(torch.where(p <= 0.0, neg_inf,
                                     torch.log(torch.clamp(p, min=tiny))), min=-100.0)
     log_1mp = torch.clamp(torch.where(q <= 0.0, neg_inf,

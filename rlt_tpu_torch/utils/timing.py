@@ -11,10 +11,23 @@ the rounds drops a round that a neighbour on the host slowed. A ratio of
 two candidates is the ratio of their medians.
 
 An event window on a step that the host cannot feed counts the host's gaps
-as well as the card's work. `device_busy_ms` sums the device time of every
-kernel, copy and fill that torch.profiler records over a few calls; beside
-a window, host share = 1 - busy / window says how much of it the card sat
-idle waiting for the host.
+as well as the card's work. `device_busy` takes the time in which the card
+ran at least one kernel, copy or fill that torch.profiler records over a
+few calls: the union of their intervals, overlaps merged (`union_ns`), so
+that two activities at once count once, with the profiler's annotations
+(spans it draws around an op's kernels, gaps included) left out. Beside
+the window of the same function timed without the profiler
+(`interleaved_ms`), host share = 1 - busy / window says how much of that
+window the card sat idle waiting for the host (`busy_row`). A busy time
+above its window is no share: `host_share` refuses it and `busy_row`
+reports the row as failed.
+
+A profiled session may be handed device records of work done before it,
+and may lose some of its own (`scripts/probe_device_busy.py` counts both):
+`session_busy_ns` keeps only the device records that start after the
+session's first host record (the card is idle when a session begins, so no
+work of its calls starts before its first launch), and `device_busy` takes,
+of PROFILE_SESSIONS sessions, the one with the most such records.
 """
 
 from __future__ import annotations
@@ -25,6 +38,7 @@ from typing import Callable
 import torch
 
 REPEATS = 7
+PROFILE_SESSIONS = 3
 
 
 def interleaved_ms(candidates: dict[str, Callable], iters: int | dict[str, int] = 1,
@@ -61,29 +75,74 @@ def interleaved_ms(candidates: dict[str, Callable], iters: int | dict[str, int] 
                    "max": max(times)} for name, times in rounds.items()}
 
 
-def device_busy_ms(fn: Callable, calls: int = 3, warmup: int = 1) -> float | None:
-    """The card's busy time per call of `fn`: the device time of every
-    kernel, copy and fill that torch.profiler records over `calls` calls,
-    summed (the port runs on one stream, so they do not overlap), over
-    `calls`. It reads the profiler's raw events: building its event tree
-    takes seconds a train step. None when the profiler records no device
-    activity."""
+def union_ns(intervals) -> int:
+    """The length of the union of (start, end) intervals: overlapping and
+    nested ones merged before summing, identical ones counted once."""
+    total, reach = 0, None
+    for start, end in sorted(intervals):
+        if reach is None or start > reach:
+            total += end - start
+            reach = end
+        elif end > reach:
+            total += end - reach
+            reach = end
+    return total
+
+
+def session_busy_ns(records) -> tuple[int, int]:
+    """(records, busy) of one profiled session's records (start, end,
+    on_device): the device records that start at or after the first host
+    record's start, and the union of their intervals (`union_ns`)."""
+    records = list(records)
+    first = min((start for start, _, on_device in records if not on_device), default=None)
+    spans = [(start, end) for start, end, on_device in records
+             if on_device and (first is None or start >= first)]
+    return len(spans), union_ns(spans)
+
+
+def device_busy(fn: Callable, calls: int = 3, warmup: int = 1,
+                sessions: int = PROFILE_SESSIONS) -> float | None:
+    """The card's busy ms per call of `fn`: the union of the device
+    intervals of every kernel, copy and fill that torch.profiler records
+    over `calls` calls (its annotations left out), from the one of
+    `sessions` profiled sessions with the most records of its own
+    (`session_busy_ns`); None where no session records device work. It
+    reads the profiler's raw events: building its event tree takes seconds
+    a train step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    busy_ns = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
-                  if e.device_type() == DeviceType.CUDA)
-    return busy_ns / 1e6 / calls if busy_ns > 0 else None
+    best = (0, 0)
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        best = max(best, session_busy_ns(
+            (e.start_ns(), e.end_ns(), e.device_type() == DeviceType.CUDA)
+            for e in prof.profiler.kineto_results.events() if not e.is_user_annotation()))
+    return best[1] / 1e6 / calls if best[1] > 0 else None
 
 
-def host_share(busy_ms: float | None, window_ms: float) -> float | None:
-    """1 - busy / window: the share of an event window in which the card
-    waited for the host; None where the busy time was not measured."""
-    return None if busy_ms is None else 1.0 - busy_ms / window_ms
+def host_share(busy_ms: float | None, window_ms: float | None) -> float | None:
+    """1 - busy / window: the share of a window in which the card waited
+    for the host; None where either was not measured. A busy time above
+    its window raises ValueError: the two did not measure the same work,
+    and no share is made of them."""
+    if busy_ms is None or window_ms is None:
+        return None
+    if busy_ms > window_ms:
+        raise ValueError(f"busy {busy_ms} ms above its {window_ms} ms window")
+    return 1.0 - busy_ms / window_ms
+
+
+def busy_row(busy_ms: float | None, window_ms: float | None) -> dict:
+    """The busy time (`device_busy`) with the host share of the window of
+    the same function timed without the profiler; a busy time above that
+    window is reported as a failed row, with no share."""
+    if busy_ms is not None and window_ms is not None and busy_ms > window_ms:
+        return {"busy_ms": busy_ms, "failed": f"busy above its {window_ms} ms window"}
+    return {"busy_ms": busy_ms, "host_share": host_share(busy_ms, window_ms)}

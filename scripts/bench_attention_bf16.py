@@ -69,7 +69,7 @@ sys.path.insert(0, str(REPO))
 
 from chip_smoke import bf16_grads_check, bf16_o_check  # noqa: E402
 from rlt_tpu_torch.ops import attention, build  # noqa: E402
-from rlt_tpu_torch.utils.timing import device_busy_ms, host_share, interleaved_ms  # noqa: E402
+from rlt_tpu_torch.utils.timing import busy_row, device_busy, interleaved_ms  # noqa: E402
 
 SEQ_LEN = 300
 LONG_L = 2048  # about the products of N = 189 at L = 300, in few long lists
@@ -305,7 +305,9 @@ def serving_rows(dev, other: ctypes.CDLL) -> list[dict]:
     rows = []
     for model_name, (kernel, argtypes) in kernels.items():
         cfg = TrainConfig(model_name=model_name, compute_dtype="bfloat16")
-        predictor = Predictor(cfg, device=dev)
+        # eager: each call goes through the entry point bound at that
+        # moment; a graph would replay the one it captured
+        predictor = Predictor(cfg, device=dev, graphs=False)
         fns = {"other": bind(other, kernel.symbol, argtypes)}
         rng = np.random.default_rng(5)
         for b in (64, 256):
@@ -326,9 +328,8 @@ def serving_rows(dev, other: ctypes.CDLL) -> list[dict]:
                    "ms": {n: r["median"] for n, r in t.items()},
                    "spread_ms": {n: [r["min"], r["max"]] for n, r in t.items()}}
             for name, fn in cands.items():
-                busy = device_busy_ms(fn)
-                row[f"{name}_busy_ms"] = busy
-                row[f"{name}_host_share"] = host_share(busy, row["ms"][name])
+                busy = busy_row(device_busy(fn), row["ms"][name])
+                row.update({f"{name}_{k}": v for k, v in busy.items()})
             kernel._fn = fns["new"]
             log(row)
             rows.append(row)
@@ -383,9 +384,8 @@ def training_rows(dev, other: ctypes.CDLL) -> list[dict]:
                "ms": {n: r["median"] for n, r in t.items()},
                "spread_ms": {n: [r["min"], r["max"]] for n, r in t.items()}}
         for name, fn in cands.items():
-            busy = device_busy_ms(fn)
-            row[f"{name}_busy_ms"] = busy
-            row[f"{name}_host_share"] = host_share(busy, row["ms"][name])
+            busy = busy_row(device_busy(fn), row["ms"][name])
+            row.update({f"{name}_{k}": v for k, v in busy.items()})
         through("new")
         log(row)
         rows.append(row)

@@ -62,7 +62,7 @@ sys.path.insert(0, str(REPO))
 
 from chip_smoke import LSTM_ATOL, LSTM_BWD_REL, bf16_step, kernel_us, max_errs  # noqa: E402
 from rlt_tpu_torch.ops import attention, build, lstm  # noqa: E402
-from rlt_tpu_torch.utils.timing import device_busy_ms, host_share, interleaved_ms  # noqa: E402
+from rlt_tpu_torch.utils.timing import busy_row, device_busy, interleaved_ms  # noqa: E402
 
 SEQ_LEN = 300
 HIDDEN = 128
@@ -312,9 +312,8 @@ def ab_row(meta: dict, libs: dict, first: str, fn) -> dict:
     row = {**meta, "ms": {n: r["median"] for n, r in t.items()},
            "spread_ms": {n: [r["min"], r["max"]] for n, r in t.items()}}
     for name, call in cands.items():
-        busy = device_busy_ms(call)
-        row[f"{name}_busy_ms"] = busy
-        row[f"{name}_host_share"] = host_share(busy, row["ms"][name])
+        row.update({f"{name}_{k}": v
+                    for k, v in busy_row(device_busy(call), row["ms"][name]).items()})
     swap(libs, "new")
     log(row)
     return row
@@ -327,7 +326,9 @@ def serving_rows(dev, libs: dict, first: str) -> list[dict]:
     rows = []
     for model_name in ("mmoecut", "bicut"):
         cfg = TrainConfig(model_name=model_name, compute_dtype="bfloat16")
-        predictor = Predictor(cfg, device=dev)
+        # eager: each call goes through the entry point bound at that
+        # moment; a graph would replay the one it captured
+        predictor = Predictor(cfg, device=dev, graphs=False)
         rng = np.random.default_rng(5)
         for b in (64, 256):
             x = torch.from_numpy(rng.normal(size=(b, cfg.seq_len, cfg.input_size))

@@ -731,8 +731,12 @@ def test_bf16_predictor_on_card_matches_plain(cuda_device, model_name):
     cfg = TrainConfig(model_name=model_name, retrieve_data="robust04",
                       compute_dtype="bfloat16")
     card = Predictor(cfg, device=cuda_device)
+    # the references run through the plain versions, so eager: a graph
+    # replays the kernels it captured
+    plain = Predictor(cfg, state_dict=card.model.state_dict(), device=cuda_device,
+                      graphs=False)
     ref32 = Predictor(TrainConfig(model_name=model_name, retrieve_data="robust04"),
-                      state_dict=card.model.state_dict(), device=cuda_device)
+                      state_dict=card.model.state_dict(), device=cuda_device, graphs=False)
     x = np.random.default_rng(180).normal(
         size=(4, cfg.seq_len, cfg.input_size)).astype(np.float32)
     before = {name: k.launches for name, k in KERNELS.items()}
@@ -740,7 +744,7 @@ def test_bf16_predictor_on_card_matches_plain(cuda_device, model_name):
     used = {name for name, k in KERNELS.items() if k.launches != before[name]}
     assert used and all(name.endswith("_bf16") for name in used), used
     with plain_ops():
-        want_ks, want_dist = card.predict_with_distribution(x)
+        want_ks, want_dist = plain.predict_with_distribution(x)
         dist32 = ref32.predict_with_distribution(x)[1]
     assert dist.dtype == np.float32 and np.all(np.isfinite(dist))
     d_ref = want_dist - dist32
