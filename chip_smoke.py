@@ -12,10 +12,11 @@ a list of L = 2048, the backwards at dropout rates 0 and 0.1, each bound
 by the largest of its bytes, its products and one exponential a score,
 with the keep hash's floor beside it at rate 0.1; the bf16 LSTM kernels
 with their tensor-core bound, K2''s passes timed apart by torch.profiler),
-then drives thirty-three main paths at robust04 width (L = 300, seeded
-random weights): serving and training in float32, and serving and training
+then drives forty-eight main paths at robust04 width (L = 300, seeded
+random weights): serving and training in float32, serving and training
 in bf16 (`<model>-serve-bf16` and `<model>-train-bf16`:
-`compute_dtype="bfloat16"`, through the bf16 kernel instances only), of
+`compute_dtype="bfloat16"`, through the bf16 kernel instances only), and
+population training in both (`<model>-population[-bf16]`), of
 MMOECut, MOECut,
 AttnCut and MtAttnCut (F = 3, 4 heads of dh = 64: the packed attention
 kernels, over the stacked (3 * B) experts of MMOECut and MOECut and over
@@ -55,20 +56,30 @@ through the plain versions on the card, against d_ref, the distance between
 that bf16 plain run and the float32 one.
 
 Population training (`rlt_tpu_torch/population.py`) comes last: K1' and K2'
-over K = 4 and 8 members' BiLSTM layers in one launch (ndir = 2K) against
-their plain versions, K launches at ndir = 2 and cuDNN; the
-`mmoecut-population` path, `train_population` of 4 MMOECut members of
-distinct seed, lr and weight decay for one epoch (2 K1', 2 K2', 1 K5' and
-1 K6' a step for the whole population), each member held to its own
-sequential `Trainer` on the card; and a population of 8 members' epoch
-against 8 sequential epochs.
+over K = 4 and 8 members' BiLSTM layers in one launch (ndir = 2K), f32 and
+bf16, against their plain versions, K launches at ndir = 2 and cuDNN; K3'-K6'
+in f32 and bf16 at the population paths' member-batched rows for K = 4
+and 8 (K * E * B and K * B packed rows at dh = 64 and 16, PLECut's K * E *
+B * 2 slices);
+the `<model>-population` and `<model>-population-bf16` paths of all eight
+models, `train_population` of 4 members of distinct seed, lr and weight
+decay for one epoch, each population step one CUDA graph (one sequential
+step's launches a step for the whole population), each member held to its
+own graphed sequential `Trainer` on the card, and three graphed population
+steps bit for bit against three eager ones; and, per model and dtype, a
+population of 8 members' epoch against 8 graphed sequential epochs.
 
 Every time is the median of rounds taken in turns with what it is compared
 with (`rlt_tpu_torch/utils/timing.py`), printed with its spread; every
 train step, the bucket-64 and bucket-256 forwards and the population's
-epochs also carry the card's busy time from torch.profiler and the host's
-share of the window timed without the profiler (a busy time above that
-window is printed as a failed row, with no share). It prints a `graphs` JSON line per model and dtype (the graphed
+epochs also carry the card's busy time from torch.profiler, the host's
+share of the CUDA-event window of the same profiled calls, and the
+profiler's stretch (that window over the window timed without it); a
+session that kept fewer device records than its calls make, or than 0.9
+of the fullest session of its row, is not taken,
+and a row with no complete session, or busy above its profiled window,
+fails the script, as does a graphed step or bucket whose busy is not
+within 5% of its eager twin's. It prints a `graphs` JSON line per model and dtype (the graphed
 and eager step and buckets), a `kernels` JSON line, the card's name and
 power limit, and last
 `{"ok": true, "device": {...}}`. Any failed check raises, and the script
@@ -81,6 +92,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import re
 import subprocess
@@ -121,9 +133,12 @@ BF16_PATHS = tuple(f"{m}-serve-bf16" for m in MODELS)
 # rows. The members of the checked path (distinct seed, lr and weight
 # decay, one dropout rate), and the sizes the member-batched LSTM kernels
 # and the population's epoch are timed at.
-POPULATION_PATH = "mmoecut-population"
+POPULATION_PATHS = tuple(f"{m}-population{d}" for m in MODELS for d in ("", "-bf16"))
 POPULATION_MEMBERS = ((0, 3e-5, 0.0), (1, 1e-4, 1e-3), (2, 1e-5, 5e-3), (3, 3e-4, 1e-2))
 POPULATION_SIZES = (4, 8)
+# rounds of the K = 8 population epoch against the sequential epochs
+# (`interleaved_ms`), fewer than REPEATS: 16 cells of epochs up to a second
+POPULATION_REPEATS = 3
 # the packed attention rows of the checked population path: K * E * B
 POPULATION_ROWS = POPULATION_SIZES[0] * EXPERTS * BATCHES[0]
 # the bf16 forwards of dh = 64 and 128 also at a list of LONG_L, whose K/V
@@ -275,12 +290,17 @@ INT_OPS_PER_CLOCK_SM = 64
 
 
 # Timing (rlt_tpu_torch/utils/timing.py): every time is the median of
-# REPEATS rounds taken in turns with what it is compared with in the same
-# call (a kernel with its library call; a population with its sequential
-# runs), printed with its least and most round; a plain version, which is
-# no yardstick of speed, the median of PLAIN_REPEATS single calls.
+# rounds taken in turns with what it is compared with in the same call (a
+# kernel with its library call, REPEATS; a graph with its eager twin,
+# PATH_REPEATS; a population with its sequential runs, POPULATION_REPEATS),
+# printed with its least and most round; a plain version, which is no
+# yardstick of speed, the median of PLAIN_REPEATS single calls.
 REPEATS = 7
 PLAIN_REPEATS = 3
+# rounds of the main paths' timings (graphed against eager, an epoch, a
+# step in its parts, a forward's stages), fewer than the kernels' REPEATS
+# so that the smoke keeps its time with the sixteen population paths
+PATH_REPEATS = 5
 
 
 def log(msg: str) -> None:
@@ -300,11 +320,28 @@ def cuda_ms(fn, iters: int = 3, repeats: int = REPEATS) -> float:
     return interleaved_ms({"fn": fn}, iters, repeats)["fn"]["median"]
 
 
-def plain_time(fn) -> float:
+PLAIN_TIMED = [True]  # `plain_time`'s switch (`untimed_plain`)
+
+
+def plain_time(fn) -> float | None:
     """A plain version's median device ms over PLAIN_REPEATS single calls:
     it repeats the kernel's arithmetic and is no yardstick of speed, and
-    some take a second a call."""
+    some take a second a call. None inside `untimed_plain()`."""
+    if not PLAIN_TIMED[0]:
+        return None
     return cuda_ms(fn, iters=1, repeats=PLAIN_REPEATS)
+
+
+@contextlib.contextmanager
+def untimed_plain():
+    """Checks against the plain versions without timing them: the
+    member-batched rows, whose plain versions' times say nothing the main
+    rows' do not and take the most of the smoke's seconds there."""
+    PLAIN_TIMED[0] = False
+    try:
+        yield
+    finally:
+        PLAIN_TIMED[0] = True
 
 
 def timed(kernel, library=None, iters: int = 3, **others) -> dict:
@@ -364,6 +401,25 @@ def max_errs(got, want) -> tuple[float, float]:
     """(max abs error, max abs error over the reference's max abs)."""
     err = (got - want).abs().max().item()
     return err, err / max(want.abs().max().item(), 1e-30)
+
+
+class CardDraws:
+    """A stand-in for the checks' numpy generator whose normal() draws on
+    the card from a seeded torch generator and hands back a host array: the
+    member-batched checks' inputs reach 116 M values a tensor, which numpy
+    draws in seconds. Every other draw is numpy's, on a generator of the
+    same seed."""
+
+    def __init__(self, seed: int, dev):
+        self.dev = dev
+        self.card = torch.Generator(device=dev).manual_seed(seed)
+        self.host = np.random.default_rng(seed)
+
+    def normal(self, size) -> np.ndarray:
+        return torch.randn(size, generator=self.card, device=self.dev).cpu().numpy()
+
+    def __getattr__(self, name: str):
+        return getattr(self.host, name)
 
 
 def random_streams(rng, n: int, dev) -> torch.Tensor:
@@ -487,43 +543,59 @@ def lstm_waves(ndir: int, batch: int) -> tuple[int, int, int]:
     return rows, blocks, -(-blocks // sms)
 
 
-def check_lstm_members(dev, rng) -> dict:
+def check_lstm_members(dev, rng, bf16: bool = False) -> dict:
     """K1' and K2' member-batched, as the population runs them: K members'
     BiLSTM layers in one launch at ndir = 2K, direction 2m + s with its own
-    W_hh^T, at B = 63 lists a member, K in POPULATION_SIZES. Each against
-    its plain version (K1' within LSTM_ATOL, K2' within LSTM_BWD_REL of the
-    max abs, two K2' launches bit-equal), and timed in turns against K
+    W_hh^T, at B = 63 lists a member, K in POPULATION_SIZES; with `bf16`
+    their bf16 instances on bf16 xw, W_hh^T and dho. Each against its plain
+    version (K1' within LSTM_ATOL, K2' within LSTM_BWD_REL of the max abs;
+    in bf16 cs and dW_hh^T so, hs and dxw within one bf16 step beyond
+    that), two launches of each bit-equal, and timed in turns against K
     launches at ndir = 2 on the members' slices (`sequential_ms`, the
     population's alternative) and against cuDNN's two-direction LSTM over
     the K * B rows with ONE set of weights (`cudnn_shared_ms`: not the same
     function, so library_ms is null)."""
     from rlt_tpu_torch.ops import lstm
 
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    fwd, bwd = (lstm.lstm_fwd_bf16, lstm.lstm_bwd_bf16) if bf16 else (lstm.lstm_fwd,
+                                                                     lstm.lstm_bwd)
+    tag = "_bf16" if bf16 else ""
     batch, out = BATCHES[0], {}
     for k in POPULATION_SIZES:
         ndir = 2 * k
         xw = torch.from_numpy(rng.normal(size=(SEQ_LEN, ndir * batch, 4 * HIDDEN))
-                              .astype(np.float32)).to(dev)
-        w = lstm_weights(rng, ndir, dev)
+                              .astype(np.float32)).to(dev, dtype)
+        w = lstm_weights(rng, ndir, dev).to(dtype)
         dho = torch.from_numpy(rng.normal(size=(SEQ_LEN, ndir * batch, HIDDEN))
-                               .astype(np.float32)).to(dev)
-        hs, cs = lstm.lstm_fwd(xw, w, ndir)
+                               .astype(np.float32)).to(dev, dtype)
+        hs, cs = fwd(xw, w, ndir)
         torch.cuda.synchronize()
         want_hs, want_cs = lstm.lstm_recurrence_plain(xw, w, ndir)
-        fwd_err = max((hs - want_hs).abs().max().item(), (cs - want_cs).abs().max().item())
-        require(bool(torch.isfinite(hs).all()) and fwd_err <= LSTM_ATOL,
-                f"lstm_fwd K={k} (ndir {ndir}): max abs err {fwd_err} > {LSTM_ATOL}")
-        dxw, dw = lstm.lstm_bwd(xw, w, want_hs, want_cs, dho, ndir)
+        hs_diff = (hs.float() - want_hs.float()).abs()
+        fwd_err = max(hs_diff.max().item(), (cs - want_cs).abs().max().item())
+        fwd_beyond = max((hs_diff - bf16_step(want_hs)).max().item() if bf16 else fwd_err,
+                         (cs - want_cs).abs().max().item())
+        require(bool(torch.isfinite(hs).all()) and fwd_beyond <= LSTM_ATOL,
+                f"lstm_fwd{tag} K={k} (ndir {ndir}): max abs err {fwd_err} ({fwd_beyond} "
+                f"beyond the bf16 step) > {LSTM_ATOL}")
+        require(all(torch.equal(a, b) for a, b in zip((hs, cs), fwd(xw, w, ndir))),
+                f"lstm_fwd{tag} K={k}: two launches on the same inputs differ")
+        dxw, dw = bwd(xw, w, want_hs, want_cs, dho, ndir)
         torch.cuda.synchronize()
         want_dxw, want_dw = lstm.lstm_bwd_plain(xw, w, want_hs, want_cs, dho, ndir)
-        errs = [max_errs(dxw, want_dxw), max_errs(dw, want_dw)]
+        errs = [max_errs(dxw.float(), want_dxw.float()), max_errs(dw, want_dw)]
         bwd_rel = max(e[1] for e in errs)
+        if bf16:  # dxw within one bf16 step beyond LSTM_BWD_REL of its max abs
+            beyond = ((dxw.float() - want_dxw.float()).abs()
+                      - bf16_step(want_dxw)).max().item()
+            bwd_rel = max(beyond / want_dxw.float().abs().max().item(), errs[1][1])
         require(bool(torch.isfinite(dxw).all() and torch.isfinite(dw).all())
                 and bwd_rel <= LSTM_BWD_REL,
-                f"lstm_bwd K={k} (ndir {ndir}): max rel err {bwd_rel} > {LSTM_BWD_REL}")
-        again = lstm.lstm_bwd(xw, w, want_hs, want_cs, dho, ndir)
+                f"lstm_bwd{tag} K={k} (ndir {ndir}): max rel err {bwd_rel} > {LSTM_BWD_REL}")
+        again = bwd(xw, w, want_hs, want_cs, dho, ndir)
         require(torch.equal(dxw, again[0]) and torch.equal(dw, again[1]),
-                f"lstm_bwd K={k}: two launches on the same inputs differ")
+                f"lstm_bwd{tag} K={k}: two launches on the same inputs differ")
         # each member's slice at ndir = 2, contiguous, as its own run holds it
         rows = 2 * batch
         slices = [(xw[:, m * rows:(m + 1) * rows].contiguous(),
@@ -531,43 +603,63 @@ def check_lstm_members(dev, rng) -> dict:
                    want_hs[:, m * rows:(m + 1) * rows].contiguous(),
                    want_cs[:, m * rows:(m + 1) * rows].contiguous(),
                    dho[:, m * rows:(m + 1) * rows].contiguous()) for m in range(k)]
-        cudnn = torch.nn.LSTM(HIDDEN, HIDDEN, batch_first=True, bidirectional=True).to(dev)
+        cudnn = torch.nn.LSTM(HIDDEN, HIDDEN, batch_first=True, bidirectional=True,
+                              device=dev, dtype=dtype)
+        cudnn.flatten_parameters()
         x_in = torch.from_numpy(rng.normal(size=(k * batch, SEQ_LEN, HIDDEN))
-                                .astype(np.float32)).to(dev)
+                                .astype(np.float32)).to(dev, dtype)
         with torch.no_grad():
-            fwd_t = timed(lambda: lstm.lstm_fwd(xw, w, ndir),
-                          sequential=lambda: [lstm.lstm_fwd(a, b, 2)
-                                              for a, b, *_ in slices],
+            fwd_t = timed(lambda: fwd(xw, w, ndir),
+                          sequential=lambda: [fwd(a, b, 2) for a, b, *_ in slices],
                           cudnn_shared=lambda: cudnn(x_in))
         x_in.requires_grad_()
         y, _ = cudnn(x_in)
         g_out = torch.randn_like(y)
         wrt = [x_in, *cudnn.parameters()]
-        bwd_t = timed(lambda: lstm.lstm_bwd(xw, w, want_hs, want_cs, dho, ndir),
-                      sequential=lambda: [lstm.lstm_bwd(*sl, 2) for sl in slices],
+        bwd_t = timed(lambda: bwd(xw, w, want_hs, want_cs, dho, ndir),
+                      sequential=lambda: [bwd(*sl, 2) for sl in slices],
                       cudnn_shared=lambda: torch.autograd.grad(y, wrt, g_out,
                                                                retain_graph=True))
         fwd_plain = plain_time(lambda: lstm.lstm_recurrence_plain(xw, w, ndir))
         bwd_plain = plain_time(lambda: lstm.lstm_bwd_plain(xw, w, want_hs, want_cs, dho,
                                                            ndir))
         state = SEQ_LEN * ndir * batch * HIDDEN
-        fwd_bound = bound(4 * (4 * state + ndir * HIDDEN * 4 * HIDDEN + 2 * state),
-                          2 * state * 4 * HIDDEN + 10 * state)
-        bwd_bound = bound(4 * (2 * 4 * state + 2 * ndir * HIDDEN * 4 * HIDDEN + 3 * state),
-                          3 * 2 * 4 * state * HIDDEN)
+        weights = ndir * HIDDEN * 4 * HIDDEN
+        tc = {}
+        if bf16:  # check_lstm_bf16's and check_lstm_bwd_bf16's bytes and products
+            fwd_bytes = 2 * (4 * state + weights + state) + 4 * state
+            fwd_bound = bound(fwd_bytes, 2 * state * 4 * HIDDEN + 10 * state)
+            product = 2 * 4 * state * HIDDEN
+            bwd_bytes = 2 * (2 * 4 * state + weights + 2 * state) + 4 * (state + weights)
+            bwd_bound = bound(bwd_bytes,
+                              2 * product + product * PEAK_F32_FLOPS / PEAK_BF16_FLOPS)
+            # and their bound_tc_ms: the kernels' own products (three-part
+            # h_{t-1}; the recompute and two three-part dgates products) at
+            # the dense bf16 rate
+            tc = {"lstm_fwd": dict(bound_tc_ms=bound(fwd_bytes, 3 * product,
+                                                     PEAK_BF16_FLOPS)[0]),
+                  "lstm_bwd": dict(bound_tc_ms=bound(bwd_bytes, 7 * product,
+                                                     PEAK_BF16_FLOPS)[0])}
+        else:
+            fwd_bound = bound(4 * (4 * state + weights + 2 * state),
+                              2 * state * 4 * HIDDEN + 10 * state)
+            bwd_bound = bound(4 * (2 * 4 * state + 2 * weights + 3 * state),
+                              3 * 2 * 4 * state * HIDDEN)
         r, blocks, waves = lstm_waves(ndir, batch)
         shape = dict(members=k, ndir=ndir, batch=batch, rows_per_block=r, blocks=blocks,
                      waves=waves, library_ms=None)
         out[k] = {
             "lstm_fwd": dict(shape, max_abs_err=fwd_err, **fwd_t, plain_ms=fwd_plain,
                              sequential_ratio=fwd_t["ms"] / fwd_t["sequential_ms"],
-                             bound_ms=fwd_bound[0], bound_by=fwd_bound[1]),
+                             bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
+                             **tc.get("lstm_fwd", {})),
             "lstm_bwd": dict(shape, max_abs_err=max(e[0] for e in errs),
                              max_rel_err=bwd_rel, **bwd_t, plain_ms=bwd_plain,
                              sequential_ratio=bwd_t["ms"] / bwd_t["sequential_ms"],
-                             bound_ms=bwd_bound[0], bound_by=bwd_bound[1])}
+                             bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+                             **tc.get("lstm_bwd", {}))}
         for name, row in out[k].items():
-            log(f"{name} members " + json.dumps(row))
+            log(f"{name}{tag} members " + json.dumps(row))
     return out
 
 
@@ -586,6 +678,9 @@ def check_attention(dev, rng, d_model: int = D_MODEL, heads: int = HEADS,
                                     .astype(np.float32)).to(dev) for _ in range(3))
         o, lse = attention.fused_attention_packed(q, k, v, heads=heads, pack=pack)
         torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(
+            (o, lse), attention.fused_attention_packed(q, k, v, heads=heads, pack=pack))),
+                f"attention_packed_fwd dh={dh} N={n}: two launches on the same inputs differ")
         want_o, want_lse = attention.attention_packed_plain(q, k, v, heads, pack)
         err = max((o - want_o).abs().max().item(), (lse - want_lse).abs().max().item())
         require(bool(torch.isfinite(o).all()), "attention_packed_fwd: non-finite o")
@@ -765,17 +860,20 @@ def slice_bound(n: int, backward: bool) -> dict:
     return bounds(4 * (4 * elems + n * SEQ_LEN + n), 4 * elems * SEQ_LEN)
 
 
-def check_slice_attention(dev, rng) -> dict:
-    """K3' against `attention_plain` at PLECut's shapes, rates 0 and 0.1 on
-    the same streams (so the same keep mask); at rate 0 with streams it is
+SLICE_ROWS = tuple(EXPERTS * batch for batch in BATCHES)  # PLECut's E * B rows
+
+
+def check_slice_attention(dev, rng, rows: tuple = SLICE_ROWS) -> dict:
+    """K3' against `attention_plain` at PLECut's shapes (n rows of 2 slices),
+    rates 0 and 0.1 on the same streams (so the same keep mask), a second
+    launch at rate 0.1 bit-equal to the first; at rate 0 with streams it is
     bit-equal to the call without. library_ms: f32
     scaled_dot_product_attention, with dropout_p 0.1 for the dropout row
     (its own mask)."""
     from rlt_tpu_torch.ops import attention
 
-    rows = []
-    for batch in BATCHES:
-        n = EXPERTS * batch
+    n_rows, rows = rows, []
+    for n in n_rows:
         q, k, v = (torch.from_numpy(rng.normal(size=(n, SLICE_HEADS, SEQ_LEN, SLICE_DH))
                                     .astype(np.float32)).to(dev) for _ in range(3))
         streams = random_streams(rng, n * SLICE_HEADS, dev)
@@ -796,6 +894,9 @@ def check_slice_attention(dev, rng) -> dict:
             else:
                 require((o - o_none).abs().max().item() > 1e-3,
                         "attention_fwd: dropout changed nothing")
+                require(all(torch.equal(a, b) for a, b in zip(
+                    (o, lse), attention.attention_fwd(q, k, v, rate, streams))),
+                        f"attention_fwd N={n}: two launches on the same inputs differ")
             plain_ms = plain_time(lambda: attention.attention_plain(q, k, v, rate, streams))
             t = timed(lambda: attention.attention_fwd(q, k, v, rate, streams),
                       lambda: F.scaled_dot_product_attention(q, k, v, dropout_p=rate))
@@ -808,7 +909,7 @@ def check_slice_attention(dev, rng) -> dict:
     return {"rows": rows, "max_abs_err": max(r["max_abs_err"] for r in rows)}
 
 
-def check_slice_attention_bwd(dev, rng) -> dict:
+def check_slice_attention_bwd(dev, rng, rows: tuple = SLICE_ROWS) -> dict:
     """K4' against `attention_bwd_plain` at rates 0 and 0.1, on K3''s o and
     lse, and a second launch at rate 0.1 bit-equal to the first. The main
     times are at rate 0.1, the training path's, with library_ms the backward
@@ -816,9 +917,8 @@ def check_slice_attention_bwd(dev, rng) -> dict:
     holds the times without dropout."""
     from rlt_tpu_torch.ops import attention
 
-    rows = []
-    for batch in BATCHES:
-        n = EXPERTS * batch
+    n_rows, rows = rows, []
+    for n in n_rows:
         q, k, v, do = (torch.from_numpy(rng.normal(size=(n, SLICE_HEADS, SEQ_LEN, SLICE_DH))
                                         .astype(np.float32)).to(dev) for _ in range(4))
         streams = random_streams(rng, n * SLICE_HEADS, dev)
@@ -981,6 +1081,12 @@ def check_attention_bf16(dev, rng, d_model: int = D_MODEL, heads: int = HEADS,
             if rate == 0.0:
                 require(torch.equal(o, o_none), "attention_packed_fwd_bf16: rate 0 with "
                         "streams differs from the call without dropout")
+            else:
+                require(all(torch.equal(a, b) for a, b in zip((o, lse), (
+                    attention.attention_packed_fwd_bf16(q, k, v, heads, pack, rate,
+                                                        streams)))),
+                        f"attention_packed_fwd_bf16 dh={dh} N={n}: two launches on the "
+                        "same inputs differ")
             plain_ms = plain_time(lambda: attention.attention_packed_plain(
                 q, k, v, heads, pack, rate, streams))
             by_head = [t.view(n, length, heads, dh).transpose(1, 2) for t in (q, k, v)]
@@ -1000,16 +1106,18 @@ def check_attention_bf16(dev, rng, d_model: int = D_MODEL, heads: int = HEADS,
     return res
 
 
-def check_slice_attention_bf16(dev, rng) -> dict:
+def check_slice_attention_bf16(dev, rng, rows: tuple | None = None) -> dict:
     """K3''s bf16 instance against `attention_plain` on the same bf16 q, k,
     v at PLECut's shapes, rates 0 and 0.1 on the same streams (rate 0 with
-    streams bit-equal to the call without), and at LONG_SLICE_ROWS rows of
-    L = LONG_L as res["long"]. library_ms: bf16
-    scaled_dot_product_attention."""
+    streams bit-equal to the call without, a second launch at rate 0.1
+    bit-equal to the first), and at LONG_SLICE_ROWS rows of L = LONG_L as
+    res["long"]; with `rows`, at those n rows of 2 slices only.
+    library_ms: bf16 scaled_dot_product_attention."""
     from rlt_tpu_torch.ops import attention
 
+    shapes = ([(n, SEQ_LEN) for n in SLICE_ROWS] + [(LONG_SLICE_ROWS, LONG_L)]
+              if rows is None else [(n, SEQ_LEN) for n in rows])
     rows = []
-    shapes = [(EXPERTS * batch, SEQ_LEN) for batch in BATCHES] + [(LONG_SLICE_ROWS, LONG_L)]
     for n, length in shapes:
         gen = rng if length == SEQ_LEN else np.random.default_rng(LONG_L)
         q, k, v = (torch.from_numpy(gen.normal(size=(n, SLICE_HEADS, length, SLICE_DH))
@@ -1027,6 +1135,10 @@ def check_slice_attention_bf16(dev, rng) -> dict:
             if rate == 0.0:
                 require(torch.equal(o, o_none), "attention_fwd_bf16: rate 0 with streams "
                         "differs from the call without dropout")
+            else:
+                require(all(torch.equal(a, b) for a, b in zip(
+                    (o, lse), attention.attention_fwd_bf16(q, k, v, rate, streams))),
+                        f"attention_fwd_bf16 N={n}: two launches on the same inputs differ")
             plain_ms = plain_time(lambda: attention.attention_plain(q, k, v, rate, streams))
             t = timed(lambda: attention.attention_fwd_bf16(q, k, v, rate, streams),
                       lambda: F.scaled_dot_product_attention(q, k, v, dropout_p=rate))
@@ -1036,8 +1148,11 @@ def check_slice_attention_bf16(dev, rng) -> dict:
         row["max_abs_err"] = max(row["max_abs_err"], row["dropout_0.1"]["max_abs_err"])
         log("attention_fwd_bf16 " + json.dumps(row))
         rows.append(row)
-    return {"rows": rows[:-1], "long": rows[-1],
-            "max_abs_err": max(r["max_abs_err"] for r in rows)}
+    res = {"rows": [r for r in rows if r["length"] == SEQ_LEN],
+           "max_abs_err": max(r["max_abs_err"] for r in rows)}
+    if rows[-1]["length"] != SEQ_LEN:
+        res["long"] = rows[-1]
+    return res
 
 
 def check_lstm_bwd_bf16(dev, rng) -> dict:
@@ -1226,16 +1341,19 @@ def check_attention_bwd_bf16(dev, rng, d_model: int = D_MODEL, heads: int = HEAD
     return res
 
 
-def check_slice_attention_bwd_bf16(dev, rng) -> dict:
+def check_slice_attention_bwd_bf16(dev, rng, rows: tuple | None = None) -> dict:
     """K4''s bf16 instance against `attention_bwd_plain` on the same bf16 q,
     k, v, do and the plain version's o and lse, at PLECut's 378 slices of its
     63-list batch (`bf16_bwd_rates`), and at LONG_SLICE_ROWS rows of L =
-    LONG_L as res["long"]. library_ms: the backward alone of bf16
-    scaled_dot_product_attention at the same dropout rate."""
+    LONG_L as res["long"]; with `rows`, at those n rows of 2 slices only.
+    library_ms: the backward alone of bf16 scaled_dot_product_attention at
+    the same dropout rate."""
     from rlt_tpu_torch.ops import attention
 
+    shapes = (((EXPERTS * BATCHES[0], SEQ_LEN), (LONG_SLICE_ROWS, LONG_L)) if rows is None
+              else [(n, SEQ_LEN) for n in rows])
     rows = []
-    for n, length in ((EXPERTS * BATCHES[0], SEQ_LEN), (LONG_SLICE_ROWS, LONG_L)):
+    for n, length in shapes:
         gen = rng if length == SEQ_LEN else np.random.default_rng(LONG_L + 2)
         q, k, v, do = (torch.from_numpy(gen.normal(size=(n, SLICE_HEADS, length, SLICE_DH))
                                         .astype(np.float32)).to(dev).bfloat16()
@@ -1257,8 +1375,86 @@ def check_slice_attention_bwd_bf16(dev, rng) -> dict:
             n * SLICE_HEADS, SLICE_DH, length))
         log("attention_bwd_bf16 " + json.dumps(row))
         rows.append(row)
-    return {"rows": rows[:-1], "long": rows[-1],
-            "max_abs_err": max(r["max_abs_err"] for r in rows)}
+    res = {"rows": [r for r in rows if r["length"] == SEQ_LEN],
+           "max_abs_err": max(r["max_abs_err"] for r in rows)}
+    if rows[-1]["length"] != SEQ_LEN:
+        res["long"] = rows[-1]
+    return res
+
+
+# the member-batched attention shapes of the population paths at K = 4 and
+# of the K = 8 timing: K * E * B packed rows (MMOECut, MOECut) and K * B
+# (AttnCut, MtAttnCut at dh = 64; Choopy, MtChoopy at dh = 16), and PLECut's
+# K * E * B rows of 2 slices
+MEMBER_ROWS = {k: {"experts": k * EXPERTS * BATCHES[0], "lists": k * BATCHES[0]}
+               for k in POPULATION_SIZES}
+
+
+def check_member_attention(dev) -> dict:
+    """K3'-K6', f32 and bf16, against their plain versions at the member-
+    batched shapes the population paths run (`MEMBER_ROWS`), each with its
+    times, two launches bit-equal: {dtype: {kernel: {"dh_64" or "dh_16":
+    (result, dropout result), or a per-slice result}}}. Both dtypes at K = 4
+    (the checked paths) and K = 8 (the timed epochs): K * E * B and K * B
+    rows at dh 64, K * B rows at dh 16, PLECut's K * E * B * 2 slices."""
+    rng = CardDraws(190, dev)
+    choopy = dict(d_model=CHOOPY_D, heads=CHOOPY_HEADS)
+    rows64 = tuple(MEMBER_ROWS[k][s] for k in POPULATION_SIZES for s in ("experts", "lists"))
+    rows16 = tuple(MEMBER_ROWS[k]["lists"] for k in POPULATION_SIZES)
+    slices = tuple(MEMBER_ROWS[k]["experts"] for k in POPULATION_SIZES)
+    f32 = {"attention_packed_fwd": {
+               "dh_64": (check_attention(dev, rng, rows=rows64),
+                         check_attention_dropout(dev, rng, rows=rows64)),
+               "dh_16": (check_attention(dev, rng, rows=rows16, **choopy),
+                         check_attention_dropout(dev, rng, rows=rows16, **choopy))},
+           "attention_packed_bwd": {
+               "dh_64": (check_attention_bwd(dev, rng, rows=rows64), None),
+               "dh_16": (check_attention_bwd(dev, rng, rows=rows16, **choopy), None)},
+           "attention_fwd": check_slice_attention(dev, rng, rows=slices),
+           "attention_bwd": check_slice_attention_bwd(dev, rng, rows=slices)}
+    bf16 = {"attention_packed_fwd": {
+                "dh_64": (check_attention_bf16(dev, rng, rows=rows64), None),
+                "dh_16": (check_attention_bf16(dev, rng, rows=rows16, **choopy), None)},
+            "attention_packed_bwd": {
+                "dh_64": (check_attention_bwd_bf16(dev, rng, rows=rows64), None),
+                "dh_16": (check_attention_bwd_bf16(dev, rng, rows=rows16, **choopy), None)},
+            "attention_fwd": check_slice_attention_bf16(dev, rng, rows=slices),
+            "attention_bwd": check_slice_attention_bwd_bf16(dev, rng, rows=slices)}
+    return {"float32": f32, "bfloat16": bf16}
+
+
+MEMBER_KEYS = ("ms", "plain_ms", "library_ms", "library_ratio", "spread_ms", "bound_ms",
+               "bound_tc_ms", "bound_by", "bound_term", "hash_floor_ms", "max_abs_err",
+               "max_rel_err")
+
+
+def member_max_err(res: dict) -> float:
+    if "rows" in res:
+        return res["max_abs_err"]
+    return max(r["max_abs_err"] for main, drop in res.values()
+               for r in (main, drop) if r is not None)
+
+
+def member_entry(res: dict, keys: tuple) -> dict:
+    """The kernels line's `members` sub-entry of an attention kernel: its
+    rows at the member-batched shapes (`check_member_attention`), `n_<N>`
+    for the packed kernels by head width, `slices_<S>` for the per-slice
+    ones, each with its other rate."""
+    def pick(r):
+        out = {k: r[k] for k in keys if k in r}
+        for variant in ("dropout_0.1", "rate_0"):
+            if variant in r:
+                out[variant] = {k: r[variant][k] for k in keys if k in r[variant]}
+        return out
+
+    if "rows" in res:  # per-slice
+        return {f"slices_{r['n'] * SLICE_HEADS}": pick(r) for r in res["rows"]}
+    entry = {}
+    for width, (main, drop) in res.items():
+        entry[width] = {f"n_{r['n']}": pick(r) for r in main["rows"]}
+        for r in (drop or {}).get("rows", ()):
+            entry[width][f"n_{r['n']}"]["dropout_0.1"] = pick(r)
+    return entry
 
 
 def reset_counts() -> None:
@@ -1461,8 +1657,8 @@ def serve_end_to_end(rng, model_name: str, list_counts: tuple[int, ...],
     timing, rows = {}, {}
     for b in (1, 8, 64, 256):
         x = torch.zeros(b, predictor.cfg.seq_len, predictor.cfg.input_size, device="cuda")
-        t = graphed_against_eager(lambda: predictor._forward(x), lambda: eager._forward(x),
-                                  3, with_busy=b in (64, 256))
+        t = graphed_against_eager(f"{label} bucket {b}", lambda: predictor._forward(x),
+                                  lambda: eager._forward(x), 3, with_busy=b in (64, 256))
         timing[b] = t["graphed"]["window_ms"]
         if b in (64, 256):
             rows[f"bucket_{b}"] = t
@@ -1520,22 +1716,48 @@ def refuses_in_plain_ops(replay) -> bool:
     return False
 
 
-def graphed_against_eager(graphed, eager, iters: int, with_busy: bool = True,
+GRAPH_CHECK_STEPS = 3
+BUSY_REL = 0.05  # a graph replays the eager step's device work: its busy ms within 5%
+# A graph replays at least the device work of its eager twin: a graphed
+# session holding fewer than this share of the eager session's device
+# records a call lost some (`device_busy`'s short sessions).
+RECORDS_OF_EAGER = 0.9
+
+
+def graphed_against_eager(label: str, graphed, eager, iters: int, with_busy: bool = True,
                           busy_calls: int = 3) -> dict:
     """The window of `graphed` (a graph replay) and of `eager` (the same work
     issued op by op) in turns (`interleaved_ms`, the order reversed in odd
     rounds), each with its spread and, with `with_busy`, the card's busy ms
-    over `busy_calls` profiled calls (`device_busy`) and the host share of
-    the window (`busy_row`: a busy time above its window is a failed row)."""
+    over `busy_calls` profiled calls (`device_busy`), the host share of the
+    profiled window of the same session and the profiler's stretch
+    (`busy_row`). A graphed session must keep RECORDS_OF_EAGER of the eager
+    session's device records a call; a row whose sessions were all short,
+    or whose busy reads above its profiled window, fails; and the graphed
+    busy must lie within BUSY_REL of the eager busy, since the graph
+    replays the same device work."""
     from rlt_tpu_torch.utils.timing import busy_row, device_busy, interleaved_ms
 
-    t = interleaved_ms({"graphed": graphed, "eager": eager}, iters, alternate=True)
-    out = {}
-    for name, fn in (("graphed", graphed), ("eager", eager)):
-        out[name] = {"window_ms": t[name]["median"], "spread_ms": [t[name]["min"],
-                                                                   t[name]["max"]]}
-        if with_busy:
-            out[name].update(busy_row(device_busy(fn, busy_calls), t[name]["median"]))
+    t = interleaved_ms({"graphed": graphed, "eager": eager}, iters, PATH_REPEATS,
+                       alternate=True)
+    out = {name: {"window_ms": t[name]["median"],
+                  "spread_ms": [t[name]["min"], t[name]["max"]]}
+           for name in ("graphed", "eager")}
+    if not with_busy:
+        return out
+    eager_busy = device_busy(eager, busy_calls)
+    records = eager_busy["records"]
+    graphed_busy = device_busy(graphed, busy_calls, min_records=(
+        None if records is None else RECORDS_OF_EAGER * records))
+    for name, busy in (("graphed", graphed_busy), ("eager", eager_busy)):
+        out[name].update(busy_row(busy, t[name]["median"]))
+        require("failed" not in out[name], f"{label} {name}: busy row failed: "
+                f"{json.dumps(out[name])}")
+    busy = [out[name]["busy_ms"] for name in ("graphed", "eager")]
+    require(abs(busy[0] - busy[1]) <= BUSY_REL * busy[1],
+            f"{label}: the graphed busy {busy[0]} ms is not within {BUSY_REL:.0%} of the "
+            f"eager busy {busy[1]} ms")
+    out["busy_ratio"] = busy[0] / busy[1]
     return out
 
 
@@ -1796,10 +2018,6 @@ def train_end_to_end_bf16(model_name: str) -> dict:
     return {"launches": launches, "timing": timing}
 
 
-GRAPH_CHECK_STEPS = 3
-BUSY_REL = 0.05  # a graph replays the eager step's device work: its busy ms within 5%
-
-
 def graphed_train_check(cfg, label: str) -> dict:
     """Graphed against eager training: a fresh graphed `Trainer` (the
     default on the card) and a fresh eager one (`graphs=False`) from the
@@ -1847,15 +2065,10 @@ def graphed_train_check(cfg, label: str) -> dict:
             f"{label}: a graphed test batch differs from the eager one")
     require(refuses_in_plain_ops(lambda: graphed.train_batch(idx[0], valid[0])),
             f"{label}: a train-step replay inside plain_ops() did not raise")
-    out = graphed_against_eager(lambda: graphed.train_batch(idx[0], valid[0]),
+    out = graphed_against_eager(f"{label} train step",
+                                lambda: graphed.train_batch(idx[0], valid[0]),
                                 lambda: eager.train_batch(idx[0], valid[0]), 2,
                                 busy_calls=5)
-    busy = [out[name]["busy_ms"] for name in ("graphed", "eager")]
-    require(None not in busy, f"{label}: the profiler recorded no device work of a step: "
-            f"busy ms graphed {busy[0]}, eager {busy[1]}")
-    require(abs(busy[0] - busy[1]) <= BUSY_REL * busy[1],
-            f"{label}: the graphed step's busy {busy[0]} ms is not within "
-            f"{BUSY_REL:.0%} of the eager step's {busy[1]} ms")
     log(f"{label}: {GRAPH_CHECK_STEPS} graphed steps equal the eager ones bit for bit "
         f"(results, gradients, parameters, Adam's state; dropout {cfg.dropout}), and a "
         f"test batch; one eager step's launches a replay; a replay inside plain_ops() "
@@ -1865,132 +2078,252 @@ def graphed_train_check(cfg, label: str) -> dict:
 
 def epoch_timing(trainer) -> dict:
     """Device ms of one more epoch of `trainer` (its train steps and test
-    batches): the median, least and most of REPEATS epochs."""
+    batches): the median, least and most of PATH_REPEATS epochs."""
     from rlt_tpu_torch.utils.timing import interleaved_ms
 
-    return interleaved_ms({"epoch": trainer.run_epoch}, 1)["epoch"]
+    return interleaved_ms({"epoch": trainer.run_epoch}, 1, PATH_REPEATS)["epoch"]
 
 
-def population_config():
+def free_card() -> None:
+    """Give the card back what the last path's trainers, populations and
+    graph pools held."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def population_config(model_name: str, compute_dtype: str = "float32"):
+    """A population's config: `model_name`'s drmm_tks preset (B = 63) at
+    robust04 width, one epoch, in `compute_dtype`, dropout on (the preset's
+    rate, or RATE where the preset has none: MOECut's)."""
     from rlt_tpu_torch.config import TrainConfig, apply_preset
 
-    cfg = dataclasses.replace(apply_preset(TrainConfig(model_name="mmoecut",
-                                                       retrieve_data="robust04")), epochs=1)
+    cfg = apply_preset(TrainConfig(model_name=model_name, retrieve_data="robust04",
+                                   compute_dtype=compute_dtype))
+    cfg = dataclasses.replace(cfg, epochs=1, dropout=cfg.dropout or RATE)
     require((cfg.batch_size, cfg.seq_len) == (63, SEQ_LEN) and cfg.dropout > 0.0,
             f"drmm_tks preset with dropout on: {cfg}")
     return cfg
 
 
-def population_end_to_end() -> dict:
-    """Population training's main path: `train_population` of MMOECut at
-    robust04 width (its drmm_tks preset, B = 63, the preset's dropout 0.1
-    shared) with the POPULATION_MEMBERS (distinct seed, lr and weight
-    decay), one epoch through the kernels. Before it, one population step
-    must launch 2 K1' (ndir = 2K), 2 K2', 1 K5' and 1 K6' (K * E * B rows)
-    for the whole population. After it, each member against a sequential
-    `Trainer` at its own config on the card, also through the kernels (the
-    same weights, corpus, plans and dropout bits, products batched another
-    way): every step loss within STEP_LOSS_REL, the epoch's updates within
-    UPDATE_REL in L2, leaving out what train_end_to_end leaves out."""
-    from rlt_tpu_torch.models import ZERO_GRAD_LEAVES
-    from rlt_tpu_torch.population import Member, Population, train_population
+def population_members(k: int):
+    """k members of seeds 0..k-1 with POPULATION_MEMBERS' lr and weight decay
+    in turn (the first four are POPULATION_MEMBERS)."""
+    from rlt_tpu_torch.population import Member
+
+    return [Member(seed=i, lr=POPULATION_MEMBERS[i % len(POPULATION_MEMBERS)][1],
+                   weight_decay=POPULATION_MEMBERS[i % len(POPULATION_MEMBERS)][2])
+            for i in range(k)]
+
+
+def population_step_check(cfg, members, label: str, bf16: bool) -> None:
+    """A fresh graphed population (the default on the card) against a fresh
+    eager one (`graphs=False`) of the same members, dropout on:
+    GRAPH_CHECK_STEPS steps of the same plans, every step's (K, 3) results,
+    then the gradients, parameters, MemberAdam's moments and step count and
+    a test batch bit for bit; each step, graphed and eager, launches what
+    one sequential step launches, whatever K is; a replay inside
+    plain_ops() raises."""
+    from rlt_tpu_torch.population import Population
+
+    graphed, eager = (Population(cfg, members, device="cuda", graphs=g) for g in (True, False))
+    require(graphed.graphs and not eager.graphs, f"{label}: graphed and eager populations")
+    plans = [p.plans("train") for p in (graphed, eager)]
+    require(all(torch.equal(a, b) for a, b in zip(*plans)), f"{label}: plans differ")
+    idx, valid = plans[0]
+    want = want_counts(cfg.model_name, forwards=0, steps=1, bf16=bf16)
+    for s in range(GRAPH_CHECK_STEPS):
+        results = []
+        for p in (graphed, eager):
+            before = read_counts()
+            out = p.train_batch(idx[:, s], valid[:, s])
+            torch.cuda.synchronize()
+            launches = {k: n - before[k] for k, n in read_counts().items()}
+            route = "graphed" if p.graphs else "eager"
+            require(launches == want, f"{label} step {s + 1} ({route}, {len(members)} "
+                    f"members): launched {launches}, one sequential step launches {want}")
+            results.append(out)
+        require(torch.equal(*results), f"{label} step {s + 1}: graphed (loss, f1, dcg) "
+                f"{results[0].tolist()} against eager {results[1].tolist()}")
+    differ = []
+    for (name, p), q in zip(graphed.model.named_parameters(), eager.model.parameters()):
+        pairs = [("param", p, q), ("grad", p.grad, q.grad)] + [
+            (f"adam {k}", v, eager.optimizer.state[q][k])
+            for k, v in graphed.optimizer.state[p].items()]
+        differ += [f"{name} {what}: max abs {(a.float() - b.float()).abs().max().item()}"
+                   for what, a, b in pairs if not torch.equal(a, b)]
+    require(not differ, f"{label}: after {GRAPH_CHECK_STEPS} steps the graphed population "
+            f"differs from the eager one: {differ[:8]}")
+    te = [p.plans("test") for p in (graphed, eager)]
+    require(torch.equal(graphed.test_batch(te[0][0][:, 0], te[0][1][:, 0]),
+                        eager.test_batch(te[1][0][:, 0], te[1][1][:, 0])),
+            f"{label}: a graphed test batch differs from the eager one")
+    require(refuses_in_plain_ops(lambda: graphed.train_batch(idx[:, 0], valid[:, 0])),
+            f"{label}: a population replay inside plain_ops() did not raise")
+
+
+def population_end_to_end(model_name: str, compute_dtype: str, f32_runs: dict) -> dict:
+    """Population training's main path for `model_name` in `compute_dtype`:
+    `train_population` of the POPULATION_MEMBERS (distinct seed, lr and
+    weight decay, one dropout rate) at robust04 width, one epoch, each
+    population step one CUDA graph. It must launch each kernel as often as
+    one sequential epoch does, whatever K is (2 K1' at ndir = 2K, 2 K2' and
+    the attention pair once per encoder layer over every member's rows a
+    step). Then each member against its own graphed sequential `Trainer`
+    (the same weights, corpus, plans and dropout bits, products batched
+    another way): in float32 every step loss within STEP_LOSS_REL and the
+    epoch's updates within UPDATE_REL in L2, leaving out what
+    train_end_to_end leaves out and the rows of ZERO_GRAD_ROWS; in bf16 by
+    the bf16 training lane's rule (`train_end_to_end_bf16`) against d_ref,
+    the member's sequential float32 run (`f32_runs`, filled by the float32
+    path) against its bf16 one: the updates over all leaves within
+    BF16_UPDATE_OF_REF of d_ref's in L2, and the step losses within
+    BF16_MAX_OF_REF of d_ref's plus one bf16 step of each loss, in L2 over
+    the epoch's steps (one step's d_ref may be near 0 by chance). Last,
+    the graphed population step against the eager one
+    (`population_step_check`)."""
+    from rlt_tpu_torch.models import ZERO_GRAD_LEAVES, build_model
+    from rlt_tpu_torch.population import member_config, train_population
     from rlt_tpu_torch.train import Trainer
 
-    cfg = population_config()
-    members = [Member(seed=s, lr=lr, weight_decay=wd) for s, lr, wd in POPULATION_MEMBERS]
-    pop = Population(cfg, members, device="cuda")
-    idx, valid = pop.plans("train")
-    before = read_counts()
-    pop.train_step(*pop.batch("train", idx[:, 0]), valid[:, 0])
+    bf16 = compute_dtype == "bfloat16"
+    label = f"{model_name}-population" + ("-bf16" if bf16 else "")
+    cfg = population_config(model_name, compute_dtype)
+    members = population_members(POPULATION_SIZES[0])
     torch.cuda.synchronize()
-    step_launches = {k: read_counts()[k] - before[k] for k in before}
-    require(step_launches == want_counts("mmoecut", forwards=0, steps=1),
-            f"kernel launches of one population step of {len(members)} members: "
-            f"{step_launches}")
-    del pop
-
     reset_counts()  # the population path's counts start here
     t0 = time.perf_counter()
     out = train_population(cfg, members, track_best_params=True, device="cuda")
     torch.cuda.synchronize()
     epoch_s = time.perf_counter() - t0
     launches = read_counts()
-    worst_step, worst_update = 0.0, {}
+    zero = set(ZERO_GRAD_LEAVES[model_name])
+    worst, worst_update = 0.0, {}
     for m, (member, row) in enumerate(zip(members, out["per_member"])):
-        trainer = Trainer(dataclasses.replace(cfg, seed=member.seed, lr=member.lr,
-                                              weight_decay=member.weight_decay),
-                          device="cuda")
+        trainer = Trainer(member_config(cfg, member), device="cuda")
         if m == 0:
             steps, tests = trainer.data.train_batches, trainer.data.test_batches
-            want = want_counts("mmoecut", forwards=tests, steps=steps)
-            require(launches == want, f"kernel launches on the {POPULATION_PATH} path: "
-                    f"{launches}, want {want} ({steps} steps, {tests} test batches)")
-        init = {n: t.clone() for n, t in trainer.model.state_dict().items()}
+            want = want_counts(model_name, forwards=tests, steps=steps, bf16=bf16)
+            require(launches == want, f"kernel launches on the {label} path: {launches}, "
+                    f"want {want} ({steps} steps, {tests} test batches)")
+            require(row["compute_dtype"] == compute_dtype, f"{label}: summary {row}")
         trainer.run()
         seq = np.asarray(trainer.history[0]["train_loss_steps"])
         got = np.asarray(row["history"][0]["train_loss_steps"])
-        step_rel = np.abs(got - seq) / np.abs(seq)
-        require(len(got) == len(seq) == steps and np.all(step_rel <= STEP_LOSS_REL)
-                and np.all(np.isfinite(got)),
-                f"population member {m}: step losses {got.tolist()} vs its Trainer's "
-                f"{seq.tolist()}: rel err {step_rel.tolist()} > {STEP_LOSS_REL}")
-        worst_step = max(worst_step, float(step_rel.max()))
-        update_rel = {}
-        for name, final in trainer.model.state_dict().items():
-            if name in ZERO_GRAD_LEAVES["mmoecut"]:
-                continue
-            pop_move, seq_move = (without_key_bias(name, t - init[name]) for t in (
-                out["best_state"][name][m], final))
-            require(bool(torch.isfinite(pop_move).all()), f"member {m}: non-finite {name}")
-            update_rel[name] = ((pop_move - seq_move).norm()
-                                / seq_move.norm().clamp(min=1e-30)).item()
-        name = max(update_rel, key=update_rel.get)
-        require(update_rel[name] <= UPDATE_REL, f"population member {m}: updates over "
-                f"{UPDATE_REL} (L2 rel err) against its Trainer: {worst_of(update_rel)}")
-        worst_update[f"member_{m}"] = [name, update_rel[name]]
-    log(f"{POPULATION_PATH}: {len(members)} members {json.dumps(POPULATION_MEMBERS)}, "
-        f"first epoch {epoch_s:.3f} s; against each member's Trainer: step losses max "
-        f"rel err {worst_step:.3e}, worst update (L2 rel err) {json.dumps(worst_update)}; "
-        f"summaries {json.dumps([{k: r[k] for k in ('best_f1', 'best_dcg')} for r in out['per_member']])}")
+        require(len(got) == len(seq) == steps and np.all(np.isfinite(got)),
+                f"{label} member {m}: step losses {got.tolist()}")
+        init = build_model(model_name, seq_len=cfg.seq_len, input_size=cfg.input_size,
+                           dropout=cfg.dropout, num_tasks=cfg.num_tasks,
+                           seed=member.seed).state_dict()
+        final = {k: v.detach() for k, v in trainer.model.state_dict().items()}
+        moves = {}
+        for name, value in final.items():
+            require(bool(torch.isfinite(out["best_state"][name][m]).all()),
+                    f"{label} member {m}: non-finite {name}")
+            if name not in zero:
+                moves[name] = [without_zero_rows(model_name, name, t.cpu() - init[name])
+                               for t in (out["best_state"][name][m], value)]
+        if not bf16:
+            f32_runs[(model_name, m)] = (seq, {n: mv[1] for n, mv in moves.items()})
+            step_rel = np.abs(got - seq) / np.abs(seq)
+            require(np.all(step_rel <= STEP_LOSS_REL), f"{label} member {m}: step losses "
+                    f"{got.tolist()} vs its Trainer's {seq.tolist()}: rel err "
+                    f"{step_rel.tolist()} > {STEP_LOSS_REL}")
+            update_rel = {n: ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+                          for n, (a, b) in moves.items()}
+            name = max(update_rel, key=update_rel.get)
+            require(update_rel[name] <= UPDATE_REL, f"{label} member {m}: updates over "
+                    f"{UPDATE_REL} (L2 rel err) against its Trainer: {worst_of(update_rel)}")
+            worst = max(worst, float(step_rel.max()))
+            worst_update[f"member_{m}"] = [name, update_rel[name]]
+            continue
+        seq32, moves32 = f32_runs[(model_name, m)]
+        l2 = np.linalg.norm
+        step_limit = (BF16_MAX_OF_REF * l2(seq - seq32)
+                      + l2(bf16_step(torch.from_numpy(seq)).numpy()))
+        require(l2(got - seq) <= step_limit, f"{label} member {m}: step losses "
+                f"{got.tolist()} vs its bf16 Trainer's {seq.tolist()} (f32 {seq32.tolist()}):"
+                f" L2 {l2(got - seq)} > {step_limit}")
+        err2 = sum((a - b).double().pow(2).sum().item() for a, b in moves.values())
+        ref2 = sum((b - moves32[n]).double().pow(2).sum().item() for n, (_, b) in moves.items())
+        ratio = (err2 / max(ref2, 1e-300)) ** 0.5
+        require(ratio <= BF16_UPDATE_OF_REF, f"{label} member {m}: updates part from its "
+                f"bf16 Trainer's by {ratio} of d_ref's (L2, limit {BF16_UPDATE_OF_REF})")
+        worst = max(worst, l2(got - seq) / step_limit)
+        worst_update[f"member_{m}"] = ratio
+    population_step_check(cfg, members, label, bf16)
+    log(f"{label}: {len(members)} members {json.dumps(POPULATION_MEMBERS)}, first epoch "
+        f"{epoch_s:.3f} s (captures included); against each member's graphed Trainer: "
+        + (f"step losses max rel err {worst:.3e}, worst update (L2 rel err) "
+           if not bf16 else f"step losses L2 at {worst:.3f} of their limit, updates (L2 "
+           "over d_ref's) ") + f"{json.dumps(worst_update)}; {GRAPH_CHECK_STEPS} graphed "
+        f"population steps equal the eager ones bit for bit, one sequential step's "
+        f"launches each; summaries "
+        f"{json.dumps([{k: r[k] for k in ('best_f1', 'best_dcg')} for r in out['per_member']])}")
     return launches
 
 
-def population_timing() -> dict:
-    """A population of K = POPULATION_SIZES[-1] members (seeds 0..K-1, the
-    POPULATION_MEMBERS' lr and weight decay in turn) against the same K
-    members as sequential `Trainer`s, one epoch each a round, in turns
+def population_timing(model_name: str, compute_dtype: str) -> dict:
+    """A population of K = POPULATION_SIZES[-1] members (`population_members`)
+    of `model_name` in `compute_dtype` against the same K members as graphed
+    sequential `Trainer`s, one epoch each a round, in turns
     (`interleaved_ms`): epoch ms as medians with their spread, lists/s
     (every member's train and test lists over the epoch's time), and each
-    one's busy ms and host share from torch.profiler."""
-    from rlt_tpu_torch.population import Member, Population
+    one's busy ms and host share (`device_busy`, one profiled epoch a
+    session). MMOECut in float32 runs K real Trainers; every other model
+    and dtype one Trainer (the first member's) whose epoch is timed and
+    counted K times (`sequential_from_one`): the members differ only in
+    seed, lr and weight decay, which move no kernel's work."""
+    from rlt_tpu_torch.population import Population, member_config
     from rlt_tpu_torch.train import Trainer
     from rlt_tpu_torch.utils.timing import busy_row, device_busy, interleaved_ms
 
-    cfg, k = population_config(), POPULATION_SIZES[-1]
-    members = [Member(seed=i, lr=POPULATION_MEMBERS[i % len(POPULATION_MEMBERS)][1],
-                      weight_decay=POPULATION_MEMBERS[i % len(POPULATION_MEMBERS)][2])
-               for i in range(k)]
+    cfg, k = population_config(model_name, compute_dtype), POPULATION_SIZES[-1]
+    members = population_members(k)
     pop = Population(cfg, members, device="cuda")
-    trainers = [Trainer(dataclasses.replace(cfg, seed=m.seed, lr=m.lr,
-                                            weight_decay=m.weight_decay), device="cuda")
-                for m in members]
+    every = model_name == "mmoecut" and compute_dtype == "float32"
+    trainers = [Trainer(member_config(cfg, m), device="cuda")
+                for m in (members if every else members[:1])]
+    times = 1 if every else k
 
     def sequential():
         for trainer in trainers:
             trainer.run_epoch()
 
-    t = interleaved_ms({"population": pop.run_epoch, "sequential": sequential}, 1)
+    t = interleaved_ms({"population": pop.run_epoch, "sequential": sequential}, 1,
+                       repeats=POPULATION_REPEATS)
     lists = k * (trainers[0].data.n_train + trainers[0].data.n_test)
-    out = {"members": k, "lists_per_epoch": lists}
+    out = {"model": model_name, "compute_dtype": compute_dtype, "members": k,
+           "lists_per_epoch": lists, "sequential_from_one": not every}
     for name, fn in (("population", pop.run_epoch), ("sequential", sequential)):
-        out[name] = dict(epoch_ms=t[name]["median"],
-                         epoch_spread=[t[name]["min"], t[name]["max"]],
-                         lists_per_s=lists / t[name]["median"] * 1e3,
-                         **busy_row(device_busy(fn, calls=1), t[name]["median"]))
-    out["speedup"] = t["sequential"]["median"] / t["population"]["median"]
+        n = times if name == "sequential" else 1
+        row = busy_row(device_busy(fn, calls=1, warmup=0), t[name]["median"])
+        for key in ("busy_ms", "profiled_ms"):
+            if row[key] is not None:
+                row[key] *= n
+        out[name] = dict(epoch_ms=t[name]["median"] * n,
+                         epoch_spread=[t[name]["min"] * n, t[name]["max"] * n],
+                         lists_per_s=lists / (t[name]["median"] * n) * 1e3, **row)
+    out["speedup"] = out["sequential"]["epoch_ms"] / out["population"]["epoch_ms"]
     out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log("population timing " + json.dumps(out))
     return out
+
+
+# Rows of a leaf whose gradient is zero by algebra, beside ZERO_GRAD_LEAVES's
+# whole leaves: PLECut's expert 2 feeds only the rerank and cut towers, both
+# softmaxes over positions, which cancel the shift its last LayerNorm's bias
+# adds to every position (experts 0 and 1 also feed the class tower's
+# sigmoid). Adam moves that rounding noise by about lr either way.
+ZERO_GRAD_ROWS = {"mtple": {"experts.attention_layer.layers_0.norm2.bias": 2}}
+
+
+def without_zero_rows(model_name: str, name: str, t: torch.Tensor) -> torch.Tensor:
+    """A member's (E, ...) leaf without its elements whose gradient is zero by
+    algebra: the key block of an in_proj_bias (`without_key_bias`) and the
+    expert rows of ZERO_GRAD_ROWS."""
+    t = without_key_bias(name, t)
+    row = ZERO_GRAD_ROWS.get(model_name, {}).get(name)
+    return t if row is None else torch.cat([t[:row], t[row + 1:]])
 
 
 def without_key_bias(name: str, t: torch.Tensor) -> torch.Tensor:
@@ -2011,8 +2344,8 @@ def worst_of(errs: dict, k: int = 5) -> str:
 def train_step_parts(trainer, x, y, valid, iters: int = 2) -> dict:
     """Device ms of one train step, and of its forward (with the loss and
     the dropout masks; in bf16 the parameter casts), backward and optimizer
-    update: the step's median over REPEATS rounds of `iters` steps between
-    CUDA events (`interleaved_ms`) with its least and most round, each
+    update: the step's median over PATH_REPEATS rounds of `iters` steps
+    between CUDA events (`interleaved_ms`) with its least and most round, each
     part's median over those steps from events inside them; and the card's
     busy ms per step from torch.profiler, with the host's share of the
     step's window."""
@@ -2036,7 +2369,7 @@ def train_step_parts(trainer, x, y, valid, iters: int = 2) -> dict:
         ev[3].record()
         marks.append(ev)
 
-    t = interleaved_ms({"step": step}, iters)["step"]
+    t = interleaved_ms({"step": step}, iters, PATH_REPEATS)["step"]
     torch.cuda.synchronize()
     steps = marks[1:]  # the first warms up
     parts = {name: float(np.median([ev[i].elapsed_time(ev[i + 1]) for ev in steps]))
@@ -2060,7 +2393,8 @@ def stage_ms(model, batch: int, iters: int = 3) -> dict:
     experts_o = model.experts(experts_in)
     t = interleaved_ms({"bilstm": lambda: model.pre_encoding(x),
                         "experts": lambda: model.experts(experts_in),
-                        "gates_towers": lambda: model.heads(experts_in, experts_o)}, iters)
+                        "gates_towers": lambda: model.heads(experts_in, experts_o)},
+                       iters, PATH_REPEATS)
     return {name: r["median"] for name, r in t.items()}
 
 
@@ -2111,20 +2445,6 @@ def dh16_entry(name: str, res: dict, drop: dict | None, launches: dict) -> dict:
     return entry
 
 
-def rows_entry(res: dict, drop: dict | None) -> dict:
-    """The kernels line's `n_<POPULATION_ROWS>` sub-entry of a packed f32
-    kernel: its times and errors at the population path's K * E * B rows,
-    with dropout 0.1 for the forward (the backward is timed at rate 0.1)."""
-    keys = ("ms", "plain_ms", "library_ms", "library_ratio", "spread_ms", "bound_ms",
-            "bound_tc_ms", "bound_by", "max_abs_err", "max_rel_err")
-    entry = {k: res["rows"][0][k] for k in keys if k in res["rows"][0]}
-    entry["n"] = POPULATION_ROWS
-    if drop is not None:
-        entry["dropout_0.1"] = {k: drop["rows"][0][k] for k in keys if k in drop["rows"][0]}
-        entry["max_abs_err"] = max(entry["max_abs_err"], drop["max_abs_err"])
-    return entry
-
-
 def bf16_entry(name: str, res: dict, source: str, replaces: str, library: str,
                launches: dict, dh16: dict) -> dict:
     """The kernels line's `bf16` sub-entry of a kernel: its bf16 instance's
@@ -2143,7 +2463,7 @@ def bf16_entry(name: str, res: dict, source: str, replaces: str, library: str,
     bf16_name = BF16_OF[name]
     row = res.get("main", res["rows"][0])
     by_path = {path: launches[path][bf16_name]
-               for path in PATHS + BF16_PATHS + BF16_TRAIN_PATHS}
+               for path in PATHS + BF16_PATHS + BF16_TRAIN_PATHS + POPULATION_PATHS}
     entry = {"name": bf16_name, "route": "cuda",
              "source": BF16_SOURCE.get(name) or BF16_LSTM_SOURCE.get(name, source),
              "replaces": replaces,
@@ -2265,18 +2585,29 @@ def main() -> int:
     for model_name in MODELS:  # the bf16 training lane
         train_bf16_res[model_name] = train_end_to_end_bf16(model_name)
         launches[f"{model_name}-train-bf16"] = train_bf16_res[model_name]["launches"]
-    # population training: the member-batched LSTM kernels on their own
-    # generator, then the population's path and its timing
-    marks.append(("population", time.perf_counter()))
-    members_res = check_lstm_members(dev, np.random.default_rng(180))
-    # K5' and K6' at the population path's K * E * B rows, with its streams
-    rngp, pop_rows = np.random.default_rng(190), dict(rows=(POPULATION_ROWS,))
-    population_attn = {
-        "attention_packed_fwd": (check_attention(dev, rngp, **pop_rows),
-                                 check_attention_dropout(dev, rngp, **pop_rows)),
-        "attention_packed_bwd": (check_attention_bwd(dev, rngp, **pop_rows), None)}
-    launches[POPULATION_PATH] = population_end_to_end()
-    population_res = population_timing()
+    # population training: the member-batched kernels on their own
+    # generators, then every model's population path in both dtypes (float32
+    # first: its sequential runs are the bf16 path's d_ref), then the timing
+    marks.append(("population kernels", time.perf_counter()))
+    members_res = {"float32": check_lstm_members(dev, CardDraws(180, dev))}
+    with untimed_plain():
+        members_res["bfloat16"] = check_lstm_members(dev, CardDraws(181, dev), bf16=True)
+        member_attn = check_member_attention(dev)
+    marks.append(("population paths", time.perf_counter()))
+    f32_runs = {}
+    for model_name in MODELS:
+        for dtype, suffix in (("float32", ""), ("bfloat16", "-bf16")):
+            launches[f"{model_name}-population{suffix}"] = population_end_to_end(
+                model_name, dtype, f32_runs)
+            free_card()
+    del f32_runs
+    marks.append(("population timing", time.perf_counter()))
+    population_res = []
+    for model_name in MODELS:
+        for dtype in ("float32", "bfloat16"):
+            torch.cuda.reset_peak_memory_stats()
+            population_res.append(population_timing(model_name, dtype))
+            free_card()
     marks.append(("end", time.perf_counter()))
     log(json.dumps({"phase_seconds": {name: marks[i + 1][1] - t for i, (name, t) in
                                       enumerate(marks[:-1])}}))
@@ -2286,7 +2617,7 @@ def main() -> int:
                 "attention_packed_bwd": attn_bwd_bf16_res}
     bf16_dh16 = {"attention_packed_fwd": attn_bf16_dh16_res,
                  "attention_packed_bwd": attn_bwd_bf16_dh16_res}
-    all_paths = PATHS + BF16_PATHS + BF16_TRAIN_PATHS + (POPULATION_PATH,)
+    all_paths = PATHS + BF16_PATHS + BF16_TRAIN_PATHS + POPULATION_PATHS
 
     kernels = []
     for name, res, source, replaces, library in (
@@ -2347,13 +2678,20 @@ def main() -> int:
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_tc_ms", "max_abs_err")}
             entry["dh_16"] = dh16_entry(name, *dh16[name], launches)
             entry["max_abs_err"] = max(entry["max_abs_err"], entry["dh_16"]["max_abs_err"])
-            entry[f"n_{POPULATION_ROWS}"] = rows_entry(*population_attn[name])
+        if name.startswith("attention"):  # the population paths' member-batched shapes
+            entry["members"] = member_entry(member_attn["float32"][name], MEMBER_KEYS)
             entry["max_abs_err"] = max(entry["max_abs_err"],
-                                       entry[f"n_{POPULATION_ROWS}"]["max_abs_err"])
+                                       member_max_err(member_attn["float32"][name]))
         if name in BF16_OF:
             entry["bf16"] = bf16_entry(name, bf16_res[name], source, replaces,
                                        BF16_LIBRARY[name], launches,
                                        bf16_dh16.get(name))
+            if name.startswith("attention"):
+                entry["bf16"]["members"] = member_entry(member_attn["bfloat16"][name],
+                                                        MEMBER_KEYS)
+                entry["bf16"]["max_abs_err"] = max(
+                    entry["bf16"]["max_abs_err"],
+                    member_max_err(member_attn["bfloat16"][name]))
         kernels.append(entry)
     for name, source, replaces in (
             ("lstm_fwd", "rlt_tpu_torch/csrc/lstm_fwd.cu", "rlt_tpu/ops/lstm.py:82"),
@@ -2361,10 +2699,11 @@ def main() -> int:
         # the member-batched form (jax.vmap over population members), at
         # K = POPULATION_SIZES[0] with the larger K beside it; its launches
         # are the population path's
-        rows = {k: members_res[k][name] for k in POPULATION_SIZES}
+        rows = {k: members_res["float32"][k][name] for k in POPULATION_SIZES}
         main_row = rows[POPULATION_SIZES[0]]
         entry = {"name": f"{name}_members", "route": "cuda", "source": source,
-                 "replaces": replaces, "launches": launches[POPULATION_PATH][name],
+                 "replaces": replaces,
+                 "launches": sum(launches[p][name] for p in POPULATION_PATHS),
                  "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
                  **{key: main_row[key] for key in (
                      "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "members",
@@ -2374,12 +2713,23 @@ def main() -> int:
                  "library_call": None,
                  "cudnn_shared_call": "torch.nn.LSTM (cuDNN), 1 layer 2 directions, over "
                                       "the K * B rows with one set of weights"}
+        row_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "ndir", "blocks", "waves",
+                    "sequential_ms", "sequential_ratio", "cudnn_shared_ms", "spread_ms",
+                    "max_abs_err")
         for k, row in rows.items():
             if k != POPULATION_SIZES[0]:
-                entry[f"members_{k}"] = {key: row[key] for key in (
-                    "ms", "plain_ms", "bound_ms", "ndir", "blocks", "waves",
-                    "sequential_ms", "sequential_ratio", "cudnn_shared_ms", "spread_ms",
-                    "max_abs_err")}
+                entry[f"members_{k}"] = {key: row[key] for key in row_keys}
+        # the bf16 instance (csrc/lstm_bf16_mma.cuh) at K = 4 and 8, its
+        # launches the bf16 population paths'
+        entry["bf16"] = {
+            "name": f"{BF16_OF[name]}_members", "source": BF16_LSTM_SOURCE[name],
+            "launches": sum(launches[p][BF16_OF[name]] for p in POPULATION_PATHS),
+            "library_ms": None,
+            **{f"members_{k}": {key: members_res["bfloat16"][k][name][key]
+                                for key in row_keys + ("bound_tc_ms",)}
+               for k in POPULATION_SIZES}}
+        entry["bf16"]["max_abs_err"] = max(r["max_abs_err"] for r in (
+            members_res["bfloat16"][k][name] for k in POPULATION_SIZES))
         kernels.append(entry)
     for model_name, res in train_res.items():
         log(json.dumps({"model": model_name, "train_step_ms": res["timing"]["step_ms"],
@@ -2388,18 +2738,27 @@ def main() -> int:
         log(json.dumps({"model": model_name, "compute_dtype": "bfloat16",
                         "train_step_ms": res["timing"]["step_ms"],
                         "epoch_ms": res["timing"]["epoch_ms"]}))
-    log(json.dumps({"population": population_res}))
-    busy_rows = []
+    for res in population_res:
+        log(json.dumps({"population": res}))
+    busy_rows = [res[name] for res in population_res for name in ("population", "sequential")]
+    ratios = []
     for dtype, trains, serves in (("float32", train_res, serve_res),
                                   ("bfloat16", train_bf16_res, serve_bf16_res)):
         for model_name in MODELS:  # graphed against eager: windows, busy, host shares
             rows = {"train_step": trains[model_name]["timing"]["graphed_step"],
                     **serves[model_name]["graphs"]}
-            busy_rows += [r for row in rows.values() for r in row.values()]
+            busy_rows += [row[name] for row in rows.values() for name in ("graphed", "eager")]
+            ratios += [row["busy_ratio"] for row in rows.values()]
             log(json.dumps({"graphs": {"model": model_name, "compute_dtype": dtype, **rows}}))
-    log(json.dumps({"busy_rows": {
-        "rows": len(busy_rows), "measured": sum(r["busy_ms"] is not None for r in busy_rows),
-        "failed": sum("failed" in r for r in busy_rows)}}))
+    summary = {"rows": len(busy_rows),
+               "measured": sum(r["busy_ms"] is not None for r in busy_rows),
+               "failed": sum("failed" in r for r in busy_rows),
+               "stretch": [min(r["stretch"] for r in busy_rows if r["stretch"]),
+                           max(r["stretch"] for r in busy_rows if r["stretch"])],
+               "graphed_over_eager_busy": [min(ratios), max(ratios)]}
+    log(json.dumps({"busy_rows": summary}))
+    require(summary["failed"] == 0 and summary["measured"] == summary["rows"],
+            f"busy rows failed: {json.dumps(summary)}")
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Model zoo of the port: MMOECut (the flagship), MOECut, PLECut, Choopy,
 MtChoopy, AttnCut, MtAttnCut and BiCut. probe_base is known here and raises
 until its slice lands (ROADMAP.md). `build_population_model` stacks K
-seeded MMOECuts into one model with a member axis (population training)."""
+seeded models of any of the eight into one model with a member axis
+(population training)."""
 
 from rlt_tpu_torch.models.layers import (  # noqa: F401
     LSTM,
@@ -67,27 +68,27 @@ def is_multi_head(name: str) -> bool:
 
 
 def build_model(name: str, *, seq_len: int, input_size: int, dropout: float,
-                num_tasks: float = 3, seed: int = 0):
+                num_tasks: float = 3, seed: int = 0, members: int | None = None):
     """Model dispatch mirroring the JAX package's `build_model` (the same
-    constructor arguments), with the initial weights drawn from `seed`."""
+    constructor arguments), with the initial weights drawn from `seed`;
+    with `members=K`, the model of K members in one (its weights drawn
+    once; `build_population_model` fills it)."""
+    common = dict(dropout=dropout, seed=seed, members=members)
     if name == "bicut":
-        return BiCut(input_size=input_size, dropout=dropout, seed=seed)
+        return BiCut(input_size=input_size, **common)
     if name == "choopy":
-        return Choopy(seq_len=seq_len, dropout=dropout, seed=seed)
+        return Choopy(seq_len=seq_len, **common)
     if name == "attncut":
-        return AttnCut(input_size=input_size, dropout=dropout, seed=seed)
+        return AttnCut(input_size=input_size, **common)
     if name == "mtchoopy":
-        return MtChoopy(seq_len=seq_len, num_tasks=num_tasks, dropout=dropout,
-                        seed=seed)
+        return MtChoopy(seq_len=seq_len, num_tasks=num_tasks, **common)
     if name == "mtattncut":
-        return MtAttnCut(input_size=input_size, num_tasks=num_tasks, dropout=dropout,
-                         seed=seed)
+        return MtAttnCut(input_size=input_size, num_tasks=num_tasks, **common)
     if name in ("mmoecut", "moecut"):
         return MODELS[name](seq_len=seq_len, num_tasks=num_tasks,
-                            input_size=input_size, dropout=dropout, seed=seed)
+                            input_size=input_size, **common)
     if name == "mtple":
-        return PLECut(seq_len=seq_len, input_size=input_size, dropout=dropout,
-                      seed=seed)
+        return PLECut(seq_len=seq_len, input_size=input_size, **common)
     if name in MODEL_NAMES:
         raise NotImplementedError(
             f"model {name!r} is not ported to rlt_tpu_torch yet; see ROADMAP.md "
@@ -95,31 +96,28 @@ def build_model(name: str, *, seq_len: int, input_size: int, dropout: float,
     raise ValueError(f"unknown model: {name!r}")
 
 
-# the models that train as a population, K members in one model (ROADMAP.md
-# A1 queues the others)
-POPULATION_MODELS = frozenset({"mmoecut"})
+# the models that train as a population, K members in one model: all eight
+POPULATION_MODELS = frozenset(MODELS)
 
 
 def check_population_model(name: str) -> None:
     """Raise a ValueError unless `name` trains as a population."""
     if name not in POPULATION_MODELS:
         raise ValueError(f"population training takes {sorted(POPULATION_MODELS)}, not "
-                         f"{name!r}: the other models with a member axis are "
-                         "ROADMAP.md A1's next slice")
+                         f"{name!r}: probe_base is not ported yet (ROADMAP.md A4)")
 
 
 def build_population_model(name: str, *, seq_len: int, input_size: int,
                            dropout: float, seeds, num_tasks: float = 3):
     """K models in one, member m initialised exactly as `build_model(...,
-    seed=seeds[m])` and stacked on a leading member axis of every leaf.
-    MMOECut only: another model raises (ROADMAP.md A1)."""
+    seed=seeds[m])` and stacked on a leading member axis of every leaf."""
     check_population_model(name)
     seeds = list(seeds)
     if not seeds:
         raise ValueError("a population needs at least one member")
     kwargs = dict(seq_len=seq_len, input_size=input_size, dropout=dropout,
                   num_tasks=num_tasks)
-    model = MODELS[name](members=len(seeds), **kwargs)
+    model = build_model(name, members=len(seeds), **kwargs)
     model.load_state_dict(stack_state_dicts(
         [build_model(name, seed=seed, **kwargs).state_dict() for seed in seeds]))
     return model

@@ -25,8 +25,10 @@ every parameter, written out as the expert axis is (`members=K`): the
 BiLSTM maps (K, B, L, F) to (K, B, L, 2H) through one member-batched LSTM
 op per layer (ndir = 2K), the expert layers take (K, 1, B, L, D) or (K, E,
 B, L, D) with (K, E, ...) parameters and run their attention over the
-K * E * B rows at once, and the towers and gates carry K in front. Each
-member computes what its own model computes.
+K * E * B rows (or PLECut's K * E * B * H slices) at once, an unstacked
+encoder's layers map (K, B, L, D) to (K, B, L, D) over K * B rows, and the
+towers, gates and heads carry K in front. Each member computes what its
+own model computes.
 
 In training mode (`module.train()`) with a dropout rate above 0, every
 random bit comes from the explicit `torch.Generator` the caller passes to
@@ -165,7 +167,10 @@ def final_linear(linear: "TorchLinear", x: torch.Tensor) -> torch.Tensor:
     bias add stays f32 (the JAX package's Predictor widens it at once)."""
     if x.dtype != torch.bfloat16:
         return linear(x)
-    return (x @ linear.weight.T).float() + linear.bias.float()
+    w, b = linear.weight, linear.bias.float()
+    if w.dim() == 2:
+        return (x @ w.T).float() + b
+    return _stacked_linear(x, w).float() + b[..., None, None, :]
 
 
 class TorchLinear(nn.Module):
@@ -189,14 +194,19 @@ class TorchLinear(nn.Module):
         return _stacked_linear(x, self.weight, self.bias)
 
 
-def _stacked_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _stacked_linear(x: torch.Tensor, w: torch.Tensor,
+                    b: torch.Tensor | None = None) -> torch.Tensor:
     """x (B, L, in) shared by every expert or (E, B, L, in); w (E, out, in);
     b (E, out) -> (E, B, L, out), as one batched matrix product. With a
     member axis in front of both, x (K, 1 or E, B, L, in), w (K, E, out,
-    in) and b (K, E, out) -> (K, E, B, L, out)."""
+    in) and b (K, E, out) -> (K, E, B, L, out); a member model's unstacked
+    layer, x (K, B, L, in) against w (K, out, in), is the case E = K. No
+    bias without b."""
     batch, length, d_in = x.shape[-3:]
     xf = x.reshape(*x.shape[:-3], batch * length, d_in)
-    y = torch.matmul(xf, w.transpose(-1, -2)) + b[..., None, :]
+    y = torch.matmul(xf, w.transpose(-1, -2))
+    if b is not None:
+        y = y + b[..., None, :]
     return y.reshape(*y.shape[:-2], batch, length, w.shape[-2])
 
 
@@ -372,10 +382,14 @@ def _projection(x, w_ih, b_ih, b_hh) -> torch.Tensor:
     """x W_ih^T + b_ih + b_hh: in float32 one fused product with the two
     biases summed first; in bf16 in the JAX package's order of roundings
     (the product, then each bias, each rounded to bf16). K members' weights
-    (K, 4H, F) against their inputs (K, B, L, F): one batched float32
-    product."""
+    (K, 4H, F) against their inputs (K, B, L, F): one batched product, in
+    the same order of roundings."""
     if w_ih.dim() == 3:
-        y = torch.baddbmm((b_ih + b_hh)[:, None], x.flatten(1, 2), w_ih.transpose(1, 2))
+        xf, wt = x.flatten(1, 2), w_ih.transpose(1, 2)
+        if x.dtype != torch.bfloat16:
+            y = torch.baddbmm((b_ih + b_hh)[:, None], xf, wt)
+        else:
+            y = torch.bmm(xf, wt) + b_ih[:, None] + b_hh[:, None]
         return y.view(*x.shape[:-1], w_ih.shape[1])
     if x.dtype != torch.bfloat16:
         return F.linear(x, w_ih, b_ih + b_hh)
@@ -472,10 +486,13 @@ class SelfAttention(nn.Module):
     one seed per expert, drawn in [0, 2^31 - 1) as the JAX package draws it
     (the unstacked attention draws one, as the JAX package's does).
 
-    With `members=K` (head-packed only) the parameters are (K, E, ...), the
-    input (K, 1, B, L, D) or (K, E, B, L, D), and the K * E stacks run as
-    one: the packed kernels take their K * E * B rows in one launch, and
-    each member draws its E seeds from its own generator."""
+    With `members=K` the parameters are (K, E, ...), the input (K, 1, B, L,
+    D) or (K, E, B, L, D), and the K * E stacks run as one: the packed
+    kernels take their K * E * B rows in one launch, the per-slice kernels
+    their K * E * B * H slices, and each member draws its E seeds from its
+    own generator. A member model's unstacked attention (`experts=None`)
+    has (K, ...) parameters and maps (K, B, L, D) to (K, B, L, D), each
+    member drawing the one seed its own model draws."""
 
     def __init__(self, d_model: int, n_head: int, experts: int | None = None,
                  generator: torch.Generator | None = None, dropout: float = 0.0,
@@ -487,8 +504,7 @@ class SelfAttention(nn.Module):
         self.n_head = n_head
         self.dropout = dropout
         self.pack = packed_group_size(d_model, n_head)
-        if members is not None and self.pack is None:
-            raise ValueError("an attention with members takes head-packed widths only")
+        self.unstacked_members = members is not None and experts is None
         lead = _lead(experts, members)
         xavier = math.sqrt(6.0 / (3 * d_model + d_model))
         self.in_proj_weight = _uniform(lead + (3 * d_model, d_model), xavier, generator)
@@ -498,10 +514,14 @@ class SelfAttention(nn.Module):
         self.out_proj_bias = nn.Parameter(torch.zeros(lead + (d_model,)))
 
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        params = (self.in_proj_weight, self.in_proj_bias, self.out_proj_weight,
+                  self.out_proj_bias)
+        if self.unstacked_members:  # one expert a member: (K, 1, ...)
+            return self._stacked(x[:, None], *(p[:, None] for p in params),
+                                 generator=generator)[:, 0]
         stacked = self.in_proj_weight.dim() > 2
-        out = self._stacked(x, *(p if stacked else p[None] for p in (
-            self.in_proj_weight, self.in_proj_bias, self.out_proj_weight,
-            self.out_proj_bias)), generator=generator)
+        out = self._stacked(x, *(p if stacked else p[None] for p in params),
+                            generator=generator)
         return out if stacked else out[0]
 
     def _stacked(self, x, w, b, out_w, out_b, generator) -> torch.Tensor:
@@ -521,20 +541,23 @@ class SelfAttention(nn.Module):
 
         if self.pack is None:
             dh = d // heads
-            w3 = w.reshape(experts, 3, heads, dh, d)
-            b3 = b.reshape(experts, 3, 1, heads, 1, dh)
-            eq = "bld,ehkd->ebhlk" if x.dim() == 3 else "ebld,ehkd->ebhlk"
+            w3 = w.reshape(*lead, 3, heads, dh, d)
+            b3 = b.reshape(*lead, 3, 1, heads, 1, dh)
+            if x.dim() == len(lead) + 3 and x.shape[-4] == 1:
+                x = x.squeeze(-4)  # one input for all the experts
+            eq = ("...bld,...ehjd->...ebhlj" if x.dim() == len(lead) + 2
+                  else "...ebld,...ehjd->...ebhlj")
 
-            def proj(i):  # -> (E*B, H, L, dh), contiguous
-                y = torch.einsum(eq, x, w3[:, i]) + b3[:, i]
-                return y.reshape(experts * batch, heads, length, dh).contiguous()
+            def proj(i):  # -> (prod(lead) * B, H, L, dh), contiguous
+                y = torch.einsum(eq, x, w3.select(-4, i)) + b3.select(-5, i)
+                return y.reshape(-1, heads, length, dh).contiguous()
 
             o, _ = fused_attention(proj(0), proj(1), proj(2), dropout_rate=rate,
                                    streams=streams)
-            out_w = out_w.reshape(experts, d, heads, dh)
-            return (torch.einsum("ebhlk,edhk->ebld",
-                                 o.reshape(experts, batch, heads, length, dh), out_w)
-                    + out_b[:, None, None])
+            return (torch.einsum("...bhlj,...dhj->...bld",
+                                 o.reshape(*lead, batch, heads, length, dh),
+                                 out_w.reshape(*lead, d, heads, dh))
+                    + out_b[..., None, None, :])
 
         def proj(i):  # (..., E, B, L, D) -> (... E * B, L, D), contiguous
             y = _stacked_linear(x, w[..., i * d:(i + 1) * d, :], b[..., i * d:(i + 1) * d])

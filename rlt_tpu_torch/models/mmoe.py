@@ -16,11 +16,13 @@ passed to `forward`. Cast to bf16, the gates (their contraction and
 softmax) and the towers' logit mix run in bf16 as the JAX package's do.
 
 `MMOECut(members=K)` is K MMOECuts as one module (population training,
-`rlt_tpu_torch/population.py`): every parameter leads with the member axis,
-the input is (K, B, L, F), the heads (K, B, L, 1), the two BiLSTM layers
-launch K1' once each over the 2K directions, and the expert stack runs its
-K * E experts as one stack of K * E * B attention rows. Its training forward
-takes K generators, one per member.
+`rlt_tpu_torch/population.py`), and so are `MOECut(members=K)` and
+`PLECut(members=K)`: every parameter leads with the member axis, the input
+is (K, B, L, F), the heads (K, B, L, 1), the two BiLSTM layers launch K1'
+once each over the 2K directions, and the expert stack runs its K * E
+experts as one stack: K * E * B attention rows in the packed kernels, K * E
+* B * H slices in PLECut's per-slice kernels. Its training forward takes K
+generators, one per member.
 """
 
 from __future__ import annotations
@@ -78,7 +80,7 @@ class MMOECut(nn.Module):
     the task heads as a list of (B, L, 1) tensors; the last is the cut
     distribution. In training mode with dropout above 0, `forward` needs a
     `torch.Generator` on the input's device for the dropout masks. With
-    `members=K` (MMOECut only) it is K models in one, each member's
+    `members=K` it is K models in one, each member's
     parameters in slice m of every leaf, (K, B, L, F) -> (K, B, L, 1) heads,
     K generators in training; `build_population_model` fills it from K
     seeded models."""
@@ -149,7 +151,8 @@ class PLECut(nn.Module):
     gates `w_gate_t` mix the experts {0, 1}, {1, 2} and {0, 1, 2}. Returns
     the three heads as (B, L, 1) tensors; the last is the cut distribution.
     In training mode with dropout above 0, `forward` needs a
-    `torch.Generator` on the input's device for the dropout masks."""
+    `torch.Generator` on the input's device for the dropout masks. With
+    `members=K`, K PLECuts in one, as MMOECut's."""
 
     # each tower's experts, as a slice of the expert axis
     SUBSETS = (slice(0, 2), slice(1, 3), slice(0, 3))
@@ -158,33 +161,38 @@ class PLECut(nn.Module):
 
     def __init__(self, seq_len: int = 300, input_size: int = 3,
                  encoding_size: int = 128, d_model: int = 256, n_head: int = 2,
-                 num_layers: int = 1, dropout: float = 0.1, seed: int = 0):
+                 num_layers: int = 1, dropout: float = 0.1, seed: int = 0,
+                 members: int | None = None):
         super().__init__()
         if d_model != 2 * encoding_size:
             raise ValueError(f"d_model={d_model} must be twice the BiLSTM "
                              f"encoding_size={encoding_size}")
         g = torch.Generator().manual_seed(seed)
-        self.pre_encoding = LSTM(input_size, encoding_size, 2, generator=g)
-        self.experts = ExpertStack(3, d_model, n_head, num_layers, g, dropout)
+        self.pre_encoding = LSTM(input_size, encoding_size, 2, generator=g,
+                                 members=members)
+        self.experts = ExpertStack(3, d_model, n_head, num_layers, g, dropout, members)
         feat = encoding_size * seq_len * 2
+        lead = () if members is None else (members,)
         for t, subset in enumerate(self.SUBSETS):
-            w = torch.empty(feat, subset.stop - subset.start).normal_(generator=g)
+            w = torch.empty(lead + (feat, subset.stop - subset.start)).normal_(generator=g)
             self.register_parameter(f"w_gate_{t}", nn.Parameter(w))
         for name, cls in self.TOWERS:
-            self.add_module(name, cls(d_model, g))
+            self.add_module(name, cls(d_model, g, members))
 
-    def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> list[torch.Tensor]:
+    def forward(self, x: torch.Tensor, generator=None) -> list[torch.Tensor]:
         experts_in = self.pre_encoding(x)  # (B, L, 2H)
         return self.heads(experts_in, self.experts(experts_in, generator))
 
     def heads(self, experts_in: torch.Tensor,
               experts_o: torch.Tensor) -> list[torch.Tensor]:
         """Gates and towers: BiLSTM output (B, L, 2H) and expert outputs
-        (3, B, L, D) -> the three heads."""
-        flat = experts_in.reshape(experts_in.shape[0], -1)  # (B, 2*H*L)
+        (3, B, L, D) -> the three heads; with members (K, B, L, 2H) and (K,
+        3, B, L, D) -> (K, B, L, 1) heads."""
+        flat = experts_in.flatten(-2)  # (B, 2*H*L), or (K, B, 2*H*L)
+        members = flat.dim() == 3
         outputs = []
         for t, (subset, (name, _)) in enumerate(zip(self.SUBSETS, self.TOWERS)):
             gate = softmax(flat @ getattr(self, f"w_gate_{t}"), dim=-1)
-            outputs.append(getattr(self, name)(experts_o[subset], gates=gate))
+            experts = experts_o[:, subset] if members else experts_o[subset]
+            outputs.append(getattr(self, name)(experts, gates=gate))
         return outputs

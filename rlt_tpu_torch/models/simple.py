@@ -23,6 +23,13 @@ The counterparts of the JAX package's `models/simple.py::BiCut`,
 
 The training forward (`model.train()`) with a dropout rate above 0 draws
 every mask from the `torch.Generator` passed to `forward`.
+
+With `members=K` each is K models in one (population training,
+`rlt_tpu_torch/population.py`): every parameter leads with the member axis
+(Choopy's `position_encoding` is (K, L, d_model - 1)), the input is (K, B,
+L, F), the output leads with K, and the training forward takes K
+generators, member m drawing from generator m what its own model draws.
+`models.build_population_model` fills it from K seeded models.
 """
 
 from __future__ import annotations
@@ -42,60 +49,65 @@ from rlt_tpu_torch.models.layers import (
 class BiCut(nn.Module):
     def __init__(self, input_size: int = 3, lstm_hidden_size: int = 128,
                  lstm_layers: int = 2, fc_dimensions: int = 256,
-                 dropout: float = 0.4, seed: int = 0):
+                 dropout: float = 0.4, seed: int = 0, members: int | None = None):
         super().__init__()
         g = torch.Generator().manual_seed(seed)
         self.dropout = dropout
-        self.bilstm = LSTM(input_size, lstm_hidden_size, lstm_layers, generator=g)
-        self.fc = TorchLinear(2 * lstm_hidden_size, fc_dimensions, generator=g)
-        self.decision = TorchLinear(fc_dimensions, 2, generator=g)
+        self.bilstm = LSTM(input_size, lstm_hidden_size, lstm_layers, generator=g,
+                           members=members)
+        self.fc = TorchLinear(2 * lstm_hidden_size, fc_dimensions, generator=g,
+                              members=members)
+        self.decision = TorchLinear(fc_dimensions, 2, generator=g, members=members)
 
-    def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         logits = self.decision(torch.relu(self.fc(self.bilstm(x))))
         if self.training and self.dropout > 0.0:
             # the reference drops logits, before the softmax
             logits = dropout(logits, self.dropout, generator)
-        return softmax(logits, dim=2, final=True)
+        return softmax(logits, dim=-1, final=True)
 
 
 class Choopy(nn.Module):
     def __init__(self, seq_len: int = 300, d_model: int = 128, n_head: int = 8,
-                 num_layers: int = 3, dropout: float = 0.2, seed: int = 0):
+                 num_layers: int = 3, dropout: float = 0.2, seed: int = 0,
+                 members: int | None = None):
         super().__init__()
         g = torch.Generator().manual_seed(seed)
+        lead = () if members is None else (members,)
         self.position_encoding = nn.Parameter(
-            torch.randn(seq_len, d_model - 1, generator=g))
+            torch.randn(lead + (seq_len, d_model - 1), generator=g))
         self.attention_layer = TransformerEncoder(d_model, n_head, num_layers,
-                                                  generator=g, dropout=dropout)
-        self.decision = TorchLinear(d_model, 1, generator=g)
+                                                  generator=g, dropout=dropout,
+                                                  members=members)
+        self.decision = TorchLinear(d_model, 1, generator=g, members=members)
 
-    def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         x = self.attention_layer(with_position_encoding(x, self.position_encoding),
                                  generator)
-        return softmax(self.decision(x), dim=1, final=True)
+        return softmax(self.decision(x), dim=-2, final=True)
 
 
 def with_position_encoding(x: torch.Tensor, pe: torch.Tensor) -> torch.Tensor:
     """(B, L, 1) scores and the (L, d_model - 1) encoding -> (B, L, d_model):
     each list's scores, then the encoding shared by every list (both bf16
     in a model cast to bf16, as the JAX package casts the encoding with the
-    parameters)."""
-    return torch.cat([x, pe.expand(x.shape[0], *pe.shape)], dim=2)
+    parameters). With members, (K, B, L, 1) and (K, L, d_model - 1) -> (K,
+    B, L, d_model), member m's encoding shared by its lists."""
+    return torch.cat([x, pe.unsqueeze(-3).expand(*x.shape[:-1], pe.shape[-1])], dim=-1)
 
 
 class AttnCut(nn.Module):
     def __init__(self, input_size: int = 3, d_model: int = 256, n_head: int = 4,
-                 num_layers: int = 1, dropout: float = 0.4, seed: int = 0):
+                 num_layers: int = 1, dropout: float = 0.4, seed: int = 0,
+                 members: int | None = None):
         super().__init__()
         g = torch.Generator().manual_seed(seed)
-        self.encoding_layer = LSTM(input_size, 128, 2, generator=g)
+        self.encoding_layer = LSTM(input_size, 128, 2, generator=g, members=members)
         self.attention_layer = TransformerEncoder(d_model, n_head, num_layers,
-                                                  generator=g, dropout=dropout)
-        self.decision = TorchLinear(d_model, 1, generator=g)
+                                                  generator=g, dropout=dropout,
+                                                  members=members)
+        self.decision = TorchLinear(d_model, 1, generator=g, members=members)
 
-    def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         x = self.attention_layer(self.encoding_layer(x), generator)
-        return softmax(self.decision(x), dim=1, final=True)
+        return softmax(self.decision(x), dim=-2, final=True)

@@ -8,19 +8,31 @@ leading member axis and `jax.vmap`s its training program; under the vmap
 its Pallas LSTM kernels become kernels over the members. The port writes
 the member axis out (`torch.func.vmap` cannot pass the kernels'
 `autograd.Function`s, and gives no per-member generators):
-`models.build_population_model` stacks K seeded models into one whose every
-leaf leads with K, and one step of the population is one forward, one
-backward and one update of that model:
+`models.build_population_model` stacks K seeded models of any of the eight
+into one whose every leaf leads with K, and one step of the population is
+one forward, one backward and one update of that model:
 
 - the BiLSTM's two layers launch K1' (forward) and K2' (backward) once each
   over the 2K directions of all members (ndir = 2K), not 2K times;
-- the expert stack runs the K * E experts as one stack, so K5' and K6'
-  launch once per forward and step over K * E * B attention rows;
-- the loss is the sum over members of each member's own mean loss
-  (`utils.losses.member_losses`), so each member's gradient is exactly its
+- the attention runs all members' rows in one launch per encoder layer:
+  K5'/K6' over K * E * B rows (MMOECut's and MOECut's expert stacks) or K
+  * B rows (AttnCut's, MtAttnCut's, Choopy's and MtChoopy's encoders), and
+  K3'/K4' over PLECut's K * E * B * H slices;
+- the loss is the sum over members of each member's own mean loss under
+  its own criterion (`utils.losses.member_losses`; an mt search's members
+  differ in their task weights), so each member's gradient is exactly its
   own;
-- `MemberAdam` is torch's Adam with coupled L2 (`train.make_optimizer`)
-  with a learning rate and a weight decay per member.
+- `MemberAdam` is torch's capturable Adam with coupled L2
+  (`train.make_optimizer`) with a learning rate and a weight decay per
+  member.
+
+In bfloat16 (`cfg.compute_dtype`) a step casts the f32 master parameters
+and the features inside the step, as `train.forward` does for a Trainer,
+and the kernels run their bf16 instances; losses and metrics stay f32. On
+the card each population train step and test step is one CUDA graph
+(`utils.graphs.GraphedSteps`, the counterpart of the JAX package's
+`jax.jit(jax.vmap(...))`), the members' generators registered with it;
+the epoch's batch plans are drawn eager, as a Trainer draws them.
 
 Member m reproduces the sequential `Trainer` run at its own config: the
 same initial weights (`build_model(..., seed=m.seed)`), the same corpus
@@ -29,12 +41,12 @@ same initial weights (`build_model(..., seed=m.seed)`), the same corpus
 dropout seed and mask are drawn in the order its sequential run draws
 them. So its random bits are its sequential run's bits (the port's own
 contract: the bits are torch's, not JAX's threefry), and its numbers differ
-from the sequential run's by the order of float32 sums alone.
+from the sequential run's by the order of sums alone.
 
-Scope (ROADMAP.md A1): MMOECut in float32, the members sharing one dropout
-rate. A per-member dropout rate needs per-row keep thresholds in K5'/K6'
-(the JAX package takes it off its kernels), and the other models and bf16
-are the next slices; each raises a ValueError that names it.
+Scope (ROADMAP.md A1): all eight models in float32 and bfloat16, the
+members sharing one dropout rate. A per-member dropout rate needs per-row
+keep thresholds in K3'-K6' (ROADMAP.md B5; the JAX package takes that
+population off its kernels) and raises a ValueError that names it.
 """
 
 from __future__ import annotations
@@ -50,14 +62,19 @@ import torch
 from rlt_tpu_torch import config as config_lib
 from rlt_tpu_torch.data import load_pkl_dataset, synthetic_config, synthetic_dataset
 from rlt_tpu_torch.data.batching import epoch_permutation
+from rlt_tpu_torch.infer import COMPUTE_DTYPES, decode_ks
 from rlt_tpu_torch.models import build_population_model, check_population_model
-from rlt_tpu_torch.train import batch_metrics, make_criterion
+from rlt_tpu_torch.train import forward, make_criterion
 from rlt_tpu_torch.utils import losses as losses_lib
+from rlt_tpu_torch.utils import metrics as metrics_lib
+from rlt_tpu_torch.utils.graphs import GraphedSteps
 from rlt_tpu_torch.utils.platform import resolve_device
 
 logger = logging.getLogger("rlt_tpu_torch")
 
 BETAS, EPS = (0.9, 0.999), 1e-8  # train.make_optimizer's
+# the models whose criterion takes the task weights a search draws
+MT_SEARCH_MODELS = ("mtchoopy", "mtattncut")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,24 +96,36 @@ class Member:
 class MemberAdam:
     """torch's Adam with coupled L2 (`train.make_optimizer`) over parameters
     whose leading axis is the member axis, with a learning rate and a weight
-    decay per member. Each update takes the ops of torch's single-tensor
-    Adam in its order: g + wd p, the first moment's lerp, the second's
-    mul-addcmul, the bias corrections, sqrt(v) / sqrt(bc2) + eps, and p
-    minus (lr / bc1) m / denom, with lr / bc1 taken in double and rounded
-    once, as torch rounds its scalar step size."""
+    decay per member, in the op order of the Adam that the sequential
+    `Trainer` runs on the same device. Its step count, learning rates and
+    weight decays are tensors on the parameters' device. On a CUDA device
+    the update takes the ops of torch's capturable (foreach) Adam, so that a
+    CUDA graph holds the whole step: g + wd p, the first moment's lerp, the
+    second's mul-addcmul, the step size -lr / (1 - beta1^t) and
+    sqrt(1 - beta2^t) from the step count on the card, then (sqrt(v) /
+    sqrt(1 - beta2^t) + eps) / step size as the denominator of p's addcdiv.
+    On the CPU, those of torch's single-tensor Adam: the bias corrections
+    in double on the host, sqrt(v) / sqrt(bc2) + eps, and p minus (lr /
+    bc1) m / denom, with lr / bc1 taken in double and rounded once, as
+    torch rounds its scalar step size. `state` holds each parameter's
+    moments and the step count as `torch.optim.Adam`'s does
+    (`utils.graphs.snapshot` reads it)."""
 
     def __init__(self, params, lrs: Sequence[float], weight_decays: Sequence[float]):
         self.params = [p for p in params if p.requires_grad]
-        self.lrs = [float(v) for v in lrs]
-        k = len(self.lrs)
+        k = len(lrs)
         if len(weight_decays) != k or any(p.shape[0] != k for p in self.params):
             raise ValueError(f"MemberAdam: {k} learning rates, {len(weight_decays)} "
                              "weight decays, and every parameter must lead with them")
         device = self.params[0].device
+        self._capturable = device.type == "cuda"
+        self._lr = torch.tensor([float(v) for v in lrs], dtype=torch.float64)
+        if self._capturable:
+            self._lr = self._lr.to(device, torch.float32)
         self._wd = torch.tensor([float(v) for v in weight_decays], device=device)
-        self.step_count = 0
-        self.exp_avg = [torch.zeros_like(p) for p in self.params]
-        self.exp_avg_sq = [torch.zeros_like(p) for p in self.params]
+        self._step = torch.zeros((), device=device)
+        self.state = {p: {"step": self._step, "exp_avg": torch.zeros_like(p),
+                          "exp_avg_sq": torch.zeros_like(p)} for p in self.params}
 
     @staticmethod
     def _per_member(values: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -109,17 +138,27 @@ class MemberAdam:
     @torch.no_grad()
     def step(self) -> None:
         beta1, beta2 = BETAS
-        self.step_count += 1
-        bc1 = 1 - beta1 ** self.step_count
-        bc2_sqrt = (1 - beta2 ** self.step_count) ** 0.5
-        neg_step = torch.tensor([-lr / bc1 for lr in self.lrs], dtype=torch.float32,
-                                device=self._wd.device)
-        for p, m, v in zip(self.params, self.exp_avg, self.exp_avg_sq):
+        self._step += 1
+        if self._capturable:
+            # (beta1^t - 1) / lr, reciprocal: the step size -lr / (1 - beta1^t)
+            step_size = torch.pow(beta1, self._step).sub_(1).div(self._lr).reciprocal_()
+            bc2_sqrt = torch.pow(beta2, self._step).sub_(1).neg_().sqrt_()
+        else:
+            t = self._step.item()
+            bc2_sqrt = (1 - beta2 ** t) ** 0.5
+            neg_step = (-self._lr / (1 - beta1 ** t)).float()
+        for p in self.params:
+            s = self.state[p]
+            m, v = s["exp_avg"], s["exp_avg_sq"]
             grad = p.grad.addcmul(p, self._per_member(self._wd, p))
             m.lerp_(grad, 1 - beta1)
             v.mul_(beta2).addcmul_(grad, grad, value=1 - beta2)
-            denom = (v.sqrt() / bc2_sqrt).add_(EPS)
-            p.addcdiv_(m * self._per_member(neg_step, p), denom)
+            if self._capturable:
+                denom = v.sqrt().div_(bc2_sqrt).add_(EPS).div_(self._per_member(step_size, p))
+                p.addcdiv_(m, denom)
+            else:
+                denom = (v.sqrt() / bc2_sqrt).add_(EPS)
+                p.addcdiv_(m * self._per_member(neg_step, p), denom)
 
 
 def _member_corpora(cfg: config_lib.TrainConfig, members: Sequence[Member], data) -> list:
@@ -160,46 +199,66 @@ def _stack_corpora(corpora: Sequence, device) -> dict[str, torch.Tensor]:
 def check_population(cfg: config_lib.TrainConfig, members: Sequence[Member]) -> None:
     """Raise a ValueError for what the population engine does not run."""
     check_population_model(cfg.model_name)
-    if cfg.compute_dtype != "float32":
-        raise ValueError(f"population training runs in float32, not "
-                         f"{cfg.compute_dtype!r}: the bf16 population is ROADMAP.md "
-                         "A1's next slice")
+    if cfg.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, "
+                         f"got {cfg.compute_dtype!r}")
     if any(m.dropout is not None and m.dropout != cfg.dropout for m in members):
         raise ValueError(
             f"every member trains at the config's dropout {cfg.dropout}: a dropout "
-            "rate per member needs per-row keep thresholds in K5'/K6' (ROADMAP.md "
+            "rate per member needs per-row keep thresholds in K3'-K6' (ROADMAP.md "
             "B5), where the JAX package takes its population off the kernels")
-    if any(m.rerank_weight is not None or m.class_weight is not None for m in members):
+    if any(m.rerank_weight is not None or m.class_weight is not None
+           for m in members) and not (
+            cfg.model_name in MT_SEARCH_MODELS and not cfg.loss_override):
         raise ValueError(
-            f"rerank/class weights only search ('mtchoopy', 'mtattncut') "
-            f"(run.py:79/:84); {cfg.model_name!r}'s criterion would silently ignore "
-            "them")
+            f"rerank/class weights only search {MT_SEARCH_MODELS} (run.py:79/:84); "
+            f"{cfg.model_name!r}'s criterion would silently ignore them")
 
 
-def _summary(member: Member, f1: list, dcg: list) -> dict:
+def member_config(cfg: config_lib.TrainConfig, member: Member) -> config_lib.TrainConfig:
+    """The config of member's sequential `Trainer` run: cfg with the
+    member's seed and every field it sets."""
+    overrides = {k: v for k, v in dataclasses.asdict(member).items() if v is not None}
+    return dataclasses.replace(cfg, **overrides)
+
+
+def _summary(cfg: config_lib.TrainConfig, member: Member, f1: list, dcg: list) -> dict:
     """`Trainer.summary`'s keys for one member, and its hyper-parameters."""
     return {"member": dataclasses.asdict(member),
             "best_f1": max(f1), "best_dcg": max(dcg),
             "best5_f1": float(np.mean(sorted(f1, reverse=True)[:5])),
             "best5_dcg": float(np.mean(sorted(dcg, reverse=True)[:5])),
-            "compute_dtype": "float32"}
+            "compute_dtype": cfg.compute_dtype}
 
 
 class Population:
     """K members of one model on one device: the stacked model, MemberAdam,
-    the stacked corpora, one generator per member, and per-member records.
-    `run_epoch` is one epoch of every member, as `train.Trainer.run_epoch`
-    is one of a Trainer."""
+    the stacked corpora, one generator per member, each member's criterion
+    and records. `run_epoch` is one epoch of every member, as
+    `train.Trainer.run_epoch` is one of a Trainer, in `cfg.compute_dtype`.
+
+    `graphs`: each population step one CUDA graph replay (the default on a
+    CUDA device; `utils.graphs.GraphedSteps`, as `Trainer`'s), or eager
+    (False: the CPU's only route; on the card for reference runs). Graphs
+    on the CPU raise."""
 
     def __init__(self, cfg: config_lib.TrainConfig, members: Sequence[Member],
-                 data=None, device: str | torch.device | None = None):
+                 data=None, device: str | torch.device | None = None,
+                 graphs: bool | None = None):
         members = list(members)
         if not members:
             raise ValueError("empty population")
         check_population(cfg, members)
         self.cfg, self.members = cfg, members
+        self.dtype = COMPUTE_DTYPES[cfg.compute_dtype]
         self.device = resolve_device(device)
-        self.criterion = make_criterion(cfg)
+        if graphs is None:
+            graphs = self.device.type == "cuda"
+        if graphs and self.device.type != "cuda":
+            raise ValueError(f"CUDA graphs are captured on a CUDA device, not on "
+                             f"{self.device}: the CPU runs eager (graphs=False)")
+        self.graphs = graphs
+        self.criteria = [make_criterion(member_config(cfg, m)) for m in members]
         self.data = _stack_corpora(_member_corpora(cfg, members, data), self.device)
         self.model = build_population_model(
             cfg.model_name, seq_len=cfg.seq_len, input_size=cfg.input_size,
@@ -212,7 +271,12 @@ class Population:
              for m in members])
         self.generators = [torch.Generator(device=self.device).manual_seed(m.seed)
                            for m in members]
+        self._rows = torch.arange(len(members), device=self.device)[:, None]
         self.history: list[list[dict]] = [[] for _ in members]
+        self._graphed = GraphedSteps(
+            self._train, self._test, (len(members), cfg.batch_size), self.device,
+            params=self.model.parameters(), optimizer=self.optimizer,
+            generators=self.generators) if graphs else None
 
     @property
     def size(self) -> int:
@@ -228,49 +292,73 @@ class Population:
     def batch(self, split: str, idx: torch.Tensor):
         """Member m's lists idx[m] of its own `split`: (K, B, L, F) features
         and (K, B, L) labels."""
-        rows = torch.arange(self.size, device=self.device)[:, None]
-        return self.data[f"x_{split}"][rows, idx], self.data[f"y_{split}"][rows, idx]
+        return (self.data[f"x_{split}"][self._rows, idx],
+                self.data[f"y_{split}"][self._rows, idx])
 
     def _metrics(self, output, y, valid) -> torch.Tensor:
-        """(K, 2): each member's F1 and DCG at its decoded cuts."""
-        return torch.stack([torch.stack(batch_metrics(
-            self.cfg.model_name, [h[m] for h in output], y[m], valid[m]))
-            for m in range(self.size)])
+        """(K, 2): each member's F1 and DCG at its decoded cuts, decoded
+        over the K * B rows at once and averaged over each member's valid
+        rows."""
+        k, b = y.shape[:2]
+        flat = ([h.flatten(0, 1) for h in output] if isinstance(output, (list, tuple))
+                else output.flatten(0, 1))
+        ks = decode_ks(self.cfg.model_name, flat).view(k, b)
+        return torch.stack([metrics_lib.f1_at_k(y, ks, valid=valid),
+                            metrics_lib.dcg_at_k(y, ks, valid=valid)], dim=1)
 
-    def train_step(self, x, y, valid):
-        """One update of every member: (K,) losses and (K, 2) F1/DCG of the
-        pre-update forward, as `train.train_step` gives one member's."""
+    def _train(self, idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        """One update of every member on plan rows idx (K, B): (K, 3) loss,
+        F1 and DCG of the pre-update forward, as `train.train_step` gives
+        one member's."""
         self.model.train()
         self.optimizer.zero_grad()
-        output = self.model(x, self.generators)
-        losses = losses_lib.member_losses(self.criterion, output, y, valid)
+        x, y = self.batch("train", idx)
+        output = forward(self.model, x, self.generators, self.dtype)
+        losses = losses_lib.member_losses(self.criteria, output, y, valid)
         losses.sum().backward()
         self.optimizer.step()
         with torch.no_grad():
-            return losses.detach(), self._metrics(output, y, valid)
+            return torch.cat([losses.detach()[:, None], self._metrics(output, y, valid)],
+                             dim=1)
 
     @torch.no_grad()
-    def eval_step(self, x, y, valid):
+    def _test(self, idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
         self.model.eval()
-        output = self.model(x)
-        return (losses_lib.member_losses(self.criterion, output, y, valid),
-                self._metrics(output, y, valid))
+        x, y = self.batch("test", idx)
+        output = forward(self.model, x, dtype=self.dtype)
+        losses = losses_lib.member_losses(self.criteria, output, y, valid)
+        return torch.cat([losses[:, None], self._metrics(output, y, valid)], dim=1)
+
+    def _step(self, split: str, idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        if self._graphed is not None:
+            return self._graphed(split, idx, valid)
+        return (self._train if split == "train" else self._test)(idx, valid)
+
+    def train_batch(self, idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        """One update of every member on its train plan row (idx, valid),
+        each (K, B): (K, 3) loss, F1 and DCG of the pre-update forward, a
+        tensor of its own."""
+        return self._step("train", idx, valid)
+
+    def test_batch(self, idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        """(K, 3) loss, F1 and DCG of every member's test plan row (idx,
+        valid) without dropout, a tensor of its own."""
+        return self._step("test", idx, valid)
 
     def run_epoch(self) -> list[dict]:
         """Every train batch of every member, then each member's test split:
         per member the metrics `train.Trainer.run_epoch` gives (the means of
-        the batch means, and the per-step train losses)."""
+        the batch means, and the per-step train losses). The host fetches
+        the epoch's results once."""
         tr_idx, tr_valid = self.plans("train")
         te_idx, te_valid = self.plans("test")
-        train = [self.train_step(*self.batch("train", tr_idx[:, s]), tr_valid[:, s])
+        train = [self.train_batch(tr_idx[:, s], tr_valid[:, s])
                  for s in range(tr_idx.shape[1])]
-        test = [self.eval_step(*self.batch("test", te_idx[:, s]), te_valid[:, s])
+        test = [self.test_batch(te_idx[:, s], te_valid[:, s])
                 for s in range(te_idx.shape[1])]
-        out = []
-        for part in (train, test):  # (steps, K, 3): loss, f1, dcg
-            out.append(torch.stack([torch.cat([loss[:, None], m], dim=1)
-                                    for loss, m in part]).cpu().numpy().astype(np.float64))
-        tr, te = out
+        # (steps, K, 3): loss, f1, dcg
+        tr, te = (torch.stack(part).cpu().numpy().astype(np.float64)
+                  for part in (train, test))
         epochs = []
         for m in range(self.size):
             metrics = {f"{split}_{name}": float(np.mean(values[:, m, i]))
@@ -303,7 +391,8 @@ def train_population(cfg: config_lib.TrainConfig, members: Sequence[Member],
     "history"], "f1_record": (K, epochs), "dcg_record": (K, epochs)[,
     "best_state": the stacked state_dict of each member's best test F1
     epoch, with track_best_params]}. Runs on the card unless `device` is
-    "cpu"."""
+    "cpu", each step one CUDA graph there (each chunk a `Population` with
+    graphs of its own)."""
     members = list(members)
     if not members:
         raise ValueError("empty population")
@@ -346,7 +435,7 @@ def train_population(cfg: config_lib.TrainConfig, members: Sequence[Member],
                 time.perf_counter() - start)
     f1_rec = np.array([[h["test_f1"] for h in hist] for hist in pop.history])
     dcg_rec = np.array([[h["test_dcg"] for h in hist] for hist in pop.history])
-    per_member = [dict(_summary(m, f1_rec[i].tolist(), dcg_rec[i].tolist()),
+    per_member = [dict(_summary(cfg, m, f1_rec[i].tolist(), dcg_rec[i].tolist()),
                        history=pop.history[i]) for i, m in enumerate(members)]
     out = {"per_member": per_member, "f1_record": f1_rec, "dcg_record": dcg_rec}
     if track_best_params:

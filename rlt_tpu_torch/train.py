@@ -56,9 +56,12 @@ The hyper-parameter search (`--parameter-search 1`, with
 search axes, `--search-times` and `--parameter-record`) draws the JAX
 package's trials (`draw_search_trials`) and appends its record lines.
 It trains the trials one after another, or with `--population K` K at a
-time as one population (`rlt_tpu_torch/population.py`): MMOECut in float32,
-trials that share one dropout rate; any other search raises a ValueError
-with `--population` rather than fall back. Not ported yet (ROADMAP.md):
+time as one population (`rlt_tpu_torch/population.py`): any of the eight
+models, in float32 or bfloat16, each population step one CUDA graph on
+the card; `--mt-search 1` gives MtChoopy's and MtAttnCut's members their
+own task weights. Trials that differ in dropout (`--regularizer-search 1`)
+raise a ValueError with `--population` rather than fall back: a dropout
+rate per member waits for ROADMAP.md B5. Not ported yet (ROADMAP.md):
 probe_base, resume, `--draw`, the metrics log directory, and data and model
 parallelism.
 """
@@ -88,7 +91,7 @@ from rlt_tpu_torch.models import MODELS, build_model
 from rlt_tpu_torch.models.layers import compute_params
 from rlt_tpu_torch.utils import losses as losses_lib
 from rlt_tpu_torch.utils import metrics as metrics_lib
-from rlt_tpu_torch.utils.graphs import GraphedCall
+from rlt_tpu_torch.utils.graphs import GraphedSteps
 from rlt_tpu_torch.utils.platform import resolve_device
 
 logger = logging.getLogger("rlt_tpu_torch")
@@ -249,11 +252,10 @@ class Trainer:
         self.f1_record: list[float] = []
         self.dcg_record: list[float] = []
         self.history: list[dict] = []  # each epoch's metrics, as run_epoch gives them
-        self._graphed: dict[str, GraphedCall] = {}  # "train", "test": captured at first use
-        if graphs:  # the graphs' inputs: a row of the plan, and one pool for both
-            self._idx = torch.zeros(cfg.batch_size, dtype=torch.int64, device=self.device)
-            self._valid = torch.zeros(cfg.batch_size, device=self.device)
-            self._pool = torch.cuda.graph_pool_handle()
+        self._graphed = GraphedSteps(
+            self._train, self._test, (cfg.batch_size,), self.device,
+            params=self.model.parameters(), optimizer=self.optimizer,
+            generators=[self.generator]) if graphs else None
 
     def _snapshot(self) -> dict[str, torch.Tensor]:
         return {k: v.detach().clone() for k, v in self.model.state_dict().items()}
@@ -274,18 +276,9 @@ class Trainer:
                                      d.x_test[idx], d.y_test[idx], valid, self.dtype))
 
     def _step(self, split: str, idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-        body = self._train if split == "train" else self._test
-        if not self.graphs:
-            return body(idx, valid)
-        self._idx.copy_(idx)
-        self._valid.copy_(valid)
-        graph = self._graphed.get(split)
-        if graph is None:
-            state = (dict(params=list(self.model.parameters()), optimizer=self.optimizer,
-                          generators=[self.generator]) if split == "train" else {})
-            graph = self._graphed[split] = GraphedCall(
-                lambda: body(self._idx, self._valid), pool=self._pool, **state)
-        return graph().clone()  # the next replay overwrites the graph's output
+        if self._graphed is not None:
+            return self._graphed(split, idx, valid)
+        return (self._train if split == "train" else self._test)(idx, valid)
 
     def train_batch(self, idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
         """One update on the train batch of plan row (idx, valid): the
@@ -399,9 +392,13 @@ def build_argparser() -> argparse.ArgumentParser:
         description="rlt_tpu_torch truncation model trainer (bicut, choopy, "
                     "attncut, mtchoopy, mtattncut, mmoecut, moecut, mtple)",
         epilog="--population K trains K search trials at a time as one population: "
-               "MMOECut in float32, trials that share one dropout rate (so not "
-               "--regularizer-search); the rest raises. On the card every train and "
-               "test step is one CUDA graph replay. Not ported yet, so absent: "
+               "any of the eight models, in float32 or bfloat16 (--compute-dtype), "
+               "each population step one CUDA graph replay on the card; --mt-search "
+               "gives MtChoopy's and MtAttnCut's members their own task weights. "
+               "Trials must share one dropout rate, so --regularizer-search with "
+               "--population raises (a dropout rate per member is ROADMAP.md B5). "
+               "On the card every train and test step is one CUDA graph replay. "
+               "Not ported yet, so absent: "
                "--resume, --draw, --log-dir, --data-parallel and --model-parallel "
                "(ROADMAP.md).")
     d = config_lib.TrainConfig()
@@ -539,9 +536,10 @@ def parameter_search(cfg: config_lib.TrainConfig, population: int = 0,
     `Trainer` run, for every model; population=K trains them K at a time as
     one population (`population.train_population`): the same trials and the
     same record lines, written when the last chunk is done. The population
-    takes MMOECut float32 trials that share one dropout rate; for any other
-    search it raises before the first trial, and nothing falls back to the
-    sequential engine."""
+    takes trials of any model in either compute dtype that share one
+    dropout rate; for a search over dropout it raises before the first
+    trial (ROADMAP.md B5), and nothing falls back to the sequential
+    engine."""
     trials = draw_search_trials(cfg)
     record = _search_record_path(cfg)
 

@@ -28,8 +28,8 @@ the whole step is one launch.
   overwrites.
 - **Memory.** Graphs that never run at once may share one pool
   (`torch.cuda.graph_pool_handle()`): a Predictor's buckets, a Trainer's
-  train and test steps. Their outputs stay referenced, so no later capture
-  reuses them.
+  train and test steps (`GraphedSteps`, which a population shares). Their
+  outputs stay referenced, so no later capture reuses them.
 - **Launch counts.** `ops.build.Kernel.launches` rises in Python where a
   wrapper launches its kernel, which a replay does not pass through. The
   runner sets every count back after the capture to what it was before the
@@ -45,6 +45,7 @@ only on a CUDA device: the CPU runs eager.
 
 from __future__ import annotations
 
+import weakref
 from typing import Callable, Iterable, Sequence
 
 import torch
@@ -67,12 +68,14 @@ def _refuse_plain(what: str) -> None:
             "it captured; run the plain reference eager (graphs=False)")
 
 
-def snapshot(params: Iterable[torch.Tensor] = (), optimizer: torch.optim.Optimizer | None = None,
+def snapshot(params: Iterable[torch.Tensor] = (), optimizer=None,
              generators: Sequence[torch.Generator] = ()) -> Callable[[], None]:
     """Save the parameters, the optimizer's state and the generators' states
     and return the function that restores them in place: the same tensors
     take back their values, and an optimizer state made after the save is
-    zeroed (Adam's moments and step count start at 0)."""
+    zeroed (Adam's moments and step count start at 0). The optimizer is a
+    `torch.optim.Optimizer` or any with its `.state` ({param: {name:
+    tensor}}, as `population.MemberAdam`'s)."""
     params = list(params)
     saved = [p.detach().clone() for p in params]
     state = {} if optimizer is None else {
@@ -113,8 +116,7 @@ class GraphedCall:
     while this one captures (a server's)."""
 
     def __init__(self, fn: Callable, *, pool=None, params: Iterable[torch.Tensor] = (),
-                 optimizer: torch.optim.Optimizer | None = None,
-                 generators: Sequence[torch.Generator] = (),
+                 optimizer=None, generators: Sequence[torch.Generator] = (),
                  capture_error_mode: str = "global"):
         from rlt_tpu_torch.ops import KERNELS
 
@@ -148,3 +150,39 @@ class GraphedCall:
         for name, n in self.launches.items():
             KERNELS[name].launches += n
         return self.outputs
+
+
+class GraphedSteps:
+    """A trainer's train and test steps, each one `GraphedCall` captured at
+    its first call and sharing one pool. `train(idx, valid)` and
+    `test(idx, valid)`, the owner's bound methods, read a row of a batch
+    plan; the graphs read it from static buffers of the plan row's shape,
+    filled before each replay. The train step's capture saves and restores
+    `params`, `optimizer` and `generators` and registers the generators
+    with its graph. The methods are held weakly: the owner holds this
+    object, and a reference back would keep the owner and its graphs' pool
+    on the card until Python's cycle collector ran."""
+
+    def __init__(self, train: Callable, test: Callable, shape: tuple, device, *,
+                 params: Iterable[torch.Tensor], optimizer,
+                 generators: Sequence[torch.Generator]):
+        self.bodies = {"train": weakref.WeakMethod(train), "test": weakref.WeakMethod(test)}
+        self.state = dict(params=list(params), optimizer=optimizer,
+                          generators=list(generators))
+        self.idx = torch.zeros(shape, dtype=torch.int64, device=device)
+        self.valid = torch.zeros(shape, device=device)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graphs: dict[str, GraphedCall] = {}
+
+    def __call__(self, split: str, idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        """The step of `split` on plan row (idx, valid): a copy of the
+        replay's output, which the next replay overwrites."""
+        self.idx.copy_(idx)
+        self.valid.copy_(valid)
+        graph = self.graphs.get(split)
+        if graph is None:
+            body = self.bodies[split]()
+            graph = self.graphs[split] = GraphedCall(
+                lambda: body(self.idx, self.valid), pool=self.pool,
+                **(self.state if split == "train" else {}))
+        return graph().clone()

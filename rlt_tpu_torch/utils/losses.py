@@ -216,18 +216,23 @@ def wass_dist_loss(output: torch.Tensor, labels: torch.Tensor, *, eps: float = 1
     return torch.sum(torch.exp(modified_cost(u, v)) * cost)
 
 
-def member_losses(criterion: Callable, output, labels: torch.Tensor,
+def member_losses(criterion, output, labels: torch.Tensor,
                   valid: torch.Tensor) -> torch.Tensor:
-    """(K,) losses of K population members: `criterion` on member m's slice
-    of every head (a list of (K, B, L, 1) heads, or one (K, ...) tensor),
-    labels[m] and valid[m]. Each is the member's own mean over its rows,
-    so their sum, the population's loss, gives each member exactly its own
-    gradient (a mean over the K * B rows would scale each by 1 / K)."""
+    """(K,) losses of K population members: member m's criterion (one
+    `criterion` for all, or a sequence of K, one per member: the task
+    weights of an mt search) on member m's slice of every head (a list of
+    (K, B, L, 1) heads, or one (K, ...) tensor), labels[m] and valid[m].
+    Each is the member's own mean over its rows, so their sum, the
+    population's loss, gives each member exactly its own gradient (a mean
+    over the K * B rows would scale each by 1 / K)."""
+    k = labels.shape[0]
+    criteria = list(criterion) if isinstance(criterion, (list, tuple)) else [criterion] * k
+    if len(criteria) != k:
+        raise ValueError(f"{len(criteria)} criteria for {k} members")
     heads = isinstance(output, (list, tuple))
     return torch.stack([
-        criterion([h[m] for h in output] if heads else output[m], labels[m],
-                  valid=valid[m])
-        for m in range(labels.shape[0])])
+        crit([h[m] for h in output] if heads else output[m], labels[m], valid=valid[m])
+        for m, crit in enumerate(criteria)])
 
 
 # the criterion registry of the JAX package (its `LOSSES`)

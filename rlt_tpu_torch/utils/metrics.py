@@ -58,28 +58,32 @@ def reward_matrix(labels: torch.Tensor, metric: str = "f1") -> torch.Tensor:
 
 
 def _gather_at_k(curve: torch.Tensor, ks: torch.Tensor) -> torch.Tensor:
-    """curve (B, L), ks (B,) 1-based -> (B,) values at the cut."""
+    """curve (..., B, L), ks (..., B) 1-based -> (..., B) values at the cut."""
     idx = torch.clamp(ks.to(torch.int64) - 1, 0, curve.shape[-1] - 1)
-    return torch.gather(curve, -1, idx[:, None])[:, 0]
+    return torch.gather(curve, -1, idx[..., None])[..., 0]
 
 
 def _masked_mean(values: torch.Tensor,
                  valid: torch.Tensor | None) -> torch.Tensor:
+    """The mean over the last (row) axis, over the valid rows."""
     if valid is None:
-        return torch.mean(values)
+        return torch.mean(values, dim=-1)
     valid = valid.to(values.dtype)
-    return torch.sum(values * valid) / torch.clamp(torch.sum(valid), min=1.0)
+    return (torch.sum(values * valid, dim=-1)
+            / torch.clamp(torch.sum(valid, dim=-1), min=1.0))
 
 
 def f1_at_k(labels: torch.Tensor, ks: torch.Tensor,
             valid: torch.Tensor | None = None) -> torch.Tensor:
-    """Batch-mean F1 at per-row cuts `ks` (1-based)."""
+    """Batch-mean F1 at per-row cuts `ks` (1-based); with a leading member
+    axis, (K, B, L) labels and (K, B) cuts, each member's mean (K,)."""
     return _masked_mean(_gather_at_k(f1_curve(labels), ks), valid)
 
 
 def dcg_at_k(labels: torch.Tensor, ks: torch.Tensor, penalty: float = -1.0,
              valid: torch.Tensor | None = None) -> torch.Tensor:
-    """Batch-mean penalized DCG at per-row cuts `ks`."""
+    """Batch-mean penalized DCG at per-row cuts `ks`; per member as
+    `f1_at_k`."""
     return _masked_mean(_gather_at_k(dcg_curve(labels, penalty), ks), valid)
 
 

@@ -15,19 +15,38 @@ as well as the card's work. `device_busy` takes the time in which the card
 ran at least one kernel, copy or fill that torch.profiler records over a
 few calls: the union of their intervals, overlaps merged (`union_ns`), so
 that two activities at once count once, with the profiler's annotations
-(spans it draws around an op's kernels, gaps included) left out. Beside
-the window of the same function timed without the profiler
-(`interleaved_ms`), host share = 1 - busy / window says how much of that
-window the card sat idle waiting for the host (`busy_row`). A busy time
-above its window is no share: `host_share` refuses it and `busy_row`
-reports the row as failed.
+(spans it draws around an op's kernels, gaps included) left out. The
+profiler lengthens device work a little, so busy is held to the window of
+the same calls in the same profiled session, timed with CUDA events around
+them (the profiled window): host share = 1 - busy / profiled window says
+how much of that window the card sat idle waiting for the host
+(`busy_row`), and the profiler's stretch = profiled window / the window
+of the same function timed without the profiler (`interleaved_ms`) is
+printed beside it. A busy time above its own profiled window is no share:
+`host_share` refuses it and `busy_row` reports the row as failed.
 
 A profiled session may be handed device records of work done before it,
 and may lose some of its own (`scripts/probe_device_busy.py` counts both):
 `session_busy_ns` keeps only the device records that start after the
 session's first host record (the card is idle when a session begins, so no
-work of its calls starts before its first launch), and `device_busy` takes,
-of PROFILE_SESSIONS sessions, the one with the most such records.
+work of its calls starts before its first launch). A session may lose
+records of the work launched as its tracing starts: in one process, 5 of
+120 sessions of MtChoopy's eager bf16 train step kept 5464-5482 of its
+5510 device records, 3 of them with device records that start before the
+session's first host record (`scripts/probe_session_records.py` on an
+H100, torch 2.11). So each session first runs HEAD_KERNELS spin kernels
+and waits for them, and then the calls: a session that recorded none of
+the spins may have lost the calls' first records, and is short. A session
+is short too when it keeps fewer device records than its calls are known
+to make: at least one a kernel launch that `ops.KERNELS` counts in the
+session (a graph replay adds its captured launches), or a caller's own
+count (a graph's eager twin's records). The calls make the same device
+work in every session, so a session is short as well when it keeps fewer
+than PEER_SHARE of the records of the fullest session of its row
+(`pick_session`). `device_busy` takes, of PROFILE_SESSIONS sessions (up to
+MAX_SESSIONS while all are short), the complete one with the most records;
+a row whose every session is short is a failed row. A loss that every
+session of a row shares alike is seen only by a caller's own count.
 """
 
 from __future__ import annotations
@@ -39,6 +58,14 @@ import torch
 
 REPEATS = 7
 PROFILE_SESSIONS = 3
+MAX_SESSIONS = 6
+# a session keeping fewer than this share of the device records of its
+# row's fullest session lost some (`pick_session`)
+PEER_SHARE = 0.9
+# the spin kernels that open a profiled session (`torch.cuda._sleep`), about
+# 2.5 ms of device work on an H100
+HEAD_KERNELS, HEAD_CYCLES = 256, 20_000
+_SPIN = "spin_kernel"  # their name in the profiler's records
 
 
 def interleaved_ms(candidates: dict[str, Callable], iters: int | dict[str, int] = 1,
@@ -100,13 +127,41 @@ def session_busy_ns(records) -> tuple[int, int]:
     return len(spans), union_ns(spans)
 
 
+def _launches() -> int:
+    from rlt_tpu_torch.ops import KERNELS
+
+    return sum(kernel.launches for kernel in KERNELS.values())
+
+
+def pick_session(sessions: list[tuple]) -> tuple[tuple | None, list[tuple]]:
+    """(best, short) of a row's profiled sessions, each (head, records,
+    need, ...): `head` the opening spin kernels it recorded, `records` its
+    device records, `need` the least its calls make. A session is complete
+    when it recorded a spin kernel, keeps `need` records and at least
+    PEER_SHARE of the records of the fullest such session; best is the
+    complete one with the most records (None where none is), short the
+    sessions that are not complete, in order."""
+    full = [s for s in sessions if s[0] > 0 and s[1] >= max(s[2], 1)]
+    top = max((s[1] for s in full), default=0)
+    complete = [s for s in full if s[1] >= PEER_SHARE * top]
+    return (max(complete, key=lambda s: s[1], default=None),
+            [s for s in sessions if s not in complete])
+
+
 def device_busy(fn: Callable, calls: int = 3, warmup: int = 1,
-                sessions: int = PROFILE_SESSIONS) -> float | None:
+                sessions: int = PROFILE_SESSIONS,
+                min_records: float | None = None) -> dict:
     """The card's busy ms per call of `fn`: the union of the device
     intervals of every kernel, copy and fill that torch.profiler records
-    over `calls` calls (its annotations left out), from the one of
-    `sessions` profiled sessions with the most records of its own
-    (`session_busy_ns`); None where no session records device work. It
+    over `calls` calls (its annotations and the session's opening spin
+    kernels left out), from the complete one of the profiled sessions with
+    the most records of its own (`session_busy_ns`, `pick_session`). A
+    session needs at least `min_records` device records a call, or,
+    without it, one a kernel launch counted in the session. Returns
+    {"busy_ms", "profiled_ms" (the CUDA-event window of the same session's
+    calls, per call), "records" (the session's device records a call),
+    "sessions", "short" (each short session's device records a call)};
+    busy_ms and profiled_ms are None where every session is short. It
     reads the profiler's raw events: building its event tree takes seconds
     a train step."""
     from torch.autograd import DeviceType
@@ -115,16 +170,35 @@ def device_busy(fn: Callable, calls: int = 3, warmup: int = 1,
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    best = (0, 0)
-    for _ in range(sessions):
+    taken: list[tuple] = []
+    while len(taken) < sessions or (pick_session(taken)[0] is None
+                                    and len(taken) < MAX_SESSIONS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(HEAD_KERNELS):
+                torch.cuda._sleep(HEAD_CYCLES)
+            torch.cuda.synchronize()
+            launched = _launches()
+            start.record()
             for _ in range(calls):
                 fn()
+            end.record()
             torch.cuda.synchronize()
-        best = max(best, session_busy_ns(
-            (e.start_ns(), e.end_ns(), e.device_type() == DeviceType.CUDA)
-            for e in prof.profiler.kineto_results.events() if not e.is_user_annotation()))
-    return best[1] / 1e6 / calls if best[1] > 0 else None
+        need = calls * min_records if min_records is not None else _launches() - launched
+        events = [(e.start_ns(), e.end_ns(), e.device_type() == DeviceType.CUDA, e.name())
+                  for e in prof.profiler.kineto_results.events() if not e.is_user_annotation()]
+        head = sum(on_device and _SPIN in name for _, _, on_device, name in events)
+        records, busy_ns = session_busy_ns(
+            (start_ns, end_ns, on_device) for start_ns, end_ns, on_device, name in events
+            if not (on_device and _SPIN in name))
+        taken.append((head, records, need, busy_ns, start.elapsed_time(end)))
+    best, short = pick_session(taken)
+    out = {"busy_ms": None, "profiled_ms": None, "records": None, "sessions": len(taken),
+           "short": [s[1] / calls for s in short]}
+    if best is not None:
+        out.update(busy_ms=best[3] / 1e6 / calls, profiled_ms=best[4] / calls,
+                   records=best[1] / calls)
+    return out
 
 
 def host_share(busy_ms: float | None, window_ms: float | None) -> float | None:
@@ -139,10 +213,22 @@ def host_share(busy_ms: float | None, window_ms: float | None) -> float | None:
     return 1.0 - busy_ms / window_ms
 
 
-def busy_row(busy_ms: float | None, window_ms: float | None) -> dict:
-    """The busy time (`device_busy`) with the host share of the window of
-    the same function timed without the profiler; a busy time above that
-    window is reported as a failed row, with no share."""
-    if busy_ms is not None and window_ms is not None and busy_ms > window_ms:
-        return {"busy_ms": busy_ms, "failed": f"busy above its {window_ms} ms window"}
-    return {"busy_ms": busy_ms, "host_share": host_share(busy_ms, window_ms)}
+def busy_row(busy: dict, window_ms: float | None) -> dict:
+    """A `device_busy` result as a row: busy ms, the host share of the
+    profiled window of the same session, the profiler's stretch (that
+    window over `window_ms`, the function's window timed without the
+    profiler) and the session's records. A row whose every session was
+    short, or whose busy time is above its profiled window, is reported as
+    failed, with no share."""
+    busy_ms, profiled = busy["busy_ms"], busy["profiled_ms"]
+    row = {"busy_ms": busy_ms, "profiled_ms": profiled,
+           "stretch": (profiled / window_ms if profiled is not None and window_ms
+                       else None),
+           "records": busy["records"], "sessions": busy["sessions"],
+           "short_sessions": busy["short"]}
+    if busy_ms is None:
+        return dict(row, failed=f"every one of {busy['sessions']} profiled sessions "
+                                "kept fewer device records than its calls make")
+    if busy_ms > profiled:
+        return dict(row, failed=f"busy above its {profiled} ms profiled window")
+    return dict(row, host_share=host_share(busy_ms, profiled))

@@ -42,6 +42,7 @@ from rlt_tpu_torch.ops import attention, lstm
 from rlt_tpu_torch.serve import TruncationService
 from rlt_tpu_torch.train import Trainer
 from rlt_tpu_torch.utils.convert import params_from_jax
+from torch_threads import ONE_THREAD_ENV, one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 # K1': cs is float32 carried through every step, so only the order of the
@@ -499,7 +500,7 @@ def test_infer_cli_takes_compute_dtype(tmp_path):
         [sys.executable, "-m", "rlt_tpu_torch.infer", "--model-name", "bicut",
          "--retrieve-data", "mq2007", "--device", "cpu", "--compute-dtype", "bfloat16",
          "--out", str(out)],
-        cwd=REPO, capture_output=True, text=True, timeout=300)
+        cwd=REPO, capture_output=True, text=True, timeout=300, env=ONE_THREAD_ENV)
     assert proc.returncode == 0, proc.stderr
     summary = json.loads(proc.stdout.strip().splitlines()[-1])
     assert summary["compute_dtype"] == "bfloat16" and summary["n_lists"] > 0
@@ -513,5 +514,6 @@ def test_serve_cli_takes_compute_dtype():
     with pytest.raises(SystemExit):  # argparse refuses a dtype it does not know
         serve.main(["--compute-dtype", "float16"])
     proc = subprocess.run([sys.executable, "-m", "rlt_tpu_torch.serve", "--help"],
-                          cwd=REPO, capture_output=True, text=True, timeout=120)
+                          cwd=REPO, capture_output=True, text=True, timeout=120,
+                          env=ONE_THREAD_ENV)
     assert proc.returncode == 0 and "--compute-dtype" in proc.stdout

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from rlt_tpu_torch.ops import lstm
+from torch_threads import one_torch_thread  # noqa: F401  (one torch thread a test file)
 
 H, L, B, NDIR = 128, 40, 5, 2
 EPS32 = 2.0 ** -24

@@ -38,6 +38,7 @@ from rlt_tpu_torch.config import PRESETS, TrainConfig
 from rlt_tpu_torch.models import ZERO_GRAD_LEAVES, build_model, layers
 from rlt_tpu_torch.models.layers import compute_params
 from rlt_tpu_torch.utils.convert import params_from_jax
+from torch_threads import ONE_THREAD_ENV, one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 MODELS = ("mmoecut", "moecut", "mtple", "attncut", "mtattncut", "bicut", "choopy",
@@ -387,7 +388,7 @@ def test_train_cli_takes_compute_dtype(tmp_path):
          "--device", "cpu", "--retrieve-data", "mq2007", "--synthetic-queries", "24",
          "--batch-size", "8", "--epochs", "1", "--compute-dtype", "bfloat16",
          "--out", str(out)],
-        cwd=REPO, capture_output=True, text=True, timeout=300)
+        cwd=REPO, capture_output=True, text=True, timeout=300, env=ONE_THREAD_ENV)
     assert proc.returncode == 0, proc.stderr
     summary = json.loads(proc.stdout.strip().splitlines()[-1])
     assert summary["compute_dtype"] == "bfloat16" and np.isfinite(summary["best_f1"])

@@ -44,6 +44,7 @@ from rlt_tpu_torch import train
 from rlt_tpu_torch.config import TrainConfig
 from rlt_tpu_torch.models import layers
 from rlt_tpu_torch.ops import attention, lstm
+from torch_threads import one_torch_thread  # noqa: F401  (one torch thread a test file)
 
 # (a) K2': dxw is the f32 dgates rounded to bf16; the plain loop's f32 sums
 # (the gates' 128-term products, the carried dh's 512-term contraction) run

@@ -178,9 +178,10 @@ def test_member_batched_lstm_kernels_match_plain_on_card(cuda_device, members):
 
 def test_population_step_launches_on_card(cuda_device):
     """One step of a population of three MMOECut members at robust04 width
-    launches K1' and K2' twice each (one per BiLSTM layer over all members'
-    directions) and K5' and K6' once each (all members' experts), not once
-    per member, with a finite loss per member."""
+    (its graph's capture and first replay) launches K1' and K2' twice each
+    (one per BiLSTM layer over all members' directions) and K5' and K6' once
+    each (all members' experts), not once per member, with a finite loss
+    per member."""
     from rlt_tpu_torch.population import Member, Population
 
     cfg = dataclasses.replace(apply_preset(TrainConfig(model_name="mmoecut",
@@ -191,10 +192,10 @@ def test_population_step_launches_on_card(cuda_device):
     kernels = (lstm.LSTM_FWD, lstm.LSTM_BWD, attention.ATTENTION_PACKED_FWD,
                attention.ATTENTION_PACKED_BWD)
     counts = [k.launches for k in kernels]
-    losses, _ = pop.train_step(*pop.batch("train", idx[:, 0]), valid[:, 0])
+    out = pop.train_batch(idx[:, 0], valid[:, 0])  # (K, 3): loss, F1, DCG
     torch.cuda.synchronize()
     assert [k.launches - c for k, c in zip(kernels, counts)] == [2, 2, 1, 1]
-    assert losses.shape == (3,) and torch.isfinite(losses).all()
+    assert out.shape == (3, 3) and torch.isfinite(out[:, 0]).all()
 
 
 @pytest.mark.parametrize("n,length,heads", [(2, 128, 4), (3, 37, 6), (9, 300, 4),

@@ -5,11 +5,12 @@ and the busy time of the card as the union of its device intervals
 The CPU tests hold what runs without a card: the interval union on
 synthetic intervals, the refusal of a busy time above its window, Adam
 capturable only on CUDA parameters, graphs refused on the CPU and inside
-`plain_ops()`, the snapshot that undoes a warm-up's steps in place, the
-serving buckets, `--profile-dir`'s trace of epochs 1-3, and the CPU epoch
-(eager) equal to the loop it replaced. The tests that take the
-`cuda_device` fixture need a card and skip without one: graphed against
-eager, bit for bit, for train steps and bucket forwards in both dtypes; the
+`plain_ops()`, the snapshot that undoes a warm-up's steps in place (a
+Trainer's and a population's), the serving buckets, `--profile-dir`'s
+trace of epochs 1-3, and the CPU epoch (eager) equal to the loop it
+replaced. The tests that take the `cuda_device` fixture need a card and
+skip without one: graphed against eager, bit for bit, for train steps,
+population steps and bucket forwards in both dtypes; the
 launch counts of a replay; the refusal of a replay inside `plain_ops()`.
 The file imports neither JAX nor the JAX package, so that it runs on the
 card's machine:
@@ -28,10 +29,13 @@ from rlt_tpu_torch.config import TrainConfig, apply_preset
 from rlt_tpu_torch.data import synthetic_dataset
 from rlt_tpu_torch.infer import Predictor
 from rlt_tpu_torch.ops import KERNELS, plain_active, plain_ops
+from rlt_tpu_torch.population import Member, Population
 from rlt_tpu_torch.serve import TruncationService, bucket_size, bucket_sizes
 from rlt_tpu_torch.train import Trainer, eval_step, main, make_optimizer, train_step
 from rlt_tpu_torch.utils.graphs import GraphedCall, snapshot
-from rlt_tpu_torch.utils.timing import busy_row, host_share, session_busy_ns, union_ns
+from rlt_tpu_torch.utils.timing import (busy_row, host_share, pick_session, session_busy_ns,
+                                       union_ns)
+from torch_threads import one_torch_thread  # noqa: F401  (one torch thread a test file)
 
 
 @pytest.fixture
@@ -94,16 +98,39 @@ def test_session_busy_ns_counts_the_sessions_own_records(records, want):
     assert session_busy_ns(iter(records)) == want  # as device_busy hands them over
 
 
+@pytest.mark.parametrize("sessions,best,short", [
+    # (head spins, records, need, busy ns, window ms)
+    ([(256, 100, 50, 7, 1.0), (256, 98, 50, 6, 1.0)], 0, []),       # both complete
+    ([(256, 80, 50, 5, 1.0), (256, 100, 50, 7, 1.0)], 1, [0]),      # below 0.9 of its peer
+    ([(0, 120, 50, 9, 1.0), (256, 100, 50, 7, 1.0)], 1, [0]),       # late start: no spins
+    ([(256, 40, 50, 3, 1.0), (256, 45, 50, 4, 1.0)], None, [0, 1]),  # under the launches
+    ([(256, 0, 0, 0, 1.0)], None, [0]),                             # no device record
+    ([(256, 95, 50, 6, 1.0), (256, 100, 50, 7, 1.0), (256, 89, 50, 5, 1.0)], 1, [2]),
+])
+def test_pick_session_holds_each_session_to_its_peers(sessions, best, short):
+    got, got_short = pick_session(sessions)
+    assert got == (None if best is None else sessions[best])
+    assert got_short == [sessions[i] for i in short]
+
+
 def test_busy_above_window_is_refused():
     assert host_share(None, 5.0) is None and host_share(2.0, None) is None
     assert host_share(2.0, 8.0) == pytest.approx(0.75)
     assert host_share(8.0, 8.0) == 0.0
     with pytest.raises(ValueError, match="above"):
         host_share(12.0, 11.68)
-    row = busy_row(12.0, 11.68)
+    # busy is held to the profiled window of its own session; the stretch is
+    # that window over the window timed without the profiler
+    busy = dict(busy_ms=12.0, profiled_ms=11.68, records=40.0, sessions=3, short=[])
+    row = busy_row(busy, 11.6)
     assert "11.68" in row["failed"] and row["busy_ms"] == 12.0 and "host_share" not in row
-    assert busy_row(7.5, 30.0) == {"busy_ms": 7.5, "host_share": 0.75}
-    assert busy_row(None, 3.0) == {"busy_ms": None, "host_share": None}
+    row = busy_row(dict(busy, busy_ms=7.5, profiled_ms=30.0), 25.0)
+    assert row["host_share"] == 0.75 and row["stretch"] == pytest.approx(1.2)
+    assert "failed" not in row and row["records"] == 40.0
+    # every session short: a failed row, with no share
+    row = busy_row(dict(busy, busy_ms=None, profiled_ms=None, records=None,
+                        short=[20.0] * 6, sessions=6), 3.0)
+    assert "6 profiled sessions" in row["failed"] and "host_share" not in row
 
 
 # ---------------------------------------------------------------------------
@@ -116,10 +143,11 @@ def test_make_optimizer_is_capturable_only_for_cuda_params():
     assert (opt.defaults["weight_decay"], opt.defaults["betas"]) == (0.01, (0.9, 0.999))
 
 
-@pytest.mark.parametrize("owner", ["trainer", "predictor"])
+@pytest.mark.parametrize("owner", ["trainer", "predictor", "population"])
 def test_graphs_on_the_cpu_raise(owner):
     cfg = tiny_cfg()
-    make = Trainer if owner == "trainer" else Predictor
+    make = {"trainer": Trainer, "predictor": Predictor,
+            "population": lambda c, **kw: Population(c, [Member(seed=0)], **kw)}[owner]
     assert make(cfg, device="cpu").graphs is False  # the CPU's default: eager
     with pytest.raises(ValueError, match="CUDA graphs"):
         make(cfg, device="cpu", graphs=True)
@@ -169,6 +197,35 @@ def test_snapshot_undoes_steps_in_place():
     trainer.train_batch(idx, valid)
     restore()
     assert all(torch.equal(trainer.optimizer.state[params[0]][k], v) for k, v in saved.items())
+
+
+def test_snapshot_undoes_population_steps_in_place():
+    """`snapshot` over a population's MemberAdam (its `state`: the moments
+    and the step count on the device): two steps undone in place, and the
+    step after the restore equals a fresh population's first step bit for
+    bit."""
+    def fresh():
+        pop = Population(tiny_cfg(), [Member(seed=0, lr=1e-3), Member(seed=1, lr=3e-4)],
+                         device="cpu")
+        idx, valid = pop.plans("train")
+        return pop, idx[:, 0], valid[:, 0]
+
+    pop, idx, valid = fresh()
+    params = list(pop.model.parameters())
+    restore = snapshot(params, pop.optimizer, pop.generators)
+    state = pop.optimizer.state[params[0]]
+    addresses = {k: v.data_ptr() for k, v in state.items()}
+    for _ in range(2):
+        pop.train_batch(idx, valid)
+    assert float(state["step"]) == 2.0
+    restore()
+    assert float(state["step"]) == 0.0 and float(state["exp_avg_sq"].abs().max()) == 0.0
+    assert {k: v.data_ptr() for k, v in state.items()} == addresses
+    got = pop.train_batch(idx, valid)
+    ref, ref_idx, ref_valid = fresh()
+    assert torch.equal(got, ref.train_batch(ref_idx, ref_valid))
+    for (name, p), q in zip(pop.model.named_parameters(), ref.model.parameters()):
+        assert torch.equal(p, q), name
 
 
 def test_bucket_sizes_and_service_warmup():
@@ -279,6 +336,44 @@ def test_graphed_train_steps_equal_eager_on_card(cuda_device, model_name, comput
     te_idx, te_valid = [t.data.plan(t.generator, "test") for t in (graphed, eager)][0]
     assert torch.equal(graphed.test_batch(te_idx[0], te_valid[0]),
                        eager.test_batch(te_idx[0], te_valid[0]))
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("model_name", ["mmoecut", "mtple", "choopy", "bicut"])
+def test_graphed_population_steps_equal_eager_on_card(cuda_device, model_name,
+                                                      compute_dtype):
+    """Three graphed population steps of two members, dropout on, against
+    three eager ones: the (K, 3) results, gradients, parameters and
+    MemberAdam's state bit for bit, then a test batch; each replay launches
+    what one eager population step launches, which is one sequential
+    step's."""
+    cfg = apply_preset(TrainConfig(model_name=model_name, retrieve_data="robust04",
+                                   compute_dtype=compute_dtype))
+    cfg = dataclasses.replace(cfg, dropout=cfg.dropout or 0.1)
+    data = synthetic_dataset(num_queries=160, seq_len=cfg.seq_len,
+                             num_features=cfg.input_size, seed=cfg.seed)
+    members = [Member(seed=0, lr=1e-3), Member(seed=1, lr=3e-4, weight_decay=0.01)]
+    graphed, eager = (Population(cfg, members, data=data, device="cuda", graphs=g)
+                      for g in (True, False))
+    plans = [p.plans("train") for p in (graphed, eager)]
+    assert all(torch.equal(a, b) for a, b in zip(*plans))
+    idx, valid = plans[0]
+    for s in range(3):
+        launches = []
+        for p in (graphed, eager):
+            before = _counts()
+            out = p.train_batch(idx[:, s], valid[:, s])
+            torch.cuda.synchronize()
+            launches.append(({k: n - before[k] for k, n in _counts().items()}, out))
+        (got_launches, got), (want_launches, want) = launches
+        assert got_launches == want_launches and torch.equal(got, want), s
+    for (name, p), q in zip(graphed.model.named_parameters(), eager.model.parameters()):
+        assert torch.equal(p, q) and torch.equal(p.grad, q.grad), name
+        for key, v in graphed.optimizer.state[p].items():
+            assert torch.equal(v, eager.optimizer.state[q][key]), (name, key)
+    te = [p.plans("test") for p in (graphed, eager)]
+    assert torch.equal(graphed.test_batch(te[0][0][:, 0], te[0][1][:, 0]),
+                       eager.test_batch(te[1][0][:, 0], te[1][1][:, 0]))
 
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])

@@ -15,6 +15,7 @@ import torch
 from rlt_tpu.utils import losses as jax_losses
 from rlt_tpu.utils import metrics as jax_metrics
 from rlt_tpu_torch.utils import losses, metrics
+from torch_threads import one_torch_thread  # noqa: F401  (one torch thread a test file)
 
 # f32 sums over L = 20 positions and B = 5 rows of O(1) terms, in another
 # order; the softmaxes of the reward targets differ in the last bits. The

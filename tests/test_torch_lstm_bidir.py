@@ -36,6 +36,7 @@ from rlt_tpu.ops import lstm as jax_lstm
 from rlt_tpu_torch.models import layers
 from rlt_tpu_torch.ops import lstm
 from rlt_tpu_torch.utils.convert import params_from_jax
+from torch_threads import one_torch_thread  # noqa: F401  (one torch thread a test file)
 
 HIDDEN = 128
 # f32 recurrence over 12 steps; the two frameworks sum the per-direction

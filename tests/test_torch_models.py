@@ -21,6 +21,7 @@ from rlt_tpu.train import decode_ks as jax_decode_ks
 from rlt_tpu_torch.infer import decode_ks
 from rlt_tpu_torch.models import build_model, layers
 from rlt_tpu_torch.utils.convert import params_from_jax
+from torch_threads import one_torch_thread  # noqa: F401  (one torch thread a test file)
 
 # f32 on both sides. The largest difference comes from the gates: one
 # (B, 2*128*L) x (2*128*L, E) contraction summed in another order, and

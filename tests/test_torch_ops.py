@@ -19,6 +19,7 @@ from rlt_tpu.ops import attention as jax_attention
 from rlt_tpu.ops import lstm as jax_lstm
 from rlt_tpu_torch import ops
 from rlt_tpu_torch.ops import attention, build, lstm
+from torch_threads import one_torch_thread  # noqa: F401  (one torch thread a test file)
 
 
 def _lstm_inputs(seed, length, batch, hidden):

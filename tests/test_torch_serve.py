@@ -27,6 +27,7 @@ from rlt_tpu_torch.serve import TruncationService, bucket_size, make_server
 from rlt_tpu_torch.train import Trainer
 from rlt_tpu_torch.utils import metrics
 from rlt_tpu_torch.utils.convert import params_from_jax
+from torch_threads import ONE_THREAD_ENV, one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -158,7 +159,7 @@ if not torch.cuda.is_available():
 print("ok")
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                         capture_output=True, text=True, timeout=120)
+                         capture_output=True, text=True, timeout=120, env=ONE_THREAD_ENV)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
 

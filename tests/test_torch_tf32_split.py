@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from rlt_tpu_torch.ops import attention
+from torch_threads import one_torch_thread  # noqa: F401  (one torch thread a test file)
 
 # the tolerances of tests/test_torch_card.py and chip_smoke.py
 ATTN_ATOL = 1e-5

@@ -30,6 +30,7 @@ from rlt_tpu_torch.data import DeviceDataset, epoch_permutation, synthetic_datas
 from rlt_tpu_torch.infer import Predictor
 from rlt_tpu_torch.models import build_model, layers
 from rlt_tpu_torch.utils.convert import params_from_jax
+from torch_threads import ONE_THREAD_ENV, one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -296,7 +297,8 @@ def test_train_cli_on_cpu(tmp_path):
            "--retrieve-data", "mq2007", "--synthetic-queries", "24",
            "--batch-size", "8", "--epochs", "2", "--model-persist", "1",
            "--save-path", str(tmp_path), "--out", str(out)]
-    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300,
+                          env=ONE_THREAD_ENV)
     assert proc.returncode == 0, proc.stderr[-2000:]
     summary = json.loads(proc.stdout.strip().splitlines()[-1])
     assert summary["device"] == "cpu"

@@ -17,6 +17,7 @@ import torch
 
 from rlt_tpu.utils import losses as jax_losses
 from rlt_tpu_torch.utils import losses
+from torch_threads import one_torch_thread  # noqa: F401  (one torch thread a test file)
 
 # f32 sums over L = 20 positions and B = 5 rows in another order; the
 # reward targets' softmaxes differ in the last bits. Values within 1e-5
