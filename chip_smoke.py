@@ -60,20 +60,29 @@ over K = 4 and 8 members' BiLSTM layers in one launch (ndir = 2K), f32 and
 bf16, against their plain versions, K launches at ndir = 2 and cuDNN; K3'-K6'
 in f32 and bf16 at the population paths' member-batched rows for K = 4
 and 8 (K * E * B and K * B packed rows at dh = 64 and 16, PLECut's K * E *
-B * 2 slices);
+B * 2 slices), and the same twelve shapes again with a dropout rate per
+member (a keep threshold and a scale per row: each member at its own rate
+in [0.05, 0.5], one at 0), each against its plain version, each member's
+rows bit for bit against a single-rate launch at the member's rate, two
+launches bit for bit, and timed against the shared-rate launch;
 the `<model>-population` and `<model>-population-bf16` paths of all eight
-models, `train_population` of 4 members of distinct seed, lr and weight
-decay for one epoch, each population step one CUDA graph (one sequential
-step's launches a step for the whole population), each member held to its
-own graphed sequential `Trainer` on the card, and three graphed population
-steps bit for bit against three eager ones; and, per model and dtype, a
-population of 8 members' epoch against 8 graphed sequential epochs.
+models, `train_population` of 4 members of distinct seed, lr, weight
+decay and dropout rate (the config's, 0 and two others) for one epoch,
+each population step one CUDA graph (one sequential step's launches a
+step for the whole population), each member held to its own graphed
+sequential `Trainer` at its rate on the card, and three graphed population
+steps bit for bit against three eager ones; per model and dtype, a
+population of 8 members' epoch against 8 graphed sequential epochs; and
+MMOECut's population of 8 at a rate per member against the same
+population at one shared rate, epoch against epoch.
 
 Every time is the median of rounds taken in turns with what it is compared
 with (`rlt_tpu_torch/utils/timing.py`), printed with its spread; every
 train step, the bucket-64 and bucket-256 forwards and the population's
-epochs also carry the card's busy time from torch.profiler, the host's
-share of the CUDA-event window of the same profiled calls, and the
+epochs also carry the card's busy time from torch.profiler (the calls'
+device records between two mark kernels, as a share of the marks' span
+times the CUDA-event window, from the session of the median busy), the
+host's share of the CUDA-event window of the same profiled calls, and the
 profiler's stretch (that window over the window timed without it); a
 session that kept fewer device records than its calls make, or than 0.9
 of the fullest session of its row, is not taken,
@@ -94,6 +103,7 @@ import dataclasses
 import functools
 import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -130,12 +140,19 @@ PATHS = tuple(f"{m}-{p}" for m in MODELS for p in ("serve", "train"))
 BF16_PATHS = tuple(f"{m}-serve-bf16" for m in MODELS)
 # population training (rlt_tpu_torch/population.py): MMOECut's members as
 # one model; its path runs K1'/K2' at ndir = 2K and K5'/K6' over K * E * B
-# rows. The members of the checked path (distinct seed, lr and weight
-# decay, one dropout rate), and the sizes the member-batched LSTM kernels
-# and the population's epoch are timed at.
+# rows. The members of the checked path (distinct seed, lr, weight decay
+# and dropout rate: None is the config's, and MOECut's preset rate is 0, so
+# every path mixes 0 with rates above 0; the member of the largest lr takes
+# the largest rate), and the sizes the member-batched LSTM kernels and the
+# population's epoch are timed at.
 POPULATION_PATHS = tuple(f"{m}-population{d}" for m in MODELS for d in ("", "-bf16"))
 POPULATION_MEMBERS = ((0, 3e-5, 0.0), (1, 1e-4, 1e-3), (2, 1e-5, 5e-3), (3, 3e-4, 1e-2))
+POPULATION_RATES = (None, 0.0, 0.25, 0.45)
 POPULATION_SIZES = (4, 8)
+# the dropout rates of K members at the member-batched kernel checks and the
+# per-member timing (a regularizer search draws U(0.05, 0.5)): member m's
+# rows at its own rate, one member at 0
+MEMBER_RATES = {4: (0.25, 0.0, 0.05, 0.5), 8: (0.25, 0.0, 0.05, 0.1, 0.2, 0.35, 0.45, 0.5)}
 # rounds of the K = 8 population epoch against the sequential epochs
 # (`interleaved_ms`), fewer than REPEATS: 16 cells of epochs up to a second
 POPULATION_REPEATS = 3
@@ -209,6 +226,14 @@ ATTN_BWD_REL = 1e-5
 # update is Adam-normalised rounding noise: at Choopy's lr of 1e-3 that
 # noise moved the key bias by about lr a step and read 0.16 on the card.
 STEP_LOSS_REL = 1e-5
+# A population member's f32 step losses against its own Trainer's, where one
+# reads past STEP_LOSS_REL: the two take their products batched another way,
+# and Adam turns a gradient's rounding into a step of about lr. The witness
+# is the Trainer's own sensitivity to rounding: the same Trainer run again
+# from its init with every weight moved one ulp up or down (`nudged`); the
+# member's step losses must lie within STEP_NOISE_OF_REF of that run's
+# distance from the Trainer, in L2 over the epoch's steps.
+STEP_NOISE_OF_REF = 4.0
 STEP_GRAD_REL = 1e-3
 STEP_GRAD_FLOOR = 1e-7
 UPDATE_REL = 1e-2
@@ -1457,6 +1482,131 @@ def member_entry(res: dict, keys: tuple) -> dict:
     return entry
 
 
+def member_rate_case(dev, gen, dtype, kind: str, dh: int, k: int, n: int) -> dict:
+    """One instance of K3'-K6' at a dropout rate per member (`MEMBER_RATES`,
+    a `RowDropout` over each member's n / k rows, or PLECut's 2 n / k slices):
+    the forward and the backward against their plain versions on the same
+    per-row rates and streams (f32 to ATTN_ATOL and ATTN_BWD_REL, bf16 by
+    `bf16_o_check` and `bf16_grads_check`), member m's rows bit for bit
+    against a launch over its rows alone at its own rate (the member at 0
+    against the rate-0 launch), two launches bit for bit, and both timed
+    against the shared-rate launch at RATE (`shared_ms`)."""
+    from rlt_tpu_torch.ops import attention as A
+
+    bf16 = dtype == torch.bfloat16
+    suffix = "_bf16" if bf16 else ""
+    if kind == "packed":
+        heads, d = (HEADS, D_MODEL) if dh == 64 else (CHOOPY_HEADS, CHOOPY_D)
+        pack = A.packed_group_size(d, heads)
+        shape, n_streams, pairs = (n, SEQ_LEN, d), n, n * heads
+        fwd_k, bwd_k = (getattr(A, f"attention_packed_{p}{suffix}") for p in ("fwd", "bwd"))
+
+        def fwd(q, k_, v, rate, s):
+            return fwd_k(q, k_, v, heads, pack, rate, s)
+
+        def bwd(q, k_, v, o, lse, do, rate, s):
+            return bwd_k(q, k_, v, o, lse, do, heads, pack, rate, s)
+
+        def plain(q, k_, v, do, o, lse, rate, s):
+            return (A.attention_packed_plain(q, k_, v, heads, pack, rate, s),
+                    A.attention_packed_bwd_plain(q, k_, v, o, lse, do, heads, pack, rate, s))
+    else:
+        shape, n_streams, pairs = (n, SLICE_HEADS, SEQ_LEN, SLICE_DH), n * SLICE_HEADS, \
+            n * SLICE_HEADS
+        fwd, bwd = getattr(A, f"attention_fwd{suffix}"), getattr(A, f"attention_bwd{suffix}")
+
+        def plain(q, k_, v, do, o, lse, rate, s):
+            return (A.attention_plain(q, k_, v, rate, s),
+                    A.attention_bwd_plain(q, k_, v, o, lse, do, rate, s))
+    name = f"{'attention_packed' if kind == 'packed' else 'attention'}{suffix} dh={dh} " \
+        f"N={n} K={k} member rates"
+    q, k_, v, do = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(4))
+    streams = torch.randint(-2**31, 2**31 - 1, (n_streams,), generator=gen, device=dev,
+                            dtype=torch.int64).to(torch.int32)
+    rates = MEMBER_RATES[k]
+    rows = A.row_dropout(rates, dev).repeat(n_streams // k)
+    o, lse = fwd(q, k_, v, rows, streams)
+    grads = bwd(q, k_, v, o, lse, do, rows, streams)
+    torch.cuda.synchronize()
+    again = (*fwd(q, k_, v, rows, streams), *bwd(q, k_, v, o, lse, do, rows, streams))
+    require(all(torch.equal(a, b) for a, b in zip((o, lse, *grads), again)),
+            f"{name}: two launches on the same inputs differ")
+    del again
+    per, per_s = n // k, n_streams // k
+    for m, rate in enumerate(rates):
+        b, s = slice(m * per, (m + 1) * per), slice(m * per_s, (m + 1) * per_s)
+        lse_m = lse[b] if kind == "packed" else lse[s]
+        got = fwd(q[b], k_[b], v[b], rate, streams[s])
+        got += bwd(q[b], k_[b], v[b], o[b], lse_m, do[b], rate, streams[s])
+        require(all(torch.equal(a, w) for a, w in zip(got, (o[b], lse_m, *(g[b] for g in grads)))),
+                f"{name}: member {m}'s rows differ from a launch at its rate {rate} alone")
+    (want_o, want_lse), want_g = plain(q, k_, v, do, o, lse, rows, streams)
+    if bf16:
+        o_err, lse_err = bf16_o_check(name, o, lse, want_o, want_lse)
+        g_err = bf16_grads_check(name, grads, want_g)
+        row = dict(max_abs_err=max(o_err, g_err), lse_err=lse_err)
+    else:
+        require(all(bool(torch.isfinite(t).all()) for t in (o, lse, *grads)),
+                f"{name}: non-finite")
+        o_err = max((o - want_o).abs().max().item(), (lse - want_lse).abs().max().item())
+        g_errs = [max_errs(g, w) for g, w in zip(grads, want_g)]
+        g_rel = max(e[1] for e in g_errs)
+        require(o_err <= ATTN_ATOL, f"{name}: o/lse max abs err {o_err} > {ATTN_ATOL}")
+        require(g_rel <= ATTN_BWD_REL, f"{name}: grads max rel err {g_rel} > {ATTN_BWD_REL}")
+        row = dict(max_abs_err=max(o_err, max(e[0] for e in g_errs)), max_rel_err=g_rel)
+    del want_o, want_lse, want_g
+    elem = 2 if bf16 else 4
+    elems = pairs * SEQ_LEN * dh
+    # streams, thresholds and scales: 12 bytes a row (or slice)
+    f_bytes = elem * 4 * elems + 4 * pairs * SEQ_LEN + 12 * n_streams
+    b_bytes = elem * 8 * elems + 4 * pairs * SEQ_LEN + 12 * n_streams
+    bound = ((lambda nbytes, flops: score_bound(nbytes, flops, pairs * SEQ_LEN * SEQ_LEN,
+                                                True)) if bf16 else bounds)
+    tf = timed(lambda: fwd(q, k_, v, rows, streams),
+               shared=lambda: fwd(q, k_, v, RATE, streams))
+    tb = timed(lambda: bwd(q, k_, v, o, lse, do, rows, streams),
+               shared=lambda: bwd(q, k_, v, o, lse, do, RATE, streams))
+    row.update(n=n, k=k, dh=dh, rates=list(rates), bit_equal_members=True,
+               fwd=dict(tf, per_row_over_shared=tf["ms"] / tf["shared_ms"],
+                        **bound(f_bytes, 4 * elems * SEQ_LEN)),
+               bwd=dict(tb, per_row_over_shared=tb["ms"] / tb["shared_ms"],
+                        **bound(b_bytes, 10 * elems * SEQ_LEN)))
+    log("member rates " + json.dumps({"kernel": name, **row}))
+    return row
+
+
+def check_member_rates(dev) -> dict:
+    """K3'-K6' with a dropout rate per member at the member-batched shapes
+    of `check_member_attention`, every instance (`member_rate_case`): f32
+    and bf16 at dh 64 (K * E * B and K * B rows), dh 16 (K * B rows) and
+    PLECut's dh 128 (K * E * B * 2 slices), K = 4 and 8: {dtype: {kernel
+    pair: [rows]}}."""
+    gen = torch.Generator(device=dev).manual_seed(200)
+    out = {}
+    for dtype, tag in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
+        out[tag] = {"attention_packed": [], "attention": []}
+        for k in POPULATION_SIZES:
+            cases = ([("packed", 64, MEMBER_ROWS[k][s]) for s in ("experts", "lists")]
+                     + [("packed", 16, MEMBER_ROWS[k]["lists"]),
+                        ("slices", SLICE_DH, MEMBER_ROWS[k]["experts"])])
+            for kind, dh, n in cases:
+                key = "attention_packed" if kind == "packed" else "attention"
+                out[tag][key].append(member_rate_case(dev, gen, dtype, kind, dh, k, n))
+                free_card()
+    return out
+
+
+def member_rate_entry(rows: list, direction: str) -> dict:
+    """The kernels line's `member_rates` sub-entry of one kernel: its
+    per-row-rate rows by head width, rows and K (`check_member_rates`)."""
+    keys = ("ms", "shared_ms", "per_row_over_shared", "spread_ms", "bound_ms", "bound_by",
+            "bound_tc_ms", "bound_term", "hash_floor_ms")
+    return {f"dh_{r['dh']}_n_{r['n']}_k_{r['k']}": dict(
+        {key: r[direction][key] for key in keys if key in r[direction]},
+        max_abs_err=r["max_abs_err"], rates=r["rates"],
+        bit_equal_members=r["bit_equal_members"]) for r in rows}
+
+
 def reset_counts() -> None:
     from rlt_tpu_torch.ops import KERNELS
 
@@ -2105,13 +2255,15 @@ def population_config(model_name: str, compute_dtype: str = "float32"):
     return cfg
 
 
-def population_members(k: int):
+def population_members(k: int, rates=None):
     """k members of seeds 0..k-1 with POPULATION_MEMBERS' lr and weight decay
-    in turn (the first four are POPULATION_MEMBERS)."""
+    in turn (the first four are POPULATION_MEMBERS), at the config's dropout
+    rate or, with `rates`, member i at rates[i] (None: the config's)."""
     from rlt_tpu_torch.population import Member
 
     return [Member(seed=i, lr=POPULATION_MEMBERS[i % len(POPULATION_MEMBERS)][1],
-                   weight_decay=POPULATION_MEMBERS[i % len(POPULATION_MEMBERS)][2])
+                   weight_decay=POPULATION_MEMBERS[i % len(POPULATION_MEMBERS)][2],
+                   dropout=None if rates is None else rates[i])
             for i in range(k)]
 
 
@@ -2161,17 +2313,44 @@ def population_step_check(cfg, members, label: str, bf16: bool) -> None:
             f"{label}: a population replay inside plain_ops() did not raise")
 
 
+def nudged(state: dict, seed: int) -> dict:
+    """`state` with every floating-point element moved one ulp up or down
+    (a seeded coin each)."""
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for name, t in state.items():
+        if t.is_floating_point():
+            up = torch.rand(t.shape, generator=g) < 0.5
+            t = torch.nextafter(t, torch.where(up, math.inf, -math.inf).to(t.dtype))
+        out[name] = t
+    return out
+
+
+def nudged_run(cfg, init: dict, seed: int) -> np.ndarray:
+    """The step losses of one graphed epoch of a `Trainer` of `cfg` from
+    `init` nudged one ulp (`nudged`): its generator, plans and dropout bits
+    are the unnudged Trainer's."""
+    from rlt_tpu_torch.train import Trainer
+
+    trainer = Trainer(cfg, device="cuda", state_dict=nudged(init, seed))
+    trainer.run()
+    return np.asarray(trainer.history[0]["train_loss_steps"])
+
+
 def population_end_to_end(model_name: str, compute_dtype: str, f32_runs: dict) -> dict:
     """Population training's main path for `model_name` in `compute_dtype`:
-    `train_population` of the POPULATION_MEMBERS (distinct seed, lr and
-    weight decay, one dropout rate) at robust04 width, one epoch, each
-    population step one CUDA graph. It must launch each kernel as often as
-    one sequential epoch does, whatever K is (2 K1' at ndir = 2K, 2 K2' and
-    the attention pair once per encoder layer over every member's rows a
-    step). Then each member against its own graphed sequential `Trainer`
-    (the same weights, corpus, plans and dropout bits, products batched
-    another way): in float32 every step loss within STEP_LOSS_REL and the
-    epoch's updates within UPDATE_REL in L2, leaving out what
+    `train_population` of the POPULATION_MEMBERS (distinct seed, lr, weight
+    decay and dropout rate, POPULATION_RATES: each attention row at its
+    member's rate) at robust04 width, one epoch, each population step one
+    CUDA graph. It must launch each kernel as often as one sequential epoch
+    does, whatever K is (2 K1' at ndir = 2K, 2 K2' and the attention pair
+    once per encoder layer over every member's rows a step). Then each
+    member against its own graphed sequential `Trainer` at its rate (the
+    same weights, corpus, plans and dropout bits, products batched another
+    way): in float32 every step loss within STEP_LOSS_REL (or, past it,
+    the step losses within STEP_NOISE_OF_REF of the Trainer's own distance
+    from its nudged init, `nudged_run`) and the epoch's updates within
+    UPDATE_REL in L2, leaving out what
     train_end_to_end leaves out and the rows of ZERO_GRAD_ROWS; in bf16 by
     the bf16 training lane's rule (`train_end_to_end_bf16`) against d_ref,
     the member's sequential float32 run (`f32_runs`, filled by the float32
@@ -2188,7 +2367,10 @@ def population_end_to_end(model_name: str, compute_dtype: str, f32_runs: dict) -
     bf16 = compute_dtype == "bfloat16"
     label = f"{model_name}-population" + ("-bf16" if bf16 else "")
     cfg = population_config(model_name, compute_dtype)
-    members = population_members(POPULATION_SIZES[0])
+    members = population_members(POPULATION_SIZES[0], POPULATION_RATES)
+    rates = [member_config(cfg, m).dropout for m in members]
+    require(len(set(rates)) == len(rates) and 0.0 in rates and cfg.dropout in rates,
+            f"{label}: member rates {rates}")
     torch.cuda.synchronize()
     reset_counts()  # the population path's counts start here
     t0 = time.perf_counter()
@@ -2197,7 +2379,8 @@ def population_end_to_end(model_name: str, compute_dtype: str, f32_runs: dict) -
     epoch_s = time.perf_counter() - t0
     launches = read_counts()
     zero = set(ZERO_GRAD_LEAVES[model_name])
-    worst, worst_update = 0.0, {}
+    worst, worst_update, witness = 0.0, {}, {}
+    l2 = np.linalg.norm
     for m, (member, row) in enumerate(zip(members, out["per_member"])):
         trainer = Trainer(member_config(cfg, member), device="cuda")
         if m == 0:
@@ -2225,9 +2408,15 @@ def population_end_to_end(model_name: str, compute_dtype: str, f32_runs: dict) -
         if not bf16:
             f32_runs[(model_name, m)] = (seq, {n: mv[1] for n, mv in moves.items()})
             step_rel = np.abs(got - seq) / np.abs(seq)
-            require(np.all(step_rel <= STEP_LOSS_REL), f"{label} member {m}: step losses "
-                    f"{got.tolist()} vs its Trainer's {seq.tolist()}: rel err "
-                    f"{step_rel.tolist()} > {STEP_LOSS_REL}")
+            if not np.all(step_rel <= STEP_LOSS_REL):
+                noise = nudged_run(member_config(cfg, member), init, member.seed)
+                gap, limit = l2(got - seq), STEP_NOISE_OF_REF * l2(noise - seq)
+                witness[f"member_{m}"] = {"rel": step_rel.tolist(), "l2": gap,
+                                          "nudged_l2": limit / STEP_NOISE_OF_REF}
+                require(gap <= limit, f"{label} member {m}: step losses {got.tolist()} vs "
+                        f"its Trainer's {seq.tolist()}: rel err {step_rel.tolist()} > "
+                        f"{STEP_LOSS_REL}, and L2 {gap} > {STEP_NOISE_OF_REF} x the Trainer "
+                        f"from its nudged init ({noise.tolist()}: {limit / STEP_NOISE_OF_REF})")
             update_rel = {n: ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
                           for n, (a, b) in moves.items()}
             name = max(update_rel, key=update_rel.get)
@@ -2237,7 +2426,6 @@ def population_end_to_end(model_name: str, compute_dtype: str, f32_runs: dict) -
             worst_update[f"member_{m}"] = [name, update_rel[name]]
             continue
         seq32, moves32 = f32_runs[(model_name, m)]
-        l2 = np.linalg.norm
         step_limit = (BF16_MAX_OF_REF * l2(seq - seq32)
                       + l2(bf16_step(torch.from_numpy(seq)).numpy()))
         require(l2(got - seq) <= step_limit, f"{label} member {m}: step losses "
@@ -2251,11 +2439,14 @@ def population_end_to_end(model_name: str, compute_dtype: str, f32_runs: dict) -
         worst = max(worst, l2(got - seq) / step_limit)
         worst_update[f"member_{m}"] = ratio
     population_step_check(cfg, members, label, bf16)
-    log(f"{label}: {len(members)} members {json.dumps(POPULATION_MEMBERS)}, first epoch "
+    log(f"{label}: {len(members)} members {json.dumps(POPULATION_MEMBERS)} at dropout "
+        f"rates {json.dumps(rates)}, first epoch "
         f"{epoch_s:.3f} s (captures included); against each member's graphed Trainer: "
         + (f"step losses max rel err {worst:.3e}, worst update (L2 rel err) "
            if not bf16 else f"step losses L2 at {worst:.3f} of their limit, updates (L2 "
-           "over d_ref's) ") + f"{json.dumps(worst_update)}; {GRAPH_CHECK_STEPS} graphed "
+           "over d_ref's) ") + f"{json.dumps(worst_update)}; "
+        + (f"past {STEP_LOSS_REL} and held to the nudged Trainer: {json.dumps(witness)}; "
+           if witness else "") + f"{GRAPH_CHECK_STEPS} graphed "
         f"population steps equal the eager ones bit for bit, one sequential step's "
         f"launches each; summaries "
         f"{json.dumps([{k: r[k] for k in ('best_f1', 'best_dcg')} for r in out['per_member']])}")
@@ -2306,6 +2497,33 @@ def population_timing(model_name: str, compute_dtype: str) -> dict:
     out["speedup"] = out["sequential"]["epoch_ms"] / out["population"]["epoch_ms"]
     out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log("population timing " + json.dumps(out))
+    return out
+
+
+def member_rate_timing(compute_dtype: str) -> dict:
+    """MMOECut's population of K = POPULATION_SIZES[-1] members at a dropout
+    rate per member (MEMBER_RATES: K3'-K6''s per-row form, and each other
+    dropout site's per-member scale) against the same members at the
+    config's one rate, one epoch each a round, in turns (`interleaved_ms`),
+    each with its busy ms and host share."""
+    from rlt_tpu_torch.population import Population
+    from rlt_tpu_torch.utils.timing import busy_row, device_busy, interleaved_ms
+
+    cfg, k = population_config("mmoecut", compute_dtype), POPULATION_SIZES[-1]
+    pops = {"per_member": Population(cfg, population_members(k, MEMBER_RATES[k]),
+                                     device="cuda"),
+            "shared": Population(cfg, population_members(k), device="cuda")}
+    t = interleaved_ms({name: p.run_epoch for name, p in pops.items()}, 1,
+                       repeats=POPULATION_REPEATS)
+    out = {"model": "mmoecut", "compute_dtype": compute_dtype, "members": k,
+           "rates": list(MEMBER_RATES[k]), "shared_rate": cfg.dropout}
+    for name, p in pops.items():
+        out[name] = dict(epoch_ms=t[name]["median"],
+                         epoch_spread=[t[name]["min"], t[name]["max"]],
+                         **busy_row(device_busy(p.run_epoch, calls=1, warmup=0),
+                                    t[name]["median"]))
+    out["per_member_over_shared"] = out["per_member"]["epoch_ms"] / out["shared"]["epoch_ms"]
+    log("member rate timing " + json.dumps(out))
     return out
 
 
@@ -2521,6 +2739,9 @@ def main() -> int:
     dev = resolve_device("cuda")
     card = nvidia_smi()
     log(f"card: {card}")
+    # the SM clock and temperature as the run starts and ends: a card that
+    # runs slower reads its busy rows closer to their bounds
+    log(f"clocks: {nvidia_smi('clocks.sm,clocks.max.sm,temperature.gpu,power.draw')}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
@@ -2593,6 +2814,8 @@ def main() -> int:
     with untimed_plain():
         members_res["bfloat16"] = check_lstm_members(dev, CardDraws(181, dev), bf16=True)
         member_attn = check_member_attention(dev)
+    marks.append(("member rate kernels", time.perf_counter()))
+    member_rates = check_member_rates(dev)
     marks.append(("population paths", time.perf_counter()))
     f32_runs = {}
     for model_name in MODELS:
@@ -2608,6 +2831,10 @@ def main() -> int:
             torch.cuda.reset_peak_memory_stats()
             population_res.append(population_timing(model_name, dtype))
             free_card()
+    rate_timing = []
+    for dtype in ("float32", "bfloat16"):
+        rate_timing.append(member_rate_timing(dtype))
+        free_card()
     marks.append(("end", time.perf_counter()))
     log(json.dumps({"phase_seconds": {name: marks[i + 1][1] - t for i, (name, t) in
                                       enumerate(marks[:-1])}}))
@@ -2682,6 +2909,9 @@ def main() -> int:
             entry["members"] = member_entry(member_attn["float32"][name], MEMBER_KEYS)
             entry["max_abs_err"] = max(entry["max_abs_err"],
                                        member_max_err(member_attn["float32"][name]))
+            pair, direction = name.rsplit("_", 1)
+            entry["member_rates"] = member_rate_entry(member_rates["float32"][pair],
+                                                      direction)
         if name in BF16_OF:
             entry["bf16"] = bf16_entry(name, bf16_res[name], source, replaces,
                                        BF16_LIBRARY[name], launches,
@@ -2692,6 +2922,8 @@ def main() -> int:
                 entry["bf16"]["max_abs_err"] = max(
                     entry["bf16"]["max_abs_err"],
                     member_max_err(member_attn["bfloat16"][name]))
+                entry["bf16"]["member_rates"] = member_rate_entry(
+                    member_rates["bfloat16"][pair], direction)
         kernels.append(entry)
     for name, source, replaces in (
             ("lstm_fwd", "rlt_tpu_torch/csrc/lstm_fwd.cu", "rlt_tpu/ops/lstm.py:82"),
@@ -2740,7 +2972,10 @@ def main() -> int:
                         "epoch_ms": res["timing"]["epoch_ms"]}))
     for res in population_res:
         log(json.dumps({"population": res}))
+    for res in rate_timing:
+        log(json.dumps({"member_rate_timing": res}))
     busy_rows = [res[name] for res in population_res for name in ("population", "sequential")]
+    busy_rows += [res[name] for res in rate_timing for name in ("per_member", "shared")]
     ratios = []
     for dtype, trains, serves in (("float32", train_res, serve_res),
                                   ("bfloat16", train_bf16_res, serve_bf16_res)):
@@ -2760,6 +2995,7 @@ def main() -> int:
     require(summary["failed"] == 0 and summary["measured"] == summary["rows"],
             f"busy rows failed: {json.dumps(summary)}")
     log(json.dumps({"kernels": kernels}))
+    log(f"clocks: {nvidia_smi('clocks.sm,clocks.max.sm,temperature.gpu,power.draw')}")
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

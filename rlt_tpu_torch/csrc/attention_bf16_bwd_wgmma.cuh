@@ -21,8 +21,10 @@
 // forward takes its weights; results below 2^-126 are flushed to 0. The keep
 // mask is the forward's (keep_mask.cuh's keep_element at index row * pack *
 // L + (head % pack) * L + col on group_stream(streams[n], head / pack)),
-// regenerated from the same streams; where a pass holds S^T, its rows are
-// keys and its columns queries, and the index is taken with them traded back.
+// regenerated from the same streams at the same rate (the launch's, or the
+// row's own, read once a work item: keep_mask.cuh's Dropout); where a pass
+// holds S^T, its rows are keys and its columns queries, and the index is
+// taken with them traded back.
 //
 // What bounds it on an H100: by the roofline the bytes, 2 an element of q,
 // k, v, o, do, dq, dk and dv, at N = 189 rows of 4 heads of dh = 64 and L =
@@ -119,8 +121,7 @@ struct Params {
   int items;         // n * heads * tiles: (row n, head, 64-row tile) work items
   float scale;       // 1 / sqrt(dh)
   float scale_log2;  // log2(e) / sqrt(dh)
-  uint32_t threshold;
-  float inv_keep;
+  Dropout drop;
 };
 
 // dq pass shared memory, from a 1024-aligned base: the item's Q, dO and O
@@ -289,6 +290,8 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       const uint32_t col0 = static_cast<uint32_t>(w.head % p.pack) * length;
       const uint32_t key =
           kDropout ? stream_key(group_stream(p.streams[w.n], w.head / p.pack)) : 0u;
+      const uint32_t limit = kDropout ? p.drop.limit(w.n) : 0u;
+      const float inv_keep = kDropout ? p.drop.scale_of(w.n) : 1.0f;
       mbar_wait(q_full, jj & 1);
 
       // delta of the item's rows from the O and dO tiles: two threads a row,
@@ -351,7 +354,7 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
           float dpv = dp[i];
           if (kDropout) {
             const uint32_t index = static_cast<uint32_t>(row0 + 8 * r) * ncols + col0 + col;
-            dpv = keep_element(index, key, p.threshold) ? dpv * p.inv_keep : 0.0f;
+            dpv = keep_element(index, key, limit) ? dpv * inv_keep : 0.0f;
           }
           sc[i] = pv * (dpv - delta_r[r]) * p.scale;
         }
@@ -475,6 +478,8 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       const uint32_t col0 = static_cast<uint32_t>(w.head % p.pack) * length;
       const uint32_t key =
           kDropout ? stream_key(group_stream(p.streams[w.n], w.head / p.pack)) : 0u;
+      const uint32_t limit = kDropout ? p.drop.limit(w.n) : 0u;
+      const float inv_keep = kDropout ? p.drop.scale_of(w.n) : 1.0f;
       float dk[kDh / 64][32], dv[kDh / 64][32];
 #pragma unroll
       for (int j = 0; j < kDh / 64; ++j)
@@ -511,9 +516,9 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
               const int query = it * kRows + 8 * j + 2 * t + (e & 1);
               const uint32_t index = static_cast<uint32_t>(query) * ncols + col0 +
                                      static_cast<uint32_t>(key0 + 8 * (e >> 1));
-              const bool keep = keep_element(index, key, p.threshold);
-              pd = keep ? pv * p.inv_keep : 0.0f;
-              dpv = keep ? dpv * p.inv_keep : 0.0f;
+              const bool keep = keep_element(index, key, limit);
+              pd = keep ? pv * inv_keep : 0.0f;
+              dpv = keep ? dpv * inv_keep : 0.0f;
             }
             st[i] = pv * (dpv - ((e & 1) ? dl.y : dl.x)) * p.scale;
             dpt[i] = pd;
@@ -580,7 +585,7 @@ template <int kDh>
 int launch_attn_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
                           const void* dout, const void* lse, const void* streams, void* dq,
                           void* dk, void* dv, void* delta, int n, int length, int heads,
-                          int pack, float rate, uint32_t threshold, cudaStream_t stream) {
+                          int pack, const Dropout& drop, cudaStream_t stream) {
   using namespace wgmma_bwd;
   const int d_model = heads * kDh;
   CUtensorMap mq, mk, mv, mo, mdo;
@@ -605,10 +610,9 @@ int launch_attn_bwd_wgmma(const void* q, const void* k, const void* v, const voi
                  static_cast<int>(items),
                  scale,
                  scale * kLog2e,
-                 threshold,
-                 1.0f / (1.0f - rate)};
-  return rate > 0.0f ? launch_passes<kDh, true>(mq, mk, mv, mo, mdo, p, stream)
-                     : launch_passes<kDh, false>(mq, mk, mv, mo, mdo, p, stream);
+                 drop};
+  return drop.on() ? launch_passes<kDh, true>(mq, mk, mv, mo, mdo, p, stream)
+                   : launch_passes<kDh, false>(mq, mk, mv, mo, mdo, p, stream);
 }
 
 }  // namespace rlt

@@ -23,7 +23,9 @@
 // rate above 0 each weight is dropped by keep_mask.cuh's bits at index row *
 // pack * L + (head % pack) * L + col on group_stream(streams[n], head /
 // pack), the kept ones scaled by 1 / (1 - rate) before the rounding; lse
-// stays the pre-dropout one.
+// stays the pre-dropout one. The rate is the launch's or row n's own
+// (keep_mask.cuh's Dropout), read with the key once a work item, so that it
+// follows the item and not the block.
 //
 // What bounds it on an H100. At dh = 16 the products are nearly free and the
 // time goes into what each score costs, which does not shrink with dh: at
@@ -266,8 +268,7 @@ struct Params {
   int length, d_model, heads, pack;
   float scale;       // 1 / sqrt(dh)
   float scale_log2;  // log2(e) / sqrt(dh)
-  uint32_t threshold;
-  float inv_keep;
+  Dropout drop;
 };
 
 // The (row n, first head h0, 64-row tile) of work item `item`
@@ -308,11 +309,19 @@ __device__ __forceinline__ uint32_t ring_parity(int g) {
   return static_cast<uint32_t>((g / kStages) & 1);
 }
 
-// The per-item dropout key of the item's heads' group (kHeads divides pack
-// = 8, so the item's heads share it), its first mixing step taken.
+// The per-item dropout of the item's heads' group (kHeads divides pack = 8,
+// so the item's heads share it): the key with its first mixing step taken,
+// and row n's limit and scale, each held in a register for the item.
+struct ItemDrop {
+  uint32_t mkey, limit;
+  float scale;
+};
+
 template <bool kDropout>
-__device__ __forceinline__ uint32_t item_key(const Params& p, int n, int h0) {
-  return kDropout ? mixed_key(stream_key(group_stream(p.streams[n], h0 / p.pack))) : 0u;
+__device__ __forceinline__ ItemDrop item_drop(const Params& p, int n, int h0) {
+  if (!kDropout) return {0u, 0u, 1.0f};
+  return {mixed_key(stream_key(group_stream(p.streams[n], h0 / p.pack))), p.drop.limit(n),
+          p.drop.scale_of(n)};
 }
 
 // The lse (times log2 e; +inf past L, so that p = 0 there) and delta (0
@@ -343,7 +352,7 @@ __device__ __forceinline__ void fill_stats(float* st, const Params& p, int n, in
 // in `ib` (ncols further a query).
 template <bool kDropout>
 __device__ __forceinline__ void take_ds_t(float (&st)[32], float (&dpt)[32], const float* stats,
-                                          uint32_t (&ib)[2], const Params& p, uint32_t mkey,
+                                          uint32_t (&ib)[2], const Params& p, const ItemDrop& d,
                                           uint32_t ncols, int t) {
   const float* lse_t = stats;
   const float* delta_t = stats + kRows;
@@ -358,9 +367,9 @@ __device__ __forceinline__ void take_ds_t(float (&st)[32], float (&dpt)[32], con
       float pd = pv;
       float dpv = dpt[i];
       if (kDropout) {
-        const bool keep = keep_mixed(ib[e >> 1] + (e & 1) * ncols, mkey, p.threshold);
-        pd = keep ? pv * p.inv_keep : 0.0f;
-        dpv = keep ? dpv * p.inv_keep : 0.0f;
+        const bool keep = keep_mixed(ib[e >> 1] + (e & 1) * ncols, d.mkey, d.limit);
+        pd = keep ? pv * d.scale : 0.0f;
+        dpv = keep ? dpv * d.scale : 0.0f;
       }
       st[i] = pv * (dpv - ((e & 1) ? dl.y : dl.x)) * p.scale;
       dpt[i] = pd;
@@ -466,7 +475,7 @@ attn_fwd_dh16_kernel(const __grid_constant__ CUtensorMap map_q,
   for (int item = blockIdx.x; item < items; item += gridDim.x, ++jj) {
     const Item w(item, tiles, hblocks, kHeads);
     const int row0 = w.tile * kRows + 16 * warp + gq;  // the thread's rows row0 and row0 + 8
-    const uint32_t mkey = item_key<kDropout>(p, w.n, w.h0);
+    const ItemDrop drop = item_drop<kDropout>(p, w.n, w.h0);
     const uint32_t qt = q_tile(jj);
     // the keep mask's index of the thread's rows at column 2 t of head 0 of
     // the item's group tile (head j adds j * L, key tile it adds 64 it)
@@ -530,7 +539,7 @@ attn_fwd_dh16_kernel(const __grid_constant__ CUtensorMap map_q,
         y = i < 16 && !(i & 1) ? wv : y + wv;
         if (kDropout) {
           const uint32_t index = ib[r] + 8 * (i / 4) + (i & 1);
-          x[i] = keep_mixed(index, mkey, p.threshold) ? wv * p.inv_keep : 0.0f;
+          x[i] = keep_mixed(index, drop.mkey, drop.limit) ? wv * drop.scale : 0.0f;
         } else {
           x[i] = wv;
         }
@@ -742,7 +751,7 @@ attn_bwd_dq_dh16_kernel(const __grid_constant__ CUtensorMap map_q,
   for (int item = blockIdx.x; item < items; item += gridDim.x, ++jj) {
     const Item w(item, tiles, hblocks, kHeads);
     const int row0 = w.tile * kRows + 16 * warp + gq;
-    const uint32_t mkey = item_key<kDropout>(p, w.n, w.h0);
+    const ItemDrop drop = item_drop<kDropout>(p, w.n, w.h0);
     uint32_t index0[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r)
@@ -810,7 +819,7 @@ attn_bwd_dq_dh16_kernel(const __grid_constant__ CUtensorMap map_q,
         float dpv = dp[i];
         if (kDropout) {
           const uint32_t index = ib[r] + 8 * (i / 4) + (i & 1);
-          dpv = keep_mixed(index, mkey, p.threshold) ? dpv * p.inv_keep : 0.0f;
+          dpv = keep_mixed(index, drop.mkey, drop.limit) ? dpv * drop.scale : 0.0f;
         }
         sc[i] = pv * (dpv - delta_r[r]) * p.scale;
       }
@@ -952,7 +961,7 @@ attn_bwd_dkv_dh16_kernel(const __grid_constant__ CUtensorMap map_q,
   for (int item = blockIdx.x; item < items; item += gridDim.x, ++jj) {
     const Item w(item, tiles, hblocks, kHeads);
     const int key0 = w.tile * kRows + 16 * warp + gq;  // the thread's keys key0, key0 + 8
-    const uint32_t mkey = item_key<kDropout>(p, w.n, w.h0);
+    const ItemDrop drop = item_drop<kDropout>(p, w.n, w.h0);
     // the keep mask's index of query 2 t at the thread's keys of head 0 of
     // the item's group tile (head j adds j * L, query q adds q * pack * L)
     uint32_t index0[2];
@@ -993,7 +1002,7 @@ attn_bwd_dkv_dh16_kernel(const __grid_constant__ CUtensorMap map_q,
           ib[r] = kDropout ? opaque(index0[r] + static_cast<uint32_t>(it * kRows) * ncols +
                                     static_cast<uint32_t>(j * length))
                            : 0u;
-        take_ds_t<kDropout>(st, dpt, stats(gi) + 2 * j * kRows, ib, p, mkey, ncols, t);
+        take_ds_t<kDropout>(st, dpt, stats(gi) + 2 * j * kRows, ib, p, drop, ncols, t);
         pack_a(dsa, st);
         pack_a(pda, dpt);
         fence_regs(dv[j]);
@@ -1168,7 +1177,7 @@ attn_bwd_fused_dh16_kernel(const __grid_constant__ CUtensorMap map_q,
   for (int item = blockIdx.x; item < items; item += gridDim.x) {
     const int h0 = item % hblocks * kHeads;
     const int n = item / hblocks;
-    const uint32_t mkey = item_key<kDropout>(p, n, h0);
+    const ItemDrop drop = item_drop<kDropout>(p, n, h0);
     for (int e = 0; e < kHeads * tiles; ++e) {
       float4* slot = reinterpret_cast<float4*>(dq_s + (e * 128 + threadIdx.x) * 8);
       slot[0] = slot[1] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -1213,7 +1222,7 @@ attn_bwd_fused_dh16_kernel(const __grid_constant__ CUtensorMap map_q,
             ib[r] = kDropout ? opaque(index0[r] + static_cast<uint32_t>(it * kRows) * ncols +
                                       static_cast<uint32_t>(j * length))
                              : 0u;
-          take_ds_t<kDropout>(st, dpt, stats(gi) + 2 * j * kRows, ib, p, mkey, ncols, t);
+          take_ds_t<kDropout>(st, dpt, stats(gi) + 2 * j * kRows, ib, p, drop, ncols, t);
           pack_a(dsa, st);
           pack_a(pda, dpt);
           // dS^T into this step's tile: row key (16 warp + gq + 8 (x & 1)),
@@ -1366,8 +1375,8 @@ int run_bwd_fused(const void* o, const void* dout, const CUtensorMap& mq,
 
 // The scalars shared by both directions; false where a tensor's work items
 // would not fit an int.
-inline bool make_params(Params& p, int n, int length, int heads, int pack, float rate,
-                        uint32_t threshold, const void* streams) {
+inline bool make_params(Params& p, int n, int length, int heads, int pack,
+                        const Dropout& drop, const void* streams) {
   const long long items = static_cast<long long>(n) * heads * ((length + kRows - 1) / kRows);
   if (items > 0x7fffffffLL || heads % 8 != 0) return false;
   const float scale = 1.0f / sqrtf(static_cast<float>(kDh));
@@ -1378,8 +1387,7 @@ inline bool make_params(Params& p, int n, int length, int heads, int pack, float
   p.pack = pack;
   p.scale = scale;
   p.scale_log2 = scale * kLog2e;
-  p.threshold = threshold;
-  p.inv_keep = 1.0f / (1.0f - rate);
+  p.drop = drop;
   return true;
 }
 
@@ -1391,10 +1399,10 @@ inline bool make_params(Params& p, int n, int length, int heads, int pack, float
 // tensor map cannot be encoded or the shape is refused.
 inline int launch_attn_fwd_dh16(const void* q, const void* k, const void* v, void* o,
                                 void* lse, const void* streams, int n, int length, int heads,
-                                int pack, float rate, uint32_t threshold, cudaStream_t stream) {
+                                int pack, const Dropout& drop, cudaStream_t stream) {
   using namespace dh16;
   Params p{};
-  if (!make_params(p, n, length, heads, pack, rate, threshold, streams))
+  if (!make_params(p, n, length, heads, pack, drop, streams))
     return static_cast<int>(cudaErrorInvalidValue);
   p.o = static_cast<bf16*>(o);
   p.lse = static_cast<float*>(lse);
@@ -1403,8 +1411,8 @@ inline int launch_attn_fwd_dh16(const void* q, const void* k, const void* v, voi
       !encode_map(&mv, v, n, length, p.d_model))
     return static_cast<int>(cudaErrorInvalidValue);
   const int items = n * (heads / kFwdHeads) * ((length + kRows - 1) / kRows);
-  return rate > 0.0f ? dh16::run_fwd<true>(mq, mk, mv, p, items, stream)
-                     : dh16::run_fwd<false>(mq, mk, mv, p, items, stream);
+  return drop.on() ? dh16::run_fwd<true>(mq, mk, mv, p, items, stream)
+                   : dh16::run_fwd<false>(mq, mk, mv, p, items, stream);
 }
 
 // Both backward passes over n rows of `heads` heads of dh = 16, `delta` an
@@ -1414,11 +1422,11 @@ inline int launch_attn_fwd_dh16(const void* q, const void* k, const void* v, voi
 inline int launch_attn_bwd_dh16(const void* q, const void* k, const void* v, const void* o,
                                 const void* dout, const void* lse, const void* streams,
                                 void* dq, void* dk, void* dv, void* delta, int n, int length,
-                                int heads, int pack, float rate, uint32_t threshold,
+                                int heads, int pack, const Dropout& drop,
                                 cudaStream_t stream) {
   using namespace dh16;
   Params p{};
-  if (!make_params(p, n, length, heads, pack, rate, threshold, streams))
+  if (!make_params(p, n, length, heads, pack, drop, streams))
     return static_cast<int>(cudaErrorInvalidValue);
   p.dq = static_cast<bf16*>(dq);
   p.dk = static_cast<bf16*>(dk);
@@ -1432,11 +1440,11 @@ inline int launch_attn_bwd_dh16(const void* q, const void* k, const void* v, con
     return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = (length + kRows - 1) / kRows;
   if (tiles <= kFusedMaxTiles)
-    return rate > 0.0f ? dh16::run_bwd_fused<true>(o, dout, mq, mk, mv, mdo, p, n, tiles, stream)
-                       : dh16::run_bwd_fused<false>(o, dout, mq, mk, mv, mdo, p, n, tiles,
-                                                    stream);
-  return rate > 0.0f ? dh16::run_bwd<true>(mq, mk, mv, mo, mdo, p, n, tiles, stream)
-                     : dh16::run_bwd<false>(mq, mk, mv, mo, mdo, p, n, tiles, stream);
+    return drop.on() ? dh16::run_bwd_fused<true>(o, dout, mq, mk, mv, mdo, p, n, tiles, stream)
+                     : dh16::run_bwd_fused<false>(o, dout, mq, mk, mv, mdo, p, n, tiles,
+                                                  stream);
+  return drop.on() ? dh16::run_bwd<true>(mq, mk, mv, mo, mdo, p, n, tiles, stream)
+                   : dh16::run_bwd<false>(mq, mk, mv, mo, mdo, p, n, tiles, stream);
 }
 
 }  // namespace rlt

@@ -21,7 +21,9 @@
 // (lse = m / sqrt(dh) + log(sum)). At a dropout rate above 0 each weight is
 // dropped by keep_mask.cuh's keep_element at index row * pack * L +
 // (head % pack) * L + col on its group's stream, and the kept ones scaled
-// by 1 / (1 - rate) before the rounding; lse stays the pre-dropout one. The
+// by 1 / (1 - rate) before the rounding, the launch's rate or the row's
+// own (keep_mask.cuh's Dropout, read once a work item, so that the rate
+// follows the item and not the block); lse stays the pre-dropout one. The
 // bf16 backward (attention_bf16_bwd_wgmma.cuh) regenerates the same bits
 // from the same index.
 //
@@ -126,8 +128,7 @@ struct Params {
   int items;         // (row n, head, 64-row tile) work items: n * heads * tiles
   float scale;       // 1 / sqrt(dh)
   float scale_log2;  // log2(e) / sqrt(dh)
-  uint32_t threshold;
-  float inv_keep;
+  Dropout drop;
 };
 
 template <int kDh, bool kDropout>
@@ -218,6 +219,8 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     const uint32_t col0 = static_cast<uint32_t>(head % p.pack) * length;
     const uint32_t key =
         kDropout ? stream_key(group_stream(p.streams[n], head / p.pack)) : 0u;
+    const uint32_t limit = kDropout ? p.drop.limit(n) : 0u;
+    const float inv_keep = kDropout ? p.drop.scale_of(n) : 1.0f;
 
     // rows row0 and row0 + 8: running max (of the raw scores), this thread's
     // share of the running sum, O's rescale for the tile just taken, and O
@@ -265,7 +268,7 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         if (kDropout) {
           const uint32_t index = static_cast<uint32_t>(row0 + 8 * r) * ncols + col0 + t0 +
                                  8 * (i / 4) + 2 * t + (i & 1);
-          sc[i] = keep_element(index, key, p.threshold) ? w * p.inv_keep : 0.0f;
+          sc[i] = keep_element(index, key, limit) ? w * inv_keep : 0.0f;
         } else {
           sc[i] = w;
         }
@@ -385,7 +388,7 @@ int launch_instance(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensor
 template <int kDh>
 int launch_attn_fwd_wgmma(const void* q, const void* k, const void* v, void* o, void* lse,
                           const void* streams, int n, int length, int heads, int pack,
-                          float rate, uint32_t threshold, cudaStream_t stream) {
+                          const Dropout& drop, cudaStream_t stream) {
   using namespace wgmma_fwd;
   const int d_model = heads * kDh;
   CUtensorMap mq, mk, mv;
@@ -407,10 +410,9 @@ int launch_attn_fwd_wgmma(const void* q, const void* k, const void* v, void* o, 
                  static_cast<int>(items),
                  scale,
                  scale * kLog2e,
-                 threshold,
-                 1.0f / (1.0f - rate)};
-  return rate > 0.0f ? launch_instance<kDh, true>(mq, mk, mv, p, stream)
-                     : launch_instance<kDh, false>(mq, mk, mv, p, stream);
+                 drop};
+  return drop.on() ? launch_instance<kDh, true>(mq, mk, mv, p, stream)
+                   : launch_instance<kDh, false>(mq, mk, mv, p, stream);
 }
 
 }  // namespace rlt

@@ -144,8 +144,7 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const float* __restrict__ o,
           const float* __restrict__ dout, const float* __restrict__ lse,
           const int32_t* __restrict__ streams, float* __restrict__ dq,
-          float* __restrict__ delta, int length, float scale, bool dropout,
-          uint32_t threshold, float inv_keep) {
+          float* __restrict__ delta, int length, float scale, const rlt::Dropout drop) {
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);
   float* do_s = q_s + kSliceTileFloats;
@@ -214,8 +213,11 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     lse_r[r] = row < length ? lse[static_cast<size_t>(slice) * length + row] : 0.0f;
   }
 
+  const bool dropout = drop.on();
   const uint32_t key =
       dropout ? rlt::stream_key(static_cast<uint32_t>(streams[slice])) : 0u;
+  const uint32_t limit = drop.limit(slice);
+  const float inv_keep = drop.scale_of(slice);
   // warp 0 of the pair takes S = Q K^T, warp 1 dP = dO V^T
   const float* held = is_first ? q_s : do_s;
   float acc[8][4] = {}, part[8][4] = {};
@@ -251,7 +253,7 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
           if (dropout) {
             const uint32_t index =
                 static_cast<uint32_t>(r0 + g + 8 * r) * static_cast<uint32_t>(length) + col;
-            gg = rlt::keep_element(index, key, threshold) ? gg * inv_keep : 0.0f;
+            gg = rlt::keep_element(index, key, limit) ? gg * inv_keep : 0.0f;
           }
           s[j][e] = p * (gg - delta_r[r]) * scale;
         }
@@ -307,8 +309,7 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const float* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ delta,
            const int32_t* __restrict__ streams, float* __restrict__ dk,
-           float* __restrict__ dv, int length, float scale, bool dropout,
-           uint32_t threshold, float inv_keep) {
+           float* __restrict__ dv, int length, float scale, const rlt::Dropout drop) {
   extern __shared__ float4 smem4[];
   float* k_s = reinterpret_cast<float*>(smem4);
   float* v_s = k_s + kSliceTileFloats;
@@ -337,8 +338,11 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   load_dkv_stage(ring, q + base, dout + base, lse_n, delta_n, 0, length);
   rlt::cp_async_commit();
 
+  const bool dropout = drop.on();
   const uint32_t key =
       dropout ? rlt::stream_key(static_cast<uint32_t>(streams[slice])) : 0u;
+  const uint32_t limit = drop.limit(slice);
+  const float inv_keep = drop.scale_of(slice);
   // warp 0 of the pair takes S^T = K Q^T, warp 1 dP^T = V dO^T
   const float* held = is_first ? k_s : v_s;
   float dk_acc[8][4] = {}, dv_acc[8][4] = {}, part[8][4] = {};
@@ -376,7 +380,7 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
           if (dropout) {
             const uint32_t index = static_cast<uint32_t>(row) * static_cast<uint32_t>(length) +
                                    static_cast<uint32_t>(k0 + g + 8 * (e >> 1));
-            const bool keep = rlt::keep_element(index, key, threshold);
+            const bool keep = rlt::keep_element(index, key, limit);
             pd = keep ? p * inv_keep : 0.0f;
             gg = keep ? gg * inv_keep : 0.0f;
           }
@@ -429,16 +433,19 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // q, k, v, o, dout, dq, dk, dv (N, L, 128), lse (N, 1, L) and delta an
 // (N, L) scratch array: contiguous float32 device arrays, the (N, L, 128)
 // ones 16-byte aligned. With rate > 0, `streams` holds K3''s N int32
-// dropout streams and `threshold` its keep threshold. Takes
+// dropout streams and `threshold` its keep threshold; with `thresholds` and
+// `scales`, K3''s per-slice rates (rlt_attention_fwd). Takes
 // 1 <= L <= 65535. Launches its two kernels on `stream` and returns the
 // first error.
 extern "C" int rlt_attention_bwd(const void* q, const void* k, const void* v,
                                  const void* o, const void* dout, const void* lse,
-                                 const void* streams, void* dq, void* dk, void* dv,
+                                 const void* streams, const void* thresholds,
+                                 const void* scales, void* dq, void* dk, void* dv,
                                  void* delta, int n, int length, float rate,
                                  unsigned int threshold, void* stream) {
+  rlt::Dropout drop;
   if (n < 1 || length < 1 || n > 65535 || length > 65535 ||
-      !(rate >= 0.0f && rate < 1.0f) || (rate > 0.0f && streams == nullptr))
+      !rlt::make_dropout(drop, rate, threshold, streams, thresholds, scales))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kDqSmem));
@@ -449,15 +456,13 @@ extern "C" int rlt_attention_bwd(const void* q, const void* k, const void* v,
 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float scale = 1.0f / sqrtf(static_cast<float>(kSliceDh));
-  const bool dropout = rate > 0.0f;
-  const float inv_keep = 1.0f / (1.0f - rate);
   const dim3 grid((length + kTile - 1) / kTile, n);
   dq_kernel<<<grid, kSliceThreads, kDqSmem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(o),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
       static_cast<const int32_t*>(streams), static_cast<float*>(dq),
-      static_cast<float*>(delta), length, scale, dropout, threshold, inv_keep);
+      static_cast<float*>(delta), length, scale, drop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   dkv_kernel<<<grid, kSliceThreads, kDkvSmem, s>>>(
@@ -465,7 +470,7 @@ extern "C" int rlt_attention_bwd(const void* q, const void* k, const void* v,
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<const int32_t*>(streams), static_cast<float*>(dk),
-      static_cast<float*>(dv), length, scale, dropout, threshold, inv_keep);
+      static_cast<float*>(dv), length, scale, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -476,13 +481,15 @@ extern "C" int rlt_attention_bwd(const void* q, const void* k, const void* v,
 // Launches its two kernels on `stream` and returns the first error.
 extern "C" int rlt_attention_bwd_bf16(const void* q, const void* k, const void* v,
                                       const void* o, const void* dout, const void* lse,
-                                      const void* streams, void* dq, void* dk, void* dv,
+                                      const void* streams, const void* thresholds,
+                                      const void* scales, void* dq, void* dk, void* dv,
                                       void* delta, int n, int length, float rate,
                                       unsigned int threshold, void* stream) {
+  rlt::Dropout drop;
   if (n < 1 || length < 1 || n > 65535 || length > 65535 ||
-      !(rate >= 0.0f && rate < 1.0f) || (rate > 0.0f && streams == nullptr))
+      !rlt::make_dropout(drop, rate, threshold, streams, thresholds, scales))
     return static_cast<int>(cudaErrorInvalidValue);
   return rlt::launch_attn_bwd_wgmma<kSliceDh>(q, k, v, o, dout, lse, streams, dq, dk, dv,
-                                              delta, n, length, 1, 1, rate, threshold,
+                                              delta, n, length, 1, 1, drop,
                                               static_cast<cudaStream_t>(stream));
 }

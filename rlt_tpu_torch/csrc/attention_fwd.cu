@@ -81,8 +81,7 @@ __global__ void __launch_bounds__(kSliceThreads, 1)
 attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, float* __restrict__ o,
                 float* __restrict__ lse, const int32_t* __restrict__ streams,
-                int length, float scale, bool dropout, uint32_t threshold,
-                float inv_keep) {
+                int length, float scale, const rlt::Dropout drop) {
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);
   float* ring = q_s + kSliceTileFloats;
@@ -107,8 +106,11 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   load_rows(ring + kSliceTileFloats, v + base, 0, length);
   rlt::cp_async_commit();
 
+  const bool dropout = drop.on();
   const uint32_t key =
       dropout ? rlt::stream_key(static_cast<uint32_t>(streams[slice])) : 0u;
+  const uint32_t limit = drop.limit(slice);
+  const float inv_keep = drop.scale_of(slice);
 
   // rows g and g + 8 of the pair: running max, this thread's share of the
   // running sum, and the warp's output accumulator (8 tiles of 8 columns)
@@ -184,7 +186,7 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const int col = t0 + 8 * j + 2 * t + (e & 1);
           const uint32_t index =
               static_cast<uint32_t>(r0 + g + 8 * r) * static_cast<uint32_t>(length) + col;
-          s[j][e] = rlt::keep_element(index, key, threshold) ? w * inv_keep : 0.0f;
+          s[j][e] = rlt::keep_element(index, key, limit) ? w * inv_keep : 0.0f;
         } else {
           s[j][e] = w;
         }
@@ -235,14 +237,19 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // q, k, v, o (N, L, 128) and lse (N, 1, L): contiguous float32 device arrays,
 // q/k/v/o 16-byte aligned. With rate > 0, `streams` holds N int32 dropout
 // streams (one per slice) and `threshold` the keep threshold of
-// keep_mask.cuh; with rate == 0 neither is read. Takes 1 <= L <= 65535.
-// Launches on `stream` and returns cudaGetLastError().
+// keep_mask.cuh; with rate == 0 neither is read. With `thresholds` and
+// `scales` (N uint32 and N float32 in keep_mask.cuh's per-row encoding)
+// slice n drops at its own rate, `streams` is read, and `rate` and
+// `threshold` are not. Takes 1 <= L <= 65535. Launches on `stream` and
+// returns cudaGetLastError().
 extern "C" int rlt_attention_fwd(const void* q, const void* k, const void* v,
-                                 void* o, void* lse, const void* streams, int n,
+                                 void* o, void* lse, const void* streams,
+                                 const void* thresholds, const void* scales, int n,
                                  int length, float rate, unsigned int threshold,
                                  void* stream) {
+  rlt::Dropout drop;
   if (n < 1 || length < 1 || n > 65535 || length > 65535 ||
-      !(rate >= 0.0f && rate < 1.0f) || (rate > 0.0f && streams == nullptr))
+      !rlt::make_dropout(drop, rate, threshold, streams, thresholds, scales))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       attn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmem));
@@ -252,8 +259,7 @@ extern "C" int rlt_attention_fwd(const void* q, const void* k, const void* v,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
       static_cast<float*>(lse), static_cast<const int32_t*>(streams), length,
-      1.0f / sqrtf(static_cast<float>(kSliceDh)), rate > 0.0f, threshold,
-      1.0f / (1.0f - rate));
+      1.0f / sqrtf(static_cast<float>(kSliceDh)), drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -262,13 +268,14 @@ extern "C" int rlt_attention_fwd(const void* q, const void* k, const void* v,
 // in a group of pack 1, so its keep-mask index is i * L + j on its own
 // stream, as above. Launches on `stream` and returns cudaGetLastError().
 extern "C" int rlt_attention_fwd_bf16(const void* q, const void* k, const void* v,
-                                      void* o, void* lse, const void* streams, int n,
+                                      void* o, void* lse, const void* streams,
+                                      const void* thresholds, const void* scales, int n,
                                       int length, float rate, unsigned int threshold,
                                       void* stream) {
+  rlt::Dropout drop;
   if (n < 1 || length < 1 || n > 65535 || length > 65535 ||
-      !(rate >= 0.0f && rate < 1.0f) || (rate > 0.0f && streams == nullptr))
+      !rlt::make_dropout(drop, rate, threshold, streams, thresholds, scales))
     return static_cast<int>(cudaErrorInvalidValue);
   return rlt::launch_attn_fwd_wgmma<kSliceDh>(q, k, v, o, lse, streams, n, length, 1, 1,
-                                              rate, threshold,
-                                              static_cast<cudaStream_t>(stream));
+                                              drop, static_cast<cudaStream_t>(stream));
 }

@@ -98,7 +98,7 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ dout, const float* __restrict__ lse,
           const int32_t* __restrict__ streams, float* __restrict__ dq,
           float* __restrict__ delta, int length, int heads, int pack, float scale,
-          bool dropout, uint32_t threshold, float inv_keep) {
+          const rlt::Dropout drop) {
   using Shape = rlt::PackedShape<kDh>;
   constexpr int kPitch = Shape::kPitch;
   constexpr int kTileFloats = Shape::kTileFloats;
@@ -170,8 +170,11 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const uint32_t ncols = static_cast<uint32_t>(pack) * length;
   const uint32_t col0 = static_cast<uint32_t>(head % pack) * length;
+  const bool dropout = drop.on();
   const uint32_t key =
       dropout ? rlt::stream_key(rlt::group_stream(streams[n], head / pack)) : 0u;
+  const uint32_t limit = drop.limit(n);
+  const float inv_keep = drop.scale_of(n);
   float acc[kCols][4] = {}, part[kCols][4] = {};
 
   for (int it = 0; it < tiles; ++it) {
@@ -215,7 +218,7 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
           if (dropout) {
             const uint32_t index =
                 static_cast<uint32_t>(r0 + g + 8 * r) * ncols + col0 + col;
-            gg = rlt::keep_element(index, key, threshold) ? gg * inv_keep : 0.0f;
+            gg = rlt::keep_element(index, key, limit) ? gg * inv_keep : 0.0f;
           }
           s[j][e] = p * (gg - delta_r[r]) * scale;
         }
@@ -275,7 +278,7 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ lse, const float* __restrict__ delta,
            const int32_t* __restrict__ streams, float* __restrict__ dk,
            float* __restrict__ dv, int length, int heads, int pack, float scale,
-           bool dropout, uint32_t threshold, float inv_keep) {
+           const rlt::Dropout drop) {
   static_assert(kPackedThreads == 2 * kPackedTile, "one thread per lse and delta float");
   using Shape = rlt::PackedShape<kDh>;
   constexpr int kPitch = Shape::kPitch;
@@ -307,8 +310,11 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const uint32_t ncols = static_cast<uint32_t>(pack) * length;
   const uint32_t col0 = static_cast<uint32_t>(head % pack) * length;
+  const bool dropout = drop.on();
   const uint32_t key =
       dropout ? rlt::stream_key(rlt::group_stream(streams[n], head / pack)) : 0u;
+  const uint32_t limit = drop.limit(n);
+  const float inv_keep = drop.scale_of(n);
   float dk_acc[kCols][4] = {}, dv_acc[kCols][4] = {}, part[kCols][4] = {};
 
   for (int it = 0; it < tiles; ++it) {
@@ -353,7 +359,7 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
           if (dropout) {
             const uint32_t index = static_cast<uint32_t>(row) * ncols + col0 +
                                    static_cast<uint32_t>(k0 + g + 8 * (e >> 1));
-            const bool keep = rlt::keep_element(index, key, threshold);
+            const bool keep = rlt::keep_element(index, key, limit);
             pd = keep ? p * inv_keep : 0.0f;
             gg = keep ? gg * inv_keep : 0.0f;
           }
@@ -404,7 +410,7 @@ template <int kDh>
 int launch_bwd(const float* q, const float* k, const float* v, const float* o,
                const float* dout, const float* lse, const int32_t* streams, float* dq,
                float* dk, float* dv, float* delta, int n, int length, int heads,
-               int pack, float rate, uint32_t threshold, cudaStream_t s) {
+               int pack, const rlt::Dropout& drop, cudaStream_t s) {
   constexpr int kMinBlocks = rlt::PackedShape<kDh>::kMinBlocks;
   using Layout = BwdLayout<kDh>;
   cudaError_t err = cudaFuncSetAttribute(dq_kernel<kDh, kMinBlocks>,
@@ -417,17 +423,13 @@ int launch_bwd(const float* q, const float* k, const float* v, const float* o,
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const float scale = 1.0f / sqrtf(static_cast<float>(kDh));
-  const bool dropout = rate > 0.0f;
-  const float inv_keep = 1.0f / (1.0f - rate);
   const dim3 grid((length + kPackedTile - 1) / kPackedTile, heads, n);
   dq_kernel<kDh, kMinBlocks><<<grid, kPackedThreads, Layout::kDqSmem, s>>>(
-      q, k, v, o, dout, lse, streams, dq, delta, length, heads, pack, scale, dropout,
-      threshold, inv_keep);
+      q, k, v, o, dout, lse, streams, dq, delta, length, heads, pack, scale, drop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   dkv_kernel<kDh, kMinBlocks><<<grid, kPackedThreads, Layout::kDkvSmem, s>>>(
-      q, k, v, dout, lse, delta, streams, dk, dv, length, heads, pack, scale, dropout,
-      threshold, inv_keep);
+      q, k, v, dout, lse, delta, streams, dk, dv, length, heads, pack, scale, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -437,17 +439,20 @@ int launch_bwd(const float* q, const float* k, const float* v, const float* o,
 // 16 or 64, lse (N, heads / pack, L, pack), delta an (N, heads, L) scratch
 // array: contiguous float32 device arrays, the (N, L, D) ones 16-byte
 // aligned. With rate > 0, `streams` holds K5''s N int32 dropout streams and
-// `threshold` its keep threshold. Takes 1 <= L <= 65535; any other head
-// width is refused with cudaErrorInvalidValue. Launches its two kernels on
-// `stream` and returns the first error.
+// `threshold` its keep threshold; with `thresholds` and `scales`, K5''s
+// per-row rates (rlt_attention_packed_fwd). Takes 1 <= L <= 65535; any other
+// head width is refused with cudaErrorInvalidValue. Launches its two kernels
+// on `stream` and returns the first error.
 extern "C" int rlt_attention_packed_bwd(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const void* lse, const void* streams, void* dq, void* dk,
-    void* dv, void* delta, int n, int length, int heads, int head_dim, int pack,
-    float rate, unsigned int threshold, void* stream) {
+    const void* dout, const void* lse, const void* streams, const void* thresholds,
+    const void* scales, void* dq, void* dk, void* dv, void* delta, int n, int length,
+    int heads, int head_dim, int pack, float rate, unsigned int threshold,
+    void* stream) {
+  rlt::Dropout drop;
   if (n < 1 || length < 1 || heads < 1 || pack < 1 || heads % pack != 0 ||
       n > 65535 || length > 65535 || heads > 65535 ||
-      !(rate >= 0.0f && rate < 1.0f) || (rate > 0.0f && streams == nullptr))
+      !rlt::make_dropout(drop, rate, threshold, streams, thresholds, scales))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* q_ = static_cast<const float*>(q);
   const auto* k_ = static_cast<const float*>(k);
@@ -464,10 +469,10 @@ extern "C" int rlt_attention_packed_bwd(
   switch (head_dim) {
     case 16:
       return launch_bwd<16>(q_, k_, v_, o_, do_, lse_, s_, dq_, dk_, dv_, delta_, n,
-                            length, heads, pack, rate, threshold, st);
+                            length, heads, pack, drop, st);
     case 64:
       return launch_bwd<64>(q_, k_, v_, o_, do_, lse_, s_, dq_, dk_, dv_, delta_, n,
-                            length, heads, pack, rate, threshold, st);
+                            length, heads, pack, drop, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -480,22 +485,23 @@ extern "C" int rlt_attention_packed_bwd(
 // the first error.
 extern "C" int rlt_attention_packed_bwd_bf16(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const void* lse, const void* streams, void* dq, void* dk,
-    void* dv, void* delta, int n, int length, int heads, int head_dim, int pack,
-    float rate, unsigned int threshold, void* stream) {
+    const void* dout, const void* lse, const void* streams, const void* thresholds,
+    const void* scales, void* dq, void* dk, void* dv, void* delta, int n, int length,
+    int heads, int head_dim, int pack, float rate, unsigned int threshold,
+    void* stream) {
+  rlt::Dropout drop;
   if (n < 1 || length < 1 || heads < 1 || pack < 1 || heads % pack != 0 ||
       n > 65535 || length > 65535 || heads > 65535 ||
-      !(rate >= 0.0f && rate < 1.0f) || (rate > 0.0f && streams == nullptr))
+      !rlt::make_dropout(drop, rate, threshold, streams, thresholds, scales))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 16:
       return rlt::launch_attn_bwd_dh16(q, k, v, o, dout, lse, streams, dq, dk, dv, delta,
-                                       n, length, heads, pack, rate, threshold, st);
+                                       n, length, heads, pack, drop, st);
     case 64:
       return rlt::launch_attn_bwd_wgmma<64>(q, k, v, o, dout, lse, streams, dq, dk, dv,
-                                            delta, n, length, heads, pack, rate,
-                                            threshold, st);
+                                            delta, n, length, heads, pack, drop, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

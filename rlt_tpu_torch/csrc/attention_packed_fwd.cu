@@ -13,6 +13,7 @@
 // dropout rate above 0, the softmax weights are dropped by the keep mask of
 // keep_mask.cuh (per-row stream, head group and column as in the TPU kernel)
 // and the kept ones scaled by 1 / (1 - rate); lse stays the pre-dropout one.
+// The rate is the launch's, or row n's own (keep_mask.cuh's Dropout).
 //
 // It computes the same function, not the TPU's block-masked kbig/vbig trick
 // (that trick buys a 128-deep MXU contraction with pack x the MACs; here the
@@ -80,8 +81,7 @@ attn_packed_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
                        float* __restrict__ lse,
                        const int32_t* __restrict__ streams, int length,
-                       int d_model, int pack, float scale, bool dropout,
-                       uint32_t threshold, float inv_keep) {
+                       int d_model, int pack, float scale, const rlt::Dropout drop) {
   using Shape = rlt::PackedShape<kDh>;
   constexpr int kPitch = Shape::kPitch;
   constexpr int kTileFloats = Shape::kTileFloats;
@@ -108,8 +108,11 @@ attn_packed_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // the head's keep mask: columns (head % pack) * L + j of its group's tile
   const uint32_t ncols = static_cast<uint32_t>(pack) * length;
   const uint32_t col0 = static_cast<uint32_t>(head % pack) * length;
+  const bool dropout = drop.on();
   const uint32_t key =
       dropout ? rlt::stream_key(rlt::group_stream(streams[n], head / pack)) : 0u;
+  const uint32_t limit = drop.limit(n);
+  const float inv_keep = drop.scale_of(n);
 
   // rows g and g + 8 of the warp: running max, this thread's share of the
   // running sum, and the output accumulator (dh / 8 tiles of 8 columns)
@@ -174,7 +177,7 @@ attn_packed_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const int col = t0 + 8 * j + 2 * t + (e & 1);
           const uint32_t index =
               static_cast<uint32_t>(r0 + g + 8 * r) * ncols + col0 + col;
-          s[j][e] = rlt::keep_element(index, key, threshold) ? w * inv_keep : 0.0f;
+          s[j][e] = rlt::keep_element(index, key, limit) ? w * inv_keep : 0.0f;
         } else {
           s[j][e] = w;
         }
@@ -225,7 +228,7 @@ attn_packed_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int kDh>
 int launch_fwd(const float* q, const float* k, const float* v, float* o, float* lse,
                const int32_t* streams, int n, int length, int heads, int pack,
-               float rate, uint32_t threshold, cudaStream_t stream) {
+               const rlt::Dropout& drop, cudaStream_t stream) {
   constexpr int kMinBlocks = rlt::PackedShape<kDh>::kMinBlocks;
   constexpr size_t smem = fwd_smem<kDh>();
   cudaError_t err = cudaFuncSetAttribute(attn_packed_fwd_kernel<kDh, kMinBlocks>,
@@ -235,8 +238,7 @@ int launch_fwd(const float* q, const float* k, const float* v, float* o, float* 
   const dim3 grid((length + kPackedTile - 1) / kPackedTile, heads, n);
   attn_packed_fwd_kernel<kDh, kMinBlocks><<<grid, kPackedThreads, smem, stream>>>(
       q, k, v, o, lse, streams, length, heads * kDh, pack,
-      1.0f / sqrtf(static_cast<float>(kDh)), rate > 0.0f, threshold,
-      1.0f / (1.0f - rate));
+      1.0f / sqrtf(static_cast<float>(kDh)), drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -246,17 +248,22 @@ int launch_fwd(const float* q, const float* k, const float* v, float* o, float* 
 // (N, heads / pack, L, pack): contiguous float32 device arrays, q/k/v
 // 16-byte aligned. With rate > 0, `streams` holds N int32 dropout streams
 // (one per row n) and `threshold` the keep threshold of keep_mask.cuh; with
-// rate == 0 neither is read. Takes 1 <= L <= 65535; any other head width is
+// rate == 0 neither is read. With `thresholds` and `scales` (N uint32 and N
+// float32, keep_mask.cuh's per-row encoding: 0 and 1 for a row at rate 0),
+// row n drops at its own rate, `streams` is read, and `rate` and
+// `threshold` are not. Takes 1 <= L <= 65535; any other head width is
 // refused with cudaErrorInvalidValue. Launches on `stream` and returns
 // cudaGetLastError().
 extern "C" int rlt_attention_packed_fwd(const void* q, const void* k,
                                         const void* v, void* o, void* lse,
-                                        const void* streams, int n, int length,
+                                        const void* streams, const void* thresholds,
+                                        const void* scales, int n, int length,
                                         int heads, int head_dim, int pack, float rate,
                                         unsigned int threshold, void* stream) {
+  rlt::Dropout drop;
   if (n < 1 || length < 1 || heads < 1 || pack < 1 || heads % pack != 0 ||
       n > 65535 || length > 65535 || heads > 65535 ||
-      !(rate >= 0.0f && rate < 1.0f) || (rate > 0.0f && streams == nullptr))
+      !rlt::make_dropout(drop, rate, threshold, streams, thresholds, scales))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* q_ = static_cast<const float*>(q);
   const auto* k_ = static_cast<const float*>(k);
@@ -267,11 +274,9 @@ extern "C" int rlt_attention_packed_fwd(const void* q, const void* k,
   const auto st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 16:
-      return launch_fwd<16>(q_, k_, v_, o_, lse_, s_, n, length, heads, pack, rate,
-                            threshold, st);
+      return launch_fwd<16>(q_, k_, v_, o_, lse_, s_, n, length, heads, pack, drop, st);
     case 64:
-      return launch_fwd<64>(q_, k_, v_, o_, lse_, s_, n, length, heads, pack, rate,
-                            threshold, st);
+      return launch_fwd<64>(q_, k_, v_, o_, lse_, s_, n, length, heads, pack, drop, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -283,22 +288,24 @@ extern "C" int rlt_attention_packed_fwd(const void* q, const void* k,
 // cudaGetLastError().
 extern "C" int rlt_attention_packed_fwd_bf16(const void* q, const void* k,
                                              const void* v, void* o, void* lse,
-                                             const void* streams, int n, int length,
+                                             const void* streams, const void* thresholds,
+                                             const void* scales, int n, int length,
                                              int heads, int head_dim, int pack,
                                              float rate, unsigned int threshold,
                                              void* stream) {
+  rlt::Dropout drop;
   if (n < 1 || length < 1 || heads < 1 || pack < 1 || heads % pack != 0 ||
       n > 65535 || length > 65535 || heads > 65535 ||
-      !(rate >= 0.0f && rate < 1.0f) || (rate > 0.0f && streams == nullptr))
+      !rlt::make_dropout(drop, rate, threshold, streams, thresholds, scales))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 16:
       return rlt::launch_attn_fwd_dh16(q, k, v, o, lse, streams, n, length, heads, pack,
-                                       rate, threshold, st);
+                                       drop, st);
     case 64:
       return rlt::launch_attn_fwd_wgmma<64>(q, k, v, o, lse, streams, n, length, heads,
-                                            pack, rate, threshold, st);
+                                            pack, drop, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

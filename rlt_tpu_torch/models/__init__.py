@@ -67,12 +67,12 @@ def is_multi_head(name: str) -> bool:
     return name in MULTI_HEAD
 
 
-def build_model(name: str, *, seq_len: int, input_size: int, dropout: float,
+def build_model(name: str, *, seq_len: int, input_size: int, dropout,
                 num_tasks: float = 3, seed: int = 0, members: int | None = None):
     """Model dispatch mirroring the JAX package's `build_model` (the same
     constructor arguments), with the initial weights drawn from `seed`;
     with `members=K`, the model of K members in one (its weights drawn
-    once; `build_population_model` fills it)."""
+    once; `build_population_model` fills it), `dropout` one rate or K."""
     common = dict(dropout=dropout, seed=seed, members=members)
     if name == "bicut":
         return BiCut(input_size=input_size, **common)
@@ -108,16 +108,21 @@ def check_population_model(name: str) -> None:
 
 
 def build_population_model(name: str, *, seq_len: int, input_size: int,
-                           dropout: float, seeds, num_tasks: float = 3):
+                           dropout, seeds, num_tasks: float = 3):
     """K models in one, member m initialised exactly as `build_model(...,
-    seed=seeds[m])` and stacked on a leading member axis of every leaf."""
+    seed=seeds[m], dropout=its rate)` and stacked on a leading member axis
+    of every leaf. `dropout`: one rate for every member, or K rates."""
     check_population_model(name)
     seeds = list(seeds)
     if not seeds:
         raise ValueError("a population needs at least one member")
-    kwargs = dict(seq_len=seq_len, input_size=input_size, dropout=dropout,
-                  num_tasks=num_tasks)
-    model = build_model(name, members=len(seeds), **kwargs)
+    rates = ([float(dropout)] * len(seeds) if isinstance(dropout, (int, float))
+             else [float(r) for r in dropout])
+    if len(rates) != len(seeds):
+        raise ValueError(f"{len(rates)} dropout rates for {len(seeds)} members")
+    kwargs = dict(seq_len=seq_len, input_size=input_size, num_tasks=num_tasks)
+    model = build_model(name, members=len(seeds), dropout=rates, **kwargs)
     model.load_state_dict(stack_state_dicts(
-        [build_model(name, seed=seed, **kwargs).state_dict() for seed in seeds]))
+        [build_model(name, seed=seed, dropout=rate, **kwargs).state_dict()
+         for seed, rate in zip(seeds, rates)]))
     return model

@@ -28,7 +28,10 @@ B, L, D) with (K, E, ...) parameters and run their attention over the
 K * E * B rows (or PLECut's K * E * B * H slices) at once, an unstacked
 encoder's layers map (K, B, L, D) to (K, B, L, D) over K * B rows, and the
 towers, gates and heads carry K in front. Each member computes what its
-own model computes.
+own model computes. The members may differ in their dropout rate (the JAX
+package's traced `hp["dropout_rate"]`): a layer then holds a
+`MemberRates` in place of its float rate, and every dropout site takes
+member m's rate, 16-bit mask threshold and 1 / keep scale from it.
 
 In training mode (`module.train()`) with a dropout rate above 0, every
 random bit comes from the explicit `torch.Generator` the caller passes to
@@ -37,7 +40,8 @@ seeds first, then the three masks of each encoder layer, in the order of
 the JAX package's `TransformerEncoderLayer`. A model with members takes a
 list of K generators, one per member: each site draws member m's seeds or
 mask, of the shape its own model draws, from generator m, so that member m
-draws exactly the bits of its own run with that generator. `Dropout` and
+draws exactly the bits of its own run with that generator (a member at
+rate 0 draws nothing, as its own model draws nothing). `Dropout` and
 `ReluDropout` use the JAX package's 16-bit scheme (16 random bits per unit against
 min(round(keep * 65536), 65535)); the bits are torch's, not JAX's, so a
 whole-model comparison with the JAX package is made at rate 0. In eval mode
@@ -70,16 +74,19 @@ rounding to bf16. The LSTM's recurrent weights reach its op in f32 (see
 from __future__ import annotations
 
 import math
+from typing import Sequence, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from rlt_tpu_torch.ops.attention import (
+    RowDropout,
     expert_streams,
     fused_attention,
     fused_attention_packed,
     packed_group_size,
+    row_dropout,
 )
 from rlt_tpu_torch.ops.lstm import fused_lstm, fused_lstm_bidir
 
@@ -115,37 +122,128 @@ def member_draw(generator, draw) -> torch.Tensor:
     return draw(_generator(generator))
 
 
-def dropout_keep_mask(shape, keep: float, generator, device: torch.device) -> torch.Tensor:
+def _mask_threshold(keep: float) -> int:
+    return min(round(keep * 65536.0), 65535)
+
+
+class MemberRates(nn.Module):
+    """The dropout rates of K members that differ in them, as a member
+    model's layers hold them in place of one float rate: the rates, and the
+    attention kernels' `RowDropout` of the K members (device buffers, made
+    once on the host and moved with the model, so that a CUDA graph of the
+    step reads fixed addresses; not in the state_dict)."""
+
+    def __init__(self, rates: Sequence[float]):
+        super().__init__()
+        self.rates = tuple(float(r) for r in rates)
+        for name, t in zip(RowDropout._fields, row_dropout(self.rates)):
+            self.register_buffer(f"row_{name}", t, persistent=False)
+
+    def rows(self, n: int) -> RowDropout:
+        """The kernels' per-row dropout of K * n rows, n a member in turn."""
+        return RowDropout(self.row_rate, self.row_threshold, self.row_scale).repeat(n)
+
+    def scaled(self, x: torch.Tensor) -> torch.Tensor:
+        """x (K, ...) with member m's part over its keep = 1 - rate: the op
+        of member m's own model, x / keep with a Python float keep, one per
+        member into one output (torch rounds that op by device and dtype;
+        the same op rounds the same)."""
+        y = torch.empty_like(x)
+        for m, rate in enumerate(self.rates):
+            torch.div(x[m], 1.0 - rate, out=y[m])
+        return y
+
+
+class _MemberScale(torch.autograd.Function):
+    """`MemberRates.scaled`, differentiated as torch differentiates x / keep
+    for a Python float keep: the cotangent over the same keep."""
+
+    @staticmethod
+    def forward(ctx, x, rates):
+        ctx.rates = rates
+        return rates.scaled(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.rates.scaled(g), None
+
+
+Rate = Union[float, MemberRates]
+
+
+def member_rates(rate: float | Sequence[float]) -> Rate:
+    """A layer's rate: a float, or K members' rates, which stay one float
+    where they agree."""
+    if isinstance(rate, (int, float)):
+        return float(rate)
+    rates = tuple(float(r) for r in rate)
+    return rates[0] if len(set(rates)) == 1 else MemberRates(rates)
+
+
+def drops(rate: Rate) -> bool:
+    """Whether any unit is dropped at `rate` (a MemberRates always has a
+    member above 0)."""
+    return isinstance(rate, MemberRates) or rate > 0.0
+
+
+def dropout_keep_mask(shape, keep: float | Sequence[float], generator,
+                      device: torch.device) -> torch.Tensor:
     """16 random bits per unit against min(round(keep * 65536), 65535).
     With a list of K member generators `shape` leads with the member axis,
-    and member m's (shape[1:]) bits come from generator m."""
+    and member m's (shape[1:]) bits come from generator m; with K keeps,
+    member m's bits against its own threshold, and a member at keep 1 (rate
+    0) draws nothing and keeps every unit."""
     shape = tuple(shape)
     if isinstance(generator, (list, tuple)):
         if shape[0] != len(generator):
             raise ValueError(f"{len(generator)} member generators for a mask of "
                              f"shape {shape}")
         shape = shape[1:]
-    threshold = min(round(keep * 65536.0), 65535)
-    return member_draw(generator, lambda g: torch.randint(
-        0, 65536, shape, generator=g, device=device, dtype=torch.int32) < threshold)
+    if isinstance(keep, (int, float)):
+        threshold = _mask_threshold(keep)
+        return member_draw(generator, lambda g: torch.randint(
+            0, 65536, shape, generator=g, device=device, dtype=torch.int32) < threshold)
+    masks = [torch.randint(0, 65536, shape, generator=_generator(g), device=device,
+                           dtype=torch.int32) < _mask_threshold(k) if k < 1.0
+             else torch.ones(shape, dtype=torch.bool, device=device)
+             for g, k in zip(generator, keep)]
+    return torch.stack(masks)
 
 
-def dropout(x: torch.Tensor, rate: float, generator) -> torch.Tensor:
-    """Drop units with probability `rate`, scale the kept ones by 1 / keep."""
-    keep = 1.0 - rate
-    mask = dropout_keep_mask(x.shape, keep, generator, x.device)
-    return torch.where(mask, x / keep, 0.0)
+def _keep_mask(x: torch.Tensor, rate: Rate, generator) -> torch.Tensor:
+    keep = ([1.0 - r for r in rate.rates] if isinstance(rate, MemberRates)
+            else 1.0 - rate)
+    return dropout_keep_mask(x.shape, keep, generator, x.device)
+
+
+def _keep_of(rate: Rate) -> float | MemberRates:
+    return rate if isinstance(rate, MemberRates) else 1.0 - rate
+
+
+def _over_keep(x: torch.Tensor, keep: float | MemberRates) -> torch.Tensor:
+    """x / keep, each member's own with a MemberRates."""
+    if isinstance(keep, MemberRates):
+        return _MemberScale.apply(x, keep)
+    return x / keep
+
+
+def dropout(x: torch.Tensor, rate: Rate, generator) -> torch.Tensor:
+    """Drop units with probability `rate`, scale the kept ones by 1 / keep
+    (member m's rate with a MemberRates and x leading with the members)."""
+    mask = _keep_mask(x, rate, generator)
+    return torch.where(mask, _over_keep(x, _keep_of(rate)), 0.0)
 
 
 class ReluDropout(torch.autograd.Function):
     """relu(x) * mask / keep whose only saved tensor is the output h:
     dx = g (h > 0) / keep, which equals autograd's g mask (x > 0) / keep
     because kept positives give h > 0 and dropped or negative units h = 0
-    (the JAX package's `_relu_dropout` custom_vjp)."""
+    (the JAX package's `_relu_dropout` custom_vjp). `keep`: a float, or a
+    MemberRates for each member's own."""
 
     @staticmethod
     def forward(ctx, x, mask, keep):
-        h = torch.where(mask, torch.relu(x) / keep, 0.0)
+        h = torch.where(mask, _over_keep(torch.relu(x), keep), 0.0)
         ctx.save_for_backward(h)
         ctx.keep = keep
         return h
@@ -153,13 +251,12 @@ class ReluDropout(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (h,) = ctx.saved_tensors
-        return torch.where(h > 0, g / ctx.keep, 0.0), None, None
+        return torch.where(h > 0, _over_keep(g, ctx.keep), 0.0), None, None
 
 
-def relu_dropout(x: torch.Tensor, rate: float, generator) -> torch.Tensor:
-    keep = 1.0 - rate
-    mask = dropout_keep_mask(x.shape, keep, generator, x.device)
-    return ReluDropout.apply(x, mask, keep)
+def relu_dropout(x: torch.Tensor, rate: Rate, generator) -> torch.Tensor:
+    mask = _keep_mask(x, rate, generator)
+    return ReluDropout.apply(x, mask, _keep_of(rate))
 
 
 def final_linear(linear: "TorchLinear", x: torch.Tensor) -> torch.Tensor:
@@ -492,17 +589,20 @@ class SelfAttention(nn.Module):
     their K * E * B * H slices, and each member draws its E seeds from its
     own generator. A member model's unstacked attention (`experts=None`)
     has (K, ...) parameters and maps (K, B, L, D) to (K, B, L, D), each
-    member drawing the one seed its own model draws."""
+    member drawing the one seed its own model draws. Members of different
+    rates (`dropout` K floats, a `MemberRates`) launch the kernels with
+    each row at its member's rate (`RowDropout`); a member at rate 0 draws
+    no seed, and its rows are not dropped."""
 
     def __init__(self, d_model: int, n_head: int, experts: int | None = None,
-                 generator: torch.Generator | None = None, dropout: float = 0.0,
-                 members: int | None = None):
+                 generator: torch.Generator | None = None,
+                 dropout: float | Sequence[float] = 0.0, members: int | None = None):
         super().__init__()
         if d_model % n_head:
             raise ValueError(f"d_model={d_model} not divisible by n_head={n_head}")
         self.d_model = d_model
         self.n_head = n_head
-        self.dropout = dropout
+        self.dropout = member_rates(dropout)
         self.pack = packed_group_size(d_model, n_head)
         self.unstacked_members = members is not None and experts is None
         lead = _lead(experts, members)
@@ -534,10 +634,21 @@ class SelfAttention(nn.Module):
         heads = self.n_head
         rate = self.dropout if self.training else 0.0
         streams = None
-        if rate > 0.0:
-            seeds = member_draw(generator, lambda g: torch.randint(
-                0, 2**31 - 1, (experts,), generator=g, device=x.device)).reshape(-1)
-            streams = expert_streams(seeds, batch if self.pack else batch * heads)
+        if drops(rate):
+            rows = batch if self.pack else batch * heads  # of an expert
+
+            def seeds_of(g):
+                return torch.randint(0, 2**31 - 1, (experts,), generator=g, device=x.device)
+
+            if isinstance(rate, MemberRates):
+                seeds = torch.stack([
+                    seeds_of(_generator(g)) if r > 0.0
+                    else torch.zeros(experts, dtype=torch.int64, device=x.device)
+                    for g, r in zip(generator, rate.rates)]).reshape(-1)
+                rate = rate.rows(experts * rows)
+            else:
+                seeds = member_draw(generator, seeds_of).reshape(-1)
+            streams = expert_streams(seeds, rows)
 
         if self.pack is None:
             dh = d // heads
@@ -579,9 +690,9 @@ class TransformerEncoderLayer(nn.Module):
 
     def __init__(self, d_model: int, n_head: int, dim_feedforward: int = 2048,
                  experts: int | None = None, generator: torch.Generator | None = None,
-                 dropout: float = 0.1, members: int | None = None):
+                 dropout: float | Sequence[float] = 0.1, members: int | None = None):
         super().__init__()
-        self.dropout = dropout
+        self.dropout = member_rates(dropout)
         self.self_attn = SelfAttention(d_model, n_head, experts, generator, dropout,
                                        members)
         self.norm1 = LayerNorm(d_model, experts, members=members)
@@ -592,13 +703,13 @@ class TransformerEncoderLayer(nn.Module):
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         rate = self.dropout if self.training else 0.0
         attn = self.self_attn(x, generator)
-        if rate > 0.0:
+        if drops(rate):
             attn = dropout(attn, rate, generator)
         x = self.norm1(residual(x, attn))
         h = self.linear1(x)
-        h = relu_dropout(h, rate, generator) if rate > 0.0 else torch.relu(h)
+        h = relu_dropout(h, rate, generator) if drops(rate) else torch.relu(h)
         h = self.linear2(h)
-        if rate > 0.0:
+        if drops(rate):
             h = dropout(h, rate, generator)
         return self.norm2(residual(x, h))
 
@@ -606,8 +717,8 @@ class TransformerEncoderLayer(nn.Module):
 class TransformerEncoder(nn.Module):
     def __init__(self, d_model: int, n_head: int, num_layers: int,
                  dim_feedforward: int = 2048, experts: int | None = None,
-                 generator: torch.Generator | None = None, dropout: float = 0.1,
-                 members: int | None = None):
+                 generator: torch.Generator | None = None,
+                 dropout: float | Sequence[float] = 0.1, members: int | None = None):
         super().__init__()
         self.num_layers = num_layers
         for i in range(num_layers):

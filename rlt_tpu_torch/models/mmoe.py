@@ -22,10 +22,14 @@ is (K, B, L, F), the heads (K, B, L, 1), the two BiLSTM layers launch K1'
 once each over the 2K directions, and the expert stack runs its K * E
 experts as one stack: K * E * B attention rows in the packed kernels, K * E
 * B * H slices in PLECut's per-slice kernels. Its training forward takes K
-generators, one per member.
+generators, one per member, and `dropout` may be K rates, one a member
+(`layers.MemberRates`: each row of the attention kernels at its member's
+rate).
 """
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 from torch import nn
@@ -47,7 +51,7 @@ class ExpertStack(nn.Module):
 
     def __init__(self, num_experts: int, d_model: int = 256, n_head: int = 4,
                  num_layers: int = 1, generator: torch.Generator | None = None,
-                 dropout: float = 0.2, members: int | None = None):
+                 dropout: float | Sequence[float] = 0.2, members: int | None = None):
         super().__init__()
         self.members = members
         self.attention_layer = TransformerEncoder(
@@ -88,7 +92,7 @@ class MMOECut(nn.Module):
     def __init__(self, seq_len: int = 300, num_experts: int = 3,
                  num_tasks: float = 3, input_size: int = 3,
                  encoding_size: int = 128, d_model: int = 256, n_head: int = 4,
-                 num_layers: int = 1, dropout: float = 0.2, seed: int = 0,
+                 num_layers: int = 1, dropout: float | Sequence[float] = 0.2, seed: int = 0,
                  members: int | None = None):
         super().__init__()
         if d_model != 2 * encoding_size:
@@ -161,7 +165,7 @@ class PLECut(nn.Module):
 
     def __init__(self, seq_len: int = 300, input_size: int = 3,
                  encoding_size: int = 128, d_model: int = 256, n_head: int = 2,
-                 num_layers: int = 1, dropout: float = 0.1, seed: int = 0,
+                 num_layers: int = 1, dropout: float | Sequence[float] = 0.1, seed: int = 0,
                  members: int | None = None):
         super().__init__()
         if d_model != 2 * encoding_size:

@@ -12,10 +12,13 @@ attention kernels. Then `heads` with `classi` (Linear + sigmoid), `rerank`
 (plain Linear) and `decision` (Linear + softmax over positions). num_tasks
 picks the heads returned: 3 -> [class, rerank, cut], 2.1 -> [class, cut],
 2.2 -> [rerank, cut]; the last is the cut distribution. With `members=K`
-each is K models in one, as `models/simple.py`'s models are.
+each is K models in one, as `models/simple.py`'s models are, `dropout`
+one rate or K.
 """
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 from torch import nn
@@ -54,8 +57,9 @@ class _MtHeads(nn.Module):
 
 class MtChoopy(nn.Module):
     def __init__(self, seq_len: int = 300, d_model: int = 128, n_head: int = 8,
-                 num_layers: int = 3, num_tasks: float = 3, dropout: float = 0.4,
-                 seed: int = 0, members: int | None = None):
+                 num_layers: int = 3, num_tasks: float = 3,
+                 dropout: float | Sequence[float] = 0.4, seed: int = 0,
+                 members: int | None = None):
         super().__init__()
         g = torch.Generator().manual_seed(seed)
         self.num_tasks = num_tasks
@@ -75,8 +79,9 @@ class MtChoopy(nn.Module):
 
 class MtAttnCut(nn.Module):
     def __init__(self, input_size: int = 3, d_model: int = 256, n_head: int = 4,
-                 num_layers: int = 1, num_tasks: float = 3, dropout: float = 0.4,
-                 seed: int = 0, members: int | None = None):
+                 num_layers: int = 1, num_tasks: float = 3,
+                 dropout: float | Sequence[float] = 0.4, seed: int = 0,
+                 members: int | None = None):
         super().__init__()
         g = torch.Generator().manual_seed(seed)
         self.num_tasks = num_tasks

@@ -29,10 +29,14 @@ With `members=K` each is K models in one (population training,
 (Choopy's `position_encoding` is (K, L, d_model - 1)), the input is (K, B,
 L, F), the output leads with K, and the training forward takes K
 generators, member m drawing from generator m what its own model draws.
-`models.build_population_model` fills it from K seeded models.
+`dropout` may then be K rates, one a member (`layers.MemberRates`), each
+member dropping at its own. `models.build_population_model` fills it from
+K seeded models.
 """
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 from torch import nn
@@ -42,6 +46,8 @@ from rlt_tpu_torch.models.layers import (
     TorchLinear,
     TransformerEncoder,
     dropout,
+    drops,
+    member_rates,
     softmax,
 )
 
@@ -49,10 +55,11 @@ from rlt_tpu_torch.models.layers import (
 class BiCut(nn.Module):
     def __init__(self, input_size: int = 3, lstm_hidden_size: int = 128,
                  lstm_layers: int = 2, fc_dimensions: int = 256,
-                 dropout: float = 0.4, seed: int = 0, members: int | None = None):
+                 dropout: float | Sequence[float] = 0.4, seed: int = 0,
+                 members: int | None = None):
         super().__init__()
         g = torch.Generator().manual_seed(seed)
-        self.dropout = dropout
+        self.dropout = member_rates(dropout)
         self.bilstm = LSTM(input_size, lstm_hidden_size, lstm_layers, generator=g,
                            members=members)
         self.fc = TorchLinear(2 * lstm_hidden_size, fc_dimensions, generator=g,
@@ -61,15 +68,16 @@ class BiCut(nn.Module):
 
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         logits = self.decision(torch.relu(self.fc(self.bilstm(x))))
-        if self.training and self.dropout > 0.0:
+        rate = self.dropout if self.training else 0.0
+        if drops(rate):
             # the reference drops logits, before the softmax
-            logits = dropout(logits, self.dropout, generator)
+            logits = dropout(logits, rate, generator)
         return softmax(logits, dim=-1, final=True)
 
 
 class Choopy(nn.Module):
     def __init__(self, seq_len: int = 300, d_model: int = 128, n_head: int = 8,
-                 num_layers: int = 3, dropout: float = 0.2, seed: int = 0,
+                 num_layers: int = 3, dropout: float | Sequence[float] = 0.2, seed: int = 0,
                  members: int | None = None):
         super().__init__()
         g = torch.Generator().manual_seed(seed)
@@ -98,7 +106,7 @@ def with_position_encoding(x: torch.Tensor, pe: torch.Tensor) -> torch.Tensor:
 
 class AttnCut(nn.Module):
     def __init__(self, input_size: int = 3, d_model: int = 256, n_head: int = 4,
-                 num_layers: int = 1, dropout: float = 0.4, seed: int = 0,
+                 num_layers: int = 1, dropout: float | Sequence[float] = 0.4, seed: int = 0,
                  members: int | None = None):
         super().__init__()
         g = torch.Generator().manual_seed(seed)

@@ -76,13 +76,23 @@ kernels of `csrc/attention_bf16_bwd_wgmma.cuh` (dh 64 and 128) and
 `csrc/attention_bf16_dh16.cuh` (dh 16), through `attention_packed_bwd.cu`
 and `attention_bwd.cu`, which round what the JAX kernels round; on a CPU tensor `attention_packed_bwd_plain` and
 `attention_bwd_plain`, which compute either dtype's semantics.
+
+A rate per row (population training, whose members differ in their
+dropout rate and share one launch; the JAX package's traced
+`hp["dropout_rate"]`): every op and plain version takes as `dropout_rate`
+a float, or a `RowDropout` (`row_dropout`: the (N,) tensors of row n's
+rate, keep threshold and scale, computed on the host). Row n then gives what a call at its own rate gives, bit for bit, and a
+row at rate 0 the undropped row (`csrc/keep_mask.cuh` has the encoding:
+threshold 0 keeps every weight, scale 1).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple, Sequence, Union
 
+import numpy as np
 import torch
 
 from rlt_tpu_torch.ops.build import (
@@ -94,39 +104,27 @@ from rlt_tpu_torch.ops.build import (
     widen,
 )
 
-ATTENTION_FWD = Kernel(
-    "rlt_attention_fwd",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
-    + [ctypes.c_float, ctypes.c_uint, ctypes.c_void_p])
-ATTENTION_FWD_BF16 = Kernel(
-    "rlt_attention_fwd_bf16",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
-    + [ctypes.c_float, ctypes.c_uint, ctypes.c_void_p])
-ATTENTION_BWD = Kernel(
-    "rlt_attention_bwd",
-    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 2
-    + [ctypes.c_float, ctypes.c_uint, ctypes.c_void_p])
-ATTENTION_BWD_BF16 = Kernel(
-    "rlt_attention_bwd_bf16",
-    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 2
-    + [ctypes.c_float, ctypes.c_uint, ctypes.c_void_p])
-# the packed kernels' int arguments: n, length, heads, head_dim, pack
-ATTENTION_PACKED_FWD = Kernel(
-    "rlt_attention_packed_fwd",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-    + [ctypes.c_float, ctypes.c_uint, ctypes.c_void_p])
-ATTENTION_PACKED_FWD_BF16 = Kernel(
-    "rlt_attention_packed_fwd_bf16",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-    + [ctypes.c_float, ctypes.c_uint, ctypes.c_void_p])
-ATTENTION_PACKED_BWD = Kernel(
-    "rlt_attention_packed_bwd",
-    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
-    + [ctypes.c_float, ctypes.c_uint, ctypes.c_void_p])
-ATTENTION_PACKED_BWD_BF16 = Kernel(
-    "rlt_attention_packed_bwd_bf16",
-    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
-    + [ctypes.c_float, ctypes.c_uint, ctypes.c_void_p])
+# every launcher's pointers (the forwards' 8: q, k, v, o, lse, streams,
+# thresholds, scales; the backwards' 13: q, k, v, o, do, lse, streams,
+# thresholds, scales, dq, dk, dv, delta), its int arguments (per slice: n,
+# length; packed: n, length, heads, head_dim, pack), then rate, threshold
+# and the CUDA stream
+_FWD, _BWD, _SLICE, _PACKED = 8, 13, 2, 5
+
+
+def _args(pointers: int, ints: int) -> list:
+    return ([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
+            + [ctypes.c_float, ctypes.c_uint, ctypes.c_void_p])
+
+
+ATTENTION_FWD = Kernel("rlt_attention_fwd", _args(_FWD, _SLICE))
+ATTENTION_FWD_BF16 = Kernel("rlt_attention_fwd_bf16", _args(_FWD, _SLICE))
+ATTENTION_BWD = Kernel("rlt_attention_bwd", _args(_BWD, _SLICE))
+ATTENTION_BWD_BF16 = Kernel("rlt_attention_bwd_bf16", _args(_BWD, _SLICE))
+ATTENTION_PACKED_FWD = Kernel("rlt_attention_packed_fwd", _args(_FWD, _PACKED))
+ATTENTION_PACKED_FWD_BF16 = Kernel("rlt_attention_packed_fwd_bf16", _args(_FWD, _PACKED))
+ATTENTION_PACKED_BWD = Kernel("rlt_attention_packed_bwd", _args(_BWD, _PACKED))
+ATTENTION_PACKED_BWD_BF16 = Kernel("rlt_attention_packed_bwd_bf16", _args(_BWD, _PACKED))
 
 PACKED_HEAD_DIMS = (16, 64)  # the packed kernels' instances
 SLICE_HEAD_DIM = 128
@@ -171,10 +169,88 @@ def keep_threshold(rate: float) -> int:
     return min(int((1.0 - rate) * 2**32), 2**32 - 1)
 
 
-def keep_mask(stream, shape: tuple[int, int], rate: float) -> torch.Tensor:
+def check_rate(rate: float) -> None:
+    """Raise unless 0 <= rate < 1 with a keep threshold above 0 (a rate
+    within 2^-32 of 1 has none: it would drop every weight, and threshold 0
+    encodes rate 0 in the per-row form)."""
+    if not 0.0 <= rate < 1.0 or (rate > 0.0 and keep_threshold(rate) == 0):
+        raise ValueError(f"dropout_rate must lie in [0, 1), short of 1 by more than "
+                         f"2^-32, got {rate}")
+
+
+class RowDropout(NamedTuple):
+    """A dropout rate per row (or slice) of an attention launch, as the
+    kernels read it (`csrc/keep_mask.cuh`): `rate` (float64), `threshold`
+    (int32 holding the uint32 keep threshold, computed on the host in
+    double as `keep_threshold`; 0 at rate 0, which keeps every weight) and
+    `scale` (float32 1 / (1 - rate), as a launch at that rate computes it;
+    1 at rate 0), each (N,) on the tensors' device."""
+
+    rate: torch.Tensor
+    threshold: torch.Tensor
+    scale: torch.Tensor
+
+    def repeat(self, n: int) -> "RowDropout":
+        """Each row's values over n rows in turn: (N,) -> (N * n,)."""
+        return RowDropout(*(t[:, None].expand(-1, n).reshape(-1) for t in self))
+
+
+DropoutRate = Union[float, RowDropout]
+
+
+def row_dropout(rates: Sequence[float], device=None) -> RowDropout:
+    """The `RowDropout` of per-row rates, computed on the host."""
+    rates = [float(r) for r in rates]
+    for r in rates:
+        check_rate(r)
+    threshold = np.array([keep_threshold(r) if r > 0.0 else 0 for r in rates],
+                         dtype=np.uint32).view(np.int32)
+    rate32 = np.array(rates, dtype=np.float32)
+    scale = np.float32(1.0) / (np.float32(1.0) - rate32)
+    return RowDropout(torch.tensor(rates, dtype=torch.float64, device=device),
+                      torch.from_numpy(threshold).to(device),
+                      torch.from_numpy(scale).to(device))
+
+
+def as_rate(rate: DropoutRate) -> float | RowDropout:
+    """A float rate, or the `RowDropout` of per-row rates."""
+    return rate if isinstance(rate, RowDropout) else float(rate)
+
+
+def _drops(rate: float | RowDropout) -> bool:
+    return isinstance(rate, RowDropout) or rate > 0.0
+
+
+def _rows(values: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """Per-row values shaped to broadcast over `like`'s trailing axes."""
+    return values.reshape(values.shape + (1,) * (like.dim() - values.dim()))
+
+
+def _kept_weights(p: torch.Tensor, keep: torch.Tensor, rate: float | RowDropout,
+                  rows_of: int) -> torch.Tensor:
+    """where(keep, p / (1 - rate), 0): per row, each row's 1 - rate rounded
+    to f32, the divisor torch takes on the CPU for the float rate
+    (`rows_of`: the leading axes that make a row)."""
+    if isinstance(rate, RowDropout):
+        keep_f = (1.0 - rate.rate).to(torch.float32).reshape(p.shape[:rows_of])
+        return torch.where(keep, p / _rows(keep_f, p), 0.0)
+    return torch.where(keep, p / (1.0 - rate), 0.0)
+
+
+def _inverse_keep(rate: float | RowDropout, like: torch.Tensor, rows_of: int):
+    """1 / (1 - rate) in double rounded to f32, per row or as a float."""
+    if isinstance(rate, RowDropout):
+        return _rows((1.0 / (1.0 - rate.rate)).to(torch.float32).reshape(
+            like.shape[:rows_of]), like)
+    return 1.0 / (1.0 - rate)
+
+
+def keep_mask(stream, shape: tuple[int, int], rate: float | RowDropout) -> torch.Tensor:
     """Boolean keep mask of one (rows, cols) tile, bit for bit the JAX
     package's `keep_mask`. `stream` is an int or an integer tensor of any
-    shape S; the result has shape S + `shape`."""
+    shape S; the result has shape S + `shape`. With a `RowDropout` of shape
+    S each tile takes its own threshold, and threshold 0 keeps every
+    element (the kernels' x <= threshold - 1 in uint32)."""
     stream = torch.as_tensor(stream, dtype=torch.int64)
     rows, cols = shape
     index = (torch.arange(rows, dtype=torch.int64, device=stream.device)[:, None] * cols
@@ -186,6 +262,9 @@ def keep_mask(stream, shape: tuple[int, int], rate: float) -> torch.Tensor:
     x = x ^ (x >> 15)
     x = _mul_u32(x, 0x846CA68B)
     x = x ^ (x >> 16)
+    if isinstance(rate, RowDropout):
+        limit = ((rate.threshold.to(torch.int64) & _U32) - 1) & _U32
+        return x <= limit.to(x.device)[..., None, None]
     return x < keep_threshold(rate)
 
 
@@ -220,9 +299,10 @@ def _group_stream(stream, gi: int):
 
 
 def head_keep_mask(streams: torch.Tensor, heads: int, pack: int, length: int,
-                   rate: float) -> torch.Tensor:
+                   rate: float | RowDropout) -> torch.Tensor:
     """(N, H, L, L) keep mask of every head's scores, as the kernels
-    evaluate it: head h reads columns (h % pack) * L + j of group h // pack."""
+    evaluate it: head h reads columns (h % pack) * L + j of group h // pack
+    (row n at its own rate with a `RowDropout`)."""
     streams = streams.to(torch.int64)
     n = streams.shape[0]
     masks = []
@@ -232,9 +312,11 @@ def head_keep_mask(streams: torch.Tensor, heads: int, pack: int, length: int,
     return torch.cat(masks, dim=1)
 
 
-def slice_keep_mask(streams: torch.Tensor, length: int, rate: float) -> torch.Tensor:
+def slice_keep_mask(streams: torch.Tensor, length: int,
+                    rate: float | RowDropout) -> torch.Tensor:
     """(N, L, L) keep mask of every slice's scores, as K3' and K4' evaluate
-    it: slice n's (L, L) tile on its own stream `streams[n]`."""
+    it: slice n's (L, L) tile on its own stream `streams[n]` (and at its own
+    rate with a `RowDropout`)."""
     return keep_mask(streams.to(torch.int64), (length, length), rate)
 
 
@@ -243,22 +325,24 @@ def slice_keep_mask(streams: torch.Tensor, length: int, rate: float) -> torch.Te
 # ---------------------------------------------------------------------------
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    dropout_rate: float = 0.0, streams: torch.Tensor | None = None):
+                    dropout_rate: DropoutRate = 0.0, streams: torch.Tensor | None = None):
     """Explicit per-slice softmax attention: q, k, v (B, H, L, dh) -> (o
     (B, H, L, dh), lse (B * H, 1, L)). With a rate above 0 the softmax
     weights are dropped by `slice_keep_mask(streams, ...)` and the kept ones
-    divided by 1 - rate. bf16 q, k, v: the scores and the softmax in
-    float32 from the widened values, the weights rounded to bf16 before
-    P V, o rounded to bf16 and lse float32."""
+    divided by 1 - rate (per slice b * H + h with per-row rates). bf16 q,
+    k, v: the scores and the softmax in float32 from the widened values,
+    the weights rounded to bf16 before P V, o rounded to bf16 and lse
+    float32."""
+    dropout_rate = as_rate(dropout_rate)
     batch, heads, length, dh = q.shape
     s = widen(q) @ widen(k).transpose(-1, -2) * (1.0 / math.sqrt(dh))
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp(s - m)
     denom = e.sum(dim=-1, keepdim=True)
     p = e / denom
-    if dropout_rate > 0.0:
+    if _drops(dropout_rate):
         keep = slice_keep_mask(streams, length, dropout_rate).reshape(p.shape)
-        p = torch.where(keep, p / (1.0 - dropout_rate), 0.0)
+        p = _kept_weights(p, keep, dropout_rate, 2)
     lse = (m + torch.log(denom)).reshape(batch * heads, 1, length)
     return (widen(p.to(v.dtype)) @ widen(v)).to(q.dtype), lse
 
@@ -269,13 +353,14 @@ def _rounded_like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     return x.to(ref.dtype).float() if ref.dtype == torch.bfloat16 else x
 
 
-def attention_bwd_plain(q, k, v, o, lse, do, dropout_rate: float = 0.0,
+def attention_bwd_plain(q, k, v, o, lse, do, dropout_rate: DropoutRate = 0.0,
                         streams: torch.Tensor | None = None):
     """The JAX package's per-slice backward: p from lse, delta =
     rowsum(do * o), ds = p (dp - delta) scale -> (dq, dk, dv), each
     (B, H, L, dh). bf16 q, k, v, o, do: every step in f32 from the widened
     values, ds and pd rounded to bf16 before the products, dq, dk and dv
     rounded to bf16."""
+    dropout_rate = as_rate(dropout_rate)
     batch, heads, length, dh = q.shape
     scale = 1.0 / math.sqrt(dh)
     qf, kf, vf, of, dof = (widen(t) for t in (q, k, v, o, do))
@@ -283,9 +368,9 @@ def attention_bwd_plain(q, k, v, o, lse, do, dropout_rate: float = 0.0,
                   - lse.reshape(batch, heads, length, 1))
     dp = dof @ vf.transpose(-1, -2)
     pd = p
-    if dropout_rate > 0.0:
+    if _drops(dropout_rate):
         keep = slice_keep_mask(streams, length, dropout_rate).reshape(p.shape)
-        inv = 1.0 / (1.0 - dropout_rate)
+        inv = _inverse_keep(dropout_rate, p, 2)
         pd = torch.where(keep, p * inv, 0.0)
         dp = torch.where(keep, dp * inv, 0.0)
     delta = (dof * of).sum(dim=-1, keepdim=True)
@@ -306,12 +391,13 @@ def _merge_heads(t: torch.Tensor) -> torch.Tensor:
 
 
 def attention_packed_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           heads: int, pack: int, dropout_rate: float = 0.0,
+                           heads: int, pack: int, dropout_rate: DropoutRate = 0.0,
                            streams: torch.Tensor | None = None):
     """Explicit per-head softmax attention: (o (N, L, D), lse (N, H / pack,
     L, pack)). With a rate above 0 the softmax weights are dropped by
-    `head_keep_mask(streams, ...)` and the kept ones divided by 1 - rate.
-    bf16 q, k, v as in `attention_plain`."""
+    `head_keep_mask(streams, ...)` and the kept ones divided by 1 - rate
+    (row n's own with per-row rates). bf16 q, k, v as in `attention_plain`."""
+    dropout_rate = as_rate(dropout_rate)
     n, length, d = q.shape
     dh = d // heads
     groups = heads // pack
@@ -321,9 +407,9 @@ def attention_packed_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     e = torch.exp(s - m)
     denom = e.sum(dim=-1, keepdim=True)
     p = e / denom
-    if dropout_rate > 0.0:
+    if _drops(dropout_rate):
         keep = head_keep_mask(streams, heads, pack, length, dropout_rate)
-        p = torch.where(keep, p / (1.0 - dropout_rate), 0.0)
+        p = _kept_weights(p, keep, dropout_rate, 1)
     o = _merge_heads(widen(p.to(v.dtype)) @ _split_heads(widen(v), heads)).to(q.dtype)
     lse = (m + torch.log(denom))[..., 0]  # (N, H, L)
     lse = lse.reshape(n, groups, pack, length).transpose(2, 3).contiguous()
@@ -331,11 +417,12 @@ def attention_packed_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_packed_bwd_plain(q, k, v, o, lse, do, heads: int, pack: int,
-                               dropout_rate: float = 0.0,
+                               dropout_rate: DropoutRate = 0.0,
                                streams: torch.Tensor | None = None):
     """The JAX package's packed backward, per head: p from lse, delta =
     rowsum(do * o), ds = p (dp - delta) scale -> (dq, dk, dv), each (N, L, D).
     bf16 q, k, v, o, do as in `attention_bwd_plain`."""
+    dropout_rate = as_rate(dropout_rate)
     n, length, d = q.shape
     scale = 1.0 / math.sqrt(d // heads)
     qh, kh, vh, oh, doh = (_split_heads(widen(t), heads) for t in (q, k, v, o, do))
@@ -343,9 +430,9 @@ def attention_packed_bwd_plain(q, k, v, o, lse, do, heads: int, pack: int,
     p = torch.exp(qh @ kh.transpose(-1, -2) * scale - lse_h[..., None])
     dp = doh @ vh.transpose(-1, -2)
     pd = p
-    if dropout_rate > 0.0:
+    if _drops(dropout_rate):
         keep = head_keep_mask(streams, heads, pack, length, dropout_rate)
-        inv = 1.0 / (1.0 - dropout_rate)
+        inv = _inverse_keep(dropout_rate, p, 1)
         pd = torch.where(keep, p * inv, 0.0)
         dp = torch.where(keep, dp * inv, 0.0)
     delta = (doh * oh).sum(dim=-1, keepdim=True)
@@ -359,7 +446,7 @@ def attention_packed_bwd_plain(q, k, v, o, lse, do, heads: int, pack: int,
 # Wrappers: the kernel on a CUDA tensor, the plain version on a CPU tensor
 # ---------------------------------------------------------------------------
 
-def _check(q, k, v, heads: int, pack: int, dropout_rate: float, streams) -> None:
+def _check(q, k, v, heads: int, pack: int, dropout_rate, streams) -> None:
     if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"q, k, v must be equal (N, L, D), got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -373,10 +460,18 @@ def _check(q, k, v, heads: int, pack: int, dropout_rate: float, streams) -> None
     _check_rate(dropout_rate, streams, q.shape[0], q.device)
 
 
-def _check_rate(dropout_rate: float, streams, rows: int, device) -> None:
-    if not 0.0 <= dropout_rate < 1.0:
-        raise ValueError(f"dropout_rate must lie in [0, 1), got {dropout_rate}")
-    if dropout_rate > 0.0:
+def _check_rate(dropout_rate: float | RowDropout, streams, rows: int, device) -> None:
+    """A float rate in [0, 1) (`check_rate`), or a `RowDropout` of `rows`
+    rows on `device` (its rates were checked when it was made); streams
+    where anything drops."""
+    if isinstance(dropout_rate, RowDropout):
+        for name, t in zip(RowDropout._fields, dropout_rate):
+            if tuple(t.shape) != (rows,) or t.device != device:
+                raise ValueError(f"per-row dropout {name} must be ({rows},) on "
+                                 f"{device}, got {tuple(t.shape)} on {t.device}")
+    else:
+        check_rate(dropout_rate)
+    if _drops(dropout_rate):
         if streams is None:
             raise ValueError("a dropout rate above 0 needs the per-row int32 "
                              "streams")
@@ -385,7 +480,7 @@ def _check_rate(dropout_rate: float, streams, rows: int, device) -> None:
                              f"{tuple(streams.shape)} on {streams.device}")
 
 
-def _check_slices(q, k, v, dropout_rate: float, streams) -> None:
+def _check_slices(q, k, v, dropout_rate, streams) -> None:
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"q, k, v must be equal (B, H, L, dh), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -412,20 +507,29 @@ def _check_kernel_inputs(name: str, dh: int, kernel_dhs: tuple, tensors: dict,
                              f"aligned {tname}")
 
 
-def _kernel_streams(streams, dropout_rate: float):
-    """(pointer, keep-alive tensor) of the int32 streams the kernels read."""
-    if dropout_rate == 0.0:
-        return ctypes.c_void_p(None), None
+def _kernel_dropout(streams, dropout_rate: float | RowDropout):
+    """The launchers' dropout arguments (streams, thresholds, scales, rate,
+    threshold) and the tensors they point into, kept alive by the caller:
+    the int32 streams where anything drops; per-row thresholds and scales
+    with a `RowDropout`, whose launch reads no rate."""
+    null = ctypes.c_void_p(None)
+    if not _drops(dropout_rate):
+        return (null, null, null, 0.0, keep_threshold(0.0)), ()
     s = streams.to(torch.int32).contiguous()
-    return ptr(s), s
+    if isinstance(dropout_rate, RowDropout):
+        t = dropout_rate.threshold.contiguous()
+        c = dropout_rate.scale.contiguous()
+        return (ptr(s), ptr(t), ptr(c), 0.0, 0), (s, t, c)
+    return (ptr(s), null, null, dropout_rate, keep_threshold(dropout_rate)), (s,)
 
 
 def attention_packed_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         heads: int, pack: int, dropout_rate: float = 0.0,
+                         heads: int, pack: int, dropout_rate: DropoutRate = 0.0,
                          streams: torch.Tensor | None = None):
     """K5' on a CUDA tensor, `attention_packed_plain` on a CPU tensor:
     (o (N, L, D), lse (N, H / pack, L, pack) float32). bf16 goes to
     `attention_packed_fwd_bf16`."""
+    dropout_rate = as_rate(dropout_rate)
     _check(q, k, v, heads, pack, dropout_rate, streams)
     refuse_bf16("attention_packed_fwd", {"q": q, "k": k, "v": v})
     if q.device.type == "cpu":
@@ -436,20 +540,21 @@ def attention_packed_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty_like(q)
     lse = torch.empty(n, heads // pack, length, pack, device=q.device,
                       dtype=torch.float32)
-    s_ptr, _keep = _kernel_streams(streams, dropout_rate)
+    (s_ptr, t_ptr, c_ptr, rate, threshold), _keep = _kernel_dropout(streams, dropout_rate)
     with torch.cuda.device(q.device):
-        ATTENTION_PACKED_FWD(ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), s_ptr, n,
-                             length, heads, d // heads, pack, dropout_rate,
-                             keep_threshold(dropout_rate), stream_handle(q.device))
+        ATTENTION_PACKED_FWD(ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), s_ptr, t_ptr, c_ptr,
+                             n, length, heads, d // heads, pack, rate, threshold,
+                             stream_handle(q.device))
     return o, lse
 
 
 def attention_packed_fwd_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                              heads: int, pack: int, dropout_rate: float = 0.0,
+                              heads: int, pack: int, dropout_rate: DropoutRate = 0.0,
                               streams: torch.Tensor | None = None):
     """K5''s bf16 instance on a CUDA tensor, `attention_packed_plain` on a
     CPU tensor: bf16 q, k, v -> (o (N, L, D) bf16, lse (N, H / pack, L,
     pack) float32). Raises on any other dtype."""
+    dropout_rate = as_rate(dropout_rate)
     _check(q, k, v, heads, pack, dropout_rate, streams)
     require_bf16("attention_packed_fwd_bf16", {"q": q, "k": k, "v": v})
     if q.device.type == "cpu":
@@ -460,16 +565,16 @@ def attention_packed_fwd_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty_like(q)
     lse = torch.empty(n, heads // pack, length, pack, device=q.device,
                       dtype=torch.float32)
-    s_ptr, _keep = _kernel_streams(streams, dropout_rate)
+    (s_ptr, t_ptr, c_ptr, rate, threshold), _keep = _kernel_dropout(streams, dropout_rate)
     with torch.cuda.device(q.device):
-        ATTENTION_PACKED_FWD_BF16(ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), s_ptr, n,
-                                  length, heads, d // heads, pack, dropout_rate,
-                                  keep_threshold(dropout_rate), stream_handle(q.device))
+        ATTENTION_PACKED_FWD_BF16(ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), s_ptr, t_ptr,
+                                  c_ptr, n, length, heads, d // heads, pack, rate,
+                                  threshold, stream_handle(q.device))
     return o, lse
 
 
 def _packed_bwd(name: str, kernel: Kernel, dtype: torch.dtype, q, k, v, o, lse, do,
-                heads: int, pack: int, dropout_rate: float, streams):
+                heads: int, pack: int, dropout_rate: float | RowDropout, streams):
     """K6' or its bf16 instance: checks, outputs and launch."""
     _check_kernel_inputs(name, q.shape[-1] // heads, PACKED_HEAD_DIMS,
                          {"q": q, "k": k, "v": v, "o": o, "do": do, "lse": lse}, dtype)
@@ -481,19 +586,20 @@ def _packed_bwd(name: str, kernel: Kernel, dtype: torch.dtype, q, k, v, o, lse, 
                          f"{tuple(lse.shape)}")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = torch.empty(n, heads, length, device=q.device, dtype=torch.float32)
-    s_ptr, _keep = _kernel_streams(streams, dropout_rate)
+    (s_ptr, t_ptr, c_ptr, rate, threshold), _keep = _kernel_dropout(streams, dropout_rate)
     with torch.cuda.device(q.device):
-        kernel(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse), s_ptr, ptr(dq),
-               ptr(dk), ptr(dv), ptr(delta), n, length, heads, d // heads, pack,
-               dropout_rate, keep_threshold(dropout_rate), stream_handle(q.device))
+        kernel(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse), s_ptr, t_ptr, c_ptr,
+               ptr(dq), ptr(dk), ptr(dv), ptr(delta), n, length, heads, d // heads, pack,
+               rate, threshold, stream_handle(q.device))
     return dq, dk, dv
 
 
 def attention_packed_bwd(q, k, v, o, lse, do, heads: int, pack: int,
-                         dropout_rate: float = 0.0,
+                         dropout_rate: DropoutRate = 0.0,
                          streams: torch.Tensor | None = None):
     """K6' on a CUDA tensor, `attention_packed_bwd_plain` on a CPU tensor:
     (dq, dk, dv), each (N, L, D). bf16 goes to `attention_packed_bwd_bf16`."""
+    dropout_rate = as_rate(dropout_rate)
     _check(q, k, v, heads, pack, dropout_rate, streams)
     refuse_bf16("attention_packed_bwd", {"q": q, "k": k, "v": v, "do": do})
     if q.device.type == "cpu":
@@ -504,11 +610,12 @@ def attention_packed_bwd(q, k, v, o, lse, do, heads: int, pack: int,
 
 
 def attention_packed_bwd_bf16(q, k, v, o, lse, do, heads: int, pack: int,
-                              dropout_rate: float = 0.0,
+                              dropout_rate: DropoutRate = 0.0,
                               streams: torch.Tensor | None = None):
     """K6''s bf16 instance on a CUDA tensor, `attention_packed_bwd_plain` on
     a CPU tensor: bf16 q, k, v, o, do and float32 lse -> (dq, dk, dv), each
     (N, L, D) bf16. Raises on any other dtype."""
+    dropout_rate = as_rate(dropout_rate)
     _check(q, k, v, heads, pack, dropout_rate, streams)
     require_bf16("attention_packed_bwd_bf16", {"q": q, "k": k, "v": v, "o": o, "do": do})
     if q.device.type == "cpu":
@@ -547,21 +654,22 @@ class AttentionPacked(torch.autograd.Function):
 
 def fused_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            heads: int, pack: int | None = None,
-                           dropout_rate: float = 0.0,
+                           dropout_rate: DropoutRate = 0.0,
                            streams: torch.Tensor | None = None):
     """Head-packed attention, differentiable: q, k, v (N, L, D) -> (o (N, L,
     D), lse (N, H / pack, L, pack) float32). `pack` defaults to all heads in
     one group, as in the JAX package. A dropout rate above 0 needs `streams`,
-    one int32 dropout stream per row n."""
+    one int32 dropout stream per row n; a rate per row is a `RowDropout`."""
     if pack is None:
         pack = heads
-    return AttentionPacked.apply(q, k, v, heads, pack, float(dropout_rate), streams)
+    return AttentionPacked.apply(q, k, v, heads, pack, as_rate(dropout_rate), streams)
 
 
 def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  dropout_rate: float = 0.0, streams: torch.Tensor | None = None):
+                  dropout_rate: DropoutRate = 0.0, streams: torch.Tensor | None = None):
     """K3' on a CUDA tensor, `attention_plain` on a CPU tensor: (o (B, H, L,
     dh), lse (B * H, 1, L) float32). bf16 goes to `attention_fwd_bf16`."""
+    dropout_rate = as_rate(dropout_rate)
     _check_slices(q, k, v, dropout_rate, streams)
     refuse_bf16("attention_fwd", {"q": q, "k": k, "v": v})
     if q.device.type == "cpu":
@@ -571,19 +679,20 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     batch, heads, length, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(batch * heads, 1, length, device=q.device, dtype=torch.float32)
-    s_ptr, _keep = _kernel_streams(streams, dropout_rate)
+    (s_ptr, t_ptr, c_ptr, rate, threshold), _keep = _kernel_dropout(streams, dropout_rate)
     with torch.cuda.device(q.device):
-        ATTENTION_FWD(ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), s_ptr, batch * heads,
-                      length, dropout_rate, keep_threshold(dropout_rate),
-                      stream_handle(q.device))
+        ATTENTION_FWD(ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), s_ptr, t_ptr, c_ptr,
+                      batch * heads, length, rate, threshold, stream_handle(q.device))
     return o, lse
 
 
 def attention_fwd_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       dropout_rate: float = 0.0, streams: torch.Tensor | None = None):
+                       dropout_rate: DropoutRate = 0.0,
+                       streams: torch.Tensor | None = None):
     """K3''s bf16 instance on a CUDA tensor, `attention_plain` on a CPU
     tensor: bf16 q, k, v (B, H, L, dh) -> (o (B, H, L, dh) bf16, lse
     (B * H, 1, L) float32). Raises on any other dtype."""
+    dropout_rate = as_rate(dropout_rate)
     _check_slices(q, k, v, dropout_rate, streams)
     require_bf16("attention_fwd_bf16", {"q": q, "k": k, "v": v})
     if q.device.type == "cpu":
@@ -593,16 +702,15 @@ def attention_fwd_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     batch, heads, length, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(batch * heads, 1, length, device=q.device, dtype=torch.float32)
-    s_ptr, _keep = _kernel_streams(streams, dropout_rate)
+    (s_ptr, t_ptr, c_ptr, rate, threshold), _keep = _kernel_dropout(streams, dropout_rate)
     with torch.cuda.device(q.device):
-        ATTENTION_FWD_BF16(ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), s_ptr,
-                           batch * heads, length, dropout_rate,
-                           keep_threshold(dropout_rate), stream_handle(q.device))
+        ATTENTION_FWD_BF16(ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), s_ptr, t_ptr, c_ptr,
+                           batch * heads, length, rate, threshold, stream_handle(q.device))
     return o, lse
 
 
 def _slice_bwd(name: str, kernel: Kernel, dtype: torch.dtype, q, k, v, o, lse, do,
-               dropout_rate: float, streams):
+               dropout_rate: float | RowDropout, streams):
     """K4' or its bf16 instance: checks, outputs and launch."""
     _check_kernel_inputs(name, q.shape[-1], (SLICE_HEAD_DIM,),
                          {"q": q, "k": k, "v": v, "o": o, "do": do, "lse": lse}, dtype)
@@ -614,18 +722,19 @@ def _slice_bwd(name: str, kernel: Kernel, dtype: torch.dtype, q, k, v, o, lse, d
                          f"{tuple(lse.shape)}")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = torch.empty(batch * heads, length, device=q.device, dtype=torch.float32)
-    s_ptr, _keep = _kernel_streams(streams, dropout_rate)
+    (s_ptr, t_ptr, c_ptr, rate, threshold), _keep = _kernel_dropout(streams, dropout_rate)
     with torch.cuda.device(q.device):
-        kernel(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse), s_ptr, ptr(dq),
-               ptr(dk), ptr(dv), ptr(delta), batch * heads, length, dropout_rate,
-               keep_threshold(dropout_rate), stream_handle(q.device))
+        kernel(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse), s_ptr, t_ptr, c_ptr,
+               ptr(dq), ptr(dk), ptr(dv), ptr(delta), batch * heads, length, rate,
+               threshold, stream_handle(q.device))
     return dq, dk, dv
 
 
-def attention_bwd(q, k, v, o, lse, do, dropout_rate: float = 0.0,
+def attention_bwd(q, k, v, o, lse, do, dropout_rate: DropoutRate = 0.0,
                   streams: torch.Tensor | None = None):
     """K4' on a CUDA tensor, `attention_bwd_plain` on a CPU tensor: (dq, dk,
     dv), each (B, H, L, dh). bf16 goes to `attention_bwd_bf16`."""
+    dropout_rate = as_rate(dropout_rate)
     _check_slices(q, k, v, dropout_rate, streams)
     refuse_bf16("attention_bwd", {"q": q, "k": k, "v": v, "do": do})
     if q.device.type == "cpu":
@@ -634,11 +743,12 @@ def attention_bwd(q, k, v, o, lse, do, dropout_rate: float = 0.0,
                       do, dropout_rate, streams)
 
 
-def attention_bwd_bf16(q, k, v, o, lse, do, dropout_rate: float = 0.0,
+def attention_bwd_bf16(q, k, v, o, lse, do, dropout_rate: DropoutRate = 0.0,
                        streams: torch.Tensor | None = None):
     """K4''s bf16 instance on a CUDA tensor, `attention_bwd_plain` on a CPU
     tensor: bf16 q, k, v, o, do and float32 lse -> (dq, dk, dv), each
     (B, H, L, dh) bf16. Raises on any other dtype."""
+    dropout_rate = as_rate(dropout_rate)
     _check_slices(q, k, v, dropout_rate, streams)
     require_bf16("attention_bwd_bf16", {"q": q, "k": k, "v": v, "o": o, "do": do})
     if q.device.type == "cpu":
@@ -671,8 +781,9 @@ class Attention(torch.autograd.Function):
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    dropout_rate: float = 0.0, streams: torch.Tensor | None = None):
+                    dropout_rate: DropoutRate = 0.0, streams: torch.Tensor | None = None):
     """Per-slice attention, differentiable: q, k, v (B, H, L, dh) -> (o (B,
     H, L, dh), lse (B * H, 1, L) float32). A dropout rate above 0 needs
-    `streams`, one int32 dropout stream per slice b * H + h."""
-    return Attention.apply(q, k, v, float(dropout_rate), streams)
+    `streams`, one int32 dropout stream per slice b * H + h; a rate per
+    slice is a `RowDropout`."""
+    return Attention.apply(q, k, v, as_rate(dropout_rate), streams)

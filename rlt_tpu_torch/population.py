@@ -24,7 +24,13 @@ one forward, one backward and one update of that model:
   own;
 - `MemberAdam` is torch's capturable Adam with coupled L2
   (`train.make_optimizer`) with a learning rate and a weight decay per
-  member.
+  member;
+- members may differ in their dropout rate (a regularizer search; the JAX
+  package's traced `hp["dropout_rate"]`): the model's layers then hold the
+  K rates as device tensors (`models.layers.MemberRates`), the attention
+  kernels take a keep threshold and a scale per row (K3'-K6''s per-row
+  form, `ops.attention.RowDropout`), and every other dropout site each
+  member's own 16-bit threshold and 1 / keep.
 
 In bfloat16 (`cfg.compute_dtype`) a step casts the f32 master parameters
 and the features inside the step, as `train.forward` does for a Trainer,
@@ -39,14 +45,15 @@ same initial weights (`build_model(..., seed=m.seed)`), the same corpus
 (regenerated from its seed, unless one is given), and its own
 `torch.Generator` seeded with m.seed, from which its batch plans and every
 dropout seed and mask are drawn in the order its sequential run draws
-them. So its random bits are its sequential run's bits (the port's own
+them, at its own rate (a member at rate 0 draws none, as its run draws
+none). So its random bits are its sequential run's bits (the port's own
 contract: the bits are torch's, not JAX's threefry), and its numbers differ
 from the sequential run's by the order of sums alone.
 
-Scope (ROADMAP.md A1): all eight models in float32 and bfloat16, the
-members sharing one dropout rate. A per-member dropout rate needs per-row
-keep thresholds in K3'-K6' (ROADMAP.md B5; the JAX package takes that
-population off its kernels) and raises a ValueError that names it.
+Scope (ROADMAP.md A1): all eight models in float32 and bfloat16, each
+member at its own dropout rate. (Under a traced rate the JAX package
+takes its attention off the Pallas kernels; the port keeps K3'-K6' and
+gives them the rate per row.)
 """
 
 from __future__ import annotations
@@ -202,11 +209,10 @@ def check_population(cfg: config_lib.TrainConfig, members: Sequence[Member]) -> 
     if cfg.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, "
                          f"got {cfg.compute_dtype!r}")
-    if any(m.dropout is not None and m.dropout != cfg.dropout for m in members):
-        raise ValueError(
-            f"every member trains at the config's dropout {cfg.dropout}: a dropout "
-            "rate per member needs per-row keep thresholds in K3'-K6' (ROADMAP.md "
-            "B5), where the JAX package takes its population off the kernels")
+    for m in members:
+        rate = cfg.dropout if m.dropout is None else m.dropout
+        if not 0.0 <= rate < 1.0:
+            raise ValueError(f"a member's dropout rate must lie in [0, 1), got {rate}")
     if any(m.rerank_weight is not None or m.class_weight is not None
            for m in members) and not (
             cfg.model_name in MT_SEARCH_MODELS and not cfg.loss_override):
@@ -262,8 +268,8 @@ class Population:
         self.data = _stack_corpora(_member_corpora(cfg, members, data), self.device)
         self.model = build_population_model(
             cfg.model_name, seq_len=cfg.seq_len, input_size=cfg.input_size,
-            dropout=cfg.dropout, num_tasks=cfg.num_tasks,
-            seeds=[m.seed for m in members]).to(self.device)
+            dropout=[member_config(cfg, m).dropout for m in members],
+            num_tasks=cfg.num_tasks, seeds=[m.seed for m in members]).to(self.device)
         self.optimizer = MemberAdam(
             self.model.parameters(),
             [cfg.lr if m.lr is None else m.lr for m in members],

@@ -59,11 +59,10 @@ It trains the trials one after another, or with `--population K` K at a
 time as one population (`rlt_tpu_torch/population.py`): any of the eight
 models, in float32 or bfloat16, each population step one CUDA graph on
 the card; `--mt-search 1` gives MtChoopy's and MtAttnCut's members their
-own task weights. Trials that differ in dropout (`--regularizer-search 1`)
-raise a ValueError with `--population` rather than fall back: a dropout
-rate per member waits for ROADMAP.md B5. Not ported yet (ROADMAP.md):
-probe_base, resume, `--draw`, the metrics log directory, and data and model
-parallelism.
+own task weights, and `--regularizer-search 1` their own dropout rates and
+weight decays (each attention row at its member's rate in K3'-K6'). Not
+ported yet (ROADMAP.md): probe_base, resume, `--draw`, the metrics log
+directory, and data and model parallelism.
 """
 
 from __future__ import annotations
@@ -394,9 +393,8 @@ def build_argparser() -> argparse.ArgumentParser:
         epilog="--population K trains K search trials at a time as one population: "
                "any of the eight models, in float32 or bfloat16 (--compute-dtype), "
                "each population step one CUDA graph replay on the card; --mt-search "
-               "gives MtChoopy's and MtAttnCut's members their own task weights. "
-               "Trials must share one dropout rate, so --regularizer-search with "
-               "--population raises (a dropout rate per member is ROADMAP.md B5). "
+               "gives MtChoopy's and MtAttnCut's members their own task weights, "
+               "--regularizer-search their own dropout rates and weight decays. "
                "On the card every train and test step is one CUDA graph replay. "
                "Not ported yet, so absent: "
                "--resume, --draw, --log-dir, --data-parallel and --model-parallel "
@@ -536,10 +534,8 @@ def parameter_search(cfg: config_lib.TrainConfig, population: int = 0,
     `Trainer` run, for every model; population=K trains them K at a time as
     one population (`population.train_population`): the same trials and the
     same record lines, written when the last chunk is done. The population
-    takes trials of any model in either compute dtype that share one
-    dropout rate; for a search over dropout it raises before the first
-    trial (ROADMAP.md B5), and nothing falls back to the sequential
-    engine."""
+    takes trials of any model in either compute dtype, in every search
+    mode: a regularizer search's members each drop at their own rate."""
     trials = draw_search_trials(cfg)
     record = _search_record_path(cfg)
 

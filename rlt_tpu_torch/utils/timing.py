@@ -22,8 +22,20 @@ them (the profiled window): host share = 1 - busy / profiled window says
 how much of that window the card sat idle waiting for the host
 (`busy_row`), and the profiler's stretch = profiled window / the window
 of the same function timed without the profiler (`interleaved_ms`) is
-printed beside it. A busy time above its own profiled window is no share:
-`host_share` refuses it and `busy_row` reports the row as failed.
+printed beside it.
+
+The profiler's device timestamps and the CUDA events are two clocks, and
+in some sessions they disagree: on an H100 (torch 2.11) whole smokes read
+a session's union 0.2-2% above its event window with its usual records,
+or a graph's busy half its eager twin's. So each session brackets its
+calls with two mark kernels right inside the CUDA events: the calls'
+device records are clipped to the time between the marks
+(`session_busy_ns`), and busy is that union's share of the marks' span
+(first mark's start to second mark's end, the event window in the
+profiler's clock) times the event window. Busy then lies within its
+window by construction, and a scale fault of the profiler's clock
+cancels; the ratio of the two clocks (marks' span over event window) is
+kept beside it.
 
 A profiled session may be handed device records of work done before it,
 and may lose some of its own (`scripts/probe_device_busy.py` counts both):
@@ -37,16 +49,18 @@ session's first host record (`scripts/probe_session_records.py` on an
 H100, torch 2.11). So each session first runs HEAD_KERNELS spin kernels
 and waits for them, and then the calls: a session that recorded none of
 the spins may have lost the calls' first records, and is short. A session
-is short too when it keeps fewer device records than its calls are known
-to make: at least one a kernel launch that `ops.KERNELS` counts in the
-session (a graph replay adds its captured launches), or a caller's own
-count (a graph's eager twin's records). The calls make the same device
-work in every session, so a session is short as well when it keeps fewer
-than PEER_SHARE of the records of the fullest session of its row
-(`pick_session`). `device_busy` takes, of PROFILE_SESSIONS sessions (up to
-MAX_SESSIONS while all are short), the complete one with the most records;
-a row whose every session is short is a failed row. A loss that every
-session of a row shares alike is seen only by a caller's own count.
+is short too when it keeps fewer device records between its marks than
+its calls are known to make: at least one a kernel launch that
+`ops.KERNELS` counts in the session (a graph replay adds its captured
+launches), or a caller's own count (a graph's eager twin's records). The
+calls make the same device work in every session, so a session is short
+as well when it keeps fewer than PEER_SHARE of the records of the fullest
+session of its row (`pick_session`). `device_busy` takes, of
+PROFILE_SESSIONS sessions (up to MAX_SESSIONS while all are short), the
+complete session of the median busy, so that one session whose clock
+misread its work does not make the row; a row whose every session is
+short is a failed row. A loss that every session of a row shares alike is
+seen only by a caller's own count.
 """
 
 from __future__ import annotations
@@ -65,7 +79,9 @@ PEER_SHARE = 0.9
 # the spin kernels that open a profiled session (`torch.cuda._sleep`), about
 # 2.5 ms of device work on an H100
 HEAD_KERNELS, HEAD_CYCLES = 256, 20_000
-_SPIN = "spin_kernel"  # their name in the profiler's records
+# the two mark kernels around a session's calls, a few us each
+MARK_CYCLES = 1_000
+_SPIN = "spin_kernel"  # the name of both in the profiler's records
 
 
 def interleaved_ms(candidates: dict[str, Callable], iters: int | dict[str, int] = 1,
@@ -116,14 +132,20 @@ def union_ns(intervals) -> int:
     return total
 
 
-def session_busy_ns(records) -> tuple[int, int]:
+def session_busy_ns(records, between: tuple[int, int] | None = None) -> tuple[int, int]:
     """(records, busy) of one profiled session's records (start, end,
     on_device): the device records that start at or after the first host
-    record's start, and the union of their intervals (`union_ns`)."""
+    record's start, each clipped to `between` (the time between the
+    session's marks) where it is given, those left empty dropped; and the
+    union of their intervals (`union_ns`)."""
     records = list(records)
     first = min((start for start, _, on_device in records if not on_device), default=None)
     spans = [(start, end) for start, end, on_device in records
              if on_device and (first is None or start >= first)]
+    if between is not None:
+        lo, hi = between
+        spans = [(max(start, lo), min(end, hi)) for start, end in spans]
+        spans = [(start, end) for start, end in spans if end > start]
     return len(spans), union_ns(spans)
 
 
@@ -135,35 +157,39 @@ def _launches() -> int:
 
 def pick_session(sessions: list[tuple]) -> tuple[tuple | None, list[tuple]]:
     """(best, short) of a row's profiled sessions, each (head, records,
-    need, ...): `head` the opening spin kernels it recorded, `records` its
-    device records, `need` the least its calls make. A session is complete
-    when it recorded a spin kernel, keeps `need` records and at least
-    PEER_SHARE of the records of the fullest such session; best is the
-    complete one with the most records (None where none is), short the
-    sessions that are not complete, in order."""
+    need, busy, ...): `head` the opening spin kernels it recorded, `records`
+    its device records, `need` the least its calls make. A session is
+    complete when it recorded a spin kernel, keeps `need` records and at
+    least PEER_SHARE of the records of the fullest such session; best is the
+    complete one of the median busy (the lower middle one of an even
+    count; None where none is complete), short the sessions that are not
+    complete, in order."""
     full = [s for s in sessions if s[0] > 0 and s[1] >= max(s[2], 1)]
     top = max((s[1] for s in full), default=0)
     complete = [s for s in full if s[1] >= PEER_SHARE * top]
-    return (max(complete, key=lambda s: s[1], default=None),
+    ranked = sorted(complete, key=lambda s: s[3])
+    return (ranked[(len(ranked) - 1) // 2] if ranked else None,
             [s for s in sessions if s not in complete])
 
 
 def device_busy(fn: Callable, calls: int = 3, warmup: int = 1,
                 sessions: int = PROFILE_SESSIONS,
                 min_records: float | None = None) -> dict:
-    """The card's busy ms per call of `fn`: the union of the device
-    intervals of every kernel, copy and fill that torch.profiler records
-    over `calls` calls (its annotations and the session's opening spin
-    kernels left out), from the complete one of the profiled sessions with
-    the most records of its own (`session_busy_ns`, `pick_session`). A
-    session needs at least `min_records` device records a call, or,
-    without it, one a kernel launch counted in the session. Returns
-    {"busy_ms", "profiled_ms" (the CUDA-event window of the same session's
-    calls, per call), "records" (the session's device records a call),
-    "sessions", "short" (each short session's device records a call)};
-    busy_ms and profiled_ms are None where every session is short. It
-    reads the profiler's raw events: building its event tree takes seconds
-    a train step."""
+    """The card's busy ms per call of `fn`: the share of the time between
+    two mark kernels around `calls` calls in which torch.profiler records a
+    kernel, copy or fill of theirs (its annotations and the session's spin
+    kernels left out), times the CUDA-event window of those calls, from the
+    complete one of the profiled sessions of the median busy
+    (`session_busy_ns`, `pick_session`). A session needs at least
+    `min_records` device records a call, or, without it, one a kernel
+    launch counted in the session. Returns {"busy_ms", "profiled_ms" (the
+    CUDA-event window of the same session's calls, per call), "records"
+    (the session's device records a call), "clock" (the marks' span in the
+    profiler's clock over the event window), "sessions", "busy_each" (every
+    complete session's busy ms, in order), "short" (each short session's
+    device records a call)}; busy_ms, profiled_ms and clock are None where
+    every session is short. It reads the profiler's raw events: building its
+    event tree takes seconds a train step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -180,24 +206,36 @@ def device_busy(fn: Callable, calls: int = 3, warmup: int = 1,
             torch.cuda.synchronize()
             launched = _launches()
             start.record()
+            torch.cuda._sleep(MARK_CYCLES)
             for _ in range(calls):
                 fn()
+            torch.cuda._sleep(MARK_CYCLES)
             end.record()
             torch.cuda.synchronize()
         need = calls * min_records if min_records is not None else _launches() - launched
         events = [(e.start_ns(), e.end_ns(), e.device_type() == DeviceType.CUDA, e.name())
                   for e in prof.profiler.kineto_results.events() if not e.is_user_annotation()]
-        head = sum(on_device and _SPIN in name for _, _, on_device, name in events)
+        spins = sorted((s, e) for s, e, on_device, name in events if on_device and _SPIN in name)
+        window_ms = start.elapsed_time(end)
+        # the last two spins are the marks: tracing loses records at its start
+        head, marks = len(spins) - 2, spins[-2:]
+        span = marks[1][1] - marks[0][0] if len(marks) == 2 else 0
+        if span <= 0 or marks[1][0] <= marks[0][1]:
+            taken.append((0, 0, need, 0.0, window_ms, None))
+            continue
         records, busy_ns = session_busy_ns(
-            (start_ns, end_ns, on_device) for start_ns, end_ns, on_device, name in events
-            if not (on_device and _SPIN in name))
-        taken.append((head, records, need, busy_ns, start.elapsed_time(end)))
+            ((s, e, on_device) for s, e, on_device, name in events
+             if not (on_device and _SPIN in name)), between=(marks[0][1], marks[1][0]))
+        taken.append((head, records, need, busy_ns / span * window_ms, window_ms,
+                       span / 1e6 / window_ms))
     best, short = pick_session(taken)
-    out = {"busy_ms": None, "profiled_ms": None, "records": None, "sessions": len(taken),
+    out = {"busy_ms": None, "profiled_ms": None, "records": None, "clock": None,
+           "sessions": len(taken),
+           "busy_each": [s[3] / calls for s in taken if s not in short],
            "short": [s[1] / calls for s in short]}
     if best is not None:
-        out.update(busy_ms=best[3] / 1e6 / calls, profiled_ms=best[4] / calls,
-                   records=best[1] / calls)
+        out.update(busy_ms=best[3] / calls, profiled_ms=best[4] / calls,
+                   records=best[1] / calls, clock=best[5])
     return out
 
 
@@ -217,14 +255,15 @@ def busy_row(busy: dict, window_ms: float | None) -> dict:
     """A `device_busy` result as a row: busy ms, the host share of the
     profiled window of the same session, the profiler's stretch (that
     window over `window_ms`, the function's window timed without the
-    profiler) and the session's records. A row whose every session was
-    short, or whose busy time is above its profiled window, is reported as
-    failed, with no share."""
+    profiler), the session's records and clock ratio, and every complete
+    session's busy. A row whose every session was short, or whose busy time
+    is above its profiled window, is reported as failed, with no share."""
     busy_ms, profiled = busy["busy_ms"], busy["profiled_ms"]
     row = {"busy_ms": busy_ms, "profiled_ms": profiled,
            "stretch": (profiled / window_ms if profiled is not None and window_ms
                        else None),
-           "records": busy["records"], "sessions": busy["sessions"],
+           "records": busy["records"], "clock": busy.get("clock"),
+           "sessions": busy["sessions"], "busy_each": busy.get("busy_each"),
            "short_sessions": busy["short"]}
     if busy_ms is None:
         return dict(row, failed=f"every one of {busy['sessions']} profiled sessions "

@@ -75,14 +75,6 @@ SEQ_LEN = 300
 LONG_L = 2048  # about the products of N = 189 at L = 300, in few long lists
 RATE = 0.1
 ROUNDS = 14
-PACKED_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_uint,
-                                                            ctypes.c_void_p]
-SLICE_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_uint,
-                                                           ctypes.c_void_p]
-PACKED_BWD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_uint,
-                                                                 ctypes.c_void_p]
-SLICE_BWD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_uint,
-                                                                ctypes.c_void_p]
 # the rows of either pass: (kernel, dh, rows or slice pairs, L)
 CASES = ([("packed", 64, n, SEQ_LEN) for n in (63, 189, 768)]
          + [("packed", 16, n, SEQ_LEN) for n in (63, 256)]
@@ -99,6 +91,31 @@ def bind(lib: ctypes.CDLL, symbol: str, argtypes: list):
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+def load(csrc: Path) -> tuple[ctypes.CDLL, float | None]:
+    """The library of a tree's `csrc` (built as this tree's is) and its
+    build seconds, marked with whether its attention entry points take the
+    per-row dropout thresholds and scales after the streams (`per_row`)."""
+    library = build.KernelLibrary(csrc)
+    lib = library.get()
+    lib.per_row = "struct Dropout" in (csrc / "keep_mask.cuh").read_text()
+    return lib, library.build_seconds
+
+
+def entry(lib: ctypes.CDLL, symbol: str):
+    """lib's attention entry point `symbol`, called with this tree's
+    arguments (the per-row thresholds and scales after the streams, null
+    for a shared rate) and returning its CUDA error code; for a tree whose
+    entry points take no per-row arguments, those two are dropped."""
+    backward, packed = "_bwd" in symbol, "_packed" in symbol
+    streams_at = 6 if backward else 5
+    pointers = (13 if backward else 8) - (0 if lib.per_row else 2)
+    fn = bind(lib, symbol, [ctypes.c_void_p] * pointers + [ctypes.c_int] * (5 if packed else 2)
+              + [ctypes.c_float, ctypes.c_uint, ctypes.c_void_p])
+    if lib.per_row:
+        return fn
+    return lambda *args: fn(*(args[:streams_at + 1] + args[streams_at + 3:]))
 
 
 def host_us(fn, calls: int = 200) -> float:
@@ -146,14 +163,15 @@ def kernel_rows(dev, libs: dict, cases: list) -> list[dict]:
                                                                streams)
             threshold = attention.keep_threshold(rate)
             s_ptr = ctypes.c_void_p(streams.data_ptr() if rate > 0 else None)
-            symbol, argtypes = (("rlt_attention_packed_fwd_bf16", PACKED_ARGS)
-                                if kind == "packed" else ("rlt_attention_fwd_bf16", SLICE_ARGS))
+            symbol = ("rlt_attention_packed_fwd_bf16" if kind == "packed"
+                      else "rlt_attention_fwd_bf16")
             cands, errs = {}, {}
             for name, lib in libs.items():
-                fn = bind(lib, symbol, argtypes)
+                fn = entry(lib, symbol)
                 o = torch.empty_like(q)
                 lse = torch.empty(lse_shape, device=dev, dtype=torch.float32)
-                ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, o, lse)] + [s_ptr]
+                ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, o, lse)] + [
+                    s_ptr, ctypes.c_void_p(None), ctypes.c_void_p(None)]
                 shape = [n, length, heads, dh, pack] if kind == "packed" else [2 * n, length]
                 args = ptrs + shape + [rate, threshold, stream]
 
@@ -214,14 +232,14 @@ def backward_rows(dev, libs: dict, cases: list) -> list[dict]:
             slices, n_streams = n * heads, n
             by_head = lambda t: t.view(n, length, heads, dh).transpose(1, 2)  # noqa: E731
             shape = [n, length, heads, dh, pack]
-            symbol, argtypes = "rlt_attention_packed_bwd_bf16", PACKED_BWD_ARGS
+            symbol = "rlt_attention_packed_bwd_bf16"
         else:
             q, k, v, do = qkv(rng, (n, 2, length, dh), dev) + qkv(rng, (n, 2, length, dh),
                                                                  dev)[:1]
             slices, n_streams = 2 * n, 2 * n
             by_head = lambda t: t  # noqa: E731
             shape = [2 * n, length]
-            symbol, argtypes = "rlt_attention_bwd_bf16", SLICE_BWD_ARGS
+            symbol = "rlt_attention_bwd_bf16"
         streams = torch.from_numpy(rng.integers(-2**31, 2**31, size=n_streams,
                                                 dtype=np.int64).astype(np.int32)).to(dev)
         for rate in (0.0, RATE):
@@ -240,11 +258,12 @@ def backward_rows(dev, libs: dict, cases: list) -> list[dict]:
             s_ptr = ctypes.c_void_p(streams.data_ptr() if rate > 0 else None)
             cands, errs = {}, {}
             for name, lib in libs.items():
-                fn = bind(lib, symbol, argtypes)
+                fn = entry(lib, symbol)
                 grads = [torch.empty_like(q) for _ in range(3)]
                 delta = torch.empty(slices, length, device=dev, dtype=torch.float32)
                 ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, o, do, lse)] + \
-                    [s_ptr] + [ctypes.c_void_p(t.data_ptr()) for t in (*grads, delta)]
+                    [s_ptr, ctypes.c_void_p(None), ctypes.c_void_p(None)] + \
+                    [ctypes.c_void_p(t.data_ptr()) for t in (*grads, delta)]
                 args = ptrs + shape + [rate, threshold, stream]
 
                 def call(fn=fn, args=args, name=name):
@@ -298,17 +317,17 @@ def serving_rows(dev, other: ctypes.CDLL) -> list[dict]:
     from rlt_tpu_torch.config import TrainConfig
     from rlt_tpu_torch.infer import Predictor
 
-    kernels = {"mmoecut": (attention.ATTENTION_PACKED_FWD_BF16, PACKED_ARGS),
-               "mtple": (attention.ATTENTION_FWD_BF16, SLICE_ARGS),
-               "choopy": (attention.ATTENTION_PACKED_FWD_BF16, PACKED_ARGS),
-               "mtchoopy": (attention.ATTENTION_PACKED_FWD_BF16, PACKED_ARGS)}
+    kernels = {"mmoecut": attention.ATTENTION_PACKED_FWD_BF16,
+               "mtple": attention.ATTENTION_FWD_BF16,
+               "choopy": attention.ATTENTION_PACKED_FWD_BF16,
+               "mtchoopy": attention.ATTENTION_PACKED_FWD_BF16}
     rows = []
-    for model_name, (kernel, argtypes) in kernels.items():
+    for model_name, kernel in kernels.items():
         cfg = TrainConfig(model_name=model_name, compute_dtype="bfloat16")
         # eager: each call goes through the entry point bound at that
         # moment; a graph would replay the one it captured
         predictor = Predictor(cfg, device=dev, graphs=False)
-        fns = {"other": bind(other, kernel.symbol, argtypes)}
+        fns = {"other": entry(other, kernel.symbol)}
         rng = np.random.default_rng(5)
         for b in (64, 256):
             x = torch.from_numpy(rng.normal(size=(b, cfg.seq_len, cfg.input_size))
@@ -344,10 +363,10 @@ def training_rows(dev, other: ctypes.CDLL) -> list[dict]:
     from rlt_tpu_torch.config import TrainConfig, apply_preset
     from rlt_tpu_torch.train import Trainer, forward
 
-    packed_bwd = (attention.ATTENTION_PACKED_BWD_BF16, PACKED_BWD_ARGS)
-    dh16 = ((attention.ATTENTION_PACKED_FWD_BF16, PACKED_ARGS), packed_bwd)
+    packed_bwd = attention.ATTENTION_PACKED_BWD_BF16
+    dh16 = (attention.ATTENTION_PACKED_FWD_BF16, packed_bwd)
     models = {"mmoecut": (packed_bwd,), "moecut": (packed_bwd,),
-              "mtple": ((attention.ATTENTION_BWD_BF16, SLICE_BWD_ARGS),),
+              "mtple": (attention.ATTENTION_BWD_BF16,),
               "attncut": (packed_bwd,), "choopy": dh16, "mtchoopy": dh16}
     rows = []
     for model_name, swapped in models.items():
@@ -367,12 +386,12 @@ def training_rows(dev, other: ctypes.CDLL) -> list[dict]:
             opt.step()
 
         step()  # this tree's entry points bound as each kernel's _fn
-        fns = {"other": [bind(other, kernel.symbol, argtypes) for kernel, argtypes in swapped],
-               "new": [kernel._fn for kernel, _ in swapped]}
+        fns = {"other": [entry(other, kernel.symbol) for kernel in swapped],
+               "new": [kernel._fn for kernel in swapped]}
 
         def through(name):
             def call():
-                for (kernel, _), fn in zip(swapped, fns[name]):
+                for kernel, fn in zip(swapped, fns[name]):
                     kernel._fn = fn
                 step()
             return call
@@ -380,7 +399,7 @@ def training_rows(dev, other: ctypes.CDLL) -> list[dict]:
         cands = {name: through(name) for name in ("other", "new")}
         t = interleaved_ms(cands, iters=3, repeats=ROUNDS, alternate=True)
         row = {"model": model_name, "compute_dtype": "bfloat16", "batch": cfg.batch_size,
-               "dropout": cfg.dropout, "swapped": [k.symbol for k, _ in swapped],
+               "dropout": cfg.dropout, "swapped": [k.symbol for k in swapped],
                "ms": {n: r["median"] for n, r in t.items()},
                "spread_ms": {n: [r["min"], r["max"]] for n, r in t.items()}}
         for name, fn in cands.items():
@@ -412,11 +431,9 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = {}
     for tree in args.tree:
-        other = build.KernelLibrary(tree / "rlt_tpu_torch" / "csrc")
-        libs[tree.name] = other.get()
-        result[f"{tree.name}_build_seconds"] = other.build_seconds
-    libs["new"] = build.LIBRARY.get()
-    result["build_seconds"] = build.LIBRARY.build_seconds
+        libs[tree.name], result[f"{tree.name}_build_seconds"] = load(
+            tree / "rlt_tpu_torch" / "csrc")
+    libs["new"], result["build_seconds"] = load(build.CSRC)
     log(dict(result))
     cases = [c for c in CASES if c[1] == 16] if args.dh16 else CASES
     result["rows"] = (backward_rows if args.backward else kernel_rows)(dev, libs, cases)

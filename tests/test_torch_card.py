@@ -407,6 +407,103 @@ def test_slice_attention_rejects_on_card(cuda_device):
         attention.fused_attention(q, q, q)
 
 
+# K3'-K6' at a dropout rate per member (`RowDropout`), three members of
+# `ROWS_PER_MEMBER` rows each, one at rate 0; bf16 against the plain
+# version to 2 bf16 steps of each output's max abs (the kernels round each
+# weight against the running max), lse to ATTN_ATOL.
+MEMBER_RATES = (0.3, 0.0, 0.1)
+ROWS_PER_MEMBER = 5
+BF16_STEPS = 2
+
+
+def _bf16_close(got, want, what):
+    step = 2.0 ** (torch.floor(torch.log2(want.float().abs().max())) - 7)
+    err = (got.float() - want.float()).abs().max()
+    assert err <= BF16_STEPS * step, (what, float(err), float(step))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("dh,length", [(16, 300), (64, 300), (128, 300), (64, 37),
+                                       (128, 700)])
+def test_attention_at_member_rates_matches_plain_on_card(cuda_device, dh, length, dtype):
+    """The forward and the backward with a rate per row (packed at dh 16
+    and 64, per slice at 128) against their plain versions on the same
+    rates and streams; each member's rows bit for bit a launch over its
+    rows alone at its rate, the member at rate 0 the rate-0 launch."""
+    bf16 = dtype == torch.bfloat16
+    suffix = "_bf16" if bf16 else ""
+    n = ROWS_PER_MEMBER * len(MEMBER_RATES)
+    if dh == 128:
+        shape, n_streams, per_s = (n, 2, length, 128), 2 * n, 2 * ROWS_PER_MEMBER
+        fwd, bwd = (getattr(attention, f"attention_{p}{suffix}") for p in ("fwd", "bwd"))
+        plain_f, plain_b = attention.attention_plain, attention.attention_bwd_plain
+    else:
+        heads, d = (8, 128) if dh == 16 else (4, 256)
+        pack = attention.packed_group_size(d, heads)
+        shape, n_streams, per_s = (n, length, d), n, ROWS_PER_MEMBER
+        fwd_k, bwd_k = (getattr(attention, f"attention_packed_{p}{suffix}")
+                        for p in ("fwd", "bwd"))
+        fwd = lambda q, k, v, r, s: fwd_k(q, k, v, heads, pack, r, s)  # noqa: E731
+        bwd = lambda q, k, v, o, lse, do, r, s: bwd_k(  # noqa: E731
+            q, k, v, o, lse, do, heads, pack, r, s)
+        plain_f = lambda q, k, v, r, s: attention.attention_packed_plain(  # noqa: E731
+            q, k, v, heads, pack, r, s)
+        plain_b = lambda q, k, v, o, lse, do, r, s: (  # noqa: E731
+            attention.attention_packed_bwd_plain(q, k, v, o, lse, do, heads, pack, r, s))
+    rng = np.random.default_rng(dh + length)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                   .to(cuda_device, dtype) for _ in range(4))
+    streams = _streams(dh, n_streams, cuda_device)
+    rows = attention.row_dropout(MEMBER_RATES, cuda_device).repeat(per_s)
+    o, lse = fwd(q, k, v, rows, streams)
+    grads = bwd(q, k, v, o, lse, do, rows, streams)
+    want_o, want_lse = plain_f(q, k, v, rows, streams)
+    want_g = plain_b(q, k, v, o, lse, do, rows, streams)
+    torch.cuda.synchronize()
+    assert (lse - want_lse).abs().max() <= ATTN_ATOL
+    if bf16:
+        _bf16_close(o, want_o, "o")
+        for g, w in zip(grads, want_g):
+            _bf16_close(g, w, "grad")
+    else:
+        assert (o - want_o).abs().max() <= ATTN_ATOL
+        for g, w in zip(grads, want_g):
+            assert _max_rel_err(g, w) <= ATTN_BWD_REL
+    for m, rate in enumerate(MEMBER_RATES):
+        b = slice(m * ROWS_PER_MEMBER, (m + 1) * ROWS_PER_MEMBER)
+        s = slice(m * per_s, (m + 1) * per_s)
+        lse_m = lse[s] if dh == 128 else lse[b]
+        o_m, lse_1 = fwd(q[b], k[b], v[b], rate, streams[s] if rate else None)
+        grads_m = bwd(q[b], k[b], v[b], o[b], lse_m, do[b], rate,
+                      streams[s] if rate else None)
+        torch.cuda.synchronize()
+        assert torch.equal(o_m, o[b]) and torch.equal(lse_1, lse_m), (m, rate)
+        for g, g_m in zip(grads, grads_m):
+            assert torch.equal(g_m, g[b]), (m, rate)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_member_scaling_matches_scalar_division_on_card(cuda_device, dtype):
+    """A member model's dropout scale (`layers.MemberRates`, one kernel over
+    all members) equals each member's own model's x / keep with a Python
+    float keep on the card, forward and backward, bit for bit."""
+    from rlt_tpu_torch.models import layers
+
+    rates = (0.45, 0.0, 0.1, 0.33)
+    member_rates = layers.MemberRates(rates).to(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(4, 63, 300, 64, generator=gen, device=cuda_device).to(dtype)
+    g = torch.randn(x.shape, generator=gen, device=cuda_device).to(dtype)
+    xa = x.clone().requires_grad_()
+    layers._over_keep(xa, member_rates).backward(g)
+    y = layers._over_keep(x, member_rates)
+    for m, rate in enumerate(rates):
+        xm = x[m].clone().requires_grad_()
+        want = xm / (1.0 - rate)
+        want.backward(g[m])
+        assert torch.equal(y[m], want.detach()) and torch.equal(xa.grad[m], xm.grad), rate
+
+
 def _step_grads(cfg, x, y, valid, device, seed):
     """Loss and gradients of one train step from the seeded initial weights."""
     trainer = Trainer(cfg, data=synthetic_dataset(num_queries=10, seq_len=cfg.seq_len,

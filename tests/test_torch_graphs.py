@@ -98,14 +98,28 @@ def test_session_busy_ns_counts_the_sessions_own_records(records, want):
     assert session_busy_ns(iter(records)) == want  # as device_busy hands them over
 
 
+@pytest.mark.parametrize("records,between,want", [
+    ([(0, 1, H), (2, 5, D), (5, 9, D)], (2, 9), (2, 7)),          # all between the marks
+    ([(0, 1, H), (2, 5, D), (5, 12, D)], (2, 9), (2, 7)),         # one ends past the mark
+    ([(0, 1, H), (2, 5, D), (10, 12, D)], (2, 9), (1, 3)),        # one wholly past it
+    ([(0, 1, H), (-5, 3, D), (4, 6, D)], (2, 9), (1, 2)),         # before the session
+    ([(0, 1, H), (2, 4, D), (3, 8, D)], (3, 7), (2, 4)),          # overlapping, clipped
+])
+def test_session_busy_ns_clips_to_the_marks(records, between, want):
+    assert session_busy_ns(records, between) == want
+
+
 @pytest.mark.parametrize("sessions,best,short", [
-    # (head spins, records, need, busy ns, window ms)
-    ([(256, 100, 50, 7, 1.0), (256, 98, 50, 6, 1.0)], 0, []),       # both complete
+    # (head spins, records, need, busy ms, window ms)
+    ([(256, 100, 50, 7, 1.0), (256, 98, 50, 6, 1.0)], 1, []),       # both complete: lower
     ([(256, 80, 50, 5, 1.0), (256, 100, 50, 7, 1.0)], 1, [0]),      # below 0.9 of its peer
     ([(0, 120, 50, 9, 1.0), (256, 100, 50, 7, 1.0)], 1, [0]),       # late start: no spins
     ([(256, 40, 50, 3, 1.0), (256, 45, 50, 4, 1.0)], None, [0, 1]),  # under the launches
     ([(256, 0, 0, 0, 1.0)], None, [0]),                             # no device record
-    ([(256, 95, 50, 6, 1.0), (256, 100, 50, 7, 1.0), (256, 89, 50, 5, 1.0)], 1, [2]),
+    ([(256, 95, 50, 6, 1.0), (256, 100, 50, 7, 1.0), (256, 89, 50, 5, 1.0)], 0, [2]),
+    # one session's clock misread its work, low or high: the median
+    ([(256, 100, 50, 7, 1.0), (256, 100, 50, 3, 1.0), (256, 100, 50, 8, 1.0)], 0, []),
+    ([(256, 100, 50, 7, 1.0), (256, 100, 50, 7.2, 1.0), (256, 100, 50, 14, 1.0)], 1, []),
 ])
 def test_pick_session_holds_each_session_to_its_peers(sessions, best, short):
     got, got_short = pick_session(sessions)

@@ -304,7 +304,9 @@ def test_draw_search_trials_match_jax(mode):
 
 
 @pytest.mark.parametrize("what,cfg_kw,member_kw,match", [
-    ("per-member dropout", {}, {"dropout": 0.3}, "per-row keep thresholds"),
+    # members of different dropout rates train (tests/test_torch_member_dropout.py);
+    # refused is a member's rate outside [0, 1)
+    ("per-member dropout", {}, {"dropout": 1.0}, r"\[0, 1\)"),
     ("task weights", {}, {"rerank_weight": 0.2}, "silently ignore"),
     # every model trains as a population in float32 and bfloat16
     # (tests/test_torch_population_zoo*.py): refused are a dtype the port has
@@ -330,8 +332,10 @@ def test_train_cli_population_search_writes_records(tmp_path):
     assert lines[0] == "" and len(lines) == 3
     assert all(line.startswith("dropout: 0.1, L2_weight: 0.0, rerank_weight: ")
                and "best_f1: " in line for line in lines[1:])
-    with pytest.raises(ValueError, match="per-row keep thresholds"):
-        train.main(["--parameter-search", "1", "--regularizer-search", "1",
-                    "--population", "2", "--search-times", "2", "--device", "cpu",
+    # a search population refused before its first trial writes no record
+    # (the regularizer search's runs: tests/test_torch_member_dropout.py)
+    with pytest.raises(ValueError, match=r"\[0, 1\)"):
+        train.main(["--parameter-search", "1", "--population", "2", "--search-times", "2",
+                    "--no-preset", "--dropout", "1.0", "--device", "cpu",
                     "--parameter-record", str(tmp_path / "never.log")])
     assert not (tmp_path / "never.log").exists()

@@ -21,7 +21,8 @@ versions run:
   against its Trainer at its own weights;
 - the unstacked and per-slice attentions with members: member m's dropout
   streams are its own model's;
-- the refusal of a dropout rate per member, which names ROADMAP.md B5.
+- the refusal of a member's dropout rate outside [0, 1) (members of
+  different rates train: tests/test_torch_member_dropout.py).
 
 Inputs are made with numpy from fixed seeds and handed to both packages.
 tests/test_torch_population_zoo_bf16.py holds the bf16 populations.
@@ -222,6 +223,10 @@ def test_member_dropout_streams_are_each_members_own(monkeypatch, name, op):
 
 
 def test_population_refuses_a_dropout_rate_per_member():
+    """A member's own dropout rate trains (tests/test_torch_member_dropout.py)
+    unless it lies outside [0, 1)."""
     cfg = tiny_cfg("attncut")
-    with pytest.raises(ValueError, match="B5"):
-        train_population(cfg, [Member(seed=0, dropout=0.3), Member(seed=1)], device="cpu")
+    for rate in (-0.1, 1.0):
+        with pytest.raises(ValueError, match=r"\[0, 1\)"):
+            train_population(cfg, [Member(seed=0, dropout=rate), Member(seed=1)],
+                             device="cpu")

@@ -64,8 +64,16 @@ def test_bf16_population_matches_sequential_trainers(name):
     against its sequential bf16 Trainer by the bf16 rule."""
     cfg = tiny_cfg(name)
     out = train_population(cfg, MEMBERS_2, track_best_params=True, device="cpu")
+    assert_bf16_members_match_trainers(cfg, MEMBERS_2, out)
+
+
+def assert_bf16_members_match_trainers(cfg, members, out):
+    """Each member of a bf16 population run with `track_best_params`
+    against its sequential bf16 Trainer by the bf16 rule, with d_ref its
+    sequential f32 Trainer."""
+    name = cfg.model_name
     assert all(t.dtype == torch.float32 for t in out["best_state"].values())
-    for m, (row, member) in enumerate(zip(out["per_member"], MEMBERS_2)):
+    for m, (row, member) in enumerate(zip(out["per_member"], members)):
         assert row["compute_dtype"] == "bfloat16"
         runs = {}
         for dtype in ("bfloat16", "float32"):
@@ -80,7 +88,8 @@ def test_bf16_population_matches_sequential_trainers(name):
         l2 = np.linalg.norm
         assert l2(got - want) <= 3 * l2(want - want32) + l2(bf16_step(want)), (m, got, want)
         init = build_model(name, seq_len=cfg.seq_len, input_size=cfg.input_size,
-                           dropout=cfg.dropout, seed=member.seed).state_dict()
+                           dropout=member_config(cfg, member).dropout,
+                           seed=member.seed).state_dict()
         state, state32 = (runs[d].model.state_dict() for d in ("bfloat16", "float32"))
         err2 = ref2 = 0.0
         for key, value in out["best_state"].items():
