@@ -104,9 +104,11 @@ import functools
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -2616,6 +2618,332 @@ def stage_ms(model, batch: int, iters: int = 3) -> dict:
     return {name: r["median"] for name, r in t.items()}
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the harness paths (verify_probe, verify_bmt, --resume)
+# ---------------------------------------------------------------------------
+
+# ProbeBase's packed attention rows: its two experts stacked over the B = 63
+# lists of the probe_base preset
+PROBE_ROWS = 2 * BATCHES[0]
+HARNESS_PATHS = ("probe_base-verify", "attncut-verify_bmt", "choopy-verify_bmt",
+                 "mmoecut-resume", "mmoecut-resume-bf16")
+ALL_PATHS = PATHS + BF16_PATHS + BF16_TRAIN_PATHS + POPULATION_PATHS + HARNESS_PATHS
+# the epochs of each phase on the probe path, and of the resume path's two
+# runs against one uninterrupted run
+PROBE_EPOCHS = 2
+RESUME_EPOCHS = (3, 2)
+# verify_bmt's CLI defaults (rlt_tpu/verify_bmt.py:156-168), and its epochs here
+BMT_BATCH, BMT_LR, BMT_WEIGHT_DECAY, BMT_EPOCHS = 20, 3e-5, 0.0015, 2
+PNG = b"\x89PNG\r\n\x1a\n"
+
+
+def kernel_counts(bf16: bool = False, **launches) -> dict:
+    """Every kernel's count 0 but `launches` (f32 names; with `bf16`, of
+    their bf16 instances)."""
+    from rlt_tpu_torch.ops import KERNELS
+
+    want = dict.fromkeys(KERNELS, 0)
+    want.update({BF16_OF[k] if bf16 else k: n for k, n in launches.items()})
+    return want
+
+
+def step_launches(fn) -> tuple:
+    """fn()'s result, synchronised, and the launches it made."""
+    before = read_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: n - before[k] for k, n in read_counts().items()}
+
+
+def same_training_state(label: str, pairs) -> None:
+    """Each (module, optimizer) pair of two runs: parameters and the
+    optimizer's state bit for bit."""
+    differ = []
+    for (m1, o1), (m2, o2) in pairs:
+        for (name, p), q in zip(m1.named_parameters(), m2.parameters()):
+            # .get: the optimizers' state is a defaultdict, which a lookup
+            # of a parameter that has taken no step would fill
+            tensors = [("param", p, q)] + [(f"adam {k}", v, o2.state.get(q, {}).get(k))
+                                           for k, v in o1.state.get(p, {}).items()]
+            differ += [f"{name} {what}: " + ("missing" if b is None else
+                                            f"max abs {(a.float() - b.float()).abs().max()}")
+                       for what, a, b in tensors if b is None or not torch.equal(a, b)]
+            if len(o1.state.get(p, {})) != len(o2.state.get(q, {})):
+                differ.append(f"{name}: optimizer state keys differ")
+    require(not differ, f"{label}: {differ[:8]}")
+
+
+def probe_config(save_path: str):
+    from rlt_tpu_torch.config import TrainConfig, apply_preset
+
+    cfg = apply_preset(TrainConfig(model_name="probe_base", retrieve_data="robust04"))
+    require((cfg.batch_size, cfg.seq_len, cfg.input_size, cfg.dropout) == (63, SEQ_LEN, 3, 0.1),
+            f"probe_base preset at robust04 width: {cfg}")
+    return dataclasses.replace(cfg, save_path=save_path)
+
+
+def probe_end_to_end(workdir: str) -> dict:
+    """`probe_base-verify`: verify_probe's ProbeTrainer at the probe_base
+    preset (B = 63, L = 300, F = 3, BiLSTM H = 128, 2 experts of d_model
+    256 with 4 heads of dh 64, FFN 2048, dropout 0.1), PROBE_EPOCHS epochs
+    of each phase, every step one graph, through K1'/K2' (ndir 2) and
+    K5'/K6' over N = PROBE_ROWS rows. Before it, a graphed ProbeTrainer
+    against an eager one from the same seed: three base steps (dropout on)
+    and three probe steps bit for bit, the base's test batch too, each
+    replay launching what an eager step does, and the steps timed graphed
+    against eager with their busy ms and host share. After it, phase 1
+    again through the plain versions on the card (the same weights, plans
+    and masks): every step loss within STEP_LOSS_REL. The probes' AUCs lie
+    in [0, 1] and their rerank DCGs within +-sum 1/log2(i+2)."""
+    from rlt_tpu_torch.ops import plain_ops
+    from rlt_tpu_torch.verify_probe import ProbeTrainer
+
+    cfg = probe_config(workdir)
+    graphed, eager = (ProbeTrainer(cfg, device="cuda", graphs=g) for g in (True, False))
+    idx, valid = graphed.data.plan(graphed.generator, "train")
+    eager.data.plan(eager.generator, "train")
+    steps = {}
+    for what, call in (("base", lambda t, s: t.base_batch("train", idx[s], valid[s])),
+                       ("probe", lambda t, s: t.probe_batch(idx[s], valid[s]))):
+        for s in range(GRAPH_CHECK_STEPS):
+            (got, n_got), (want, n_want) = (step_launches(lambda t=t: call(t, s))
+                                            for t in (graphed, eager))
+            require(n_got == n_want, f"probe_base {what} step {s + 1}: a replay launched "
+                    f"{n_got}, the eager step {n_want}")
+            require(torch.equal(got, want), f"probe_base {what} step {s + 1}: graphed "
+                    f"{got.tolist()} against eager {want.tolist()}")
+            steps[what] = n_got
+        same_training_state(f"probe_base after {GRAPH_CHECK_STEPS} {what} steps", [
+            ((graphed.base, graphed.base_optimizer), (eager.base, eager.base_optimizer)),
+            ((graphed.probe, graphed.probe_optimizer), (eager.probe, eager.probe_optimizer))])
+    te_idx, te_valid = graphed.data.plan(graphed.generator, "test")
+    eager.data.plan(eager.generator, "test")
+    require(torch.equal(graphed.base_batch("test", te_idx[0], te_valid[0]),
+                        eager.base_batch("test", te_idx[0], te_valid[0])),
+            "probe_base: a graphed test batch differs from the eager one")
+    require(steps["base"] == kernel_counts(lstm_fwd=2, lstm_bwd=2, attention_packed_fwd=1,
+                                           attention_packed_bwd=1)
+            and steps["probe"] == kernel_counts(lstm_fwd=2, attention_packed_fwd=1),
+            f"probe_base launches a step: {steps}")
+    require(refuses_in_plain_ops(lambda: graphed.probe_batch(idx[0], valid[0])),
+            "probe_base: a probe-step replay inside plain_ops() did not raise")
+    timing = {
+        "base_step": graphed_against_eager(
+            "probe_base base step", lambda: graphed.base_batch("train", idx[0], valid[0]),
+            lambda: eager.base_batch("train", idx[0], valid[0]), 2, busy_calls=5),
+        "probe_step": graphed_against_eager(
+            "probe_base probe step", lambda: graphed.probe_batch(idx[0], valid[0]),
+            lambda: eager.probe_batch(idx[0], valid[0]), 2, busy_calls=5)}
+    del graphed, eager
+    free_card()
+
+    # the path: both phases through the entry point a user calls
+    trainer = ProbeTrainer(cfg, epochs_base=PROBE_EPOCHS, epochs_probe=PROBE_EPOCHS,
+                           device="cuda")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    curves = trainer.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = read_counts()
+    n_steps, n_tests = trainer.data.train_batches, trainer.data.test_batches
+    want = kernel_counts(
+        lstm_fwd=2 * PROBE_EPOCHS * (2 * n_steps + n_tests),
+        lstm_bwd=2 * PROBE_EPOCHS * n_steps,
+        attention_packed_fwd=PROBE_EPOCHS * (2 * n_steps + n_tests),
+        attention_packed_bwd=PROBE_EPOCHS * n_steps)
+    require(launches == want, f"kernel launches on the probe_base-verify path: {launches}, "
+            f"want {want}")
+    per_step = np.concatenate(curves)
+    dcg_bound = float((1.0 / np.log2(np.arange(SEQ_LEN) + 2.0)).sum())
+    require(per_step.shape == (PROBE_EPOCHS * n_steps, 6) and np.isfinite(per_step).all()
+            and ((per_step[:, 0::2] >= 0) & (per_step[:, 0::2] <= 1)).all()
+            and (np.abs(per_step[:, 1::2]) <= dcg_bound).all(),
+            f"probe metrics {per_step.tolist()}")
+    require(len(trainer.f1_record) == PROBE_EPOCHS and np.isfinite(trainer.f1_record).all()
+            and os.path.isfile(trainer.base_path), f"probe_base records "
+            f"{trainer.f1_record}, best weights at {trainer.base_path}")
+
+    plain = ProbeTrainer(cfg, device="cuda", graphs=False)  # plain versions run eager
+    with plain_ops():
+        plain_runs = [plain.base_epoch() for _ in range(PROBE_EPOCHS)]
+    k_steps = np.concatenate([m["train_loss_steps"] for m in trainer.history])
+    p_steps = np.concatenate([m["train_loss_steps"] for m in plain_runs])
+    step_rel = np.abs(k_steps - p_steps) / np.abs(p_steps)
+    require(np.all(step_rel <= STEP_LOSS_REL), f"probe_base phase-1 step losses "
+            f"{k_steps.tolist()} vs plain {p_steps.tolist()}: rel err {step_rel.tolist()}")
+    out = {"timing": dict(timing, run_s=run_s, train_steps=n_steps, test_batches=n_tests),
+           "launches": launches}
+    log(f"probe_base-verify: {GRAPH_CHECK_STEPS} graphed base and probe steps equal the "
+        f"eager ones bit for bit; phase 1 {json.dumps(trainer.history)}; step losses max "
+        f"rel err against the plain versions {step_rel.max():.3e}; probes (last step) "
+        f"{per_step[-1].tolist()}; timing {json.dumps(out['timing'])}")
+    return out
+
+
+def bmt_end_to_end(model_name: str, workdir: str) -> dict:
+    """`<model>-verify_bmt` for AttnCut and Choopy at their zoo widths: a
+    graphed Trainer of the model's drmm_tks preset trains one epoch and
+    writes its best weights (`--model-persist`), then verify_bmt's heads
+    train BMT_EPOCHS epochs at its CLI defaults (B = 20) on that frozen
+    trunk (`--ft 1`) and on the raw features (`--ft 0`), each for the
+    classification and the rerank task, every step one graph; the frozen
+    trunk runs K1' (AttnCut's BiLSTM) and K5' (dh 64 at N = 20, or Choopy's
+    three layers at dh 16) in each train and test step. Before the path, a
+    graphed and an eager BMTVerifier from the same seed, `--ft 1` and `--ft
+    0`: an epoch's metrics, the head and Adam's state bit for bit."""
+    from rlt_tpu_torch.config import TrainConfig, apply_preset
+    from rlt_tpu_torch.train import Trainer
+    from rlt_tpu_torch.verify_bmt import BMTVerifier
+
+    trunk_cfg = dataclasses.replace(
+        apply_preset(TrainConfig(model_name=model_name, retrieve_data="robust04")),
+        epochs=1, model_persist=True, save_path=workdir)
+    trunk = Trainer(trunk_cfg, device="cuda")
+    trunk.run()
+    require(os.path.isfile(trunk.best_path), f"{model_name}: no weights at {trunk.best_path}")
+    cfg = TrainConfig(model_name=model_name, retrieve_data="robust04", batch_size=BMT_BATCH,
+                      epochs=BMT_EPOCHS, lr=BMT_LR, weight_decay=BMT_WEIGHT_DECAY,
+                      model_path=trunk.best_path)
+    del trunk
+    for ft in (True, False):
+        graphed, eager = (BMTVerifier(cfg, "c", ft, device="cuda", graphs=g)
+                          for g in (True, False))
+        got, want = graphed.run_epoch(), eager.run_epoch()
+        require(got == want, f"{model_name} verify_bmt ft={ft}: graphed epoch {got} "
+                f"against eager {want}")
+        same_training_state(f"{model_name} verify_bmt ft={ft}",
+                            [((graphed.head, graphed.optimizer), (eager.head, eager.optimizer))])
+    free_card()
+
+    torch.cuda.synchronize()
+    reset_counts()
+    records, n_calls = {}, 0
+    for ft in (True, False):
+        for verify_type in ("c", "r"):
+            verifier = BMTVerifier(cfg, verify_type, ft, device="cuda")
+            records[f"ft{int(ft)}_{verify_type}"] = verifier.run()
+            n_calls += ft * BMT_EPOCHS * (verifier.data.train_batches
+                                          + verifier.data.test_batches)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    trunk_launches = ({"lstm_fwd": 2, "attention_packed_fwd": 1} if model_name == "attncut"
+                      else {"attention_packed_fwd": 3})
+    want = kernel_counts(**{k: n * n_calls for k, n in trunk_launches.items()})
+    require(launches == want, f"kernel launches on the {model_name}-verify_bmt path: "
+            f"{launches}, want {want}")
+    for key, record in records.items():
+        require(len(record) == BMT_EPOCHS and np.isfinite(record).all()
+                and (key.endswith("_r") or all(0.0 <= m <= 1.0 for m in record)),
+                f"{model_name} verify_bmt {key}: record {record}")
+    log(f"{model_name}-verify_bmt: graphed epochs equal the eager ones bit for bit "
+        f"(--ft 1 and 0); records {json.dumps(records)}")
+    return {"launches": launches, "records": records}
+
+
+def resume_end_to_end(compute_dtype: str, workdir: str) -> dict:
+    """`mmoecut-resume[-bf16]`: MMOECut at its drmm_tks preset (B = 63,
+    robust04 width) in `compute_dtype`, graphed, RESUME_EPOCHS[0] epochs with
+    `--model-persist`, `--log-dir` and `--draw`, then RESUME_EPOCHS[1] more
+    from that state in two Trainers, against one Trainer of all the epochs:
+    one restored after its graphs were captured (an epoch first moves the
+    parameters, Adam's state and the generator they read), one restored
+    before its first capture with the log and figures on, as `--resume`
+    does. Each one's resumed epochs' step losses and metrics, its
+    parameters, Adam's state and the generator's state equal the
+    uninterrupted run's bit for bit. The log holds a row per epoch and per
+    step and a summary a run; the figures of the even epochs are PNGs. The
+    path's launches are the three runs' steps and test batches and the
+    figures' forwards. Then the resumed trainer's epoch, with its busy ms
+    and host share, and its one restore's seconds."""
+    from rlt_tpu_torch.config import TrainConfig, apply_preset
+    from rlt_tpu_torch.train import Trainer
+    from rlt_tpu_torch.utils.timing import busy_row, device_busy, interleaved_ms
+
+    total = sum(RESUME_EPOCHS)
+    bf16 = compute_dtype == "bfloat16"
+    label = f"mmoecut-resume{'-bf16' if bf16 else ''}"
+    cfg = dataclasses.replace(
+        apply_preset(TrainConfig(model_name="mmoecut", retrieve_data="robust04",
+                                 compute_dtype=compute_dtype)), epochs=total)
+    whole = Trainer(cfg, device="cuda")
+    whole.run()
+    split = dataclasses.replace(cfg, model_persist=True, save_path=workdir, draw=True,
+                                log_dir=os.path.join(workdir, "runs"))
+    figs = os.path.join(workdir, "figs")
+    os.makedirs(workdir, exist_ok=True)
+    restored = {}
+
+    def timed(restore):
+        def run():
+            t0 = time.perf_counter()
+            restored["start"] = restore()
+            torch.cuda.synchronize()
+            restored["s"] = time.perf_counter() - t0
+            return restored["start"]
+        return run
+
+    torch.cuda.synchronize()
+    reset_counts()
+    with contextlib.chdir(workdir):  # the figures go to ./figs
+        first = Trainer(dataclasses.replace(split, epochs=RESUME_EPOCHS[0]), device="cuda")
+        first.run()
+        rewound = Trainer(dataclasses.replace(split, model_persist=False, draw=False,
+                                              log_dir=None), device="cuda")
+        rewound.run_epoch()  # captures both graphs and moves what they read
+        rewound_summary = rewound.run(resume=True)
+        resumed = Trainer(split, device="cuda")
+        resumed.restore = timed(resumed.restore)  # the one restore of run(resume=True)
+        summary = resumed.run(resume=True)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    require(restored["start"] == RESUME_EPOCHS[0],
+            f"{label}: resumed at epoch {restored['start']}")
+    for name, trainer, got in (("restored after capture", rewound, rewound_summary),
+                               ("restored before capture", resumed, summary)):
+        require(len(trainer.history) == RESUME_EPOCHS[1],
+                f"{label} {name}: ran {len(trainer.history)} epochs")
+        for e, metrics in enumerate(trainer.history):
+            want = whole.history[RESUME_EPOCHS[0] + e]
+            require(metrics == want, f"{label} {name} epoch {RESUME_EPOCHS[0] + e}: "
+                    f"{metrics} against the uninterrupted run's {want}")
+        same_training_state(f"{label} {name} against the uninterrupted run",
+                            [((trainer.model, trainer.optimizer),
+                              (whole.model, whole.optimizer))])
+        require(torch.equal(trainer.generator.get_state(), whole.generator.get_state())
+                and trainer.f1_record == whole.f1_record and got == whole.summary(),
+                f"{label} {name}: generator, records or summary {got} differ from the "
+                f"uninterrupted run's {whole.summary()}")
+    steps, tests = whole.data.train_batches, whole.data.test_batches
+    drawn = [e for e in range(total) if e % 2 == 0]
+    epochs = total + 1 + RESUME_EPOCHS[1]  # first and resumed, and the rewound trainer's
+    forwards = tests * epochs + len(drawn) * -(-whole.data.n_test // cfg.batch_size)
+    want = want_counts("mmoecut", forwards=forwards, steps=steps * epochs, bf16=bf16)
+    require(launches == want, f"kernel launches on the {label} path: {launches}, want {want}")
+    with open(os.path.join(workdir, "runs", "mmoecut", "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    require(sum("epoch" in r for r in rows) == total and sum("step" in r for r in rows)
+            == total * steps and sum("summary" in r for r in rows) == 2,
+            f"{label}: the log's rows {rows}")
+    names = sorted(os.listdir(figs))
+    for name in names:
+        with open(os.path.join(figs, name), "rb") as f:
+            require(f.read(8) == PNG, f"{label}: {name} is no PNG")
+    require(names == sorted(f"mmoecut_js_ar_{e}.png" for e in drawn),
+            f"{label}: figures {names}")
+    t = interleaved_ms({"epoch": resumed.run_epoch}, 1, PATH_REPEATS)["epoch"]
+    row = busy_row(device_busy(resumed.run_epoch, calls=1, warmup=0), t["median"])
+    require("failed" not in row, f"{label} epoch: busy row failed: {json.dumps(row)}")
+    epoch = dict(epoch_ms=t["median"], epoch_spread=[t["min"], t["max"]], **row)
+    log(f"{label}: {RESUME_EPOCHS[0]} epochs and {RESUME_EPOCHS[1]} resumed equal "
+        f"{total} uninterrupted ones bit for bit (step losses, metrics, parameters, Adam's "
+        f"state, generator), restored after the graphs' capture and before it; restore "
+        f"{restored['s']:.3f} s; log rows {len(rows)}, figures {names}; resumed epoch "
+        f"{json.dumps(epoch)}")
+    return {"launches": launches, "epoch": epoch, "restore_s": restored["s"]}
+
+
 def kernel_name(line: str) -> str:
     """A kernel's name in a line of ptxas, with its template arguments:
     `attn_packed_fwd_kernel<16, 4>` for the mangled
@@ -2639,6 +2967,31 @@ def kernel_name(line: str) -> str:
                             tail.group(1) if tail else "")]
         return name + (f"<{', '.join(args)}>" if args else "")
     return line.split()[-1][:120]
+
+
+def probe_rows_entry(name: str, res: tuple, launches: dict, bf16: bool = False) -> dict:
+    """The kernels line's `n_126` sub-entry of a packed kernel (or, with
+    `bf16`, of its bf16 instance): its times at ProbeBase's N = PROBE_ROWS
+    rows at dh 64, with dropout 0.1 for the forward (the backward is timed
+    at 0.1), and its launches on probe_base-verify, the path that runs it
+    at those rows (in float32 only)."""
+    keys = ("ms", "plain_ms", "library_ms", "library_ratio", "spread_ms", "bound_ms",
+            "bound_tc_ms", "bound_by", "bound_term", "hash_floor_ms", "max_abs_err")
+    pick = lambda r: {k: r[k] for k in keys if k in r}  # noqa: E731
+    if bf16:
+        row = res[2]["rows"][0]
+        entry = pick(row)
+        for variant in ("dropout_0.1", "rate_0"):
+            if variant in row:
+                entry[variant] = pick(row[variant])
+        entry["max_abs_err"] = res[2]["max_abs_err"]
+    else:
+        entry = pick(res[0]["rows"][0])
+        if res[1] is not None:
+            entry["dropout_0.1"] = pick(res[1]["rows"][0])
+            entry["max_abs_err"] = max(res[0]["max_abs_err"], res[1]["max_abs_err"])
+    entry["launches_by_path"] = {"probe_base-verify": launches["probe_base-verify"][name]}
+    return entry
 
 
 def dh16_entry(name: str, res: dict, drop: dict | None, launches: dict) -> dict:
@@ -2680,8 +3033,7 @@ def bf16_entry(name: str, res: dict, source: str, replaces: str, library: str,
 
     bf16_name = BF16_OF[name]
     row = res.get("main", res["rows"][0])
-    by_path = {path: launches[path][bf16_name]
-               for path in PATHS + BF16_PATHS + BF16_TRAIN_PATHS + POPULATION_PATHS}
+    by_path = {path: launches[path][bf16_name] for path in ALL_PATHS}
     entry = {"name": bf16_name, "route": "cuda",
              "source": BF16_SOURCE.get(name) or BF16_LSTM_SOURCE.get(name, source),
              "replaces": replaces,
@@ -2835,6 +3187,31 @@ def main() -> int:
     for dtype in ("float32", "bfloat16"):
         rate_timing.append(member_rate_timing(dtype))
         free_card()
+    # the harness paths: K5'/K6' at ProbeBase's rows on their own generator,
+    # then verify_probe, verify_bmt and --resume, their files in a scratch
+    # directory of their own
+    marks.append(("harness paths", time.perf_counter()))
+    rngh = np.random.default_rng(190)
+    probe_rows = (PROBE_ROWS,)
+    probe_attn = {
+        "attention_packed_fwd": (check_attention(dev, rngh, rows=probe_rows),
+                                 check_attention_dropout(dev, rngh, rows=probe_rows),
+                                 check_attention_bf16(dev, rngh, rows=probe_rows)),
+        "attention_packed_bwd": (check_attention_bwd(dev, rngh, rows=probe_rows), None,
+                                 check_attention_bwd_bf16(dev, rngh, rows=probe_rows))}
+    harness = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        harness["probe_base-verify"] = probe_end_to_end(os.path.join(workdir, "probe"))
+        free_card()
+        for model_name in ("attncut", "choopy"):
+            harness[f"{model_name}-verify_bmt"] = bmt_end_to_end(
+                model_name, os.path.join(workdir, model_name))
+            free_card()
+        for dtype, suffix in (("float32", ""), ("bfloat16", "-bf16")):
+            harness[f"mmoecut-resume{suffix}"] = resume_end_to_end(
+                dtype, os.path.join(workdir, f"resume{suffix}"))
+            free_card()
+    launches.update({path: res["launches"] for path, res in harness.items()})
     marks.append(("end", time.perf_counter()))
     log(json.dumps({"phase_seconds": {name: marks[i + 1][1] - t for i, (name, t) in
                                       enumerate(marks[:-1])}}))
@@ -2844,7 +3221,7 @@ def main() -> int:
                 "attention_packed_bwd": attn_bwd_bf16_res}
     bf16_dh16 = {"attention_packed_fwd": attn_bf16_dh16_res,
                  "attention_packed_bwd": attn_bwd_bf16_dh16_res}
-    all_paths = PATHS + BF16_PATHS + BF16_TRAIN_PATHS + POPULATION_PATHS
+    all_paths = ALL_PATHS
 
     kernels = []
     for name, res, source, replaces, library in (
@@ -2903,6 +3280,10 @@ def main() -> int:
             row_b = next(r for r in res["rows"] if r["n"] == BATCHES[0])
             entry[f"n_{BATCHES[0]}"] = {k: row_b[k] for k in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_tc_ms", "max_abs_err")}
+            # ProbeBase's N = 2B rows, on the probe_base-verify path
+            entry[f"n_{PROBE_ROWS}"] = probe_rows_entry(name, probe_attn[name], launches)
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       entry[f"n_{PROBE_ROWS}"]["max_abs_err"])
             entry["dh_16"] = dh16_entry(name, *dh16[name], launches)
             entry["max_abs_err"] = max(entry["max_abs_err"], entry["dh_16"]["max_abs_err"])
         if name.startswith("attention"):  # the population paths' member-batched shapes
@@ -2916,6 +3297,12 @@ def main() -> int:
             entry["bf16"] = bf16_entry(name, bf16_res[name], source, replaces,
                                        BF16_LIBRARY[name], launches,
                                        bf16_dh16.get(name))
+            if name.startswith("attention_packed"):  # ProbeBase's rows in bf16
+                entry["bf16"][f"n_{PROBE_ROWS}"] = probe_rows_entry(
+                    BF16_OF[name], probe_attn[name], launches, bf16=True)
+                entry["bf16"]["max_abs_err"] = max(
+                    entry["bf16"]["max_abs_err"],
+                    entry["bf16"][f"n_{PROBE_ROWS}"]["max_abs_err"])
             if name.startswith("attention"):
                 entry["bf16"]["members"] = member_entry(member_attn["bfloat16"][name],
                                                         MEMBER_KEYS)
@@ -2974,8 +3361,14 @@ def main() -> int:
         log(json.dumps({"population": res}))
     for res in rate_timing:
         log(json.dumps({"member_rate_timing": res}))
+    probe_timing = harness["probe_base-verify"]["timing"]
+    resume_epochs = {path: harness[path]["epoch"] for path in HARNESS_PATHS
+                     if "resume" in path}
+    log(json.dumps({"harness_timing": {"probe_base-verify": probe_timing, **resume_epochs}}))
     busy_rows = [res[name] for res in population_res for name in ("population", "sequential")]
     busy_rows += [res[name] for res in rate_timing for name in ("per_member", "shared")]
+    busy_rows += [probe_timing[step][name] for step in ("base_step", "probe_step")
+                  for name in ("graphed", "eager")] + list(resume_epochs.values())
     ratios = []
     for dtype, trains, serves in (("float32", train_res, serve_res),
                                   ("bfloat16", train_bf16_res, serve_bf16_res)):
@@ -2985,6 +3378,7 @@ def main() -> int:
             busy_rows += [row[name] for row in rows.values() for name in ("graphed", "eager")]
             ratios += [row["busy_ratio"] for row in rows.values()]
             log(json.dumps({"graphs": {"model": model_name, "compute_dtype": dtype, **rows}}))
+    ratios += [probe_timing[step]["busy_ratio"] for step in ("base_step", "probe_step")]
     summary = {"rows": len(busy_rows),
                "measured": sum(r["busy_ms"] is not None for r in busy_rows),
                "failed": sum("failed" in r for r in busy_rows),

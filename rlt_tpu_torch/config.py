@@ -49,7 +49,9 @@ class TrainConfig:
     model_path: Optional[str] = None
     model_persist: bool = False
     save_path: str = "./best_model/"
-    log_dir: str = "./runs/"
+    # the metrics log's directory; None writes no log (the JAX package's
+    # default is "./runs/", which its trainer always writes)
+    log_dir: Optional[str] = None
     draw: bool = False
 
     # hyper-parameter search (run.py:323-326)

@@ -36,7 +36,7 @@ import torch
 from rlt_tpu_torch.config import TrainConfig
 from rlt_tpu_torch.models import build_model, is_multi_head
 from rlt_tpu_torch.utils import metrics as metrics_lib
-from rlt_tpu_torch.utils.graphs import GraphedCall
+from rlt_tpu_torch.utils.graphs import GraphedCall, use_graphs
 from rlt_tpu_torch.utils.platform import resolve_device
 from rlt_tpu_torch.utils.timing import REPEATS, interleaved_ms
 
@@ -88,12 +88,7 @@ class Predictor:
             raise ValueError(f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, "
                              f"got {cfg.compute_dtype!r}")
         self.device = resolve_device(device)
-        if graphs is None:
-            graphs = self.device.type == "cuda"
-        if graphs and self.device.type != "cuda":
-            raise ValueError(f"CUDA graphs are captured on a CUDA device, not on "
-                             f"{self.device}: the CPU serves eager (graphs=False)")
-        self.graphs = graphs
+        self.graphs = graphs = use_graphs(self.device, graphs)
         self.cfg = cfg
         model = build_model(cfg.model_name, seq_len=cfg.seq_len,
                             input_size=cfg.input_size, dropout=cfg.dropout,

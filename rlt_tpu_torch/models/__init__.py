@@ -1,8 +1,10 @@
 """Model zoo of the port: MMOECut (the flagship), MOECut, PLECut, Choopy,
-MtChoopy, AttnCut, MtAttnCut and BiCut. probe_base is known here and raises
-until its slice lands (ROADMAP.md). `build_population_model` stacks K
-seeded models of any of the eight into one model with a member axis
-(population training)."""
+MtChoopy, AttnCut, MtAttnCut and BiCut, which the Trainer trains, and the
+probing modules of the verification harnesses: ProbeBase (`probe_base`, a
+2-expert MMOECut that also returns its intermediates; it trains through
+`rlt_tpu_torch.verify_probe`), Probe, TaskC and TaskR.
+`build_population_model` stacks K seeded models of any of the eight into
+one model with a member axis (population training)."""
 
 from rlt_tpu_torch.models.layers import (  # noqa: F401
     LSTM,
@@ -23,6 +25,7 @@ from rlt_tpu_torch.models.mmoe import (  # noqa: F401
     make_towers,
 )
 from rlt_tpu_torch.models.multitask import MtAttnCut, MtChoopy  # noqa: F401
+from rlt_tpu_torch.models.probe import Probe, ProbeBase, TaskC, TaskR  # noqa: F401
 from rlt_tpu_torch.models.simple import AttnCut, BiCut, Choopy  # noqa: F401
 from rlt_tpu_torch.utils.convert import stack_state_dicts
 
@@ -30,7 +33,7 @@ MODELS = {"bicut": BiCut, "choopy": Choopy, "attncut": AttnCut,
           "mtchoopy": MtChoopy, "mtattncut": MtAttnCut, "mmoecut": MMOECut,
           "moecut": MOECut, "mtple": PLECut}
 
-# every model name of the JAX package's zoo, ported or not
+# every model name of the JAX package's zoo: the eight above and probe_base
 MODEL_NAMES = frozenset({"bicut", "choopy", "attncut", "mtchoopy", "mtattncut",
                          "mmoecut", "moecut", "mtple", "probe_base"})
 
@@ -89,14 +92,17 @@ def build_model(name: str, *, seq_len: int, input_size: int, dropout,
                             input_size=input_size, **common)
     if name == "mtple":
         return PLECut(seq_len=seq_len, input_size=input_size, **common)
-    if name in MODEL_NAMES:
-        raise NotImplementedError(
-            f"model {name!r} is not ported to rlt_tpu_torch yet; see ROADMAP.md "
-            "for the order in which the zoo is ported")
+    if name == "probe_base":
+        if members is not None:
+            check_population_model(name)
+        # the JAX package builds it with the default three tasks
+        return ProbeBase(seq_len=seq_len, input_size=input_size, dropout=dropout,
+                         num_experts=2, seed=seed)
     raise ValueError(f"unknown model: {name!r}")
 
 
 # the models that train as a population, K members in one model: all eight
+# (not probe_base: the JAX package has no criterion to train it with either)
 POPULATION_MODELS = frozenset(MODELS)
 
 
@@ -104,7 +110,8 @@ def check_population_model(name: str) -> None:
     """Raise a ValueError unless `name` trains as a population."""
     if name not in POPULATION_MODELS:
         raise ValueError(f"population training takes {sorted(POPULATION_MODELS)}, not "
-                         f"{name!r}: probe_base is not ported yet (ROADMAP.md A4)")
+                         f"{name!r}: probe_base trains only through verify_probe, and the "
+                         "JAX package has no criterion for it either (ROADMAP.md A4)")
 
 
 def build_population_model(name: str, *, seq_len: int, input_size: int,

@@ -74,7 +74,7 @@ from rlt_tpu_torch.models import build_population_model, check_population_model
 from rlt_tpu_torch.train import forward, make_criterion
 from rlt_tpu_torch.utils import losses as losses_lib
 from rlt_tpu_torch.utils import metrics as metrics_lib
-from rlt_tpu_torch.utils.graphs import GraphedSteps
+from rlt_tpu_torch.utils.graphs import GraphedSteps, use_graphs
 from rlt_tpu_torch.utils.platform import resolve_device
 
 logger = logging.getLogger("rlt_tpu_torch")
@@ -258,12 +258,7 @@ class Population:
         self.cfg, self.members = cfg, members
         self.dtype = COMPUTE_DTYPES[cfg.compute_dtype]
         self.device = resolve_device(device)
-        if graphs is None:
-            graphs = self.device.type == "cuda"
-        if graphs and self.device.type != "cuda":
-            raise ValueError(f"CUDA graphs are captured on a CUDA device, not on "
-                             f"{self.device}: the CPU runs eager (graphs=False)")
-        self.graphs = graphs
+        self.graphs = graphs = use_graphs(self.device, graphs)
         self.criteria = [make_criterion(member_config(cfg, m)) for m in members]
         self.data = _stack_corpora(_member_corpora(cfg, members, data), self.device)
         self.model = build_population_model(

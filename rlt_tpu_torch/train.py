@@ -60,9 +60,19 @@ time as one population (`rlt_tpu_torch/population.py`): any of the eight
 models, in float32 or bfloat16, each population step one CUDA graph on
 the card; `--mt-search 1` gives MtChoopy's and MtAttnCut's members their
 own task weights, and `--regularizer-search 1` their own dropout rates and
-weight decays (each attention row at its member's rate in K3'-K6'). Not
-ported yet (ROADMAP.md): probe_base, resume, `--draw`, the metrics log
-directory, and data and model parallelism.
+weight decays (each attention row at its member's rate in K3'-K6').
+
+`--model-persist 1` writes the best weights (`<save-path>/<model>.pt`) and,
+after every epoch, the training state (`utils/checkpoint.py`: the f32
+master parameters, Adam's state, the generator's state, the epoch and the
+records); `--resume 1` restores it in place and goes on at the next epoch,
+so that a run of 3 epochs resumed for 2 more is the run of 5, bit for bit.
+`--log-dir DIR` writes the metrics log (`utils/logging.py`: each step's
+loss, each epoch's metrics and the summary, as JSONL, mirrored to
+TensorBoard where `torch.utils.tensorboard` imports) under DIR/<model>/,
+and `--draw 1` draws the reward and prediction curves of the test split
+into ./figs every second epoch (`utils/plots.py`). Not ported yet
+(ROADMAP.md A7): data and model parallelism.
 """
 
 from __future__ import annotations
@@ -86,11 +96,17 @@ from rlt_tpu_torch.data import (
     synthetic_dataset,
 )
 from rlt_tpu_torch.infer import COMPUTE_DTYPES, decode_ks, load_state_dict, to_float32
-from rlt_tpu_torch.models import MODELS, build_model
+from rlt_tpu_torch.models import MODELS, build_model, is_multi_head
 from rlt_tpu_torch.models.layers import compute_params
 from rlt_tpu_torch.utils import losses as losses_lib
 from rlt_tpu_torch.utils import metrics as metrics_lib
-from rlt_tpu_torch.utils.graphs import GraphedSteps
+from rlt_tpu_torch.utils.checkpoint import (
+    load_train_state,
+    restore_train_state,
+    save_train_state,
+)
+from rlt_tpu_torch.utils.graphs import GraphedSteps, use_graphs
+from rlt_tpu_torch.utils.logging import MetricsWriter
 from rlt_tpu_torch.utils.platform import resolve_device
 
 logger = logging.getLogger("rlt_tpu_torch")
@@ -117,12 +133,13 @@ def make_criterion(cfg: config_lib.TrainConfig) -> Callable:
     augmentation; mtchoopy and mtattncut -> `mtcut_loss` with the config's
     task weights; mmoecut, moecut and mtple -> `mtcut_loss` with the torch
     defaults 0.5/0.5 (the reference passes none), PLECut always with its
-    three tasks. A model the port does not train yet raises."""
+    three tasks. Any other model raises a ValueError: probe_base trains
+    through `rlt_tpu_torch.verify_probe`, as in the JAX package."""
     name, metric = cfg.model_name, cfg.criterion
     if name not in MODELS:
-        raise NotImplementedError(
-            f"training {name!r} is not ported yet: the port trains "
-            f"{', '.join(sorted(MODELS))} (ROADMAP.md)")
+        raise ValueError(
+            f"no criterion for model {name!r}: the Trainer trains "
+            f"{', '.join(sorted(MODELS))}; probe_base trains through verify_probe")
     if cfg.loss_override and name in ("choopy", "attncut"):
         if cfg.loss_override == "wass":
             return losses_lib.wass_dist_loss
@@ -147,6 +164,19 @@ def make_criterion(cfg: config_lib.TrainConfig) -> Callable:
     return losses_lib.make_loss("mtcut", metric=metric, rerank_weight=0.5,
                                 classi_weight=0.5,
                                 num_tasks=cfg.num_tasks if name != "mtple" else 3)
+
+
+def load_data(cfg: config_lib.TrainConfig):
+    """The corpus of `cfg` on the host: the reference-format pkls under
+    `dataset_base` in the model's loader family, or the calibrated synthetic
+    corpus of `synthetic_queries` lists."""
+    if cfg.dataset_base:
+        family = config_lib.loader_family(cfg.model_name, cfg.retrieve_data)
+        return load_pkl_dataset(cfg.dataset_base, cfg.retrieve_data, cfg.dataset_name,
+                                family)
+    return synthetic_dataset(num_queries=cfg.synthetic_queries, seq_len=cfg.seq_len,
+                             num_features=cfg.input_size, seed=cfg.seed,
+                             **synthetic_config(cfg.retrieve_data, cfg.dataset_name))
 
 
 def batch_metrics(model_name: str, output, y: torch.Tensor, valid: torch.Tensor):
@@ -204,7 +234,9 @@ class Trainer:
 
     `graphs`: each step one CUDA graph replay (the default on a CUDA
     device), or eager (False: the CPU's only route; on the card for
-    reference runs). Graphs on the CPU raise."""
+    reference runs). Graphs on the CPU raise. With `cfg.log_dir` the run
+    writes its metrics log there (`writer`), with `cfg.model_persist` its
+    training state after every epoch, which `run(resume=True)` takes up."""
 
     def __init__(self, cfg: config_lib.TrainConfig, data=None,
                  device: str | torch.device | None = None, state_dict=None,
@@ -217,23 +249,9 @@ class Trainer:
         self.model_name = cfg.model_name
         self.criterion = make_criterion(cfg)
         self.device = resolve_device(device)
-        if graphs is None:
-            graphs = self.device.type == "cuda"
-        if graphs and self.device.type != "cuda":
-            raise ValueError(f"CUDA graphs are captured on a CUDA device, not on "
-                             f"{self.device}: the CPU runs eager (graphs=False)")
-        self.graphs = graphs
-        if data is None:
-            if cfg.dataset_base:
-                family = config_lib.loader_family(cfg.model_name, cfg.retrieve_data)
-                data = load_pkl_dataset(cfg.dataset_base, cfg.retrieve_data,
-                                        cfg.dataset_name, family)
-            else:
-                data = synthetic_dataset(
-                    num_queries=cfg.synthetic_queries, seq_len=cfg.seq_len,
-                    num_features=cfg.input_size, seed=cfg.seed,
-                    **synthetic_config(cfg.retrieve_data, cfg.dataset_name))
-        self.data = DeviceDataset.from_host(data, cfg.batch_size, self.device)
+        self.graphs = graphs = use_graphs(self.device, graphs)
+        self.data = DeviceDataset.from_host(load_data(cfg) if data is None else data,
+                                            cfg.batch_size, self.device)
         self.model = build_model(cfg.model_name, seq_len=cfg.seq_len,
                                  input_size=cfg.input_size, dropout=cfg.dropout,
                                  num_tasks=cfg.num_tasks, seed=cfg.seed)
@@ -251,6 +269,8 @@ class Trainer:
         self.f1_record: list[float] = []
         self.dcg_record: list[float] = []
         self.history: list[dict] = []  # each epoch's metrics, as run_epoch gives them
+        self.writer = (MetricsWriter(cfg.log_dir, run_name=cfg.model_name)
+                       if cfg.log_dir else None)
         self._graphed = GraphedSteps(
             self._train, self._test, (cfg.batch_size,), self.device,
             params=self.model.parameters(), optimizer=self.optimizer,
@@ -262,6 +282,12 @@ class Trainer:
     @property
     def best_path(self) -> str:
         return os.path.join(self.cfg.save_path, f"{self.model_name}.pt")
+
+    @property
+    def state_path(self) -> str:
+        """The training state's base path: `<save_path>/<model>` +
+        `.trainstate.pt` and `.records.json`."""
+        return os.path.join(self.cfg.save_path, self.model_name)
 
     def _train(self, idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
         d = self.data
@@ -309,20 +335,24 @@ class Trainer:
         metrics["train_loss_steps"] = tr[:, 0].tolist()
         return metrics
 
-    def run(self, profile_dir: str | None = None) -> dict:
-        """`cfg.epochs` epochs with best / best-5 tracking (run.py:222-232);
-        with `model_persist`, each new best test F1 writes its weights.
-        With `profile_dir`, epochs 1-3 (epoch 0 builds the kernels and
-        captures the graphs) are traced with torch.profiler into
+    def run(self, profile_dir: str | None = None, resume: bool = False) -> dict:
+        """Epochs up to `cfg.epochs` with best / best-5 tracking
+        (run.py:222-232); with `model_persist`, each new best test F1 writes
+        its weights and every epoch the training state. `resume`: restore
+        the last training state (`restore`) and go on from the epoch after
+        it; a finished run resumed runs no epoch and reports its restored
+        records. With `profile_dir`, epochs 1-3 (epoch 0 builds the kernels
+        and captures the graphs) are traced with torch.profiler into
         `profile_dir/epochs.pt.trace.json`, each epoch under a span of its
         own ("epoch <n>")."""
         cfg = self.cfg
+        start = self.restore() if resume else 0
         logger.info("Train the %s model on %s (%s)", self.model_name, self.device,
                     "CUDA graphs" if self.graphs else "eager")
         prof = None
         try:
-            for epoch in range(cfg.epochs):
-                if profile_dir is not None and epoch == 1:
+            for epoch in range(start, cfg.epochs):
+                if profile_dir is not None and prof is None and 1 <= epoch < 4:
                     prof = _start_profiler(self.device)
                 with torch.profiler.record_function(f"epoch {epoch}"):
                     self._epoch(epoch)
@@ -332,13 +362,48 @@ class Trainer:
         finally:
             if prof is not None:
                 _write_trace(prof, profile_dir)
-        return self.summary()
+        summary = self.summary()
+        if self.writer is not None:
+            self.writer.log_summary({k: v for k, v in summary.items()
+                                     if k != "compute_dtype"})
+            self.writer.close()  # the reference closes it per run too (run.py:364)
+            self.writer = None
+        return summary
+
+    def restore(self) -> int:
+        """Restore the training state at `state_path` in place (the
+        parameters, Adam's state, the generator and the records) and return
+        the epoch to go on from; without one, 0."""
+        payload = load_train_state(self.state_path)
+        if payload is None:
+            logger.warning("no training state at %s; training from epoch 0",
+                           self.state_path)
+            return 0
+        restore_train_state(payload, self.model, self.optimizer, self.generator)
+        records = payload.get("records", {})
+        self.f1_record = list(records.get("f1_record", []))
+        self.dcg_record = list(records.get("dcg_record", []))
+        self.best_test_f1 = records.get("best_f1", self.best_test_f1)
+        self.best_test_dcg = records.get("best_dcg", self.best_test_dcg)
+        start = payload["epoch"] + 1
+        logger.info("resumed from %s at epoch %d", self.state_path, start)
+        return start
+
+    def _records(self) -> dict:
+        return {"f1_record": self.f1_record, "dcg_record": self.dcg_record,
+                "best_f1": self.best_test_f1, "best_dcg": self.best_test_dcg}
 
     def _epoch(self, epoch: int) -> None:
         cfg = self.cfg
         start = time.perf_counter()
         metrics = self.run_epoch()
         self.history.append(metrics)
+        if self.writer is not None:
+            steps = metrics["train_loss_steps"]
+            for s, loss in enumerate(steps):
+                self.writer.log_step(epoch * len(steps) + s, "train/loss_step", loss)
+            self.writer.log(epoch, {k: v for k, v in metrics.items()
+                                    if k != "train_loss_steps"})
         self.f1_record.append(metrics["test_f1"])
         self.dcg_record.append(metrics["test_dcg"])
         if metrics["test_f1"] > self.best_test_f1:
@@ -349,17 +414,55 @@ class Trainer:
                 torch.save({k: v.cpu() for k, v in self.best_state.items()},
                            self.best_path)
         self.best_test_dcg = max(self.best_test_dcg, metrics["test_dcg"])
+        if cfg.model_persist:
+            save_train_state(self.state_path, self.model, self.optimizer, self.generator,
+                             epoch, self._records())
+        if cfg.draw and epoch % 2 == 0:
+            self.draw(epoch)
         logger.info(
             "Epoch %d (%.2fs): train loss=%.5f f1=%.5f dcg=%.5f | "
             "test loss=%.5f f1=%.5f dcg=%.5f", epoch, time.perf_counter() - start,
             metrics["train_loss"], metrics["train_f1"], metrics["train_dcg"],
             metrics["test_loss"], metrics["test_f1"], metrics["test_dcg"])
 
+    @torch.no_grad()
+    def test_predictions(self) -> np.ndarray:
+        """The model's cut distribution over the test split without dropout,
+        (n_test, L) f32 on the host, through the eval forward in the compute
+        dtype in batches of `batch_size`; BiCut's is its argmax decisions
+        (1 continue, 0 truncate), multi-head models' their last head."""
+        self.model.eval()
+        x, bs = self.data.x_test, self.data.batch_size
+        cuts = []
+        for i in range(0, x.shape[0], bs):
+            output = forward(self.model, x[i:i + bs], dtype=self.dtype)
+            if self.model_name == "bicut":
+                # the reference plots the argmax decisions (run.py:132-136, 190-191)
+                cuts.append(torch.argmax(output, dim=2).to(torch.float32))
+            else:
+                cut = output[-1] if is_multi_head(self.model_name) else output
+                cuts.append(cut[..., 0])
+        return torch.cat(cuts).cpu().numpy()
+
+    def draw(self, epoch: int) -> str:
+        """The reward and prediction curves of the test split at this epoch
+        (`utils/plots.py`), into ./figs; the figure's path."""
+        from rlt_tpu_torch.utils.plots import plot_reward_vs_prediction
+
+        cfg = self.cfg
+        return plot_reward_vs_prediction(
+            self.data.y_test.cpu().numpy(), self.test_predictions(), metric=cfg.criterion,
+            epoch=epoch, model_name=self.model_name, div_type=cfg.div_type,
+            aug_reward=cfg.augmented_reward)
+
     def summary(self) -> dict:
-        """best / best-5 test F1 and DCG (run.py:229-232), and the compute
-        dtype of the steps."""
-        best5_f1 = float(np.mean(sorted(self.f1_record, reverse=True)[:5]))
-        best5_dcg = float(np.mean(sorted(self.dcg_record, reverse=True)[:5]))
+        """best / best-5 test F1 and DCG (run.py:229-232; with no epoch on
+        record, the bests), and the compute dtype of the steps."""
+        if self.f1_record:
+            best5_f1 = float(np.mean(sorted(self.f1_record, reverse=True)[:5]))
+            best5_dcg = float(np.mean(sorted(self.dcg_record, reverse=True)[:5]))
+        else:
+            best5_f1, best5_dcg = self.best_test_f1, self.best_test_dcg
         logger.info("best: f1=%.7f dcg=%.6f | best-5: f1=%.7f dcg=%.6f",
                     self.best_test_f1, self.best_test_dcg, best5_f1, best5_dcg)
         return {"best_f1": self.best_test_f1, "best_dcg": self.best_test_dcg,
@@ -396,9 +499,8 @@ def build_argparser() -> argparse.ArgumentParser:
                "gives MtChoopy's and MtAttnCut's members their own task weights, "
                "--regularizer-search their own dropout rates and weight decays. "
                "On the card every train and test step is one CUDA graph replay. "
-               "Not ported yet, so absent: "
-               "--resume, --draw, --log-dir, --data-parallel and --model-parallel "
-               "(ROADMAP.md).")
+               "Not ported yet, so absent: --data-parallel and --model-parallel "
+               "(ROADMAP.md A7).")
     d = config_lib.TrainConfig()
     p.add_argument("--retrieve-data", type=str, default=d.retrieve_data)
     p.add_argument("--dataset-name", type=str, default=d.dataset_name)
@@ -422,6 +524,16 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="write the best weights to <save-path>/<model>.pt, "
                         "which `rlt_tpu_torch.serve --model-path` reads")
     p.add_argument("--save-path", type=str, default=d.save_path)
+    p.add_argument("--resume", type=int, default=0,
+                   help="go on from the training state that --model-persist 1 wrote "
+                        "after each epoch (parameters, Adam's state, generator, epoch, "
+                        "records)")
+    p.add_argument("--log-dir", type=str, default=d.log_dir,
+                   help="write the metrics log (JSONL; TensorBoard where "
+                        "torch.utils.tensorboard imports) under <log-dir>/<model>/")
+    p.add_argument("--draw", type=int, default=0,
+                   help="draw the test split's reward and prediction curves into "
+                        "./figs every second epoch")
     p.add_argument("--epochs", type=int, default=d.epochs)
     p.add_argument("--lr", type=float, default=d.lr)
     p.add_argument("--weight-decay", type=float, default=d.weight_decay)
@@ -471,6 +583,7 @@ def config_from_args(args) -> config_lib.TrainConfig:
         epochs=args.epochs, lr=args.lr, weight_decay=args.weight_decay,
         seed=args.seed, model_path=args.model_path,
         model_persist=bool(args.model_persist), save_path=args.save_path,
+        log_dir=args.log_dir, draw=bool(args.draw),
         parameter_search=bool(args.parameter_search),
         regularizer_search=bool(args.regularizer_search),
         mt_search=bool(args.mt_search), search_times=args.search_times,
@@ -573,7 +686,8 @@ def main(argv=None) -> dict:
         print(json.dumps(summary))
         return summary
     trainer = Trainer(cfg, device=args.device)
-    summary = dict(trainer.run(profile_dir=args.profile_dir), device=str(trainer.device),
+    summary = dict(trainer.run(profile_dir=args.profile_dir, resume=bool(args.resume)),
+                   device=str(trainer.device),
                    config=dataclasses.asdict(cfg))
     print(json.dumps({k: v for k, v in summary.items() if k != "config"}))
     if args.out:

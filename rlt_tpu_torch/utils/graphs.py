@@ -53,6 +53,18 @@ import torch
 WARMUP = 2  # eager runs on a side stream before a capture
 
 
+def use_graphs(device: torch.device, graphs: bool | None) -> bool:
+    """Whether an owner on `device` runs its steps as CUDA graphs: `graphs`,
+    by default on a CUDA device. Graphs on another device raise: the CPU
+    runs eager."""
+    if graphs is None:
+        return device.type == "cuda"
+    if graphs and device.type != "cuda":
+        raise ValueError(f"CUDA graphs are captured on a CUDA device, not on {device}: "
+                         "the CPU runs eager (graphs=False)")
+    return graphs
+
+
 def _kernel_counts() -> dict[str, int]:
     from rlt_tpu_torch.ops import KERNELS
 
@@ -93,7 +105,7 @@ def snapshot(params: Iterable[torch.Tensor] = (), optimizer=None,
                         if not torch.is_tensor(v):
                             raise TypeError(f"optimizer state {k!r} is no tensor: "
                                             "a graph cannot hold it")
-                        if p in state:
+                        if k in state.get(p, {}):
                             v.copy_(state[p][k])
                         else:
                             v.zero_()
@@ -155,18 +167,20 @@ class GraphedCall:
 class GraphedSteps:
     """A trainer's train and test steps, each one `GraphedCall` captured at
     its first call and sharing one pool. `train(idx, valid)` and
-    `test(idx, valid)`, the owner's bound methods, read a row of a batch
-    plan; the graphs read it from static buffers of the plan row's shape,
+    `test(idx, valid)` (None where the owner has no test step), the
+    owner's bound methods, read a row of a batch plan; the graphs read it from static buffers of the plan row's shape,
     filled before each replay. The train step's capture saves and restores
     `params`, `optimizer` and `generators` and registers the generators
     with its graph. The methods are held weakly: the owner holds this
     object, and a reference back would keep the owner and its graphs' pool
     on the card until Python's cycle collector ran."""
 
-    def __init__(self, train: Callable, test: Callable, shape: tuple, device, *,
+    def __init__(self, train: Callable, test: Callable | None, shape: tuple, device, *,
                  params: Iterable[torch.Tensor], optimizer,
                  generators: Sequence[torch.Generator]):
-        self.bodies = {"train": weakref.WeakMethod(train), "test": weakref.WeakMethod(test)}
+        self.bodies = {"train": weakref.WeakMethod(train)}
+        if test is not None:
+            self.bodies["test"] = weakref.WeakMethod(test)
         self.state = dict(params=list(params), optimizer=optimizer,
                           generators=list(generators))
         self.idx = torch.zeros(shape, dtype=torch.int64, device=device)

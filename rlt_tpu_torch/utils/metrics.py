@@ -1,9 +1,10 @@
 """Truncation metrics and cut decoding in PyTorch.
 
-The counterpart of the JAX package's `utils/metrics.py` for what serving
-and training need: metric curves at every cut position from one cumulative
-sum, the reward matrices of the losses, the metric at a chosen cut, and the
-decoding rules. Conventions are the same:
+The counterpart of the JAX package's `utils/metrics.py`: metric curves at
+every cut position from one cumulative sum, the reward matrices of the
+losses, the metric at a chosen cut, the decoding rules, the auxiliary-task
+metrics of the verification harnesses (rerank DCG, per-query AUC) and the
+classical baselines (oracle, greedy k, fixed k). Conventions are the same:
 `labels` is a (B, L) binary relevance matrix and `k` counts documents
 (1-based), so column j of a curve is k = j + 1.
 """
@@ -108,3 +109,66 @@ def decode_cut_bicut(output: torch.Tensor) -> torch.Tensor:
     # argmax of (decision == 0) is the first truncate position
     first_trunc = torch.argmax((decisions == 0).to(torch.int32), dim=-1)
     return torch.where(all_continue, seq_len, first_trunc + 1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Auxiliary-task metrics (the verification harnesses)
+# ---------------------------------------------------------------------------
+
+def taskr_metric(labels: torch.Tensor, predictions: torch.Tensor,
+                 valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Rerank DCG: each list re-sorted by its predicted scores, descending
+    (a stable sort of -predictions, so that ties keep the list's order as
+    the JAX package's `argsort(-p, stable=True)` does), each document adding
+    +1/log2(i+2) if relevant and -1/log2(i+2) if not. Batch mean."""
+    if predictions.dim() == 3:
+        predictions = predictions[..., 0]
+    order = torch.sort(-predictions, dim=-1, stable=True).indices
+    sorted_labels = torch.gather(labels.to(torch.float32), -1, order)
+    coef = dcg_discount(labels.shape[-1], device=labels.device)
+    per_row = torch.sum(torch.where(sorted_labels == 1.0, 1.0, -1.0) / coef, dim=-1)
+    return _masked_mean(per_row, valid)
+
+
+def taskc_metric(labels: torch.Tensor, predictions: torch.Tensor,
+                 valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean per-query ROC-AUC, exact: the pairwise statistic over
+    (relevant, irrelevant) pairs with 0.5 credit for tied scores, which
+    equals sklearn's roc_auc_score on binary labels. Queries with no pair
+    (all relevant or all irrelevant) and invalid rows are left out. One
+    (B, L, L) comparison on the device, no host sync."""
+    if predictions.dim() == 3:
+        predictions = predictions[..., 0]
+    labels = labels.to(torch.float32)
+    pos = labels == 1.0
+    pair_mask = (pos[:, :, None] & ~pos[:, None, :]).to(torch.float32)
+    s_i, s_j = predictions[:, :, None], predictions[:, None, :]
+    credit = (s_i > s_j).to(torch.float32) + 0.5 * (s_i == s_j).to(torch.float32)
+    n_pairs = torch.sum(pair_mask, dim=(1, 2))
+    aucs = torch.sum(credit * pair_mask, dim=(1, 2)) / torch.clamp(n_pairs, min=1.0)
+    keep = n_pairs > 0
+    if valid is not None:
+        keep = keep & valid.to(torch.bool)
+    keep = keep.to(torch.float32)
+    return torch.sum(aucs * keep) / torch.clamp(torch.sum(keep), min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# Classical baselines, read off the same metric curves
+# ---------------------------------------------------------------------------
+
+def oracle_score(labels: torch.Tensor, metric: str = "f1") -> torch.Tensor:
+    """Each query's best value over every cut, batch mean: the upper bound."""
+    return torch.mean(torch.max(reward_matrix(labels, metric), dim=-1).values)
+
+
+def greedy_k(train_labels: torch.Tensor, metric: str = "f1") -> torch.Tensor:
+    """The one k (1-based) that maximises the mean train curve; the first
+    of equal maxima."""
+    return torch.argmax(torch.mean(reward_matrix(train_labels, metric), dim=0)) + 1
+
+
+def fixed_k_score(labels: torch.Tensor, k: int, metric: str = "f1") -> torch.Tensor:
+    """Batch-mean metric at one fixed cut k."""
+    ks = torch.full((labels.shape[0],), k, dtype=torch.int64, device=labels.device)
+    return torch.mean(_gather_at_k(reward_matrix(labels, metric), ks))

@@ -1131,3 +1131,106 @@ def test_bf16_training_step_on_card_matches_plain(cuda_device, model_name):
     assert np.median(list(ratio.values())) <= 2.0, ratio
     assert max(ratio.values()) <= 4.0, ratio
 
+
+
+# K5' and K6' at ProbeBase's N = 2 * 63 = 126 rows (its two experts stacked
+# over the B = 63 lists of the probe_base preset), f32 on the verify_probe
+# path and bf16 beside it, at rates 0 and 0.1.
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_packed_attention_at_the_probe_rows_on_card(cuda_device, dtype, rate):
+    n = 126
+    q, k, v, do = (torch.from_numpy(a).to(cuda_device).to(dtype)
+                   for a in _qkv(250, (n, 300, 256)) + [_qkv(251, (n, 300, 256))[0]])
+    streams = _streams(252, n, cuda_device)
+    want_o, want_lse = attention.attention_packed_plain(q, k, v, 4, 2, rate, streams)
+    want = attention.attention_packed_bwd_plain(q, k, v, want_o, want_lse, do, 4, 2, rate,
+                                                streams)
+    if dtype == torch.float32:
+        o, lse = attention.attention_packed_fwd(q, k, v, 4, 2, rate, streams)
+        torch.testing.assert_close(o, want_o, rtol=0, atol=ATTN_ATOL)
+        torch.testing.assert_close(lse, want_lse, rtol=0, atol=ATTN_ATOL)
+        got = attention.attention_packed_bwd(q, k, v, want_o, want_lse, do, 4, 2, rate,
+                                             streams)
+        for g, w in zip(got, want):
+            assert _max_rel_err(g, w) <= ATTN_BWD_REL
+    else:
+        _assert_bf16_attention(*attention.attention_packed_fwd_bf16(q, k, v, 4, 2, rate,
+                                                                    streams),
+                               want_o, want_lse)
+        got = attention.attention_packed_bwd_bf16(q, k, v, want_o, want_lse, do, 4, 2, rate,
+                                                  streams)
+        _assert_bf16_grads(got, want)
+    again = (attention.attention_packed_bwd if dtype == torch.float32
+             else attention.attention_packed_bwd_bf16)(q, k, v, want_o, want_lse, do, 4, 2,
+                                                       rate, streams)
+    _assert_repeatable(got, again)
+
+
+def test_graphed_probe_trainer_steps_equal_eager_on_card(cuda_device):
+    """verify_probe's steps as CUDA graphs against the same steps eager, from
+    the same seed, dropout on: three base steps (results, parameters, Adam's
+    state) and three probe steps (the six metrics, the towers), bit for bit,
+    each replay launching what an eager step does."""
+    from rlt_tpu_torch.verify_probe import ProbeTrainer
+
+    cfg = apply_preset(TrainConfig(model_name="probe_base", synthetic_queries=40))
+    assert (cfg.batch_size, cfg.dropout) == (63, 0.1)
+    graphed, eager = (ProbeTrainer(cfg, epochs_base=1, epochs_probe=1, device=cuda_device,
+                                   graphs=g) for g in (True, False))
+    idx, valid = graphed.data.plan(graphed.generator, "train")
+    eager.data.plan(eager.generator, "train")
+    for s in range(3):
+        got, want = [], []
+        for t, out in ((graphed, got), (eager, want)):
+            before = {name: k.launches for name, k in KERNELS.items()}
+            out.append(t.base_batch("train", idx[s % len(idx)], valid[s % len(idx)]))
+            torch.cuda.synchronize()
+            out.append({name: k.launches - before[name] for name, k in KERNELS.items()})
+        assert got[1] == want[1] and got[1]["attention_packed_bwd"] == 1
+        assert torch.equal(got[0], want[0]), s
+    for module in ("base", "probe"):
+        pairs = zip(getattr(graphed, module).parameters(), getattr(eager, module).parameters())
+        assert all(torch.equal(p, q) for p, q in pairs), module
+    for p, q in zip(graphed.base.parameters(), eager.base.parameters()):
+        for key, value in graphed.base_optimizer.state[p].items():
+            assert torch.equal(value, eager.base_optimizer.state[q][key]), key
+    for s in range(3):
+        got = graphed.probe_batch(idx[s % len(idx)], valid[s % len(idx)])
+        want = eager.probe_batch(idx[s % len(idx)], valid[s % len(idx)])
+        assert torch.equal(got, want), s
+    assert all(torch.equal(p, q) for p, q in zip(graphed.probe.parameters(),
+                                                  eager.probe.parameters()))
+
+
+@pytest.mark.parametrize("trained_first", [False, True], ids=["fresh", "captured"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graphed_resume_equals_the_uninterrupted_run_on_card(cuda_device, tmp_path, dtype,
+                                                             trained_first):
+    """`--resume` under CUDA graphs: 3 epochs, then 2 more in a new Trainer,
+    equal 5 uninterrupted ones bit for bit (step losses, metrics,
+    parameters, Adam's state, generator), whether the state is restored
+    before the first capture (`fresh`, as the CLI does) or into a Trainer
+    whose graphs an epoch has captured already (`captured`)."""
+    cfg = dataclasses.replace(
+        apply_preset(TrainConfig(model_name="mmoecut", synthetic_queries=160,
+                                 compute_dtype=dtype)),
+        dropout=0.1, epochs=5, model_persist=True, save_path=str(tmp_path / "whole"))
+    whole = Trainer(cfg, device=cuda_device)
+    whole.run()
+    split = dataclasses.replace(cfg, save_path=str(tmp_path / "split"))
+    Trainer(dataclasses.replace(split, epochs=3), device=cuda_device).run()
+    resumed = Trainer(split, device=cuda_device)
+    assert resumed.graphs
+    if trained_first:
+        resumed.run_epoch()
+    summary = resumed.run(resume=True)
+    assert len(resumed.history) == 2
+    for epoch in (3, 4):
+        assert resumed.history[epoch - 3] == whole.history[epoch], epoch
+    for p, q in zip(resumed.model.parameters(), whole.model.parameters()):
+        assert torch.equal(p, q)
+        for key, value in whole.optimizer.state[q].items():
+            assert torch.equal(resumed.optimizer.state[p][key], value), key
+    assert torch.equal(resumed.generator.get_state(), whole.generator.get_state())
+    assert summary == whole.summary()

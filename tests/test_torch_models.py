@@ -140,10 +140,11 @@ def test_transformer_encoder_layer_matches_jax():
 
 
 def test_unported_models_and_training_forward_raise():
-    """Unported models still raise; MMOECut's training forward now runs (a
-    fresh module is in training mode), given a generator for its masks."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model("probe_base", seq_len=16, input_size=3, dropout=0.1)
+    """Every model of the zoo builds now (probe_base too,
+    tests/test_torch_probe.py) and unknown names raise; MMOECut's training
+    forward runs (a fresh module is in training mode), given a generator for
+    its masks."""
+    assert build_model("probe_base", seq_len=16, input_size=3, dropout=0.1) is not None
     with pytest.raises(ValueError, match="unknown model"):
         build_model("nope", seq_len=16, input_size=3, dropout=0.1)
     model = build_model("mmoecut", seq_len=16, input_size=3, dropout=0.1)

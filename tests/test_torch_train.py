@@ -202,11 +202,12 @@ def test_fed_batch_plans_are_checked():
 @pytest.mark.parametrize("model_name,num_tasks", [("mmoecut", 2.1), ("mtple", 3)])
 def test_make_criterion_covers_the_ported_models(model_name, num_tasks):
     """MMOECut's criterion follows the config's num_tasks, PLECut's keeps
-    its three; models not ported yet raise."""
+    its three; probe_base, which trains through verify_probe, has none (a
+    ValueError, as in the JAX package)."""
     crit = train.make_criterion(TrainConfig(model_name=model_name, num_tasks=2.1))
     assert crit.keywords == dict(metric="dcg", rerank_weight=0.5, classi_weight=0.5,
                                  num_tasks=num_tasks)
-    with pytest.raises(NotImplementedError, match=model_name):
+    with pytest.raises(ValueError, match=model_name):
         train.make_criterion(TrainConfig(model_name="probe_base"))
 
 
