@@ -76,6 +76,20 @@ population of 8 members' epoch against 8 graphed sequential epochs; and
 MMOECut's population of 8 at a rate per member against the same
 population at one shared rate, epoch against epoch.
 
+Last, the export and data paths (`export_and_data_paths`): the host cost
+of an eager call through the `rlt::` custom ops (`ops/library.py`) against
+the wrappers; MMOECut, PLECut and Choopy exported (`rlt_tpu_torch/export.py`)
+in f32 and bf16 at buckets 1 and 64 (MMOECut also 256), loaded and served
+from their bundles, each bucket one CUDA graph, against the live graphed
+Predictor of the same weights (the same launches, the same cuts but at
+near-ties, the distributions within 1e-6 in f32 and one bf16 step in bf16,
+bucket 64 timed against live); `python -m rlt_tpu_torch.serve --exported`
+as a process of its own; doc2vec on the card (`data/doc2vec.py`), trained
+twice from one seed bit for bit, and one epoch against the CPU's; and the
+prep CLI (`python -m rlt_tpu_torch.data.prep --train-embeddings`) on a
+TREC run, qrels and docset written here, with one AttnCut epoch on the
+dataset it writes.
+
 Every time is the median of rounds taken in turns with what it is compared
 with (`rlt_tpu_torch/utils/timing.py`), printed with its spread; every
 train step, the bucket-64 and bucket-256 forwards and the population's
@@ -2627,7 +2641,14 @@ def stage_ms(model, batch: int, iters: int = 3) -> dict:
 PROBE_ROWS = 2 * BATCHES[0]
 HARNESS_PATHS = ("probe_base-verify", "attncut-verify_bmt", "choopy-verify_bmt",
                  "mmoecut-resume", "mmoecut-resume-bf16")
-ALL_PATHS = PATHS + BF16_PATHS + BF16_TRAIN_PATHS + POPULATION_PATHS + HARNESS_PATHS
+# the export and data paths (phase 10): each model's exported buckets in f32
+# and bf16 (MMOECut, PLECut and Choopy: every forward kernel instance), and
+# AttnCut trained on the dataset of the prep CLI
+EXPORT_BUCKETS = {"mmoecut": (1, 64, 256), "mtple": (1, 64), "choopy": (1, 64)}
+EXPORT_PATHS = tuple(f"{m}-export{d}" for m in EXPORT_BUCKETS for d in ("", "-bf16"))
+PREP_PATH = "attncut-prep-train"
+ALL_PATHS = (PATHS + BF16_PATHS + BF16_TRAIN_PATHS + POPULATION_PATHS + HARNESS_PATHS
+             + EXPORT_PATHS + (PREP_PATH,))
 # the epochs of each phase on the probe path, and of the resume path's two
 # runs against one uninterrupted run
 PROBE_EPOCHS = 2
@@ -2944,6 +2965,426 @@ def resume_end_to_end(compute_dtype: str, workdir: str) -> dict:
     return {"launches": launches, "epoch": epoch, "restore_s": restored["s"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the export and data paths (rlt_tpu_torch/export.py, data/)
+# ---------------------------------------------------------------------------
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# an exported forward against the live graphed forward of the same weights
+# (the same kernels through the same ops, on the same inputs): float32
+# distributions within EXPORT_F32_ATOL, bf16 ones within one bf16 step of
+# each value (`bf16_step`)
+EXPORT_F32_ATOL = 1e-6
+# the served lists of `serve --exported`, by request
+EXPORTED_LIST_COUNTS = (1, 5, 63)
+# doc2vec on the card: a synthetic corpus of D2V_DOCS documents of
+# D2V_DOC_LEN tokens, each mostly from one of D2V_TOPICS topics of
+# D2V_TOPIC_WORDS words and the rest from a second, trained twice from one
+# seed for D2V_EPOCHS epochs at vector_size 200; and one epoch at negatives
+# 0 on the first D2V_CHECK_DOCS documents against the same epoch on the CPU
+D2V_DOCS, D2V_DOC_LEN, D2V_TOPICS, D2V_TOPIC_WORDS = 2000, 200, 20, 150
+D2V_EPOCHS, D2V_DIM, D2V_CHECK_DOCS = 3, 200, 200
+# the card's epoch against the CPU's, max abs difference over the table's
+# max abs (the two sum each product in another order)
+D2V_CPU_REL = 1e-5
+# the prep CLI's input: a TREC run of PREP_QUERIES queries of SEQ_LEN
+# documents, each document's text PREP_DOC_WORDS words; AttnCut trains one
+# epoch on the dataset it writes at batch PREP_BATCH
+PREP_QUERIES, PREP_DOC_WORDS, PREP_BATCH = 24, 24, 16
+# the stat features of `--train-embeddings`: length, unique length, the
+# tf-idf and the doc2vec neighbor similarities, after the score
+PREP_FEATURES = 5
+# host us of one eager call of a forward op against its wrapper
+DISPATCH_CALLS, DISPATCH_ROUNDS = 50, 7
+
+
+def forward_ops(model_name: str, bf16: bool) -> list:
+    """The `rlt::` ops an exported forward of `model_name` calls."""
+    kernel = BF16_OF.get if bf16 else (lambda name: name)
+    ops = [] if BILSTM_LAYERS.get(model_name, 2) == 0 else [kernel("lstm_fwd")]
+    if ATTENTION_KERNELS[model_name]:
+        ops.append(kernel(ATTENTION_KERNELS[model_name][0]))
+    return sorted(f"rlt::{op}" for op in ops)
+
+
+def export_end_to_end(rng, model_name: str, compute_dtype: str, workdir: str) -> dict:
+    """`<model>-export[-bf16]`: the live graphed Predictor of `model_name`
+    (robust04 width, seeded weights) exported at EXPORT_BUCKETS[model_name]
+    (`save_exported`), the bundle loaded (`load_exported`) and served, each
+    bucket one CUDA graph: per bucket, the exported forward's launches
+    those of one live forward, its cuts the live cuts but at near-ties, its
+    distributions within EXPORT_F32_ATOL (bf16: one bf16 step), and whether
+    they are bit-equal; then bucket 64 timed, exported against live. The
+    path's launches are the exported buckets' forwards."""
+    from rlt_tpu_torch.config import TrainConfig
+    from rlt_tpu_torch.export import load_exported, save_exported
+    from rlt_tpu_torch.infer import Predictor
+    from rlt_tpu_torch.utils.timing import interleaved_ms
+
+    bf16 = compute_dtype == "bfloat16"
+    label = f"{model_name}-export" + ("-bf16" if bf16 else "")
+    buckets = EXPORT_BUCKETS[model_name]
+    cfg = TrainConfig(model_name=model_name, retrieve_data="robust04",
+                      compute_dtype=compute_dtype)
+    live = Predictor(cfg, device="cuda")
+    bundle = os.path.join(workdir, label)
+    t0 = time.perf_counter()
+    manifest = save_exported(bundle, live, buckets)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    exported = load_exported(bundle)
+    load_s = time.perf_counter() - t0
+    require(manifest["device"] == "cuda" and manifest["batch_sizes"] == list(buckets)
+            and manifest["custom_ops"] == forward_ops(model_name, bf16)
+            and exported.graphs, f"{label}: manifest {json.dumps(manifest)}")
+    inputs = {b: rng.normal(size=(b, SEQ_LEN, cfg.input_size)).astype(np.float32)
+              for b in buckets}
+    torch.cuda.synchronize()
+    reset_counts()  # the exported path's counts start here
+    outs, per_bucket = {}, {}
+    for b in buckets:  # the first forward of a bucket captures its graph
+        outs[b], per_bucket[b] = step_launches(
+            lambda: exported.predict_with_distribution(inputs[b]))
+    launches = read_counts()
+    want = want_counts(model_name, forwards=1, bf16=bf16)
+    rows = {}
+    for b in buckets:
+        (ks_live, d_live), live_launches = step_launches(
+            lambda: live.predict_with_distribution(inputs[b]))
+        ks, dist = outs[b]
+        require(per_bucket[b] == live_launches == want,
+                f"{label} bucket {b}: exported launches {per_bucket[b]}, live "
+                f"{live_launches}, want {want}")
+        require(dist.shape == d_live.shape and bool(np.all(np.isfinite(dist))),
+                f"{label} bucket {b}: distributions {dist.shape}")
+        err = float(np.abs(dist - d_live).max())
+        if bf16:
+            step = bf16_step(torch.from_numpy(d_live)).numpy()
+            require(bool(np.all(np.abs(dist - d_live) <= step)),
+                    f"{label} bucket {b}: distributions past one bf16 step (max abs {err})")
+            limit = float(step.max())
+        else:
+            limit = EXPORT_F32_ATOL
+            require(err <= limit, f"{label} bucket {b}: distribution err {err} > {limit}")
+        tied = tied_lists(model_name, d_live, limit)
+        require(bool(np.all((ks == ks_live) | tied)),
+                f"{label} bucket {b}: cuts {ks.tolist()} vs live {ks_live.tolist()}")
+        rows[b] = {"max_abs_err": err, "bit_equal": bool(np.array_equal(dist, d_live)),
+                   "cuts_equal": bool(np.array_equal(ks, ks_live)),
+                   "near_ties": int(tied.sum())}
+    require(launches == want_counts(model_name, forwards=len(buckets), bf16=bf16),
+            f"kernel launches on the {label} path: {launches}")
+    x = torch.from_numpy(inputs[64]).cuda()
+    t = interleaved_ms({"exported": lambda: exported._forward(x),
+                        "live": lambda: live._forward(x)}, 3, PATH_REPEATS, alternate=True)
+    timing = {name: {"ms": t[name]["median"], "spread_ms": [t[name]["min"], t[name]["max"]]}
+              for name in ("exported", "live")}
+    timing["exported_over_live"] = t["exported"]["median"] / t["live"]["median"]
+    res = {"export_s": export_s, "load_s": load_s, "custom_ops": manifest["custom_ops"],
+           "buckets": rows, "bucket_64": timing}
+    log(f"{label}: " + json.dumps(res))
+    return {"launches": launches, "result": res, "bundle": bundle}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def serve_exported_end_to_end(rng, bundle: str, workdir: str) -> dict:
+    """`python -m rlt_tpu_torch.serve --exported` on MMOECut's float32
+    bundle, as a process of its own with `--warmup` (every exported bucket
+    captured before traffic): requests of EXPORTED_LIST_COUNTS ragged lists
+    over HTTP, each in the smallest exported bucket that holds it, their
+    cuts against the live `TruncationService` of the same seeded weights
+    (near-ties aside), and `/stats` counting the requests."""
+    from rlt_tpu_torch.config import TrainConfig
+    from rlt_tpu_torch.serve import TruncationService
+
+    port = free_port()
+    log_path = os.path.join(workdir, "serve_exported.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log_file:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "rlt_tpu_torch.serve", "--exported", bundle,
+             "--port", str(port), "--warmup"], cwd=ROOT, stdout=log_file,
+            stderr=subprocess.STDOUT)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        while True:
+            require(proc.poll() is None, "serve --exported exited: "
+                    + open(log_path).read()[-4000:])
+            require(time.perf_counter() - t0 < 300, "serve --exported did not come up")
+            try:
+                health = get(base, "/healthz")
+                break
+            except OSError:
+                time.sleep(0.5)
+        ready_s = time.perf_counter() - t0
+        requests = []
+        for n_lists in EXPORTED_LIST_COUNTS:
+            lengths = rng.integers(1, SEQ_LEN + 1, size=n_lists)
+            lengths[0] = SEQ_LEN
+            feats = [rng.normal(size=(int(n), FEATURES)).astype(np.float32)
+                     for n in lengths]
+            requests.append({**request_lists(feats), "return_distribution": True})
+        outs = [post(base, body) for body in requests]
+        stats = get(base, "/stats")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    require(health["ok"] and health["model"] == "mmoecut" and health["seq_len"] == SEQ_LEN
+            and health["max_batch"] == 256, f"serve --exported healthz: {health}")
+    require(stats["requests"] == len(requests) and stats["dispatches"] == len(requests)
+            and stats["lists_served"] == sum(EXPORTED_LIST_COUNTS),
+            f"serve --exported stats: {stats}")
+    service = TruncationService(TrainConfig(model_name="mmoecut", retrieve_data="robust04"),
+                                max_batch=256, device="cuda")
+    moved = 0
+    for body, out in zip(requests, outs):
+        want = service.truncate(body)
+        ks, want_ks = np.asarray(out["k"]), np.asarray(want["k"])
+        tied = np.asarray([np.ptp(np.sort(d)[-2:]) <= EXPORT_F32_ATOL if len(d) > 1 else False
+                           for d in map(np.asarray, want["distribution"])])
+        bucket = min(b for b in EXPORT_BUCKETS["mmoecut"] if b >= len(ks))
+        require(out["bucket"] == bucket and bool(np.all((ks == want_ks) | tied)),
+                f"serve --exported cuts {ks.tolist()} (bucket {out['bucket']}, want "
+                f"{bucket}) vs the live service's {want_ks.tolist()}")
+        moved += int(np.sum(ks != want_ks))
+    service.close()
+    res = {"ready_s": ready_s, "requests": stats["requests"],
+           "lists_served": stats["lists_served"], "latency_ms": stats["latency_ms"],
+           "cuts_moved_at_near_ties": moved}
+    log("mmoecut serve --exported: " + json.dumps(res))
+    return res
+
+
+def topic_corpus(rng, docs: int, doc_len: int, topics: int, topic_words: int,
+                 word=lambda i: f"w{i}") -> tuple[list, np.ndarray]:
+    """`docs` token lists of `doc_len` tokens: each document mostly (70%)
+    from its own topic's `topic_words` words, the rest from a second topic.
+    Returns (the corpus, each document's main topic)."""
+    main = rng.integers(0, topics, size=docs)
+    second = (main + rng.integers(1, topics, size=docs)) % topics
+    corpus = []
+    for a, b in zip(main, second):
+        topic = np.where(rng.random(doc_len) < 0.7, a, b)
+        ids = topic * topic_words + rng.integers(0, topic_words, size=doc_len)
+        corpus.append([word(int(i)) for i in ids])
+    return corpus, main
+
+
+def doc2vec_end_to_end() -> dict:
+    """doc2vec (`data/doc2vec.py`) on the card: the D2V_DOCS-document topic
+    corpus trained twice from one seed, the document and word vectors bit
+    for bit the same (the epoch's sorted row updates); ms per epoch and
+    (doc, word) pairs per second; and one epoch at negatives 0 (no random
+    draw) on the first D2V_CHECK_DOCS documents against the same epoch on
+    the CPU."""
+    from rlt_tpu_torch.data import doc2vec
+
+    corpus, _ = topic_corpus(np.random.default_rng(200), D2V_DOCS, D2V_DOC_LEN, D2V_TOPICS,
+                             D2V_TOPIC_WORDS)
+    runs, seconds = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs.append(doc2vec.train_doc2vec(corpus, vector_size=D2V_DIM, epochs=D2V_EPOCHS,
+                                          seed=7, device="cuda"))
+        seconds.append(time.perf_counter() - t0)
+    a, b = runs
+    require(np.isfinite(a.docvecs).all() and np.isfinite(a.wordvecs).all()
+            and a.docvecs.shape == (D2V_DOCS, D2V_DIM), "doc2vec: vectors")
+    require(np.array_equal(a.docvecs, b.docvecs) and np.array_equal(a.wordvecs, b.wordvecs),
+            "doc2vec: two runs from one seed differ on the card")
+    pairs, counts = doc2vec._corpus_pairs(corpus, a.vocab)
+
+    # one epoch with no draw, on the card and on the CPU, from one table
+    sub = corpus[:D2V_CHECK_DOCS]
+    vocab = doc2vec.build_doc2vec_vocab(sub)
+    sub_pairs, sub_counts = doc2vec._corpus_pairs(sub, vocab)
+    batched = torch.from_numpy(doc2vec.corpus_batches(sub_pairs, 256,
+                                                      np.random.default_rng(0)))
+    cdf = torch.from_numpy(doc2vec.negative_cdf(sub_counts))
+    g = torch.Generator().manual_seed(0)
+    d0 = torch.rand(len(sub), D2V_DIM, generator=g) - 0.5
+    w0 = torch.rand(len(vocab), D2V_DIM, generator=g) - 0.5
+    out = {}
+    for dev in ("cpu", "cuda"):
+        out[dev] = doc2vec.epoch(d0.to(dev), w0.to(dev), batched, cdf.to(dev), 0.025,
+                                 torch.Generator(device=dev), 0)
+    rel = max(((c.cpu() - p).abs().max() / p.abs().max()).item()
+              for c, p in zip(out["cuda"], out["cpu"]))
+    require(rel <= D2V_CPU_REL, f"doc2vec: the card's epoch against the CPU's: {rel}")
+    epoch_ms = [s / D2V_EPOCHS * 1e3 for s in seconds]
+    res = {"docs": D2V_DOCS, "vocab": len(a.vocab), "pairs": int(pairs.shape[0]),
+           "dim": D2V_DIM, "epochs": D2V_EPOCHS, "bit_equal": True,
+           "ms_per_epoch": epoch_ms, "pairs_per_s": [pairs.shape[0] / m * 1e3 for m in epoch_ms],
+           "steps_per_epoch": int(pairs.shape[0] // 256),
+           "card_vs_cpu_epoch_rel": rel}
+    log("doc2vec: " + json.dumps(res))
+    return res
+
+
+def prep_end_to_end(workdir: str) -> dict:
+    """`python -m rlt_tpu_torch.data.prep` end to end on the card: a TREC
+    run of PREP_QUERIES queries of SEQ_LEN documents, its qrels, and a
+    docset of raw text written here, with `--train-embeddings` (doc2vec
+    on the card, the CLI's defaults); the dataset it writes loads as
+    AttnCut's (the score and PREP_FEATURES - 1 stat features), and the
+    port's Trainer trains AttnCut one epoch on it, through the kernels. The
+    path's launches are that epoch's."""
+    import pickle
+
+    from rlt_tpu_torch.config import TrainConfig
+    from rlt_tpu_torch.data import load_pkl_dataset
+    from rlt_tpu_torch.train import Trainer
+
+    rng = np.random.default_rng(210)
+    letters = "abcdefghijklmnopqrstuvwxyz"
+
+    def word(i: int) -> str:  # letters only: the cleaning drops digits
+        return "zq" + letters[i // 26 % 26] + letters[i % 26]
+
+    docs = PREP_QUERIES * SEQ_LEN
+    corpus, _ = topic_corpus(rng, docs, PREP_DOC_WORDS, 8, 40, word)
+    docset = {f"d{i}": {"title": " ".join(toks[:4]).title() + ".",
+                        "abstractText": " ".join(toks[4:]) + " and the 1994 U.S. report"}
+              for i, toks in enumerate(corpus)}
+    run, qrels = [], []
+    for q in range(PREP_QUERIES):
+        for r in range(SEQ_LEN):
+            doc = f"d{q * SEQ_LEN + r}"
+            run.append(f"q{q} Q0 {doc} {r + 1} {100.0 - r * 0.25 + rng.random() * 0.1:.4f} smoke")
+            qrels.append(f"q{q} 0 {doc} {int(rng.random() < 0.3 * np.exp(-r / 60))}")
+    paths = {name: os.path.join(workdir, name) for name in ("run.txt", "qrels.txt",
+                                                           "docset.pkl", "data")}
+    for name, lines in (("run.txt", run), ("qrels.txt", qrels)):
+        with open(paths[name], "w") as f:
+            f.write("\n".join(lines) + "\n")
+    with open(paths["docset.pkl"], "wb") as f:
+        pickle.dump(docset, f)
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "rlt_tpu_torch.data.prep", "--run", paths["run.txt"],
+         "--qrels", paths["qrels.txt"], "--docset-pkl", paths["docset.pkl"],
+         "--train-embeddings", "--out", paths["data"], "--dataset-name", "bm25",
+         "--seq-len", str(SEQ_LEN)], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    prep_s = time.perf_counter() - t0
+    require(out.returncode == 0, f"prep CLI failed: {out.stdout[-2000:]}{out.stderr[-4000:]}")
+    data = load_pkl_dataset(paths["data"], "robust04", "bm25", "attncut")
+    n = data.x_train.shape[0] + data.x_test.shape[0]
+    require(data.x_train.shape[1:] == (SEQ_LEN, PREP_FEATURES) and n > 0
+            and np.isfinite(data.x_train).all() and np.isfinite(data.x_test).all(),
+            f"prep dataset: {data.x_train.shape}, {data.x_test.shape}")
+    cfg = TrainConfig(model_name="attncut", dataset_base=paths["data"],
+                      retrieve_data="robust04", dataset_name="bm25", batch_size=PREP_BATCH,
+                      epochs=1, input_size_override=PREP_FEATURES)
+    trainer = Trainer(cfg, device="cuda")
+    torch.cuda.synchronize()
+    reset_counts()  # the path's counts start here
+    t0 = time.perf_counter()
+    summary = trainer.run()
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    launches = read_counts()
+    steps, tests = trainer.data.train_batches, trainer.data.test_batches
+    want = want_counts("attncut", forwards=tests, steps=steps)
+    require(launches == want, f"kernel launches on the {PREP_PATH} path: {launches}, "
+            f"want {want}")
+    metrics = trainer.history[0]
+    require(all(np.isfinite(v) for k, v in metrics.items() if k != "train_loss_steps")
+            and all(np.isfinite(metrics["train_loss_steps"])), f"metrics {metrics}")
+    res = {"queries": n, "prep_cli_s": prep_s, "prep_cli_says": out.stdout.strip()[-200:],
+           "features": PREP_FEATURES, "train_steps": steps, "test_batches": tests,
+           "epoch_s": epoch_s, "metrics": {k: v for k, v in metrics.items()
+                                           if k != "train_loss_steps"},
+           "summary": summary}
+    log(f"{PREP_PATH}: " + json.dumps(res))
+    return {"launches": launches, "result": res}
+
+
+def host_us(fn, calls: int = DISPATCH_CALLS) -> float:
+    """Host us of one call of `fn`, `calls` back to back with no wait (the
+    kernels queue on the card)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def op_dispatch(dev, rng) -> dict:
+    """The host cost of the `rlt::` custom ops: an eager call of K1' (ndir
+    2, B = 63) and of K5' (N = 189, dh 64) through its op, as the autograd
+    Functions call it, against a call of its wrapper, in turns
+    (DISPATCH_ROUNDS rounds, medians)."""
+    from rlt_tpu_torch.ops import attention, lstm
+
+    xw = torch.from_numpy(rng.normal(size=(SEQ_LEN, 2 * BATCHES[0], 4 * HIDDEN))
+                          .astype(np.float32)).to(dev)
+    w = lstm_weights(rng, 2, dev)
+    q, k, v = (torch.from_numpy(rng.normal(size=(PACKED_ROWS[0], SEQ_LEN, D_MODEL))
+                                .astype(np.float32)).to(dev) for _ in range(3))
+    pack = attention.packed_group_size(D_MODEL, HEADS)
+    cases = {
+        "lstm_fwd": (lambda: torch.ops.rlt.lstm_fwd(xw, w, 2),
+                     lambda: lstm.lstm_fwd(xw, w, 2)),
+        "attention_packed_fwd": (
+            lambda: torch.ops.rlt.attention_packed_fwd(q, k, v, HEADS, pack, 0.0, None,
+                                                       None, None, None),
+            lambda: attention.attention_packed_fwd(q, k, v, HEADS, pack))}
+    res = {}
+    for name, (op, wrapper) in cases.items():
+        rounds = {"op": [], "wrapper": []}
+        for r in range(DISPATCH_ROUNDS):
+            for which in (("op", "wrapper") if r % 2 == 0 else ("wrapper", "op")):
+                rounds[which].append(host_us(op if which == "op" else wrapper))
+        med = {which: float(np.median(t)) for which, t in rounds.items()}
+        res[name] = {"op_host_us": med["op"], "wrapper_host_us": med["wrapper"],
+                     "op_cost_us": med["op"] - med["wrapper"],
+                     "spread_us": {which: [min(t), max(t)] for which, t in rounds.items()}}
+    log("op dispatch: " + json.dumps(res))
+    return res
+
+
+def export_and_data_paths(dev) -> tuple[dict, dict]:
+    """Phase 10: the op dispatch cost; MMOECut, PLECut and Choopy exported in
+    f32 and bf16 and served from their bundles (together every forward
+    kernel instance: K1', K3', and K5' at dh 64 and 16); `serve --exported`
+    of MMOECut f32 as a process of its own; doc2vec on the card; the prep
+    CLI and an AttnCut epoch on its dataset. Returns (the paths' launches,
+    the results)."""
+    launches, results = {}, {"op_dispatch": op_dispatch(dev, np.random.default_rng(220))}
+    rng = np.random.default_rng(230)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as workdir:
+        for model_name in EXPORT_BUCKETS:
+            for dtype, suffix in (("float32", ""), ("bfloat16", "-bf16")):
+                res = export_end_to_end(rng, model_name, dtype, workdir)
+                launches[f"{model_name}-export{suffix}"] = res["launches"]
+                results[f"{model_name}-export{suffix}"] = res["result"]
+                if (model_name, dtype) == ("mmoecut", "float32"):
+                    results["mmoecut-serve-exported"] = serve_exported_end_to_end(
+                        rng, res["bundle"], workdir)
+                free_card()
+        results["doc2vec"] = doc2vec_end_to_end()
+        free_card()
+        res = prep_end_to_end(workdir)
+        launches[PREP_PATH] = res["launches"]
+        results[PREP_PATH] = res["result"]
+        free_card()
+    return launches, results
+
+
 def kernel_name(line: str) -> str:
     """A kernel's name in a line of ptxas, with its template arguments:
     `attn_packed_fwd_kernel<16, 4>` for the mangled
@@ -3212,6 +3653,9 @@ def main() -> int:
                 dtype, os.path.join(workdir, f"resume{suffix}"))
             free_card()
     launches.update({path: res["launches"] for path, res in harness.items()})
+    marks.append(("export and data paths", time.perf_counter()))
+    export_launches, export_res = export_and_data_paths(dev)
+    launches.update(export_launches)
     marks.append(("end", time.perf_counter()))
     log(json.dumps({"phase_seconds": {name: marks[i + 1][1] - t for i, (name, t) in
                                       enumerate(marks[:-1])}}))
@@ -3365,6 +3809,7 @@ def main() -> int:
     resume_epochs = {path: harness[path]["epoch"] for path in HARNESS_PATHS
                      if "resume" in path}
     log(json.dumps({"harness_timing": {"probe_base-verify": probe_timing, **resume_epochs}}))
+    log(json.dumps({"export_and_data": export_res}))
     busy_rows = [res[name] for res in population_res for name in ("population", "sequential")]
     busy_rows += [res[name] for res in rate_timing for name in ("per_member", "shared")]
     busy_rows += [probe_timing[step][name] for step in ("base_step", "probe_step")

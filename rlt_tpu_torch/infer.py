@@ -4,8 +4,10 @@ The counterpart of the JAX package's `infer.py`: weights + (B, L, F)
 features -> per-list cut positions (and the cut distribution). It runs on
 the CUDA card unless the caller passes `device="cpu"`, where the kernels'
 plain PyTorch versions run instead. Weights come from the model's own seeded
-initialisation, a torch state_dict file (`--model-path`), or a JAX
-parameter tree through `rlt_tpu_torch.utils.convert.params_from_jax`.
+initialisation, a torch state_dict file (`--model-path`; a JAX trainer's
+checkpoint becomes one through `scripts/jax_checkpoint_to_torch.py`), or a
+JAX parameter tree through `rlt_tpu_torch.utils.convert.params_from_jax`.
+The forward (`ForwardBody`) is what `rlt_tpu_torch.export` exports.
 
 `compute_dtype="bfloat16"` serves as the JAX package's `Predictor` does
 with it: every float32 parameter and the (B, L, F) features are cast to
@@ -19,10 +21,11 @@ checkpoint holds). Training in bf16 casts the same way inside each step
 On the card each batch size is one CUDA graph, as the JAX package serves
 each shape through one jitted `_predict`: the forward with its casts and
 the decode of the cuts, captured at the first forward of that size into a
-static (B, L, F) buffer (`rlt_tpu_torch/utils/graphs.py`; one memory pool
-for all sizes) and replayed for every forward after it. `graphs=False`
-serves eager on the card, for reference runs through `ops.plain_ops()`
-(which refuses graphs) and to hold the graphs to. The CPU serves eager.
+static (B, L, F) buffer (`rlt_tpu_torch/utils/graphs.py::GraphedBuckets`;
+one memory pool for all sizes) and replayed for every forward after it.
+`graphs=False` serves eager on the card, for reference runs through
+`ops.plain_ops()` (which refuses graphs) and to hold the graphs to. The CPU
+serves eager.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ import torch
 from rlt_tpu_torch.config import TrainConfig
 from rlt_tpu_torch.models import build_model, is_multi_head
 from rlt_tpu_torch.utils import metrics as metrics_lib
-from rlt_tpu_torch.utils.graphs import GraphedCall, use_graphs
+from rlt_tpu_torch.utils.graphs import GraphedBuckets, use_graphs
 from rlt_tpu_torch.utils.platform import resolve_device
 from rlt_tpu_torch.utils.timing import REPEATS, interleaved_ms
 
@@ -72,6 +75,32 @@ def to_float32(output):
     return output.float()
 
 
+class ForwardBody(torch.nn.Module):
+    """What one serving forward computes, as a module: (B, L, F) float32
+    features -> (cuts (B,) int32, distributions). The features are cast to
+    the compute dtype, the served module `net` runs, its outputs come back
+    in float32, and the cuts are decoded; the distribution is the cut
+    head's (B, L), or BiCut's (B, L, 2) decision probabilities. A
+    Predictor's graphs capture it, and `rlt_tpu_torch.export` exports it
+    whole, its weights held in the program."""
+
+    def __init__(self, net: torch.nn.Module, model_name: str, dtype: torch.dtype):
+        super().__init__()
+        self.net = net
+        self.model_name = model_name
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor):
+        output = to_float32(self.net(x.to(self.dtype)))
+        ks = decode_ks(self.model_name, output)
+        if self.model_name == "bicut":
+            dist = output  # (B, L, 2) decision probabilities
+        else:
+            cut = output[-1] if is_multi_head(self.model_name) else output
+            dist = cut[..., 0] if cut.dim() == 3 else cut
+        return ks, dist
+
+
 class Predictor:
     """Truncation predictor for one model family on one device: each batch
     size one CUDA graph (`graphs`, the default on a CUDA device), or eager
@@ -103,21 +132,11 @@ class Predictor:
         # before any capture and never moved after it
         self.net = (self.model if self.dtype == torch.float32
                     else copy.deepcopy(self.model).to(self.dtype))
-        # batch size -> (its static input, its graph), captured at first use
-        self._graphed: dict[int, tuple[torch.Tensor, GraphedCall]] = {}
-        if graphs:
-            self._pool = torch.cuda.graph_pool_handle()
-
-    def _bucket(self, batch_size: int) -> tuple[torch.Tensor, GraphedCall]:
-        if batch_size not in self._graphed:
-            static = torch.zeros(batch_size, self.cfg.seq_len, self.cfg.input_size,
-                                 device=self.device)
-            # thread_local: a server captures on its worker thread while
-            # other threads run
-            self._graphed[batch_size] = (static, GraphedCall(
-                lambda: self._forward_body(static), pool=self._pool,
-                capture_error_mode="thread_local"))
-        return self._graphed[batch_size]
+        self.body = ForwardBody(self.net, cfg.model_name, self.dtype)
+        # each batch size's graph, captured at first use
+        self._buckets = (GraphedBuckets((cfg.seq_len, cfg.input_size), self.device,
+                                        lambda batch: self.body)
+                         if graphs else None)
 
     @torch.inference_mode()
     def _forward(self, x: torch.Tensor):
@@ -126,30 +145,18 @@ class Predictor:
         graph replayed, and the outputs are the graph's own, which the next
         forward of size B overwrites."""
         if not self.graphs:
-            return self._forward_body(x)
-        static, graph = self._bucket(x.shape[0])
-        static.copy_(x)
-        return graph()
+            return self.body(x)
+        return self._buckets(x)
 
     @torch.inference_mode()
     def prepare(self, batch_size: int) -> None:
         """Ready the forward of `batch_size` lists before traffic: capture
         its graph (graphed), or run it once (eager)."""
         if self.graphs:
-            self._bucket(batch_size)
+            self._buckets.prepare(batch_size)
         else:
             self._forward(torch.zeros(batch_size, self.cfg.seq_len,
                                       self.cfg.input_size, device=self.device))
-
-    def _forward_body(self, x: torch.Tensor):
-        output = to_float32(self.net(x.to(self.dtype)))
-        ks = decode_ks(self.cfg.model_name, output)
-        if self.cfg.model_name == "bicut":
-            dist = output  # (B, L, 2) decision probabilities
-        else:
-            cut = output[-1] if is_multi_head(self.cfg.model_name) else output
-            dist = cut[..., 0] if cut.dim() == 3 else cut
-        return ks, dist
 
     def _to_device(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x, np.float32)).to(self.device)

@@ -3,6 +3,7 @@
 import contextlib
 
 from rlt_tpu_torch.ops import attention, lstm
+from rlt_tpu_torch.ops import library  # noqa: F401  (registers the rlt:: forward ops)
 from rlt_tpu_torch.ops.attention import (  # noqa: F401
     ATTENTION_BWD,
     ATTENTION_BWD_BF16,

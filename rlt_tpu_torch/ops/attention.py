@@ -626,17 +626,27 @@ def attention_packed_bwd_bf16(q, k, v, o, lse, do, heads: int, pack: int,
                        streams)
 
 
+def _op_dropout(dropout_rate: float | RowDropout, streams) -> tuple:
+    """The forward ops' dropout arguments (`ops/library.py`): rate, streams,
+    and a `RowDropout`'s row_rate, row_threshold and row_scale, or None."""
+    if isinstance(dropout_rate, RowDropout):
+        return (0.0, streams, *dropout_rate)
+    return (float(dropout_rate), streams, None, None, None)
+
+
 class AttentionPacked(torch.autograd.Function):
-    """Forward K5' (`attention_packed_fwd`, or `attention_packed_fwd_bf16`
-    for bf16 q), backward K6' (`attention_packed_bwd`, or
-    `attention_packed_bwd_bf16`); lse is returned but takes no gradient. The
-    wrappers are looked up as module attributes at each call."""
+    """Forward K5' (the op `rlt::attention_packed_fwd`, or its `_bf16` twin
+    for bf16 q, which call `attention_packed_fwd` and
+    `attention_packed_fwd_bf16`; `ops/library.py`), backward K6'
+    (`attention_packed_bwd`, or `attention_packed_bwd_bf16`); lse is
+    returned but takes no gradient. The wrappers are looked up as module
+    attributes at each call."""
 
     @staticmethod
     def forward(ctx, q, k, v, heads, pack, dropout_rate, streams):
-        fwd = (attention_packed_fwd_bf16 if q.dtype == torch.bfloat16
-               else attention_packed_fwd)
-        o, lse = fwd(q, k, v, heads, pack, dropout_rate, streams)
+        fwd = (torch.ops.rlt.attention_packed_fwd_bf16 if q.dtype == torch.bfloat16
+               else torch.ops.rlt.attention_packed_fwd)
+        o, lse = fwd(q, k, v, heads, pack, *_op_dropout(dropout_rate, streams))
         ctx.save_for_backward(q, k, v, o, lse, streams)
         ctx.args = (heads, pack, dropout_rate)
         ctx.mark_non_differentiable(lse)
@@ -758,15 +768,17 @@ def attention_bwd_bf16(q, k, v, o, lse, do, dropout_rate: DropoutRate = 0.0,
 
 
 class Attention(torch.autograd.Function):
-    """Forward K3' (`attention_fwd`, or `attention_fwd_bf16` for bf16 q),
-    backward K4' (`attention_bwd`, or `attention_bwd_bf16`); lse is returned
-    but takes no gradient. The wrappers are looked up as module attributes
-    at each call."""
+    """Forward K3' (the op `rlt::attention_fwd`, or `rlt::attention_fwd_bf16`
+    for bf16 q, which call `attention_fwd` and `attention_fwd_bf16`;
+    `ops/library.py`), backward K4' (`attention_bwd`, or
+    `attention_bwd_bf16`); lse is returned but takes no gradient. The
+    wrappers are looked up as module attributes at each call."""
 
     @staticmethod
     def forward(ctx, q, k, v, dropout_rate, streams):
-        fwd = attention_fwd_bf16 if q.dtype == torch.bfloat16 else attention_fwd
-        o, lse = fwd(q, k, v, dropout_rate, streams)
+        fwd = (torch.ops.rlt.attention_fwd_bf16 if q.dtype == torch.bfloat16
+               else torch.ops.rlt.attention_fwd)
+        o, lse = fwd(q, k, v, *_op_dropout(dropout_rate, streams))
         ctx.save_for_backward(q, k, v, o, lse, streams)
         ctx.rate = dropout_rate
         ctx.mark_non_differentiable(lse)

@@ -327,10 +327,11 @@ def lstm_bwd_bf16(xw: torch.Tensor, w_hh_t: torch.Tensor, hs: torch.Tensor,
 
 
 class LSTMRecurrence(torch.autograd.Function):
-    """Forward K1' (`lstm_fwd`, or `lstm_fwd_bf16` for bf16 xw), backward
-    K2' (`lstm_bwd`, or `lstm_bwd_bf16`) over `ndir` directions, looked up
-    as module attributes at each call; it saves xw, W_hh^T, hs and cs, as
-    the JAX package's custom_vjp does. Beside bf16 xw, W_hh^T may be f32
+    """Forward K1' (the op `rlt::lstm_fwd`, or `rlt::lstm_fwd_bf16` for
+    bf16 xw, which call `lstm_fwd` and `lstm_fwd_bf16`; `ops/library.py`),
+    backward K2' (`lstm_bwd`, or `lstm_bwd_bf16`) over `ndir` directions,
+    the wrappers looked up as module attributes at each call; it saves xw,
+    W_hh^T, hs and cs, as the JAX package's custom_vjp does. Beside bf16 xw, W_hh^T may be f32
     (the master weight of a bf16 training step): it is rounded to bf16 for
     the kernels here, and its gradient, K2''s f32 sum, is returned in f32,
     which autograd would round to bf16 had the Function received W_hh^T in
@@ -340,7 +341,8 @@ class LSTMRecurrence(torch.autograd.Function):
     def forward(ctx, xw, w_hh_t, ndir=1):
         bf16 = xw.dtype == torch.bfloat16
         w = w_hh_t.to(torch.bfloat16) if bf16 else w_hh_t
-        hs, cs = (lstm_fwd_bf16 if bf16 else lstm_fwd)(xw, w, ndir)
+        fwd = torch.ops.rlt.lstm_fwd_bf16 if bf16 else torch.ops.rlt.lstm_fwd
+        hs, cs = fwd(xw, w, ndir)
         ctx.save_for_backward(xw, w, hs, cs)
         ctx.ndir = ndir
         return hs

@@ -1,15 +1,20 @@
 """Truncation server: HTTP JSON API over the port's Predictor.
 
-The counterpart of the JAX package's `serve.py` (without its AOT-bundle
-mode, which is not ported). It wraps `rlt_tpu_torch.infer.Predictor`, on the
-CUDA card unless `--device cpu` is given, with:
+The counterpart of the JAX package's `serve.py`. It wraps
+`rlt_tpu_torch.infer.Predictor`, on the CUDA card unless `--device cpu` is
+given, or with `--exported DIR` the `ExportedPredictor` of a bundle that
+`python -m rlt_tpu_torch.export` wrote (`rlt_tpu_torch/export.py`: the
+config comes from its manifest, and max_batch is capped at its largest
+bucket), with:
 
 * **power-of-two bucketing** — requests are zero-padded up to the next
   power-of-two batch (<= max_batch), so the card sees at most
-  log2(max_batch)+1 batch shapes (`bucket_sizes`); pad rows are sliced off
-  the response. On the card each bucket is one CUDA graph, captured at its
-  first dispatch (or by `--warmup`, every bucket before traffic) and
-  replayed under the device lock.
+  log2(max_batch)+1 batch shapes (`bucket_sizes`), or with `--exported` up
+  to the smallest of the bundle's buckets that holds them; pad rows are
+  sliced off the response. On the card each bucket is one CUDA graph,
+  captured at its first dispatch (or by `--warmup`, every bucket before
+  traffic; with `--exported`, every exported bucket) and replayed under
+  the device lock.
 * **ragged list handling** — ranked lists shorter than the model's seq_len
   are zero-padded (the training convention) and the returned cut k is
   clamped to the true list length.
@@ -80,9 +85,14 @@ class TruncationService:
     can also drive it directly."""
 
     def __init__(self, cfg: TrainConfig, state_dict=None, max_batch: int = 256,
-                 microbatch: bool = False, max_wait_ms: float = 2.0, device=None):
+                 microbatch: bool = False, max_wait_ms: float = 2.0, device=None,
+                 predictor=None):
         self.cfg = cfg
-        self.predictor = Predictor(cfg, state_dict=state_dict, device=device)
+        # `predictor` may be any object with predict_with_distribution and
+        # prepare: notably an rlt_tpu_torch.export.ExportedPredictor
+        # serving a bundle
+        self.predictor = (predictor if predictor is not None
+                          else Predictor(cfg, state_dict=state_dict, device=device))
         self.max_batch = max_batch
         self._lock = threading.Lock()
         self._latencies = deque(maxlen=1024)  # seconds, per /truncate call
@@ -144,12 +154,19 @@ class TruncationService:
 
     # -- serving ------------------------------------------------------------
 
+    def _bucket_for(self, n: int) -> int:
+        # a bundle carries a fixed bucket list; defer to it, so that the
+        # reported bucket is the one that runs (no padding twice)
+        if hasattr(self.predictor, "bucket_for"):
+            return self.predictor.bucket_for(n)
+        return bucket_size(n, self.max_batch)
+
     def _dispatch(self, x: np.ndarray):
         """Pad `x` to its bucket and run ONE device program under the device
         lock. Returns (cuts, distributions, bucket) for the first x.shape[0]
         rows."""
         n = x.shape[0]
-        b = bucket_size(n, self.max_batch)
+        b = self._bucket_for(n)
         if b > n:  # pad to the bucket's static shape
             x = np.concatenate([x, np.zeros((b - n,) + x.shape[1:], x.dtype)])
         with self._lock:
@@ -236,9 +253,10 @@ class TruncationService:
         return out
 
     def warmup(self) -> list[int]:
-        """Ready every bucket before traffic, under the device lock: on the
-        card, capture its graph. Returns the buckets."""
-        sizes = bucket_sizes(self.max_batch)
+        """Ready every bucket a request can take before traffic, under the
+        device lock: on the card, capture its graph. Returns the buckets:
+        the power-of-two ones, or a bundle's own."""
+        sizes = sorted({self._bucket_for(n) for n in range(1, self.max_batch + 1)})
         with self._lock:
             for b in sizes:
                 self.predictor.prepare(b)
@@ -321,6 +339,9 @@ def main(argv=None):
     p.add_argument("--model-name", type=str, default="mmoecut")
     p.add_argument("--model-path", type=str, default=None,
                    help="torch state_dict file (torch.save(model.state_dict()))")
+    p.add_argument("--exported", type=str, default=None,
+                   help="serve a bundle of python -m rlt_tpu_torch.export "
+                   "instead of building the model")
     p.add_argument("--retrieve-data", type=str, default="robust04",
                    help="shape preset: robust04 (L=300) | mq2007 (L=40)")
     p.add_argument("--compute-dtype", type=str, default="float32",
@@ -341,13 +362,25 @@ def main(argv=None):
                    "capture its CUDA graph)")
     args = p.parse_args(argv)
 
-    cfg = TrainConfig(model_name=args.model_name, model_path=args.model_path,
-                      retrieve_data=args.retrieve_data,
-                      compute_dtype=args.compute_dtype)
-    service = TruncationService(cfg, max_batch=args.max_batch,
-                                microbatch=args.microbatch,
-                                max_wait_ms=args.max_wait_ms,
-                                device=args.device)
+    if args.exported:
+        from rlt_tpu_torch.export import load_exported
+
+        predictor = load_exported(args.exported, device=args.device)
+        m = predictor.manifest
+        cfg = TrainConfig(model_name=m["model_name"], seq_len_override=m["seq_len"],
+                          input_size_override=m["input_size"],
+                          compute_dtype=m["compute_dtype"])
+        service = TruncationService(cfg, max_batch=min(args.max_batch, predictor.max_batch),
+                                    microbatch=args.microbatch,
+                                    max_wait_ms=args.max_wait_ms, predictor=predictor)
+    else:
+        cfg = TrainConfig(model_name=args.model_name, model_path=args.model_path,
+                          retrieve_data=args.retrieve_data,
+                          compute_dtype=args.compute_dtype)
+        service = TruncationService(cfg, max_batch=args.max_batch,
+                                    microbatch=args.microbatch,
+                                    max_wait_ms=args.max_wait_ms,
+                                    device=args.device)
     if args.warmup:
         logger.info("warmup: buckets %s ready", service.warmup())
     server = make_server(service, args.host, args.port)

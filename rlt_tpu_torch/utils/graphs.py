@@ -200,3 +200,36 @@ class GraphedSteps:
                 lambda: body(self.idx, self.valid), pool=self.pool,
                 **(self.state if split == "train" else {}))
         return graph().clone()
+
+
+class GraphedBuckets:
+    """A serving forward's CUDA graphs, one per batch size B: `body(B)`, a
+    callable of one (B, *tail) float32 input, captured at the first forward
+    of size B into a static input of that shape and replayed for every
+    forward after it, all sizes in one memory pool. Each capture is
+    "thread_local": a server captures on its worker thread while other
+    threads run. A size's outputs are the graph's own, which the next
+    forward of that size overwrites."""
+
+    def __init__(self, tail: tuple, device, body: Callable[[int], Callable]):
+        self.tail = tuple(tail)
+        self.device = device
+        self.body = body
+        self.graphs: dict[int, tuple[torch.Tensor, GraphedCall]] = {}
+        self.pool = torch.cuda.graph_pool_handle()
+
+    def prepare(self, batch: int) -> None:
+        """Capture size `batch`'s graph, if it has none yet."""
+        if batch not in self.graphs:
+            static = torch.zeros((batch, *self.tail), device=self.device)
+            fn = self.body(batch)
+            self.graphs[batch] = (static, GraphedCall(
+                lambda: fn(static), pool=self.pool, capture_error_mode="thread_local"))
+
+    def __call__(self, x: torch.Tensor):
+        """The forward of x: copied into its size's static input, and that
+        size's graph replayed."""
+        self.prepare(x.shape[0])
+        static, graph = self.graphs[x.shape[0]]
+        static.copy_(x)
+        return graph()

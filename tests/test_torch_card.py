@@ -1234,3 +1234,111 @@ def test_graphed_resume_equals_the_uninterrupted_run_on_card(cuda_device, tmp_pa
             assert torch.equal(resumed.optimizer.state[p][key], value), key
     assert torch.equal(resumed.generator.get_state(), whole.generator.get_state())
     assert summary == whole.summary()
+
+
+# ---------------------------------------------------------------------------
+# The forward kernels as `rlt::` custom ops (ops/library.py), the exported
+# bundle and doc2vec on the card
+# ---------------------------------------------------------------------------
+
+def _op_cases(device):
+    """(op name, op call, wrapper call, plain call, kernel) of each forward
+    op at a main path's shape: K1' ndir 2 B 63, K3' PLECut's 63 x 2 slices
+    at rate 0.1, K5' 189 rows at dh 64 and 63 rows at dh 16 at rate 0.1,
+    each in f32 and bf16."""
+    from rlt_tpu_torch.ops import library  # noqa: F401
+
+    xw, w = (torch.from_numpy(a).to(device) for a in _lstm_inputs(31, 300, 63, 128, 2))
+    q3, k3, v3 = (torch.from_numpy(a).to(device) for a in _qkv(32, (63, 2, 300, 128)))
+    q5, k5, v5 = (torch.from_numpy(a).to(device) for a in _qkv(33, (189, 300, 256)))
+    q16, k16, v16 = (torch.from_numpy(a).to(device) for a in _qkv(34, (63, 300, 128)))
+    s3, s16 = _streams(35, 126, device), _streams(36, 63, device)
+    cases = []
+    for bf16 in (False, True):
+        cast = (lambda t: t.bfloat16()) if bf16 else (lambda t: t)
+        sfx = "_bf16" if bf16 else ""
+        xw_, w_ = cast(xw), cast(w)
+        cases.append((f"lstm_fwd{sfx}", lambda xw_=xw_, w_=w_, sfx=sfx: getattr(
+            torch.ops.rlt, f"lstm_fwd{sfx}")(xw_, w_, 2),
+            lambda xw_=xw_, w_=w_, sfx=sfx: getattr(lstm, f"lstm_fwd{sfx}")(xw_, w_, 2),
+            lambda xw_=xw_, w_=w_: lstm.lstm_recurrence_plain(xw_, w_, 2)))
+        q, k, v = map(cast, (q3, k3, v3))
+        cases.append((f"attention_fwd{sfx}", lambda q=q, k=k, v=v, sfx=sfx: getattr(
+            torch.ops.rlt, f"attention_fwd{sfx}")(q, k, v, 0.1, s3, None, None, None),
+            lambda q=q, k=k, v=v, sfx=sfx: getattr(attention, f"attention_fwd{sfx}")(
+                q, k, v, 0.1, s3),
+            lambda q=q, k=k, v=v: attention.attention_plain(q, k, v, 0.1, s3)))
+        for (q, k, v), heads, pack, rate, streams in (
+                (map(cast, (q5, k5, v5)), 4, 2, 0.0, None),
+                (map(cast, (q16, k16, v16)), 8, 8, 0.1, s16)):
+            cases.append((f"attention_packed_fwd{sfx}",
+                          lambda q=q, k=k, v=v, h=heads, p=pack, r=rate, s=streams, sfx=sfx:
+                          getattr(torch.ops.rlt, f"attention_packed_fwd{sfx}")(
+                              q, k, v, h, p, r, s, None, None, None),
+                          lambda q=q, k=k, v=v, h=heads, p=pack, r=rate, s=streams, sfx=sfx:
+                          getattr(attention, f"attention_packed_fwd{sfx}")(
+                              q, k, v, h, p, r, s),
+                          lambda q=q, k=k, v=v, h=heads, p=pack, r=rate, s=streams:
+                          attention.attention_packed_plain(q, k, v, h, p, r, s)))
+    return cases
+
+
+def test_forward_ops_on_card_launch_their_kernels(cuda_device):
+    """Each `rlt::` forward op on CUDA tensors launches its kernel once,
+    gives its wrapper's outputs bit for bit, and agrees with the plain
+    version (f32 at the kernels' tolerances; bf16 outputs within two bf16
+    steps of their max abs, their f32 cs and lse at the f32 ones)."""
+    for name, op, wrapper, plain in _op_cases(cuda_device):
+        kernel = KERNELS[name]
+        before = kernel.launches
+        got = op()
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1, name
+        want = wrapper()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), name
+        atol = LSTM_ATOL if name.startswith("lstm") else ATTN_ATOL
+        for g, p in zip(got, plain()):
+            if g.dtype == torch.bfloat16:
+                limit = 2 * _bf16_step(p.float().abs().max()).item()
+                assert (g.float() - p.float()).abs().max().item() <= limit + atol, name
+            else:
+                torch.testing.assert_close(g, p.float(), rtol=0, atol=atol)
+
+
+def test_exported_bundle_on_card_matches_the_live_predictor(cuda_device, tmp_path):
+    """MMOECut exported on the card (robust04 width) and served from its
+    bundle, each bucket one CUDA graph: one live forward's launches, the
+    live cuts, the distributions within 1e-6."""
+    from rlt_tpu_torch.export import load_exported, save_exported
+
+    cfg = TrainConfig(model_name="mmoecut", retrieve_data="robust04")
+    live = Predictor(cfg, device="cuda")
+    save_exported(str(tmp_path), live, (1, 4))
+    exported = load_exported(str(tmp_path))
+    assert exported.graphs
+    x = np.random.default_rng(37).normal(size=(3, 300, 3)).astype(np.float32)
+    for _ in range(2):  # the capture, then a replay
+        before = {n: k.launches for n, k in KERNELS.items()}
+        ks, dist = exported.predict_with_distribution(x)
+        torch.cuda.synchronize()
+        launched = {n: k.launches - before[n] for n, k in KERNELS.items()}
+        assert {n: c for n, c in launched.items() if c} == {
+            "lstm_fwd": 2, "attention_packed_fwd": 1}
+        want_ks, want_dist = live.predict_with_distribution(x)
+        np.testing.assert_array_equal(ks, want_ks)
+        np.testing.assert_allclose(dist, want_dist, rtol=0, atol=1e-6)
+
+
+def test_doc2vec_repeats_bit_for_bit_on_card(cuda_device):
+    """Two doc2vec runs from one seed on the card give the same vectors bit
+    for bit: the epoch sums repeated rows in sorted order, not atomically."""
+    from rlt_tpu_torch.data.doc2vec import train_doc2vec
+
+    rng = np.random.default_rng(38)
+    corpus = [list(rng.choice([f"w{i}" for i in range(300)], size=80)) for _ in range(400)]
+    runs = [train_doc2vec(corpus, vector_size=200, epochs=2, seed=3, device="cuda")
+            for _ in range(2)]
+    assert np.isfinite(runs[0].docvecs).all()
+    np.testing.assert_array_equal(runs[0].docvecs, runs[1].docvecs)
+    np.testing.assert_array_equal(runs[0].wordvecs, runs[1].wordvecs)

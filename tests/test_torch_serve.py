@@ -133,32 +133,43 @@ def test_predictor_loads_a_state_dict_file(tmp_path):
                                   src.predict_with_distribution(x)[1])
 
 
-def test_port_imports_no_jax_and_needs_a_card():
+def test_port_imports_no_jax_and_needs_a_card(tmp_path):
     """In a fresh interpreter: the port and chip_smoke.py pull in no jax,
-    flax, optax or rlt_tpu module, and a Predictor with no device refuses
-    to run without CUDA instead of moving to the CPU."""
+    flax, optax, rlt_tpu or sklearn module, and a Predictor, doc2vec and a
+    bundle's loader with no device refuse to run without CUDA instead of
+    moving to the CPU."""
     code = """
 import sys
 import torch
 import rlt_tpu_torch, rlt_tpu_torch.serve, rlt_tpu_torch.infer
 import rlt_tpu_torch.ops, rlt_tpu_torch.utils.convert, rlt_tpu_torch.data
 import rlt_tpu_torch.train, rlt_tpu_torch.utils.losses, rlt_tpu_torch.data.batching
+import rlt_tpu_torch.export, rlt_tpu_torch.ops.library, rlt_tpu_torch.data.prep
+import rlt_tpu_torch.data.doc2vec, rlt_tpu_torch.data.features, rlt_tpu_torch.data.text
 import chip_smoke
-bad = sorted(m for m in sys.modules
-             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'rlt_tpu'))
+bad = sorted(m for m in sys.modules if m.split('.')[0] in (
+    'jax', 'jaxlib', 'flax', 'optax', 'rlt_tpu', 'sklearn'))
 assert not bad, bad
 from rlt_tpu_torch.config import TrainConfig
+from rlt_tpu_torch.data.doc2vec import train_doc2vec
+from rlt_tpu_torch.export import load_exported
 from rlt_tpu_torch.infer import Predictor
 if not torch.cuda.is_available():
-    try:
-        Predictor(TrainConfig(seq_len_override=16))
-    except RuntimeError as e:
-        assert "CUDA" in str(e), e
-    else:
-        raise AssertionError("Predictor ran without a card or a CPU request")
+    for name, run in (("Predictor", lambda: Predictor(TrainConfig(seq_len_override=16))),
+                      ("doc2vec", lambda: train_doc2vec([["a", "a"]], vector_size=4)),
+                      ("load_exported", lambda: load_exported(sys.argv[1]))):
+        try:
+            run()
+        except RuntimeError as e:
+            assert "CUDA" in str(e), e
+        else:
+            raise AssertionError(name + " ran without a card or a CPU request")
 print("ok")
 """
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+    bundle = tmp_path / "bundle"  # a CPU bundle's manifest: no fallback to it either
+    bundle.mkdir()
+    (bundle / "manifest.json").write_text(json.dumps({"format_version": 1, "device": "cpu"}))
+    out = subprocess.run([sys.executable, "-c", code, str(bundle)], cwd=REPO,
                          capture_output=True, text=True, timeout=120, env=ONE_THREAD_ENV)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
