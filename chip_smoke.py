@@ -90,6 +90,18 @@ prep CLI (`python -m rlt_tpu_torch.data.prep --train-embeddings`) on a
 TREC run, qrels and docset written here, with one AttnCut epoch on the
 dataset it writes.
 
+Last, the parallel layouts (`parallel_end_to_end`, `rlt_tpu_torch/parallel/`):
+MMOECut at robust04 width under `--data-parallel 1` on the one card, a
+world of one over NCCL, graphed, 3 steps bit for bit against the plain
+graphed Trainer in f32 and bf16 with the gradient all-reduce counted inside
+the graph, and both steps timed in turns; then two processes that share the
+card over gloo, eager: dp 2x1 at rate 0 against one process (the update
+rule), tp 1x2 (E = 3) and ep 1x2 (E = 4) with dropout on against dp 1x1
+(step-1 loss within 1e-6), and a population of 4 MMOECut members, two a
+process, bit for bit against the unsharded one; every rank's launches are
+checked. Two processes on one card time nothing: they say nothing about
+scaling.
+
 Every time is the median of rounds taken in turns with what it is compared
 with (`rlt_tpu_torch/utils/timing.py`), printed with its spread; every
 train step, the bucket-64 and bucket-256 forwards and the population's
@@ -2647,8 +2659,13 @@ HARNESS_PATHS = ("probe_base-verify", "attncut-verify_bmt", "choopy-verify_bmt",
 EXPORT_BUCKETS = {"mmoecut": (1, 64, 256), "mtple": (1, 64), "choopy": (1, 64)}
 EXPORT_PATHS = tuple(f"{m}-export{d}" for m in EXPORT_BUCKETS for d in ("", "-bf16"))
 PREP_PATH = "attncut-prep-train"
+# the parallel layouts' paths (`parallel_end_to_end`): (a) in this process,
+# (b) and (c) on each of two ranks
+PARALLEL_RANK_LAYOUTS = ("dp2x1", "tp1x2", "ep1x2", "population2")
+PARALLEL_PATHS = ("mmoecut-dp1", "mmoecut-dp1-bf16") + tuple(
+    f"mmoecut-{layout}-rank{r}" for layout in PARALLEL_RANK_LAYOUTS for r in (0, 1))
 ALL_PATHS = (PATHS + BF16_PATHS + BF16_TRAIN_PATHS + POPULATION_PATHS + HARNESS_PATHS
-             + EXPORT_PATHS + (PREP_PATH,))
+             + EXPORT_PATHS + (PREP_PATH,) + PARALLEL_PATHS)
 # the epochs of each phase on the probe path, and of the resume path's two
 # runs against one uninterrupted run
 PROBE_EPOCHS = 2
@@ -3385,6 +3402,253 @@ def export_and_data_paths(dev) -> tuple[dict, dict]:
     return launches, results
 
 
+# ---------------------------------------------------------------------------
+# Phase: the parallel layouts (rlt_tpu_torch/parallel/)
+# ---------------------------------------------------------------------------
+
+PARALLEL_STEPS = 3
+# tp and ep against dp 1 x 1 with dropout on: the JAX package's rule
+# (tests/test_parallel.py:251), one step's loss within 1e-6
+PARALLEL_LOSS_ATOL = 1e-6
+
+
+def parallel_config(compute_dtype: str = "float32", dropout: float | None = None):
+    """MMOECut's drmm_tks preset at robust04 width (B = 63, L = 300), one
+    epoch, in `compute_dtype`, at the preset's dropout or `dropout`."""
+    from rlt_tpu_torch.config import TrainConfig, apply_preset
+
+    cfg = apply_preset(TrainConfig(model_name="mmoecut", compute_dtype=compute_dtype))
+    cfg = dataclasses.replace(cfg, epochs=1,
+                              dropout=cfg.dropout if dropout is None else dropout)
+    require((cfg.batch_size, cfg.seq_len) == (63, SEQ_LEN), f"robust04 width: {cfg}")
+    return cfg
+
+
+def parallel_world1(compute_dtype: str, card: str) -> dict:
+    """(a) `--data-parallel 1` on the one card: a world of one over NCCL,
+    graphed, PARALLEL_STEPS steps against the plain graphed Trainer's bit
+    for bit (results, parameters, gradients, Adam's state), the gradient
+    all-reduce captured in the train step's graph and counted once a
+    replay; then both steps timed in turns."""
+    from rlt_tpu_torch.parallel import mesh_2d
+    from rlt_tpu_torch.parallel.functional import CALLS
+    from rlt_tpu_torch.train import Trainer
+    from rlt_tpu_torch.utils.timing import interleaved_ms
+
+    label = f"mmoecut-dp1{'-bf16' if compute_dtype == 'bfloat16' else ''}"
+    cfg = parallel_config(compute_dtype)
+    plain = Trainer(cfg, device="cuda")
+    dp = Trainer(cfg, device="cuda", mesh=mesh_2d(model_parallel=1))
+    require(plain.graphs and dp.graphs and dp.mesh.shape == {"data": 1, "model": 1},
+            f"{label}: graphed trainers, a world of one")
+    plans = [t.data.plan(t.generator, "train") for t in (plain, dp)]
+    require(all(torch.equal(a, b) for a, b in zip(*plans)), f"{label}: plans differ")
+    idx, valid = plans[0]
+    reset_counts()
+    CALLS.clear()
+    got = [dp.train_batch(idx[s], valid[s]) for s in range(PARALLEL_STEPS)]
+    torch.cuda.synchronize()
+    launches, calls = read_counts(), dict(CALLS)
+    want = [plain.train_batch(idx[s], valid[s]) for s in range(PARALLEL_STEPS)]
+    for s, (g, w) in enumerate(zip(got, want)):
+        require(torch.equal(g, w), f"{label} step {s + 1}: (loss, f1, dcg) {g.tolist()} "
+                f"against the plain Trainer's {w.tolist()}")
+    same_training_state(label, [((dp.model, dp.optimizer), (plain.model, plain.optimizer))])
+    grads = [n for (n, p), q in zip(dp.model.named_parameters(), plain.model.parameters())
+             if not torch.equal(p.grad, q.grad)]
+    require(not grads, f"{label}: gradients differ: {grads[:8]}")
+    want_launches = want_counts("mmoecut", 0, PARALLEL_STEPS, bf16=compute_dtype == "bfloat16")
+    require(launches == want_launches, f"{label}: launches {launches}, want {want_launches}")
+    captured = dp._graphed.graphs["train"].collectives
+    require(captured == {"data:all_gather": 3, "data:all_reduce": 1},
+            f"{label}: the train step's graph holds the collectives {captured}")
+    require(calls == {k: PARALLEL_STEPS * n for k, n in captured.items()},
+            f"{label}: {PARALLEL_STEPS} replays counted {calls}")
+    t = interleaved_ms({"dp1": lambda: dp.train_batch(idx[0], valid[0]),
+                        "plain": lambda: plain.train_batch(idx[0], valid[0])}, 2,
+                       PATH_REPEATS, alternate=True)
+    timing = {name: {"step_ms": t[name]["median"],
+                     "spread_ms": [t[name]["min"], t[name]["max"]]} for name in t}
+    log(f"{label}: {PARALLEL_STEPS} graphed steps of the world-of-one NCCL Trainer equal "
+        f"the plain graphed Trainer's bit for bit (results, gradients, parameters, Adam's "
+        f"state); a replay issues {json.dumps(captured)}; step ms {json.dumps(timing)} "
+        f"on {card}")
+    return {"launches": launches, "collectives": captured, "timing": timing}
+
+
+def parallel_steps(mesh, num_experts: int, dropout: float) -> dict:
+    """PARALLEL_STEPS eager steps of MMOECut at `num_experts` experts under
+    `mesh` (None: one process), from the Trainer's own first plan: the step
+    results, each kernel's launches and the collectives issued; with the
+    mesh's rank 0 (or one process), the whole initial and final state on
+    the host."""
+    from rlt_tpu_torch.models.mmoe import MMOECut
+    from rlt_tpu_torch.parallel.functional import CALLS
+    from rlt_tpu_torch.train import Trainer
+
+    cfg = parallel_config(dropout=dropout)
+    model = MMOECut(seq_len=cfg.seq_len, input_size=cfg.input_size, dropout=dropout,
+                    num_experts=num_experts, seed=cfg.seed)
+    t = Trainer(cfg, device="cuda", mesh=mesh, model=model, graphs=False)
+    host = lambda state: {k: v.detach().cpu().clone() for k, v in state.items()}  # noqa: E731
+    init = host(t.whole_state_dict())
+    idx, valid = t.data.plan(t.generator, "train")
+    reset_counts()
+    CALLS.clear()
+    steps = torch.stack([t.train_batch(idx[s], valid[s])
+                         for s in range(PARALLEL_STEPS)]).cpu().numpy()
+    torch.cuda.synchronize()
+    out = {"steps": steps, "launches": read_counts(), "calls": dict(CALLS),
+           "idx": idx[:PARALLEL_STEPS].cpu(),
+           "local": {k: tuple(p.shape) for k, p in t.model.named_parameters()}}
+    final = host(t.whole_state_dict())
+    if mesh is None or mesh.rank == 0:
+        out.update(init=init, final=final)
+    return out
+
+
+def parallel_ranks() -> dict:
+    """(b) and (c) on one of two processes that share the card over gloo
+    (NCCL takes no two ranks on one card), eager: dp 2 x 1 at rate 0, tp
+    1 x 2 (E = 3) and ep 1 x 2 (E = 4) with dropout on, then a population
+    of 4 MMOECut members, two a rank, graphed (no collective in its
+    steps)."""
+    from rlt_tpu_torch.parallel import data_parallel_mesh, mesh_2d
+    from rlt_tpu_torch.population import train_population
+
+    out = {"dp2x1": parallel_steps(data_parallel_mesh(2), 3, 0.0),
+           "tp1x2": parallel_steps(mesh_2d(2, 2), 3, RATE),
+           "ep1x2": parallel_steps(mesh_2d(2, 2), 4, RATE)}
+    mesh = data_parallel_mesh(2)
+    reset_counts()
+    pop = train_population(population_config("mmoecut"), population_members(4), mesh=mesh,
+                           device="cuda", track_best_params=True)
+    torch.cuda.synchronize()
+    out["population2"] = {"launches": read_counts()}
+    if mesh.rank == 0:
+        out["population2"]["result"] = pop
+    return out
+
+
+def update_rule(label: str, got: dict, want: dict, noise=None) -> dict:
+    """The port's update rule against one process: step losses within
+    STEP_LOSS_REL, or past it within STEP_NOISE_OF_REF of the one process's
+    own distance from a run of it nudged one ulp (`noise()`, its step
+    losses); each leaf's update within UPDATE_REL in L2, but the leaves zero
+    by algebra."""
+    from rlt_tpu_torch.models import ZERO_GRAD_LEAVES
+
+    g, w = got["steps"][:, 0], want["steps"][:, 0]
+    rel = float(np.max(np.abs(g - w) / np.abs(w)))
+    out = {"loss_rel": rel}
+    if rel > STEP_LOSS_REL:
+        gap = float(np.linalg.norm(noise() - w))
+        out["noise_l2"] = gap
+        require(np.linalg.norm(g - w) <= STEP_NOISE_OF_REF * gap,
+                f"{label}: step losses {g.tolist()} against {w.tolist()}, past "
+                f"{STEP_NOISE_OF_REF} of the nudged run's {gap}")
+    worst = {}
+    for name, value in want["final"].items():
+        if name in ZERO_GRAD_LEAVES["mmoecut"]:
+            continue
+        move = without_key_bias(name, value - want["init"][name])
+        other = without_key_bias(name, got["final"][name] - want["init"][name])
+        worst[name] = float((other - move).norm() / move.norm())
+    out["worst_update"] = max(worst.values())
+    require(out["worst_update"] <= UPDATE_REL, f"{label}: updates {worst_of(worst)}")
+    return out
+
+
+def parallel_end_to_end(card: str) -> tuple[dict, dict]:
+    """The parallel layouts on the one card: (a) `parallel_world1` in f32
+    and bf16; (b) and (c) on two processes sharing the card over gloo
+    (`parallel_ranks`), held here to one process: dp 2 x 1 at rate 0 to the
+    one process's eager steps by the update rule, tp and ep with dropout
+    on to dp 1 x 1 (the world of one, eager) by the JAX package's rule,
+    every rank's kernel launches those of its steps at its shard's shapes,
+    and the sharded population to the unsharded one of the same 4 members,
+    member by member, bit for bit. (b) and (c) time nothing: two processes
+    on one card say nothing about scaling. Returns the paths' launches and
+    a summary."""
+    import torch.distributed as dist
+
+    from rlt_tpu_torch.parallel import ensure_process_group, launch, mesh_2d
+    from rlt_tpu_torch.population import train_population
+
+    ensure_process_group("cuda")
+    require(dist.get_world_size() == 1 and dist.get_backend() == "nccl",
+            "the one card's world of one over NCCL")
+    launches, summary = {}, {}
+    for dtype, path in (("float32", "mmoecut-dp1"), ("bfloat16", "mmoecut-dp1-bf16")):
+        res = parallel_world1(dtype, card)
+        launches[path] = res["launches"]
+        summary[path] = res["timing"]
+        free_card()
+    world1 = mesh_2d(model_parallel=1)
+    refs = {"one": parallel_steps(None, 3, 0.0),
+            "dp1x1": parallel_steps(world1, 3, RATE),
+            "dp1x1_e4": parallel_steps(world1, 4, RATE)}
+    free_card()
+    ranks = launch(parallel_ranks, 2, backend="gloo")
+    free_card()
+    cfg = parallel_config(dropout=0.0)
+    for layout in PARALLEL_RANK_LAYOUTS:
+        for r, rank in enumerate(ranks):
+            launches[f"mmoecut-{layout}-rank{r}"] = rank[layout]["launches"]
+    for layout in ("dp2x1", "tp1x2", "ep1x2"):
+        want = want_counts("mmoecut", 0, PARALLEL_STEPS)
+        for r, rank in enumerate(ranks):
+            require(rank[layout]["launches"] == want, f"mmoecut-{layout} rank {r}: launches "
+                    f"{rank[layout]['launches']}, want {want}")
+            require(torch.equal(rank[layout]["idx"], refs["one"]["idx"]),
+                    f"mmoecut-{layout} rank {r}: another plan")
+
+    def nudged_steps():
+        from rlt_tpu_torch.train import Trainer
+
+        t = Trainer(cfg, device="cuda", state_dict=nudged(refs["one"]["init"], 0),
+                    graphs=False)
+        idx, valid = t.data.plan(t.generator, "train")
+        return np.array([float(t.train_batch(idx[s], valid[s])[0])
+                         for s in range(PARALLEL_STEPS)])
+
+    summary["dp2x1"] = update_rule("mmoecut-dp2x1", ranks[0]["dp2x1"], refs["one"],
+                                   nudged_steps)
+    for layout, ref in (("tp1x2", "dp1x1"), ("ep1x2", "dp1x1_e4")):
+        gaps = np.abs(ranks[0][layout]["steps"][:, 0] - refs[ref]["steps"][:, 0])
+        require(gaps[0] <= PARALLEL_LOSS_ATOL, f"mmoecut-{layout}: step-1 loss "
+                f"{ranks[0][layout]['steps'][0, 0]} against dp 1 x 1's "
+                f"{refs[ref]['steps'][0, 0]}")
+        summary[layout] = {"loss_gaps": gaps.tolist(), "calls": ranks[0][layout]["calls"],
+                           "local": {k: v for k, v in ranks[0][layout]["local"].items()
+                                     if "linear1.weight" in k}}
+        require(ranks[0][layout]["calls"].get("model:all_reduce", 0) > 0
+                and ranks[0][layout]["calls"].get("data:all_reduce", 0) == PARALLEL_STEPS,
+                f"mmoecut-{layout}: collectives {ranks[0][layout]['calls']}")
+    want = train_population(population_config("mmoecut"), population_members(4),
+                            device="cuda", track_best_params=True)
+    got = ranks[0]["population2"]["result"]
+    differ = [m for m, (a, b) in enumerate(zip(got["per_member"], want["per_member"]))
+              if a["history"] != b["history"] or a["member"] != b["member"]]
+    differ += [k for k, v in want["best_state"].items()
+               if not torch.equal(got["best_state"][k], v.cpu())]
+    require(not differ and np.array_equal(got["f1_record"], want["f1_record"])
+            and np.array_equal(got["dcg_record"], want["dcg_record"]),
+            f"mmoecut-population2: the sharded population differs from the unsharded "
+            f"one: {differ[:8]}")
+    pop_cfg = population_config("mmoecut")
+    batches = [-(-n // pop_cfg.batch_size) for n in (200, 50)]
+    want_pop = want_counts("mmoecut", batches[1], batches[0])
+    for r, rank in enumerate(ranks):
+        require(rank["population2"]["launches"] == want_pop, f"mmoecut-population2 rank "
+                f"{r}: launches {rank['population2']['launches']}, want {want_pop}")
+    summary["population2"] = "4 members, 2 a rank, bit for bit the unsharded population's"
+    log(f"parallel layouts: {json.dumps(summary)}; (b) and (c) share one card between two "
+        f"processes and say nothing about scaling; on {card}")
+    dist.destroy_process_group()
+    return launches, summary
+
+
 def kernel_name(line: str) -> str:
     """A kernel's name in a line of ptxas, with its template arguments:
     `attn_packed_fwd_kernel<16, 4>` for the mangled
@@ -3656,6 +3920,10 @@ def main() -> int:
     marks.append(("export and data paths", time.perf_counter()))
     export_launches, export_res = export_and_data_paths(dev)
     launches.update(export_launches)
+    free_card()
+    marks.append(("parallel layouts", time.perf_counter()))
+    parallel_launches, parallel_res = parallel_end_to_end(card)
+    launches.update(parallel_launches)
     marks.append(("end", time.perf_counter()))
     log(json.dumps({"phase_seconds": {name: marks[i + 1][1] - t for i, (name, t) in
                                       enumerate(marks[:-1])}}))
@@ -3810,6 +4078,7 @@ def main() -> int:
                      if "resume" in path}
     log(json.dumps({"harness_timing": {"probe_base-verify": probe_timing, **resume_epochs}}))
     log(json.dumps({"export_and_data": export_res}))
+    log(json.dumps({"parallel_end_to_end": parallel_res, "card": card}))
     busy_rows = [res[name] for res in population_res for name in ("population", "sequential")]
     busy_rows += [res[name] for res in rate_timing for name in ("per_member", "shared")]
     busy_rows += [probe_timing[step][name] for step in ("base_step", "probe_step")

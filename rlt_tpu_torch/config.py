@@ -73,10 +73,17 @@ class TrainConfig:
     # Trainer keeps f32 master parameters and casts them and the features
     # to bf16 inside each step, through the bf16 kernels forward and
     # backward; losses and metrics stay f32). The JAX package's TPU switches (use_pallas,
-    # fast_dropout_rng, scan_block_epochs, data_parallel, model_parallel)
-    # have no meaning here: the port always runs its CUDA kernels on a
-    # CUDA tensor and their plain versions on a CPU tensor.
+    # fast_dropout_rng, scan_block_epochs) have no meaning here: the port
+    # always runs its CUDA kernels on a CUDA tensor and their plain
+    # versions on a CPU tensor.
     compute_dtype: str = "float32"
+    # shard the batch over the launch's processes, one a card
+    # (rlt_tpu_torch/parallel/mesh.py)
+    data_parallel: bool = False
+    # >1 adds a 'model' mesh axis (with data_parallel): expert-parallel MMOE
+    # stacks when num_experts divides it, Megatron FFN tensor parallelism
+    # otherwise (rlt_tpu_torch/parallel/sharding.py)
+    model_parallel: int = 1
 
     @property
     def seq_len(self) -> int:

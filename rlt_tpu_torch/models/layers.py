@@ -28,7 +28,19 @@ B, L, D) with (K, E, ...) parameters and run their attention over the
 K * E * B rows (or PLECut's K * E * B * H slices) at once, an unstacked
 encoder's layers map (K, B, L, D) to (K, B, L, D) over K * B rows, and the
 towers, gates and heads carry K in front. Each member computes what its
-own model computes. The members may differ in their dropout rate (the JAX
+own model computes, and in float32 on the card bit for bit whatever
+members share the model: where a member's parameter is broadcast over its
+rows (a bias, a LayerNorm's affine map, a tower shared by the experts,
+Choopy's position encoding) its gradient is summed one member at a time
+(`member_broadcast`), and so is the weight gradient of a product into one
+column, a tower's or a head's (`_MemberProduct`): torch's reduction kernels
+split a sum by the count of its outputs, and cuBLAS picks such a thin
+product's split by the batch count, so these sums over K members' rows
+rounded differently at another K. This holds a member's f32 bits at K =
+2 and 4 for every model on the card, and at K = 8 for the models without
+an expert stack; the expert models' bits at K = 8 still depend on K, and
+in bf16 (whose sums stay batched) every model's do. The members may
+differ in their dropout rate (the JAX
 package's traced `hp["dropout_rate"]`): a layer then holds a
 `MemberRates` in place of its float rate, and every dropout site takes
 member m's rate, 16-bit mask threshold and 1 / keep scale from it.
@@ -73,8 +85,9 @@ rounding to bf16. The LSTM's recurrent weights reach its op in f32 (see
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Sequence, Union
+from typing import Any, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -89,6 +102,7 @@ from rlt_tpu_torch.ops.attention import (
     row_dropout,
 )
 from rlt_tpu_torch.ops.lstm import fused_lstm, fused_lstm_bidir
+from rlt_tpu_torch.parallel.functional import copy_to_model, reduce_from_model
 
 
 def _uniform(shape, bound: float, generator: torch.Generator | None) -> nn.Parameter:
@@ -210,10 +224,56 @@ def dropout_keep_mask(shape, keep: float | Sequence[float], generator,
     return torch.stack(masks)
 
 
-def _keep_mask(x: torch.Tensor, rate: Rate, generator) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class Part:
+    """A layer's part under a parallel layout (`rlt_tpu_torch/parallel/
+    sharding.py::shard_module` sets it): where this rank's share of the
+    layer's activations lies in the whole, as (whole size, start) on an
+    axis. `rows` on the batch axis (-3) of every activation: the data
+    rank's rows of the plan's B (rows past B are the padding); `experts` on
+    the expert axis (-4) under ep; `columns` on the FFN's hidden axis (-1)
+    under tp; `group` the model group of ep's and tp's collectives. Each
+    dropout mask and the attention's seeds are drawn whole, as the one
+    process draws them, and the rank takes its share: every layout draws
+    the bits of the one process."""
+
+    rows: tuple[int, int] | None = None
+    experts: tuple[int, int] | None = None
+    columns: tuple[int, int] | None = None
+    group: Any = None
+
+
+def _part_mask(shape, draw, part: Part | None, columns: bool) -> torch.Tensor:
+    """draw(whole shape) cut to this rank's share of `shape`; rows past the
+    whole batch (the padding) are kept."""
+    axes = []
+    if part is not None:
+        if part.rows is not None:
+            axes.append((-3, *part.rows))
+        if part.experts is not None and len(shape) >= 4:
+            axes.append((-4, *part.experts))
+        if columns and part.columns is not None:
+            axes.append((-1, *part.columns))
+    whole = list(shape)
+    for axis, size, _ in axes:
+        whole[axis] = size
+    mask = draw(tuple(whole))
+    for axis, size, start in axes:
+        n = shape[axis]
+        if start + n > size:
+            pad = list(mask.shape)
+            pad[axis] = start + n - size
+            mask = torch.cat([mask, mask.new_ones(pad)], dim=axis)
+        mask = mask.narrow(axis, start, n)
+    return mask
+
+
+def _keep_mask(x: torch.Tensor, rate: Rate, generator, part: Part | None = None,
+               columns: bool = False) -> torch.Tensor:
     keep = ([1.0 - r for r in rate.rates] if isinstance(rate, MemberRates)
             else 1.0 - rate)
-    return dropout_keep_mask(x.shape, keep, generator, x.device)
+    return _part_mask(x.shape, lambda shape: dropout_keep_mask(
+        shape, keep, generator, x.device), part, columns)
 
 
 def _keep_of(rate: Rate) -> float | MemberRates:
@@ -227,10 +287,11 @@ def _over_keep(x: torch.Tensor, keep: float | MemberRates) -> torch.Tensor:
     return x / keep
 
 
-def dropout(x: torch.Tensor, rate: Rate, generator) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: Rate, generator, part: Part | None = None) -> torch.Tensor:
     """Drop units with probability `rate`, scale the kept ones by 1 / keep
-    (member m's rate with a MemberRates and x leading with the members)."""
-    mask = _keep_mask(x, rate, generator)
+    (member m's rate with a MemberRates and x leading with the members); x
+    this rank's `part` of the whole activation."""
+    mask = _keep_mask(x, rate, generator, part)
     return torch.where(mask, _over_keep(x, _keep_of(rate)), 0.0)
 
 
@@ -254,9 +315,63 @@ class ReluDropout(torch.autograd.Function):
         return torch.where(h > 0, _over_keep(g, ctx.keep), 0.0), None, None
 
 
-def relu_dropout(x: torch.Tensor, rate: Rate, generator) -> torch.Tensor:
-    mask = _keep_mask(x, rate, generator)
+def relu_dropout(x: torch.Tensor, rate: Rate, generator,
+                 part: Part | None = None) -> torch.Tensor:
+    """`ReluDropout` of the FFN's hidden units x, this rank's `part` of
+    them (its columns under tp)."""
+    mask = _keep_mask(x, rate, generator, part, columns=True)
     return ReluDropout.apply(x, mask, _keep_of(rate))
+
+
+class _MemberBroadcast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, shape):
+        ctx.shape = t.shape
+        ctx.dims = [i - 1 for i in range(1, len(shape)) if t.shape[i] == 1 and shape[i] != 1]
+        return t.expand(shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.dims:
+            return g, None
+        out = g.new_empty(ctx.shape)
+        for m in range(g.shape[0]):
+            torch.sum(g[m], dim=ctx.dims, keepdim=True, out=out[m])
+        return out, None
+
+
+class _MemberProduct(torch.autograd.Function):
+    """x @ wt of members' stacked rows into one column (a tower's or a
+    head's logit), x (K, E, N, in) and wt (K, E, in, 1) (or K for E), whose
+    weight gradient is one product a member, written into its slab."""
+
+    @staticmethod
+    def forward(ctx, x, wt):
+        ctx.save_for_backward(x, wt)
+        return torch.matmul(x, wt)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wt = ctx.saved_tensors
+        gw = g.new_empty(wt.shape)
+        for m in range(g.shape[0]):
+            torch.matmul(x[m].transpose(-1, -2), g[m], out=gw[m])
+        return torch.matmul(g, wt.transpose(-1, -2)).sum_to_size(x.shape), gw
+
+
+def member_broadcast(t: torch.Tensor, shape) -> torch.Tensor:
+    """t (K, ...) broadcast to `shape` (K, ...), as `expand`, with its
+    gradient summed to t's shape one member at a time in float32: the same
+    sum of the same shape at any K (module docstring). Other dtypes
+    broadcast as `expand` does."""
+    if t.dtype != torch.float32:
+        return t.expand(shape)
+    return _MemberBroadcast.apply(t, tuple(shape))
+
+
+def _add_broadcast(y: torch.Tensor, b: torch.Tensor, members: bool) -> torch.Tensor:
+    """y + b, b broadcast to y's shape (`member_broadcast` with members)."""
+    return y + (member_broadcast(b, y.shape) if members else b)
 
 
 def final_linear(linear: "TorchLinear", x: torch.Tensor) -> torch.Tensor:
@@ -282,28 +397,34 @@ class TorchLinear(nn.Module):
         super().__init__()
         bound = 1.0 / math.sqrt(in_features)
         lead = _lead(experts, members)
+        self.members = members is not None
         self.weight = _uniform(lead + (features, in_features), bound, generator)
         self.bias = _uniform(lead + (features,), bound, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.weight.dim() == 2:
             return x @ self.weight.T + self.bias
-        return _stacked_linear(x, self.weight, self.bias)
+        return _stacked_linear(x, self.weight, self.bias, self.members)
 
 
 def _stacked_linear(x: torch.Tensor, w: torch.Tensor,
-                    b: torch.Tensor | None = None) -> torch.Tensor:
+                    b: torch.Tensor | None = None, members: bool = False) -> torch.Tensor:
     """x (B, L, in) shared by every expert or (E, B, L, in); w (E, out, in);
     b (E, out) -> (E, B, L, out), as one batched matrix product. With a
     member axis in front of both, x (K, 1 or E, B, L, in), w (K, E, out,
     in) and b (K, E, out) -> (K, E, B, L, out); a member model's unstacked
     layer, x (K, B, L, in) against w (K, out, in), is the case E = K. No
-    bias without b."""
+    bias without b; with `members` in float32 the bias's gradient, and the
+    weight gradient of a product into one column, are summed a member at a
+    time (`member_broadcast`, `_MemberProduct`)."""
     batch, length, d_in = x.shape[-3:]
     xf = x.reshape(*x.shape[:-3], batch * length, d_in)
-    y = torch.matmul(xf, w.transpose(-1, -2))
+    if members and w.shape[-2] == 1 and x.dtype == torch.float32:  # one column
+        y = _MemberProduct.apply(xf, w.transpose(-1, -2))
+    else:
+        y = torch.matmul(xf, w.transpose(-1, -2))
     if b is not None:
-        y = y + b[..., None, :]
+        y = _add_broadcast(y, b[..., None, :], members)
     return y.reshape(*y.shape[:-2], batch, length, w.shape[-2])
 
 
@@ -321,6 +442,7 @@ class LayerNorm(nn.Module):
         super().__init__()
         lead = _lead(experts, members)
         self.eps = eps
+        self.members = members is not None
         self.weight = nn.Parameter(torch.ones(lead + (d_model,)))
         self.bias = nn.Parameter(torch.zeros(lead + (d_model,)))
 
@@ -330,6 +452,8 @@ class LayerNorm(nn.Module):
         if w.dim() > 1:  # (E, D) against (E, B, L, D); (K, E, D) against (K, E, B, L, D)
             w, b = w[..., None, None, :], b[..., None, None, :]
         if w.dtype != torch.bfloat16:
+            if self.members:
+                w, b = member_broadcast(w, x.shape), member_broadcast(b, x.shape)
             return F.layer_norm(x, x.shape[-1:], eps=self.eps) * w + b
         xf = x.float()
         mean = xf.mean(dim=-1, keepdim=True)
@@ -481,10 +605,11 @@ def _projection(x, w_ih, b_ih, b_hh) -> torch.Tensor:
     (the product, then each bias, each rounded to bf16). K members' weights
     (K, 4H, F) against their inputs (K, B, L, F): one batched product, in
     the same order of roundings."""
-    if w_ih.dim() == 3:
+    if w_ih.dim() == 3:  # the members' f32 biases: `member_broadcast`
         xf, wt = x.flatten(1, 2), w_ih.transpose(1, 2)
+        rows = (xf.shape[0], xf.shape[1], w_ih.shape[1])
         if x.dtype != torch.bfloat16:
-            y = torch.baddbmm((b_ih + b_hh)[:, None], xf, wt)
+            y = torch.baddbmm(member_broadcast((b_ih + b_hh)[:, None], rows), xf, wt)
         else:
             y = torch.bmm(xf, wt) + b_ih[:, None] + b_hh[:, None]
         return y.view(*x.shape[:-1], w_ih.shape[1])
@@ -594,6 +719,8 @@ class SelfAttention(nn.Module):
     each row at its member's rate (`RowDropout`); a member at rate 0 draws
     no seed, and its rows are not dropped."""
 
+    part: Part | None = None  # under a parallel layout (`Part`)
+
     def __init__(self, d_model: int, n_head: int, experts: int | None = None,
                  generator: torch.Generator | None = None,
                  dropout: float | Sequence[float] = 0.0, members: int | None = None):
@@ -604,6 +731,7 @@ class SelfAttention(nn.Module):
         self.n_head = n_head
         self.dropout = member_rates(dropout)
         self.pack = packed_group_size(d_model, n_head)
+        self.members = members is not None
         self.unstacked_members = members is not None and experts is None
         lead = _lead(experts, members)
         xavier = math.sqrt(6.0 / (3 * d_model + d_model))
@@ -635,10 +763,16 @@ class SelfAttention(nn.Module):
         rate = self.dropout if self.training else 0.0
         streams = None
         if drops(rate):
-            rows = batch if self.pack else batch * heads  # of an expert
+            per = 1 if self.pack else heads  # rows a list
+            rows = batch * per  # of an expert
+            # under a layout, this rank's experts and rows of the whole stack's
+            part = self.part or Part()
+            whole, first = part.experts or (experts, 0)
+            start = part.rows[1] * per if part.rows else 0
 
             def seeds_of(g):
-                return torch.randint(0, 2**31 - 1, (experts,), generator=g, device=x.device)
+                return torch.randint(0, 2**31 - 1, (whole,), generator=g,
+                                     device=x.device)[first:first + experts]
 
             if isinstance(rate, MemberRates):
                 seeds = torch.stack([
@@ -648,7 +782,7 @@ class SelfAttention(nn.Module):
                 rate = rate.rows(experts * rows)
             else:
                 seeds = member_draw(generator, seeds_of).reshape(-1)
-            streams = expert_streams(seeds, rows)
+            streams = expert_streams(seeds, rows, start)
 
         if self.pack is None:
             dh = d // heads
@@ -660,24 +794,26 @@ class SelfAttention(nn.Module):
                   else "...ebld,...ehjd->...ebhlj")
 
             def proj(i):  # -> (prod(lead) * B, H, L, dh), contiguous
-                y = torch.einsum(eq, x, w3.select(-4, i)) + b3.select(-5, i)
+                y = _add_broadcast(torch.einsum(eq, x, w3.select(-4, i)), b3.select(-5, i),
+                                   self.members)
                 return y.reshape(-1, heads, length, dh).contiguous()
 
             o, _ = fused_attention(proj(0), proj(1), proj(2), dropout_rate=rate,
                                    streams=streams)
-            return (torch.einsum("...bhlj,...dhj->...bld",
-                                 o.reshape(*lead, batch, heads, length, dh),
-                                 out_w.reshape(*lead, d, heads, dh))
-                    + out_b[..., None, None, :])
+            return _add_broadcast(torch.einsum("...bhlj,...dhj->...bld",
+                                               o.reshape(*lead, batch, heads, length, dh),
+                                               out_w.reshape(*lead, d, heads, dh)),
+                                  out_b[..., None, None, :], self.members)
 
         def proj(i):  # (..., E, B, L, D) -> (... E * B, L, D), contiguous
-            y = _stacked_linear(x, w[..., i * d:(i + 1) * d, :], b[..., i * d:(i + 1) * d])
+            y = _stacked_linear(x, w[..., i * d:(i + 1) * d, :], b[..., i * d:(i + 1) * d],
+                                self.members)
             return y.reshape(-1, length, d)
 
         o, _ = fused_attention_packed(proj(0), proj(1), proj(2),
                                       heads=heads, pack=self.pack,
                                       dropout_rate=rate, streams=streams)
-        return _stacked_linear(o.reshape(*lead, batch, length, d), out_w, out_b)
+        return _stacked_linear(o.reshape(*lead, batch, length, d), out_w, out_b, self.members)
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -686,7 +822,15 @@ class TransformerEncoderLayer(nn.Module):
     dropout at the JAX package's sites: the attention weights (in the
     kernels), the attention output, the FFN's hidden units (fused with the
     ReLU) and the FFN output. Each mask is drawn over the whole stacked
-    (E, B, L, .) tensor, so the experts' masks are independent."""
+    (E, B, L, .) tensor, so the experts' masks are independent.
+
+    Under tp (`part.columns`, `parallel/sharding.py`) the layer holds its
+    FFN's `linear1` rows and `linear2` columns of the whole FFN: its input
+    enters through `copy_to_model`, the partial products of `linear2` are
+    summed by `reduce_from_model` and `linear2`'s bias is added once after
+    the sum."""
+
+    part: Part | None = None  # under a parallel layout (`Part`)
 
     def __init__(self, d_model: int, n_head: int, dim_feedforward: int = 2048,
                  experts: int | None = None, generator: torch.Generator | None = None,
@@ -702,15 +846,23 @@ class TransformerEncoderLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         rate = self.dropout if self.training else 0.0
+        part = self.part
+        tp = part is not None and part.columns is not None
         attn = self.self_attn(x, generator)
         if drops(rate):
-            attn = dropout(attn, rate, generator)
+            attn = dropout(attn, rate, generator, part)
         x = self.norm1(residual(x, attn))
-        h = self.linear1(x)
-        h = relu_dropout(h, rate, generator) if drops(rate) else torch.relu(h)
-        h = self.linear2(h)
+        h = self.linear1(copy_to_model(x, part.group) if tp else x)
+        h = relu_dropout(h, rate, generator, part) if drops(rate) else torch.relu(h)
+        if tp:
+            w, b = self.linear2.weight, self.linear2.bias
+            h = reduce_from_model(h @ w.T if w.dim() == 2 else _stacked_linear(h, w),
+                                  part.group)
+            h = h + (b if b.dim() == 1 else b[..., None, None, :])
+        else:
+            h = self.linear2(h)
         if drops(rate):
-            h = dropout(h, rate, generator)
+            h = dropout(h, rate, generator, part)
         return self.norm2(residual(x, h))
 
 
@@ -736,14 +888,22 @@ class TransformerEncoder(nn.Module):
 # ---------------------------------------------------------------------------
 
 def _tower_logits(linear: TorchLinear, x: torch.Tensor,
-                  gates: torch.Tensor | None) -> torch.Tensor:
+                  gates: torch.Tensor | None, group=None) -> torch.Tensor:
     """Affine tower head with the MMOE gate mix in LOGIT space: with gates
     (B, E) and x (E, B, L, D), sum_e g_e (x_e W + b) == (sum_e g_e x_e) W + b
     because the gates sum to 1, so the per-expert (B, L, 1) logits are mixed
     instead of (B, L, D) activations. With members: the tower's (K, 1, D)
-    weight against (K, E, B, L, D) and gates (K, B, E) -> (K, B, L, 1)."""
-    if linear.weight.dim() == 3:
-        logits = _stacked_linear(x, linear.weight[:, None], linear.bias[:, None])
+    weight against (K, E, B, L, D) and gates (K, B, E) -> (K, B, L, 1).
+    Under ep (`group`, the model group) x and gates are this rank's experts
+    only: the tower's replicated weights enter through `copy_to_model` and
+    the partial mixes are summed by `reduce_from_model`."""
+    if group is not None:
+        w, b = copy_to_model(linear.weight, group), copy_to_model(linear.bias, group)
+        return reduce_from_model(torch.einsum("be,eblo->blo", gates, x @ w.T + b), group)
+    if linear.weight.dim() == 3:  # one tower for a member's E experts
+        k, e = x.shape[:2]
+        w = member_broadcast(linear.weight[:, None], (k, e, 1, x.shape[-1]))
+        logits = _stacked_linear(x, w, member_broadcast(linear.bias[:, None], (k, e, 1)), True)
         return torch.einsum("kbe,keblo->kblo", gates, logits)
     logits = linear(x)
     if gates is not None:
@@ -761,19 +921,19 @@ class _Tower(nn.Module):
 class TowerCut(_Tower):
     """Linear -> softmax over positions: a cut distribution (B, L, 1)."""
 
-    def forward(self, x, gates=None):
-        return softmax(_tower_logits(self.linear, x, gates), dim=-2, final=True)
+    def forward(self, x, gates=None, group=None):
+        return softmax(_tower_logits(self.linear, x, gates, group), dim=-2, final=True)
 
 
 class TowerClass(_Tower):
     """Linear -> sigmoid: per-position relevance probability (B, L, 1)."""
 
-    def forward(self, x, gates=None):
-        return sigmoid(_tower_logits(self.linear, x, gates), final=True)
+    def forward(self, x, gates=None, group=None):
+        return sigmoid(_tower_logits(self.linear, x, gates, group), final=True)
 
 
 class TowerRerank(_Tower):
     """Linear -> softmax over positions: rerank score distribution (B, L, 1)."""
 
-    def forward(self, x, gates=None):
-        return softmax(_tower_logits(self.linear, x, gates), dim=-2, final=True)
+    def forward(self, x, gates=None, group=None):
+        return softmax(_tower_logits(self.linear, x, gates, group), dim=-2, final=True)

@@ -36,18 +36,24 @@ from torch import nn
 
 from rlt_tpu_torch.models.layers import (
     LSTM,
+    Part,
     TowerClass,
     TowerCut,
     TowerRerank,
     TransformerEncoder,
     softmax,
 )
+from rlt_tpu_torch.parallel.functional import copy_to_model
 
 
 class ExpertStack(nn.Module):
     """E experts, each a transformer encoder of `num_layers` layers, as one
     stacked module: (B, L, D) shared input -> (E, B, L, D). The counterpart
-    of the JAX package's `Expert` under `expert_stack`'s `nn.vmap`."""
+    of the JAX package's `Expert` under `expert_stack`'s `nn.vmap`. Under
+    ep (`part.experts`, `parallel/sharding.py`) it holds E / m of the
+    experts, and its input enters through `copy_to_model`."""
+
+    part: Part | None = None  # under a parallel layout (`layers.Part`)
 
     def __init__(self, num_experts: int, d_model: int = 256, n_head: int = 4,
                  num_layers: int = 1, generator: torch.Generator | None = None,
@@ -63,7 +69,26 @@ class ExpertStack(nn.Module):
         member's input shared by its experts, -> (K, E, B, L, D)."""
         if self.members is not None:
             x = x[:, None]
+        if _ep(self.part):
+            x = copy_to_model(x, self.part.group)
         return self.attention_layer(x, generator)
+
+
+def local_gate(gate: torch.Tensor, part: Part, lo: int, n: int):
+    """Under ep (`part.experts` = (E, first), n experts held here), a
+    tower's gate over the experts lo..lo + E' - 1 cut to the experts held
+    here, entered through `copy_to_model`, and the slice of this rank's
+    expert outputs that they mix (empty where the tower mixes none held
+    here)."""
+    first = part.experts[1]
+    start = max(lo, first)
+    stop = max(min(lo + gate.shape[-1], first + n), start)
+    return (copy_to_model(gate, part.group)[..., start - lo:stop - lo],
+            slice(start - first, stop - first))
+
+
+def _ep(part: Part | None) -> bool:
+    return part is not None and part.experts is not None
 
 
 def make_towers(num_tasks: float, d_model: int, generator: torch.Generator | None = None,
@@ -87,7 +112,10 @@ class MMOECut(nn.Module):
     `members=K` it is K models in one, each member's
     parameters in slice m of every leaf, (K, B, L, F) -> (K, B, L, 1) heads,
     K generators in training; `build_population_model` fills it from K
-    seeded models."""
+    seeded models. Under ep (`part`, `parallel/sharding.py`) the towers mix
+    the experts held here and sum the partial mixes over the model group."""
+
+    part: Part | None = None  # under a parallel layout (`layers.Part`)
 
     def __init__(self, seq_len: int = 300, num_experts: int = 3,
                  num_tasks: float = 3, input_size: int = 3,
@@ -131,8 +159,15 @@ class MMOECut(nn.Module):
         (E, B, L, D) -> the task heads; with members (K, B, L, 2H) and
         (K, E, B, L, D) -> (K, B, L, 1) heads."""
         flat = experts_in.flatten(-2)  # (B, 2*H*L), or (K, B, 2*H*L)
-        return [getattr(self, name)(experts_o, gates=gate)
-                for gate, name in zip(self.gates(flat), self.tower_names)]
+        if not _ep(self.part):
+            return [getattr(self, name)(experts_o, gates=gate)
+                    for gate, name in zip(self.gates(flat), self.tower_names)]
+        heads = []
+        for gate, name in zip(self.gates(flat), self.tower_names):
+            gate, held = local_gate(gate, self.part, 0, experts_o.shape[-4])
+            heads.append(getattr(self, name)(experts_o[held], gates=gate,
+                                             group=self.part.group))
+        return heads
 
 
 class MOECut(MMOECut):
@@ -156,7 +191,11 @@ class PLECut(nn.Module):
     the three heads as (B, L, 1) tensors; the last is the cut distribution.
     In training mode with dropout above 0, `forward` needs a
     `torch.Generator` on the input's device for the dropout masks. With
-    `members=K`, K PLECuts in one, as MMOECut's."""
+    `members=K`, K PLECuts in one, as MMOECut's. Under ep (three ranks of
+    one expert each) a tower mixes the experts of its subset held here,
+    none on some ranks, and sums over the model group."""
+
+    part: Part | None = None  # under a parallel layout (`layers.Part`)
 
     # each tower's experts, as a slice of the expert axis
     SUBSETS = (slice(0, 2), slice(1, 3), slice(0, 3))
@@ -197,6 +236,11 @@ class PLECut(nn.Module):
         outputs = []
         for t, (subset, (name, _)) in enumerate(zip(self.SUBSETS, self.TOWERS)):
             gate = softmax(flat @ getattr(self, f"w_gate_{t}"), dim=-1)
+            if _ep(self.part):
+                gate, held = local_gate(gate, self.part, subset.start, experts_o.shape[-4])
+                outputs.append(getattr(self, name)(experts_o[held], gates=gate,
+                                                   group=self.part.group))
+                continue
             experts = experts_o[:, subset] if members else experts_o[subset]
             outputs.append(getattr(self, name)(experts, gates=gate))
         return outputs

@@ -43,16 +43,20 @@ from torch import nn
 
 from rlt_tpu_torch.models.layers import (
     LSTM,
+    Part,
     TorchLinear,
     TransformerEncoder,
     dropout,
     drops,
+    member_broadcast,
     member_rates,
     softmax,
 )
 
 
 class BiCut(nn.Module):
+    part: Part | None = None  # under a parallel layout: the data rank's rows
+
     def __init__(self, input_size: int = 3, lstm_hidden_size: int = 128,
                  lstm_layers: int = 2, fc_dimensions: int = 256,
                  dropout: float | Sequence[float] = 0.4, seed: int = 0,
@@ -71,7 +75,7 @@ class BiCut(nn.Module):
         rate = self.dropout if self.training else 0.0
         if drops(rate):
             # the reference drops logits, before the softmax
-            logits = dropout(logits, rate, generator)
+            logits = dropout(logits, rate, generator, self.part)
         return softmax(logits, dim=-1, final=True)
 
 
@@ -101,7 +105,9 @@ def with_position_encoding(x: torch.Tensor, pe: torch.Tensor) -> torch.Tensor:
     in a model cast to bf16, as the JAX package casts the encoding with the
     parameters). With members, (K, B, L, 1) and (K, L, d_model - 1) -> (K,
     B, L, d_model), member m's encoding shared by its lists."""
-    return torch.cat([x, pe.unsqueeze(-3).expand(*x.shape[:-1], pe.shape[-1])], dim=-1)
+    shape = (*x.shape[:-1], pe.shape[-1])
+    return torch.cat([x, member_broadcast(pe.unsqueeze(-3), shape) if pe.dim() == 3
+                      else pe.unsqueeze(-3).expand(shape)], dim=-1)
 
 
 class AttnCut(nn.Module):

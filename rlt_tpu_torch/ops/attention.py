@@ -275,17 +275,19 @@ def _streams(seed, n: int) -> torch.Tensor:
                                                         device=seed.device))
 
 
-def expert_streams(seeds: torch.Tensor, batch: int) -> torch.Tensor:
+def expert_streams(seeds: torch.Tensor, batch: int, start: int = 0) -> torch.Tensor:
     """Streams of a stacked (E * B) batch from one seed per expert: row
     e * B + b has seed_e + b, wrapped to int32, as the JAX package's
-    per-expert `_streams` give under its `nn.vmap` over experts.
+    per-expert `_streams` give under its `nn.vmap` over experts. `start`:
+    the rows are rows start..start + B - 1 of a longer batch (a data rank's
+    share of it), row b taking seed_e + start + b.
 
     The per-slice op takes `expert_streams(seeds, B * H)` for its stacked
     (E * B, H) slices: slice (e, b, h) is row e * B * H + b * H + h and gets
     seed_e + b * H + h, which is `_streams(seed_e, B * H)[b * H + h]`, the
     stream the JAX package's `_fwd_pallas` gives that slice in expert e."""
     seeds = seeds.to(torch.int64)
-    b = torch.arange(batch, dtype=torch.int64, device=seeds.device)
+    b = torch.arange(start, start + batch, dtype=torch.int64, device=seeds.device)
     return _wrap_int32(seeds[:, None] + b).reshape(-1).to(torch.int32)
 
 

@@ -50,6 +50,13 @@ none). So its random bits are its sequential run's bits (the port's own
 contract: the bits are torch's, not JAX's threefry), and its numbers differ
 from the sequential run's by the order of sums alone.
 
+Over a mesh (`train_population(mesh=)`, a 1-D `parallel.ProcessMesh`, the
+JAX package's member-sharded population) each rank trains K / n whole
+members as a population of its own, with no collective in its steps, and
+the per-member summaries are gathered to every rank at the end. A member's
+generator is its own, seeded with its seed, so its bits do not depend on
+which members share its process.
+
 Scope (ROADMAP.md A1): all eight models in float32 and bfloat16, each
 member at its own dropout rate. (Under a traced rate the JAX package
 takes its attention off the Pallas kernels; the port keeps K3'-K6' and
@@ -371,10 +378,42 @@ class Population:
         return epochs
 
 
+def _sharded_population(cfg: config_lib.TrainConfig, members: list, data, mesh,
+                        track_best_params: bool, chunk_size: int | None, device) -> dict:
+    """`train_population` over a 1-D mesh: this rank's K / n whole members
+    trained alone, then every rank's results gathered, in member order."""
+    import torch.distributed as dist
+
+    n = mesh.size
+    if mesh.model_size != 1:
+        raise ValueError(f"a population shards its members over a 1-D mesh, "
+                         f"not {mesh.shape}")
+    if len(members) % n != 0:
+        raise ValueError(f"population size {len(members)} must divide over the {n}"
+                         f"-device mesh (whole members per device)")
+    k = len(members) // n
+    mine = slice(mesh.data_rank * k, (mesh.data_rank + 1) * k)
+    local = train_population(
+        cfg, members[mine], data=data[mine] if isinstance(data, (list, tuple)) else data,
+        track_best_params=track_best_params, chunk_size=chunk_size, device=device)
+    if track_best_params:
+        local["best_state"] = {k: v.cpu() for k, v in local["best_state"].items()}
+    parts = [None] * n
+    dist.all_gather_object(parts, local, group=mesh.data.handle)
+    out: dict[str, Any] = {
+        "per_member": [r for p in parts for r in p["per_member"]],
+        "f1_record": np.concatenate([p["f1_record"] for p in parts]),
+        "dcg_record": np.concatenate([p["dcg_record"] for p in parts])}
+    if track_best_params:
+        out["best_state"] = {k: torch.cat([p["best_state"][k] for p in parts])
+                             for k in parts[0]["best_state"]}
+    return out
+
+
 def train_population(cfg: config_lib.TrainConfig, members: Sequence[Member],
                      data=None, track_best_params: bool = False,
                      chunk_size: int | None = None,
-                     device: str | torch.device | None = None) -> dict:
+                     device: str | torch.device | None = None, mesh=None) -> dict:
     """Train every member for `cfg.epochs` epochs as one program; return
     per-member summaries.
 
@@ -393,10 +432,18 @@ def train_population(cfg: config_lib.TrainConfig, members: Sequence[Member],
     "best_state": the stacked state_dict of each member's best test F1
     epoch, with track_best_params]}. Runs on the card unless `device` is
     "cpu", each step one CUDA graph there (each chunk a `Population` with
-    graphs of its own)."""
+    graphs of its own).
+
+    mesh: a 1-D `parallel.ProcessMesh` to shard the members over, K / n
+    whole members a rank (K must divide by n); every rank of the mesh calls
+    this and gets the whole result ("best_state" on the host)."""
     members = list(members)
     if not members:
         raise ValueError("empty population")
+    if mesh is not None:
+        check_population(cfg, members)
+        return _sharded_population(cfg, members, data, mesh, track_best_params,
+                                   chunk_size, device)
     if chunk_size is not None:
         if chunk_size < 1:
             raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")

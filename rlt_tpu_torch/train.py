@@ -71,8 +71,23 @@ so that a run of 3 epochs resumed for 2 more is the run of 5, bit for bit.
 loss, each epoch's metrics and the summary, as JSONL, mirrored to
 TensorBoard where `torch.utils.tensorboard` imports) under DIR/<model>/,
 and `--draw 1` draws the reward and prediction curves of the test split
-into ./figs every second epoch (`utils/plots.py`). Not ported yet
-(ROADMAP.md A7): data and model parallelism.
+into ./figs every second epoch (`utils/plots.py`).
+
+`--data-parallel 1` shards each batch over one process a card
+(`rlt_tpu_torch/parallel/`, the JAX package's `Mesh('data')`): every card
+of the host (the CLI spawns one process each; one card is a world of one),
+or the ranks of a `torchrun` launch; the CPU runs parallel only under a
+launcher. `--model-parallel M` adds the model axis: expert parallelism of
+the MMOE family's expert stack where E divides M, else Megatron tensor
+parallelism of the encoder FFNs. Each data rank runs the forward on its
+rows of the batch, gathers the whole batch's outputs and evaluates the
+unchanged criterion and F1/DCG on them (`rerank_loss`'s batch means,
+`wass_dist_loss`'s (B, B) cost and every normaliser stay the batch's), and
+the ranks' gradients are summed over the data group as one flat buffer
+before Adam, inside the CUDA graph of the step on the card. Every dropout
+mask is drawn whole and cut to the rank's share, so each layout draws the
+bits of one process. Rank 0 alone writes the log, the records and the
+checkpoints, which hold the whole tensors and load into any layout.
 """
 
 from __future__ import annotations
@@ -82,6 +97,7 @@ import dataclasses
 import json
 import logging
 import os
+import sys
 import time
 from typing import Callable
 
@@ -98,6 +114,7 @@ from rlt_tpu_torch.data import (
 from rlt_tpu_torch.infer import COMPUTE_DTYPES, decode_ks, load_state_dict, to_float32
 from rlt_tpu_torch.models import MODELS, build_model, is_multi_head
 from rlt_tpu_torch.models.layers import compute_params
+from rlt_tpu_torch.parallel.functional import all_reduce_grads, gather_outputs
 from rlt_tpu_torch.utils import losses as losses_lib
 from rlt_tpu_torch.utils import metrics as metrics_lib
 from rlt_tpu_torch.utils.checkpoint import (
@@ -199,15 +216,23 @@ def forward(model, x: torch.Tensor, generator: torch.Generator | None = None,
 
 def train_step(model, optimizer, criterion, model_name: str, x: torch.Tensor,
                y: torch.Tensor, valid: torch.Tensor, generator: torch.Generator,
-               dtype: torch.dtype = torch.float32):
+               dtype: torch.dtype = torch.float32, mesh=None):
     """One update on a batch, the forward in `dtype`; returns (loss, f1,
     dcg), 0-dim f32 tensors of the pre-update forward. The gradients stay in
-    the parameters' `.grad`."""
+    the parameters' `.grad`. Under a `mesh` (`parallel.ProcessMesh`) x is
+    this data rank's rows and y, valid the whole batch's: the outputs are
+    gathered over the data group, the criterion and F1/DCG are the whole
+    batch's, and the gradients are summed over the data group before the
+    update."""
     model.train()
     optimizer.zero_grad()
     output = forward(model, x, generator, dtype)
+    if mesh is not None:
+        output = gather_outputs(output, mesh.data, y.shape[0])
     loss = criterion(output, y, valid=valid)
     loss.backward()
+    if mesh is not None:
+        all_reduce_grads(model.parameters(), mesh.data)
     optimizer.step()
     with torch.no_grad():
         f1, dcg = batch_metrics(model_name, output, y, valid)
@@ -216,11 +241,13 @@ def train_step(model, optimizer, criterion, model_name: str, x: torch.Tensor,
 
 @torch.no_grad()
 def eval_step(model, criterion, model_name: str, x: torch.Tensor, y: torch.Tensor,
-              valid: torch.Tensor, dtype: torch.dtype = torch.float32):
+              valid: torch.Tensor, dtype: torch.dtype = torch.float32, mesh=None):
     """The loss and F1/DCG of a batch without dropout, the forward in
-    `dtype`."""
+    `dtype` (under a `mesh`, x this data rank's rows, as `train_step`)."""
     model.eval()
     output = forward(model, x, dtype=dtype)
+    if mesh is not None:
+        output = gather_outputs(output, mesh.data, y.shape[0])
     loss = criterion(output, y, valid=valid)
     f1, dcg = batch_metrics(model_name, output, y, valid)
     return loss, f1, dcg
@@ -236,11 +263,20 @@ class Trainer:
     device), or eager (False: the CPU's only route; on the card for
     reference runs). Graphs on the CPU raise. With `cfg.log_dir` the run
     writes its metrics log there (`writer`), with `cfg.model_persist` its
-    training state after every epoch, which `run(resume=True)` takes up."""
+    training state after every epoch, which `run(resume=True)` takes up.
+
+    `mesh` (a `parallel.ProcessMesh`; built over the launch when
+    `cfg.data_parallel` is set, as the JAX Trainer builds its mesh) lays
+    the run out: the model is sharded by `parallel.sharding.shard_module`
+    after its weights are loaded, each step runs on this data rank's rows
+    (`train_step`), `best_state` holds this rank's slices, and rank 0 alone
+    writes the log, the figures and the files, with the whole tensors.
+    `model`: a model built by the caller in place of `build_model`'s (the
+    dry run's MMOECut at four experts)."""
 
     def __init__(self, cfg: config_lib.TrainConfig, data=None,
                  device: str | torch.device | None = None, state_dict=None,
-                 graphs: bool | None = None):
+                 graphs: bool | None = None, mesh=None, model=None):
         if cfg.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, "
                              f"got {cfg.compute_dtype!r}")
@@ -249,17 +285,27 @@ class Trainer:
         self.model_name = cfg.model_name
         self.criterion = make_criterion(cfg)
         self.device = resolve_device(device)
+        if mesh is None and cfg.data_parallel:
+            from rlt_tpu_torch.parallel import ensure_process_group, mesh_2d
+
+            ensure_process_group(self.device)
+            mesh = mesh_2d(model_parallel=cfg.model_parallel)
+        self.mesh = mesh
         self.graphs = graphs = use_graphs(self.device, graphs)
         self.data = DeviceDataset.from_host(load_data(cfg) if data is None else data,
                                             cfg.batch_size, self.device)
-        self.model = build_model(cfg.model_name, seq_len=cfg.seq_len,
-                                 input_size=cfg.input_size, dropout=cfg.dropout,
-                                 num_tasks=cfg.num_tasks, seed=cfg.seed)
+        self.model = model if model is not None else build_model(
+            cfg.model_name, seq_len=cfg.seq_len, input_size=cfg.input_size,
+            dropout=cfg.dropout, num_tasks=cfg.num_tasks, seed=cfg.seed)
         if state_dict is None and cfg.model_path:
             state_dict = load_state_dict(cfg.model_path)
         if state_dict is not None:
             self.model.load_state_dict(state_dict)
         self.model.to(self.device)
+        if mesh is not None:
+            from rlt_tpu_torch.parallel.sharding import shard_module
+
+            shard_module(self.model, mesh, cfg.batch_size)
         self.optimizer = make_optimizer(self.model.parameters(), cfg.lr,
                                         cfg.weight_decay)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
@@ -270,7 +316,7 @@ class Trainer:
         self.dcg_record: list[float] = []
         self.history: list[dict] = []  # each epoch's metrics, as run_epoch gives them
         self.writer = (MetricsWriter(cfg.log_dir, run_name=cfg.model_name)
-                       if cfg.log_dir else None)
+                       if cfg.log_dir and self.writes else None)
         self._graphed = GraphedSteps(
             self._train, self._test, (cfg.batch_size,), self.device,
             params=self.model.parameters(), optimizer=self.optimizer,
@@ -278,6 +324,22 @@ class Trainer:
 
     def _snapshot(self) -> dict[str, torch.Tensor]:
         return {k: v.detach().clone() for k, v in self.model.state_dict().items()}
+
+    @property
+    def writes(self) -> bool:
+        """Whether this process writes the run's files: rank 0 of a mesh, or
+        the one process."""
+        return self.mesh is None or self.mesh.is_writer
+
+    def whole_state_dict(self, state: dict | None = None) -> dict[str, torch.Tensor]:
+        """The model's state_dict (or `state`, one of its snapshots) with
+        every sharded tensor whole; a collective of the mesh's model group
+        under a layout, which every rank calls."""
+        if self.mesh is None:
+            return self.model.state_dict() if state is None else state
+        from rlt_tpu_torch.parallel.sharding import gather_state_dict
+
+        return gather_state_dict(self.model, self.mesh, state)
 
     @property
     def best_path(self) -> str:
@@ -289,16 +351,27 @@ class Trainer:
         `.trainstate.pt` and `.records.json`."""
         return os.path.join(self.cfg.save_path, self.model_name)
 
+    def _rows(self, idx: torch.Tensor) -> torch.Tensor:
+        """The plan row's indices of this data rank's rows (all of them
+        without a mesh)."""
+        if self.mesh is None:
+            return idx
+        from rlt_tpu_torch.parallel import local_rows
+
+        return local_rows(idx, self.mesh)
+
     def _train(self, idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
         d = self.data
         return torch.stack(train_step(self.model, self.optimizer, self.criterion,
-                                      self.model_name, d.x_train[idx], d.y_train[idx],
-                                      valid, self.generator, self.dtype))
+                                      self.model_name, d.x_train[self._rows(idx)],
+                                      d.y_train[idx], valid, self.generator, self.dtype,
+                                      self.mesh))
 
     def _test(self, idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
         d = self.data
         return torch.stack(eval_step(self.model, self.criterion, self.model_name,
-                                     d.x_test[idx], d.y_test[idx], valid, self.dtype))
+                                     d.x_test[self._rows(idx)], d.y_test[idx], valid,
+                                     self.dtype, self.mesh))
 
     def _step(self, split: str, idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
         if self._graphed is not None:
@@ -379,7 +452,7 @@ class Trainer:
             logger.warning("no training state at %s; training from epoch 0",
                            self.state_path)
             return 0
-        restore_train_state(payload, self.model, self.optimizer, self.generator)
+        restore_train_state(payload, self.model, self.optimizer, self.generator, self.mesh)
         records = payload.get("records", {})
         self.f1_record = list(records.get("f1_record", []))
         self.dcg_record = list(records.get("dcg_record", []))
@@ -410,13 +483,14 @@ class Trainer:
             self.best_test_f1 = metrics["test_f1"]
             self.best_state = self._snapshot()
             if cfg.model_persist:
-                os.makedirs(cfg.save_path, exist_ok=True)
-                torch.save({k: v.cpu() for k, v in self.best_state.items()},
-                           self.best_path)
+                best = self.whole_state_dict(self.best_state)
+                if self.writes:
+                    os.makedirs(cfg.save_path, exist_ok=True)
+                    torch.save({k: v.cpu() for k, v in best.items()}, self.best_path)
         self.best_test_dcg = max(self.best_test_dcg, metrics["test_dcg"])
         if cfg.model_persist:
             save_train_state(self.state_path, self.model, self.optimizer, self.generator,
-                             epoch, self._records())
+                             epoch, self._records(), self.mesh)
         if cfg.draw and epoch % 2 == 0:
             self.draw(epoch)
         logger.info(
@@ -444,14 +518,18 @@ class Trainer:
                 cuts.append(cut[..., 0])
         return torch.cat(cuts).cpu().numpy()
 
-    def draw(self, epoch: int) -> str:
+    def draw(self, epoch: int) -> str | None:
         """The reward and prediction curves of the test split at this epoch
-        (`utils/plots.py`), into ./figs; the figure's path."""
+        (`utils/plots.py`), into ./figs; the figure's path (under a mesh
+        every rank runs the forward, rank 0 draws; None on the others)."""
         from rlt_tpu_torch.utils.plots import plot_reward_vs_prediction
 
         cfg = self.cfg
+        predictions = self.test_predictions()
+        if not self.writes:
+            return None
         return plot_reward_vs_prediction(
-            self.data.y_test.cpu().numpy(), self.test_predictions(), metric=cfg.criterion,
+            self.data.y_test.cpu().numpy(), predictions, metric=cfg.criterion,
             epoch=epoch, model_name=self.model_name, div_type=cfg.div_type,
             aug_reward=cfg.augmented_reward)
 
@@ -499,8 +577,9 @@ def build_argparser() -> argparse.ArgumentParser:
                "gives MtChoopy's and MtAttnCut's members their own task weights, "
                "--regularizer-search their own dropout rates and weight decays. "
                "On the card every train and test step is one CUDA graph replay. "
-               "Not ported yet, so absent: --data-parallel and --model-parallel "
-               "(ROADMAP.md A7).")
+               "--data-parallel 1 runs one process a visible card (or joins a torchrun "
+               "launch; the CPU only under one), --model-parallel M adds expert or FFN "
+               "tensor parallelism (rlt_tpu_torch/parallel/).")
     d = config_lib.TrainConfig()
     p.add_argument("--retrieve-data", type=str, default=d.retrieve_data)
     p.add_argument("--dataset-name", type=str, default=d.dataset_name)
@@ -562,6 +641,12 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="the steps' dtype: bfloat16 casts the f32 master parameters "
                         "and the features to bf16 inside each step and runs the bf16 "
                         "kernels; losses and metrics stay f32")
+    p.add_argument("--data-parallel", type=int, default=0,
+                   help="shard the batch over all visible chips (Mesh('data'))")
+    p.add_argument("--model-parallel", type=int, default=d.model_parallel,
+                   help="with --data-parallel 1: size of the second mesh axis "
+                        "(expert-parallel MMOE stacks / Megatron FFN tp — "
+                        "rlt_tpu_torch/parallel/sharding.py)")
     p.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"),
                    help="cuda (the kernels) unless cpu (their plain versions)")
     p.add_argument("--out", type=str, default=None,
@@ -587,7 +672,8 @@ def config_from_args(args) -> config_lib.TrainConfig:
         parameter_search=bool(args.parameter_search),
         regularizer_search=bool(args.regularizer_search),
         mt_search=bool(args.mt_search), search_times=args.search_times,
-        parameter_record=args.parameter_record, compute_dtype=args.compute_dtype)
+        parameter_record=args.parameter_record, compute_dtype=args.compute_dtype,
+        data_parallel=bool(args.data_parallel), model_parallel=args.model_parallel)
     # config-file override chain (run.py:339-347)
     if args.conf_file:
         cfg = config_lib.load_conf_file(cfg, args.conf_file)
@@ -638,6 +724,32 @@ def _search_record_line(trial: config_lib.TrainConfig, result: dict) -> str:
     )
 
 
+def _writes(cfg: config_lib.TrainConfig) -> bool:
+    """Whether this process writes a search's records: rank 0 of a
+    parallel launch, or the one process."""
+    if not cfg.data_parallel:
+        return True
+    import torch.distributed as dist
+
+    return dist.get_rank() == 0
+
+
+def _chunk_mesh(k: int, world: int):
+    """The JAX package's chunk rule: a chunk of k members over the largest
+    divisor of k that the launch's `world` ranks can hold, or None (a chunk
+    of 1, or a k with no divisor above 1 within the world, runs on rank 0
+    alone). A collective of the whole launch."""
+    from rlt_tpu_torch.parallel import data_parallel_mesh
+
+    m = min(k, world)
+    while m > 1 and k % m:
+        m -= 1
+    if m <= 1:
+        return None
+    logger.info("population chunk of %d sharded over %d processes", k, m)
+    return data_parallel_mesh(m)
+
+
 def parameter_search(cfg: config_lib.TrainConfig, population: int = 0,
                      device: str | torch.device | None = None) -> str:
     """The random / logspace hyper-parameter search (run.py:349-364); returns
@@ -648,23 +760,50 @@ def parameter_search(cfg: config_lib.TrainConfig, population: int = 0,
     one population (`population.train_population`): the same trials and the
     same record lines, written when the last chunk is done. The population
     takes trials of any model in either compute dtype, in every search
-    mode: a regularizer search's members each drop at their own rate."""
+    mode: a regularizer search's members each drop at their own rate.
+
+    With `cfg.data_parallel` the sequential trials each run data parallel,
+    and each population chunk's members are sharded over a mesh of the
+    largest divisor of its size that the launch holds (whole members a
+    process, no collective in the steps: `_chunk_mesh`, the JAX package's
+    rule); rank 0 writes the records."""
     trials = draw_search_trials(cfg)
     record = _search_record_path(cfg)
+    if cfg.data_parallel:
+        from rlt_tpu_torch.parallel import ensure_process_group
+
+        ensure_process_group(resolve_device(device))
+    writes = _writes(cfg)
 
     def write(trial, result):
-        with open(record, "a+") as f:
-            f.write("\n" + _search_record_line(trial, result))
+        if writes:
+            with open(record, "a+") as f:
+                f.write("\n" + _search_record_line(trial, result))
 
     if population > 1:
         from rlt_tpu_torch.population import Member, train_population
 
-        members = [Member(seed=cfg.seed, **ov) for ov in trials]
-        logger.info("population search, %d trials %d at a time: %s", len(members),
-                    population, members)
-        out = train_population(cfg, members, chunk_size=population, device=device)
-        for ov, row in zip(trials, out["per_member"]):
-            write(dataclasses.replace(cfg, **ov), row)
+        if not cfg.data_parallel:
+            members = [Member(seed=cfg.seed, **ov) for ov in trials]
+            logger.info("population search, %d trials %d at a time: %s", len(members),
+                        population, members)
+            out = train_population(cfg, members, chunk_size=population, device=device)
+            for ov, row in zip(trials, out["per_member"]):
+                write(dataclasses.replace(cfg, **ov), row)
+            return record
+        import torch.distributed as dist
+
+        world, rank = dist.get_world_size(), dist.get_rank()
+        for lo in range(0, len(trials), population):
+            chunk = trials[lo:lo + population]
+            members = [Member(seed=cfg.seed, **ov) for ov in chunk]
+            mesh = _chunk_mesh(len(chunk), world)
+            if (mesh.member if mesh is not None else rank == 0):
+                logger.info("population search trials %d..%d: %s", lo,
+                            lo + len(chunk) - 1, members)
+                out = train_population(cfg, members, mesh=mesh, device=device)
+                for ov, row in zip(chunk, out["per_member"]):
+                    write(dataclasses.replace(cfg, **ov), row)
         return record
 
     for i, ov in enumerate(trials):
@@ -678,21 +817,38 @@ def main(argv=None) -> dict:
     logging.basicConfig(level=logging.INFO)
     args = build_argparser().parse_args(argv)
     cfg = config_from_args(args)
-    logger.info("%s", cfg)
+    if cfg.data_parallel:
+        import torch.distributed as dist
+
+        from rlt_tpu_torch.parallel import ensure_process_group, launch
+        from rlt_tpu_torch.parallel.mesh import launched
+
+        device = resolve_device(args.device)
+        if not (dist.is_initialized() or launched()) and device.type == "cuda" \
+                and torch.cuda.device_count() > 1:
+            # one process a visible card, each running this CLI
+            argv = sys.argv[1:] if argv is None else list(argv)
+            return launch(main, torch.cuda.device_count(), argv, backend="nccl")[0]
+        ensure_process_group(device)  # one card: a world of one; the CPU: raises
+    writes = _writes(cfg)
+    if writes:
+        logger.info("%s", cfg)
     if cfg.parameter_search:
         record = parameter_search(cfg, population=args.population, device=args.device)
         summary = {"parameter_record": record, "trials": cfg.search_times,
                    "population": args.population}
-        print(json.dumps(summary))
+        if writes:
+            print(json.dumps(summary))
         return summary
     trainer = Trainer(cfg, device=args.device)
     summary = dict(trainer.run(profile_dir=args.profile_dir, resume=bool(args.resume)),
                    device=str(trainer.device),
                    config=dataclasses.asdict(cfg))
-    print(json.dumps({k: v for k, v in summary.items() if k != "config"}))
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump(summary, f, indent=2)
+    if writes:
+        print(json.dumps({k: v for k, v in summary.items() if k != "config"}))
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(summary, f, indent=2)
     return summary
 
 

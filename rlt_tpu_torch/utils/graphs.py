@@ -34,7 +34,13 @@ the whole step is one launch.
   wrapper launches its kernel, which a replay does not pass through. The
   runner sets every count back after the capture to what it was before the
   warm-up (warm-up runs are no steps), and adds each kernel's captured
-  launches at every replay.
+  launches at every replay. The collectives of a parallel layout
+  (`parallel/functional.py::CALLS`) are counted the same way.
+- **Collectives.** A step under a parallel layout issues its NCCL
+  collectives (the flat gradient all-reduce among them) inside the graph:
+  NCCL allows a capture once a communicator has run, which the warm-up's
+  steps make sure of, and every rank warms up, captures and replays the
+  same steps in the same order, so their collectives pair up.
 - **Plain versions.** A replay runs the kernels baked in at capture whatever
   `ops.plain_ops()` routes the wrappers to, so both capture and replay
   raise inside it: a reference run through the plain versions runs eager.
@@ -69,6 +75,12 @@ def _kernel_counts() -> dict[str, int]:
     from rlt_tpu_torch.ops import KERNELS
 
     return {name: kernel.launches for name, kernel in KERNELS.items()}
+
+
+def _collective_counts() -> dict[str, int]:
+    from rlt_tpu_torch.parallel.functional import CALLS
+
+    return dict(CALLS)
 
 
 def _refuse_plain(what: str) -> None:
@@ -132,8 +144,10 @@ class GraphedCall:
                  capture_error_mode: str = "global"):
         from rlt_tpu_torch.ops import KERNELS
 
+        from rlt_tpu_torch.parallel.functional import CALLS
+
         _refuse_plain("capture")
-        counts = _kernel_counts()
+        counts, calls = _kernel_counts(), _collective_counts()
         restore = snapshot(params, optimizer, generators)
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -145,22 +159,31 @@ class GraphedCall:
         self.graph = torch.cuda.CUDAGraph()
         for g in generators:
             self.graph.register_generator_state(g)
-        start = _kernel_counts()
+        start, start_calls = _kernel_counts(), _collective_counts()
         with torch.cuda.graph(self.graph, pool=pool, capture_error_mode=capture_error_mode):
             self.outputs = fn()
-        # each kernel's launches in one replay; the counts as before the warm-up
+        # each kernel's launches and each collective in one replay; the
+        # counts as before the warm-up
         self.launches = {name: n - start[name] for name, n in _kernel_counts().items()
                          if n != start[name]}
+        self.collectives = {key: n - start_calls.get(key, 0)
+                            for key, n in _collective_counts().items()
+                            if n != start_calls.get(key, 0)}
         for name, n in counts.items():
             KERNELS[name].launches = n
+        CALLS.clear()
+        CALLS.update(calls)
 
     def __call__(self):
         from rlt_tpu_torch.ops import KERNELS
+
+        from rlt_tpu_torch.parallel.functional import CALLS
 
         _refuse_plain("replay")
         self.graph.replay()
         for name, n in self.launches.items():
             KERNELS[name].launches += n
+        CALLS.update(self.collectives)
         return self.outputs
 
 

@@ -1342,3 +1342,79 @@ def test_doc2vec_repeats_bit_for_bit_on_card(cuda_device):
     assert np.isfinite(runs[0].docvecs).all()
     np.testing.assert_array_equal(runs[0].docvecs, runs[1].docvecs)
     np.testing.assert_array_equal(runs[0].wordvecs, runs[1].wordvecs)
+
+
+# ---------------------------------------------------------------------------
+# The parallel layouts on the one card (rlt_tpu_torch/parallel/)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_data_parallel_world_of_one_equals_the_graphed_trainer_on_card(cuda_device, dtype):
+    """`--data-parallel 1` on one card: a world of one over NCCL, graphed;
+    three steps bit for bit the plain graphed Trainer's, with the gradient
+    all-reduce inside the train step's graph, counted once a replay."""
+    import torch.distributed as dist
+
+    import parallel_workers as W
+    from rlt_tpu_torch.parallel import ensure_process_group, mesh_2d
+    from rlt_tpu_torch.parallel.functional import CALLS
+
+    ensure_process_group("cuda")
+    try:
+        cfg = W.config("mmoecut", dropout=0.1, compute_dtype=dtype)
+        plain = Trainer(cfg, data=W.dataset(), device="cuda")
+        dp = Trainer(cfg, data=W.dataset(), device="cuda", mesh=mesh_2d(model_parallel=1))
+        idx, valid = plain.data.plan(plain.generator, "train")
+        dp.data.plan(dp.generator, "train")
+        CALLS.clear()
+        for s in range(3):
+            assert torch.equal(dp.train_batch(idx[s % len(idx)], valid[s % len(idx)]),
+                               plain.train_batch(idx[s % len(idx)], valid[s % len(idx)]))
+        for (name, p), q in zip(dp.model.named_parameters(), plain.model.parameters()):
+            assert torch.equal(p, q) and torch.equal(p.grad, q.grad), name
+        assert dp._graphed.graphs["train"].collectives == {"data:all_gather": 3,
+                                                           "data:all_reduce": 1}
+        assert dict(CALLS) == {"data:all_gather": 9, "data:all_reduce": 3}
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def card_ranks():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import parallel_workers as W
+    from rlt_tpu_torch.parallel import launch
+
+    return launch(W.card_ranks, 2, backend="gloo")
+
+
+def test_two_ranks_on_the_card_equal_one_process(cuda_device, card_ranks):
+    """dp 2 x 1 on one card shared by two gloo processes against one
+    process: the step losses within 1e-5 relative; tp and ep with dropout
+    on against dp 2 x 1 within 1e-6 (the JAX package's rule)."""
+    import parallel_workers as W
+
+    want = W.steps(W.config("mmoecut"), device="cuda")
+    got = card_ranks[0]["dp"]
+    np.testing.assert_allclose(got["steps"][:, 0], want["steps"][:, 0], rtol=STEP_LOSS_REL)
+    for layout, ref in (("tp", "dropout"), ("ep", "ep_dp")):
+        np.testing.assert_allclose(card_ranks[0][layout]["steps"][0, 0],
+                                   card_ranks[0][ref]["steps"][0, 0], rtol=0, atol=1e-6)
+        assert card_ranks[0][layout]["calls"]["model:all_reduce"] > 0
+
+
+def test_sharded_population_on_the_card_is_the_unsharded_one(cuda_device, card_ranks):
+    """Four members, two a rank, against the four in one process on the
+    card: member by member, bit for bit."""
+    import parallel_workers as W
+    from rlt_tpu_torch.population import train_population
+
+    want = train_population(W.config("mmoecut", epochs=2, dropout=0.1),
+                            W.population_members(), device="cuda", track_best_params=True)
+    got = card_ranks[0]["population"]
+    np.testing.assert_array_equal(got["f1_record"], want["f1_record"])
+    for a, b in zip(got["per_member"], want["per_member"]):
+        assert a["history"] == b["history"]
+    for k, v in want["best_state"].items():
+        assert torch.equal(got["best_state"][k], v.cpu()), k

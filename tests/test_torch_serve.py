@@ -310,3 +310,40 @@ def test_infer_cli_on_cpu(tmp_path, capsys):
     saved = json.loads(out.read_text())
     assert saved["n_lists"] == len(saved["cuts"]) > 0
     assert all(1 <= k <= 40 for k in saved["cuts"])
+
+
+def test_parallel_imports_no_jax_and_refuses_a_silent_single_process():
+    """In a fresh interpreter: `rlt_tpu_torch.parallel` (the mesh, the
+    sharding, the collectives, the dry run) pulls in no jax, flax, optax or
+    rlt_tpu module; and `--data-parallel 1` without a card, or on the CPU
+    without a launcher, raises instead of training as one process."""
+    code = """
+import sys
+import torch
+import torch.distributed as dist
+import rlt_tpu_torch.parallel, rlt_tpu_torch.parallel.sharding
+import rlt_tpu_torch.parallel.functional, rlt_tpu_torch.parallel.dryrun
+bad = sorted(m for m in sys.modules if m.split('.')[0] in (
+    'jax', 'jaxlib', 'flax', 'optax', 'rlt_tpu', '__graft_entry__'))
+assert not bad, bad
+from rlt_tpu_torch import train
+args = ["--data-parallel", "1", "--retrieve-data", "mq2007", "--synthetic-queries", "8",
+        "--epochs", "1"]
+for extra, message in ((["--device", "cpu"], "needs one process per rank"),
+                       ([] if not torch.cuda.is_available() else None, "CUDA")):
+    if extra is None:
+        continue
+    try:
+        train.main(args + extra)
+    except RuntimeError as e:
+        assert message in str(e), e
+    else:
+        raise AssertionError(f"--data-parallel 1 {extra} ran as one process")
+    assert not dist.is_initialized()
+print("ok")
+"""
+    env = {k: v for k, v in ONE_THREAD_ENV.items() if k not in ("RANK", "WORLD_SIZE")}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120, env=env)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
