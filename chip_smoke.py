@@ -102,6 +102,28 @@ process, bit for bit against the unsharded one; every rank's launches are
 checked. Two processes on one card time nothing: they say nothing about
 scaling.
 
+Last, every width the JAX package takes (`widths_end_to_end`): K1'-K6'
+against their plain versions in f32 and bf16 at the widths the
+width-specialised instances do not take, K1'/K2' at H 40 and 100 (the
+width-specialised instances, H padded with zeros to 64 and 128) and 200 and
+256 (the `_any` instances of `csrc/lstm_any.cu`) over 1, 2 and 8
+directions, and the `_any` instances of `csrc/attention_any_dh.cu`: K3'/K4'
+at dh 8, 32, 200 and 256, K5'/K6' at dh 8 and 32 with a pack below the
+heads; each at rate 0, 0.1 and a rate per row, launched twice bit for bit
+and counted on the instance `ops.instance_at` names, the two paths' shapes
+timed with their bound, the plain version and cuDNN's LSTM or SDPA. Then
+MMOECut at H 256 with 16 heads of dh 32 (`mmoecut-wide`) and PLECut at H
+100 with one head of dh 200 (`mtple-dh200`), built through `build_model`'s
+width keywords, each served at buckets 1 and 64 and trained 3 graphed
+steps in f32 and bf16, bit for bit against the eager route and against the
+plain versions on the card (eight paths); a graphed population of two
+mtple-dh200 members at distinct rates for one epoch against each member's
+own Trainer and against the eager population (`mtple-dh200-population`);
+and MMOECut's f32 bundle at buckets 1 and 64 lowered for the card by
+`python -m rlt_tpu_torch.export --device cuda --lower` in a process that
+sees no card (`CUDA_VISIBLE_DEVICES=""`), loaded here and served bit for
+bit as a bundle exported on the card (`mmoecut-export-lowered`).
+
 Every time is the median of rounds taken in turns with what it is compared
 with (`rlt_tpu_torch/utils/timing.py`), printed with its spread; every
 train step, the bucket-64 and bucket-256 forwards and the population's
@@ -2295,9 +2317,11 @@ def population_members(k: int, rates=None):
             for i in range(k)]
 
 
-def population_step_check(cfg, members, label: str, bf16: bool) -> None:
+def population_step_check(cfg, members, label: str, bf16: bool, model=None,
+                          want: dict | None = None) -> None:
     """A fresh graphed population (the default on the card) against a fresh
-    eager one (`graphs=False`) of the same members, dropout on:
+    eager one (`graphs=False`) of the same members (each of `model()`, where
+    the caller builds the members' model, launching `want` a step), dropout on:
     GRAPH_CHECK_STEPS steps of the same plans, every step's (K, 3) results,
     then the gradients, parameters, MemberAdam's moments and step count and
     a test batch bit for bit; each step, graphed and eager, launches what
@@ -2305,12 +2329,15 @@ def population_step_check(cfg, members, label: str, bf16: bool) -> None:
     plain_ops() raises."""
     from rlt_tpu_torch.population import Population
 
-    graphed, eager = (Population(cfg, members, device="cuda", graphs=g) for g in (True, False))
+    graphed, eager = (Population(cfg, members, device="cuda", graphs=g,
+                                 model=None if model is None else model())
+                      for g in (True, False))
     require(graphed.graphs and not eager.graphs, f"{label}: graphed and eager populations")
     plans = [p.plans("train") for p in (graphed, eager)]
     require(all(torch.equal(a, b) for a, b in zip(*plans)), f"{label}: plans differ")
     idx, valid = plans[0]
-    want = want_counts(cfg.model_name, forwards=0, steps=1, bf16=bf16)
+    if want is None:
+        want = want_counts(cfg.model_name, forwards=0, steps=1, bf16=bf16)
     for s in range(GRAPH_CHECK_STEPS):
         results = []
         for p in (graphed, eager):
@@ -2354,13 +2381,14 @@ def nudged(state: dict, seed: int) -> dict:
     return out
 
 
-def nudged_run(cfg, init: dict, seed: int) -> np.ndarray:
-    """The step losses of one graphed epoch of a `Trainer` of `cfg` from
-    `init` nudged one ulp (`nudged`): its generator, plans and dropout bits
-    are the unnudged Trainer's."""
+def nudged_run(cfg, init: dict, seed: int, model=None) -> np.ndarray:
+    """The step losses of one graphed epoch of a `Trainer` of `cfg` (and
+    `model`, where the caller builds it) from `init` nudged one ulp
+    (`nudged`): its generator, plans and dropout bits are the unnudged
+    Trainer's."""
     from rlt_tpu_torch.train import Trainer
 
-    trainer = Trainer(cfg, device="cuda", state_dict=nudged(init, seed))
+    trainer = Trainer(cfg, device="cuda", state_dict=nudged(init, seed), model=model)
     trainer.run()
     return np.asarray(trainer.history[0]["train_loss_steps"])
 
@@ -3649,6 +3677,752 @@ def parallel_end_to_end(card: str) -> tuple[dict, dict]:
     return launches, summary
 
 
+# ---------------------------------------------------------------------------
+# Every width the JAX package takes: the `_any` instances of K1'-K6'
+# (csrc/lstm_any.cu, csrc/attention_any_dh.cu), the two configurations that
+# reach them through the entry points, and a bundle for the card lowered on
+# a host with no card
+# ---------------------------------------------------------------------------
+
+# (model, constructor widths) of each configuration, at its drmm_tks preset,
+# L = 300, B = 63, seeded weights: MMOECut at a BiLSTM of H = 256 and 16
+# heads of dh = 32 in groups of pack 4 (K1'/K2' and K5'/K6' at those
+# widths); PLECut at H = 100 and one head of dh = 200 (K3'/K4')
+WIDTH_CONFIGS = {"mmoecut-wide": ("mmoecut", dict(encoding_size=256, d_model=512,
+                                                  n_head=16)),
+                 "mtple-dh200": ("mtple", dict(encoding_size=100, d_model=200, n_head=1))}
+WIDTH_PATHS = tuple(f"{c}-{p}{d}" for c in WIDTH_CONFIGS for p in ("serve", "train")
+                    for d in ("", "-bf16"))
+WIDTH_BUCKETS = (1, 64)
+WIDTH_STEPS = 3
+# the kernel checks: K1'/K2' at these H over 1, 2 and 2K directions (K =
+# POPULATION_SIZES[0] members' BiLSTM layers; below 128 the width-specialised
+# instances, H padded with zeros by the wrappers); K3'/K4' at these dh over N =
+# 64 slices (PLECut-dh200's 3 * B at dh 200); K5'/K6' at (dh, heads, pack),
+# N = 63 rows (MMOECut-wide's 3 * B at dh 32); each at rate 0, RATE and a
+# rate per row (ANY_ROW_RATES in turn)
+ANY_HIDDEN = (40, 100, 200, 256)
+ANY_NDIRS = (1, 2, 2 * POPULATION_SIZES[0])
+ANY_SLICE_DHS = (8, 32, 200, 256)
+ANY_PACKED = ((8, 16, 4), (32, 16, 4))
+ANY_ROW_RATES = (0.0, 0.05, 0.1, 0.25, 0.45)
+# the `_any` instances' source, TPU kernel and library call, by the float32
+# wrapper that launches them (a bf16 wrapper's: its float32 twin's, F32_OF)
+_LSTM_ANY, _ATTN_ANY = "rlt_tpu_torch/csrc/lstm_any.cu", "rlt_tpu_torch/csrc/attention_any_dh.cu"
+_SDPA = "torch.nn.functional.scaled_dot_product_attention"
+ANY_OF = {"lstm_fwd": (_LSTM_ANY, "rlt_tpu/ops/lstm.py:82",
+                       "torch.nn.LSTM (cuDNN), 1 layer 2 directions"),
+          "lstm_bwd": (_LSTM_ANY, "rlt_tpu/ops/lstm.py:101",
+                       "torch.nn.LSTM (cuDNN), 1 layer 2 directions, backward"),
+          "attention_fwd": (_ATTN_ANY, "rlt_tpu/ops/attention.py:89", _SDPA),
+          "attention_bwd": (_ATTN_ANY, "rlt_tpu/ops/attention.py:117",
+                            f"{_SDPA}, backward, dropout_p {RATE}"),
+          "attention_packed_fwd": (_ATTN_ANY, "rlt_tpu/ops/attention.py:369", _SDPA),
+          "attention_packed_bwd": (_ATTN_ANY, "rlt_tpu/ops/attention.py:412",
+                                   f"{_SDPA}, backward, dropout_p {RATE}")}
+F32_OF = {bf16: f32 for f32, bf16 in BF16_OF.items()}
+# the population path of this section: two members of this configuration
+WIDTH_POPULATION = "mtple-dh200"
+
+
+def any_bound(nbytes: float, flops: float, bf16: bool) -> dict:
+    """A width row's bound: bf16 at the dense bf16 rate; f32 at the FMA
+    rate with bound_tc_ms, the 3xTF32 rate, beside it (`bounds`), as the
+    width-specialised f32 attention rows have it."""
+    if bf16:
+        return dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops, PEAK_BF16_FLOPS)))
+    return bounds(nbytes, flops)
+
+
+def counted(fn):
+    """fn() and the launches it added, by instance."""
+    before = read_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    added = {k: n - before[k] for k, n in read_counts().items() if n != before[k]}
+    return out, added
+
+
+def card_normal(gen, shape, dtype=torch.float32, scale: float = 1.0) -> torch.Tensor:
+    return (torch.randn(shape, generator=gen, device=gen.device) * scale).to(dtype)
+
+
+def any_rates(n: int, dev) -> dict:
+    """The dropout of every attention check: none, RATE, and a rate per row."""
+    from rlt_tpu_torch.ops import attention
+
+    rows = [ANY_ROW_RATES[i % len(ANY_ROW_RATES)] for i in range(n)]
+    return {"rate_0": 0.0, f"rate_{RATE}": RATE,
+            "per_row": attention.row_dropout(rows, device=dev)}
+
+
+def check_lstm_any(dev, bf16: bool) -> dict:
+    """K1' and K2' against `lstm_recurrence_plain` and `lstm_bwd_plain` at
+    every H of ANY_HIDDEN and ndir of ANY_NDIRS, B lists a direction: the
+    `_any` instances above H 128, the width-specialised ones below it (H
+    padded with zeros by the wrappers); each launched twice, bit for bit,
+    on the instance `ops.instance_at` names. The two paths' shapes (H 256
+    and 100 at ndir 2) are timed with the plain versions and cuDNN's
+    two-direction LSTM of the same H, forward and backward, the padding's
+    copies in the kernel's time. Returns the rows by instance."""
+    from rlt_tpu_torch.ops import instance_at, lstm
+
+    gen = torch.Generator(device=dev).manual_seed(220 + bf16)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    suffix = "_bf16" if bf16 else ""
+    fwd, bwd = ((lstm.lstm_fwd_bf16, lstm.lstm_bwd_bf16) if bf16
+                else (lstm.lstm_fwd, lstm.lstm_bwd))
+    es = 2 if bf16 else 4
+    batch = BATCHES[0]
+    rows = {}
+    for hidden in ANY_HIDDEN:
+        inst_f, inst_b = (instance_at(f"lstm_{d}{suffix}", hidden) for d in ("fwd", "bwd"))
+        for ndir in ANY_NDIRS:
+            n = ndir * batch
+            xw = card_normal(gen, (SEQ_LEN, n, 4 * hidden), dtype)
+            w = ((torch.rand(ndir * hidden, 4 * hidden, generator=gen, device=dev) * 2 - 1)
+                 / math.sqrt(hidden)).to(dtype)
+            (hs, cs), added = counted(lambda: fwd(xw, w, ndir))
+            again = fwd(xw, w, ndir)
+            torch.cuda.synchronize()
+            label = f"{inst_f} H={hidden} ndir={ndir}"
+            require(added == {inst_f: 1}, f"{label}: launched {added}")
+            require(torch.equal(hs, again[0]) and torch.equal(cs, again[1]),
+                    f"{label}: two launches differ")
+            want_hs, want_cs = lstm.lstm_recurrence_plain(xw, w, ndir)
+            cs_err = (cs - want_cs).abs().max().item()
+            hs_err = (hs.float() - want_hs.float()).abs().max().item()
+            hs_limit = (bf16_step(want_hs.float()) + LSTM_ATOL) if bf16 else LSTM_ATOL
+            require(bool(torch.isfinite(hs).all()) and cs_err <= LSTM_ATOL and bool(
+                ((hs.float() - want_hs.float()).abs() <= hs_limit).all()),
+                f"{label}: hs max abs err {hs_err}, cs {cs_err} (limit {LSTM_ATOL}"
+                f"{', hs one bf16 step beyond it' if bf16 else ''})")
+            dho = card_normal(gen, (SEQ_LEN, n, hidden), dtype)
+            (dxw, dw), added = counted(lambda: bwd(xw, w, want_hs, want_cs, dho, ndir))
+            again = bwd(xw, w, want_hs, want_cs, dho, ndir)
+            torch.cuda.synchronize()
+            blabel = f"{inst_b} H={hidden} ndir={ndir}"
+            require(added == {inst_b: 1}, f"{blabel}: launched {added}")
+            require(torch.equal(dxw, again[0]) and torch.equal(dw, again[1]),
+                    f"{blabel}: two launches differ")
+            want_dxw, want_dw = lstm.lstm_bwd_plain(xw, w, want_hs, want_cs, dho, ndir)
+            dw_rel = max_errs(dw, want_dw)[1]
+            dxw_abs, dxw_rel = max_errs(dxw.float(), want_dxw.float())
+            dxw_ok = (bool(((dxw.float() - want_dxw.float()).abs()
+                            <= bf16_step(want_dxw.float())
+                            + LSTM_BWD_REL * want_dxw.float().abs().max()).all())
+                      if bf16 else dxw_rel <= LSTM_BWD_REL)
+            require(bool(torch.isfinite(dxw).all() and torch.isfinite(dw).all()) and dxw_ok
+                    and dw_rel <= LSTM_BWD_REL,
+                    f"{blabel}: dxw max abs err {dxw_abs} (rel {dxw_rel}), dW_hh^T rel "
+                    f"{dw_rel} (limit {LSTM_BWD_REL}{', dxw one bf16 step beyond' if bf16 else ''})")
+            state = SEQ_LEN * n * hidden
+            fwd_row = dict(hidden=hidden, ndir=ndir, batch=batch,
+                           max_abs_err=max(hs_err, cs_err), **any_bound(
+                               es * (5 * state + ndir * hidden * 4 * hidden) + 4 * state,
+                               2 * 4 * state * hidden + 10 * state, bf16))
+            bwd_row = dict(hidden=hidden, ndir=ndir, batch=batch,
+                           max_abs_err=max(dxw_abs, max_errs(dw, want_dw)[0]),
+                           max_rel_err=max(dw_rel, dxw_rel), **any_bound(
+                               es * (10 * state + ndir * hidden * 4 * hidden)
+                               + 4 * (state + ndir * hidden * 4 * hidden),
+                               3 * 2 * 4 * state * hidden, bf16))
+            if ndir == 2 and hidden in (100, 256):  # the two paths' BiLSTM layers
+                cudnn = torch.nn.LSTM(hidden, hidden, batch_first=True,
+                                      bidirectional=True).to(dev, dtype)
+                x_in = card_normal(gen, (batch, SEQ_LEN, hidden), dtype).requires_grad_()
+                with torch.no_grad():
+                    fwd_row.update(timed(lambda: fwd(xw, w, ndir), lambda: cudnn(x_in)))
+                out, _ = cudnn(x_in)
+                g_out = torch.randn_like(out)
+                wrt = [x_in, *cudnn.parameters()]
+                bwd_row.update(timed(
+                    lambda: bwd(xw, w, want_hs, want_cs, dho, ndir),
+                    lambda: torch.autograd.grad(out, wrt, g_out, retain_graph=True)))
+                fwd_row["plain_ms"] = plain_time(
+                    lambda: lstm.lstm_recurrence_plain(xw, w, ndir))
+                bwd_row["plain_ms"] = plain_time(
+                    lambda: lstm.lstm_bwd_plain(xw, w, want_hs, want_cs, dho, ndir))
+                del cudnn, x_in, out, g_out, wrt
+            rows.setdefault(inst_f, []).append(fwd_row)
+            rows.setdefault(inst_b, []).append(bwd_row)
+            log(f"{label}: " + json.dumps(fwd_row))
+            log(f"{blabel}: " + json.dumps(bwd_row))
+    return rows
+
+
+def by_head(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """(N, L, heads * dh) packed rows as SDPA's (N, heads, L, dh)."""
+    n, length, d = t.shape
+    return t.view(n, length, heads, d // heads).transpose(1, 2).contiguous()
+
+
+def check_attention_any(dev, bf16: bool) -> dict:
+    """K3'-K6''s `_any` instances against their plain versions: the
+    per-slice pair at every dh of ANY_SLICE_DHS, the packed pair at every
+    (dh, heads, pack) of ANY_PACKED, each at rate 0, RATE and a rate per row
+    (`any_rates`), each launched twice, bit for bit, on the instance
+    `launched` names. The two paths' shapes (189 slices of dh 200; 189 rows
+    of 16 heads of dh 32) are timed with the plain versions and SDPA: the
+    forwards at rate 0 (serving), the backwards at RATE (training). Returns
+    the rows by instance."""
+    from rlt_tpu_torch.ops import attention, instance_at
+
+    gen = torch.Generator(device=dev).manual_seed(230 + bf16)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    es = 2 if bf16 else 4
+    suffix = "_bf16" if bf16 else ""
+    rows = {}
+    cases = [("attention", dh, 1, 1, EXPERTS * BATCHES[0] if dh == 200 else 64)
+             for dh in ANY_SLICE_DHS]
+    cases += [("attention_packed", dh, heads, pack, EXPERTS * BATCHES[0] if dh == 32 else 63)
+              for dh, heads, pack in ANY_PACKED]
+    for kind, dh, heads, pack, n in cases:
+        packed = kind == "attention_packed"
+        shape = (n, SEQ_LEN, heads * dh) if packed else (n, 1, SEQ_LEN, dh)
+        q, k, v, do = (card_normal(gen, shape, dtype) for _ in range(4))
+        streams = random_streams(np.random.default_rng(240 + dh), n, dev)
+        fwd = getattr(attention, f"{kind}_fwd{suffix}")
+        bwd = getattr(attention, f"{kind}_bwd{suffix}")
+        plain_fwd = attention.attention_packed_plain if packed else attention.attention_plain
+        plain_bwd = (attention.attention_packed_bwd_plain if packed
+                     else attention.attention_bwd_plain)
+        geo = (heads, pack) if packed else ()
+        slices = n * heads
+        elems = slices * SEQ_LEN * dh
+        main = dh in (32, 200)  # the paths' shapes
+        inst_f, inst_b = (instance_at(f"{kind}_{d}{suffix}", dh) for d in ("fwd", "bwd"))
+        for tag, rate in any_rates(n, dev).items():
+            label = f"{inst_f} dh={dh} heads={heads} N={n} {tag}"
+            (o, lse), added = counted(lambda: fwd(q, k, v, *geo, rate, streams))
+            again = fwd(q, k, v, *geo, rate, streams)
+            torch.cuda.synchronize()
+            require(added == {inst_f: 1}, f"{label}: launched {added}")
+            require(torch.equal(o, again[0]) and torch.equal(lse, again[1]),
+                    f"{label}: two launches differ")
+            want_o, want_lse = plain_fwd(q, k, v, *geo, rate, streams)
+            if bf16:
+                o_err, lse_err = bf16_o_check(label, o, lse, want_o, want_lse)
+            else:
+                o_err = (o - want_o).abs().max().item()
+                lse_err = (lse - want_lse).abs().max().item()
+                require(max(o_err, lse_err) <= ATTN_ATOL, f"{label}: o max abs err {o_err}, "
+                        f"lse {lse_err} > {ATTN_ATOL}")
+            blabel = f"{inst_b} dh={dh} heads={heads} N={n} {tag}"
+            grads, added = counted(lambda: bwd(q, k, v, want_o, want_lse, do, *geo,
+                                                       rate, streams))
+            again = bwd(q, k, v, want_o, want_lse, do, *geo, rate, streams)
+            torch.cuda.synchronize()
+            require(added == {inst_b: 1}, f"{blabel}: launched {added}")
+            require(all(torch.equal(a, b) for a, b in zip(grads, again)),
+                    f"{blabel}: two launches differ")
+            want = plain_bwd(q, k, v, want_o, want_lse, do, *geo, rate, streams)
+            if bf16:
+                g_err = bf16_grads_check(blabel, grads, want)
+                g_rel = None
+            else:
+                errs = [max_errs(g, w) for g, w in zip(grads, want)]
+                g_err, g_rel = max(e[0] for e in errs), max(e[1] for e in errs)
+                require(g_rel <= ATTN_BWD_REL, f"{blabel}: max rel err {g_rel} > "
+                        f"{ATTN_BWD_REL}")
+            fwd_row = dict(dh=dh, heads=heads, pack=pack, n=n, dropout=tag,
+                           max_abs_err=max(o_err, lse_err), **any_bound(
+                               es * 4 * elems + 4 * slices * SEQ_LEN, 4 * elems * SEQ_LEN,
+                               bf16))
+            bwd_row = dict(dh=dh, heads=heads, pack=pack, n=n, dropout=tag, max_abs_err=g_err,
+                           max_rel_err=g_rel, **any_bound(
+                               es * 8 * elems + 4 * 2 * slices * SEQ_LEN,
+                               10 * elems * SEQ_LEN, bf16))
+            sdpa_in = [by_head(t, heads) if packed else t for t in (q, k, v)]
+            if main and tag == "rate_0":  # serving: the forward without dropout
+                fwd_row.update(timed(lambda: fwd(q, k, v, *geo, 0.0, streams),
+                                     lambda: F.scaled_dot_product_attention(*sdpa_in)))
+                fwd_row["plain_ms"] = plain_time(lambda: plain_fwd(q, k, v, *geo))
+            if main and tag == f"rate_{RATE}":  # training: the backward at RATE
+                leaves = [t.detach().requires_grad_() for t in sdpa_in]
+                out = F.scaled_dot_product_attention(*leaves, dropout_p=RATE)
+                g_out = torch.randn_like(out)
+                bwd_row.update(timed(
+                    lambda: bwd(q, k, v, want_o, want_lse, do, *geo, RATE, streams),
+                    lambda: torch.autograd.grad(out, leaves, g_out, retain_graph=True)))
+                bwd_row["plain_ms"] = plain_time(
+                    lambda: plain_bwd(q, k, v, want_o, want_lse, do, *geo, RATE, streams))
+                del leaves, out, g_out
+            rows.setdefault(inst_f, []).append(fwd_row)
+            rows.setdefault(inst_b, []).append(bwd_row)
+            log(f"{label}: " + json.dumps(fwd_row))
+            log(f"{blabel}: " + json.dumps(bwd_row))
+    return rows
+
+
+def width_counts(config: str, forwards: int = 0, steps: int = 0,
+                 bf16: bool = False) -> dict:
+    """The launches of `forwards` eval forwards and `steps` train steps of
+    configuration `config`: per forward two K1' (one a BiLSTM layer) and one
+    attention forward over every expert's rows, per step a forward and two
+    K2' and one attention backward, each the instance its wrapper launches
+    at the configuration's H and dh (`ops.instance_at`: the `_any` ones, but K1'/K2'
+    at PLECut's H 100, padded to 128); no other kernel."""
+    from rlt_tpu_torch.ops import KERNELS, instance_at
+
+    _, widths = WIDTH_CONFIGS[config]
+    hidden, dh = widths["encoding_size"], widths["d_model"] // widths["n_head"]
+    attn = "attention_packed" if config == "mmoecut-wide" else "attention"
+    s = "_bf16" if bf16 else ""
+    want = dict.fromkeys(KERNELS, 0)
+    want.update({instance_at(f"lstm_fwd{s}", hidden): 2 * (forwards + steps),
+                 instance_at(f"lstm_bwd{s}", hidden): 2 * steps,
+                 instance_at(f"{attn}_fwd{s}", dh): forwards + steps,
+                 instance_at(f"{attn}_bwd{s}", dh): steps})
+    return want
+
+
+def width_config(config: str, compute_dtype: str = "float32"):
+    """(TrainConfig, widths) of a configuration: its model's drmm_tks
+    preset on the robust04 corpus, one epoch."""
+    from rlt_tpu_torch.config import TrainConfig, apply_preset
+
+    name, widths = WIDTH_CONFIGS[config]
+    cfg = apply_preset(TrainConfig(model_name=name, retrieve_data="robust04",
+                                   compute_dtype=compute_dtype))
+    require((cfg.batch_size, cfg.seq_len) == (BATCHES[0], SEQ_LEN), f"{config}: {cfg}")
+    return dataclasses.replace(cfg, epochs=1), widths
+
+
+def width_model(cfg, widths: dict):
+    """The configuration's model through `build_model`'s width keywords,
+    its weights drawn from the config's seed."""
+    from rlt_tpu_torch.models import build_model
+
+    return build_model(cfg.model_name, seq_len=cfg.seq_len, input_size=cfg.input_size,
+                       dropout=cfg.dropout, num_tasks=cfg.num_tasks, seed=cfg.seed, **widths)
+
+
+def width_serve(config: str, compute_dtype: str) -> dict:
+    """`<config>-serve[-bf16]`: the graphed Predictor (`Predictor(cfg,
+    model=build_model(..., **widths))`) at buckets WIDTH_BUCKETS, each one
+    CUDA graph: its launches, its outputs bit for bit the eager Predictor's,
+    and the plain versions' on the card within DIST_ATOL (f32; cuts equal
+    but at near-ties) or, in bf16, RMS within BF16_RMS_OF_REF and max
+    within BF16_MAX_OF_REF of d_ref (the plain bf16 forward against the
+    plain f32 one); then bucket 64, graphed against eager."""
+    from rlt_tpu_torch.infer import Predictor
+    from rlt_tpu_torch.ops import plain_ops
+    from rlt_tpu_torch.utils.timing import interleaved_ms
+
+    bf16 = compute_dtype == "bfloat16"
+    label = f"{config}-serve" + ("-bf16" if bf16 else "")
+    cfg, widths = width_config(config, compute_dtype)
+    live = Predictor(cfg, device="cuda", model=width_model(cfg, widths))
+    eager = Predictor(cfg, device="cuda", graphs=False, model=width_model(cfg, widths))
+    rng = np.random.default_rng(250)
+    inputs = {b: torch.from_numpy(rng.normal(size=(b, SEQ_LEN, cfg.input_size))
+                                  .astype(np.float32)).cuda() for b in WIDTH_BUCKETS}
+    torch.cuda.synchronize()
+    reset_counts()  # the serving path's counts start here
+    outs = {b: tuple(t.clone() for t in live._forward(inputs[b])) for b in WIDTH_BUCKETS}
+    torch.cuda.synchronize()
+    launches = read_counts()
+    require(launches == width_counts(config, forwards=len(WIDTH_BUCKETS), bf16=bf16),
+            f"kernel launches on the {label} path: {launches}")
+    ref32 = (Predictor(dataclasses.replace(cfg, compute_dtype="float32"), device="cuda",
+                       graphs=False, model=width_model(cfg, widths)) if bf16 else None)
+    rows = {}
+    for b in WIDTH_BUCKETS:
+        ks, dist = outs[b]
+        want_ks, want_dist = eager._forward(inputs[b])
+        require(torch.equal(ks, want_ks) and torch.equal(dist, want_dist),
+                f"{label} bucket {b}: the graphed forward differs from the eager one")
+        with plain_ops():
+            p_ks, p_dist = eager._forward(inputs[b])
+            p32 = ref32._forward(inputs[b])[1] if bf16 else None
+        err = (dist - p_dist).abs().max().item()
+        if bf16:
+            d_ref = p_dist - p32
+            rms = lambda t: t.double().pow(2).mean().sqrt().item()  # noqa: E731
+            rms_ratio = rms(dist - p_dist) / max(rms(d_ref), 1e-30)
+            max_ref = d_ref.abs().max().item()
+            require(rms_ratio <= BF16_RMS_OF_REF and err <= BF16_MAX_OF_REF * max_ref,
+                    f"{label} bucket {b}: distributions against the plain bf16 run: RMS "
+                    f"{rms_ratio} of d_ref's, max abs {err} (limit {BF16_MAX_OF_REF} x "
+                    f"{max_ref})")
+            limit = BF16_MAX_OF_REF * max_ref
+            rows[b] = {"max_abs_err": err, "rms_of_ref": rms_ratio, "max_ref": max_ref}
+        else:
+            limit = DIST_ATOL
+            require(err <= limit, f"{label} bucket {b}: distributions max abs err {err} "
+                    f"> {limit}")
+            rows[b] = {"max_abs_err": err}
+        tied = tied_lists(cfg.model_name, p_dist.cpu().numpy(), limit)
+        same = (ks == p_ks).cpu().numpy()
+        require(bool(np.all(same | tied)), f"{label} bucket {b}: cuts {ks.tolist()} vs "
+                f"plain {p_ks.tolist()}")
+        rows[b]["near_ties"] = int(tied.sum())
+    x = inputs[64]
+    t = interleaved_ms({"graphed": lambda: live._forward(x),
+                        "eager": lambda: eager._forward(x)}, 3, PATH_REPEATS, alternate=True)
+    res = {"buckets": rows, "bucket_64": {
+        name: {"ms": t[name]["median"], "spread_ms": [t[name]["min"], t[name]["max"]]}
+        for name in ("graphed", "eager")}}
+    log(f"{label}: graphed buckets {list(WIDTH_BUCKETS)} equal eager bit for bit; "
+        + json.dumps(res))
+    return {"launches": launches, "result": res}
+
+
+def width_train(config: str, compute_dtype: str) -> dict:
+    """`<config>-train[-bf16]`: WIDTH_STEPS graphed steps of `Trainer(cfg,
+    model=build_model(..., **widths))` at the preset's dropout, bit for bit
+    the steps of an eager Trainer of the same seed (results, gradients,
+    parameters, Adam's state), and against the same steps through the plain
+    versions on the card: f32 step losses within STEP_LOSS_REL and step-1
+    gradients within STEP_GRAD_REL of each one's max abs (+ the floor);
+    bf16 step losses within BF16_MAX_OF_REF of d_ref (the plain bf16 run
+    against the plain f32 one) plus one bf16 step, step-1 gradients by
+    train_end_to_end_bf16's leaf rule. Then the step, graphed against
+    eager."""
+    from rlt_tpu_torch.models import ZERO_GRAD_LEAVES
+    from rlt_tpu_torch.ops import plain_ops
+    from rlt_tpu_torch.train import Trainer
+
+    bf16 = compute_dtype == "bfloat16"
+    label = f"{config}-train" + ("-bf16" if bf16 else "")
+    cfg, widths = width_config(config, compute_dtype)
+    cfg = dataclasses.replace(cfg, dropout=cfg.dropout or RATE)
+    cfgs = {"graphed": cfg, "eager": cfg, "plain": cfg}
+    if bf16:
+        cfgs["plain32"] = dataclasses.replace(cfg, compute_dtype="float32")
+    trainers = {key: Trainer(c, device="cuda", graphs=key == "graphed",
+                             model=width_model(c, widths)) for key, c in cfgs.items()}
+    plans = {key: t.data.plan(t.generator, "train") for key, t in trainers.items()}
+    idx, valid = plans["graphed"]
+    require(all(torch.equal(p[0], idx) for p in plans.values()), f"{label}: plans differ")
+    results, grads1 = {}, {}
+    torch.cuda.synchronize()
+    reset_counts()  # the training path's counts start here
+    for key, t in trainers.items():
+        if key == "eager":
+            launches = read_counts()
+        out = []
+        with plain_ops() if key.startswith("plain") else contextlib.nullcontext():
+            for s in range(WIDTH_STEPS):
+                out.append(t.train_batch(idx[s], valid[s]).clone())
+                if s == 0:
+                    grads1[key] = {n: p.grad.clone() for n, p in t.model.named_parameters()}
+        results[key] = torch.stack(out).cpu()
+    require(launches == width_counts(config, steps=WIDTH_STEPS, bf16=bf16),
+            f"kernel launches on the {label} path: {launches}")
+    graphed, eager = trainers["graphed"], trainers["eager"]
+    require(torch.equal(results["graphed"], results["eager"]),
+            f"{label}: graphed steps {results['graphed'].tolist()} against eager "
+            f"{results['eager'].tolist()}")
+    same_training_state(label, [((graphed.model, graphed.optimizer),
+                                 (eager.model, eager.optimizer))])
+    require(all(torch.equal(p.grad, q.grad) for p, q in zip(graphed.model.parameters(),
+                                                             eager.model.parameters())),
+            f"{label}: graphed gradients differ from eager ones")
+    k_loss, p_loss = results["graphed"][:, 0].numpy(), results["plain"][:, 0].numpy()
+    zero = set(ZERO_GRAD_LEAVES[cfg.model_name])
+    if bf16:
+        p32_loss = results["plain32"][:, 0].numpy()
+        limit = (BF16_MAX_OF_REF * np.abs(p_loss - p32_loss)
+                 + bf16_step(torch.from_numpy(p_loss)).numpy())
+        require(bool(np.all(np.abs(k_loss - p_loss) <= limit)),
+                f"{label}: step losses {k_loss.tolist()} vs plain {p_loss.tolist()} (f32 "
+                f"{p32_loss.tolist()}): limits {limit.tolist()}")
+        rms = lambda t: t.double().pow(2).mean().sqrt().item()  # noqa: E731
+        g_k, g_p, g_32 = grads1["graphed"], grads1["plain"], grads1["plain32"]
+        largest = max(g.abs().max().item() for g in g_p.values())
+        leaves = {}
+        for name, g in g_k.items():
+            require(bool(torch.isfinite(g).all()), f"{label}: non-finite gradient of {name}")
+            if name in zero:
+                require(g.abs().max().item() <= ZERO_GRAD_BF16_REL * largest,
+                        f"{label}: {name}, zero by algebra, past {ZERO_GRAD_BF16_REL} x "
+                        f"{largest}")
+                continue
+            k_, p_, p32_ = (without_key_bias(name, t[name]) for t in (g_k, g_p, g_32))
+            leaves[name] = (rms(k_ - p_), rms(p_ - p32_), rms(p_))
+        rho = float(np.median([d / max(r, 1e-30) for _, d, r in leaves.values()]))
+        ratio = {n: e / max(d, rho * r, 1e-30) for n, (e, d, r) in leaves.items()}
+        median = float(np.median(list(ratio.values())))
+        require(median <= BF16_GRAD_MEDIAN_OF_REF
+                and max(ratio.values()) <= BF16_GRAD_LEAF_OF_REF,
+                f"{label} step-1 gradients against d_ref: median {median}, worst "
+                f"{worst_of(ratio)}")
+        grad_check = {"median_of_ref": median, "worst": worst_of(ratio, 1)}
+    else:
+        rel = np.abs(k_loss - p_loss) / np.abs(p_loss)
+        require(bool(np.all(np.isfinite(k_loss)) and np.all(rel <= STEP_LOSS_REL)),
+                f"{label}: step losses {k_loss.tolist()} vs plain {p_loss.tolist()}: rel "
+                f"err {rel.tolist()} > {STEP_LOSS_REL}")
+        used = {}
+        for name, g in grads1["graphed"].items():
+            w = grads1["plain"][name]
+            require(bool(torch.isfinite(g).all()), f"{label}: non-finite gradient of {name}")
+            used[name] = ((g - w).abs().max().item()
+                          / (STEP_GRAD_REL * w.abs().max().item() + STEP_GRAD_FLOOR))
+        require(max(used.values()) <= 1.0, f"{label} step-1 gradients over their "
+                f"tolerance (share used): {worst_of(used)}")
+        grad_check = {"loss_rel_err": float(rel.max()), "worst_share_used": worst_of(used, 1)}
+    step = graphed_against_eager(f"{label} train step",
+                                 lambda: graphed.train_batch(idx[0], valid[0]),
+                                 lambda: eager.train_batch(idx[0], valid[0]), 2,
+                                 with_busy=False)
+    res = {"step_losses": k_loss.tolist(), "plain_step_losses": p_loss.tolist(),
+           **grad_check, "step": step}
+    log(f"{label}: {WIDTH_STEPS} graphed steps equal the eager ones bit for bit; "
+        + json.dumps(res))
+    return {"launches": launches, "result": res}
+
+
+def width_population(config: str) -> dict:
+    """`<config>-population`: two members of distinct seed, lr, weight decay
+    and dropout rate (`population_members(2, POPULATION_RATES[1:3])`) as
+    one graphed `Population(cfg, members, model=build_population_model(...,
+    **widths))` for one epoch, each step one graph that launches what one
+    sequential step launches (`width_counts`: K1'/K2' over both members'
+    BiLSTM layers at ndir 4, the attention pair over both members' rows,
+    each row at its member's rate). Then each member against its own
+    graphed `Trainer(member_config(cfg, m), model=build_model(..., seed,
+    rate, **widths))` by population_end_to_end's float32 rule: every step
+    loss within STEP_LOSS_REL or, past it, within STEP_NOISE_OF_REF of the
+    Trainer's distance from its nudged init, and the epoch's updates within
+    UPDATE_REL in L2, leaving out what that rule leaves out. Last,
+    GRAPH_CHECK_STEPS graphed population steps bit for bit the eager ones
+    (`population_step_check`)."""
+    from rlt_tpu_torch.models import ZERO_GRAD_LEAVES, build_model, build_population_model
+    from rlt_tpu_torch.population import Population, member_config
+    from rlt_tpu_torch.train import Trainer
+
+    label = f"{config}-population"
+    cfg, widths = width_config(config)
+    cfg = dataclasses.replace(cfg, dropout=cfg.dropout or RATE)
+    name = cfg.model_name
+    members = population_members(2, POPULATION_RATES[1:3])
+    configs = [member_config(cfg, m) for m in members]
+    rates = [c.dropout for c in configs]
+    require(len(set(rates)) == 2, f"{label}: member rates {rates}")
+
+    def population_model():
+        return build_population_model(name, seq_len=cfg.seq_len, input_size=cfg.input_size,
+                                      dropout=rates, seeds=[m.seed for m in members],
+                                      num_tasks=cfg.num_tasks, **widths)
+
+    def member_model(c):
+        return build_model(name, seq_len=c.seq_len, input_size=c.input_size,
+                           dropout=c.dropout, num_tasks=c.num_tasks, seed=c.seed, **widths)
+
+    pop = Population(cfg, members, device="cuda", model=population_model())
+    require(pop.graphs, f"{label}: the population runs graphed on the card")
+    torch.cuda.synchronize()
+    reset_counts()  # the population path's counts start here
+    t0 = time.perf_counter()
+    epochs = pop.run_epoch()
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    launches = read_counts()
+    steps, tests = (pop.plans(split)[0].shape[1] for split in ("train", "test"))
+    want = width_counts(config, forwards=tests, steps=steps)
+    require(launches == want, f"kernel launches on the {label} path: {launches}, want "
+            f"{want} ({steps} steps, {tests} test batches)")
+    final = {k: v.detach().cpu() for k, v in pop.model.state_dict().items()}
+    zero, l2 = set(ZERO_GRAD_LEAVES[name]), np.linalg.norm
+    per_member = {}
+    for m, (c, epoch) in enumerate(zip(configs, epochs)):
+        init = member_model(c).state_dict()
+        trainer = Trainer(c, device="cuda", model=member_model(c))
+        seq = np.asarray(trainer.run_epoch()["train_loss_steps"])
+        got = np.asarray(epoch["train_loss_steps"])
+        require(len(got) == len(seq) == steps and np.all(np.isfinite(got)),
+                f"{label} member {m}: step losses {got.tolist()}")
+        step_rel = np.abs(got - seq) / np.abs(seq)
+        row = {"rate": c.dropout, "step_rel": step_rel.tolist()}
+        if not np.all(step_rel <= STEP_LOSS_REL):
+            noise = nudged_run(c, init, c.seed, model=member_model(c))
+            gap, limit = l2(got - seq), STEP_NOISE_OF_REF * l2(noise - seq)
+            row.update(l2=gap, nudged_l2=limit / STEP_NOISE_OF_REF)
+            require(gap <= limit, f"{label} member {m}: step losses {got.tolist()} vs its "
+                    f"Trainer's {seq.tolist()}: rel err {step_rel.tolist()} > "
+                    f"{STEP_LOSS_REL}, and L2 {gap} > {STEP_NOISE_OF_REF} x the Trainer "
+                    f"from its nudged init ({noise.tolist()}: {limit / STEP_NOISE_OF_REF})")
+        update_rel = {}
+        for key, value in trainer.model.state_dict().items():
+            require(bool(torch.isfinite(final[key][m]).all()),
+                    f"{label} member {m}: non-finite {key}")
+            if key in zero:
+                continue
+            a, b = (without_zero_rows(name, key, t - init[key])
+                    for t in (final[key][m], value.detach().cpu()))
+            update_rel[key] = ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+        require(max(update_rel.values()) <= UPDATE_REL, f"{label} member {m}: updates over "
+                f"{UPDATE_REL} (L2 rel err) against its Trainer: {worst_of(update_rel)}")
+        row["worst_update"] = worst_of(update_rel, 1)
+        per_member[f"member_{m}"] = row
+    population_step_check(cfg, members, label, False, model=population_model,
+                          want=width_counts(config, steps=1))
+    res = {"members": 2, "epoch_s": epoch_s, "steps": steps, **per_member,
+           "graph_check_steps": GRAPH_CHECK_STEPS}
+    log(f"{label}: one graphed epoch of two members against each member's graphed "
+        f"Trainer, and {GRAPH_CHECK_STEPS} graphed population steps bit for bit the eager "
+        f"ones, one sequential step's launches each; " + json.dumps(res))
+    return {"launches": launches, "result": res}
+
+
+def lowered_bundle_end_to_end(workdir: str) -> dict:
+    """`mmoecut-export-lowered`: `python -m rlt_tpu_torch.export --device
+    cuda --lower` in a process that sees no card (CUDA_VISIBLE_DEVICES=""), which
+    lowers MMOECut's f32 bundle at buckets 1 and 64 for the card on the CPU
+    (`export.lower_for_card`); this process loads it on the card and serves
+    it, each bucket one graph, against a bundle of the same weights
+    exported on the card: the same launches, cuts and distributions bit
+    for bit."""
+    from rlt_tpu_torch.config import TrainConfig
+    from rlt_tpu_torch.export import load_exported, save_exported
+    from rlt_tpu_torch.infer import Predictor
+
+    buckets = (1, 64)
+    lowered_dir = os.path.join(workdir, "mmoecut-lowered")
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "rlt_tpu_torch.export", "--model-name", "mmoecut",
+         "--batch-sizes", ",".join(map(str, buckets)), "--device", "cuda", "--lower",
+         "--out", lowered_dir], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=600)
+    lower_s = time.perf_counter() - t0
+    require(proc.returncode == 0, f"the export with no card visible failed: {proc.stderr}")
+    manifest = json.loads(proc.stdout.strip().splitlines()[-1])
+    require(manifest["device"] == "cuda" and manifest["batch_sizes"] == list(buckets)
+            and manifest["custom_ops"] == forward_ops("mmoecut", False),
+            f"lowered manifest {json.dumps(manifest)}")
+    live = Predictor(TrainConfig(model_name="mmoecut", retrieve_data="robust04"),
+                     device="cuda")
+    on_card_dir = os.path.join(workdir, "mmoecut-on-card")
+    save_exported(on_card_dir, live, buckets)
+    t0 = time.perf_counter()
+    lowered = load_exported(lowered_dir)
+    load_s = time.perf_counter() - t0
+    on_card = load_exported(on_card_dir)
+    require(lowered.graphs, "the lowered bundle serves graphed on the card")
+    rng = np.random.default_rng(260)
+    inputs = {b: rng.normal(size=(b, SEQ_LEN, FEATURES)).astype(np.float32) for b in buckets}
+    torch.cuda.synchronize()
+    reset_counts()  # the lowered bundle's path starts here
+    outs = {b: step_launches(lambda: lowered.predict_with_distribution(inputs[b]))
+            for b in buckets}
+    launches = read_counts()
+    want = want_counts("mmoecut", forwards=1)
+    for b in buckets:
+        (ks, dist), per_bucket = outs[b]
+        (want_ks, want_dist), card_launches = step_launches(
+            lambda: on_card.predict_with_distribution(inputs[b]))
+        require(per_bucket == card_launches == want, f"lowered bundle bucket {b}: launches "
+                f"{per_bucket}, the card's bundle {card_launches}, want {want}")
+        require(np.array_equal(ks, want_ks) and np.array_equal(dist, want_dist),
+                f"lowered bundle bucket {b}: cuts or distributions differ from the bundle "
+                f"exported on the card (max abs {float(np.abs(dist - want_dist).max())})")
+    res = {"lower_s": lower_s, "load_s": load_s, "buckets": list(buckets),
+           "custom_ops": manifest["custom_ops"], "torch_version": manifest["torch_version"],
+           "bit_equal": True}
+    log("mmoecut-export-lowered: the bundle lowered with no card visible serves bit for "
+        "bit as the one exported on the card; " + json.dumps(res))
+    return {"launches": launches, "result": res}
+
+
+def widths_end_to_end(dev) -> tuple[dict, dict, dict, dict]:
+    """This section's phases: the kernel checks at the new widths in f32 and
+    bf16, the two configurations' serving and training paths in f32 and
+    bf16, the population path, and the lowered bundle. Returns (the `_any`
+    instances' rows, the width-specialised LSTM instances' rows at padded
+    H, each by instance; the launches by path; the paths' results)."""
+    from rlt_tpu_torch.ops import INSTANCES
+
+    t0 = time.perf_counter()
+    rows, padded = {}, {}
+    for bf16 in (False, True):
+        for name, res in {**check_lstm_any(dev, bf16), **check_attention_any(dev, bf16)}.items():
+            (padded if INSTANCES[name].widths else rows)[name] = res
+    seconds = {"kernel checks": time.perf_counter() - t0}
+    launches, results = {}, {}
+    for config in WIDTH_CONFIGS:
+        for dtype, suffix in (("float32", ""), ("bfloat16", "-bf16")):
+            for kind, run in (("serve", width_serve), ("train", width_train)):
+                path = f"{config}-{kind}{suffix}"
+                out = run(config, dtype)
+                launches[path], results[path] = out["launches"], out["result"]
+                free_card()
+    seconds["paths"] = time.perf_counter() - t0 - seconds["kernel checks"]
+    path = f"{WIDTH_POPULATION}-population"
+    out = width_population(WIDTH_POPULATION)
+    launches[path], results[path] = out["launches"], out["result"]
+    free_card()
+    seconds["population"] = time.perf_counter() - t0 - sum(seconds.values())
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lowered_") as workdir:
+        out = lowered_bundle_end_to_end(workdir)
+    launches["mmoecut-export-lowered"], results["mmoecut-export-lowered"] = (
+        out["launches"], out["result"])
+    free_card()
+    seconds["lowered bundle"] = time.perf_counter() - t0 - sum(seconds.values())
+    log(json.dumps({"every_width_seconds": seconds}))
+    return rows, padded, launches, results
+
+
+def any_entries(rows: dict, launches: dict) -> list:
+    """The `kernels` line's entries of the `_any` instances: each one's
+    launches on the width paths, its worst error over every checked shape,
+    and the numbers of its last timed row (the widest path shape: H 256, dh
+    32 packed, dh 200 per slice), every timed row under `timed`."""
+    from rlt_tpu_torch.ops import INSTANCES
+
+    entries = []
+    for name, inst_rows in rows.items():
+        wrapper = INSTANCES[name].wrapper
+        source, replaces, library_call = ANY_OF[F32_OF.get(wrapper, wrapper)]
+        timed_rows = [r for r in inst_rows if "ms" in r]
+        main = timed_rows[-1]
+        by_path = {path: launches[path][name] for path in launches}
+        entries.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(by_path.values()),
+            "launches_by_path": {p: n for p, n in by_path.items() if n},
+            "max_abs_err": max(r["max_abs_err"] for r in inst_rows),
+            **{key: main[key] for key in WIDTH_TIMED_KEYS if key in main},
+            "library_call": library_call, **width_rows(inst_rows)})
+    return entries
+
+
+WIDTH_TIMED_KEYS = ("ms", "plain_ms", "bound_ms", "bound_tc_ms", "bound_by", "library_ms",
+                    "library_ratio", "spread_ms")
+
+
+def width_rows(inst_rows: list) -> dict:
+    """An instance's rows of this section: every timed row under `timed`,
+    every checked shape under `checked`."""
+    shape_keys = ("hidden", "ndir", "batch", "dh", "heads", "pack", "n", "dropout")
+    return {"timed": [{k: r[k] for k in shape_keys + WIDTH_TIMED_KEYS if k in r}
+                      for r in inst_rows if "ms" in r],
+            "checked": [{k: r[k] for k in r if k in shape_keys + (
+                "max_abs_err", "bound_ms", "bound_tc_ms")} for r in inst_rows]}
+
+
+def attach_padded(kernels: list, padded: dict, launches: dict) -> None:
+    """The width-specialised K1'/K2' entries (and their bf16 sub-entries)
+    gain `padded_hidden`: their checks at H below 128 through the wrappers'
+    zero-padding (`check_lstm_any`, PLECut-dh200's H 100 timed) and their
+    launches on this section's paths (mtple-dh200's at H 100, and the
+    lowered MMOECut bundle's at H 128), which the entry's `launches` (the
+    zoo's paths) leaves out."""
+    by_name = {e["name"]: e for e in kernels}
+    for name, inst_rows in padded.items():
+        f32 = F32_OF.get(name, name)
+        entry = by_name[f32] if f32 == name else by_name[f32]["bf16"]
+        by_path = {path: launches[path][name] for path in launches if launches[path][name]}
+        entry["padded_hidden"] = {"launches_by_path": by_path,
+                                  "max_abs_err": max(r["max_abs_err"] for r in inst_rows),
+                                  **width_rows(inst_rows)}
+        entry["max_abs_err"] = max(entry["max_abs_err"], entry["padded_hidden"]["max_abs_err"])
+
+
 def kernel_name(line: str) -> str:
     """A kernel's name in a line of ptxas, with its template arguments:
     `attn_packed_fwd_kernel<16, 4>` for the mangled
@@ -3924,6 +4698,9 @@ def main() -> int:
     marks.append(("parallel layouts", time.perf_counter()))
     parallel_launches, parallel_res = parallel_end_to_end(card)
     launches.update(parallel_launches)
+    marks.append(("every width", time.perf_counter()))
+    any_rows, padded_rows, width_launches, width_res = widths_end_to_end(dev)
+    launches.update(width_launches)
     marks.append(("end", time.perf_counter()))
     log(json.dumps({"phase_seconds": {name: marks[i + 1][1] - t for i, (name, t) in
                                       enumerate(marks[:-1])}}))
@@ -4079,6 +4856,9 @@ def main() -> int:
     log(json.dumps({"harness_timing": {"probe_base-verify": probe_timing, **resume_epochs}}))
     log(json.dumps({"export_and_data": export_res}))
     log(json.dumps({"parallel_end_to_end": parallel_res, "card": card}))
+    log(json.dumps({"widths_end_to_end": width_res, "card": card}))
+    kernels += any_entries(any_rows, width_launches)
+    attach_padded(kernels, padded_rows, width_launches)
     busy_rows = [res[name] for res in population_res for name in ("population", "sequential")]
     busy_rows += [res[name] for res in rate_timing for name in ("per_member", "shared")]
     busy_rows += [probe_timing[step][name] for step in ("base_step", "probe_step")

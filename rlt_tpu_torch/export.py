@@ -19,8 +19,20 @@ module imports `ops.library`, before any load; the manifest lists the ops its pr
 check). The model builds tensors on its input's device, so a program is
 exported for one device (`cuda` or `cpu`, `manifest["device"]`) and runs
 only there: `load_exported` refuses a bundle made for another device, as
-the JAX version refuses another platform. A bundle for the card is
-exported on the card.
+the JAX version refuses another platform.
+
+A bundle for the card is exported on the card, or lowered on a host with
+no card when the caller asks (`--device cuda --lower`, `save_exported(...,
+device="cuda")` from a Predictor on the CPU), as the JAX CLI's
+`--platforms tpu` builds a TPU artifact on a CPU host: the Predictor
+is built on the CPU, its forward exported there, and that program's graph
+(ATen ops and the `rlt::` ops, no Python of the model) traced again for
+the card under fake tensors that claim the card and hold no data, its
+device arguments set to the card (`lower_for_card`). Nothing of that
+touches the CUDA runtime or builds a kernel: the `rlt::` ops run their fake
+implementations. The program keeps the real weights, on the CPU, and
+`load_exported` places every weight of a program on the device it serves
+on, so such a bundle loads and serves on the card as one exported there.
 
 `ExportedPredictor` has `infer.Predictor`'s serving surface (`predict`,
 `predict_with_distribution`, `prepare`), pads a batch to the smallest
@@ -33,6 +45,12 @@ it eager. `rlt_tpu_torch.serve.TruncationService` serves straight from it
 CLI:
     python -m rlt_tpu_torch.export --model-name mmoecut --model-path ck.pt \\
         --out bundles/mmoecut --batch-sizes 1,8,64,256 [--device cpu] [--check]
+
+`--device cuda --lower` lowers the bundle for the card on the CPU, with or
+without a card on the host; `--check` serves a bundle against the live
+Predictor on its device and does not go with `--lower`. Without `--lower`,
+`--device cuda` builds the Predictor on the card and fails on a host with
+none.
 """
 
 from __future__ import annotations
@@ -42,6 +60,7 @@ import os
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 from rlt_tpu_torch.ops import library
 from rlt_tpu_torch.utils.graphs import GraphedBuckets, use_graphs
@@ -66,26 +85,96 @@ def _custom_ops(program) -> list[str]:
     return sorted(ops)
 
 
-def export_bucket(predictor, batch: int):
+# the card a program lowered on a host with no card names: the first, as
+# a program traced on the card names its input's device
+CARD = torch.device("cuda", 0)
+
+
+def export_bucket(predictor, batch: int, device: str | torch.device | None = None):
     """`predictor`'s forward (`infer.Predictor.body`) exported at one static
-    batch size on its device, under `torch.no_grad()`."""
+    batch size, under `torch.no_grad()`, for `device`: the predictor's own
+    (the default), or the card from a predictor on the CPU
+    (`lower_for_card`)."""
     cfg = predictor.cfg
+    device = predictor.device if device is None else torch.device(device)
     x = torch.zeros(batch, cfg.seq_len, cfg.input_size, device=predictor.device)
     with torch.no_grad():
-        return torch.export.export(predictor.body, (x,), strict=False)
+        program = torch.export.export(predictor.body, (x,), strict=False)
+    if device.type == predictor.device.type:
+        return program
+    if (predictor.device.type, device.type) != ("cpu", "cuda"):
+        raise ValueError(f"a predictor on {predictor.device.type!r} exports for its own "
+                         f"device, or for 'cuda' from the CPU, not for {device.type!r}")
+    return lower_for_card(program, x)
 
 
-def save_exported(out_dir: str, predictor, batch_sizes=(1, 8, 64, 256)) -> dict:
+def _card_device(arg):
+    return CARD if isinstance(arg, torch.device) and arg.type == "cpu" else arg
+
+
+def lower_for_card(program, x: torch.Tensor):
+    """A program exported on the CPU from input `x`, traced again for the
+    card: its graph module, with every device argument of its nodes set to
+    the card and every weight a fake tensor that claims the card and holds
+    no data, exported under that fake mode; then the real weights put back
+    in the program's state, on the CPU. Only ATen ops and the `rlt::` ops'
+    fake implementations run: nothing queries the CUDA runtime or builds a
+    kernel, so a host with no card lowers it. (A fake CUDA tensor cannot
+    run the model's own Python on a CPU-only torch: `__getitem__` and
+    `.contiguous()` need a CUDA device guard it lacks.)"""
+    from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+
+    module = program.module()
+    for node in module.graph.nodes:
+        node.args = tree_map(_card_device, node.args)
+        node.kwargs = tree_map(_card_device, node.kwargs)
+    module.recompile()
+    mode = FakeTensorMode()
+
+    def fake(t: torch.Tensor) -> torch.Tensor:
+        return FakeTensor(mode, t.detach().to("meta"), CARD)
+
+    real = {}  # each weight by its path, as the lowered program names it
+    for node in module.graph.nodes:
+        if node.op != "get_attr":
+            continue
+        *path, name = node.target.split(".")
+        owner = module.get_submodule(".".join(path))
+        value = getattr(owner, name)
+        if not isinstance(value, torch.Tensor) or node.target in real:
+            continue
+        real[node.target] = value
+        if isinstance(value, torch.nn.Parameter):
+            owner._parameters[name] = torch.nn.Parameter(fake(value), requires_grad=False)
+        elif name in owner._buffers:
+            owner._buffers[name] = fake(value)
+        else:
+            setattr(owner, name, fake(value))
+    with torch.no_grad():
+        lowered = torch.export.export(module, (fake(x),), strict=False)
+    for state in (lowered.state_dict, lowered.constants):
+        for key, value in state.items():
+            if isinstance(value, torch.Tensor):
+                state[key] = real[key]
+    lowered.example_inputs = None  # fake: nothing to save
+    return lowered
+
+
+def save_exported(out_dir: str, predictor, batch_sizes=(1, 8, 64, 256),
+                  device: str | torch.device | None = None) -> dict:
     """Export `predictor` (`rlt_tpu_torch.infer.Predictor`) at each batch
-    size and write the bundle to `out_dir`. Returns the manifest."""
+    size for `device` (the predictor's own by default; "cuda" from a
+    predictor on the CPU lowers the bundle for the card, `lower_for_card`)
+    and write the bundle to `out_dir`. Returns the manifest."""
     batch_sizes = sorted(set(int(b) for b in batch_sizes))
     if not batch_sizes or batch_sizes[0] < 1:
         raise ValueError(f"batch_sizes must be positive, got {batch_sizes}")
     os.makedirs(out_dir, exist_ok=True)
     cfg = predictor.cfg
+    device = predictor.device if device is None else torch.device(device)
     custom_ops: set[str] = set()
     for b in batch_sizes:
-        program = export_bucket(predictor, b)
+        program = export_bucket(predictor, b, device)
         custom_ops.update(_custom_ops(program))
         torch.export.save(program, _bucket_path(out_dir, b))
     manifest = {
@@ -95,7 +184,7 @@ def save_exported(out_dir: str, predictor, batch_sizes=(1, 8, 64, 256)) -> dict:
         "input_size": cfg.input_size,
         "compute_dtype": cfg.compute_dtype,
         "batch_sizes": batch_sizes,
-        "device": predictor.device.type,
+        "device": device.type,
         "custom_ops": sorted(custom_ops),
         "torch_version": torch.__version__,
     }
@@ -210,9 +299,22 @@ def load_exported(bundle_dir: str,
             f"--device {device.type} or serve on {manifest.get('device')!r}")
     # `library`, imported with this module, has registered the rlt:: ops
     # the programs call
-    programs = {int(b): torch.export.load(_bucket_path(bundle_dir, int(b)))
+    programs = {int(b): _placed(torch.export.load(_bucket_path(bundle_dir, int(b))), device)
                 for b in manifest["batch_sizes"]}
     return ExportedPredictor(manifest, programs, device)
+
+
+def _placed(program, device: torch.device):
+    """`program` with every weight on `device`: a bundle lowered on a host
+    with no card holds its weights on the CPU (`lower_for_card`); one
+    exported on its device holds them there already."""
+    for state in (program.state_dict, program.constants):
+        for key, value in state.items():
+            if isinstance(value, torch.Tensor) and value.device.type != device.type:
+                moved = value.to(device)
+                state[key] = (torch.nn.Parameter(moved, requires_grad=value.requires_grad)
+                              if isinstance(value, torch.nn.Parameter) else moved)
+    return program
 
 
 def main(argv=None):
@@ -232,6 +334,10 @@ def main(argv=None):
     p.add_argument("--batch-sizes", type=str, default="1,8,64,256")
     p.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"),
                    help="the device the bundle is exported for, and runs on")
+    p.add_argument("--lower", action="store_true",
+                   help="with --device cuda: build the Predictor on the CPU and lower "
+                   "its programs for the card under fake tensors, which needs no card "
+                   "(the JAX CLI's --platforms tpu)")
     p.add_argument("--out", type=str, required=True, help="bundle directory")
     p.add_argument("--check", action="store_true",
                    help="reload the bundle and hold it against the live "
@@ -241,9 +347,14 @@ def main(argv=None):
     cfg = TrainConfig(model_name=args.model_name, model_path=args.model_path,
                       retrieve_data=args.retrieve_data,
                       compute_dtype=args.compute_dtype)
-    predictor = Predictor(cfg, device=args.device)
+    if args.lower and args.device != "cuda":
+        p.error("--lower lowers a bundle for --device cuda")
+    if args.lower and args.check:
+        p.error("--check holds the bundle against the live Predictor on its device; "
+                "--lower builds that Predictor on the CPU")
+    predictor = Predictor(cfg, device="cpu" if args.lower else args.device)
     sizes = [int(s) for s in args.batch_sizes.split(",") if s]
-    manifest = save_exported(args.out, predictor, sizes)
+    manifest = save_exported(args.out, predictor, sizes, device=args.device)
     print(json.dumps(manifest))
     if args.check:
         loaded = load_exported(args.out, device=args.device)

@@ -106,10 +106,14 @@ class Predictor:
     size one CUDA graph (`graphs`, the default on a CUDA device), or eager
     (False: the CPU's only route). Graphs on the CPU raise. A graphed
     predictor's sizes own static buffers: one forward at a time (the
-    server's device lock)."""
+    server's device lock). `model`: a model built by the caller in place of
+    `build_model`'s, as `train.Trainer` takes one (e.g. `build_model(...,
+    encoding_size=256, d_model=512, n_head=16)` at widths the config does
+    not name)."""
 
     def __init__(self, cfg: TrainConfig, state_dict=None,
-                 device: str | torch.device | None = None, graphs: bool | None = None):
+                 device: str | torch.device | None = None, graphs: bool | None = None,
+                 model: torch.nn.Module | None = None):
         if cfg.model_name == "probe_base":
             raise ValueError("probe_base is a probing vehicle, not an "
                              "inference model")
@@ -119,9 +123,10 @@ class Predictor:
         self.device = resolve_device(device)
         self.graphs = graphs = use_graphs(self.device, graphs)
         self.cfg = cfg
-        model = build_model(cfg.model_name, seq_len=cfg.seq_len,
-                            input_size=cfg.input_size, dropout=cfg.dropout,
-                            num_tasks=cfg.num_tasks, seed=cfg.seed)
+        if model is None:
+            model = build_model(cfg.model_name, seq_len=cfg.seq_len,
+                                input_size=cfg.input_size, dropout=cfg.dropout,
+                                num_tasks=cfg.num_tasks, seed=cfg.seed)
         if state_dict is None and cfg.model_path:
             state_dict = load_state_dict(cfg.model_path)
         if state_dict is not None:

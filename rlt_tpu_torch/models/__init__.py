@@ -71,12 +71,18 @@ def is_multi_head(name: str) -> bool:
 
 
 def build_model(name: str, *, seq_len: int, input_size: int, dropout,
-                num_tasks: float = 3, seed: int = 0, members: int | None = None):
+                num_tasks: float = 3, seed: int = 0, members: int | None = None,
+                **widths):
     """Model dispatch mirroring the JAX package's `build_model` (the same
     constructor arguments), with the initial weights drawn from `seed`;
     with `members=K`, the model of K members in one (its weights drawn
-    once; `build_population_model` fills it), `dropout` one rate or K."""
-    common = dict(dropout=dropout, seed=seed, members=members)
+    once; `build_population_model` fills it), `dropout` one rate or K.
+    `widths`: constructor fields the JAX constructors take beside those
+    (`encoding_size`, `d_model`, `n_head` of MMOECut, MOECut and PLECut;
+    `d_model`, `n_head` of the attention models), passed through as they
+    are, e.g. `build_model("mmoecut", ..., encoding_size=256, d_model=512,
+    n_head=16)`."""
+    common = dict(dropout=dropout, seed=seed, members=members, **widths)
     if name == "bicut":
         return BiCut(input_size=input_size, **common)
     if name == "choopy":
@@ -97,7 +103,7 @@ def build_model(name: str, *, seq_len: int, input_size: int, dropout,
             check_population_model(name)
         # the JAX package builds it with the default three tasks
         return ProbeBase(seq_len=seq_len, input_size=input_size, dropout=dropout,
-                         num_experts=2, seed=seed)
+                         num_experts=2, seed=seed, **widths)
     raise ValueError(f"unknown model: {name!r}")
 
 
@@ -115,10 +121,11 @@ def check_population_model(name: str) -> None:
 
 
 def build_population_model(name: str, *, seq_len: int, input_size: int,
-                           dropout, seeds, num_tasks: float = 3):
+                           dropout, seeds, num_tasks: float = 3, **widths):
     """K models in one, member m initialised exactly as `build_model(...,
-    seed=seeds[m], dropout=its rate)` and stacked on a leading member axis
-    of every leaf. `dropout`: one rate for every member, or K rates."""
+    seed=seeds[m], dropout=its rate, **widths)` and stacked on a leading
+    member axis of every leaf. `dropout`: one rate for every member, or K
+    rates."""
     check_population_model(name)
     seeds = list(seeds)
     if not seeds:
@@ -127,7 +134,7 @@ def build_population_model(name: str, *, seq_len: int, input_size: int,
              else [float(r) for r in dropout])
     if len(rates) != len(seeds):
         raise ValueError(f"{len(rates)} dropout rates for {len(seeds)} members")
-    kwargs = dict(seq_len=seq_len, input_size=input_size, num_tasks=num_tasks)
+    kwargs = dict(seq_len=seq_len, input_size=input_size, num_tasks=num_tasks, **widths)
     model = build_model(name, members=len(seeds), dropout=rates, **kwargs)
     model.load_state_dict(stack_state_dicts(
         [build_model(name, seed=seed, dropout=rate, **kwargs).state_dict()

@@ -14,7 +14,11 @@ no head group. On a CUDA tensor the forward launches the kernel of
 L <= 65535, both streaming 64-row tiles, their products on the tensor
 cores in the 3xTF32 split that keeps float32 accuracy, each pair of warps
 sharing a slice's 16 rows between the two halves of dh); on a CPU tensor
-they run `attention_plain` and `attention_bwd_plain`.
+they run `attention_plain` and `attention_bwd_plain`. Every other dh from
+1 to MAX_HEAD_DIM launches `csrc/attention_any_dh.cu` (the instances
+`attention_fwd_any`, `attention_bwd_any`, counted apart): the packed
+kernels' body at one head in a group of one, which is the per-slice layout,
+lse layout and stream rule.
 
 Head-packed (`fused_attention_packed`, the counterpart of the JAX package's
 `fused_attention_packed` and its custom_vjp; the heads of dh = 64 of MMOECut,
@@ -45,12 +49,17 @@ On a CUDA tensor the forward launches the kernel of
 `rlt_tpu_torch/csrc/attention_packed_fwd.cu` and the backward that of
 `csrc/attention_packed_bwd.cu` (dh = 16 or 64, one instance of each kernel
 per width, float32, L <= 65535, both streaming 64-row tiles, their products
-on the tensor cores in the 3xTF32 split that keeps float32 accuracy); each
-raises on anything else. On a CPU
+on the tensor cores in the 3xTF32 split that keeps float32 accuracy), and
+at every other dh from 1 to MAX_HEAD_DIM and any pack those of
+`csrc/attention_any_dh.cu` (`attention_packed_fwd_any`,
+`attention_packed_bwd_any`: simple SIMT kernels, dh padded to a bucket);
+each raises on anything else. On a CPU
 tensor they run `attention_packed_plain` and `attention_packed_bwd_plain`.
 
 bf16 (the serving lane): `attention_packed_fwd_bf16` (dh 16 and 64) and
-`attention_fwd_bf16` (dh 128) take bf16 q, k and v and return bf16 o
+`attention_fwd_bf16` (dh 128; every other dh up to MAX_HEAD_DIM on the
+`_any_bf16` instances of `csrc/attention_any_dh.cu`) take bf16 q, k and v
+and return bf16 o
 beside f32 lse, with the JAX kernels' semantics on bf16 operands: the
 products of bf16 values summed in f32, the softmax statistics in f32, the
 weights rounded to bf16 before P V. On a CUDA tensor they launch the bf16
@@ -66,7 +75,8 @@ ones on anything else; `AttentionPacked` and `Attention` pick one by q's
 dtype, in the forward and in the backward.
 
 bf16 (the training lane): `attention_packed_bwd_bf16` (dh 16 and 64) and
-`attention_bwd_bf16` (dh 128) take bf16 q, k, v, o and do beside f32 lse
+`attention_bwd_bf16` (dh 128; every other dh on the `_any_bf16`
+instances) take bf16 q, k, v, o and do beside f32 lse
 and return bf16 dq, dk and dv, with the JAX kernels' semantics on bf16
 operands: s, p = exp(s scale - lse), dP = do v^T and delta = rowsum(do o)
 in f32, ds = p (dp - delta) scale and the dropped weights pd rounded to
@@ -125,9 +135,21 @@ ATTENTION_PACKED_FWD = Kernel("rlt_attention_packed_fwd", _args(_FWD, _PACKED))
 ATTENTION_PACKED_FWD_BF16 = Kernel("rlt_attention_packed_fwd_bf16", _args(_FWD, _PACKED))
 ATTENTION_PACKED_BWD = Kernel("rlt_attention_packed_bwd", _args(_BWD, _PACKED))
 ATTENTION_PACKED_BWD_BF16 = Kernel("rlt_attention_packed_bwd_bf16", _args(_BWD, _PACKED))
+# every other head width (csrc/attention_any_dh.cu): one launcher each way and
+# dtype, in the packed form, which the per-slice wrappers call at heads =
+# pack = 1; each wrapper's instance counts its own launches
+ATTENTION_FWD_ANY = Kernel("rlt_attention_any_fwd", _args(_FWD, _PACKED))
+ATTENTION_FWD_ANY_BF16 = Kernel("rlt_attention_any_fwd_bf16", _args(_FWD, _PACKED))
+ATTENTION_BWD_ANY = Kernel("rlt_attention_any_bwd", _args(_BWD, _PACKED))
+ATTENTION_BWD_ANY_BF16 = Kernel("rlt_attention_any_bwd_bf16", _args(_BWD, _PACKED))
+ATTENTION_PACKED_FWD_ANY = Kernel("rlt_attention_any_fwd", _args(_FWD, _PACKED))
+ATTENTION_PACKED_FWD_ANY_BF16 = Kernel("rlt_attention_any_fwd_bf16", _args(_FWD, _PACKED))
+ATTENTION_PACKED_BWD_ANY = Kernel("rlt_attention_any_bwd", _args(_BWD, _PACKED))
+ATTENTION_PACKED_BWD_ANY_BF16 = Kernel("rlt_attention_any_bwd_bf16", _args(_BWD, _PACKED))
 
-PACKED_HEAD_DIMS = (16, 64)  # the packed kernels' instances
-SLICE_HEAD_DIM = 128
+PACKED_HEAD_DIMS = (16, 64)  # the packed kernels' width-specialised instances
+SLICE_HEAD_DIM = 128  # the per-slice kernels' width-specialised instance
+MAX_HEAD_DIM = 512  # attention_any_dh.cu's widest bucket
 _U32 = 0xFFFFFFFF
 
 
@@ -496,9 +518,11 @@ def _check_kernel_inputs(name: str, dh: int, kernel_dhs: tuple, tensors: dict,
     if next(iter(tensors.values())).device.type != "cuda":
         raise ValueError(f"{name}: unsupported device "
                          f"{next(iter(tensors.values())).device}")
-    if dh not in kernel_dhs:
+    if not 1 <= dh <= MAX_HEAD_DIM:
         takes = " or ".join(f"dh = {w}" for w in kernel_dhs)
-        raise ValueError(f"{name} kernel takes {takes}, got dh = {dh}")
+        raise ValueError(f"{name} kernels take 1 <= dh <= {MAX_HEAD_DIM} ({takes} on the "
+                         f"width-specialised instance, any other on `{name}_any`), got "
+                         f"dh = {dh}")
     for tname, t in tensors.items():
         if t.dtype != dtype and tname != "lse":
             raise TypeError(f"{name} kernel takes {dtype} {tname}, got {t.dtype}")
@@ -543,10 +567,11 @@ def attention_packed_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty(n, heads // pack, length, pack, device=q.device,
                       dtype=torch.float32)
     (s_ptr, t_ptr, c_ptr, rate, threshold), _keep = _kernel_dropout(streams, dropout_rate)
+    kernel = (ATTENTION_PACKED_FWD if d // heads in PACKED_HEAD_DIMS
+              else ATTENTION_PACKED_FWD_ANY)
     with torch.cuda.device(q.device):
-        ATTENTION_PACKED_FWD(ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), s_ptr, t_ptr, c_ptr,
-                             n, length, heads, d // heads, pack, rate, threshold,
-                             stream_handle(q.device))
+        kernel(ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), s_ptr, t_ptr, c_ptr, n, length,
+               heads, d // heads, pack, rate, threshold, stream_handle(q.device))
     return o, lse
 
 
@@ -568,16 +593,19 @@ def attention_packed_fwd_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty(n, heads // pack, length, pack, device=q.device,
                       dtype=torch.float32)
     (s_ptr, t_ptr, c_ptr, rate, threshold), _keep = _kernel_dropout(streams, dropout_rate)
+    kernel = (ATTENTION_PACKED_FWD_BF16 if d // heads in PACKED_HEAD_DIMS
+              else ATTENTION_PACKED_FWD_ANY_BF16)
     with torch.cuda.device(q.device):
-        ATTENTION_PACKED_FWD_BF16(ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), s_ptr, t_ptr,
-                                  c_ptr, n, length, heads, d // heads, pack, rate,
-                                  threshold, stream_handle(q.device))
+        kernel(ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), s_ptr, t_ptr, c_ptr, n, length,
+               heads, d // heads, pack, rate, threshold, stream_handle(q.device))
     return o, lse
 
 
-def _packed_bwd(name: str, kernel: Kernel, dtype: torch.dtype, q, k, v, o, lse, do,
+def _packed_bwd(name: str, kernels: tuple, dtype: torch.dtype, q, k, v, o, lse, do,
                 heads: int, pack: int, dropout_rate: float | RowDropout, streams):
-    """K6' or its bf16 instance: checks, outputs and launch."""
+    """K6' or its bf16 instance: checks, outputs and the launch of
+    `kernels`' first (the width-specialised instance) at dh in
+    PACKED_HEAD_DIMS, else of its second."""
     _check_kernel_inputs(name, q.shape[-1] // heads, PACKED_HEAD_DIMS,
                          {"q": q, "k": k, "v": v, "o": o, "do": do, "lse": lse}, dtype)
     n, length, d = q.shape
@@ -589,6 +617,7 @@ def _packed_bwd(name: str, kernel: Kernel, dtype: torch.dtype, q, k, v, o, lse, 
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = torch.empty(n, heads, length, device=q.device, dtype=torch.float32)
     (s_ptr, t_ptr, c_ptr, rate, threshold), _keep = _kernel_dropout(streams, dropout_rate)
+    kernel = kernels[0] if d // heads in PACKED_HEAD_DIMS else kernels[1]
     with torch.cuda.device(q.device):
         kernel(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse), s_ptr, t_ptr, c_ptr,
                ptr(dq), ptr(dk), ptr(dv), ptr(delta), n, length, heads, d // heads, pack,
@@ -607,7 +636,8 @@ def attention_packed_bwd(q, k, v, o, lse, do, heads: int, pack: int,
     if q.device.type == "cpu":
         return attention_packed_bwd_plain(q, k, v, o, lse, do, heads, pack,
                                           dropout_rate, streams)
-    return _packed_bwd("attention_packed_bwd", ATTENTION_PACKED_BWD, torch.float32,
+    return _packed_bwd("attention_packed_bwd",
+                       (ATTENTION_PACKED_BWD, ATTENTION_PACKED_BWD_ANY), torch.float32,
                        q, k, v, o, lse, do, heads, pack, dropout_rate, streams)
 
 
@@ -623,7 +653,8 @@ def attention_packed_bwd_bf16(q, k, v, o, lse, do, heads: int, pack: int,
     if q.device.type == "cpu":
         return attention_packed_bwd_plain(q, k, v, o, lse, do, heads, pack,
                                           dropout_rate, streams)
-    return _packed_bwd("attention_packed_bwd_bf16", ATTENTION_PACKED_BWD_BF16,
+    return _packed_bwd("attention_packed_bwd_bf16",
+                       (ATTENTION_PACKED_BWD_BF16, ATTENTION_PACKED_BWD_ANY_BF16),
                        torch.bfloat16, q, k, v, o, lse, do, heads, pack, dropout_rate,
                        streams)
 
@@ -688,13 +719,25 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_plain(q, k, v, dropout_rate, streams)
     _check_kernel_inputs("attention_fwd", q.shape[-1], (SLICE_HEAD_DIM,),
                          {"q": q, "k": k, "v": v})
-    batch, heads, length, _ = q.shape
+    return _slice_fwd(ATTENTION_FWD, ATTENTION_FWD_ANY, q, k, v, dropout_rate, streams)
+
+
+def _slice_fwd(kernel: Kernel, any_kernel: Kernel, q, k, v,
+               dropout_rate: float | RowDropout, streams):
+    """K3' or its bf16 instance: outputs and the launch of `kernel` at dh =
+    SLICE_HEAD_DIM, else of `any_kernel` at one head in a group of one."""
+    batch, heads, length, dh = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(batch * heads, 1, length, device=q.device, dtype=torch.float32)
     (s_ptr, t_ptr, c_ptr, rate, threshold), _keep = _kernel_dropout(streams, dropout_rate)
     with torch.cuda.device(q.device):
-        ATTENTION_FWD(ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), s_ptr, t_ptr, c_ptr,
-                      batch * heads, length, rate, threshold, stream_handle(q.device))
+        if dh == SLICE_HEAD_DIM:
+            kernel(ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), s_ptr, t_ptr, c_ptr,
+                   batch * heads, length, rate, threshold, stream_handle(q.device))
+        else:
+            any_kernel(ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), s_ptr, t_ptr, c_ptr,
+                       batch * heads, length, 1, dh, 1, rate, threshold,
+                       stream_handle(q.device))
     return o, lse
 
 
@@ -711,22 +754,18 @@ def attention_fwd_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_plain(q, k, v, dropout_rate, streams)
     _check_kernel_inputs("attention_fwd_bf16", q.shape[-1], (SLICE_HEAD_DIM,),
                          {"q": q, "k": k, "v": v}, torch.bfloat16)
-    batch, heads, length, _ = q.shape
-    o = torch.empty_like(q)
-    lse = torch.empty(batch * heads, 1, length, device=q.device, dtype=torch.float32)
-    (s_ptr, t_ptr, c_ptr, rate, threshold), _keep = _kernel_dropout(streams, dropout_rate)
-    with torch.cuda.device(q.device):
-        ATTENTION_FWD_BF16(ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), s_ptr, t_ptr, c_ptr,
-                           batch * heads, length, rate, threshold, stream_handle(q.device))
-    return o, lse
+    return _slice_fwd(ATTENTION_FWD_BF16, ATTENTION_FWD_ANY_BF16, q, k, v, dropout_rate,
+                      streams)
 
 
-def _slice_bwd(name: str, kernel: Kernel, dtype: torch.dtype, q, k, v, o, lse, do,
+def _slice_bwd(name: str, kernels: tuple, dtype: torch.dtype, q, k, v, o, lse, do,
                dropout_rate: float | RowDropout, streams):
-    """K4' or its bf16 instance: checks, outputs and launch."""
+    """K4' or its bf16 instance: checks, outputs and the launch of
+    `kernels`' first at dh = SLICE_HEAD_DIM, else of its second at one head
+    in a group of one."""
     _check_kernel_inputs(name, q.shape[-1], (SLICE_HEAD_DIM,),
                          {"q": q, "k": k, "v": v, "o": o, "do": do, "lse": lse}, dtype)
-    batch, heads, length, _ = q.shape
+    batch, heads, length, dh = q.shape
     if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape):
         raise ValueError("o and do must have q's shape")
     if tuple(lse.shape) != (batch * heads, 1, length):
@@ -735,10 +774,13 @@ def _slice_bwd(name: str, kernel: Kernel, dtype: torch.dtype, q, k, v, o, lse, d
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = torch.empty(batch * heads, length, device=q.device, dtype=torch.float32)
     (s_ptr, t_ptr, c_ptr, rate, threshold), _keep = _kernel_dropout(streams, dropout_rate)
+    pointers = (ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse), s_ptr, t_ptr, c_ptr,
+                ptr(dq), ptr(dk), ptr(dv), ptr(delta), batch * heads, length)
     with torch.cuda.device(q.device):
-        kernel(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse), s_ptr, t_ptr, c_ptr,
-               ptr(dq), ptr(dk), ptr(dv), ptr(delta), batch * heads, length, rate,
-               threshold, stream_handle(q.device))
+        if dh == SLICE_HEAD_DIM:
+            kernels[0](*pointers, rate, threshold, stream_handle(q.device))
+        else:
+            kernels[1](*pointers, 1, dh, 1, rate, threshold, stream_handle(q.device))
     return dq, dk, dv
 
 
@@ -751,8 +793,8 @@ def attention_bwd(q, k, v, o, lse, do, dropout_rate: DropoutRate = 0.0,
     refuse_bf16("attention_bwd", {"q": q, "k": k, "v": v, "do": do})
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, o, lse, do, dropout_rate, streams)
-    return _slice_bwd("attention_bwd", ATTENTION_BWD, torch.float32, q, k, v, o, lse,
-                      do, dropout_rate, streams)
+    return _slice_bwd("attention_bwd", (ATTENTION_BWD, ATTENTION_BWD_ANY), torch.float32,
+                      q, k, v, o, lse, do, dropout_rate, streams)
 
 
 def attention_bwd_bf16(q, k, v, o, lse, do, dropout_rate: DropoutRate = 0.0,
@@ -765,8 +807,8 @@ def attention_bwd_bf16(q, k, v, o, lse, do, dropout_rate: DropoutRate = 0.0,
     require_bf16("attention_bwd_bf16", {"q": q, "k": k, "v": v, "o": o, "do": do})
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, o, lse, do, dropout_rate, streams)
-    return _slice_bwd("attention_bwd_bf16", ATTENTION_BWD_BF16, torch.bfloat16, q, k, v,
-                      o, lse, do, dropout_rate, streams)
+    return _slice_bwd("attention_bwd_bf16", (ATTENTION_BWD_BF16, ATTENTION_BWD_ANY_BF16),
+                      torch.bfloat16, q, k, v, o, lse, do, dropout_rate, streams)
 
 
 class Attention(torch.autograd.Function):

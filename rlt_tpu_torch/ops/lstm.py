@@ -18,8 +18,14 @@ time in reverse from the saved hs and cs, recomputing the gates, and
 returns the gradients of xw and of W_hh^T.
 
 On a CUDA tensor `lstm_fwd` and `lstm_bwd` launch the kernels of
-`rlt_tpu_torch/csrc/lstm_fwd.cu` and `csrc/lstm_bwd.cu`, at any ndir up to
-MAX_DIRECTIONS, and raise on anything they do not take. On a CPU tensor they run
+`rlt_tpu_torch/csrc/lstm_fwd.cu` and `csrc/lstm_bwd.cu` at H in
+KERNEL_HIDDEN (64, 96 and 128: W_hh^T held on chip), and at every H below
+128 after padding it with zeros to the next of those widths
+(`kernel_hidden`, `at_kernel_width_fwd`: exact, a padded unit stays 0);
+every H from 129 to MAX_HIDDEN launches those of `csrc/lstm_any.cu` (the
+instances `lstm_fwd_any`, `lstm_bwd_any`, counted apart: W_hh^T streamed
+from L2 every step). Each takes any ndir up to MAX_DIRECTIONS and raises
+on anything it does not take. On a CPU tensor they run
 `lstm_recurrence_plain` and `lstm_bwd_plain`, explicit time loops.
 
 bf16 (the serving lane): `lstm_fwd_bf16` takes bf16 xw and W_hh^T and
@@ -27,7 +33,9 @@ returns bf16 hs beside f32 cs, as the JAX kernel does on bf16 operands: the
 carried h and c are f32, gates = xw + h W_hh^T is taken in f32 from the
 widened bf16 values, and only the stored hs is rounded. On a CUDA tensor it
 launches K1''s bf16 instance (`csrc/lstm_bf16_mma.cuh`: the tensor cores,
-h_{t-1} in three exact bf16 parts), on a CPU tensor `lstm_recurrence_plain`,
+h_{t-1} in three exact bf16 parts) at H up to 128 (padded as above) and
+`lstm_fwd_any_bf16` (`csrc/lstm_any.cu`) at H from 129 to MAX_HIDDEN, on a
+CPU tensor `lstm_recurrence_plain`,
 which computes either dtype's semantics. `lstm_fwd` raises on bf16 and
 `lstm_fwd_bf16` on anything else; `LSTMRecurrence` picks one by xw's dtype.
 
@@ -36,8 +44,9 @@ dho beside f32 cs, as the JAX kernel does on bf16 operands: the gates are
 recomputed from the rounded bf16 hs[t-1] and the widened weights, the
 carries dh and dc are f32, dgates is f32 and feeds the dh carry and the
 dW_hh^T sum unrounded, only the stored dxw is rounded to bf16, and dW_hh^T
-is f32. On a CUDA tensor it launches K2''s bf16 instance, on a CPU tensor
-`lstm_bwd_plain`, which computes either dtype's semantics.
+is f32. On a CUDA tensor it launches K2''s bf16 instance (at H up to 128,
+padded as above; `lstm_bwd_any_bf16` at H from 129 to MAX_HIDDEN), on a
+CPU tensor `lstm_bwd_plain`, which computes either dtype's semantics.
 `LSTMRecurrence` takes W_hh^T in f32 or bf16 beside bf16 xw: it rounds an
 f32 W_hh^T for the kernels itself and returns dW_hh^T in f32, so the f32
 master weight of a bf16 training step receives K2''s f32 sum unrounded,
@@ -49,6 +58,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from rlt_tpu_torch.ops.build import (
     Kernel,
@@ -67,6 +77,21 @@ LSTM_BWD = Kernel("rlt_lstm_bwd", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                   + [ctypes.c_void_p])
 LSTM_BWD_BF16 = Kernel("rlt_lstm_bwd_bf16", [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
+# the instances of every other hidden width (csrc/lstm_any.cu)
+LSTM_FWD_ANY = Kernel("rlt_lstm_any_fwd", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                      + [ctypes.c_void_p])
+LSTM_FWD_ANY_BF16 = Kernel("rlt_lstm_any_fwd_bf16", [ctypes.c_void_p] * 4
+                           + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+LSTM_BWD_ANY = Kernel("rlt_lstm_any_bwd", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                      + [ctypes.c_void_p])
+LSTM_BWD_ANY_BF16 = Kernel("rlt_lstm_any_bwd_bf16", [ctypes.c_void_p] * 10
+                           + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+# the hidden widths of the width-specialised instances (lstm_fwd.cu,
+# lstm_bwd.cu, lstm_bf16_mma.cuh), which every H below their widest takes
+# padded; lstm_any.cu takes every H above it up to MAX_HIDDEN, where its
+# reverse chain's carries and dgates still fit in a block's shared memory
+KERNEL_HIDDEN = (64, 96, 128)
+MAX_HIDDEN = 2048
 # most chunks the dW_hh^T contraction is split into (K2' sums their partial
 # products in a second pass, in a fixed order)
 DW_SPLITS = 32
@@ -198,33 +223,97 @@ def _check_kernel_inputs(name: str, tensors: dict,
         if not t.is_contiguous():
             raise ValueError(f"{name} kernel takes contiguous {tname}")
     hidden = first.shape[-1] // 4
-    if hidden % 32 or not 64 <= hidden <= 128:
-        raise ValueError(f"{name} kernel takes H a multiple of 32 in "
-                         f"[64, 128], got H = {hidden}")
+    if not 1 <= hidden <= MAX_HIDDEN:
+        raise ValueError(f"{name} kernels take 1 <= H <= {MAX_HIDDEN} (H up to "
+                         f"{KERNEL_HIDDEN[-1]} on the width-specialised instances, padded "
+                         f"to one of {KERNEL_HIDDEN}; any wider on `{name}_any`), got "
+                         f"H = {hidden}")
     ndir = tensors["w_hh_t"].shape[0] // hidden
     if ndir > MAX_DIRECTIONS:
         raise ValueError(f"{name} kernel takes at most {MAX_DIRECTIONS} directions, "
                          f"got {ndir}")
 
 
+def kernel_hidden(hidden: int) -> int:
+    """The H a kernel runs `hidden` at: the least width of KERNEL_HIDDEN at
+    or above it (the wrappers pad to it), else `hidden` itself (lstm_any.cu)."""
+    return next((w for w in KERNEL_HIDDEN if w >= hidden), hidden)
+
+
+def _pad_units(t: torch.Tensor, blocks: int, hidden: int, run: int) -> torch.Tensor:
+    """(..., blocks * hidden) -> (..., blocks * run): each block of `hidden`
+    units followed by run - hidden zeros."""
+    lead = t.shape[:-1]
+    return F.pad(t.view(*lead, blocks, hidden), (0, run - hidden)).view(*lead, blocks * run)
+
+
+def _unpad_units(t: torch.Tensor, blocks: int, hidden: int, run: int) -> torch.Tensor:
+    lead = t.shape[:-1]
+    return t.view(*lead, blocks, run)[..., :hidden].reshape(*lead, blocks * hidden)
+
+
+def _pad_w(w_hh_t: torch.Tensor, ndir: int, hidden: int, run: int) -> torch.Tensor:
+    """(ndir * H, 4H) W_hh^T -> (ndir * run, 4 run): each direction's rows
+    and each gate's columns padded with zeros."""
+    w = F.pad(w_hh_t.view(ndir, hidden, 4, hidden), (0, run - hidden, 0, 0, 0, run - hidden))
+    return w.view(ndir * run, 4 * run)
+
+
+def _unpad_w(dw: torch.Tensor, ndir: int, hidden: int, run: int) -> torch.Tensor:
+    return dw.view(ndir, run, 4, run)[:, :hidden, :, :hidden].reshape(ndir * hidden, 4 * hidden)
+
+
+def at_kernel_width_fwd(launch, xw: torch.Tensor, w_hh_t: torch.Tensor, ndir: int):
+    """`launch(xw, w_hh_t, ndir)` -> (hs, cs) at `kernel_hidden(H)`: below it,
+    xw's gate blocks and W_hh^T padded with zeros, hs and cs sliced back.
+    Exact: a padded unit's gates are 0, so its c and h stay 0, and its zero
+    rows of W_hh^T add nothing to a real unit's gates."""
+    hidden = xw.shape[-1] // 4
+    run = kernel_hidden(hidden)
+    if run == hidden:
+        return launch(xw, w_hh_t, ndir)
+    hs, cs = launch(_pad_units(xw, 4, hidden, run), _pad_w(w_hh_t, ndir, hidden, run), ndir)
+    return hs[..., :hidden].contiguous(), cs[..., :hidden].contiguous()
+
+
+def at_kernel_width_bwd(launch, xw: torch.Tensor, w_hh_t: torch.Tensor, hs: torch.Tensor,
+                        cs: torch.Tensor, dho: torch.Tensor, ndir: int):
+    """`launch(xw, w_hh_t, hs, cs, dho, ndir)` -> (dxw, dW_hh^T) at
+    `kernel_hidden(H)`, padded as `at_kernel_width_fwd` pads: a padded
+    unit's dho is 0 and its zero columns of W_hh^T give it no dh carry, so
+    its dgates are 0; dxw and dW_hh^T sliced back."""
+    hidden = xw.shape[-1] // 4
+    run = kernel_hidden(hidden)
+    if run == hidden:
+        return launch(xw, w_hh_t, hs, cs, dho, ndir)
+    dxw, dw = launch(_pad_units(xw, 4, hidden, run), _pad_w(w_hh_t, ndir, hidden, run),
+                     *(_pad_units(t, 1, hidden, run) for t in (hs, cs, dho)), ndir)
+    return _unpad_units(dxw, 4, hidden, run), _unpad_w(dw, ndir, hidden, run)
+
+
 def lstm_fwd(xw: torch.Tensor, w_hh_t: torch.Tensor, ndir: int = 1):
     """`ndir` LSTM directions: (L, ndir * B, 4H) xw, (ndir * H, 4H) W_hh^T
     -> (hs, cs), each (L, ndir * B, H) float32. The kernel on a CUDA
-    tensor, the plain loop on a CPU tensor. The kernel takes contiguous
-    float32 with H a multiple of 32 in [64, 128]; bf16 goes to
-    `lstm_fwd_bf16`."""
+    tensor, the plain loop on a CPU tensor. The kernels take contiguous
+    float32: H up to 128 on `lstm_fwd.cu` (padded to KERNEL_HIDDEN), 129 <=
+    H <= MAX_HIDDEN on `lstm_any.cu`; bf16 goes to `lstm_fwd_bf16`."""
     _check(xw, w_hh_t, ndir)
     refuse_bf16("lstm_fwd", {"xw": xw, "w_hh_t": w_hh_t})
     if xw.device.type == "cpu":
         return lstm_recurrence_plain(xw, w_hh_t, ndir)
     _check_kernel_inputs("lstm_fwd", {"xw": xw, "w_hh_t": w_hh_t})
+    return at_kernel_width_fwd(_launch_fwd, xw, w_hh_t, ndir)
+
+
+def _launch_fwd(xw: torch.Tensor, w_hh_t: torch.Tensor, ndir: int):
     length, rows, gates4 = xw.shape
     hidden = gates4 // 4
     hs = torch.empty(length, rows, hidden, device=xw.device, dtype=torch.float32)
     cs = torch.empty_like(hs)
+    kernel = LSTM_FWD if hidden in KERNEL_HIDDEN else LSTM_FWD_ANY
     with torch.cuda.device(xw.device):
-        LSTM_FWD(ptr(xw), ptr(w_hh_t), ptr(hs), ptr(cs), length, rows // ndir, hidden,
-                 ndir, stream_handle(xw.device))
+        kernel(ptr(xw), ptr(w_hh_t), ptr(hs), ptr(cs), length, rows // ndir, hidden,
+               ndir, stream_handle(xw.device))
     return hs, cs
 
 
@@ -237,14 +326,19 @@ def lstm_fwd_bf16(xw: torch.Tensor, w_hh_t: torch.Tensor, ndir: int = 1):
     if xw.device.type == "cpu":
         return lstm_recurrence_plain(xw, w_hh_t, ndir)
     _check_kernel_inputs("lstm_fwd_bf16", {"xw": xw, "w_hh_t": w_hh_t}, torch.bfloat16)
+    return at_kernel_width_fwd(_launch_fwd_bf16, xw, w_hh_t, ndir)
+
+
+def _launch_fwd_bf16(xw: torch.Tensor, w_hh_t: torch.Tensor, ndir: int):
     length, rows, gates4 = xw.shape
     hidden = gates4 // 4
     hs = torch.empty(length, rows, hidden, device=xw.device, dtype=torch.bfloat16)
     cs = torch.empty(length, rows, hidden, device=xw.device, dtype=torch.float32)
+    kernel = LSTM_FWD_BF16 if hidden in KERNEL_HIDDEN else LSTM_FWD_ANY_BF16
     xw = _aligned(xw)
     with torch.cuda.device(xw.device):
-        LSTM_FWD_BF16(ptr(xw), ptr(w_hh_t), ptr(hs), ptr(cs), length, rows // ndir,
-                      hidden, ndir, stream_handle(xw.device))
+        kernel(ptr(xw), ptr(w_hh_t), ptr(hs), ptr(cs), length, rows // ndir, hidden, ndir,
+               stream_handle(xw.device))
     return hs, cs
 
 
@@ -268,6 +362,17 @@ def _bwd_scratch(xw: torch.Tensor, ndir: int, splits: int):
     return partial, gf
 
 
+def _any_scratch(xw: torch.Tensor, ndir: int, splits: int):
+    """`lstm_any.cu`'s backward scratch: the dW_hh^T partial products
+    (ndir, splits, H, 4H) and every step's gate activations (L, ndir * B,
+    4H), both float32."""
+    length, rows, gates4 = xw.shape
+    partial = torch.empty(ndir, splits, gates4 // 4, gates4, device=xw.device,
+                          dtype=torch.float32)
+    act = torch.empty(length, rows, gates4, device=xw.device, dtype=torch.float32)
+    return partial, act
+
+
 def lstm_bwd(xw: torch.Tensor, w_hh_t: torch.Tensor, hs: torch.Tensor,
              cs: torch.Tensor, dho: torch.Tensor, ndir: int = 1):
     """Backward of `ndir` LSTM directions: `lstm_fwd`'s inputs and outputs
@@ -281,11 +386,22 @@ def lstm_bwd(xw: torch.Tensor, w_hh_t: torch.Tensor, hs: torch.Tensor,
         return lstm_bwd_plain(xw, w_hh_t, hs, cs, dho, ndir)
     _check_kernel_inputs("lstm_bwd", {"xw": xw, "w_hh_t": w_hh_t, "hs": hs,
                                       "cs": cs, "dho": dho})
+    return at_kernel_width_bwd(_launch_bwd, xw, w_hh_t, hs, cs, dho, ndir)
+
+
+def _launch_bwd(xw, w_hh_t, hs, cs, dho, ndir: int):
     length, rows, gates4 = xw.shape
     splits = dw_splits(length, rows // ndir)
-    partial, gf = _bwd_scratch(xw, ndir, splits)
     dxw = torch.empty_like(xw)
     dw = torch.empty_like(w_hh_t)
+    if gates4 // 4 not in KERNEL_HIDDEN:
+        partial, act = _any_scratch(xw, ndir, splits)
+        with torch.cuda.device(xw.device):
+            LSTM_BWD_ANY(ptr(xw), ptr(w_hh_t), ptr(hs), ptr(cs), ptr(dho), ptr(dxw),
+                         ptr(dw), ptr(partial), ptr(act), length, rows // ndir, gates4 // 4,
+                         ndir, splits, stream_handle(xw.device))
+        return dxw, dw
+    partial, gf = _bwd_scratch(xw, ndir, splits)
     with torch.cuda.device(xw.device):
         LSTM_BWD(ptr(xw), ptr(w_hh_t), ptr(hs), ptr(cs), ptr(dho), ptr(dxw),
                  ptr(dw), ptr(partial), ptr(gf), length, rows // ndir, gates4 // 4, ndir,
@@ -310,11 +426,24 @@ def lstm_bwd_bf16(xw: torch.Tensor, w_hh_t: torch.Tensor, hs: torch.Tensor,
                                            "dho": dho}, torch.bfloat16)
     if not cs.is_contiguous():
         raise ValueError("lstm_bwd_bf16 kernel takes contiguous cs")
+    return at_kernel_width_bwd(_launch_bwd_bf16, xw, w_hh_t, hs, cs, dho, ndir)
+
+
+def _launch_bwd_bf16(xw, w_hh_t, hs, cs, dho, ndir: int):
     length, rows, gates4 = xw.shape
-    splits = dw_splits_bf16(length, rows // ndir)
-    partial, gf = _bwd_scratch(xw, ndir, splits)
     dxw = torch.empty_like(xw)
     dw = torch.empty(w_hh_t.shape, device=xw.device, dtype=torch.float32)
+    if gates4 // 4 not in KERNEL_HIDDEN:
+        splits = dw_splits(length, rows // ndir)
+        partial, act = _any_scratch(xw, ndir, splits)
+        dg = torch.empty(xw.shape, device=xw.device, dtype=torch.float32)  # dgates, f32
+        with torch.cuda.device(xw.device):
+            LSTM_BWD_ANY_BF16(ptr(xw), ptr(w_hh_t), ptr(hs), ptr(cs), ptr(dho), ptr(dxw),
+                              ptr(dw), ptr(partial), ptr(act), ptr(dg), length, rows // ndir,
+                              gates4 // 4, ndir, splits, stream_handle(xw.device))
+        return dxw, dw
+    splits = dw_splits_bf16(length, rows // ndir)
+    partial, gf = _bwd_scratch(xw, ndir, splits)
     # the f32 coefficients of the gate recompute, then dgates' mid and lo
     # parts (dxw holds hi), which feed dW_hh^T
     dg = torch.empty(xw.shape, device=xw.device, dtype=torch.float32)

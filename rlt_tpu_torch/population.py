@@ -253,11 +253,13 @@ class Population:
     `graphs`: each population step one CUDA graph replay (the default on a
     CUDA device; `utils.graphs.GraphedSteps`, as `Trainer`'s), or eager
     (False: the CPU's only route; on the card for reference runs). Graphs
-    on the CPU raise."""
+    on the CPU raise. `model`: the members' model built by the caller in
+    place of `build_population_model`'s (e.g. with `**widths` the config
+    does not name), its members in `members`' order."""
 
     def __init__(self, cfg: config_lib.TrainConfig, members: Sequence[Member],
                  data=None, device: str | torch.device | None = None,
-                 graphs: bool | None = None):
+                 graphs: bool | None = None, model: torch.nn.Module | None = None):
         members = list(members)
         if not members:
             raise ValueError("empty population")
@@ -268,10 +270,12 @@ class Population:
         self.graphs = graphs = use_graphs(self.device, graphs)
         self.criteria = [make_criterion(member_config(cfg, m)) for m in members]
         self.data = _stack_corpora(_member_corpora(cfg, members, data), self.device)
-        self.model = build_population_model(
-            cfg.model_name, seq_len=cfg.seq_len, input_size=cfg.input_size,
-            dropout=[member_config(cfg, m).dropout for m in members],
-            num_tasks=cfg.num_tasks, seeds=[m.seed for m in members]).to(self.device)
+        if model is None:
+            model = build_population_model(
+                cfg.model_name, seq_len=cfg.seq_len, input_size=cfg.input_size,
+                dropout=[member_config(cfg, m).dropout for m in members],
+                num_tasks=cfg.num_tasks, seeds=[m.seed for m in members])
+        self.model = model.to(self.device)
         self.optimizer = MemberAdam(
             self.model.parameters(),
             [cfg.lr if m.lr is None else m.lr for m in members],

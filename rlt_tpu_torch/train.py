@@ -272,7 +272,8 @@ class Trainer:
     (`train_step`), `best_state` holds this rank's slices, and rank 0 alone
     writes the log, the figures and the files, with the whole tensors.
     `model`: a model built by the caller in place of `build_model`'s (the
-    dry run's MMOECut at four experts)."""
+    dry run's MMOECut at four experts; `build_model(..., **widths)` at
+    widths the config does not name)."""
 
     def __init__(self, cfg: config_lib.TrainConfig, data=None,
                  device: str | torch.device | None = None, state_dict=None,

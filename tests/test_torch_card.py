@@ -10,6 +10,7 @@ nor the JAX package, so that it runs on a machine that has only PyTorch:
 Inputs are made with numpy from fixed seeds.
 """
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -20,7 +21,7 @@ from rlt_tpu_torch.config import TrainConfig, apply_preset
 from rlt_tpu_torch.data import synthetic_dataset
 from rlt_tpu_torch.infer import Predictor
 from rlt_tpu_torch.models import ZERO_GRAD_LEAVES
-from rlt_tpu_torch.ops import KERNELS, attention, lstm, plain_ops
+from rlt_tpu_torch.ops import KERNELS, attention, instance_at, lstm, plain_ops
 from rlt_tpu_torch.train import Trainer, train_step
 
 # f32 on both sides. The kernel sums each step's 128-term dot products in
@@ -324,18 +325,26 @@ def test_packed_attention_bwd_at_dh16_is_deterministic_on_card(cuda_device):
 
 
 def test_packed_attention_rejects_other_head_widths_on_card(cuda_device):
-    """The packed kernels have instances for dh = 16 and 64 alone: 8 heads
-    of dh = 32 raise, forward and backward, and nothing falls back."""
+    """The packed kernels have width-specialised instances for dh = 16 and
+    64 and `_any` instances for every other dh up to MAX_HEAD_DIM: 8 heads
+    of dh = 32 launch the `_any` ones, heads wider than MAX_HEAD_DIM raise
+    with the range named, forward and backward, and nothing falls back."""
+    kernels = (attention.ATTENTION_PACKED_FWD, attention.ATTENTION_PACKED_BWD,
+               attention.ATTENTION_PACKED_FWD_ANY, attention.ATTENTION_PACKED_BWD_ANY)
+    before = [k.launches for k in kernels]
     q = torch.zeros(2, 8, 256, device=cuda_device)
-    lse = torch.zeros(2, 1, 8, 8, device=cuda_device)
-    before = (attention.ATTENTION_PACKED_FWD.launches,
-              attention.ATTENTION_PACKED_BWD.launches)
-    with pytest.raises(ValueError, match="takes dh = 16 or dh = 64, got dh = 32"):
-        attention.attention_packed_fwd(q, q, q, 8, 8)
-    with pytest.raises(ValueError, match="takes dh = 16 or dh = 64, got dh = 32"):
-        attention.attention_packed_bwd(q, q, q, q, lse, q, 8, 8)
-    assert (attention.ATTENTION_PACKED_FWD.launches,
-            attention.ATTENTION_PACKED_BWD.launches) == before
+    o, lse = attention.attention_packed_fwd(q, q, q, 8, 8)
+    attention.attention_packed_bwd(q, q, q, o, lse, q, 8, 8)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [0, 0, 1, 1]
+    dh = attention.MAX_HEAD_DIM + 8
+    q = torch.zeros(2, 8, 2 * dh, device=cuda_device)
+    lse = torch.zeros(2, 1, 8, 2, device=cuda_device)
+    with pytest.raises(ValueError, match=f"1 <= dh <= {attention.MAX_HEAD_DIM}"):
+        attention.attention_packed_fwd(q, q, q, 2, 2)
+    with pytest.raises(ValueError, match=f"1 <= dh <= {attention.MAX_HEAD_DIM}"):
+        attention.attention_packed_bwd(q, q, q, q, lse, q, 2, 2)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [0, 0, 1, 1]
 
 
 # K3' and K4' at PLECut's shapes (N = 2 * 3 * 63 and 2 * 3 * 256 slices of
@@ -399,8 +408,8 @@ def test_slice_attention_bwd_kernel_is_deterministic_on_card(cuda_device):
 
 
 def test_slice_attention_rejects_on_card(cuda_device):
-    q = torch.zeros(1, 2, 8, 64, device=cuda_device)
-    with pytest.raises(ValueError, match="dh = 128"):
+    q = torch.zeros(1, 2, 8, attention.MAX_HEAD_DIM + 1, device=cuda_device)
+    with pytest.raises(ValueError, match=f"1 <= dh <= {attention.MAX_HEAD_DIM}"):
         attention.fused_attention(q, q, q)
     q = torch.zeros(1, 2, 8, 128, device=cuda_device)[:, :, ::2]
     with pytest.raises(ValueError, match="contiguous"):
@@ -601,9 +610,13 @@ def test_kernel_wrappers_reject_on_card(cuda_device):
     q = torch.zeros(1, 8, 256, device=cuda_device, dtype=torch.float64)
     with pytest.raises(TypeError, match="float32"):
         attention.fused_attention_packed(q, q, q, heads=4, pack=2)
-    q = torch.zeros(1, 8, 256, device=cuda_device)
+    q = torch.zeros(1, 8, 2 * (attention.MAX_HEAD_DIM + 1), device=cuda_device)
     with pytest.raises(ValueError, match="dh = 64"):
-        attention.fused_attention_packed(q, q, q, heads=8, pack=8)
+        attention.fused_attention_packed(q, q, q, heads=2, pack=2)
+    hidden = lstm.MAX_HIDDEN + 1
+    with pytest.raises(ValueError, match=f"1 <= H <= {lstm.MAX_HIDDEN}"):
+        lstm.lstm_fwd(torch.zeros(2, 1, 4 * hidden, device=cuda_device),
+                      torch.zeros(hidden, 4 * hidden, device=cuda_device))
     xw = torch.zeros(4, 8, 512, device=cuda_device)[:, ::2]
     with pytest.raises(ValueError, match="contiguous"):
         lstm.lstm_fwd(xw, torch.zeros(128, 512, device=cuda_device))
@@ -809,7 +822,8 @@ def test_bf16_wrappers_reject_on_card(cuda_device):
         attention.attention_packed_fwd_bf16(q, q, q, 4, 2)
     with pytest.raises(TypeError, match="attention_packed_fwd_bf16"):
         attention.attention_packed_fwd(q.bfloat16(), q.bfloat16(), q.bfloat16(), 4, 2)
-    qb = q.bfloat16()
+    qb = torch.zeros(1, 8, 2 * (attention.MAX_HEAD_DIM + 1), device=cuda_device,
+                     dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="dh = 16 or dh = 64"):
         attention.attention_packed_fwd_bf16(qb, qb, qb, 2, 2)
     xw = torch.zeros(4, 8, 512, device=cuda_device, dtype=torch.bfloat16)
@@ -1418,3 +1432,138 @@ def test_sharded_population_on_the_card_is_the_unsharded_one(cuda_device, card_r
         assert a["history"] == b["history"]
     for k, v in want["best_state"].items():
         assert torch.equal(got["best_state"][k], v.cpu()), k
+
+
+# ---------------------------------------------------------------------------
+# Every width: the `_any` instances at the widths the width-specialised ones
+# do not take (csrc/lstm_any.cu: H from 129 to lstm.MAX_HIDDEN;
+# csrc/attention_any_dh.cu: dh up to attention.MAX_HEAD_DIM), and the
+# width-specialised LSTM instances at H below 128 padded with zeros, f32 and
+# bf16, against the plain versions at the tolerances above (bf16: one bf16
+# step beyond them for hs and dxw, BF16_STEPS of the max abs for o, dq, dk,
+# dv), each launched twice bit for bit and counted on the instance that
+# `ops.instance_at` names.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("hidden,ndir,batch", [(40, 1, 5), (100, 2, 63), (256, 2, 63),
+                                               (200, 8, 7), (1, 1, 2), (100, 8, 7),
+                                               (129, 2, 5)])
+def test_lstm_any_width_matches_plain_on_card(cuda_device, hidden, ndir, batch, dtype):
+    bf16 = dtype == torch.bfloat16
+    xw, w = (torch.from_numpy(a).to(cuda_device, dtype)
+             for a in _lstm_inputs(20 + hidden, 300, batch, hidden, ndir))
+    fwd, bwd = ((lstm.lstm_fwd_bf16, lstm.lstm_bwd_bf16) if bf16
+                else (lstm.lstm_fwd, lstm.lstm_bwd))
+    suffix = "_bf16" if bf16 else ""
+    kf, kb = (KERNELS[instance_at(f"lstm_{d}{suffix}", hidden)] for d in ("fwd", "bwd"))
+    before = (kf.launches, kb.launches)
+    hs, cs = fwd(xw, w, ndir)
+    again = fwd(xw, w, ndir)
+    want_hs, want_cs = lstm.lstm_recurrence_plain(xw, w, ndir)
+    assert torch.equal(hs, again[0]) and torch.equal(cs, again[1])
+    torch.testing.assert_close(cs, want_cs, rtol=0, atol=LSTM_ATOL)
+    step = 2.0 ** (torch.floor(torch.log2(want_hs.float().abs().clamp(min=2**-126))) - 7)
+    assert bool(((hs.float() - want_hs.float()).abs()
+                 <= (step if bf16 else 0) + LSTM_ATOL).all())
+    dho = torch.randn(hs.shape, device=cuda_device).to(dtype)
+    dxw, dw = bwd(xw, w, want_hs, want_cs, dho, ndir)
+    again = bwd(xw, w, want_hs, want_cs, dho, ndir)
+    torch.cuda.synchronize()
+    assert (kf.launches, kb.launches) == (before[0] + 2, before[1] + 2)
+    assert torch.equal(dxw, again[0]) and torch.equal(dw, again[1])
+    want_dxw, want_dw = lstm.lstm_bwd_plain(xw, w, want_hs, want_cs, dho, ndir)
+    assert _max_rel_err(dw, want_dw) <= LSTM_BWD_REL
+    if bf16:
+        step = 2.0 ** (torch.floor(torch.log2(
+            want_dxw.float().abs().clamp(min=2**-126))) - 7)
+        assert bool(((dxw.float() - want_dxw.float()).abs()
+                     <= step + LSTM_BWD_REL * want_dxw.float().abs().max()).all())
+    else:
+        assert _max_rel_err(dxw, want_dxw) <= LSTM_BWD_REL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("kind,dh,heads,pack,n,length", [
+    ("slice", 8, 1, 1, 9, 300), ("slice", 200, 1, 1, 6, 300), ("slice", 512, 1, 1, 2, 37),
+    ("slice", 1, 1, 1, 3, 65), ("packed", 32, 16, 4, 3, 300), ("packed", 8, 8, 4, 5, 37),
+    ("packed", 8, 6, 2, 2, 1)])
+def test_attention_any_dh_matches_plain_on_card(cuda_device, kind, dh, heads, pack, n,
+                                                length, rate, dtype):
+    bf16 = dtype == torch.bfloat16
+    packed = kind == "packed"
+    shape = (n, length, heads * dh) if packed else (n, 1, length, dh)
+    q, k, v, do = (torch.from_numpy(a).to(cuda_device, dtype) for a in _qkv(30 + dh, shape)
+                   + _qkv(31 + dh, shape)[:1])
+    streams = _streams(32 + dh, n, cuda_device)
+    geo = (heads, pack) if packed else ()
+    name = "attention_packed" if packed else "attention"
+    suffix = "_bf16" if bf16 else ""
+    fwd = getattr(attention, f"{name}_fwd{suffix}")
+    bwd = getattr(attention, f"{name}_bwd{suffix}")
+    kf, kb = (KERNELS[instance_at(f"{name}_{d}{suffix}", dh)] for d in ("fwd", "bwd"))
+    assert kf is not KERNELS[f"{name}_fwd{suffix}"]  # the `_any` instances
+    plain_fwd = attention.attention_packed_plain if packed else attention.attention_plain
+    plain_bwd = (attention.attention_packed_bwd_plain if packed
+                 else attention.attention_bwd_plain)
+    before = (kf.launches, kb.launches)
+    o, lse = fwd(q, k, v, *geo, rate, streams)
+    again = fwd(q, k, v, *geo, rate, streams)
+    want_o, want_lse = plain_fwd(q, k, v, *geo, rate, streams)
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=ATTN_ATOL)
+    if bf16:
+        _bf16_close(o, want_o, "o")
+    else:
+        torch.testing.assert_close(o, want_o, rtol=0, atol=ATTN_ATOL)
+    grads = bwd(q, k, v, want_o, want_lse, do, *geo, rate, streams)
+    again = bwd(q, k, v, want_o, want_lse, do, *geo, rate, streams)
+    torch.cuda.synchronize()
+    assert (kf.launches, kb.launches) == (before[0] + 2, before[1] + 2)
+    want = plain_bwd(q, k, v, want_o, want_lse, do, *geo, rate, streams)
+    for tag, g, a, w in zip(("dq", "dk", "dv"), grads, again, want):
+        assert torch.equal(g, a), tag
+        if bf16:
+            _bf16_close(g, w, tag)
+        elif length > 1:  # at L = 1, dq and dk are zero by algebra: noise
+            assert _max_rel_err(g, w) <= ATTN_BWD_REL, tag
+
+
+@pytest.mark.parametrize("config", ["mmoecut-wide", "mtple-dh200"])
+def test_width_configs_train_on_card_match_plain(cuda_device, config):
+    """MMOECut at H 256 and 16 heads of dh 32, PLECut at H 100 and one head of
+    dh 200 (`build_model`'s width keywords): a train step through the
+    kernels `ops.instance_at` names (the `_any` ones but K1'/K2' at H 100,
+    padded to 128) against the plain versions, and nothing else launched."""
+    from rlt_tpu_torch.models import build_model
+
+    name, widths = {"mmoecut-wide": ("mmoecut", dict(encoding_size=256, d_model=512,
+                                                     n_head=16)),
+                    "mtple-dh200": ("mtple", dict(encoding_size=100, d_model=200,
+                                                  n_head=1))}[config]
+    cfg = apply_preset(TrainConfig(model_name=name, retrieve_data="robust04",
+                                   synthetic_queries=40))
+
+    def one_step(plain: bool):
+        model = build_model(name, seq_len=cfg.seq_len, input_size=cfg.input_size,
+                            dropout=cfg.dropout, seed=3, **widths)
+        trainer = Trainer(cfg, device=cuda_device, graphs=False, model=model)
+        idx, valid = trainer.data.plan(trainer.generator, "train")
+        before = {k: n.launches for k, n in KERNELS.items()}
+        with plain_ops() if plain else contextlib.nullcontext():
+            out = trainer.train_batch(idx[0], valid[0])
+        torch.cuda.synchronize()
+        used = {k: n.launches - before[k] for k, n in KERNELS.items() if n.launches != before[k]}
+        return out, {n: p.grad.clone() for n, p in trainer.model.named_parameters()}, used
+
+    got, grads, used = one_step(False)
+    attn = "attention_packed" if config == "mmoecut-wide" else "attention"
+    hidden, dh = widths["encoding_size"], widths["d_model"] // widths["n_head"]
+    assert used == {instance_at("lstm_fwd", hidden): 2, instance_at("lstm_bwd", hidden): 2,
+                    instance_at(f"{attn}_fwd", dh): 1, instance_at(f"{attn}_bwd", dh): 1}
+    want, want_grads, _ = one_step(True)
+    assert abs(got[0].item() - want[0].item()) <= STEP_LOSS_REL * abs(want[0].item())
+    for key, g in grads.items():
+        w = want_grads[key]
+        assert (g - w).abs().max() <= STEP_GRAD_REL * w.abs().max() + STEP_GRAD_FLOOR, key

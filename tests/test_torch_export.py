@@ -162,6 +162,87 @@ def test_service_serves_from_the_bundle(bundle):
     assert svc.truncate({"features": [rng.normal(size=(5, F)).tolist()]})["bucket"] == 2
 
 
+# ---------------------------------------------------------------------------
+# A bundle for the card lowered on this host, which has no card
+# ---------------------------------------------------------------------------
+
+def _calls(program) -> list[str]:
+    return [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+
+
+def _tensors(program):
+    """Every tensor value a program's graph records, by node."""
+    for node in program.graph.nodes:
+        val = node.meta.get("val")
+        for v in val if isinstance(val, (list, tuple)) else (val,):
+            if isinstance(v, torch.Tensor):
+                yield node, v
+
+
+@pytest.mark.parametrize("model_name,dtype,widths", [
+    ("mmoecut", "float32", {}), ("choopy", "float32", {}), ("mtple", "bfloat16", {}),
+    ("mmoecut", "float32", dict(encoding_size=256, d_model=512, n_head=16))])
+def test_a_card_bundle_lowers_on_a_host_with_no_card(model_name, dtype, widths, tmp_path):
+    """`save_exported(..., device="cuda")` from a Predictor on the CPU: the
+    manifest says cuda and lists the rlt:: ops; each program is the CPU
+    program's graph, op for op, with every tensor on the card; its weights
+    are the live ones, real and on the CPU; no kernel was built or
+    launched; and the CPU refuses to serve it."""
+    from rlt_tpu_torch.export import export_bucket
+    from rlt_tpu_torch.models import build_model
+    from rlt_tpu_torch.ops import KERNELS, build
+
+    cfg = tiny_cfg(model_name, compute_dtype=dtype)
+    model = (build_model(model_name, seq_len=cfg.seq_len, input_size=cfg.input_size,
+                         dropout=cfg.dropout, **widths) if widths else None)
+    live = Predictor(cfg, device="cpu", model=model)
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    manifest = save_exported(str(tmp_path), live, batch_sizes=(1, 3), device="cuda")
+    assert manifest["device"] == "cuda" and manifest["batch_sizes"] == [1, 3]
+    on_cpu = export_bucket(live, 3)
+    assert manifest["custom_ops"] == sorted(
+        {f"rlt::{t.split('.')[1]}" for t in _calls(on_cpu) if t.startswith("rlt.")})
+    program = torch.export.load(str(tmp_path / "b3.pt2"))
+    assert _calls(program) == _calls(on_cpu)
+    assert {v.device.type for _, v in _tensors(program)} == {"cuda"}
+    live_state = {f"net.{k}": v for k, v in live.net.state_dict().items()}
+    assert set(program.state_dict) <= set(live_state)
+    for key, value in program.state_dict.items():
+        assert value.device.type == "cpu" and torch.equal(value, live_state[key]), key
+    assert {name: k.launches for name, k in KERNELS.items()} == launches
+    if not torch.cuda.is_available():
+        assert build.LIBRARY._lib is None
+    with pytest.raises(ValueError, match="exported for device 'cuda'"):
+        load_exported(str(tmp_path), device="cpu")
+
+
+def test_export_cli_lowers_for_the_card_on_a_host_with_no_card(tmp_path):
+    """`python -m rlt_tpu_torch.export --device cuda --lower` with no card
+    visible writes a bundle for the card. Lowering is asked for, never
+    inferred: without `--lower` the same command fails for want of a card
+    and writes nothing; `--lower` refuses `--check` and `--device cpu`."""
+    env = {**ONE_THREAD_ENV, "CUDA_VISIBLE_DEVICES": ""}
+    args = [sys.executable, "-m", "rlt_tpu_torch.export", "--model-name", "bicut",
+            "--retrieve-data", "mq2007", "--batch-sizes", "1,2", "--device", "cuda",
+            "--out", str(tmp_path / "bicut")]
+
+    def run(extra):
+        return subprocess.run(args + extra, cwd=REPO, capture_output=True, text=True,
+                              timeout=300, env=env)
+
+    no_card = run([])
+    assert no_card.returncode != 0 and "cuda" in no_card.stderr.lower()
+    for extra in (["--lower", "--check"], ["--lower", "--device", "cpu"]):
+        refused = run(extra)
+        assert refused.returncode == 2 and "--lower" in refused.stderr, extra
+    assert not (tmp_path / "bicut").exists()
+    out = run(["--lower"])
+    assert out.returncode == 0, out.stderr
+    manifest = json.loads(out.stdout.strip().splitlines()[-1])
+    assert manifest == read_manifest(str(tmp_path / "bicut"))
+    assert manifest["device"] == "cuda" and manifest["custom_ops"] == ["rlt::lstm_fwd"]
+
+
 def _get(url, timeout=5):
     with urllib.request.urlopen(url, timeout=timeout) as r:
         return json.load(r)

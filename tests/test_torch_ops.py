@@ -149,8 +149,13 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
 
 def test_plain_ops_routes_every_kernel_and_restores():
     """The reference runs on the card swap every wrapper in KERNELS for its
-    plain version, so none of them can compare a kernel with itself."""
-    assert set(ops.PLAIN_VERSIONS) == set(ops.KERNELS)
+    plain version, so none of them can compare a kernel with itself. An
+    `_any` instance (a width the width-specialised one does not take) is
+    launched by its twin's wrapper (`ops.INSTANCES`)."""
+    assert set(ops.KERNELS) == set(ops.INSTANCES)
+    assert set(ops.PLAIN_VERSIONS) == {inst.wrapper for inst in ops.INSTANCES.values()}
+    assert {name for name, inst in ops.INSTANCES.items() if inst.widths} == set(
+        ops.PLAIN_VERSIONS)
     wrappers = {name: getattr(module, name) for name, (module, _) in
                 ops.PLAIN_VERSIONS.items()}
     with ops.plain_ops():
